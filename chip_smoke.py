@@ -6,13 +6,22 @@ Phases, each of which raises (and so exits non-zero) when it fails:
 1. the card: its name and power limit, as ``nvidia-smi`` prints them;
 2. the build: ``nvcc`` compiles the powercap kernels from ``csrc/``;
 3. each kernel against its plain PyTorch version on the card, in fp64, at
-   the main paths' shapes, timed with CUDA events (median of 20);
+   the main paths' shapes, timed with CUDA events (median of 20): K1 and
+   K2 at paths A and B, K2 at path V (one cell), K3 at path V and on a
+   ragged case (empty hosts, a host whose floors exceed its capacity, a
+   256-wide row, huge values in the rows next to each row);
 4. main path A, the ``sweep_grid`` grid (32 cells x 100 hosts x 10 VMs),
    through ``run_sweep(..., engine="batch")`` on the card, held against
    the same grid run on the CPU (plain versions), with every kernel's
    launch count checked;
 5. main path B, 16 cells x 1000 hosts x 10 VMs over 120 ticks, with one
-   spec's two cells held against a CPU run of those two cells alone.
+   spec's two cells held against a CPU run of those two cells alone;
+6. main path V, the top rung of the ``sweep_scale`` ladder (1000 hosts x
+   10 VMs, burst, 60 ticks, policies cpc and static) through
+   ``run_sweep(..., engine="vector")`` on the card, held against the same
+   cells on the CPU and against the batched engine on the card, with the
+   launch counts of K3 (one a tick, two more for each committed balance's
+   note) and K2 (one a cpc invocation) checked.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Run from the repository root:
@@ -68,10 +77,11 @@ def bound_ms(n_bytes: float, flops: float) -> tuple[float, str]:
                                        else "operations")
 
 
-def kernel_inputs(S: int, H: int, J: int, seed: int, dev):
-    """Random cells with both host types, some hosts off, some cells with
-    the policy disabled, reservations, limits, hot hosts, and poisoned
-    (large, stale) values in the inactive slots."""
+def kernel_inputs(S: int, H: int, J: int, seed: int, dev, iters: int):
+    """Random cells with both host types, some hosts off, some cells (never
+    the first) with the policy disabled, reservations, limits, hot hosts,
+    and poisoned (large, stale) values in the inactive slots; ``iters``
+    bisection trips for K2's waterfills."""
     from repro_torch.core import kernels as ck
 
     rng = np.random.RandomState(seed)
@@ -104,39 +114,133 @@ def kernel_inputs(S: int, H: int, J: int, seed: int, dev):
     hosts = ck.HostCols(torch.as_tensor(on, device=dev), t["idle"],
                         t["peak"], t["cpk"], t["hyp"])
     act = torch.as_tensor(active, device=dev)
-    enabled = torch.as_tensor(rng.rand(S) < 0.9, device=dev)
+    enabled = rng.rand(S) < 0.9
+    enabled[0] = True
+    enabled = torch.as_tensor(enabled, device=dev)
     return dict(
         hosts=hosts, caps=t["caps"], budget=t["budget"], enabled=enabled,
         cpu_res=t["cpu_res"],
-        dense=ck.DenseCols(t["floors"], t["ceils"], t["weights"], act, 100),
+        dense=ck.DenseCols(t["floors"], t["ceils"], t["weights"], act,
+                           iters),
         wf=(ck.managed_capacity(hosts, t["caps"]), t["dfl"], t["dem"],
             t["weights"], act))
 
 
+def k3_inputs(case: str, dev, seed: int = 11):
+    """``(capacity, floors, ceilings, weights, seg_ids, n_segs)`` for K3.
+
+    ``path``: the main path's shape, 1000 hosts x 10 VMs placed round
+    robin (so the CSR permutation is not the identity), demand 200-3000
+    MHz, some reservations, capacity of a host capped near 250 W.
+    ``ragged``: 300 hosts with 0-24 items each, some empty, one of 256
+    items, one whose floors exceed its capacity, and every other host's
+    items 1e6-1e9 MHz, so that each row borders huge values.
+    """
+    rng = np.random.RandomState(seed)
+    if case == "path":
+        m, n = 1000, 10_000
+        seg = np.arange(n) % m
+        counts = np.bincount(seg, minlength=m)
+    else:
+        m = 300
+        counts = rng.randint(0, 25, m)
+        counts[rng.rand(m) < 0.1] = 0
+        counts[7] = 256
+        counts[8] = 5
+        seg = rng.permutation(np.repeat(np.arange(m), counts))
+        n = seg.size
+    res = np.where(rng.rand(n) < 0.3, rng.uniform(0, 300, n), 0.0)
+    dem = rng.uniform(200, 3000, n)
+    floors = np.minimum(res, dem)
+    weights = rng.choice([1000.0, 2000.0], n)
+    cap = rng.uniform(0.4, 1.1, m) * np.maximum(
+        np.bincount(seg, weights=dem, minlength=m), 1.0)
+    if case == "ragged":
+        floors[seg == 8] = 500.0
+        dem[seg == 8] = 800.0
+        cap[8] = 1000.0
+        odd = seg % 2 == 1
+        big = rng.uniform(1e6, 1e9, n)
+        floors = np.where(odd, 0.1 * big, floors)
+        dem = np.where(odd, big, dem)
+        cap = np.where(np.arange(m) % 2 == 1, 3e9, cap)
+    t = [torch.as_tensor(x, dtype=F64, device=dev)
+         for x in (cap, floors, dem, weights)]
+    return (*t, seg, m)
+
+
+def check_k3(dev) -> dict:
+    """K3 against its plain version: the path's shape (timed, with its
+    bound) and the ragged case."""
+    from repro_torch.kernels.powercap import ops, ref
+    from repro_torch.kernels.powercap.segments import segment_layout
+
+    errs = {}
+    for case in ("ragged", "path"):
+        cap, fl, ce, w, seg, m = k3_inputs(case, dev)
+        lay = segment_layout(seg, m, dev)
+        got = ops.waterfill_segmented(cap, fl, ce, w, layout=lay)
+        want = ref.waterfill_segmented_ref(cap, fl, ce, w, lay, 200)
+        torch.cuda.synchronize()
+        errs[case] = float((got - want).abs().max())
+        if not torch.allclose(got, want, rtol=RTOL, atol=ATOL):
+            raise AssertionError(f"K3 {case}: kernel and plain version "
+                                 f"differ (max abs err {errs[case]})")
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"K3 {case}: non-finite allocation")
+    n = fl.numel()
+    ms = time_ms(lambda: ops.waterfill_segmented(cap, fl, ce, w,
+                                                 layout=lay))
+    pms = time_ms(lambda: ref.waterfill_segmented_ref(cap, fl, ce, w, lay,
+                                                      200))
+    bound, by = bound_ms(8 * m + 16 * m + 8 * n + 3 * 8 * n + 8 * n,
+                         (4 * 200 + 12) * n)
+    log(f"V: K3 err {errs['path']:.3e} (ragged {errs['ragged']:.3e}) "
+        f"{ms:.4f} ms (plain {pms:.3f} ms), rows of {lay.jb} slots")
+    return dict(name=f"waterfill_segmented {m}x{n}", route="cuda",
+                source="src/repro_torch/kernels/powercap/csrc/segmented.cu",
+                replaces="src/repro/kernels/powercap/kernel.py:181",
+                max_abs_err=errs["path"], ragged_max_abs_err=errs["ragged"],
+                rtol=RTOL, atol=ATOL, ms=ms, plain_ms=pms, bound_ms=bound,
+                bound_by=by, library_ms=None)
+
+
 def check_kernels(shapes, dev) -> dict:
-    """K1 and K2 against their plain versions at each (S, H, J)."""
+    """K2 (and K1, where ``shapes`` flags it) against their plain versions
+    at each ``(S, H, J, with_k1, iters)``: K1 runs 100 bisection trips, as
+    the batched engine's delivery does; K2 runs ``iters``."""
     from repro_torch.core.kernels import BalanceParams
     from repro_torch.kernels.powercap import ops, ref
 
     params = BalanceParams()
     out = {}
-    for tag, (S, H, J) in shapes.items():
-        x = kernel_inputs(S, H, J, seed=S * 7919 + H, dev=dev)
-        cap, fl, ce, w, act = x["wf"]
-        k1 = ops.waterfill_dense(cap, fl, ce, w, 100, active=act)
-        p1 = ref.waterfill_dense_ref(cap, fl, ce, w, 100, act)
-        torch.cuda.synchronize()
-        err1 = float((k1 - p1).abs().max())
-        if not torch.allclose(k1, p1, rtol=RTOL, atol=ATOL):
-            raise AssertionError(f"K1 {tag}: kernel and plain version differ "
-                                 f"(max abs err {err1})")
-        ms1 = time_ms(lambda: ops.waterfill_dense(cap, fl, ce, w, 100,
-                                                  active=act))
-        pms1 = time_ms(lambda: ref.waterfill_dense_ref(cap, fl, ce, w, 100,
-                                                       act))
+    for tag, (S, H, J, with_k1, iters) in shapes.items():
+        x = kernel_inputs(S, H, J, seed=S * 7919 + H, dev=dev, iters=iters)
         n = S * H * J
-        b1, by1 = bound_ms(8 * S * H + 3 * 8 * n + n + 8 * n,
-                           (4 * 100 + 12) * n)
+        out[tag] = []
+        if with_k1:
+            cap, fl, ce, w, act = x["wf"]
+            k1 = ops.waterfill_dense(cap, fl, ce, w, 100, active=act)
+            p1 = ref.waterfill_dense_ref(cap, fl, ce, w, 100, act)
+            torch.cuda.synchronize()
+            err1 = float((k1 - p1).abs().max())
+            if not torch.allclose(k1, p1, rtol=RTOL, atol=ATOL):
+                raise AssertionError(f"K1 {tag}: kernel and plain version "
+                                     f"differ (max abs err {err1})")
+            ms1 = time_ms(lambda: ops.waterfill_dense(cap, fl, ce, w, 100,
+                                                      active=act))
+            pms1 = time_ms(lambda: ref.waterfill_dense_ref(cap, fl, ce, w,
+                                                           100, act))
+            b1, by1 = bound_ms(8 * S * H + 3 * 8 * n + n + 8 * n,
+                               (4 * 100 + 12) * n)
+            log(f"{tag}: K1 err {err1:.3e} {ms1:.4f} ms (plain "
+                f"{pms1:.3f} ms)")
+            out[tag].append(dict(
+                name=f"waterfill_dense {S}x{H}x{J}", route="cuda",
+                source="src/repro_torch/kernels/powercap/csrc/waterfill.cu",
+                replaces="src/repro/kernels/powercap/kernel.py:48",
+                max_abs_err=err1, rtol=RTOL, atol=ATOL, ms=ms1,
+                plain_ms=pms1, bound_ms=b1, bound_by=by1, library_ms=None))
 
         args = (x["hosts"], x["caps"], x["dense"], x["cpu_res"], x["budget"],
                 x["enabled"], params)
@@ -154,34 +258,30 @@ def check_kernels(shapes, dev) -> dict:
         pms2 = time_ms(lambda: ref.balance_caps_ref(*args))
         waterfills = float((1 + pr.double()).sum()) * H
         b2, by2 = bound_ms((1 + 4 * 8 + 8 + 8 + 8) * S * H + 25 * n + 9 * S
-                           + 5 * S, waterfills * (4 * 100 + 12) * J
+                           + 5 * S, waterfills * (4 * iters + 12) * J
                            + float(pr.double().sum()) * 40 * H)
-        log(f"{tag}: K1 err {err1:.3e} {ms1:.4f} ms (plain {pms1:.3f} ms); "
-            f"K2 err {err2:.3e} rounds {pr.tolist()} equal={rounds_equal} "
-            f"{ms2:.4f} ms (plain {pms2:.3f} ms)")
-        out[tag] = [
-            dict(name=f"waterfill_dense {S}x{H}x{J}", route="cuda",
-                 source="src/repro_torch/kernels/powercap/csrc/waterfill.cu",
-                 replaces="src/repro/kernels/powercap/kernel.py:48",
-                 max_abs_err=err1, rtol=RTOL, atol=ATOL, ms=ms1,
-                 plain_ms=pms1, bound_ms=b1, bound_by=by1, library_ms=None),
-            dict(name=f"balance_caps {S}x{H}x{J}", route="cuda",
-                 source="src/repro_torch/kernels/powercap/csrc/balance.cu",
-                 replaces="src/repro/kernels/powercap/kernel.py:109",
-                 max_abs_err=err2, rtol=RTOL, atol=0.0, ms=ms2,
-                 plain_ms=pms2, bound_ms=b2, bound_by=by2, library_ms=None,
-                 rounds_equal_plain=rounds_equal)]
+        log(f"{tag}: K2 err {err2:.3e} rounds {pr.tolist()[:16]} "
+            f"equal={rounds_equal} {ms2:.4f} ms (plain {pms2:.3f} ms)")
+        out[tag].append(dict(
+            name=f"balance_caps {S}x{H}x{J}", route="cuda",
+            source="src/repro_torch/kernels/powercap/csrc/balance.cu",
+            replaces="src/repro/kernels/powercap/kernel.py:109",
+            max_abs_err=err2, rtol=RTOL, atol=0.0, ms=ms2,
+            plain_ms=pms2, bound_ms=b2, bound_by=by2, library_ms=None,
+            rounds_equal_plain=rounds_equal))
     return out
 
 
 def compare(tag, gpu, cpu, keys) -> None:
-    """Exact cap-change counts, rtol 1e-9 on payload and energy."""
+    """Exact cap-change, vMotion and power-event counts, rtol 1e-9 on
+    payload and energy."""
     for spec_name, policy in keys:
         g, c = gpu[spec_name][policy], cpu[spec_name][policy]
-        if g.cap_changes != c.cap_changes:
-            raise AssertionError(f"{tag} {spec_name}/{policy}: cap changes "
-                                 f"{g.cap_changes} on the card, "
-                                 f"{c.cap_changes} on the CPU")
+        for f in ("cap_changes", "vmotions", "power_ons", "power_offs"):
+            if getattr(g, f) != getattr(c, f):
+                raise AssertionError(
+                    f"{tag} {spec_name}/{policy}: {f} {getattr(g, f)} on "
+                    f"the card, {getattr(c, f)} in the comparison run")
         for f in ("cpu_payload_mhz_s", "energy_j"):
             a, b = getattr(g, f), getattr(c, f)
             if not abs(a - b) <= RTOL * abs(b):
@@ -191,24 +291,36 @@ def compare(tag, gpu, cpu, keys) -> None:
             raise AssertionError(f"{tag} {spec_name}/{policy}: no payload")
 
 
+KERNELS = ("waterfill_dense", "balance_caps", "waterfill_segmented")
+
+
+def reset_launches() -> None:
+    from repro_torch.kernels.powercap import ops
+    for name in KERNELS:
+        getattr(ops, name).launches = 0
+
+
+def read_launches() -> dict:
+    from repro_torch.kernels.powercap import ops
+    return {name: getattr(ops, name).launches for name in KERNELS}
+
+
 def run_path(tag, specs, policies):
     """One grid through ``run_sweep`` on the card, with the launch counts
     of exactly that run."""
-    from repro_torch.kernels.powercap import ops
     from repro_torch.sim.batch import _drs_schedule
     from repro_torch.sim.sweep import build_sweep, run_sweep
 
-    ops.waterfill_dense.launches = 0
-    ops.balance_caps.launches = 0
+    reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     res = run_sweep(specs, policies, engine="batch")
     wall = time.perf_counter() - t0
-    launches = {"waterfill_dense": ops.waterfill_dense.launches,
-                "balance_caps": ops.balance_caps.launches}
+    launches = read_launches()
     _, _, cfg = build_sweep(specs[0], policies[0])
     ts, drs = _drs_schedule(cfg)
-    want = {"waterfill_dense": ts.shape[0], "balance_caps": int(drs.sum())}
+    want = {"waterfill_dense": ts.shape[0], "balance_caps": int(drs.sum()),
+            "waterfill_segmented": 0}
     if launches != want:
         raise AssertionError(f"{tag}: kernel launches {launches}, expected "
                              f"one per tick and one per DRS invocation "
@@ -221,6 +333,53 @@ def run_path(tag, specs, policies):
         f"({n / engine_s:.2f} cells/s); launches {launches}")
     return res, launches, dict(wall_s=wall, engine_s=engine_s, cells=n,
                                ticks=int(ts.shape[0]))
+
+
+def run_vector_path(policies):
+    """Path V through ``run_sweep(..., engine="vector")`` on the card, with
+    the launch counts of exactly that run; then the same cells on the CPU
+    and on the batched engine, both held against it."""
+    from repro_torch.sim.batch import _drs_schedule
+    from repro_torch.sim.sweep import build_sweep, run_sweep, scale_ladder
+
+    specs = scale_ladder(sizes=(1000,), spike="burst", duration_s=600.0)
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gpu = run_sweep(specs, policies, engine="vector")
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    keys = [(s.name, p) for s in specs for p in policies]
+    _, _, cfg = build_sweep(specs[0], policies[0])
+    ts, drs = _drs_schedule(cfg)
+    ticks, invocations = int(ts.shape[0]), int(drs.sum())
+    cpc_invocations = invocations * sum(p == "cpc" for _, p in keys)
+    cpu = run_sweep(specs, policies, engine="vector", device="cpu")
+    compare("V vs CPU", gpu, cpu, keys)
+    # Every cpc invocation of this path commits a balance (the burst is on
+    # at 300 s): the CPU run's cap changes show it, and each committed
+    # balance's note waterfills twice more (imbalance before and after).
+    for name, p in keys:
+        if p == "cpc" and cpu[name][p].cap_changes <= 0:
+            raise AssertionError(f"V {name}/cpc: no cap change on the CPU")
+    want = {"waterfill_dense": 0, "balance_caps": cpc_invocations,
+            "waterfill_segmented": ticks * len(keys) + 2 * cpc_invocations}
+    if launches != want:
+        raise AssertionError(f"V: kernel launches {launches}, expected "
+                             f"{want}")
+    batch = run_sweep(specs, policies, engine="batch")
+    compare("V vs batch", gpu, batch, keys)
+    cells = {f"{n}/{p}": dict(wall_s=gpu[n][p].wall_s,
+                              ticks_per_s=gpu[n][p].ticks_per_s,
+                              cap_changes=gpu[n][p].cap_changes,
+                              cpu_satisfaction=gpu[n][p].cpu_satisfaction)
+             for n, p in keys}
+    log(f"path V: {len(keys)} cells x {ticks} ticks, {invocations} DRS "
+        f"invocation(s) a cell: wall {wall:.3f} s "
+        f"({ticks * len(keys) / wall:.1f} ticks/s); launches {launches}; "
+        f"{json.dumps(cells)}")
+    return launches, dict(wall_s=wall, cells=len(keys), ticks=ticks,
+                          per_cell=cells)
 
 
 def main() -> int:
@@ -245,8 +404,11 @@ def main() -> int:
     kernel.library()
     log(f"build: {build_s:.2f} s")
 
-    shapes = {"A": (32, 100, 10), "B": (16, 1000, 10)}
+    # Path V's BalancePowerCap is the object plane's, with 200 trips.
+    shapes = {"A": (32, 100, 10, True, 100), "B": (16, 1000, 10, True, 100),
+              "V": (1, 1000, 10, False, 200)}
     records = check_kernels(shapes, dev)
+    records["V"].append(check_k3(dev))
 
     policies = ("cpc", "static")
     specs_a = scenario_families(
@@ -267,13 +429,15 @@ def main() -> int:
     cpu_b = run_sweep(held, policies, engine="batch", device="cpu")
     compare("B", gpu_b, cpu_b, [(s.name, p) for s in held for p in policies])
 
+    launches_v, info_v = run_vector_path(policies)
+
     kernels_out = []
-    for tag, launches in (("A", launches_a), ("B", launches_b)):
-        for rec, name in zip(records[tag],
-                             ("waterfill_dense", "balance_caps")):
-            kernels_out.append(dict(rec, launches=launches[name],
-                                    path=tag))
-    log(json.dumps({"paths": {"A": info_a, "B": info_b}}))
+    for tag, launches in (("A", launches_a), ("B", launches_b),
+                          ("V", launches_v)):
+        for rec in records[tag]:
+            name = rec["name"].split()[0]
+            kernels_out.append(dict(rec, launches=launches[name], path=tag))
+    log(json.dumps({"paths": {"A": info_a, "B": info_b, "V": info_v}}))
     log(json.dumps({"kernels": kernels_out}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

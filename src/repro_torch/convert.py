@@ -1,18 +1,30 @@
-"""Carry a scenario grid packed by the JAX reference over to the port.
+"""Carry scenarios built by the JAX reference over to the port.
 
-For this system the "weights" are the packed scenario arrays: the
-reference's ``BatchedSimulator`` packs its cells into a dict of NumPy
-arrays (``_arrays``) plus a static spec (``_static``) that shapes the
-program.  :func:`from_reference_pack` builds the port's simulator over
-the very same bytes, so both engines can run identical inputs.
+For this system the "weights" are the scenario state.  Two forms:
+
+* the reference's ``BatchedSimulator`` packs its cells into a dict of NumPy
+  arrays (``_arrays``) plus a static spec (``_static``) that shapes the
+  program; :func:`from_reference_pack` builds the port's simulator over
+  the very same bytes;
+* a reference ``ClusterSnapshot`` and its demand traces, the inputs of its
+  ``VectorSimulator``; :func:`from_reference_snapshot` rebuilds them as the
+  port's objects.
+
+Both read attributes only and import nothing of the reference, so both
+engines can run identical inputs.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 
 from repro_torch.core.kernels import BalanceParams
+from repro_torch.core.power_model import HostPowerSpec
+from repro_torch.drs.snapshot import ClusterSnapshot, Host, VirtualMachine
 from repro_torch.sim.batch import BatchedSimulator, BatchUnsupported
+from repro_torch.sim.workloads import TraceSpec, spec_trace
 
 
 def from_reference_pack(arrays: dict, static, device=None,
@@ -39,3 +51,36 @@ def from_reference_pack(arrays: dict, static, device=None,
         balance=BalanceParams(**static.balance._asdict()),
         waterfill_iters=static.waterfill_iters,
         keep_timeseries=static.keep_timeseries, device=device)
+
+
+def _fields(obj, cls) -> dict:
+    return {f.name: getattr(obj, f.name) for f in dataclasses.fields(cls)}
+
+
+def from_reference_snapshot(snapshot, traces: dict
+                            ) -> tuple[ClusterSnapshot, dict]:
+    """The port's ``(ClusterSnapshot, traces)`` for a reference snapshot and
+    its traces.
+
+    Hosts, host specs and VMs are copied field by field (rules as they
+    are: the port's manager refuses them).  A trace with a declarative
+    ``.spec`` becomes the port's :func:`~repro_torch.sim.workloads.
+    spec_trace` of the same segments and period, which is what the vector
+    engines evaluate; a trace without one is carried as the callable it is.
+    A reference budget tree raises, as the port's snapshot does.
+    """
+    hosts = [Host(**dict(_fields(h, Host),
+                         spec=HostPowerSpec(**_fields(h.spec, HostPowerSpec))))
+             for h in snapshot.hosts.values()]
+    vms = [VirtualMachine(**_fields(v, VirtualMachine))
+           for v in snapshot.vms.values()]
+    snap = ClusterSnapshot(hosts, vms, power_budget=snapshot.power_budget,
+                           rules=list(snapshot.rules),
+                           budget_tree=getattr(snapshot, "budget_tree", None))
+    out = {}
+    for vm_id, trace in traces.items():
+        spec = getattr(trace, "spec", None)
+        out[vm_id] = trace if spec is None else spec_trace(TraceSpec(
+            segments=tuple(tuple(seg) for seg in spec.segments),
+            period=spec.period))
+    return snap, out

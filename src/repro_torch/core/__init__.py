@@ -1,1 +1,2 @@
-"""CloudPowerCap's allocation math: the power model and the cap kernels."""
+"""CloudPowerCap's allocation math and protocol: the power model, the cap
+kernels, and the manager with its redivvy and balance adapters."""

@@ -13,6 +13,7 @@ from __future__ import annotations
 
 from typing import Callable, NamedTuple
 
+import numpy as np
 import torch
 
 #: Minimum cap delta that counts as a change (the object plane's
@@ -125,6 +126,32 @@ def count_cap_changes(on, before, after):
     as ``int32``."""
     changed = on & ((after - before).abs() > CAP_CHANGE_EPS)
     return changed.sum(-1, dtype=torch.int32)
+
+
+def entitlement_sums(hosts: HostCols, caps, vm_floors, vm_ceils,
+                     vm_weights, vm_seg, iters: int = 200):
+    """Per-host VM-entitlement sums at the given caps: one segmented
+    waterfill over every (cell, host) at once (kernel K3 on the GPU).
+
+    VM columns are ``(S, V)`` tensors on the device of ``caps``, with
+    ``vm_seg`` (host-side, array or tensor) the resident host index.
+    Segments are flattened to ``S * H``; the per-host sums are trailing-axis
+    sums over the layout's rows, so they do not depend on an atomic order.
+    """
+    from repro_torch.drs.entitlement import batched_waterfill
+    from repro_torch.kernels.powercap.segments import (row_sums,
+                                                       segment_layout)
+    s, h = caps.shape
+    if isinstance(vm_seg, torch.Tensor):
+        vm_seg = vm_seg.cpu().numpy()
+    seg = (np.asarray(vm_seg, dtype=np.int64)
+           + np.arange(s, dtype=np.int64)[:, None] * h).reshape(-1)
+    layout = segment_layout(seg, s * h, caps.device)
+    alloc = batched_waterfill(
+        managed_capacity(hosts, caps).reshape(s * h),
+        vm_floors.reshape(-1), vm_ceils.reshape(-1), vm_weights.reshape(-1),
+        iters=iters, layout=layout)
+    return row_sums(layout, alloc).reshape(s, h)
 
 
 # ---------------------------------------------------------------- balance

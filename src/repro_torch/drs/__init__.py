@@ -1,2 +1,3 @@
-"""The resource-management substrate the cap-only engine reads: the cluster
-datamodel, the dense slot layout, and the entitlement waterfill."""
+"""The resource-management substrate: the cluster datamodel and its array
+views, actions, the entitlement waterfills, and the cap-only regime's
+placement, balancer and DPM configurations."""

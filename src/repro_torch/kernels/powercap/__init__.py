@@ -1,1 +1,3 @@
-"""The dense waterfill and BalancePowerCap kernels (CUDA, sm_90a)."""
+"""The dense waterfill, BalancePowerCap and segmented waterfill kernels
+(CUDA, sm_90a), with the CSR layout the segmented one reads
+(``segments.py``)."""

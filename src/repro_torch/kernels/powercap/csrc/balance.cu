@@ -82,8 +82,8 @@ __device__ void entitlements(const double* man, double* ents,
   for (int h = warp; h < H; h += kWarps) {
     const long long r = static_cast<long long>(h) * J;
     double x[K];
-    powercap::waterfill_row<K>(man[h], fl + r, ce + r, w + r, act + r, J,
-                               iters, x);
+    const powercap::DenseSlots slots{fl + r, ce + r, w + r, act + r};
+    powercap::waterfill_row<K>(man[h], slots, J, iters, x);
     double s = 0.0;
 #pragma unroll
     for (int k = 0; k < K; ++k) s += x[k];

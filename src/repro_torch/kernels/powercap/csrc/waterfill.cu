@@ -29,8 +29,9 @@ __global__ void __launch_bounds__(kThreads) waterfill_kernel(
   if (row >= rows) return;  // whole warps leave together
   const long long base = row * J;
   double x[K];
-  powercap::waterfill_row<K>(cap[row], fl + base, ce + base, w + base,
-                             act + base, J, iters, x);
+  const powercap::DenseSlots slots{fl + base, ce + base, w + base,
+                                   act + base};
+  powercap::waterfill_row<K>(cap[row], slots, J, iters, x);
   const int lane = threadIdx.x & 31;
 #pragma unroll
   for (int k = 0; k < K; ++k) {

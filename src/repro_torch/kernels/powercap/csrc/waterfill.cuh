@@ -34,29 +34,50 @@ __device__ __forceinline__ double clip(double x, double lo, double hi) {
   return fmin(fmax(x, lo), hi);
 }
 
+// Slot loaders: `load(j, f, c, w)` (j < J) reads the floor, ceiling and
+// weight of slot j when the slot is live and leaves them as they are when
+// it is not.  The row routine takes the loader as a template parameter, so
+// each kernel keeps its own layout while all share one bisection.
+//
+// A dense row (K1, K2): slot j is live where its `active` byte is set.
+struct DenseSlots {
+  const double* fl;
+  const double* ce;
+  const double* w;
+  const unsigned char* act;
+
+  __device__ __forceinline__ void load(int j, double& f, double& c,
+                                       double& wt) const {
+    if (act[j]) {
+      f = fl[j];
+      c = ce[j];
+      wt = w[j];
+    }
+  }
+};
+
 // Waterfill of one row of J slots by the calling warp: slot j = lane + 32 k
 // (k < K) lives in registers.  Finds x = clip(w * level, floor, ceil) with
 // sum(x) == min(cap, sum(ceil)) by `iters` bisection trips on the level,
 // then bumps the residual pro rata among slots below their ceiling; a row
-// whose floors reach the capacity gets pro-rata floors.  Inactive slots
-// count as floor 0, ceiling 0, weight 1e-12 (masked here, before anything
-// else, so stale values in them never reach the bracket).  Writes x[k]
-// (0 for j >= J).
-template <int K>
-__device__ __forceinline__ void waterfill_row(
-    double cap, const double* __restrict__ fl, const double* __restrict__ ce,
-    const double* __restrict__ w, const unsigned char* __restrict__ act,
-    int J, int iters, double (&x)[K]) {
+// whose floors reach the capacity gets pro-rata floors.  Slots that are
+// not live count as floor 0, ceiling 0, weight 1e-12 (masked here, before
+// anything else, so stale values in them never reach the bracket).
+// Writes x[k] (0 for j >= J).
+template <int K, class Slots>
+__device__ __forceinline__ void waterfill_row(double cap, const Slots& slots,
+                                              int J, int iters,
+                                              double (&x)[K]) {
   const int lane = threadIdx.x & 31;
   double f[K], c[K], wt[K];
   double sf = 0.0, sc = 0.0, mx = -INFINITY;
 #pragma unroll
   for (int k = 0; k < K; ++k) {
     const int j = lane + 32 * k;
-    const bool a = j < J && act[j];
-    f[k] = a ? fl[j] : 0.0;
-    c[k] = a ? ce[j] : 0.0;
-    wt[k] = a ? w[j] : 1e-12;
+    f[k] = 0.0;
+    c[k] = 0.0;
+    wt[k] = 1e-12;
+    if (j < J) slots.load(j, f[k], c[k], wt[k]);
     c[k] = fmax(c[k], f[k]);
     sf += f[k];
     sc += c[k];

@@ -103,6 +103,8 @@ def library() -> ctypes.CDLL:
         lib.powercap_balance_caps.argtypes = [p] * 16 + [ll, i, i, i, d, i,
                                                          d, p]
         lib.powercap_balance_caps.restype = i
+        lib.powercap_waterfill_segmented.argtypes = [p] * 8 + [ll, i, i, p]
+        lib.powercap_waterfill_segmented.restype = i
         lib.powercap_balance_smem_bytes.argtypes = [i]
         lib.powercap_balance_smem_bytes.restype = ll
         lib.powercap_error_string.argtypes = [i]
@@ -130,6 +132,18 @@ def waterfill(cap, fl, ce, w, act, out, iters: int) -> None:
                                 ce.data_ptr(), w.data_ptr(), act.data_ptr(),
                                 out.data_ptr(), rows, j, iters, _stream(fl))
     _check(lib, rc, "waterfill")
+
+
+def waterfill_segmented(cap, layout, fl, ce, w, out, iters: int) -> None:
+    """Launch K3 over the ``layout.starts.numel()`` rows of a CSR layout
+    (:class:`repro_torch.kernels.powercap.segments.SegmentLayout`)."""
+    lib = library()
+    rc = lib.powercap_waterfill_segmented(
+        cap.data_ptr(), layout.starts.data_ptr(), layout.counts.data_ptr(),
+        layout.order.data_ptr(), fl.data_ptr(), ce.data_ptr(), w.data_ptr(),
+        out.data_ptr(), layout.starts.numel(), layout.jb, iters,
+        _stream(out))
+    _check(lib, rc, "waterfill_segmented")
 
 
 def balance_smem_bytes(n_hosts: int) -> int:

@@ -10,6 +10,9 @@ the kernel launches, so a run can show that it went through the kernels.
     delivery).
   * :func:`balance_caps` -- kernel K2, the whole BalancePowerCap loop with
     its candidate-cap waterfills, one launch per manager invocation.
+  * :func:`waterfill_segmented` -- kernel K3, the same waterfill over items
+    grouped by host in a CSR layout (the vector engine's tick delivery and
+    the object plane's entitlement sums).
 """
 
 from __future__ import annotations
@@ -19,8 +22,13 @@ import torch
 from repro_torch.backend import resolve_device
 from repro_torch.core.kernels import DenseCols, HostCols
 from repro_torch.kernels.powercap import kernel, ref
+from repro_torch.kernels.powercap.segments import (SegmentLayout,
+                                                   segment_layout)
 
 _F64, _BOOL = torch.float64, torch.bool
+
+#: Widest row K3 takes: 8 slots in each of a warp's 32 lanes.
+MAX_SEGMENT_ROW = 256
 
 
 def _device(first, device) -> torch.device:
@@ -117,3 +125,42 @@ def balance_caps(hosts: HostCols, caps, dense: DenseCols, cpu_reserved,
 
 
 balance_caps.launches = 0
+
+
+def waterfill_segmented(capacity, floors, ceilings, weights, seg_ids=None,
+                        n_segs=None, iters: int = 200, *,
+                        layout: SegmentLayout | None = None, device=None):
+    """Weighted max-min waterfill of items grouped by segment: item columns
+    ``(n,)`` against ``capacity (n_segs,)``; returns the ``(n,)``
+    allocation in item order.
+
+    The grouping is ``seg_ids`` (``(n,)`` ints in ``[0, n_segs)``), or a
+    ``layout`` built from it earlier with
+    :func:`~repro_torch.kernels.powercap.segments.segment_layout` (then
+    ``seg_ids`` and ``n_segs`` are not read).  Rows wider than
+    :data:`MAX_SEGMENT_ROW` items raise, on either device.
+    """
+    dev = _device(floors, device)
+    if layout is None:
+        layout = segment_layout(seg_ids, n_segs, dev)
+    if layout.device.type != dev.type:
+        raise ValueError(f"layout: on {layout.device}, expected {dev.type}")
+    n, m = layout.order.numel(), layout.n_segs
+    fl = _col(floors, _F64, dev, "floors", (n,))
+    ce = _col(ceilings, _F64, dev, "ceilings", (n,))
+    w = _col(weights, _F64, dev, "weights", (n,))
+    cap = _col(capacity, _F64, dev, "capacity", (m,))
+    if n == 0:
+        return torch.zeros(0, dtype=_F64, device=dev)
+    if layout.jb > MAX_SEGMENT_ROW:
+        raise ValueError(f"waterfill_segmented: a row of {layout.jb} slots "
+                         f"is wider than {MAX_SEGMENT_ROW}")
+    if dev.type == "cpu":
+        return ref.waterfill_segmented_ref(cap, fl, ce, w, layout, iters)
+    out = torch.empty(n, dtype=_F64, device=dev)
+    kernel.waterfill_segmented(cap, layout, fl, ce, w, out, int(iters))
+    waterfill_segmented.launches += 1
+    return out
+
+
+waterfill_segmented.launches = 0

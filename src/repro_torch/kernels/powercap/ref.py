@@ -4,8 +4,8 @@ They run on any device.  The wrappers in ``ops.py`` take them for tensors
 on the CPU; on the card they are the oracles the kernels are held against
 (``chip_smoke.py``).  The arithmetic follows the reference
 (``repro.drs.entitlement.waterfill_dense_math``,
-``repro.core.kernels.balance_caps``) op for op; only the order of sums
-differs.
+``repro.core.kernels.balance_caps``, ``repro.kernels.powercap.ref.
+lax_waterfill_segmented``) op for op; only the order of sums differs.
 """
 
 from __future__ import annotations
@@ -13,6 +13,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import kernels as core_kernels
+from repro_torch.kernels.powercap.segments import SegmentLayout, to_rows
 
 
 def waterfill_dense_ref(capacity, floors, ceilings, weights,
@@ -58,6 +59,22 @@ def waterfill_dense_ref(capacity, floors, ceilings, weights,
 
     scale = (capacity / torch.clamp_min(total_floor, 1e-12))[..., None]
     return torch.where(degenerate[..., None], floors * scale, out)
+
+
+def waterfill_segmented_ref(capacity, floors, ceilings, weights,
+                            layout: SegmentLayout, iters: int = 200):
+    """The dense waterfill over a CSR layout: the items (``(n,)``, item
+    order) are scattered into ``(n_segs, JB)`` rows, slots past each row's
+    count masked, waterfilled row by row, and gathered back to item order.
+    """
+    active = (torch.arange(layout.jb, device=layout.device)
+              < layout.counts[:, None])
+    out_rows = waterfill_dense_ref(
+        capacity, to_rows(layout, floors), to_rows(layout, ceilings),
+        to_rows(layout, weights, fill=1e-12), iters, active)
+    out = torch.empty_like(floors)
+    out[layout.order] = out_rows[layout.seg, layout.slot]
+    return out
 
 
 def balance_caps_ref(hosts, caps, dense, cpu_reserved, budget, enabled,

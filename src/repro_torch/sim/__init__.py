@@ -1,1 +1,2 @@
-"""Scenario sweeps and the batched (grid-at-a-time) simulator."""
+"""The simulators (the vector engine and the batched grid engine) and the
+scenario sweeps that drive them."""

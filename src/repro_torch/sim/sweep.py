@@ -1,26 +1,34 @@
-"""Scenario sweeps: programmatic scenario families run as one batch.
+"""Scenario sweeps: programmatic scenario families at cluster scale.
 
 The cap-only families of the reference's sweep harness
 (``repro.sim.sweep``): cluster size x rack budget x spike pattern x host
 mix, each under the ``cpc``/``static``/``statichigh`` policies, with the
 same random draws (``np.random.RandomState(spec.seed)``), so both packages
-build byte-identical cells.  Capacity churn, placement rules and budget
-trees are later slices of the port; specs asking for them raise
+build byte-identical cells.  :func:`run_sweep` runs them cell by cell on
+the vector engine (the default, as in the reference) or as one batch on the
+batched engine.  The manager runs with no migration search and no DPM.
+Capacity churn, placement rules and budget trees are later slices of the
+port; specs asking for them raise
 :class:`repro_torch.sim.batch.BatchUnsupported`.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Optional, Sequence
 
 import numpy as np
 
+from repro_torch.backend import resolve_device
+from repro_torch.core.manager import CloudPowerCapManager, ManagerConfig
 from repro_torch.core.power_model import PAPER_HOST, HostPowerSpec
+from repro_torch.drs.balancer import BalancerConfig
 from repro_torch.drs.snapshot import ClusterSnapshot, Host, VirtualMachine
 from repro_torch.sim import workloads
 from repro_torch.sim.batch import BatchCell, BatchedSimulator, BatchUnsupported
 from repro_torch.sim.cluster import SimConfig
+from repro_torch.sim.engine import VectorSimulator
 
 # A smaller, less efficient host mixed in for heterogeneous sweeps:
 # 8 cores x 2.4 GHz, 64 GB, idle 120 W / peak 240 W.
@@ -28,6 +36,7 @@ SMALL_HOST = HostPowerSpec(
     capacity_peak=19_200.0,
     power_idle=120.0,
     power_peak=240.0,
+    power_nameplate=300.0,
     memory_mb=64 * 1024,
 )
 
@@ -168,7 +177,7 @@ def build_sweep(spec: SweepSpec, policy: str,
     vm_key = (spec.n_vms, tuple(on_hosts))
     vms = None if vm_memo is None else vm_memo.get(vm_key)
     if vms is None:
-        vms = [VirtualMachine(vm_id=f"vm{v}", vcpus=1,
+        vms = [VirtualMachine(vm_id=f"vm{v}", vcpus=1, memory_mb=8 * 1024,
                               host_id=on_hosts[v % n_on])
                for v in range(spec.n_vms)]
         if vm_memo is not None:
@@ -183,15 +192,24 @@ def build_sweep(spec: SweepSpec, policy: str,
     snap = ClusterSnapshot(hosts, vms, power_budget=budget)
     cfg = SimConfig(duration_s=spec.duration_s, tick_s=spec.tick_s,
                     drs_period_s=spec.drs_period_s,
-                    drs_first_at_s=spec.drs_period_s)
+                    drs_first_at_s=spec.drs_period_s,
+                    record_timeline=False)
     return snap, traces, cfg
+
+
+def _sweep_manager(policy: str, device=None) -> CloudPowerCapManager:
+    """The sweeps' cap-only manager: the policy's powercap switch, no
+    migration search, no DPM."""
+    cfg = ManagerConfig(powercap_enabled=(policy == "cpc"), dpm_enabled=False,
+                        balancer=BalancerConfig(max_moves=0))
+    return CloudPowerCapManager(cfg, device)
 
 
 @dataclasses.dataclass
 class SweepCellResult:
     spec: SweepSpec
     policy: str
-    wall_s: float                # share of the batch's run wall
+    wall_s: float                # batch engine: share of the batch's wall
     ticks: int
     ticks_per_s: float
     cpu_satisfaction: float
@@ -234,16 +252,50 @@ def build_batch_cells(specs: Sequence[SweepSpec],
     return cells, keys
 
 
+def run_cell(spec: SweepSpec, policy: str, engine: str = "vector",
+             device=None) -> SweepCellResult:
+    """One cell on the vector engine (the only per-cell engine ported)."""
+    if engine != "vector":
+        raise ValueError(f"engine {engine!r} is not ported for single cells "
+                         f"(the legacy engine is ROADMAP queue 1, item 8)")
+    dev = resolve_device(device)
+    snap, traces, cfg = build_sweep(spec, policy)
+    sim = VectorSimulator(snap, _sweep_manager(policy, dev), traces, cfg,
+                          device=dev)
+    t0 = time.perf_counter()
+    result = sim.run()
+    wall = time.perf_counter() - t0
+    ticks = int(round(cfg.duration_s / cfg.tick_s))
+    acc = result.acc
+    return SweepCellResult(
+        spec=spec, policy=policy, wall_s=wall, ticks=ticks,
+        ticks_per_s=ticks / max(wall, 1e-9),
+        cpu_satisfaction=acc.cpu_satisfaction(),
+        cpu_payload_mhz_s=acc.cpu_payload_mhz_s,
+        energy_j=acc.energy_j,
+        cap_changes=acc.cap_changes,
+        vmotions=acc.vmotions,
+        power_ons=acc.power_ons,
+        power_offs=acc.power_offs)
+
+
 def run_sweep(specs: Sequence[SweepSpec],
               policies: Sequence[str] = POLICIES,
-              engine: str = "batch",
+              engine: str = "vector",
               device=None) -> dict[str, dict[str, SweepCellResult]]:
-    """Run the grid as one batch; returns ``results[spec.name][policy]``.
+    """Run the grid; returns ``results[spec.name][policy]``.
 
-    Only the batched engine is ported; ``device=None`` runs it on the GPU.
+    ``engine="vector"`` runs the cells one by one on
+    :class:`repro_torch.sim.engine.VectorSimulator`; ``engine="batch"``
+    runs the whole grid as one :class:`BatchedSimulator`.  ``device=None``
+    runs on the GPU.
     """
+    if engine == "vector":
+        return {spec.name: {p: run_cell(spec, p, device=device)
+                            for p in policies} for spec in specs}
     if engine != "batch":
-        raise ValueError(f"engine {engine!r} is not ported: use 'batch'")
+        raise ValueError(f"engine {engine!r} is not ported: use 'vector' "
+                         f"or 'batch'")
     cells, keys = build_batch_cells(specs, policies)
     res = BatchedSimulator(cells, device=device).run()
     per_cell_wall = max(res.run_s, 1e-9) / len(keys)
@@ -276,3 +328,13 @@ def scenario_families(sizes: Sequence[int] = (10, 100, 1000),
                       tick_s=tick_s)
             for n in sizes for b in budgets_per_host_w for spike in spikes
             for het in heterogeneous]
+
+
+def scale_ladder(sizes: Sequence[int] = (10, 100, 1000),
+                 spike: str = "burst",
+                 duration_s: float = 600.0,
+                 tick_s: float = 10.0) -> list[SweepSpec]:
+    """The ``sweep_scale`` benchmark ladder: one spike family per size."""
+    return [SweepSpec(name=f"h{n}_{spike}", n_hosts=n, spike=spike,
+                      duration_s=duration_s, tick_s=tick_s)
+            for n in sizes]

@@ -86,7 +86,7 @@ def test_grid_matches_vector_simulator():
     specs = sweep.scenario_families(**GRID)
     want = ref_sweep.run_sweep(ref_sweep.scenario_families(**GRID),
                                POLICIES, engine="vector")
-    got = sweep.run_sweep(specs, POLICIES, device="cpu")
+    got = sweep.run_sweep(specs, POLICIES, engine="batch", device="cpu")
     for spec in specs:
         for p in POLICIES:
             g, w = got[spec.name][p], want[spec.name][p]
@@ -180,7 +180,7 @@ def test_spec_less_traces_raise():
 def test_unported_sweep_families_raise(field):
     spec = sweep.SweepSpec(name="s", n_hosts=4, **field)
     with pytest.raises(BatchUnsupported):
-        sweep.run_sweep([spec], device="cpu")
+        sweep.run_sweep([spec], engine="batch", device="cpu")
 
 
 def test_dynamic_reference_pack_raises():

@@ -10,9 +10,11 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core.manager import CloudPowerCapManager
 from repro_torch.kernels.powercap import ops
 from repro_torch.sim import sweep
 from repro_torch.sim.batch import BatchedSimulator
+from repro_torch.sim.engine import VectorSimulator
 
 PORT = Path(__file__).resolve().parents[1] / "src" / "repro_torch"
 SOURCES = sorted(PORT.rglob("*.py"))
@@ -37,9 +39,12 @@ def test_port_sources_import_neither_jax_nor_the_reference(path):
 
 
 def test_importing_the_port_loads_neither_jax_nor_the_reference():
+    modules = sorted(".".join(("repro_torch",) + p.relative_to(PORT)
+                              .with_suffix("").parts).replace(".__init__", "")
+                     for p in SOURCES)
+    assert "repro_torch.sim.engine" in modules
     code = ("import sys\n"
-            "import repro_torch.sim.batch, repro_torch.sim.sweep, "
-            "repro_torch.convert\n"
+            f"import {', '.join(modules)}\n"
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')))\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -63,7 +68,20 @@ def test_entry_points_default_to_the_gpu(no_gpu):
         BatchedSimulator(cells)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         sweep.run_sweep(specs, ("cpc",), engine="batch")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        sweep.run_sweep(specs, ("cpc",), engine="vector")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        CloudPowerCapManager()
+    snap, traces, cfg = sweep.build_sweep(specs[0], "cpc")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        VectorSimulator(snap, sweep._sweep_manager("cpc", "cpu"), traces,
+                        cfg)
     x = np.ones((1, 2, 3))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ops.waterfill_dense(x[..., 0], x, x, x)
-    assert sweep.run_sweep(specs, ("cpc",), device="cpu")[specs[0].name]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ops.waterfill_segmented(x[0, 0], x[0, 0], x[0, 0], x[0, 0],
+                                [0, 1, 1], 3)
+    for engine in ("batch", "vector"):
+        assert sweep.run_sweep(specs, ("cpc",), engine=engine,
+                               device="cpu")[specs[0].name]

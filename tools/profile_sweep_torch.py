@@ -1,16 +1,17 @@
 #!/usr/bin/env python3
-"""Where the time of the port's sweep grids goes, on one GPU.
+"""Where the time of the port's sweep paths goes, on one GPU.
 
 Builds path A (32 cells x 100 hosts, 60 ticks) and path B (16 cells x
-1000 hosts, 120 ticks) as ``chip_smoke.py`` does, runs each engine once to
-warm up, then once under ``torch.profiler`` and once without it.  For the
-profiled run it reads the Chrome trace and reports the device's busy time
-(union of kernel and copy intervals), its idle share of the run's wall,
-kernel launches per tick, and device time by kernel name.  Prints one JSON
-line per path and writes the Chrome traces to OUT_DIR (default
-``build/profiles``).
+1000 hosts, 120 ticks) of the batched engine, and path V (one cpc cell of
+1000 hosts, 60 ticks, on the vector engine), as ``chip_smoke.py`` does.
+Each path runs once to warm up, then once under ``torch.profiler`` and
+once without it.  For the profiled run it reads the Chrome trace and
+reports the device's busy time (union of kernel and copy intervals), its
+idle share of the run's wall, kernel launches per tick, and device time by
+kernel name.  Prints one JSON line per path and writes the Chrome traces to
+OUT_DIR (default ``build/profiles``).
 
-    python3 tools/profile_sweep_torch.py [OUT_DIR]
+    python3 tools/profile_sweep_torch.py [OUT_DIR [PATH ...]]
 """
 
 from __future__ import annotations
@@ -37,24 +38,60 @@ def busy_us(events) -> float:
     return total
 
 
-def profile(tag: str, specs, policies, out_dir: Path) -> dict:
-    from torch.profiler import ProfilerActivity, profile as torch_profile
-
+def batch_runner(specs, policies):
+    """``(prepare, info)``: ``prepare()`` returns a run of the grid's
+    simulator, which returns the ticks it ran."""
     from repro_torch.sim.batch import BatchedSimulator
     from repro_torch.sim.sweep import build_batch_cells
 
     cells, _ = build_batch_cells(specs, policies)
     sim = BatchedSimulator(cells)
-    sim.run()                                  # warm-up
+    return (lambda: lambda: sim.run().ticks), dict(cells=len(cells),
+                                                   pack_s=sim.pack_s)
+
+
+def vector_runner(specs, policies):
+    """``(prepare, info)``: ``prepare()`` builds every cell's simulator
+    anew (a simulator runs once) and returns their run."""
+    from repro_torch.sim.engine import VectorSimulator
+    from repro_torch.sim.sweep import _sweep_manager, build_sweep
+
+    def prepare():
+        sims = []
+        for spec in specs:
+            for p in policies:
+                snap, traces, cfg = build_sweep(spec, p)
+                sims.append(VectorSimulator(snap, _sweep_manager(p), traces,
+                                            cfg))
+        ticks = int(round(cfg.duration_s / cfg.tick_s))
+
+        def run():
+            for sim in sims:
+                sim.run()
+            return ticks * len(sims)
+        return run
+
+    return prepare, dict(cells=len(specs) * len(policies))
+
+
+def timed(run) -> tuple[int, float]:
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    res = sim.run()
-    plain_wall = time.perf_counter() - t0
+    ticks = run()
+    torch.cuda.synchronize()
+    return ticks, time.perf_counter() - t0
+
+
+def profile(tag: str, runner, out_dir: Path) -> dict:
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    prepare, info = runner
+    timed(prepare())                           # warm-up
+    ticks, plain_wall = timed(prepare())
+    run = prepare()
     with torch_profile(activities=[ProfilerActivity.CPU,
                                    ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        sim.run()
-        traced_wall = time.perf_counter() - t0
+        _, traced_wall = timed(run)
     trace = out_dir / f"trace_{tag}.json"
     prof.export_chrome_trace(str(trace))
     events = json.loads(trace.read_text())["traceEvents"]
@@ -62,18 +99,21 @@ def profile(tag: str, specs, policies, out_dir: Path) -> dict:
     copies = [e for e in events if e.get("cat") in ("gpu_memcpy",
                                                     "gpu_memset")]
     by_name = defaultdict(float)
+    count = defaultdict(int)
     for e in kernels:
         name = e["name"].replace("(anonymous namespace)::", "")
-        by_name[name.split("(")[0][:60]] += e["dur"]
+        key = name.split("(")[0][:60]
+        by_name[key] += e["dur"]
+        count[key] += 1
     busy = busy_us(kernels + copies) * 1e-6
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
-    return dict(path=tag, cells=len(cells), ticks=res.ticks,
-                pack_s=sim.pack_s, run_s_untraced=plain_wall,
+    return dict(path=tag, ticks=ticks, run_s_untraced=plain_wall,
                 run_s_traced=traced_wall, device_busy_s=busy,
                 device_idle_share=1.0 - busy / traced_wall,
                 kernel_launches=len(kernels),
-                launches_per_tick=len(kernels) / res.ticks,
-                device_ms_by_kernel={k: v * 1e-3 for k, v in top})
+                launches_per_tick=len(kernels) / ticks,
+                device_ms_by_kernel={k: v * 1e-3 for k, v in top},
+                launches_by_kernel={k: count[k] for k, _ in top}, **info)
 
 
 def main() -> int:
@@ -81,24 +121,28 @@ def main() -> int:
         print("profile_sweep_torch: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.sim.sweep import scenario_families
+    from repro_torch.sim.sweep import scale_ladder, scenario_families
 
     out_dir = Path(sys.argv[1]) if len(sys.argv) > 1 else (
         ROOT / "build" / "profiles")
     out_dir.mkdir(parents=True, exist_ok=True)
+    wanted = sys.argv[2:] or ["A", "B", "V"]
     print(torch.cuda.get_device_name(0), flush=True)
     spikes = ("flat", "burst", "step", "prime")
     paths = {
-        "A": scenario_families(sizes=(100,), budgets_per_host_w=(230.0, 250.0),
-                               spikes=spikes, heterogeneous=(False, True),
-                               duration_s=600.0),
-        "B": scenario_families(sizes=(1000,), budgets_per_host_w=(250.0,),
-                               spikes=spikes, heterogeneous=(False, True),
-                               duration_s=1200.0),
+        "A": lambda: batch_runner(scenario_families(
+            sizes=(100,), budgets_per_host_w=(230.0, 250.0), spikes=spikes,
+            heterogeneous=(False, True), duration_s=600.0),
+            ("cpc", "static")),
+        "B": lambda: batch_runner(scenario_families(
+            sizes=(1000,), budgets_per_host_w=(250.0,), spikes=spikes,
+            heterogeneous=(False, True), duration_s=1200.0),
+            ("cpc", "static")),
+        "V": lambda: vector_runner(scale_ladder(
+            sizes=(1000,), spike="burst", duration_s=600.0), ("cpc",)),
     }
-    for tag, specs in paths.items():
-        print(json.dumps(profile(tag, specs, ("cpc", "static"), out_dir)),
-              flush=True)
+    for tag in wanted:
+        print(json.dumps(profile(tag, paths[tag](), out_dir)), flush=True)
     return 0
 
 
