@@ -4,12 +4,14 @@
 Phases, each of which raises (and so exits non-zero) when it fails:
 
 1. the card: its name and power limit, as ``nvidia-smi`` prints them;
-2. the build: ``nvcc`` compiles the powercap kernels from ``csrc/``;
-3. each kernel against its plain PyTorch version on the card, in fp64, at
-   the main paths' shapes, timed with CUDA events (median of 20): K1 and
-   K2 at paths A and B, K2 at path V (one cell), K3 at path V and on a
-   ragged case (empty hosts, a host whose floors exceed its capacity, a
-   256-wide row, huge values in the rows next to each row);
+2. the build: ``nvcc`` compiles the three kernel libraries from their
+   ``csrc/`` (powercap, flash_attention, decode_attention), every source
+   at once;
+3. each powercap kernel against its plain PyTorch version on the card, in
+   fp64, at the main paths' shapes, timed with CUDA events (median of 20):
+   K1 and K2 at paths A and B, K2 at path V (one cell), K3 at path V and
+   on a ragged case (empty hosts, a host whose floors exceed its capacity,
+   a 256-wide row, huge values in the rows next to each row);
 4. main path A, the ``sweep_grid`` grid (32 cells x 100 hosts x 10 VMs),
    through ``run_sweep(..., engine="batch")`` on the card, held against
    the same grid run on the CPU (plain versions), with every kernel's
@@ -21,7 +23,26 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    ``run_sweep(..., engine="vector")`` on the card, held against the same
    cells on the CPU and against the batched engine on the card, with the
    launch counts of K3 (one a tick, two more for each committed balance's
-   note) and K2 (one a cpc invocation) checked.
+   note) and K2 (one a cpc invocation) checked;
+7. K4 (flash attention forward) and K6 (flash decoding) against their
+   plain versions on the card: K4 at path S's prefill (8 x 512 tokens,
+   32 query and 8 KV heads of 128, bf16) and on a float32 case with a
+   query offset and lengths that are no multiple of its blocks; K6 over
+   a 1024-position cache with ragged lengths in bf16 and float32, and a
+   case whose blocks are all fully masked but one.  Tolerances: 2e-5 in
+   float32, 2e-2 in bf16.  Each is timed beside its plain version and
+   ``scaled_dot_product_attention`` on the same inputs;
+8. main path S, ``launch.serve``'s driver at granite-8b's full width and
+   depth in bf16 (2 replicas, 16 requests, prompts of 512, 32 tokens, a
+   1024-position cache): the exact launch counts (K4 once a layer a
+   prefill, K6 once a layer a decode step, K1, K2 and K3 from the cap
+   event), the routing, caps and note of the cap event identical to the
+   CPU run of the same event, and one replica's batch fed back (teacher
+   forcing) through the plain versions on the card, logits within 2e-2
+   relative L2; then prefill and decode-step times;
+9. granite-8b at full width and 4 layers in float32: identical greedy
+   tokens through the kernels and through the plain versions, logits
+   within 1e-4 relative L2.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Run from the repository root:
@@ -30,12 +51,16 @@ The line before the last is the kernels' JSON record; the last line is
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import json
 import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+from unittest import mock
 
 import numpy as np
 import torch
@@ -45,10 +70,17 @@ ROOT = Path(__file__).resolve().parent
 #: H100 SXM peaks (NVIDIA data sheet): fp64 outside the tensor cores, and
 #: HBM3 bandwidth.  The kernels are fp64 vector code.
 PEAK_FP64_FLOPS = 34e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_S = 3.35e12
 REPS = 20
 RTOL = ATOL = 1e-9
 F64 = torch.float64
+#: The attention kernels' tolerances (the reference's own ``_tol``).
+ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+#: Path S: the serving driver at granite-8b's full width and depth.
+SERVE_ARGV = ["--arch", "granite_8b", "--replicas", "2", "--requests", "16",
+              "--prompt-len", "512", "--decode-steps", "32",
+              "--max-len", "1024"]
 
 
 def log(msg: str) -> None:
@@ -71,8 +103,9 @@ def time_ms(fn) -> float:
     return statistics.median(times)
 
 
-def bound_ms(n_bytes: float, flops: float) -> tuple[float, str]:
-    t_bytes, t_ops = n_bytes / PEAK_BYTES_S, flops / PEAK_FP64_FLOPS
+def bound_ms(n_bytes: float, flops: float,
+             peak_flops: float = PEAK_FP64_FLOPS) -> tuple[float, str]:
+    t_bytes, t_ops = n_bytes / PEAK_BYTES_S, flops / peak_flops
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes > t_ops
                                        else "operations")
 
@@ -294,15 +327,312 @@ def compare(tag, gpu, cpu, keys) -> None:
 KERNELS = ("waterfill_dense", "balance_caps", "waterfill_segmented")
 
 
+def _attention_wrappers() -> dict:
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    return {"flash_attention": fa_ops.flash_attention,
+            "decode_attention": da_ops.decode_attention}
+
+
 def reset_launches() -> None:
     from repro_torch.kernels.powercap import ops
     for name in KERNELS:
         getattr(ops, name).launches = 0
+    for fn in _attention_wrappers().values():
+        fn.launches = 0
 
 
 def read_launches() -> dict:
     from repro_torch.kernels.powercap import ops
     return {name: getattr(ops, name).launches for name in KERNELS}
+
+
+def build_all() -> float:
+    """Build the three kernel libraries at once (every ``nvcc`` process
+    started together) and load them; returns the wall seconds."""
+    from repro_torch.kernels.decode_attention import kernel as da_kernel
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.powercap import kernel
+
+    t0 = time.perf_counter()
+    builds = (kernel.build, fa_kernel.LIBRARY.build, da_kernel.LIBRARY.build)
+    with ThreadPoolExecutor(len(builds)) as pool:
+        logs = [f.result()[1] for f in [pool.submit(b) for b in builds]]
+    print("\n".join(logs), file=sys.stderr, flush=True)
+    kernel.library()
+    fa_kernel.LIBRARY.library()
+    da_kernel.LIBRARY.library()
+    return time.perf_counter() - t0
+
+
+def randn(shape, dtype, dev, seed: int) -> torch.Tensor:
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+
+def attn_err(got, want, dtype, what: str) -> float:
+    """Max abs error of ``got`` against the plain version, raising past
+    the dtype's tolerance (``rtol = atol``)."""
+    tol = ATTN_TOL[dtype]
+    err = float((got.float() - want.float()).abs().max())
+    if not torch.allclose(got.float(), want.float(), rtol=tol, atol=tol):
+        raise AssertionError(f"{what}: kernel and plain version differ "
+                             f"(max abs err {err}, tolerance {tol})")
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{what}: non-finite output")
+    return err
+
+
+def check_k4(dev) -> dict:
+    """K4 against its plain version: a float32 case with a query offset
+    and ragged lengths, then path S's prefill shape in bf16 (timed, with
+    its bound and SDPA's time on the same inputs)."""
+    from repro_torch.kernels.flash_attention import ops, ref
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    f32 = torch.float32
+    q = randn((2, 100, 32, 128), f32, dev, 1)
+    k, v = randn((2, 164, 8, 128), f32, dev, 2), randn((2, 164, 8, 128),
+                                                       f32, dev, 3)
+    out, lse = ops.flash_attention(q, k, v, causal=True, q_offset=64)
+    pout, plse = ref.flash_attention_ref(q, k, v, causal=True, q_offset=64,
+                                         block_k=ops.BLOCK_K)
+    err32 = attn_err(out, pout, f32, "K4 float32, q_offset 64")
+    attn_err(lse, plse, f32, "K4 float32 lse")
+
+    bf = torch.bfloat16
+    b, s, hq, hkv, d = 8, 512, 32, 8, 128
+    q = randn((b, s, hq, d), bf, dev, 4)
+    k, v = randn((b, s, hkv, d), bf, dev, 5), randn((b, s, hkv, d), bf,
+                                                    dev, 6)
+    out, lse = ops.flash_attention(q, k, v)
+    pout, plse = ref.flash_attention_ref(q, k, v, block_k=ops.BLOCK_K)
+    err = attn_err(out, pout, bf, "K4 bf16, path S prefill")
+    attn_err(lse, plse, bf, "K4 bf16 lse")
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    ms = time_ms(lambda: ops.flash_attention(q, k, v))
+    pms = time_ms(lambda: ref.flash_attention_ref(q, k, v,
+                                                  block_k=ops.BLOCK_K))
+    lms = time_ms(lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True))
+    pairs = s * (s + 1) // 2
+    bound, by = bound_ms(2 * (2 * b * s * hq * d + 2 * b * s * hkv * d)
+                         + 4 * b * hq * s, 4 * b * hq * d * pairs,
+                         PEAK_BF16_FLOPS)
+    log(f"S: K4 err {err:.3e} (float32 {err32:.3e}) {ms:.4f} ms (plain "
+        f"{pms:.3f} ms, SDPA {lms:.4f} ms, bound {bound:.4f} ms)")
+    return dict(name=f"flash_attention {b}x{s}x{hq}x{d}", route="cuda",
+                source="src/repro_torch/kernels/flash_attention/csrc/"
+                       "flash_fwd.cu",
+                replaces="src/repro/kernels/flash_attention/kernel.py:83",
+                max_abs_err=err, float32_max_abs_err=err32,
+                rtol=ATTN_TOL[bf], atol=ATTN_TOL[bf], ms=ms, plain_ms=pms,
+                bound_ms=bound, bound_by=by, library_ms=lms)
+
+
+def check_k6(dev) -> dict:
+    """K6 against its plain version over a 1024-position cache with
+    ragged lengths, in float32 and bf16 (timed, with SDPA on the same
+    inputs), and a case with every block but one fully masked."""
+    from repro_torch.kernels.decode_attention import ops, ref
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    b, s, hq, hkv, d = 8, 1024, 32, 8, 128
+    g = torch.Generator(device=dev).manual_seed(7)
+    kv_len = torch.randint(1, s + 1, (b,), generator=g, device=dev,
+                           dtype=torch.int32)
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        q = randn((b, hq, d), dtype, dev, 8)
+        k, v = randn((b, s, hkv, d), dtype, dev, 9), randn((b, s, hkv, d),
+                                                           dtype, dev, 10)
+        out = ops.decode_attention(q, k, v, kv_len)
+        plain = ref.decode_attention_split_ref(q, k, v, kv_len, ops.BLOCK_K)
+        errs[dtype] = attn_err(out, plain, dtype, f"K6 {dtype}")
+    mq = randn((2, 2, 32), torch.float32, dev, 11)
+    mk = randn((2, 512, 2, 32), torch.float32, dev, 12)
+    mlen = torch.tensor([1, 3], dtype=torch.int32, device=dev)
+    masked = attn_err(ops.decode_attention(mq, mk, mk, mlen, block_k=64),
+                      ref.decode_attention_split_ref(mq, mk, mk, mlen, 64),
+                      torch.float32, "K6 fully masked blocks")
+    mask = (torch.arange(s, device=dev)[None, :]
+            < kv_len[:, None])[:, None, None, :]
+    q4, kt, vt = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
+    ms = time_ms(lambda: ops.decode_attention(q, k, v, kv_len))
+    pms = time_ms(lambda: ref.decode_attention_split_ref(q, k, v, kv_len,
+                                                         ops.BLOCK_K))
+    lms = time_ms(lambda: sdpa(q4, kt, vt, attn_mask=mask, enable_gqa=True))
+    live = float(kv_len.double().sum())
+    bound, by = bound_ms(2 * 2 * live * hkv * d, 4 * live * hq * d,
+                         PEAK_BF16_FLOPS)
+    err = errs[torch.bfloat16]
+    log(f"S: K6 err {err:.3e} (float32 {errs[torch.float32]:.3e}, masked "
+        f"{masked:.3e}) {ms:.4f} ms (plain {pms:.3f} ms, SDPA {lms:.4f} "
+        f"ms, bound {bound:.5f} ms), kv_len {kv_len.tolist()}")
+    return dict(name=f"decode_attention {b}x{s}x{hq}x{d}", route="cuda",
+                source="src/repro_torch/kernels/decode_attention/csrc/"
+                       "decode.cu",
+                replaces="src/repro/kernels/decode_attention/kernel.py:55",
+                max_abs_err=err, float32_max_abs_err=errs[torch.float32],
+                masked_max_abs_err=masked, rtol=ATTN_TOL[torch.bfloat16],
+                atol=ATTN_TOL[torch.bfloat16], ms=ms, plain_ms=pms,
+                bound_ms=bound, bound_by=by, library_ms=lms)
+
+
+@contextlib.contextmanager
+def plain_attention():
+    """The model's attention through K4's and K6's plain versions, on
+    whatever device the tensors are (the comparison runs only)."""
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.kernels.decode_attention import ref as da_ref
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.models import layers
+
+    def flash(q, k, v, *, causal=True, q_offset=0):
+        return fa_ref.flash_attention_ref(q, k, v, causal=causal,
+                                          q_offset=q_offset,
+                                          block_k=fa_ops.BLOCK_K)
+
+    def decode(q, k, v, kv_len):
+        return da_ref.decode_attention_split_ref(q, k, v, kv_len,
+                                                 da_ops.BLOCK_K)
+
+    with mock.patch.object(layers, "flash_attention", flash), \
+            mock.patch.object(layers, "decode_attention", decode):
+        yield
+
+
+def rel_l2(got, want) -> float:
+    return float((got.double() - want.double()).norm()
+                 / want.double().norm())
+
+
+def run_serving_path(dev) -> tuple[dict, dict]:
+    """Path S through ``launch.serve.main`` on the card, with the launch
+    counts of exactly that run; its cap event held against the CPU, one
+    replica's batch against the plain versions; then warm timings."""
+    from repro_torch.core.power_model import H100_HOST
+    from repro_torch.launch import serve
+    from repro_torch.runtime.serve_loop import (generate, make_decode_step,
+                                                make_prefill_step)
+
+    reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    report = serve.main(SERVE_ARGV)
+    wall = time.perf_counter() - t0
+    launches = dict(read_launches(), **{
+        n: fn.launches for n, fn in _attention_wrappers().items()})
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    cfg, params = report.cfg, report.params
+    steps, max_len, prompt_len = 32, 1024, 512
+    n_rep = len(report.routing)
+    want = {"flash_attention": cfg.n_layers * n_rep,
+            "decode_attention": cfg.n_layers * (steps - 1) * n_rep,
+            "waterfill_dense": 1, "balance_caps": 1,
+            "waterfill_segmented": 2}
+    if launches != want:
+        raise AssertionError(f"S: kernel launches {launches}, expected "
+                             f"{want}")
+    if report.routing != {"rep0": 8, "rep1": 8}:
+        raise AssertionError(f"S: routing {report.routing}")
+    snap, router = serve.make_fleet(H100_HOST, n_rep)
+    routing, caps, result = serve.power_event(snap, router, 16, "cpu")
+    got = (list(report.routing_after.items()), report.caps_after,
+           report.notes, report.cap_changes, report.migrations)
+    cpu = (list(routing.items()), caps, list(result.notes),
+           result.cap_changes, result.migrations)
+    if got != cpu:
+        raise AssertionError(f"S: cap event on the card {got}, on the CPU "
+                             f"{cpu}")
+    for rep, (prompts, toks, logits) in report.batches.items():
+        if toks.shape != (8, steps) or logits.shape != (8, steps,
+                                                        cfg.vocab_size):
+            raise AssertionError(f"S {rep}: shapes {toks.shape}, "
+                                 f"{logits.shape}")
+        if not torch.isfinite(logits).all():
+            raise AssertionError(f"S {rep}: non-finite logits")
+    prompts, toks, logits = report.batches["rep0"]
+    with plain_attention():
+        _, plain_logits = generate(cfg, params, prompts, steps, max_len,
+                                   forced=toks)
+    err = rel_l2(logits, plain_logits)
+    if not err <= 2e-2:
+        raise AssertionError(f"S: teacher-forced logits {err:.3e} relative "
+                             f"L2 from the plain versions (bound 2e-2)")
+    same = float((plain_logits.argmax(-1) == toks).float().mean())
+
+    prefill = make_prefill_step(cfg, max_len)
+    decode = make_decode_step(cfg)
+    start = torch.cuda.Event(enable_timing=True)
+    mid = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    prefill_ms, step_ms = [], []
+    for _ in range(3):
+        start.record()
+        lg, state = prefill(params, prompts)
+        mid.record()
+        tok = lg.argmax(-1)
+        for _ in range(steps - 1):
+            lg, state = decode(params, state, tok)
+            tok = lg.argmax(-1)
+        end.record()
+        end.synchronize()
+        prefill_ms.append(start.elapsed_time(mid))
+        step_ms.append(mid.elapsed_time(end) / (steps - 1))
+    weights_gb = sum(t.numel() * t.element_size() for grp in params.values()
+                     for t in grp.values()) / 1e9
+    cache_gb = (2 * cfg.n_layers * 8 * max_len * cfg.n_kv_heads
+                * cfg.head_dim * params["blocks"]["wk"].element_size()) / 1e9
+    info = dict(wall_s=wall, decode_s=report.seconds, tokens=report.tokens,
+                tokens_per_s=report.tokens / report.seconds,
+                prefill_ms=statistics.median(prefill_ms),
+                decode_step_ms=statistics.median(step_ms),
+                weights_gb=weights_gb, cache_gb_per_batch=cache_gb,
+                peak_memory_gb=peak_gb, teacher_forced_rel_l2=err,
+                plain_argmax_equal=same, routing=report.routing,
+                routing_after=report.routing_after,
+                caps_after=report.caps_after, notes=report.notes,
+                prompt_len=prompt_len, steps=steps,
+                params=cfg.param_count())
+    log(f"path S: {report.tokens} tokens in {report.seconds:.3f} s "
+        f"({info['tokens_per_s']:.1f} tokens/s; whole driver {wall:.3f} s); "
+        f"prefill {info['prefill_ms']:.2f} ms, decode step "
+        f"{info['decode_step_ms']:.2f} ms (warm, one batch of 8); weights "
+        f"{weights_gb:.3f} GB, cache {cache_gb:.3f} GB a batch, peak "
+        f"{peak_gb:.3f} GB; teacher-forced logits {err:.3e} relative L2 "
+        f"(argmax equal {same:.3f}); launches {launches}; cap event "
+        f"{report.caps_after} W, {report.routing_after}, {report.notes}")
+    return launches, info
+
+
+def run_f32_depth_check(dev) -> dict:
+    """granite-8b at full width, 4 layers, float32: kernels against plain
+    versions, greedily, on one batch of 8 prompts of 512."""
+    from repro_torch import configs
+    from repro_torch.models import transformer as tfm
+    from repro_torch.runtime.serve_loop import generate
+
+    cfg = dataclasses.replace(configs.get("granite_8b"), n_layers=4,
+                              param_dtype="float32")
+    params = tfm.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                             dev)
+    prompts = torch.randint(0, cfg.vocab_size, (8, 512), device=dev,
+                            generator=torch.Generator(device=dev)
+                            .manual_seed(1))
+    toks, logits = generate(cfg, params, prompts, 32, 1024)
+    with plain_attention():
+        ptoks, plogits = generate(cfg, params, prompts, 32, 1024)
+    err = rel_l2(logits, plogits)
+    if not torch.equal(toks, ptoks):
+        raise AssertionError("S f32: greedy tokens differ between the "
+                             "kernels and the plain versions")
+    if not err <= 1e-4:
+        raise AssertionError(f"S f32: logits {err:.3e} relative L2 from the "
+                             f"plain versions (bound 1e-4)")
+    log(f"S f32, 4 layers: tokens identical, logits {err:.3e} relative L2")
+    return dict(rel_l2=err, tokens_identical=True)
 
 
 def run_path(tag, specs, policies):
@@ -388,7 +718,6 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.kernels.powercap import kernel
     from repro_torch.sim.sweep import run_sweep, scenario_families
 
     smi = subprocess.run(
@@ -398,11 +727,12 @@ def main() -> int:
     log(smi)
     dev = torch.device("cuda")
     torch.cuda.init()
+    # Float32 products in full float32 on the card (the plain versions'
+    # comparisons assume it), stated rather than left to the defaults.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
-    build_s, ptxas = kernel.build()
-    print(ptxas, file=sys.stderr, flush=True)
-    kernel.library()
-    log(f"build: {build_s:.2f} s")
+    log(f"build: {build_all():.2f} s")
 
     # Path V's BalancePowerCap is the object plane's, with 200 trips.
     shapes = {"A": (32, 100, 10, True, 100), "B": (16, 1000, 10, True, 100),
@@ -431,13 +761,19 @@ def main() -> int:
 
     launches_v, info_v = run_vector_path(policies)
 
+    records["S"] = [check_k4(dev), check_k6(dev)]
+    launches_s, info_s = run_serving_path(dev)
+    torch.cuda.empty_cache()
+    info_s["float32_4_layers"] = run_f32_depth_check(dev)
+
     kernels_out = []
     for tag, launches in (("A", launches_a), ("B", launches_b),
-                          ("V", launches_v)):
+                          ("V", launches_v), ("S", launches_s)):
         for rec in records[tag]:
             name = rec["name"].split()[0]
             kernels_out.append(dict(rec, launches=launches[name], path=tag))
-    log(json.dumps({"paths": {"A": info_a, "B": info_b, "V": info_v}}))
+    log(json.dumps({"paths": {"A": info_a, "B": info_b, "V": info_v,
+                              "S": info_s}}))
     log(json.dumps({"kernels": kernels_out}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

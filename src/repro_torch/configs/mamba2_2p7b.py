@@ -1,0 +1,24 @@
+"""Mamba2-2.7B: attention-free SSD (state-space duality).
+
+[arXiv:2405.21060; unverified]  64L d_model=2560 d_ff=0 vocab=50280,
+ssm_state=128, expand=2 (d_inner 5120), head_dim 64 -> 80 SSD heads.
+"""
+from repro_torch.models.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="mamba2-2.7b",
+    family="ssm",
+    n_layers=64,
+    d_model=2560,
+    n_heads=0,
+    n_kv_heads=0,
+    d_ff=0,
+    vocab_size=50280,
+    ssm_state=128,
+    ssm_expand=2,
+    ssm_head_dim=64,
+    ssm_chunk=256,
+    tie_embeddings=True,
+    microbatches=4,   # tp fallback; dp path uses 1
+    parallelism="dp",
+)

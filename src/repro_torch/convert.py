@@ -1,6 +1,6 @@
 """Carry scenarios built by the JAX reference over to the port.
 
-For this system the "weights" are the scenario state.  Two forms:
+For the power path the "weights" are the scenario state.  Two forms:
 
 * the reference's ``BatchedSimulator`` packs its cells into a dict of NumPy
   arrays (``_arrays``) plus a static spec (``_static``) that shapes the
@@ -10,8 +10,9 @@ For this system the "weights" are the scenario state.  Two forms:
   ``VectorSimulator``; :func:`from_reference_snapshot` rebuilds them as the
   port's objects.
 
-Both read attributes only and import nothing of the reference, so both
-engines can run identical inputs.
+For the serving path, :func:`from_reference_params` copies the model's
+parameter tree.  All three read attributes or arrays only and import
+nothing of the reference, so both packages can run identical inputs.
 """
 
 from __future__ import annotations
@@ -19,7 +20,9 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
+from repro_torch.backend import resolve_device
 from repro_torch.core.kernels import BalanceParams
 from repro_torch.core.power_model import HostPowerSpec
 from repro_torch.drs.snapshot import ClusterSnapshot, Host, VirtualMachine
@@ -84,3 +87,47 @@ def from_reference_snapshot(snapshot, traces: dict
             segments=tuple(tuple(seg) for seg in spec.segments),
             period=spec.period))
     return snap, out
+
+
+def _param_tensor(a, dtype: torch.dtype, dev) -> torch.Tensor:
+    """One reference parameter (a NumPy array; bfloat16 as ``ml_dtypes``'
+    type) as a tensor of ``dtype``, bit for bit (a copy: arrays that JAX
+    hands out are read-only)."""
+    a = np.array(a)
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a)
+    if t.dtype != dtype:
+        raise TypeError(f"parameter of {t.dtype}, the config says {dtype}")
+    return t.to(dev)
+
+
+def from_reference_params(params, cfg, device=None) -> dict:
+    """The reference's parameter tree (nested mappings of NumPy arrays, as
+    ``jax.tree_util.tree_map(np.asarray, params)`` gives them) as the
+    port's, in the same layout and dtype, on ``device`` (``None``: the
+    GPU).  Every leaf of :func:`repro_torch.models.transformer.
+    param_specs` must be there, with its shape, and nothing else."""
+    from repro_torch.models.transformer import param_specs
+
+    dev = resolve_device(device)
+    dtype = getattr(torch, cfg.param_dtype)
+
+    def walk(specs, node, path):
+        if set(node) != set(specs):
+            raise ValueError(f"{'/'.join(path) or 'params'}: keys "
+                             f"{sorted(node)}, expected {sorted(specs)}")
+        out = {}
+        for name, spec in specs.items():
+            if isinstance(spec, dict):
+                out[name] = walk(spec, node[name], path + (name,))
+                continue
+            t = _param_tensor(node[name], dtype, dev)
+            if tuple(t.shape) != tuple(spec[0]):
+                raise ValueError(f"{'/'.join(path + (name,))}: shape "
+                                 f"{tuple(t.shape)}, expected {spec[0]}")
+            out[name] = t
+        return out
+
+    return walk(param_specs(cfg), params, ())

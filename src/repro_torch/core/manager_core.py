@@ -12,10 +12,13 @@ One DRS invocation (default every 300 s) runs:
 The simulators call :meth:`ManagerCore.invoke` (through
 :class:`repro_torch.core.manager.CloudPowerCapManager`) on snapshot clones
 and execute the emitted :mod:`repro_torch.drs.actions` list.  The port
-covers the cap-only regime: rules, migration search and DPM raise (ROADMAP
-queue 1, items 5 and 6).  BalancePowerCap and the entitlement sums behind
-the invocation's notes run on the manager's ``device`` (kernels K2 and K3
-on the GPU).
+covers the cap-only regime: rules, the migration search and DPM raise
+(ROADMAP queue 1, items 5 and 6); the migration balancer's own stopping
+test runs, so an invocation whose search would stop in its first round
+completes with the reference's default ``BalancerConfig``.
+BalancePowerCap, the entitlement sums behind the invocation's notes and
+the balancer's entitlement waterfill run on the manager's ``device``
+(kernels K2, K3 and K1 on the GPU).
 
 Baselines from the paper's evaluation (``Static``, ``StaticHigh``) run the
 same pipeline with cap changes disabled.
@@ -126,7 +129,8 @@ class ManagerCore:
                     f"imbalance {working.imbalance(self.device):.3f}->"
                     f"{balanced.imbalance(self.device):.3f}")
                 working = balanced
-        residual_moves = balancer.balance(working, cfg.balancer)
+        residual_moves = balancer.balance(working, cfg.balancer,
+                                          device=self.device)
         if residual_moves:
             actions += [act.migrate(vm, dest, reason="entitlement-balance")
                         for vm, dest in residual_moves]

@@ -78,3 +78,19 @@ PAPER_HOST = HostPowerSpec(
     hypervisor_overhead=0.0,
     memory_mb=96 * 1024,
 )
+
+
+# One NVIDIA H100 SXM per host: the serving path's replica host.
+# capacity_peak is the card's dense bf16 tensor-core rate (989 TFLOP/s,
+# NVIDIA's H100 SXM data sheet); power_peak is the card's power limit and
+# power_idle its idle draw, both as nvidia-smi printed them on an
+# "NVIDIA H100 80GB HBM3" with a 700.00 W limit (tools/h100_power.py);
+# memory is the card's 80 GB.
+H100_HOST = HostPowerSpec(
+    capacity_peak=989e12,         # FLOP/s, bf16 dense
+    power_idle=74.95,             # W, median of 10 idle samples
+    power_peak=700.0,
+    power_nameplate=700.0,
+    hypervisor_overhead=0.0,
+    memory_mb=80 * 1024,
+)

@@ -1,0 +1,6 @@
+"""Kernel K6, split-K flash decoding over a ragged KV cache (CUDA,
+sm_90a), beside its plain PyTorch version (``ref.py``)."""
+
+from repro_torch.kernels.decode_attention.ops import decode_attention
+
+__all__ = ["decode_attention"]

@@ -1,0 +1,222 @@
+"""Core model primitives: RMSNorm, RoPE, GQA attention with a KV cache,
+MLP (the forward functions of ``repro.models.layers``).
+
+Self-attention runs on the port's kernels: a prefill (any query length,
+cursor ``q_offset``) on K4, :func:`repro_torch.kernels.flash_attention.
+flash_attention`, and a one-token decode step on K6,
+:func:`repro_torch.kernels.decode_attention.decode_attention`.  The
+reference reaches the same functions through ``flash_attention_xla``, the
+pure-JAX twin of those Pallas kernels; :func:`flash_attention_xla` here is
+its plain PyTorch copy, for the tests.
+
+The reference's ``shard(...)`` constraints are no-ops without a mesh, and
+one card has none, so the port drops them.  Cross-attention and the
+streamed cross-entropy are later slices (ROADMAP queue 1).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.decode_attention.ops import decode_attention
+from repro_torch.kernels.flash_attention.ops import flash_attention
+
+NEG_INF = -1e30
+
+
+# ----------------------------------------------------------------- normals
+def rms_norm(x: torch.Tensor, scale: torch.Tensor,
+             eps: float = 1e-5) -> torch.Tensor:
+    """RMSNorm with float32 internals, cast back to ``x.dtype``."""
+    xf = x.float()
+    r = torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+    return ((xf * r) * scale).to(x.dtype)
+
+
+# -------------------------------------------------------------------- RoPE
+def rope_frequencies(head_dim: int, theta: float) -> np.ndarray:
+    return 1.0 / (theta ** (np.arange(0, head_dim, 2) / head_dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (..., seq, heads, head_dim); positions: (..., seq).
+
+    The frequencies are computed in float64 and used in float32, as the
+    reference uses them with 64-bit mode off."""
+    freqs = torch.as_tensor(rope_frequencies(x.shape[-1], theta),
+                            dtype=torch.float32, device=x.device)
+    angles = positions[..., :, None].float() * freqs
+    cos = torch.cos(angles)[..., None, :]
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# --------------------------------------------------------------- attention
+def _block_attend(q, k, v, mask, scale):
+    """One (q-block x kv-block) online-softmax partial; q: (B, Hq, Sq, D),
+    k/v: (B, Hkv, Bk, D), mask (Sq, Bk) or None.  Narrow-dtype operands
+    with float32 products, ``p`` cast to v's dtype before ``p @ v``, as in
+    the reference."""
+    b, hq, sq, d = q.shape
+    hkv = k.shape[1]
+    groups = hq // hkv
+    qg = q.reshape(b, hkv, groups, sq, d)
+    s = torch.einsum("bhgqd,bhkd->bhgqk", qg.float(), k.float()) * scale
+    if mask is not None:
+        s = torch.where(mask[None, None, None], s, NEG_INF)
+    m = s.amax(-1)
+    p = torch.exp(s - m[..., None])
+    l = p.sum(-1)
+    o = torch.einsum("bhgqk,bhkd->bhgqd", p.to(v.dtype).float(), v.float())
+    return (o.reshape(b, hq, sq, d), m.reshape(b, hq, sq),
+            l.reshape(b, hq, sq))
+
+
+def flash_attention_xla(q, k, v, *, causal: bool = True, q_offset: int = 0,
+                        kv_len: int | None = None, block_k: int = 1024):
+    """Plain copy of the reference's ``flash_attention_xla`` (tests only).
+
+    q: (B, Sq, Hq, D), k/v: (B, Skv, Hkv, D).  Returns (B, Sq, Hq, D) in
+    q.dtype."""
+    b, sq, hq, d = q.shape
+    skv = k.shape[1]
+    dev = q.device
+    scale = 1.0 / np.sqrt(d)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    q_pos = q_offset + torch.arange(sq, device=dev)
+
+    def mask_for(k_pos):
+        mask = torch.ones((sq, k_pos.numel()), dtype=torch.bool, device=dev)
+        if causal:
+            mask &= k_pos[None, :] <= q_pos[:, None]
+        mask &= (k_pos < skv)[None, :]
+        if kv_len is not None:
+            mask &= (k_pos < kv_len)[None, :]
+        return mask
+
+    if sq <= 8:
+        o, m, l = _block_attend(qt, kt, vt,
+                                mask_for(torch.arange(skv, device=dev)),
+                                scale)
+        out = o / torch.clamp_min(l, 1e-30)[..., None]
+        return out.transpose(1, 2).to(q.dtype)
+    block_k = min(block_k, skv)
+    o = torch.zeros((b, hq, sq, d), dtype=torch.float32, device=dev)
+    m = torch.full((b, hq, sq), NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros((b, hq, sq), dtype=torch.float32, device=dev)
+    for k0 in range(0, skv, block_k):
+        k_pos = k0 + torch.arange(block_k, device=dev)
+        kb = F.pad(kt[:, :, k0:k0 + block_k],
+                   (0, 0, 0, block_k - kt[:, :, k0:k0 + block_k].shape[2]))
+        vb = F.pad(vt[:, :, k0:k0 + block_k],
+                   (0, 0, 0, block_k - vt[:, :, k0:k0 + block_k].shape[2]))
+        ob, mb, lb = _block_attend(qt, kb, vb, mask_for(k_pos), scale)
+        m_new = torch.maximum(m, mb)
+        alpha = torch.exp(m - m_new)
+        beta = torch.exp(mb - m_new)
+        o = o * alpha[..., None] + ob * beta[..., None]
+        l = l * alpha + lb * beta
+        m = m_new
+    out = o / torch.clamp_min(l, 1e-30)[..., None]
+    return out.transpose(1, 2).to(q.dtype)
+
+
+def attention_param_specs(cfg) -> dict:
+    d, hq, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    return {
+        "wq": ((d, hq * hd), ("embed_p", "heads")),
+        "wk": ((d, hkv * hd), ("embed_p", "kv_heads")),
+        "wv": ((d, hkv * hd), ("embed_p", "kv_heads")),
+        "wo": ((hq * hd, d), ("heads", "embed_p")),
+    }
+
+
+def attention(params: dict, x: torch.Tensor, cfg, *, causal: bool = True,
+              positions: torch.Tensor | None = None,
+              kv_cache: dict | None = None, cross_kv: tuple | None = None,
+              kv_len: torch.Tensor | None = None
+              ) -> tuple[torch.Tensor, dict | None]:
+    """GQA self-attention with an optional KV cache; x: (B, S, D).
+
+    With a cache (``{"k", "v"}`` of shape (B, max_len, Hkv, hd) and a host
+    ``int`` ``"cursor"``), the new keys and values are written into the
+    cache in place at the cursor.  A one-token step runs K6 over the cache
+    with ``kv_len`` (a (B,) int32 tensor, ``cursor + 1`` on every row; made
+    here when not given); a longer one runs K4 with ``q_offset = cursor``
+    over the cache's first ``cursor + S`` rows.  The reference updates its
+    cache functionally; the port writes in place to keep one cache.
+    Returns ``(out, cache with the cursor advanced)``.
+    """
+    if cross_kv is not None:
+        raise NotImplementedError(
+            "cross-attention (the encdec family) is not ported yet "
+            "(ROADMAP queue 1, item 9)")
+    b, s, _ = x.shape
+    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    if positions is None:
+        positions = torch.arange(s, device=x.device)[None, :]
+    q = (x @ params["wq"]).reshape(b, s, hq, hd)
+    k = (x @ params["wk"]).reshape(b, s, hkv, hd)
+    v = (x @ params["wv"]).reshape(b, s, hkv, hd)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    if kv_cache is None:
+        out, _ = flash_attention(q, k, v, causal=causal)
+    else:
+        cur = int(kv_cache["cursor"])
+        ck, cv = kv_cache["k"], kv_cache["v"]
+        if cur + s > ck.shape[1]:
+            raise ValueError(f"cache of {ck.shape[1]} positions is full "
+                             f"(cursor {cur}, {s} new)")
+        ck[:, cur:cur + s] = k.to(ck.dtype)
+        cv[:, cur:cur + s] = v.to(cv.dtype)
+        kv_cache = {"k": ck, "v": cv, "cursor": cur + s}
+        if s == 1:
+            if kv_len is None:
+                kv_len = torch.full((b,), cur + 1, dtype=torch.int32,
+                                    device=x.device)
+            out = decode_attention(q[:, 0], ck, cv, kv_len)[:, None]
+        else:
+            out, _ = flash_attention(q, ck[:, :cur + s], cv[:, :cur + s],
+                                     causal=True, q_offset=cur)
+    out = out.reshape(b, s, hq * hd) @ params["wo"]
+    return out, kv_cache
+
+
+# --------------------------------------------------------------------- MLP
+def mlp_param_specs(cfg, d_ff: int | None = None) -> dict:
+    d, f = cfg.d_model, d_ff or cfg.d_ff
+    if cfg.activation == "swiglu":
+        return {
+            "w_gate": ((d, f), ("embed_p", "ffn")),
+            "w_up": ((d, f), ("embed_p", "ffn")),
+            "w_down": ((f, d), ("ffn", "embed_p")),
+        }
+    return {
+        "w_up": ((d, f), ("embed_p", "ffn")),
+        "w_down": ((f, d), ("ffn", "embed_p")),
+    }
+
+
+def mlp(params: dict, x: torch.Tensor, cfg) -> torch.Tensor:
+    if cfg.activation == "swiglu":
+        h = F.silu(x @ params["w_gate"]) * (x @ params["w_up"])
+    elif cfg.activation == "squared_relu":
+        h = torch.square(F.relu(x @ params["w_up"]))
+    else:
+        # jax.nn.gelu defaults to the tanh approximation.
+        h = F.gelu(x @ params["w_up"], approximate="tanh")
+    return h @ params["w_down"]
+
+
+# -------------------------------------------------- streamed cross-entropy
+def streamed_xent(h, w_out, labels, weights, chunk: int = 2048):
+    raise NotImplementedError(
+        "the streamed cross-entropy comes with training on K4 and K5 "
+        "(ROADMAP queue 1, item 10)")
+

@@ -1,0 +1,217 @@
+"""Decoder-only LM, dense family (the dense part of
+``repro.models.transformer``).
+
+Parameters are a nested dict of tensors in the reference's layout: the
+repeated layers stacked on a leading ``(n_layers, ...)`` axis under
+``"blocks"``, so carrying the reference's weights across is a copy
+(:func:`repro_torch.convert.from_reference_params`).  The forward loops
+over the layers in Python.  The other families (``moe``, ``vlm``, ``ssm``,
+``hybrid``, ``encdec``) are later slices and raise.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional
+
+import torch
+from torch import nn
+
+from repro_torch.backend import resolve_device
+from repro_torch.models import layers
+from repro_torch.models.config import ModelConfig
+
+#: The ROADMAP item that brings each family not ported yet.
+_LATER = {
+    "moe": "MoE serving on K7 (ROADMAP queue 1, item 11)",
+    "vlm": "the VLM prefix (ROADMAP queue 1, item 9)",
+    "ssm": "SSM and hybrid serving on K8 (ROADMAP queue 1, item 12)",
+    "hybrid": "SSM and hybrid serving on K8 (ROADMAP queue 1, item 12)",
+    "encdec": "the encoder-decoder family (ROADMAP queue 1, item 9)",
+}
+
+
+def _dense_only(cfg: ModelConfig) -> None:
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"the {cfg.family} family is not ported yet: it comes with "
+            f"{_LATER.get(cfg.family, 'a later slice')}")
+
+
+# =========================================================== param specs
+def _stack(specs: dict, n: int) -> dict:
+    """Prepend a stacked-layer axis to every spec in ``specs``."""
+    return {k: ((n,) + shape, ("layer",) + axes)
+            for k, (shape, axes) in specs.items()}
+
+
+def block_param_specs(cfg: ModelConfig) -> dict:
+    """One decoder block (attention + FFN) including norms."""
+    _dense_only(cfg)
+    specs = {
+        "ln1": ((cfg.d_model,), (None,)),
+        "ln2": ((cfg.d_model,), (None,)),
+    }
+    specs.update(layers.attention_param_specs(cfg))
+    specs.update(layers.mlp_param_specs(cfg))
+    return specs
+
+
+def param_specs(cfg: ModelConfig) -> dict:
+    """Full tree of ``(shape, logical_axes)`` for the model."""
+    _dense_only(cfg)
+    specs: dict = {
+        "embed": {"table": ((cfg.vocab_size, cfg.d_model),
+                            ("vocab", "embed_p"))},
+        "final_norm": {"scale": ((cfg.d_model,), (None,))},
+    }
+    if not cfg.tie_embeddings:
+        specs["unembed"] = {"table": ((cfg.d_model, cfg.vocab_size),
+                                      ("embed_p", "vocab"))}
+    specs["blocks"] = _stack(block_param_specs(cfg), cfg.n_layers)
+    return specs
+
+
+def _leaves(specs: dict, prefix=()):
+    for name, spec in specs.items():
+        if isinstance(spec, dict):
+            yield from _leaves(spec, prefix + (name,))
+        else:
+            yield prefix + (name,), spec[0]
+
+
+def init_params(cfg: ModelConfig, generator: torch.Generator,
+                device=None) -> dict:
+    """Random parameters in ``cfg.param_dtype`` on ``device`` (``None``:
+    the GPU): ones for 1-D scales, else a normal truncated at 2 standard
+    deviations with ``std = 1 / sqrt(fan_in)``, ``fan_in = shape[-2]``
+    (the reference's scheme, which draws a stacked ``(n_layers, d)`` norm
+    scale like a weight; its ``jax.random`` bits differ).  ``generator`` must live on
+    ``device``; a stacked weight is drawn a layer at a time in float32."""
+    dev = resolve_device(device)
+    dtype = getattr(torch, cfg.param_dtype)
+    params: dict = {}
+    for path, shape in _leaves(param_specs(cfg)):
+        node = params
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        if len(shape) == 1 or shape[-1] == 1:
+            node[path[-1]] = torch.ones(shape, dtype=dtype, device=dev)
+            continue
+        std = 1.0 / math.sqrt(shape[-2])
+        out = torch.empty(shape, dtype=dtype, device=dev)
+        for part in out.reshape((-1,) + tuple(shape[-2:])):
+            draw = torch.empty(part.shape, dtype=torch.float32, device=dev)
+            torch.nn.init.trunc_normal_(draw, 0.0, std, -2.0 * std,
+                                        2.0 * std, generator=generator)
+            part.copy_(draw)
+        node[path[-1]] = out
+    return params
+
+
+# ============================================================== forward
+@dataclasses.dataclass
+class ForwardResult:
+    hidden: torch.Tensor               # (B, S, D) final hidden states
+    aux_loss: torch.Tensor             # MoE auxiliary loss (0 when dense)
+    cache: Optional[dict] = None       # updated decode state
+
+
+def _attn_block(blk, h, cfg, positions, cache, kv_len=None):
+    hn1 = layers.rms_norm(h, blk["ln1"], cfg.norm_eps)
+    a, cache = layers.attention(blk, hn1, cfg, positions=positions,
+                                kv_cache=cache, kv_len=kv_len)
+    h = h + a
+    hn = layers.rms_norm(h, blk["ln2"], cfg.norm_eps)
+    return h + layers.mlp(blk, hn, cfg), cache
+
+
+def _make_cache(cfg: ModelConfig, n_layers: int, batch: int, max_len: int,
+                device=None) -> dict:
+    """Stacked K/V caches ``(n_layers, B, max_len, Hkv, hd)`` in the
+    parameter dtype; the cursor is one host ``int`` for every layer (the
+    reference keeps a per-layer int32 on the device), so the kernels'
+    ``q_offset`` and ``kv_len`` come from it with no device sync."""
+    dev = resolve_device(device)
+    shape = (n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    dtype = getattr(torch, cfg.param_dtype)
+    return {"k": torch.zeros(shape, dtype=dtype, device=dev),
+            "v": torch.zeros(shape, dtype=dtype, device=dev),
+            "cursor": 0}
+
+
+def decoder_forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
+                    vision_embeds: Optional[torch.Tensor] = None,
+                    cache: Optional[dict] = None,
+                    positions: Optional[torch.Tensor] = None
+                    ) -> ForwardResult:
+    """Dense decoder-only forward over the stacked blocks."""
+    _dense_only(cfg)
+    if vision_embeds is not None:
+        raise NotImplementedError(f"vision embeddings: {_LATER['vlm']}")
+    h = params["embed"]["table"][tokens].to(getattr(torch, cfg.param_dtype))
+    b, s = h.shape[:2]
+    if positions is None:
+        positions = torch.arange(s, device=h.device)[None, :]
+    kv_len = None
+    if cache is not None and s == 1:
+        # One kv_len tensor for every layer of a decode step.
+        kv_len = torch.full((b,), cache["cursor"] + 1, dtype=torch.int32,
+                            device=h.device)
+    for i in range(cfg.n_layers):
+        blk = {name: w[i] for name, w in params["blocks"].items()}
+        layer_cache = None if cache is None else {
+            "k": cache["k"][i], "v": cache["v"][i],
+            "cursor": cache["cursor"]}
+        h, _ = _attn_block(blk, h, cfg, positions, layer_cache, kv_len)
+    h = layers.rms_norm(h, params["final_norm"]["scale"], cfg.norm_eps)
+    new_cache = None if cache is None else dict(cache,
+                                                cursor=cache["cursor"] + s)
+    return ForwardResult(hidden=h, aux_loss=torch.zeros((), device=h.device),
+                         cache=new_cache)
+
+
+def forward(params: dict, cfg: ModelConfig, **kwargs) -> ForwardResult:
+    """The family's forward (the dense decoder; the others raise)."""
+    return decoder_forward(params, kwargs.pop("tokens"), cfg, **kwargs)
+
+
+def unembed_weight(params: dict, cfg: ModelConfig) -> torch.Tensor:
+    if cfg.tie_embeddings:
+        return params["embed"]["table"].T
+    return params["unembed"]["table"]
+
+
+# ======================================================== decode caches
+def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
+                      device=None) -> dict:
+    """The family's decode state: the stacked KV caches (dense only)."""
+    _dense_only(cfg)
+    return _make_cache(cfg, cfg.n_layers, batch, max_len, device)
+
+
+# ================================================================ module
+class DecoderLM(nn.Module):
+    """A thin ``nn.Module`` over the same parameter tree (no copies):
+    ``model(tokens, cache=..., positions=...)`` is :func:`decoder_forward`.
+    """
+
+    def __init__(self, cfg: ModelConfig, params: dict):
+        super().__init__()
+        _dense_only(cfg)
+        self.cfg = cfg
+        self.groups = nn.ModuleDict({
+            group: nn.ParameterDict({
+                name: nn.Parameter(w, requires_grad=False)
+                for name, w in tensors.items()})
+            for group, tensors in params.items()})
+
+    def params(self) -> dict:
+        return {group: dict(tensors.items())
+                for group, tensors in self.groups.items()}
+
+    def forward(self, tokens: torch.Tensor, cache: Optional[dict] = None,
+                positions: Optional[torch.Tensor] = None) -> ForwardResult:
+        return decoder_forward(self.params(), tokens, self.cfg, cache=cache,
+                               positions=positions)

@@ -1,0 +1,296 @@
+"""Kernels K4 and K6 and the port's model layers against the JAX reference.
+
+On the CPU the port's wrappers run the kernels' plain PyTorch versions;
+these tests hold them against the reference's Pallas kernels (in interpret
+mode, as ``tests/test_kernels.py`` and ``tests/test_decode_kernel.py`` run
+them) and its oracles, and hold ``repro_torch.models.layers`` against
+``repro.models.layers``.  Inputs are drawn with NumPy from a seed and
+handed to both packages.  Tolerances are the reference's own ``_tol``:
+2e-5 in float32 and 2e-2 in bfloat16 for the kernels, 1e-5 in float32 for
+the layers.  The CUDA kernels themselves are held against the same plain
+versions on the card by ``chip_smoke.py``.
+"""
+
+import dataclasses
+
+import jax.numpy as jnp
+import ml_dtypes
+import numpy as np
+import pytest
+import torch
+
+from repro import configs as ref_configs
+from repro.kernels.decode_attention import decode_attention as pallas_decode
+from repro.kernels.decode_attention.ref import \
+    decode_attention_ref as jax_decode_ref
+from repro.kernels.flash_attention.kernel import flash_attention_kernel
+from repro.kernels.flash_attention.ref import attention_ref as jax_attn_ref
+from repro.models import layers as ref_layers
+from repro_torch import configs
+from repro_torch.kernels.decode_attention import ops as da_ops
+from repro_torch.kernels.decode_attention import ref as da_ref
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.flash_attention import ref as fa_ref
+from repro_torch.models import layers
+
+DTYPES = {"float32": (jnp.float32, torch.float32),
+          "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+
+
+def _tol(dtype: str) -> dict:
+    return dict(rtol=2e-2, atol=2e-2) if dtype == "bfloat16" else \
+        dict(rtol=2e-5, atol=2e-5)
+
+
+def _pair(rng, shape, dtype="float32", scale=1.0):
+    """The same values for both packages: float32 from NumPy, rounded to
+    bfloat16 identically on both sides when asked."""
+    x = (rng.standard_normal(shape) * scale).astype(np.float32)
+    jdt, tdt = DTYPES[dtype]
+    return jnp.asarray(x, dtype=jdt), torch.from_numpy(x).to(tdt)
+
+
+def _np(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(x).astype(np.float32)
+
+
+# ------------------------------------------------------------------ K4
+FLASH_CASES = [
+    (2, 128, 128, 4, 2, 64, True, 0),
+    (1, 256, 256, 8, 1, 128, True, 0),     # MQA
+    (2, 100, 100, 4, 4, 32, True, 0),      # non-multiple of block
+    (1, 1, 384, 4, 2, 64, True, 383),      # decode
+    (2, 64, 64, 4, 2, 64, False, 0),       # bidirectional
+    (1, 96, 160, 2, 2, 16, True, 64),      # continuation prefill
+]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,sq,skv,hq,hkv,d,causal,qoff", FLASH_CASES)
+def test_k4_plain_matches_pallas_and_oracle(b, sq, skv, hq, hkv, d, causal,
+                                            qoff, dtype):
+    rng = np.random.default_rng(sq * 31 + skv + d)
+    jq, tq = _pair(rng, (b, sq, hq, d), dtype)
+    jk, tk = _pair(rng, (b, skv, hkv, d), dtype)
+    jv, tv = _pair(rng, (b, skv, hkv, d), dtype)
+    out, lse = fa_ops.flash_attention(tq, tk, tv, causal=causal,
+                                      q_offset=qoff)
+    assert out.dtype == tq.dtype and lse.dtype == torch.float32
+    assert out.shape == (b, sq, hq, d) and lse.shape == (b, hq, sq)
+    p_out, p_lse = flash_attention_kernel(jq, jk, jv, causal=causal,
+                                          q_offset=qoff, block_q=64,
+                                          block_k=64, interpret=True)
+    oracle = jax_attn_ref(jq, jk, jv, causal=causal, q_offset=qoff)
+    np.testing.assert_allclose(_np(out), _np(p_out), **_tol(dtype))
+    np.testing.assert_allclose(_np(out), _np(oracle), **_tol(dtype))
+    np.testing.assert_allclose(lse.numpy(), _np(p_lse), **_tol(dtype))
+    np.testing.assert_allclose(
+        _np(fa_ref.attention_ref(tq, tk, tv, causal=causal, q_offset=qoff)),
+        _np(oracle), **_tol(dtype))
+
+
+def test_k4_reads_a_view_into_a_longer_cache():
+    """The prefill's K and V are the cache's first rows: a view with the
+    cache's batch stride gives what a packed copy gives."""
+    rng = np.random.default_rng(5)
+    cache = torch.from_numpy(rng.standard_normal((2, 2, 64, 2, 16))
+                             .astype(np.float32))
+    q = torch.from_numpy(rng.standard_normal((2, 24, 4, 16))
+                         .astype(np.float32))
+    view_out, view_lse = fa_ops.flash_attention(
+        q, cache[0, :, :40], cache[1, :, :40], q_offset=16)
+    copy_out, copy_lse = fa_ops.flash_attention(
+        q, cache[0, :, :40].contiguous(), cache[1, :, :40].contiguous(),
+        q_offset=16)
+    assert torch.equal(view_out, copy_out) and torch.equal(view_lse,
+                                                           copy_lse)
+
+
+def test_k4_wrapper_refuses_what_the_kernel_does_not_take():
+    q = torch.zeros(1, 4, 6, 16)
+    with pytest.raises(ValueError, match="multiple"):
+        fa_ops.flash_attention(q, torch.zeros(1, 4, 4, 16),
+                               torch.zeros(1, 4, 4, 16))
+    with pytest.raises(TypeError, match="dtype"):
+        fa_ops.flash_attention(q, torch.zeros(1, 4, 2, 16),
+                               torch.zeros(1, 4, 2, 16, dtype=torch.float64))
+    before = fa_ops.flash_attention.launches
+    fa_ops.flash_attention(q, torch.zeros(1, 4, 2, 16),
+                           torch.zeros(1, 4, 2, 16))
+    assert fa_ops.flash_attention.launches == before   # the plain version
+
+
+# ------------------------------------------------------------------ K6
+DECODE_CASES = [
+    (2, 256, 4, 2, 64, 64),
+    (1, 384, 8, 1, 128, 128),    # MQA, long cache
+    (3, 100, 4, 4, 32, 64),      # ragged block tail
+    (1, 64, 2, 2, 16, 64),       # single block
+]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,s,hq,hkv,d,bk", DECODE_CASES)
+def test_k6_plain_matches_pallas_and_oracle(b, s, hq, hkv, d, bk, dtype):
+    rng = np.random.default_rng(s * 7 + d)
+    jq, tq = _pair(rng, (b, hq, d), dtype)
+    jk, tk = _pair(rng, (b, s, hkv, d), dtype)
+    jv, tv = _pair(rng, (b, s, hkv, d), dtype)
+    kv_len = rng.integers(1, s + 1, b).astype(np.int32)
+    out = da_ops.decode_attention(tq, tk, tv, torch.from_numpy(kv_len),
+                                  block_k=bk)
+    assert out.dtype == tq.dtype and out.shape == (b, hq, d)
+    pallas = pallas_decode(jq, jk, jv, jnp.asarray(kv_len), block_k=bk)
+    oracle = jax_decode_ref(jq, jk, jv, jnp.asarray(kv_len))
+    np.testing.assert_allclose(_np(out), _np(pallas), **_tol(dtype))
+    np.testing.assert_allclose(_np(out), _np(oracle), **_tol(dtype))
+    np.testing.assert_allclose(
+        _np(da_ref.decode_attention_ref(tq, tk, tv,
+                                        torch.from_numpy(kv_len))),
+        _np(oracle), **_tol(dtype))
+
+
+def test_k6_fully_masked_blocks_do_not_pollute():
+    """kv_len 1 and 3 over 8 blocks: every block but the first is fully
+    masked, keeps m = -1e30 and l = 0, and the combine ignores it."""
+    rng = np.random.default_rng(3)
+    b, s, h, d = 2, 512, 2, 32
+    jq, tq = _pair(rng, (b, h, d))
+    jk, tk = _pair(rng, (b, s, h, d))
+    jv, tv = _pair(rng, (b, s, h, d))
+    kv_len = np.array([1, 3], dtype=np.int32)
+    out = da_ops.decode_attention(tq, tk, tv, torch.from_numpy(kv_len),
+                                  block_k=64)
+    pallas = pallas_decode(jq, jk, jv, jnp.asarray(kv_len), block_k=64)
+    oracle = jax_decode_ref(jq, jk, jv, jnp.asarray(kv_len))
+    assert torch.isfinite(out).all()
+    np.testing.assert_allclose(_np(out), _np(pallas), rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(_np(out), _np(oracle), rtol=2e-5, atol=2e-5)
+    o, m, l = da_ref.decode_partials_ref(tq, tk, tv,
+                                         torch.from_numpy(kv_len), 64)
+    assert (m[:, :, 1:] == da_ref.NEG_INF).all() and (l[:, :, 1:] == 0).all()
+    assert (o[:, :, 1:] == 0).all()
+
+
+def test_k6_wrapper_refuses_a_wrong_kv_len():
+    q, k = torch.zeros(2, 4, 16), torch.zeros(2, 8, 2, 16)
+    with pytest.raises(ValueError, match="kv_len"):
+        da_ops.decode_attention(q, k, k, torch.ones(3, dtype=torch.int32))
+
+
+# --------------------------------------------------------------- layers
+def _cfg(**kw):
+    return dataclasses.replace(configs.get_smoke("granite_8b"), **kw)
+
+
+def _ref_cfg(**kw):
+    return dataclasses.replace(ref_configs.get_smoke("granite_8b"), **kw)
+
+
+def _weights(rng, specs, scale_of=lambda shape: 1.0 / np.sqrt(shape[0])):
+    ref, port = {}, {}
+    for name, (shape, _) in specs.items():
+        ref[name], port[name] = _pair(rng, shape, scale=scale_of(shape))
+    return ref, port
+
+
+def test_rms_norm_matches_reference():
+    rng = np.random.default_rng(0)
+    jx, tx = _pair(rng, (3, 5, 64), scale=3.0)
+    js, ts = _pair(rng, (64,))
+    np.testing.assert_allclose(_np(layers.rms_norm(tx, ts, 1e-5)),
+                               _np(ref_layers.rms_norm(jx, js, 1e-5)),
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("positions", ["prefill", "decode"])
+def test_apply_rope_matches_reference(positions):
+    rng = np.random.default_rng(1)
+    jx, tx = _pair(rng, (2, 6, 4, 16))
+    pos = (np.arange(6)[None, :] if positions == "prefill"
+           else np.array([[300], [7]]) + np.zeros((1, 6), np.int64))
+    np.testing.assert_allclose(
+        _np(layers.apply_rope(tx, torch.from_numpy(pos), 1e4)),
+        _np(ref_layers.apply_rope(jx, jnp.asarray(pos, jnp.int32), 1e4)),
+        rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("activation", ["swiglu", "squared_relu", "gelu"])
+def test_mlp_matches_reference(activation):
+    cfg, rcfg = _cfg(activation=activation), _ref_cfg(activation=activation)
+    rng = np.random.default_rng(2)
+    jw, tw = _weights(rng, ref_layers.mlp_param_specs(rcfg))
+    assert set(layers.mlp_param_specs(cfg)) == set(jw)
+    jx, tx = _pair(rng, (2, 5, cfg.d_model))
+    np.testing.assert_allclose(_np(layers.mlp(tw, tx, cfg)),
+                               _np(ref_layers.mlp(jw, jx, rcfg)),
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("prompt", [8, 24])
+def test_attention_with_a_cache_matches_reference(prompt):
+    """A prefill of ``prompt`` tokens (8 takes the reference's one-block
+    branch, 24 its scan over blocks), then three decode steps: outputs and
+    cache contents within 1e-5."""
+    cfg, rcfg = _cfg(), _ref_cfg()
+    rng = np.random.default_rng(prompt)
+    jw, tw = _weights(rng, ref_layers.attention_param_specs(rcfg))
+    b, max_len = 2, 40
+    shape = (b, max_len, cfg.n_kv_heads, cfg.head_dim)
+    jcache = {"k": jnp.zeros(shape), "v": jnp.zeros(shape),
+              "cursor": jnp.int32(0)}
+    tcache = {"k": torch.zeros(shape), "v": torch.zeros(shape), "cursor": 0}
+    jx, tx = _pair(rng, (b, prompt, cfg.d_model))
+    jo, jcache = ref_layers.attention(jw, jx, rcfg, kv_cache=jcache)
+    to, tcache = layers.attention(tw, tx, cfg, kv_cache=tcache)
+    np.testing.assert_allclose(_np(to), _np(jo), rtol=1e-5, atol=1e-5)
+    for step in range(3):
+        pos = np.full((b, 1), prompt + step)
+        jx, tx = _pair(rng, (b, 1, cfg.d_model))
+        jo, jcache = ref_layers.attention(
+            jw, jx, rcfg, positions=jnp.asarray(pos, jnp.int32),
+            kv_cache=jcache)
+        to, tcache = layers.attention(tw, tx, cfg,
+                                      positions=torch.from_numpy(pos),
+                                      kv_cache=tcache)
+        np.testing.assert_allclose(_np(to), _np(jo), rtol=1e-5, atol=1e-5)
+    assert tcache["cursor"] == int(jcache["cursor"]) == prompt + 3
+    for name in ("k", "v"):
+        np.testing.assert_allclose(_np(tcache[name]), _np(jcache[name]),
+                                   rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("sq,kv_len", [(4, None), (20, None), (20, 30)])
+def test_flash_attention_xla_twin_matches_reference(sq, kv_len):
+    rng = np.random.default_rng(sq)
+    jq, tq = _pair(rng, (2, sq, 4, 16))
+    jk, tk = _pair(rng, (2, 48, 2, 16))
+    jv, tv = _pair(rng, (2, 48, 2, 16))
+    kw = dict(causal=True, q_offset=10, kv_len=kv_len, block_k=16)
+    np.testing.assert_allclose(
+        _np(layers.flash_attention_xla(tq, tk, tv, **kw)),
+        _np(ref_layers.flash_attention_xla(jq, jk, jv, **kw)),
+        rtol=1e-5, atol=1e-5)
+
+
+def test_unported_layers_raise_naming_their_roadmap_item():
+    cfg = _cfg()
+    x = torch.zeros(1, 2, cfg.d_model)
+    w = {name: torch.zeros(shape) for name, (shape, _) in
+         layers.attention_param_specs(cfg).items()}
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        layers.attention(w, x, cfg, cross_kv=(x, x))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        layers.streamed_xent(x, torch.zeros(cfg.d_model, 4),
+                             torch.zeros(1, 2), torch.ones(1, 2))
+
+
+def test_bfloat16_inputs_agree_bit_for_bit():
+    """The rounding helper hands both packages the same bfloat16 values."""
+    rng = np.random.default_rng(9)
+    j, t = _pair(rng, (64,), "bfloat16")
+    assert np.array_equal(np.asarray(j).view(np.int16),
+                          t.view(torch.int16).numpy())
+    assert np.asarray(j).dtype == ml_dtypes.bfloat16

@@ -85,3 +85,30 @@ def test_entry_points_default_to_the_gpu(no_gpu):
     for engine in ("batch", "vector"):
         assert sweep.run_sweep(specs, ("cpc",), engine=engine,
                                device="cpu")[specs[0].name]
+
+
+def test_serving_entry_points_default_to_the_gpu(no_gpu):
+    from repro_torch import configs
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as tfm
+    from repro_torch.runtime.serve_loop import greedy_generate
+
+    cfg = configs.get_smoke("granite_8b")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.main(["--smoke"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tfm.init_params(cfg, torch.Generator().manual_seed(0))
+    params = tfm.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        greedy_generate(cfg, params, np.zeros((1, 4), np.int64), 2, 8)
+    assert greedy_generate(cfg, params, np.zeros((1, 4), np.int64), 2, 8,
+                           device="cpu").shape == (1, 2)
+    # A CPU tensor runs the kernels' plain versions and counts no launch.
+    q = torch.zeros(1, 3, 4, 16)
+    kv = torch.zeros(1, 3, 2, 16)
+    fa_ops.flash_attention(q, kv, kv)
+    da_ops.decode_attention(q[:, 0], kv, kv, torch.ones(1, dtype=torch.int32))
+    assert fa_ops.flash_attention.launches == 0
+    assert da_ops.decode_attention.launches == 0

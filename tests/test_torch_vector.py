@@ -174,19 +174,25 @@ def test_vector_engine_matches_the_batch_engine():
     assert sum(vec[s.name]["cpc"].cap_changes for s in specs) > 0
 
 
-def _cluster(rules=None, **snap_kw):
+def _cluster(rules=None, hot=False, **snap_kw):
+    """Two paper hosts with four VMs; ``hot`` piles them all on host0 at
+    9000 MHz each, past what BalancePowerCap's Watts can absorb."""
     hosts = [Host(f"host{i}", PAPER_HOST, power_cap=250.0) for i in range(2)]
-    vms = [VirtualMachine(f"vm{i}", host_id=f"host{i % 2}")
-           for i in range(4)]
-    traces = {v.vm_id: constant(1000.0, 2048.0) for v in vms}
+    vms = [VirtualMachine(f"vm{i}", host_id="host0" if hot
+                          else f"host{i % 2}") for i in range(4)]
+    traces = {v.vm_id: constant(9000.0 if hot else 1000.0, 2048.0)
+              for v in vms}
     return ClusterSnapshot(hosts, vms, power_budget=500.0, rules=rules,
                            **snap_kw), traces
 
 
 @pytest.mark.parametrize("regime", ("rules", "max_moves", "dpm"))
 def test_unported_manager_regimes_raise_at_the_first_invocation(regime):
+    # The migration search runs (and raises) only where a host is strained
+    # and the imbalance outlasts BalancePowerCap; a quiet cluster stops in
+    # the search's first round, as the reference's does.
     snap, traces = _cluster(rules=["vm0 with vm1"] if regime == "rules"
-                            else None)
+                            else None, hot=regime == "max_moves")
     manager = {"rules": _manager("cpc"),
                "max_moves": _manager("cpc",
                                      balancer=BalancerConfig(max_moves=4)),

@@ -1,17 +1,23 @@
 #!/usr/bin/env python3
-"""Where the time of the port's sweep paths goes, on one GPU.
+"""Where the time of the port's paths goes, on one GPU.
 
 Builds path A (32 cells x 100 hosts, 60 ticks) and path B (16 cells x
-1000 hosts, 120 ticks) of the batched engine, and path V (one cpc cell of
-1000 hosts, 60 ticks, on the vector engine), as ``chip_smoke.py`` does.
-Each path runs once to warm up, then once under ``torch.profiler`` and
-once without it.  For the profiled run it reads the Chrome trace and
-reports the device's busy time (union of kernel and copy intervals), its
-idle share of the run's wall, kernel launches per tick, and device time by
-kernel name.  Prints one JSON line per path and writes the Chrome traces to
-OUT_DIR (default ``build/profiles``).
+1000 hosts, 120 ticks) of the batched engine, path V (one cpc cell of
+1000 hosts, 60 ticks, on the vector engine), as ``chip_smoke.py`` does,
+and path S, one replica batch of the serving path at granite-8b's full
+width and depth in bf16 (8 prompts of 512, 32 tokens, a 1024-position
+cache): ``S`` is the whole generation (prefill and 31 decode steps, its
+"ticks" the 32 forward passes), ``Sd`` the 31 decode steps alone.  Each
+path runs once to warm up, then once under ``torch.profiler`` and once
+without it.  For the profiled run it reads the Chrome trace and reports
+the device's busy time (union of kernel and copy intervals), its idle
+share of the run's wall, kernel launches per tick (per forward pass for S
+and Sd), and device time by kernel name.  Prints one JSON line per path
+and writes the Chrome traces to OUT_DIR (default ``build/profiles``).
 
     python3 tools/profile_sweep_torch.py [OUT_DIR [PATH ...]]
+
+PATH is any of A, B, V, S and Sd (default all).
 """
 
 from __future__ import annotations
@@ -74,6 +80,43 @@ def vector_runner(specs, policies):
     return prepare, dict(cells=len(specs) * len(policies))
 
 
+def serve_runner(model: dict, decode_only: bool):
+    """``(prepare, info)`` for path S (``decode_only``: Sd); ``model``
+    caches the granite-8b parameters between the two."""
+    from repro_torch import configs
+    from repro_torch.models import transformer as tfm
+    from repro_torch.runtime.serve_loop import (generate, make_decode_step,
+                                                make_prefill_step)
+
+    dev = torch.device("cuda")
+    if not model:
+        cfg = configs.get("granite_8b")
+        model.update(cfg=cfg, params=tfm.init_params(
+            cfg, torch.Generator(device=dev).manual_seed(0), dev))
+    cfg, params = model["cfg"], model["params"]
+    prompts = torch.randint(0, cfg.vocab_size, (8, 512), device=dev,
+                            generator=torch.Generator(device=dev)
+                            .manual_seed(1))
+    steps, max_len = 32, 1024
+
+    def prepare():
+        if not decode_only:
+            return lambda: (generate(cfg, params, prompts, steps, max_len),
+                            steps)[1]
+        decode = make_decode_step(cfg)
+        logits, state = make_prefill_step(cfg, max_len)(params, prompts)
+
+        def run():
+            nonlocal logits, state
+            for _ in range(steps - 1):
+                logits, state = decode(params, state, logits.argmax(-1))
+            return steps - 1
+        return run
+
+    return prepare, dict(batch=8, prompt_len=512, steps=steps,
+                         decode_only=decode_only)
+
+
 def timed(run) -> tuple[int, float]:
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -126,7 +169,8 @@ def main() -> int:
     out_dir = Path(sys.argv[1]) if len(sys.argv) > 1 else (
         ROOT / "build" / "profiles")
     out_dir.mkdir(parents=True, exist_ok=True)
-    wanted = sys.argv[2:] or ["A", "B", "V"]
+    wanted = sys.argv[2:] or ["A", "B", "V", "S", "Sd"]
+    model: dict = {}
     print(torch.cuda.get_device_name(0), flush=True)
     spikes = ("flat", "burst", "step", "prime")
     paths = {
@@ -140,6 +184,8 @@ def main() -> int:
             ("cpc", "static")),
         "V": lambda: vector_runner(scale_ladder(
             sizes=(1000,), spike="burst", duration_s=600.0), ("cpc",)),
+        "S": lambda: serve_runner(model, decode_only=False),
+        "Sd": lambda: serve_runner(model, decode_only=True),
     }
     for tag in wanted:
         print(json.dumps(profile(tag, paths[tag](), out_dir)), flush=True)
