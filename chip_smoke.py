@@ -30,7 +30,9 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    query offset and lengths that are no multiple of its blocks; K6 over
    a 1024-position cache with ragged lengths in bf16 and float32, and a
    case whose blocks are all fully masked but one.  Tolerances: 2e-5 in
-   float32, 2e-2 in bf16.  Each is timed beside its plain version and
+   float32, 2e-2 in bf16, relative to the values' scale (the absolute
+   term is the tolerance times the RMS of the plain output where that is
+   under 1).  Each is timed beside its plain version and
    ``scaled_dot_product_attention`` on the same inputs;
 8. main path S, ``launch.serve``'s driver at granite-8b's full width and
    depth in bf16 (2 replicas, 16 requests, prompts of 512, 32 tokens, a
@@ -42,7 +44,29 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    relative L2; then prefill and decode-step times;
 9. granite-8b at full width and 4 layers in float32: identical greedy
    tokens through the kernels and through the plain versions, logits
-   within 1e-4 relative L2.
+   within 1e-4 relative L2;
+10. K5 (flash attention backward) against its plain version on the card
+    in four cases: path T's layer (4 x 4096 tokens, 36/36 heads of 64,
+    causal, bf16), GQA (8 x 512, 32/8 heads of 128, bf16), MQA in float32
+    with a query offset of 64 and lengths 100/164 (also against autograd
+    of ``attention_ref``) and float32 non-causal.  Tolerances: 1e-4 in
+    float32, 2e-2 in bf16, relative to the values' scale as in 7.  Timed
+    at path T's layer beside its plain version and
+    ``scaled_dot_product_attention``'s backward, with K4 at the same
+    shape;
+11. main path T, ``launch.train``'s driver at MiniCPM-2B's full width and
+    depth in bf16 (40 layers, 2.725e9 parameters, 6 steps of 4 x 4096
+    tokens, 2 pods, the budget cut at step 1 and the straggler from step
+    2, the final checkpoint in a temporary directory that is removed):
+    exact launch counts (K4 twice a layer a step under remat, K5 once a
+    layer a step, K1, K2 and K3 as often as the same events' CPU run
+    calls their plain versions, outermost calls only), plans and caps
+    identical to the same driver's CPU run at the smoke size, finite
+    losses and gradient norms, and one batch's loss and gradients through
+    the kernels against the plain versions on the card (1e-2 relative and
+    5e-2 relative L2); then warm step, layer and AdamW times;
+12. MiniCPM-2B at full width and 4 layers in float32: two steps' losses
+    and gradients through the kernels within 1e-4 of the plain versions.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Run from the repository root:
@@ -54,9 +78,12 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -75,12 +102,22 @@ PEAK_BYTES_S = 3.35e12
 REPS = 20
 RTOL = ATOL = 1e-9
 F64 = torch.float64
-#: The attention kernels' tolerances (the reference's own ``_tol``).
+#: The attention kernels' tolerances (the reference's own ``_tol``),
+#: relative to the values' scale (:func:`attn_close`).
 ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 #: Path S: the serving driver at granite-8b's full width and depth.
 SERVE_ARGV = ["--arch", "granite_8b", "--replicas", "2", "--requests", "16",
               "--prompt-len", "512", "--decode-steps", "32",
               "--max-len", "1024"]
+#: Path T: the training driver at MiniCPM-2B's full width and depth; its
+#: power plane is held against the same events at the smoke size on the
+#: CPU.
+TRAIN_EVENTS = ["--global-batch", "4", "--pods", "2", "--steps", "6",
+                "--power-budget-drop-at", "1", "--straggler-at", "2",
+                "--checkpoint-every", "0"]
+TRAIN_ARGV = ["--arch", "minicpm_2b", "--seq-len", "4096"] + TRAIN_EVENTS
+TRAIN_CPU_ARGV = ["--arch", "minicpm_2b", "--smoke", "--device", "cpu",
+                  "--seq-len", "32"] + TRAIN_EVENTS
 
 
 def log(msg: str) -> None:
@@ -331,6 +368,7 @@ def _attention_wrappers() -> dict:
     from repro_torch.kernels.decode_attention import ops as da_ops
     from repro_torch.kernels.flash_attention import ops as fa_ops
     return {"flash_attention": fa_ops.flash_attention,
+            "flash_attention_bwd": fa_ops.flash_attention_bwd,
             "decode_attention": da_ops.decode_attention}
 
 
@@ -370,17 +408,26 @@ def randn(shape, dtype, dev, seed: int) -> torch.Tensor:
     return torch.randn(shape, generator=g, device=dev).to(dtype)
 
 
-def attn_err(got, want, dtype, what: str) -> float:
-    """Max abs error of ``got`` against the plain version, raising past
-    the dtype's tolerance (``rtol = atol``)."""
-    tol = ATTN_TOL[dtype]
-    err = float((got.float() - want.float()).abs().max())
-    if not torch.allclose(got.float(), want.float(), rtol=tol, atol=tol):
-        raise AssertionError(f"{what}: kernel and plain version differ "
-                             f"(max abs err {err}, tolerance {tol})")
-    if not torch.isfinite(got).all():
-        raise AssertionError(f"{what}: non-finite output")
+def attn_close(got, want, tol: float, what: str) -> float:
+    """Max abs error of ``got`` against ``want``, raising past ``tol``
+    relative to the values' scale: ``rtol = tol`` and ``atol = tol`` times
+    the RMS of ``want`` where that is under 1 (attention outputs and
+    gradients over thousands of keys are far smaller than 1, so an
+    absolute ``tol`` would pass a wrong kernel); returns the error.  The
+    kernel records give ``tol`` as ``rtol`` and ``atol_per_rms``."""
+    got, want = got.float(), want.float()
+    err = float((got - want).abs().max())
+    atol = tol * min(1.0, float(want.square().mean().sqrt()))
+    if not (torch.allclose(got, want, rtol=tol, atol=atol)
+            and torch.isfinite(got).all()):
+        raise AssertionError(f"{what}: kernel and reference differ (max abs "
+                             f"err {err}, rtol {tol}, atol {atol:.3e})")
     return err
+
+
+def attn_err(got, want, dtype, what: str) -> float:
+    """:func:`attn_close` at the dtype's tolerance."""
+    return attn_close(got, want, ATTN_TOL[dtype], what)
 
 
 def check_k4(dev) -> dict:
@@ -425,8 +472,8 @@ def check_k4(dev) -> dict:
                        "flash_fwd.cu",
                 replaces="src/repro/kernels/flash_attention/kernel.py:83",
                 max_abs_err=err, float32_max_abs_err=err32,
-                rtol=ATTN_TOL[bf], atol=ATTN_TOL[bf], ms=ms, plain_ms=pms,
-                bound_ms=bound, bound_by=by, library_ms=lms)
+                rtol=ATTN_TOL[bf], atol_per_rms=ATTN_TOL[bf], ms=ms,
+                plain_ms=pms, bound_ms=bound, bound_by=by, library_ms=lms)
 
 
 def check_k6(dev) -> dict:
@@ -474,32 +521,169 @@ def check_k6(dev) -> dict:
                 replaces="src/repro/kernels/decode_attention/kernel.py:55",
                 max_abs_err=err, float32_max_abs_err=errs[torch.float32],
                 masked_max_abs_err=masked, rtol=ATTN_TOL[torch.bfloat16],
-                atol=ATTN_TOL[torch.bfloat16], ms=ms, plain_ms=pms,
+                atol_per_rms=ATTN_TOL[torch.bfloat16], ms=ms, plain_ms=pms,
                 bound_ms=bound, bound_by=by, library_ms=lms)
+
+
+#: K5's cases: ``(B, Sq, Skv, Hq, Hkv, D, causal, q_offset, dtype)``;
+#: "path" is path T's layer, the one timed.
+K5_CASES = {
+    "path": (4, 4096, 4096, 36, 36, 64, True, 0, torch.bfloat16),
+    "gqa": (8, 512, 512, 32, 8, 128, True, 0, torch.bfloat16),
+    "mqa": (2, 100, 164, 8, 1, 32, True, 64, torch.float32),
+    "full": (2, 192, 192, 4, 2, 16, False, 0, torch.float32),
+}
+#: K5's tolerances (``tests/test_kernels_bwd.py``'s 1e-4 in float32; the
+#: reference's bfloat16 tolerance), relative to the values' scale
+#: (:func:`attn_close`).
+K5_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+def check_k5(dev) -> list:
+    """K5 against its plain version in the four cases (and, in the MQA
+    case, against autograd of ``attention_ref``); the path's case timed
+    beside the plain version and SDPA's backward on the same inputs, and
+    K4 timed at the same shape.  Returns the records of K4 and K5 at path
+    T's layer."""
+    from repro_torch.kernels.flash_attention import ops, ref
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    errs = {}
+    for case, (b, sq, skv, hq, hkv, d, causal, qoff, dtype) in \
+            K5_CASES.items():
+        seed = 20 + 4 * len(errs)
+        q = randn((b, sq, hq, d), dtype, dev, seed)
+        k = randn((b, skv, hkv, d), dtype, dev, seed + 1)
+        v = randn((b, skv, hkv, d), dtype, dev, seed + 2)
+        do = randn((b, sq, hq, d), dtype, dev, seed + 3)
+        with torch.no_grad():
+            out, lse = ops.flash_attention(q, k, v, causal=causal,
+                                           q_offset=qoff)
+        got = ops.flash_attention_bwd(q, k, v, out, lse, do, causal=causal,
+                                      q_offset=qoff)
+        want = ref.flash_attention_bwd_ref(
+            q, k, v, out, lse, do, causal=causal, q_offset=qoff,
+            block_q=ops.BLOCK_Q, block_k=ops.BLOCK_K)
+        tol = K5_TOL[dtype]
+        errs[case] = {name: attn_close(a, w, tol, f"K5 {case} {name}")
+                      for name, a, w in zip(("dq", "dk", "dv"), got, want)}
+        if case == "mqa":
+            qq, kk, vv = (t.detach().requires_grad_() for t in (q, k, v))
+            o = ref.attention_ref(qq, kk, vv, causal=causal, q_offset=qoff)
+            oracle = torch.autograd.grad(o, (qq, kk, vv), do)
+            for name, a, w in zip(("dq", "dk", "dv"), got, oracle):
+                errs[case][f"oracle_{name}"] = attn_close(
+                    a, w, tol, f"K5 {case} {name} against autograd of "
+                    f"attention_ref")
+        if case == "path":
+            timed = (q, k, v, out, lse, do)
+
+    b, s, hq, hkv, d, _, _, dtype = (K5_CASES["path"][i]
+                                     for i in (0, 1, 3, 4, 5, 6, 7, 8))
+    q, k, v, out, lse, do = timed
+    k4_err = attn_err(out, ref.flash_attention_ref(
+        q, k, v, block_k=ops.BLOCK_K)[0], dtype, "K4 at path T's layer")
+    ms = time_ms(lambda: ops.flash_attention_bwd(q, k, v, out, lse, do))
+    pms = time_ms(lambda: ref.flash_attention_bwd_ref(
+        q, k, v, out, lse, do, block_q=ops.BLOCK_Q, block_k=ops.BLOCK_K))
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+    dot = do.transpose(1, 2)
+    fwd_ms = time_ms(lambda: sdpa(qt, kt, vt, is_causal=True))
+    both_ms = time_ms(lambda: torch.autograd.grad(
+        sdpa(qt, kt, vt, is_causal=True), (qt, kt, vt), dot))
+    pairs = s * (s + 1) // 2
+    el = 2 if dtype == torch.bfloat16 else 4
+    bound, by = bound_ms(el * (4 * b * s * hq * d + 4 * b * s * hkv * d)
+                         + 4 * b * hq * s, 10 * b * hq * d * pairs,
+                         PEAK_BF16_FLOPS)
+    log(f"T: K5 errs {json.dumps(errs)} {ms:.3f} ms (plain {pms:.3f} ms, "
+        f"SDPA backward {both_ms - fwd_ms:.3f} ms = {both_ms:.3f} - "
+        f"{fwd_ms:.3f}, bound {bound:.4f} ms, {by})")
+    k4_ms = time_ms(lambda: ops.flash_attention(q, k, v))
+    k4_pms = time_ms(lambda: ref.flash_attention_ref(q, k, v,
+                                                     block_k=ops.BLOCK_K))
+    k4_bound, k4_by = bound_ms(el * (2 * b * s * hq * d + 2 * b * s * hkv * d)
+                               + 4 * b * hq * s, 4 * b * hq * d * pairs,
+                               PEAK_BF16_FLOPS)
+    log(f"T: K4 at the same shape err {k4_err:.3e} {k4_ms:.3f} ms (plain "
+        f"{k4_pms:.3f} ms, SDPA {fwd_ms:.3f} ms, bound {k4_bound:.4f} ms)")
+    src = "src/repro_torch/kernels/flash_attention/csrc/"
+    k4 = dict(name=f"flash_attention {b}x{s}x{hq}x{d}", route="cuda",
+              source=src + "flash_fwd.cu",
+              replaces="src/repro/kernels/flash_attention/kernel.py:83",
+              max_abs_err=k4_err, rtol=ATTN_TOL[dtype],
+              atol_per_rms=ATTN_TOL[dtype], ms=k4_ms, plain_ms=k4_pms,
+              bound_ms=k4_bound, bound_by=k4_by, library_ms=fwd_ms)
+    k5 = dict(name=f"flash_attention_bwd {b}x{s}x{hq}x{d}", route="cuda",
+              source=src + "flash_bwd.cu",
+              replaces="src/repro/kernels/flash_attention/kernel_bwd.py:125",
+              max_abs_err=max(errs["path"].values()), case_errs=errs,
+              rtol=K5_TOL[dtype], atol_per_rms=K5_TOL[dtype], ms=ms,
+              plain_ms=pms, bound_ms=bound, bound_by=by,
+              library_ms=both_ms - fwd_ms,
+              library_fwd_bwd_ms=both_ms, library_fwd_ms=fwd_ms)
+    return [k4, k5]
 
 
 @contextlib.contextmanager
 def plain_attention():
-    """The model's attention through K4's and K6's plain versions, on
-    whatever device the tensors are (the comparison runs only)."""
+    """The model's attention through the plain versions of K4, K5 and K6,
+    on whatever device the tensors are (the comparison runs only).  The
+    one ``ops.FlashAttention`` Function serves both runs: its forward and
+    backward callees are swapped for the plain versions."""
     from repro_torch.kernels.decode_attention import ops as da_ops
     from repro_torch.kernels.decode_attention import ref as da_ref
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention import ref as fa_ref
     from repro_torch.models import layers
 
-    def flash(q, k, v, *, causal=True, q_offset=0):
+    def forward(q, k, v, causal, q_offset):
         return fa_ref.flash_attention_ref(q, k, v, causal=causal,
                                           q_offset=q_offset,
                                           block_k=fa_ops.BLOCK_K)
+
+    def backward(q, k, v, out, lse, dout, *, causal, q_offset):
+        return fa_ref.flash_attention_bwd_ref(
+            q, k, v, out, lse, dout, causal=causal, q_offset=q_offset,
+            block_q=fa_ops.BLOCK_Q, block_k=fa_ops.BLOCK_K)
 
     def decode(q, k, v, kv_len):
         return da_ref.decode_attention_split_ref(q, k, v, kv_len,
                                                  da_ops.BLOCK_K)
 
-    with mock.patch.object(layers, "flash_attention", flash), \
+    with mock.patch.object(fa_ops, "_forward", forward), \
+            mock.patch.object(fa_ops, "flash_attention_bwd", backward), \
             mock.patch.object(layers, "decode_attention", decode):
         yield
+
+
+@contextlib.contextmanager
+def count_plain_calls():
+    """Counts the outermost calls of K1-K3's plain versions in a CPU run,
+    yielding the counts: each is one launch on the card.  A plain version
+    called inside another (K2's loop runs K1's plain waterfill each round)
+    is part of the outer kernel's launch and not counted."""
+    from repro_torch.kernels.powercap import ref
+    counts, depth = dict.fromkeys(KERNELS, 0), [0]
+
+    def counting(name, fn):
+        def call(*args, **kwargs):
+            if depth[0] == 0:
+                counts[name] += 1
+            depth[0] += 1
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                depth[0] -= 1
+        return call
+
+    with contextlib.ExitStack() as stack:
+        for name in KERNELS:
+            stack.enter_context(mock.patch.object(
+                ref, f"{name}_ref", counting(name, getattr(ref,
+                                                           f"{name}_ref"))))
+        yield counts
 
 
 def rel_l2(got, want) -> float:
@@ -529,6 +713,7 @@ def run_serving_path(dev) -> tuple[dict, dict]:
     steps, max_len, prompt_len = 32, 1024, 512
     n_rep = len(report.routing)
     want = {"flash_attention": cfg.n_layers * n_rep,
+            "flash_attention_bwd": 0,
             "decode_attention": cfg.n_layers * (steps - 1) * n_rep,
             "waterfill_dense": 1, "balance_caps": 1,
             "waterfill_segmented": 2}
@@ -633,6 +818,202 @@ def run_f32_depth_check(dev) -> dict:
                              f"plain versions (bound 1e-4)")
     log(f"S f32, 4 layers: tokens identical, logits {err:.3e} relative L2")
     return dict(rel_l2=err, tokens_identical=True)
+
+
+def rel_l2_sliced(got, want) -> float:
+    """``rel_l2`` a slice of 2**24 elements at a time, for leaves whose
+    float64 copies would not fit beside the training state."""
+    num = den = 0.0
+    for a, b in zip(got.reshape(-1).split(1 << 24),
+                    want.reshape(-1).split(1 << 24)):
+        a, b = a.float(), b.float()
+        num += float((a - b).square().sum(dtype=torch.float64))
+        den += float(b.square().sum(dtype=torch.float64))
+    return (num / den) ** 0.5 if den > 0 else float(num > 0) * float("inf")
+
+
+def _grads_against_plain(grads_fn, params, batch, loss_rtol, grad_rtol,
+                         tag) -> tuple[float, float]:
+    """The loss and every gradient of one batch through the kernels and
+    through the plain versions on the card; returns (loss relative error,
+    worst leaf's relative L2), raising past the bounds."""
+    from repro_torch.tree import leaves_with_path
+
+    grads, metrics = grads_fn(params, batch)
+    with plain_attention():
+        pgrads, pmetrics = grads_fn(params, batch)
+    loss_err = abs(float(metrics["loss"]) - float(pmetrics["loss"])) / abs(
+        float(pmetrics["loss"]))
+    if not loss_err <= loss_rtol:
+        raise AssertionError(f"{tag}: loss {float(metrics['loss'])} vs "
+                             f"{float(pmetrics['loss'])} with the plain "
+                             f"versions (bound {loss_rtol})")
+    worst, worst_path = 0.0, None
+    for (path, g), (_, pg) in zip(leaves_with_path(grads),
+                                  leaves_with_path(pgrads)):
+        err = rel_l2_sliced(g, pg)
+        if not torch.isfinite(g).all() or not err <= grad_rtol:
+            raise AssertionError(f"{tag}: gradient {'/'.join(path)} {err:.3e}"
+                                 f" relative L2 from the plain versions "
+                                 f"(bound {grad_rtol})")
+        if err >= worst:
+            worst, worst_path = err, "/".join(path)
+    log(f"{tag}: loss {loss_err:.3e} relative from the plain versions, "
+        f"worst gradient {worst_path} {worst:.3e} relative L2")
+    return loss_err, worst
+
+
+def run_training_path(dev) -> tuple[dict, dict]:
+    """Path T through ``launch.train.main`` on the card, with the launch
+    counts of exactly that run; its power plane held against the CPU, one
+    step's loss and gradients against the plain versions; then warm
+    timings."""
+    from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.launch import train
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.runtime.train_loop import make_grads_fn, make_train_step
+
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        reset_launches()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        report = train.main(TRAIN_ARGV + ["--checkpoint-dir", ckpt_dir])
+        wall = time.perf_counter() - t0
+        launches = dict(read_launches(), **{
+            n: fn.launches for n, fn in _attention_wrappers().items()})
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        reserved_gb = torch.cuda.max_memory_reserved() / 1e9
+        ckpt_bytes = os.path.getsize(report.checkpoint_path)
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    cfg, state = report.cfg, report.state
+    steps = len(report.losses)
+    # The power plane's K1-K3 launches are those of the same events on the
+    # CPU (the plan does not depend on the model).
+    cpu_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        with count_plain_calls() as power_launches:
+            cpu = train.main(TRAIN_CPU_ARGV + ["--checkpoint-dir", cpu_dir])
+    finally:
+        shutil.rmtree(cpu_dir, ignore_errors=True)
+    want = dict(power_launches, flash_attention=2 * cfg.n_layers * steps,
+                flash_attention_bwd=cfg.n_layers * steps,
+                decode_attention=0)
+    if steps != 6 or launches != want:
+        raise AssertionError(f"T: {steps} steps, kernel launches {launches}, "
+                             f"expected {want}")
+    if (report.plans, report.caps) != (cpu.plans, cpu.caps):
+        raise AssertionError(f"T: power plane on the card {report.plans} "
+                             f"{report.caps}, on the CPU {cpu.plans} "
+                             f"{cpu.caps}")
+    if not (np.isfinite(report.losses).all()
+            and np.isfinite(report.grad_norms).all()):
+        raise AssertionError(f"T: losses {report.losses}, grad norms "
+                             f"{report.grad_norms}")
+
+    data = SyntheticTokens(vocab_size=cfg.vocab_size, seq_len=4096,
+                           global_batch=4, seed=1, device=dev)
+    b = data.next_batch()
+    batch = {"tokens": b.tokens, "labels": b.labels, "weights": b.weights}
+    grads_fn = make_grads_fn(cfg)
+    loss_err, grad_err = _grads_against_plain(
+        grads_fn, state.params, batch, 1e-2, 5e-2, "T bf16, full depth")
+
+    # Warm timings: a whole step (forward, backward, AdamW; it updates the
+    # state's tensors in place), AdamW alone, and one layer's forward and
+    # backward.
+    opt = AdamW(learning_rate=3e-4, state_dtype=cfg.optimizer_state_dtype)
+    step = make_train_step(cfg, opt)
+    step_ms = [_event_ms(lambda: step(state, batch)) for _ in range(2)]
+    grads, _ = grads_fn(state.params, batch)
+    adamw_ms = statistics.median(
+        _event_ms(lambda: opt.update(grads, state.opt_state, state.params))
+        for _ in range(3))
+    del grads
+    blk = {name: w[0].detach().requires_grad_()
+           for name, w in state.params["blocks"].items()}
+    h = randn((4, 4096, cfg.d_model), torch.bfloat16, dev, 5
+              ).requires_grad_()
+    dh = randn((4, 4096, cfg.d_model), torch.bfloat16, dev, 6)
+    positions = torch.arange(4096, device=dev)[None, :]
+    leaves_in = [h] + list(blk.values())
+
+    def layer():
+        out, _ = tfm._attn_block(blk, h, cfg, positions, None)
+        torch.autograd.grad(out, leaves_in, dh)
+    layer_ms = time_ms(layer)
+    # Trained tokens carry weight 1 in the plan; the pods' masked examples
+    # are processed on the shared card but train nothing.
+    processed = 4 * 4096 * steps
+    trained = float(sum(report.tokens))
+    info = dict(wall_s=wall, steps_s=report.seconds,
+                trained_tokens=trained,
+                tokens_per_s=trained / report.seconds,
+                tokens_processed=processed,
+                processed_tokens_per_s=processed / report.seconds,
+                warm_step_ms=statistics.median(step_ms),
+                layer_fwd_bwd_ms=layer_ms, adamw_ms=adamw_ms,
+                peak_memory_gb=peak_gb, peak_reserved_gb=reserved_gb,
+                checkpoint_s=report.checkpoint_s,
+                checkpoint_bytes=ckpt_bytes, losses=report.losses,
+                grad_norms=report.grad_norms, plans=report.plans,
+                caps=report.caps, loss_rel_err_plain=loss_err,
+                worst_grad_rel_l2_plain=grad_err, params=cfg.param_count(),
+                launches_power_plane=power_launches)
+    log(f"path T: {steps} steps of 4 x 4096 tokens in {report.seconds:.3f} s "
+        f"({info['tokens_per_s']:.1f} trained tokens/s, "
+        f"{info['processed_tokens_per_s']:.1f} processed; whole driver "
+        f"{wall:.3f} s, "
+        f"checkpoint {report.checkpoint_s:.2f} s for {ckpt_bytes} bytes); "
+        f"warm step {info['warm_step_ms']:.1f} ms, one layer forward and "
+        f"backward {layer_ms:.2f} ms, AdamW {adamw_ms:.2f} ms; peak "
+        f"{peak_gb:.3f} GB ({reserved_gb:.3f} GB reserved); losses "
+        f"{report.losses}; grad norms {report.grad_norms}; plans "
+        f"{report.plans}; caps {report.caps}; launches {launches}")
+    return launches, info
+
+
+def _event_ms(fn) -> float:
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
+def run_train_f32_check(dev) -> dict:
+    """MiniCPM-2B at full width, 4 layers, float32: two steps through the
+    kernels and through the plain versions from one initial state, loss
+    and every gradient within 1e-4 relative each step."""
+    from repro_torch import configs
+    from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.optim.adamw import AdamW, global_norm
+    from repro_torch.runtime.train_loop import init_train_state, make_grads_fn
+
+    cfg = dataclasses.replace(configs.get("minicpm_2b"), n_layers=4,
+                              param_dtype="float32")
+    opt = AdamW(learning_rate=1e-3)
+    state = init_train_state(cfg, opt,
+                             torch.Generator(device=dev).manual_seed(0), dev)
+    data = SyntheticTokens(vocab_size=cfg.vocab_size, seq_len=1024,
+                           global_batch=2, seed=2, device=dev)
+    grads_fn = make_grads_fn(cfg)
+    errs = []
+    for i in range(2):
+        b = data.next_batch()
+        batch = {"tokens": b.tokens, "labels": b.labels, "weights": b.weights}
+        errs.append(_grads_against_plain(grads_fn, state.params, batch, 1e-4,
+                                         1e-4, f"T f32, 4 layers, step {i}"))
+        grads, _ = grads_fn(state.params, batch)
+        opt.update(grads, state.opt_state, state.params,
+                   grad_norm=global_norm(grads))
+    return dict(loss_rel_err=[e[0] for e in errs],
+                worst_grad_rel_l2=[e[1] for e in errs])
 
 
 def run_path(tag, specs, policies):
@@ -765,15 +1146,23 @@ def main() -> int:
     launches_s, info_s = run_serving_path(dev)
     torch.cuda.empty_cache()
     info_s["float32_4_layers"] = run_f32_depth_check(dev)
+    torch.cuda.empty_cache()
+
+    records["T"] = check_k5(dev)
+    torch.cuda.empty_cache()
+    launches_t, info_t = run_training_path(dev)
+    torch.cuda.empty_cache()
+    info_t["float32_4_layers"] = run_train_f32_check(dev)
 
     kernels_out = []
     for tag, launches in (("A", launches_a), ("B", launches_b),
-                          ("V", launches_v), ("S", launches_s)):
+                          ("V", launches_v), ("S", launches_s),
+                          ("T", launches_t)):
         for rec in records[tag]:
             name = rec["name"].split()[0]
             kernels_out.append(dict(rec, launches=launches[name], path=tag))
     log(json.dumps({"paths": {"A": info_a, "B": info_b, "V": info_v,
-                              "S": info_s}}))
+                              "S": info_s, "T": info_t}}))
     log(json.dumps({"kernels": kernels_out}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

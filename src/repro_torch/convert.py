@@ -11,8 +11,9 @@ For the power path the "weights" are the scenario state.  Two forms:
   port's objects.
 
 For the serving path, :func:`from_reference_params` copies the model's
-parameter tree.  All three read attributes or arrays only and import
-nothing of the reference, so both packages can run identical inputs.
+parameter tree, and for training :func:`from_reference_train_state` the
+whole train state.  They read attributes or arrays only and import nothing
+of the reference, so both packages can run identical inputs.
 """
 
 from __future__ import annotations
@@ -89,16 +90,16 @@ def from_reference_snapshot(snapshot, traces: dict
     return snap, out
 
 
-def _param_tensor(a, dtype: torch.dtype, dev) -> torch.Tensor:
+def _param_tensor(a, dtype, dev) -> torch.Tensor:
     """One reference parameter (a NumPy array; bfloat16 as ``ml_dtypes``'
-    type) as a tensor of ``dtype``, bit for bit (a copy: arrays that JAX
-    hands out are read-only)."""
+    type) as a tensor of ``dtype`` (``None``: its own), bit for bit (a
+    copy: arrays that JAX hands out are read-only)."""
     a = np.array(a)
     if a.dtype.name == "bfloat16":
         t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
     else:
         t = torch.from_numpy(a)
-    if t.dtype != dtype:
+    if dtype is not None and t.dtype != dtype:
         raise TypeError(f"parameter of {t.dtype}, the config says {dtype}")
     return t.to(dev)
 
@@ -131,3 +132,37 @@ def from_reference_params(params, cfg, device=None) -> dict:
         return out
 
     return walk(param_specs(cfg), params, ())
+
+
+def from_reference_train_state(state, cfg, device=None):
+    """The reference's ``TrainState`` (params, AdamW's ``m``, ``v`` and
+    ``count``, ``step`` and the compression residual when there is one),
+    its leaves as NumPy arrays (``jax.tree_util.tree_map(np.asarray,
+    state)``), as the port's on ``device`` (``None``: the GPU).  The
+    parameters require grad; the moments keep their dtype (bfloat16 bit
+    for bit through an int16 view); ``count`` stays an int32 tensor and
+    ``step`` becomes a host ``int``."""
+    from repro_torch.optim.adamw import OptState
+    from repro_torch.runtime.train_loop import TrainState
+    from repro_torch.tree import leaves, map_tree
+
+    dev = resolve_device(device)
+    params = from_reference_params(state.params, cfg, dev)
+    for p in leaves(params):
+        p.requires_grad_(True)
+    opt = state.opt_state
+
+    def like(tree):
+        """A tree of ``params``' structure, each leaf in its own dtype."""
+        return map_tree(lambda p, a: _param_tensor(a, None, dev), params,
+                        tree)
+
+    residual = state.compress_residual
+    return TrainState(
+        params=params,
+        opt_state=OptState(m=like(opt.m), v=like(opt.v),
+                           count=torch.as_tensor(np.array(opt.count),
+                                                 dtype=torch.int32,
+                                                 device=dev)),
+        step=int(np.asarray(state.step)),
+        compress_residual=None if residual is None else like(residual))

@@ -1,9 +1,9 @@
 """Build and bind kernel K4 (``csrc/flash_fwd.cu``).
 
-The source is compiled for ``sm_90a`` into
-``build/repro_torch_kernels/libflash_attention.so`` at first use by the
-shared helper (:mod:`repro_torch.kernels._build`) and loaded with
-``ctypes``.  Multiply-adds may contract: the kernel is held to float32 and
+The package's sources (K4 and K5's ``csrc/flash_bwd.cu``) are compiled for
+``sm_90a`` into ``build/repro_torch_kernels/libflash_attention.so`` at
+first use by the shared helper (:mod:`repro_torch.kernels._build`) and
+loaded with ``ctypes``.  Multiply-adds may contract: the kernel is held to float32 and
 bfloat16 tolerances, not to the plain version's bits.
 """
 
@@ -26,6 +26,9 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.flash_attention_fwd.argtypes = ([p] * 5 + [ll] * 6 + [i] * 8
                                         + [ctypes.c_float, i, p])
     lib.flash_attention_fwd.restype = i
+    for fn in (lib.flash_attention_bwd_dkdv, lib.flash_attention_bwd_dq):
+        fn.argtypes = [p] * 9 + [ll] * 8 + [i] * 8 + [ctypes.c_float, i, p]
+        fn.restype = i
 
 
 LIBRARY = KernelLibrary("flash_attention",

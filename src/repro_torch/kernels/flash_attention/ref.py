@@ -1,4 +1,5 @@
-"""Plain PyTorch versions of kernel K4, the flash-attention forward.
+"""Plain PyTorch versions of kernels K4 and K5, the flash-attention
+forward and backward.
 
 :func:`flash_attention_ref` is the math of the reference's Pallas body
 (``repro/kernels/flash_attention/kernel.py:_flash_kernel``): an online
@@ -7,8 +8,9 @@ in float32, ``NEG_INF = -1e30`` for masked scores, ``l`` clamped at
 ``1e-30``, and the log-sum-exp beside the output.  Blocks that start past
 the last query's causal limit are skipped, as the Pallas grid skips them;
 a row that sees a block only through masked keys gains exact zeros from
-it.  :func:`attention_ref` is the naive softmax oracle
-(``flash_attention/ref.py`` of the reference).
+it.  :func:`flash_attention_bwd_ref` is the math of the reference's
+backward (``kernel_bwd.py``).  :func:`attention_ref` is the naive softmax
+oracle (``flash_attention/ref.py`` of the reference).
 """
 
 from __future__ import annotations
@@ -72,6 +74,61 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, q_offset: int = 0,
     out = (acc / l[..., None]).permute(0, 3, 1, 2, 4).reshape(b, sq, hq, d)
     lse = (m + torch.log(l)).reshape(b, hq, sq)
     return out.to(q.dtype), lse
+
+
+def flash_attention_bwd_ref(q, k, v, o, lse, do, *, causal: bool = True,
+                            q_offset: int = 0, block_q: int = 64,
+                            block_k: int = 64):
+    """The backward of :func:`flash_attention_ref` from its log-sum-exp.
+
+    ``D = rowsum(dO * O)`` in float32; for each block of ``block_k`` keys,
+    ``p = exp(s - lse)`` recomputed from q and k (0 where masked, as
+    ``kernel_bwd.py:_mask`` masks), ``dv = p^T dO``, ``dp = dO v^T``,
+    ``ds = p (dp - D) scale``, ``dk = ds^T q`` and ``dq += ds k``, all in
+    float32, dk and dv summed over each KV head's group of query heads.  Query
+    blocks of ``block_q`` rows that end before a key block starts (causal)
+    are skipped.  Returns ``(dq, dk, dv)`` in the inputs' types.
+    """
+    _check(q, k, v)
+    b, sq, hq, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    scale = 1.0 / math.sqrt(d)
+    dev = q.device
+
+    def grouped(t):                      # (B, Sq, Hq, D) -> (B, Hkv, G, Sq, D)
+        return t.float().reshape(b, sq, hkv, g, d).permute(0, 2, 3, 1, 4)
+
+    qf, dof = grouped(q), grouped(do)
+    dsum = (do.float() * o.float()).sum(-1)             # (B, Sq, Hq)
+    dsum = dsum.reshape(b, sq, hkv, g).permute(0, 2, 3, 1)
+    lsef = lse.float().reshape(b, hkv, g, sq)
+    kf = k.float().permute(0, 2, 1, 3)                  # (B, Hkv, Skv, D)
+    vf = v.float().permute(0, 2, 1, 3)
+    dq = torch.zeros_like(qf)
+    dk = torch.zeros_like(kf)
+    dv = torch.zeros_like(vf)
+    q_pos = q_offset + torch.arange(sq, device=dev)
+    for k0 in range(0, skv, block_k):
+        # The first query block that can see this key block.
+        r0 = max(0, (k0 - q_offset) // block_q) * block_q if causal else 0
+        if r0 >= sq:
+            continue
+        kb, vb = kf[:, :, k0:k0 + block_k], vf[:, :, k0:k0 + block_k]
+        qb, dob = qf[..., r0:, :], dof[..., r0:, :]
+        s = torch.einsum("bhgqd,bhkd->bhgqk", qb, kb) * scale
+        p = torch.exp(s - lsef[..., r0:, None])
+        if causal:
+            k_pos = k0 + torch.arange(kb.shape[2], device=dev)
+            p = torch.where(k_pos[None, :] <= q_pos[r0:, None], p, 0.0)
+        dv[:, :, k0:k0 + block_k] = torch.einsum("bhgqk,bhgqd->bhkd", p, dob)
+        dp = torch.einsum("bhgqd,bhkd->bhgqk", dob, vb)
+        ds = p * (dp - dsum[..., r0:, None]) * scale
+        dk[:, :, k0:k0 + block_k] = torch.einsum("bhgqk,bhgqd->bhkd", ds, qb)
+        dq[..., r0:, :] += torch.einsum("bhgqk,bhkd->bhgqd", ds, kb)
+    dq = dq.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, d)
+    return (dq.to(q.dtype), dk.permute(0, 2, 1, 3).to(k.dtype),
+            dv.permute(0, 2, 1, 3).to(v.dtype))
 
 
 def attention_ref(q, k, v, *, causal: bool = True, q_offset: int = 0):

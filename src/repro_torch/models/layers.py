@@ -1,5 +1,5 @@
 """Core model primitives: RMSNorm, RoPE, GQA attention with a KV cache,
-MLP (the forward functions of ``repro.models.layers``).
+MLP and the streamed cross-entropy (``repro.models.layers``).
 
 Self-attention runs on the port's kernels: a prefill (any query length,
 cursor ``q_offset``) on K4, :func:`repro_torch.kernels.flash_attention.
@@ -7,11 +7,15 @@ flash_attention`, and a one-token decode step on K6,
 :func:`repro_torch.kernels.decode_attention.decode_attention`.  The
 reference reaches the same functions through ``flash_attention_xla``, the
 pure-JAX twin of those Pallas kernels; :func:`flash_attention_xla` here is
-its plain PyTorch copy, for the tests.
+its plain PyTorch copy, for the tests.  Training differentiates through
+the same call: its backward is K5
+(:class:`repro_torch.kernels.flash_attention.ops.FlashAttention`).
+:func:`rms_norm` and :func:`streamed_xent` carry the reference's backward
+as ``torch.autograd.Function``s.
 
 The reference's ``shard(...)`` constraints are no-ops without a mesh, and
-one card has none, so the port drops them.  Cross-attention and the
-streamed cross-entropy are later slices (ROADMAP queue 1).
+one card has none, so the port drops them.  Cross-attention is a later
+slice (ROADMAP queue 1).
 """
 
 from __future__ import annotations
@@ -27,12 +31,32 @@ NEG_INF = -1e30
 
 
 # ----------------------------------------------------------------- normals
+class _RMSNorm(torch.autograd.Function):
+    """The reference's custom VJP (``layers.py:24-58``): dx computed in
+    float32 and handed back in x's dtype, dscale summed in float32."""
+
+    @staticmethod
+    def forward(ctx, x, scale, eps):
+        xf = x.float()
+        r = torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+        ctx.save_for_backward(x, scale, r)
+        return ((xf * r) * scale).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, scale, r = ctx.saved_tensors
+        xf = x.float()
+        dyf = dy.float() * scale.float()
+        dot = torch.sum(dyf * xf, dim=-1, keepdim=True)
+        dx = r * (dyf - xf * (r * r) * dot / x.shape[-1])
+        dscale = torch.sum(dy.float() * xf * r, dim=tuple(range(x.dim() - 1)))
+        return dx.to(x.dtype), dscale.to(scale.dtype), None
+
+
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
              eps: float = 1e-5) -> torch.Tensor:
     """RMSNorm with float32 internals, cast back to ``x.dtype``."""
-    xf = x.float()
-    r = torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
-    return ((xf * r) * scale).to(x.dtype)
+    return _RMSNorm.apply(x, scale, eps)
 
 
 # -------------------------------------------------------------------- RoPE
@@ -215,8 +239,74 @@ def mlp(params: dict, x: torch.Tensor, cfg) -> torch.Tensor:
 
 
 # -------------------------------------------------- streamed cross-entropy
-def streamed_xent(h, w_out, labels, weights, chunk: int = 2048):
-    raise NotImplementedError(
-        "the streamed cross-entropy comes with training on K4 and K5 "
-        "(ROADMAP queue 1, item 10)")
+def _chunk_logits(hh, w_out):
+    """One chunk's logits in float32 from the product in the inputs' type
+    (bf16 in, bf16 out, as the reference's ``hh @ w_out``)."""
+    return (hh @ w_out).float()
 
+
+class _StreamedXent(torch.autograd.Function):
+    """Sum of weighted token losses over sequence chunks, never holding more
+    than one chunk's logits: the backward recomputes each chunk's logits."""
+
+    @staticmethod
+    def forward(ctx, h, w_out, labels, weights, chunk):
+        loss_sum = torch.zeros((), dtype=torch.float32, device=h.device)
+        for c0 in range(0, h.shape[1], chunk):
+            logits = _chunk_logits(h[:, c0:c0 + chunk], w_out)
+            ll = labels[:, c0:c0 + chunk]
+            gold = logits.gather(-1, ll[..., None].long())[..., 0]
+            lse = torch.logsumexp(logits, dim=-1)
+            del logits
+            loss_sum = loss_sum + ((lse - gold)
+                                   * weights[:, c0:c0 + chunk]).sum()
+        ctx.save_for_backward(h, w_out, labels, weights)
+        ctx.chunk = chunk
+        return loss_sum
+
+    @staticmethod
+    def backward(ctx, dloss):
+        h, w_out, labels, weights = ctx.saved_tensors
+        need_h, need_w = ctx.needs_input_grad[:2]
+        dh = torch.empty_like(h) if need_h else None
+        dw = (torch.zeros(w_out.shape, dtype=torch.float32,
+                          device=w_out.device) if need_w else None)
+        for c0 in range(0, h.shape[1], ctx.chunk):
+            hh = h[:, c0:c0 + ctx.chunk]
+            # d loss / d logits = (softmax - onehot(gold)) * weight, built
+            # in place in the float32 logits.
+            g = _chunk_logits(hh, w_out)
+            lse = torch.logsumexp(g, dim=-1, keepdim=True)
+            g.sub_(lse).exp_()
+            ll = labels[:, c0:c0 + ctx.chunk, None].long()
+            g.scatter_add_(-1, ll, torch.full(ll.shape, -1.0,
+                                              device=g.device))
+            g.mul_((weights[:, c0:c0 + ctx.chunk, None] * dloss))
+            g = g.to(h.dtype)
+            if need_h:
+                dh[:, c0:c0 + ctx.chunk] = g @ w_out.T
+            if need_w:
+                dw += (hh.reshape(-1, hh.shape[-1]).T
+                       @ g.reshape(-1, g.shape[-1])).float()
+            del g
+        return (dh, None if dw is None else dw.to(w_out.dtype), None, None,
+                None)
+
+
+def streamed_xent(h: torch.Tensor, w_out: torch.Tensor,
+                  labels: torch.Tensor, weights: torch.Tensor,
+                  chunk: int = 2048) -> tuple[torch.Tensor, torch.Tensor]:
+    """Cross-entropy without materializing (B, S, V) logits.
+
+    h: (B, S, D), w_out: (D, V), labels and weights: (B, S).  Each chunk of
+    ``chunk`` positions computes (B, chunk, V) logits (the product in h's
+    type, then float32), reduces them to the weighted loss of its tokens
+    (log-sum-exp minus the gold logit) and frees them; the backward
+    recomputes them a chunk at a time.  Returns ``(sum of losses, sum of
+    weights)``, both float32.  The reference pads the sequence to a
+    multiple of ``chunk``; the padded tokens weigh 0, so the port runs the
+    last chunk short instead.
+    """
+    chunk = min(chunk, h.shape[1])
+    loss_sum = _StreamedXent.apply(h, w_out, labels, weights, chunk)
+    return loss_sum, weights.float().sum()

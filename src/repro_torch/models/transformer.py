@@ -4,19 +4,24 @@
 Parameters are a nested dict of tensors in the reference's layout: the
 repeated layers stacked on a leading ``(n_layers, ...)`` axis under
 ``"blocks"``, so carrying the reference's weights across is a copy
-(:func:`repro_torch.convert.from_reference_params`).  The forward loops
-over the layers in Python.  The other families (``moe``, ``vlm``, ``ssm``,
-``hybrid``, ``encdec``) are later slices and raise.
+(:func:`repro_torch.convert.from_reference_params`).  The forward unbinds
+each stacked weight once and loops over the layers in Python; under
+autograd each layer body is checkpointed as ``cfg.remat`` says (the
+reference's ``jax.checkpoint``), so the backward recomputes it.  The other
+families (``moe``, ``vlm``, ``ssm``, ``hybrid``, ``encdec``) are later
+slices and raise.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils import checkpoint
 
 from repro_torch.backend import resolve_device
 from repro_torch.models import layers
@@ -118,6 +123,25 @@ class ForwardResult:
     cache: Optional[dict] = None       # updated decode state
 
 
+def _remat(fn, cfg: ModelConfig):
+    """``fn`` checkpointed as ``cfg.remat`` says: ``"full"`` keeps only its
+    inputs and recomputes the rest in the backward; ``"dots"`` also keeps
+    the outputs of its matrix products (the reference's
+    ``checkpoint_dots_with_no_batch_dims``: the 2-D ``mm`` the products
+    lower to); ``"none"`` runs it as is."""
+    if cfg.remat == "none":
+        return fn
+    if cfg.remat == "dots":
+        context = functools.partial(
+            checkpoint.create_selective_checkpoint_contexts,
+            [torch.ops.aten.mm.default])
+        return functools.partial(checkpoint.checkpoint, fn,
+                                 use_reentrant=False, context_fn=context)
+    if cfg.remat != "full":
+        raise ValueError(f"unknown remat policy {cfg.remat!r}")
+    return functools.partial(checkpoint.checkpoint, fn, use_reentrant=False)
+
+
 def _attn_block(blk, h, cfg, positions, cache, kv_len=None):
     hn1 = layers.rms_norm(h, blk["ln1"], cfg.norm_eps)
     a, cache = layers.attention(blk, hn1, cfg, positions=positions,
@@ -159,12 +183,19 @@ def decoder_forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
         # One kv_len tensor for every layer of a decode step.
         kv_len = torch.full((b,), cache["cursor"] + 1, dtype=torch.int32,
                             device=h.device)
+    # One unbind a weight: its backward is one stack, where indexing each
+    # layer would add a zero-filled (n_layers, ...) gradient a layer.
+    layer_weights = {name: w.unbind(0)
+                     for name, w in params["blocks"].items()}
+    training = torch.is_grad_enabled() and any(
+        t.requires_grad for grp in params.values() for t in grp.values())
+    body = _remat(_attn_block, cfg) if training else _attn_block
     for i in range(cfg.n_layers):
-        blk = {name: w[i] for name, w in params["blocks"].items()}
+        blk = {name: ws[i] for name, ws in layer_weights.items()}
         layer_cache = None if cache is None else {
             "k": cache["k"][i], "v": cache["v"][i],
             "cursor": cache["cursor"]}
-        h, _ = _attn_block(blk, h, cfg, positions, layer_cache, kv_len)
+        h, _ = body(blk, h, cfg, positions, layer_cache, kv_len)
     h = layers.rms_norm(h, params["final_norm"]["scale"], cfg.norm_eps)
     new_cache = None if cache is None else dict(cache,
                                                 cursor=cache["cursor"] + s)

@@ -282,9 +282,13 @@ def test_unported_layers_raise_naming_their_roadmap_item():
          layers.attention_param_specs(cfg).items()}
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         layers.attention(w, x, cfg, cross_kv=(x, x))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        layers.streamed_xent(x, torch.zeros(cfg.d_model, 4),
-                             torch.zeros(1, 2), torch.ones(1, 2))
+    # The streamed cross-entropy is ported now (training, ROADMAP item
+    # 10): on zero logits every token's loss is log(V).
+    loss, w_sum = layers.streamed_xent(x, torch.zeros(cfg.d_model, 4),
+                                       torch.zeros(1, 2, dtype=torch.long),
+                                       torch.ones(1, 2))
+    assert float(w_sum) == 2.0
+    assert abs(float(loss) - 2 * np.log(4.0)) < 1e-6
 
 
 def test_bfloat16_inputs_agree_bit_for_bit():

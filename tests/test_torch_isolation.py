@@ -112,3 +112,37 @@ def test_serving_entry_points_default_to_the_gpu(no_gpu):
     da_ops.decode_attention(q[:, 0], kv, kv, torch.ones(1, dtype=torch.int32))
     assert fa_ops.flash_attention.launches == 0
     assert da_ops.decode_attention.launches == 0
+
+
+def test_training_entry_points_default_to_the_gpu(no_gpu, tmp_path):
+    from repro_torch import configs
+    from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.launch import train
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.runtime.power_integration import StragglerMitigator
+    from repro_torch.runtime.train_loop import init_train_state
+
+    cfg = configs.get_smoke("minicpm_2b")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.main(["--smoke", "--steps", "1", "--checkpoint-dir",
+                    str(tmp_path)])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_train_state(cfg, AdamW(), torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        SyntheticTokens(vocab_size=256, seq_len=8, global_batch=2
+                        ).next_batch()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        StragglerMitigator()
+    batch = SyntheticTokens(vocab_size=256, seq_len=8, global_batch=2,
+                            device="cpu").next_batch()
+    assert batch.tokens.device.type == "cpu"
+    # A CPU tensor through the differentiable op runs the plain forward and
+    # backward and counts no K4 or K5 launch.
+    q = torch.zeros(1, 3, 4, 16, requires_grad=True)
+    kv = torch.zeros(1, 3, 2, 16, requires_grad=True)
+    out, _ = fa_ops.flash_attention(q, kv, kv)
+    out.sum().backward()
+    assert q.grad is not None and kv.grad is not None
+    assert fa_ops.flash_attention.launches == 0
+    assert fa_ops.flash_attention_bwd.launches == 0

@@ -7,7 +7,9 @@ Builds path A (32 cells x 100 hosts, 60 ticks) and path B (16 cells x
 and path S, one replica batch of the serving path at granite-8b's full
 width and depth in bf16 (8 prompts of 512, 32 tokens, a 1024-position
 cache): ``S`` is the whole generation (prefill and 31 decode steps, its
-"ticks" the 32 forward passes), ``Sd`` the 31 decode steps alone.  Each
+"ticks" the 32 forward passes), ``Sd`` the 31 decode steps alone; and
+path T, one training step of MiniCPM-2B at full width and depth in bf16
+(4 x 4096 tokens, remat, AdamW; its "tick" the step).  Each
 path runs once to warm up, then once under ``torch.profiler`` and once
 without it.  For the profiled run it reads the Chrome trace and reports
 the device's busy time (union of kernel and copy intervals), its idle
@@ -17,7 +19,7 @@ and writes the Chrome traces to OUT_DIR (default ``build/profiles``).
 
     python3 tools/profile_sweep_torch.py [OUT_DIR [PATH ...]]
 
-PATH is any of A, B, V, S and Sd (default all).
+PATH is any of A, B, V, S, Sd and T (default all).
 """
 
 from __future__ import annotations
@@ -117,6 +119,34 @@ def serve_runner(model: dict, decode_only: bool):
                          decode_only=decode_only)
 
 
+def train_runner():
+    """``(prepare, info)`` for path T: ``prepare()`` returns one training
+    step on a fixed batch (the state carries over between steps)."""
+    from repro_torch import configs
+    from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.runtime.train_loop import (init_train_state,
+                                                make_train_step)
+
+    dev = torch.device("cuda")
+    cfg = configs.get("minicpm_2b")
+    opt = AdamW(learning_rate=3e-4, state_dtype=cfg.optimizer_state_dtype)
+    state = [init_train_state(
+        cfg, opt, torch.Generator(device=dev).manual_seed(0), dev)]
+    b = SyntheticTokens(vocab_size=cfg.vocab_size, seq_len=4096,
+                        global_batch=4, seed=1, device=dev).next_batch()
+    batch = {"tokens": b.tokens, "labels": b.labels, "weights": b.weights}
+    step = make_train_step(cfg, opt)
+
+    def prepare():
+        def run():
+            state[0], _ = step(state[0], batch)
+            return 1
+        return run
+
+    return prepare, dict(batch=4, seq_len=4096, n_layers=cfg.n_layers)
+
+
 def timed(run) -> tuple[int, float]:
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -169,7 +199,7 @@ def main() -> int:
     out_dir = Path(sys.argv[1]) if len(sys.argv) > 1 else (
         ROOT / "build" / "profiles")
     out_dir.mkdir(parents=True, exist_ok=True)
-    wanted = sys.argv[2:] or ["A", "B", "V", "S", "Sd"]
+    wanted = sys.argv[2:] or ["A", "B", "V", "S", "Sd", "T"]
     model: dict = {}
     print(torch.cuda.get_device_name(0), flush=True)
     spikes = ("flat", "burst", "step", "prime")
@@ -186,8 +216,12 @@ def main() -> int:
             sizes=(1000,), spike="burst", duration_s=600.0), ("cpc",)),
         "S": lambda: serve_runner(model, decode_only=False),
         "Sd": lambda: serve_runner(model, decode_only=True),
+        "T": train_runner,
     }
     for tag in wanted:
+        if tag == "T":
+            model.clear()              # the serving weights, 16.5 GB
+            torch.cuda.empty_cache()
         print(json.dumps(profile(tag, paths[tag](), out_dir)), flush=True)
     return 0
 
