@@ -4,9 +4,9 @@
 Phases, each of which raises (and so exits non-zero) when it fails:
 
 1. the card: its name and power limit, as ``nvidia-smi`` prints them;
-2. the build: ``nvcc`` compiles the three kernel libraries from their
-   ``csrc/`` (powercap, flash_attention, decode_attention), every source
-   at once;
+2. the build: ``nvcc`` compiles the four kernel libraries from their
+   ``csrc/`` (powercap, flash_attention, decode_attention, moe_gmm), every
+   source at once;
 3. each powercap kernel against its plain PyTorch version on the card, in
    fp64, at the main paths' shapes, timed with CUDA events (median of 20):
    K1 and K2 at paths A and B, K2 at path V (one cell), K3 at path V and
@@ -66,7 +66,28 @@ Phases, each of which raises (and so exits non-zero) when it fails:
     the kernels against the plain versions on the card (1e-2 relative and
     5e-2 relative L2); then warm step, layer and AdamW times;
 12. MiniCPM-2B at full width and 4 layers in float32: two steps' losses
-    and gradients through the kernels within 1e-4 of the plain versions.
+    and gradients through the kernels within 1e-4 of the plain versions;
+13. K7 (the grouped expert GEMM) against its plain version on the card:
+    path M's three products in bf16 (its prefill's ``(64, 640, 2048) @
+    (64, 2048, 1024)`` and ``(64, 640, 1024) @ (64, 1024, 2048)``, a
+    decode step's ``(64, 8, 2048) @ (64, 2048, 1024)``), a ragged float32
+    case at DeepSeekMoE's d_ff of 1408, C = 1, and a D that is no multiple
+    of 32; tolerances as in 7; each timed beside its plain version and
+    ``torch.bmm``;
+14. main path M, ``launch.serve``'s driver at OLMoE-1B-7B's full width and
+    depth in bf16 (16 layers, 64 experts top-8, 6.919e9 parameters), with
+    path S's replicas, requests, prompts, tokens and cache: the exact
+    launch counts (K7 three times a layer a forward, K4 once a layer a
+    prefill, K6 once a layer a decode step, K1-K3 as the same cap event's
+    CPU run calls their plain versions), the cap event identical to its
+    CPU run, the first layer's MoE on the path's prefill through K7 and its
+    plain version within 2e-2, and one replica's batch fed back through
+    the plain versions on the card, logits within 5e-2 relative L2 (the
+    reference's MoE bar: routing near ties flips in bf16) with the share
+    of top-k sets that differ printed; then prefill and decode-step times;
+15. DeepSeekMoE-16B at full width and 4 layers in float32 (shared experts,
+    top-6): identical greedy tokens and routing through the kernels and
+    through the plain versions, logits within 1e-4 relative L2.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Run from the repository root:
@@ -94,10 +115,11 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 
-#: H100 SXM peaks (NVIDIA data sheet): fp64 outside the tensor cores, and
-#: HBM3 bandwidth.  The kernels are fp64 vector code.
+#: H100 SXM peaks (NVIDIA data sheet): fp64 and float32 outside the tensor
+#: cores, bf16 on them, and HBM3 bandwidth.  K1-K3 are fp64 vector code.
 PEAK_FP64_FLOPS = 34e12
 PEAK_BF16_FLOPS = 989e12
+PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_S = 3.35e12
 REPS = 20
 RTOL = ATOL = 1e-9
@@ -364,42 +386,54 @@ def compare(tag, gpu, cpu, keys) -> None:
 KERNELS = ("waterfill_dense", "balance_caps", "waterfill_segmented")
 
 
-def _attention_wrappers() -> dict:
+def _model_wrappers() -> dict:
+    """The model kernels' wrappers (K4, K5, K6, K7) by name."""
     from repro_torch.kernels.decode_attention import ops as da_ops
     from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.moe_gmm import ops as gmm_ops
     return {"flash_attention": fa_ops.flash_attention,
             "flash_attention_bwd": fa_ops.flash_attention_bwd,
-            "decode_attention": da_ops.decode_attention}
+            "decode_attention": da_ops.decode_attention,
+            "grouped_matmul": gmm_ops.grouped_matmul}
 
 
 def reset_launches() -> None:
     from repro_torch.kernels.powercap import ops
     for name in KERNELS:
         getattr(ops, name).launches = 0
-    for fn in _attention_wrappers().values():
+    for fn in _model_wrappers().values():
         fn.launches = 0
 
 
 def read_launches() -> dict:
+    """Every wrapper's count: K1-K3, then the model kernels."""
     from repro_torch.kernels.powercap import ops
-    return {name: getattr(ops, name).launches for name in KERNELS}
+    return dict({name: getattr(ops, name).launches for name in KERNELS},
+                **{n: fn.launches for n, fn in _model_wrappers().items()})
+
+
+def no_model_launches() -> dict:
+    """The model kernels' counts on a path that runs no model."""
+    return dict.fromkeys(_model_wrappers(), 0)
 
 
 def build_all() -> float:
-    """Build the three kernel libraries at once (every ``nvcc`` process
+    """Build the four kernel libraries at once (every ``nvcc`` process
     started together) and load them; returns the wall seconds."""
     from repro_torch.kernels.decode_attention import kernel as da_kernel
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.moe_gmm import kernel as gmm_kernel
     from repro_torch.kernels.powercap import kernel
 
     t0 = time.perf_counter()
-    builds = (kernel.build, fa_kernel.LIBRARY.build, da_kernel.LIBRARY.build)
+    builds = (kernel.build, fa_kernel.LIBRARY.build, da_kernel.LIBRARY.build,
+              gmm_kernel.LIBRARY.build)
     with ThreadPoolExecutor(len(builds)) as pool:
         logs = [f.result()[1] for f in [pool.submit(b) for b in builds]]
     print("\n".join(logs), file=sys.stderr, flush=True)
     kernel.library()
-    fa_kernel.LIBRARY.library()
-    da_kernel.LIBRARY.library()
+    for lib in (fa_kernel.LIBRARY, da_kernel.LIBRARY, gmm_kernel.LIBRARY):
+        lib.library()
     return time.perf_counter() - t0
 
 
@@ -706,8 +740,7 @@ def run_serving_path(dev) -> tuple[dict, dict]:
     t0 = time.perf_counter()
     report = serve.main(SERVE_ARGV)
     wall = time.perf_counter() - t0
-    launches = dict(read_launches(), **{
-        n: fn.launches for n, fn in _attention_wrappers().items()})
+    launches = read_launches()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     cfg, params = report.cfg, report.params
     steps, max_len, prompt_len = 32, 1024, 512
@@ -715,7 +748,7 @@ def run_serving_path(dev) -> tuple[dict, dict]:
     want = {"flash_attention": cfg.n_layers * n_rep,
             "flash_attention_bwd": 0,
             "decode_attention": cfg.n_layers * (steps - 1) * n_rep,
-            "waterfill_dense": 1, "balance_caps": 1,
+            "grouped_matmul": 0, "waterfill_dense": 1, "balance_caps": 1,
             "waterfill_segmented": 2}
     if launches != want:
         raise AssertionError(f"S: kernel launches {launches}, expected "
@@ -882,8 +915,7 @@ def run_training_path(dev) -> tuple[dict, dict]:
         t0 = time.perf_counter()
         report = train.main(TRAIN_ARGV + ["--checkpoint-dir", ckpt_dir])
         wall = time.perf_counter() - t0
-        launches = dict(read_launches(), **{
-            n: fn.launches for n, fn in _attention_wrappers().items()})
+        launches = read_launches()
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         reserved_gb = torch.cuda.max_memory_reserved() / 1e9
         ckpt_bytes = os.path.getsize(report.checkpoint_path)
@@ -901,7 +933,7 @@ def run_training_path(dev) -> tuple[dict, dict]:
         shutil.rmtree(cpu_dir, ignore_errors=True)
     want = dict(power_launches, flash_attention=2 * cfg.n_layers * steps,
                 flash_attention_bwd=cfg.n_layers * steps,
-                decode_attention=0)
+                decode_attention=0, grouped_matmul=0)
     if steps != 6 or launches != want:
         raise AssertionError(f"T: {steps} steps, kernel launches {launches}, "
                              f"expected {want}")
@@ -942,7 +974,7 @@ def run_training_path(dev) -> tuple[dict, dict]:
     leaves_in = [h] + list(blk.values())
 
     def layer():
-        out, _ = tfm._attn_block(blk, h, cfg, positions, None)
+        out, _, _ = tfm._attn_block(blk, h, cfg, positions, None)
         torch.autograd.grad(out, leaves_in, dh)
     layer_ms = time_ms(layer)
     # Trained tokens carry weight 1 in the plan; the pods' masked examples
@@ -1016,6 +1048,289 @@ def run_train_f32_check(dev) -> dict:
                 worst_grad_rel_l2=[e[1] for e in errs])
 
 
+#: K7's cases, ``(E, C, D, F, dtype)``: path M's three products (its
+#: prefill's gate and up products, its down product, a decode step's gate
+#: and up products), DeepSeekMoE's ragged d_ff of 1408 with a ragged C in
+#: float32, C = 1, and a D that is no multiple of K7's depth tile (32).
+K7_CASES = {
+    "prefill": (64, 640, 2048, 1024, torch.bfloat16),
+    "prefill_down": (64, 640, 1024, 2048, torch.bfloat16),
+    "decode": (64, 8, 2048, 1024, torch.bfloat16),
+    "ragged_f32": (64, 650, 2048, 1408, torch.float32),
+    "c1_f32": (5, 1, 1000, 136, torch.float32),
+    "ragged_d_bf16": (8, 100, 1000, 200, torch.bfloat16),
+}
+#: Path M: the serving driver at OLMoE-1B-7B's full width and depth, with
+#: path S's replicas, requests, prompts, tokens and cache.
+MOE_ARGV = ["--arch", "olmoe_1b_7b"] + SERVE_ARGV[2:]
+
+
+def check_k7(dev) -> dict:
+    """K7 against its plain version in every case of ``K7_CASES`` (the
+    attention kernels' tolerances, relative to the values' scale), each
+    timed beside its plain version and ``torch.bmm`` on the same operands.
+    x is a standard normal, w one scaled by 1/sqrt(D), as the model's
+    weights are drawn.  Returns K7's record at path M's prefill product,
+    with every case under ``cases``."""
+    from repro_torch.kernels.moe_gmm import ops, ref
+
+    cases = {}
+    for i, (case, (e, c, d, f, dtype)) in enumerate(K7_CASES.items()):
+        x = randn((e, c, d), dtype, dev, 20 + i)
+        w = (randn((e, d, f), torch.float32, dev, 40 + i)
+             * d ** -0.5).to(dtype)
+        err = attn_err(ops.grouped_matmul(x, w), ref.grouped_matmul_ref(x, w),
+                       dtype, f"K7 {case} {e}x{c}x{d}x{f} {dtype}")
+        ms = time_ms(lambda: ops.grouped_matmul(x, w))
+        pms = time_ms(lambda: ref.grouped_matmul_ref(x, w))
+        lms = time_ms(lambda: torch.bmm(x, w))
+        bound, by = bound_ms(
+            x.element_size() * (e * c * d + e * d * f + e * c * f),
+            2.0 * e * c * d * f,
+            PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_FP32_FLOPS)
+        cases[case] = dict(shape=[e, c, d, f], dtype=str(dtype)[6:],
+                           max_abs_err=err, ms=ms, plain_ms=pms,
+                           library_ms=lms, bound_ms=bound, bound_by=by)
+        log(f"M: K7 {case} {e}x{c}x{d}x{f} {str(dtype)[6:]} err {err:.3e} "
+            f"{ms:.4f} ms (plain {pms:.3f} ms, bmm {lms:.4f} ms, bound "
+            f"{bound:.4f} ms by {by})")
+    main = cases["prefill"]
+    bf = torch.bfloat16
+    return dict(name="grouped_matmul 64x640x2048x1024", route="cuda",
+                source="src/repro_torch/kernels/moe_gmm/csrc/gmm.cu",
+                replaces="src/repro/kernels/moe_gmm/kernel.py:46",
+                max_abs_err=max(cases[k]["max_abs_err"] for k in
+                                ("prefill", "prefill_down", "decode")),
+                float32_max_abs_err=cases["ragged_f32"]["max_abs_err"],
+                rtol=ATTN_TOL[bf], atol_per_rms=ATTN_TOL[bf],
+                ms=main["ms"], plain_ms=main["plain_ms"],
+                bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+                library_ms=main["library_ms"], cases=cases)
+
+
+@contextlib.contextmanager
+def plain_experts():
+    """The MoE layer's expert products through K7's plain version (the
+    comparison runs only)."""
+    from repro_torch.kernels.moe_gmm import ref
+    from repro_torch.models import moe
+
+    with mock.patch.object(moe, "grouped_matmul", ref.grouped_matmul_ref):
+        yield
+
+
+@contextlib.contextmanager
+def record_routes():
+    """Yields a list that gains, for every MoE layer call, its top-k
+    expert ids with each token's set sorted."""
+    from repro_torch.models import moe
+
+    seen, route = [], moe._route
+
+    def recording(params, xt, cfg):
+        gates, ids, aux = route(params, xt, cfg)
+        seen.append(torch.sort(ids, dim=-1).values)
+        return gates, ids, aux
+
+    with mock.patch.object(moe, "_route", recording):
+        yield seen
+
+
+def flip_share(a: list, b: list) -> float:
+    """The share of (token, layer) top-k sets that differ between two
+    recorded runs of the same calls."""
+    if len(a) != len(b) or any(x.shape != y.shape for x, y in zip(a, b)):
+        raise AssertionError("the two runs made different MoE calls")
+    differ = sum(int((x != y).any(-1).sum()) for x, y in zip(a, b))
+    return differ / sum(x.shape[0] for x in a)
+
+
+class _FirstLayer(Exception):
+    """Stops a forward at its first MoE layer (:func:`first_moe_input`)."""
+
+
+def first_moe_input(cfg, params, prompts, max_len):
+    """``(block weights, input)`` of the first layer's MoE in the prefill
+    of ``prompts``; the forward stops there."""
+    from repro_torch.models import moe
+    from repro_torch.runtime.serve_loop import make_prefill_step
+
+    seen = []
+
+    def capture(blk, x, cfg_):
+        seen.append((blk, x))
+        raise _FirstLayer
+
+    with mock.patch.object(moe, "moe_ffn", capture):
+        try:
+            make_prefill_step(cfg, max_len)(params, prompts)
+        except _FirstLayer:
+            pass
+    return seen[0]
+
+
+def run_moe_serving_path(dev) -> tuple[dict, dict]:
+    """Path M through ``launch.serve.main`` on the card, with the launch
+    counts of exactly that run (K1-K3 counted as the same cap event's CPU
+    run calls their plain versions); its cap event held against the CPU;
+    the first layer's MoE on the path's prefill through K7 and its plain
+    version; one replica's batch fed back through the plain versions of
+    K4, K6 and K7 on the card (logits within 5e-2 relative L2, the
+    reference's bar for MoE in bfloat16, where routing near ties flips),
+    with the share of top-k sets that differ; then warm timings."""
+    from repro_torch.core.power_model import H100_HOST
+    from repro_torch.launch import serve
+    from repro_torch.models import moe
+    from repro_torch.runtime.serve_loop import (generate, make_decode_step,
+                                                make_prefill_step)
+
+    reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    report = serve.main(MOE_ARGV)
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    cfg, params = report.cfg, report.params
+    steps, max_len, prompt_len = 32, 1024, 512
+    n_rep = len(report.routing)
+    snap, router = serve.make_fleet(H100_HOST, n_rep)
+    with count_plain_calls() as power_launches:
+        routing, caps, result = serve.power_event(snap, router, 16, "cpu")
+    want = dict(power_launches, flash_attention=cfg.n_layers * n_rep,
+                flash_attention_bwd=0,
+                decode_attention=cfg.n_layers * (steps - 1) * n_rep,
+                grouped_matmul=3 * cfg.n_layers * steps * n_rep)
+    if cfg.family != "moe" or launches != want:
+        raise AssertionError(f"M: kernel launches {launches}, expected "
+                             f"{want}")
+    if report.routing != {"rep0": 8, "rep1": 8}:
+        raise AssertionError(f"M: routing {report.routing}")
+    got = (list(report.routing_after.items()), report.caps_after,
+           report.notes, report.cap_changes, report.migrations)
+    cpu = (list(routing.items()), caps, list(result.notes),
+           result.cap_changes, result.migrations)
+    if got != cpu:
+        raise AssertionError(f"M: cap event on the card {got}, on the CPU "
+                             f"{cpu}")
+    for rep, (prompts, toks, logits) in report.batches.items():
+        if toks.shape != (8, steps) or logits.shape != (8, steps,
+                                                        cfg.vocab_size):
+            raise AssertionError(f"M {rep}: shapes {toks.shape}, "
+                                 f"{logits.shape}")
+        if not torch.isfinite(logits).all():
+            raise AssertionError(f"M {rep}: non-finite logits")
+    prompts, toks, logits = report.batches["rep0"]
+
+    # One layer: routing is the same by construction (it precedes K7).
+    blk, x = first_moe_input(cfg, params, prompts, max_len)
+    out, _ = moe.moe_ffn(blk, x, cfg)
+    with plain_experts():
+        pout, _ = moe.moe_ffn(blk, x, cfg)
+    gate_err = attn_close(out, pout, 2e-2, "M: the first layer's MoE at "
+                                           "prefill, K7 against plain")
+    del blk, x, out, pout
+
+    with record_routes() as k_routes:
+        _, k_logits = generate(cfg, params, prompts, steps, max_len,
+                               forced=toks)
+    with plain_attention(), plain_experts(), record_routes() as p_routes:
+        _, plain_logits = generate(cfg, params, prompts, steps, max_len,
+                                   forced=toks)
+    rerun_equal = bool(torch.equal(k_logits, logits))
+    flips = flip_share(k_routes, p_routes)
+    err = rel_l2(logits, plain_logits)
+    if not err <= 5e-2:
+        raise AssertionError(f"M: teacher-forced logits {err:.3e} relative "
+                             f"L2 from the plain versions (bound 5e-2); "
+                             f"top-k sets differing {flips:.4f}")
+    same = float((plain_logits.argmax(-1) == toks).float().mean())
+    del k_routes, p_routes, k_logits, plain_logits
+
+    prefill = make_prefill_step(cfg, max_len)
+    decode = make_decode_step(cfg)
+    start = torch.cuda.Event(enable_timing=True)
+    mid = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    prefill_ms, step_ms = [], []
+    for _ in range(3):
+        start.record()
+        lg, state = prefill(params, prompts)
+        mid.record()
+        tok = lg.argmax(-1)
+        for _ in range(steps - 1):
+            lg, state = decode(params, state, tok)
+            tok = lg.argmax(-1)
+        end.record()
+        end.synchronize()
+        prefill_ms.append(start.elapsed_time(mid))
+        step_ms.append(mid.elapsed_time(end) / (steps - 1))
+    weights_gb = sum(t.numel() * t.element_size() for grp in params.values()
+                     for t in grp.values()) / 1e9
+    info = dict(wall_s=wall, decode_s=report.seconds, tokens=report.tokens,
+                tokens_per_s=report.tokens / report.seconds,
+                prefill_ms=statistics.median(prefill_ms),
+                decode_step_ms=statistics.median(step_ms),
+                weights_gb=weights_gb, peak_memory_gb=peak_gb,
+                first_layer_moe_max_abs_err=gate_err,
+                teacher_forced_rel_l2=err, topk_sets_differing=flips,
+                plain_argmax_equal=same,
+                kernel_rerun_bitwise_equal=rerun_equal,
+                routing=report.routing, routing_after=report.routing_after,
+                caps_after=report.caps_after, notes=report.notes,
+                prompt_len=prompt_len, steps=steps,
+                params=cfg.param_count(),
+                capacity_prefill=moe.expert_capacity(8 * prompt_len, cfg),
+                capacity_decode=moe.expert_capacity(8, cfg))
+    log(f"path M: {report.tokens} tokens in {report.seconds:.3f} s "
+        f"({info['tokens_per_s']:.1f} tokens/s; whole driver {wall:.3f} s); "
+        f"prefill {info['prefill_ms']:.2f} ms, decode step "
+        f"{info['decode_step_ms']:.2f} ms (warm, one batch of 8); weights "
+        f"{weights_gb:.3f} GB, peak {peak_gb:.3f} GB; first layer's MoE "
+        f"{gate_err:.3e} from plain; teacher-forced logits {err:.3e} "
+        f"relative L2, top-k sets differing {flips:.5f}, argmax equal "
+        f"{same:.3f}, kernel rerun bitwise equal {rerun_equal}; launches "
+        f"{launches}; cap event {report.caps_after} W, "
+        f"{report.routing_after}, {report.notes}")
+    return launches, info
+
+
+def run_moe_f32_check(dev) -> dict:
+    """DeepSeekMoE-16B at full width, 4 layers, float32 (shared experts,
+    top-6, K7 at F = 1408): greedy tokens and every layer's routing
+    identical through the kernels and through the plain versions, logits
+    within 1e-4 relative L2, on one batch of 8 prompts of 512."""
+    from repro_torch import configs
+    from repro_torch.models import transformer as tfm
+    from repro_torch.runtime.serve_loop import generate
+
+    cfg = dataclasses.replace(configs.get("deepseek_moe_16b"), n_layers=4,
+                              param_dtype="float32")
+    params = tfm.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                             dev)
+    prompts = torch.randint(0, cfg.vocab_size, (8, 512), device=dev,
+                            generator=torch.Generator(device=dev)
+                            .manual_seed(1))
+    with record_routes() as k_routes:
+        toks, logits = generate(cfg, params, prompts, 32, 1024)
+    with plain_attention(), plain_experts(), record_routes() as p_routes:
+        ptoks, plogits = generate(cfg, params, prompts, 32, 1024)
+    flips = flip_share(k_routes, p_routes)
+    err = rel_l2(logits, plogits)
+    if not torch.equal(toks, ptoks) or flips != 0.0:
+        raise AssertionError(f"M f32: greedy tokens equal "
+                             f"{torch.equal(toks, ptoks)}, top-k sets "
+                             f"differing {flips}, between the kernels and "
+                             f"the plain versions")
+    if not err <= 1e-4:
+        raise AssertionError(f"M f32: logits {err:.3e} relative L2 from the "
+                             f"plain versions (bound 1e-4)")
+    log(f"M f32, DeepSeekMoE-16B 4 layers: tokens and routing identical, "
+        f"logits {err:.3e} relative L2")
+    return dict(rel_l2=err, tokens_identical=True, routing_identical=True)
+
+
 def run_path(tag, specs, policies):
     """One grid through ``run_sweep`` on the card, with the launch counts
     of exactly that run."""
@@ -1030,8 +1345,8 @@ def run_path(tag, specs, policies):
     launches = read_launches()
     _, _, cfg = build_sweep(specs[0], policies[0])
     ts, drs = _drs_schedule(cfg)
-    want = {"waterfill_dense": ts.shape[0], "balance_caps": int(drs.sum()),
-            "waterfill_segmented": 0}
+    want = dict(no_model_launches(), waterfill_dense=ts.shape[0],
+                balance_caps=int(drs.sum()), waterfill_segmented=0)
     if launches != want:
         raise AssertionError(f"{tag}: kernel launches {launches}, expected "
                              f"one per tick and one per DRS invocation "
@@ -1073,8 +1388,9 @@ def run_vector_path(policies):
     for name, p in keys:
         if p == "cpc" and cpu[name][p].cap_changes <= 0:
             raise AssertionError(f"V {name}/cpc: no cap change on the CPU")
-    want = {"waterfill_dense": 0, "balance_caps": cpc_invocations,
-            "waterfill_segmented": ticks * len(keys) + 2 * cpc_invocations}
+    want = dict(no_model_launches(), waterfill_dense=0,
+                balance_caps=cpc_invocations,
+                waterfill_segmented=ticks * len(keys) + 2 * cpc_invocations)
     if launches != want:
         raise AssertionError(f"V: kernel launches {launches}, expected "
                              f"{want}")
@@ -1153,16 +1469,22 @@ def main() -> int:
     launches_t, info_t = run_training_path(dev)
     torch.cuda.empty_cache()
     info_t["float32_4_layers"] = run_train_f32_check(dev)
+    torch.cuda.empty_cache()
+
+    records["M"] = [check_k7(dev)]
+    launches_m, info_m = run_moe_serving_path(dev)
+    torch.cuda.empty_cache()
+    info_m["deepseek_float32_4_layers"] = run_moe_f32_check(dev)
 
     kernels_out = []
     for tag, launches in (("A", launches_a), ("B", launches_b),
                           ("V", launches_v), ("S", launches_s),
-                          ("T", launches_t)):
+                          ("T", launches_t), ("M", launches_m)):
         for rec in records[tag]:
             name = rec["name"].split()[0]
             kernels_out.append(dict(rec, launches=launches[name], path=tag))
     log(json.dumps({"paths": {"A": info_a, "B": info_b, "V": info_v,
-                              "S": info_s, "T": info_t}}))
+                              "S": info_s, "T": info_t, "M": info_m}}))
     log(json.dumps({"kernels": kernels_out}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,13 +1,14 @@
 """Build a kernel package's CUDA sources into a shared library and load it.
 
-Each kernel package (``powercap``, ``flash_attention``, ``decode_attention``)
-owns one :class:`KernelLibrary`.  At first use its ``csrc/*.cu`` sources are
-compiled for ``sm_90a`` with ``nvcc`` (one process per source, all started
-together), linked into ``build/repro_torch_kernels/lib<name>.so`` at the
-repository root, and loaded with ``ctypes`` through their plain C entry
-points.  A package builds only its own sources, so a run that launches only
-the powercap kernels compiles no attention code.  A failed build raises;
-nothing falls back to the plain versions.
+Each kernel package (``powercap``, ``flash_attention``,
+``decode_attention``, ``moe_gmm``) owns one :class:`KernelLibrary`.  At
+first use its ``csrc/*.cu`` sources are compiled for ``sm_90a`` with
+``nvcc`` (one process per source, all started together), linked into
+``build/repro_torch_kernels/lib<name>.so`` at the repository root, and
+loaded with ``ctypes`` through their plain C entry points.  A package
+builds only its own sources, so a run that launches only the powercap
+kernels compiles no attention code.  A failed build raises; nothing falls
+back to the plain versions.
 """
 
 from __future__ import annotations

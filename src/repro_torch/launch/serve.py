@@ -3,12 +3,15 @@
 Each replica is a model instance on one host; the CloudPowerCap manager
 owns the fleet's power budget, and the router follows the power-capped
 capacities.  The driver routes the requests, decodes every replica's batch
-(prefill on kernel K4, decode steps on K6), then halves host ``h0``'s cap,
-runs one manager invocation (BalancePowerCap on K2, its note on K3, the
-migration balancer's stopping test on K1) and routes again.  The weights
-are random, from a seeded ``torch.Generator``.
+(prefill on kernel K4, decode steps on K6; an MoE model's expert FFN on
+K7), then halves host ``h0``'s cap, runs one manager invocation
+(BalancePowerCap on K2, its note on K3, the migration balancer's stopping
+test on K1) and routes again.  The weights are random, from a seeded
+``torch.Generator``.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch granite_8b \
+      --smoke --device cpu --requests 32 --decode-steps 8
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe_1b_7b \
       --smoke --device cpu --requests 32 --decode-steps 8
 
 Without ``--device`` it runs on the GPU and raises where there is none.

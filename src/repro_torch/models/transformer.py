@@ -1,4 +1,4 @@
-"""Decoder-only LM, dense family (the dense part of
+"""Decoder-only LM, dense and MoE families (those parts of
 ``repro.models.transformer``).
 
 Parameters are a nested dict of tensors in the reference's layout: the
@@ -7,9 +7,10 @@ repeated layers stacked on a leading ``(n_layers, ...)`` axis under
 (:func:`repro_torch.convert.from_reference_params`).  The forward unbinds
 each stacked weight once and loops over the layers in Python; under
 autograd each layer body is checkpointed as ``cfg.remat`` says (the
-reference's ``jax.checkpoint``), so the backward recomputes it.  The other
-families (``moe``, ``vlm``, ``ssm``, ``hybrid``, ``encdec``) are later
-slices and raise.
+reference's ``jax.checkpoint``), so the backward recomputes it.  An MoE
+block's FFN is :func:`repro_torch.models.moe.moe_ffn` (kernel K7), and the
+forward sums its aux loss over the layers.  The other families (``vlm``,
+``ssm``, ``hybrid``, ``encdec``) are later slices and raise.
 """
 
 from __future__ import annotations
@@ -24,12 +25,11 @@ from torch import nn
 from torch.utils import checkpoint
 
 from repro_torch.backend import resolve_device
-from repro_torch.models import layers
+from repro_torch.models import layers, moe
 from repro_torch.models.config import ModelConfig
 
 #: The ROADMAP item that brings each family not ported yet.
 _LATER = {
-    "moe": "MoE serving on K7 (ROADMAP queue 1, item 11)",
     "vlm": "the VLM prefix (ROADMAP queue 1, item 9)",
     "ssm": "SSM and hybrid serving on K8 (ROADMAP queue 1, item 12)",
     "hybrid": "SSM and hybrid serving on K8 (ROADMAP queue 1, item 12)",
@@ -37,8 +37,8 @@ _LATER = {
 }
 
 
-def _dense_only(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
+def _ported(cfg: ModelConfig) -> None:
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
             f"the {cfg.family} family is not ported yet: it comes with "
             f"{_LATER.get(cfg.family, 'a later slice')}")
@@ -52,20 +52,23 @@ def _stack(specs: dict, n: int) -> dict:
 
 
 def block_param_specs(cfg: ModelConfig) -> dict:
-    """One decoder block (attention + FFN) including norms."""
-    _dense_only(cfg)
+    """One decoder block (attention + FFN or MoE) including norms."""
+    _ported(cfg)
     specs = {
         "ln1": ((cfg.d_model,), (None,)),
         "ln2": ((cfg.d_model,), (None,)),
     }
     specs.update(layers.attention_param_specs(cfg))
-    specs.update(layers.mlp_param_specs(cfg))
+    if cfg.family == "moe":
+        specs.update(moe.moe_param_specs(cfg))
+    else:
+        specs.update(layers.mlp_param_specs(cfg))
     return specs
 
 
 def param_specs(cfg: ModelConfig) -> dict:
     """Full tree of ``(shape, logical_axes)`` for the model."""
-    _dense_only(cfg)
+    _ported(cfg)
     specs: dict = {
         "embed": {"table": ((cfg.vocab_size, cfg.d_model),
                             ("vocab", "embed_p"))},
@@ -92,7 +95,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     the GPU): ones for 1-D scales, else a normal truncated at 2 standard
     deviations with ``std = 1 / sqrt(fan_in)``, ``fan_in = shape[-2]``
     (the reference's scheme, which draws a stacked ``(n_layers, d)`` norm
-    scale like a weight; its ``jax.random`` bits differ).  ``generator`` must live on
+    scale like a weight and an expert weight ``(E, D, F)`` with fan-in D;
+    its ``jax.random`` bits differ).  ``generator`` must live on
     ``device``; a stacked weight is drawn a layer at a time in float32."""
     dev = resolve_device(device)
     dtype = getattr(torch, cfg.param_dtype)
@@ -143,12 +147,17 @@ def _remat(fn, cfg: ModelConfig):
 
 
 def _attn_block(blk, h, cfg, positions, cache, kv_len=None):
+    """One block: ``(h, cache, aux)``, aux the MoE layer's loss (``None``
+    when dense)."""
     hn1 = layers.rms_norm(h, blk["ln1"], cfg.norm_eps)
     a, cache = layers.attention(blk, hn1, cfg, positions=positions,
                                 kv_cache=cache, kv_len=kv_len)
     h = h + a
     hn = layers.rms_norm(h, blk["ln2"], cfg.norm_eps)
-    return h + layers.mlp(blk, hn, cfg), cache
+    if cfg.family == "moe":
+        f, aux = moe.moe_ffn(blk, hn, cfg)
+        return h + f, cache, aux
+    return h + layers.mlp(blk, hn, cfg), cache, None
 
 
 def _make_cache(cfg: ModelConfig, n_layers: int, batch: int, max_len: int,
@@ -170,8 +179,8 @@ def decoder_forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
                     cache: Optional[dict] = None,
                     positions: Optional[torch.Tensor] = None
                     ) -> ForwardResult:
-    """Dense decoder-only forward over the stacked blocks."""
-    _dense_only(cfg)
+    """Dense or MoE decoder-only forward over the stacked blocks."""
+    _ported(cfg)
     if vision_embeds is not None:
         raise NotImplementedError(f"vision embeddings: {_LATER['vlm']}")
     h = params["embed"]["table"][tokens].to(getattr(torch, cfg.param_dtype))
@@ -190,21 +199,24 @@ def decoder_forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
     training = torch.is_grad_enabled() and any(
         t.requires_grad for grp in params.values() for t in grp.values())
     body = _remat(_attn_block, cfg) if training else _attn_block
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for i in range(cfg.n_layers):
         blk = {name: ws[i] for name, ws in layer_weights.items()}
         layer_cache = None if cache is None else {
             "k": cache["k"][i], "v": cache["v"][i],
             "cursor": cache["cursor"]}
-        h, _ = body(blk, h, cfg, positions, layer_cache, kv_len)
+        h, _, aux_i = body(blk, h, cfg, positions, layer_cache, kv_len)
+        if aux_i is not None:
+            aux = aux + aux_i
     h = layers.rms_norm(h, params["final_norm"]["scale"], cfg.norm_eps)
     new_cache = None if cache is None else dict(cache,
                                                 cursor=cache["cursor"] + s)
-    return ForwardResult(hidden=h, aux_loss=torch.zeros((), device=h.device),
-                         cache=new_cache)
+    return ForwardResult(hidden=h, aux_loss=aux, cache=new_cache)
 
 
 def forward(params: dict, cfg: ModelConfig, **kwargs) -> ForwardResult:
-    """The family's forward (the dense decoder; the others raise)."""
+    """The family's forward (the dense or MoE decoder; the others
+    raise)."""
     return decoder_forward(params, kwargs.pop("tokens"), cfg, **kwargs)
 
 
@@ -217,8 +229,9 @@ def unembed_weight(params: dict, cfg: ModelConfig) -> torch.Tensor:
 # ======================================================== decode caches
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
                       device=None) -> dict:
-    """The family's decode state: the stacked KV caches (dense only)."""
-    _dense_only(cfg)
+    """The family's decode state: the stacked KV caches (dense and
+    MoE)."""
+    _ported(cfg)
     return _make_cache(cfg, cfg.n_layers, batch, max_len, device)
 
 
@@ -230,7 +243,7 @@ class DecoderLM(nn.Module):
 
     def __init__(self, cfg: ModelConfig, params: dict):
         super().__init__()
-        _dense_only(cfg)
+        _ported(cfg)
         self.cfg = cfg
         self.groups = nn.ModuleDict({
             group: nn.ParameterDict({

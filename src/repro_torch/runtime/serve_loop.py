@@ -5,8 +5,10 @@ is proportional to power-capped capacity, so dispatch weights follow the
 caps the manager sets.
 
 Prefill runs kernel K4 in every layer and each decode step kernel K6
-(:mod:`repro_torch.models.layers`).  The cache cursor is a host ``int``,
-so the kernels' ``q_offset`` and ``kv_len`` need no device sync; the
+(:mod:`repro_torch.models.layers`); an MoE model's expert FFN runs kernel
+K7 three times a layer a forward (:mod:`repro_torch.models.moe`).  The
+cache cursor is a host ``int``, so the kernels' ``q_offset`` and
+``kv_len`` need no device sync; the
 token positions stay a ``(B,)`` device tensor for RoPE, and the greedy
 tokens stay on the device from one step to the next.
 """
@@ -24,7 +26,7 @@ from repro_torch.models.config import ModelConfig
 
 
 def _no_extras(cfg: ModelConfig, extras: Optional[dict]) -> None:
-    tfm._dense_only(cfg)
+    tfm._ported(cfg)
     if extras:
         raise NotImplementedError(
             f"serving extras {sorted(extras)} belong to families not "

@@ -50,6 +50,11 @@ def init_train_state(cfg: ModelConfig, opt: AdamW,
 
 def make_loss_fn(cfg: ModelConfig, aux_weight: float = 0.01):
     def loss_fn(params, batch):
+        if cfg.family == "moe":
+            raise NotImplementedError(
+                "training the moe family: K7's backward (two K7 calls on "
+                "transposed operands under an autograd Function) comes with "
+                "MoE training (ROADMAP queue 1, item 13)")
         if cfg.family != "dense":
             raise NotImplementedError(
                 f"training the {cfg.family} family: it comes with that "

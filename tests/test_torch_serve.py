@@ -156,7 +156,7 @@ def test_bfloat16_logits_match_reference(smoke, prompt_len):
 
 
 def test_unported_families_raise_naming_their_roadmap_item():
-    for arch in ("olmoe_1b_7b", "mamba2_2p7b", "zamba2_7b", "whisper_tiny",
+    for arch in ("mamba2_2p7b", "zamba2_7b", "whisper_tiny",
                  "internvl2_26b"):
         cfg = configs.get_smoke(arch)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -184,14 +184,15 @@ def test_init_params_follows_the_reference_scheme():
 
 
 # ------------------------------------------------------------ the driver
-ARGV = ["--arch", "granite_8b", "--smoke", "--requests", "32",
-        "--decode-steps", "8"]
+def _argv(arch: str) -> list[str]:
+    return ["--arch", arch, "--smoke", "--requests", "32",
+            "--decode-steps", "8"]
 
 
-def _ref_main_lines() -> list[str]:
-    """What the reference's driver prints for ``ARGV``."""
+def _ref_main_lines(arch: str) -> list[str]:
+    """What the reference's driver prints for ``_argv(arch)``."""
     buf, argv = io.StringIO(), sys.argv
-    sys.argv = ["serve"] + ARGV
+    sys.argv = ["serve"] + _argv(arch)
     try:
         with contextlib.redirect_stdout(buf):
             ref_serve.main()
@@ -217,11 +218,15 @@ def _ref_cap_event_notes() -> list[str]:
     return res.notes
 
 
-def test_serve_driver_matches_reference_routing_caps_and_note(capsys):
-    report = serve.main(ARGV + ["--device", "cpu"],
+@pytest.mark.parametrize("arch", ["granite_8b", "olmoe_1b_7b"])
+def test_serve_driver_matches_reference_routing_caps_and_note(capsys, arch):
+    """The dense model and the MoE model (its expert FFN on K7's plain
+    version) behind the same router and cap event."""
+    report = serve.main(_argv(arch) + ["--device", "cpu"],
                         host_spec=_spec(TPU_V5E_HOST))
+    assert report.cfg.family == ("moe" if arch == "olmoe_1b_7b" else "dense")
     lines = capsys.readouterr().out.splitlines()
-    ref_lines = _ref_main_lines()
+    ref_lines = _ref_main_lines(arch)
     assert lines[0] == ref_lines[0]
     assert lines[2].startswith(ref_lines[2] + "; notes")
     assert report.routing == {"rep0": 16, "rep1": 16}

@@ -7,19 +7,22 @@ Builds path A (32 cells x 100 hosts, 60 ticks) and path B (16 cells x
 and path S, one replica batch of the serving path at granite-8b's full
 width and depth in bf16 (8 prompts of 512, 32 tokens, a 1024-position
 cache): ``S`` is the whole generation (prefill and 31 decode steps, its
-"ticks" the 32 forward passes), ``Sd`` the 31 decode steps alone; and
-path T, one training step of MiniCPM-2B at full width and depth in bf16
-(4 x 4096 tokens, remat, AdamW; its "tick" the step).  Each
+"ticks" the 32 forward passes), ``Sd`` the 31 decode steps alone; ``M``
+and ``Md`` the same for path M, OLMoE-1B-7B at full width and depth in
+bf16 (its expert FFN on kernel K7; they also report K7's device ms per
+launch); and path T, one training step of MiniCPM-2B at full width and
+depth in bf16 (4 x 4096 tokens, remat, AdamW; its "tick" the step).  Each
 path runs once to warm up, then once under ``torch.profiler`` and once
 without it.  For the profiled run it reads the Chrome trace and reports
 the device's busy time (union of kernel and copy intervals), its idle
-share of the run's wall, kernel launches per tick (per forward pass for S
-and Sd), and device time by kernel name.  Prints one JSON line per path
-and writes the Chrome traces to OUT_DIR (default ``build/profiles``).
+share of the run's wall, kernel launches per tick (per forward pass for
+S, Sd, M and Md), and device time by kernel name.  Prints one JSON line
+per path and writes the Chrome traces to OUT_DIR (default
+``build/profiles``).
 
     python3 tools/profile_sweep_torch.py [OUT_DIR [PATH ...]]
 
-PATH is any of A, B, V, S, Sd and T (default all).
+PATH is any of A, B, V, S, Sd, M, Md and T (default all).
 """
 
 from __future__ import annotations
@@ -82,18 +85,21 @@ def vector_runner(specs, policies):
     return prepare, dict(cells=len(specs) * len(policies))
 
 
-def serve_runner(model: dict, decode_only: bool):
-    """``(prepare, info)`` for path S (``decode_only``: Sd); ``model``
-    caches the granite-8b parameters between the two."""
+def serve_runner(model: dict, arch: str, decode_only: bool):
+    """``(prepare, info)`` for path S (``arch`` granite_8b) or M
+    (olmoe_1b_7b), ``decode_only`` for Sd or Md; ``model`` caches one
+    arch's parameters between the two."""
     from repro_torch import configs
     from repro_torch.models import transformer as tfm
     from repro_torch.runtime.serve_loop import (generate, make_decode_step,
                                                 make_prefill_step)
 
     dev = torch.device("cuda")
-    if not model:
-        cfg = configs.get("granite_8b")
-        model.update(cfg=cfg, params=tfm.init_params(
+    if model.get("arch") != arch:
+        model.clear()
+        torch.cuda.empty_cache()
+        cfg = configs.get(arch)
+        model.update(arch=arch, cfg=cfg, params=tfm.init_params(
             cfg, torch.Generator(device=dev).manual_seed(0), dev))
     cfg, params = model["cfg"], model["params"]
     prompts = torch.randint(0, cfg.vocab_size, (8, 512), device=dev,
@@ -115,7 +121,7 @@ def serve_runner(model: dict, decode_only: bool):
             return steps - 1
         return run
 
-    return prepare, dict(batch=8, prompt_len=512, steps=steps,
+    return prepare, dict(arch=arch, batch=8, prompt_len=512, steps=steps,
                          decode_only=decode_only)
 
 
@@ -180,6 +186,11 @@ def profile(tag: str, runner, out_dir: Path) -> dict:
         count[key] += 1
     busy = busy_us(kernels + copies) * 1e-6
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    gmm = [e["dur"] for e in kernels if "gmm_kernel" in e["name"]]
+    if gmm:
+        info = dict(info, k7_launches=len(gmm),
+                    k7_device_ms_per_launch=sum(gmm) * 1e-3 / len(gmm),
+                    k7_device_ms=sum(gmm) * 1e-3)
     return dict(path=tag, ticks=ticks, run_s_untraced=plain_wall,
                 run_s_traced=traced_wall, device_busy_s=busy,
                 device_idle_share=1.0 - busy / traced_wall,
@@ -199,7 +210,7 @@ def main() -> int:
     out_dir = Path(sys.argv[1]) if len(sys.argv) > 1 else (
         ROOT / "build" / "profiles")
     out_dir.mkdir(parents=True, exist_ok=True)
-    wanted = sys.argv[2:] or ["A", "B", "V", "S", "Sd", "T"]
+    wanted = sys.argv[2:] or ["A", "B", "V", "S", "Sd", "M", "Md", "T"]
     model: dict = {}
     print(torch.cuda.get_device_name(0), flush=True)
     spikes = ("flat", "burst", "step", "prime")
@@ -214,13 +225,15 @@ def main() -> int:
             ("cpc", "static")),
         "V": lambda: vector_runner(scale_ladder(
             sizes=(1000,), spike="burst", duration_s=600.0), ("cpc",)),
-        "S": lambda: serve_runner(model, decode_only=False),
-        "Sd": lambda: serve_runner(model, decode_only=True),
+        "S": lambda: serve_runner(model, "granite_8b", decode_only=False),
+        "Sd": lambda: serve_runner(model, "granite_8b", decode_only=True),
+        "M": lambda: serve_runner(model, "olmoe_1b_7b", decode_only=False),
+        "Md": lambda: serve_runner(model, "olmoe_1b_7b", decode_only=True),
         "T": train_runner,
     }
     for tag in wanted:
         if tag == "T":
-            model.clear()              # the serving weights, 16.5 GB
+            model.clear()              # the serving weights, 14-17 GB
             torch.cuda.empty_cache()
         print(json.dumps(profile(tag, paths[tag](), out_dir)), flush=True)
     return 0
