@@ -4,9 +4,9 @@
 Phases, each of which raises (and so exits non-zero) when it fails:
 
 1. the card: its name and power limit, as ``nvidia-smi`` prints them;
-2. the build: ``nvcc`` compiles the four kernel libraries from their
-   ``csrc/`` (powercap, flash_attention, decode_attention, moe_gmm), every
-   source at once;
+2. the build: ``nvcc`` compiles the five kernel libraries from their
+   ``csrc/`` (powercap, flash_attention, decode_attention, moe_gmm,
+   ssd_scan), every source at once;
 3. each powercap kernel against its plain PyTorch version on the card, in
    fp64, at the main paths' shapes, timed with CUDA events (median of 20):
    K1 and K2 at paths A and B, K2 at path V (one cell), K3 at path V and
@@ -87,7 +87,37 @@ Phases, each of which raises (and so exits non-zero) when it fails:
     of top-k sets that differ printed; then prefill and decode-step times;
 15. DeepSeekMoE-16B at full width and 4 layers in float32 (shared experts,
     top-6): identical greedy tokens and routing through the kernels and
-    through the plain versions, logits within 1e-4 relative L2.
+    through the plain versions, logits within 1e-4 relative L2;
+16. K8 (the SSD intra-chunk step) against its plain version on the card:
+    at path P's and path H's prefill call in bf16 (8 x 512 tokens, chunk
+    256; 80 heads of 64 with N 128, and 112 heads of 64 with N 64; B and C
+    one row shared by the heads, as the model passes them), each timed
+    beside its plain version, the same calls with B and C packed (bitwise
+    equal), and a float32 scan with a ragged tail and an initial state
+    through ``ops.ssd_scan`` against the sequential oracle (L 40, chunk
+    16); tolerance 1e-4 relative to the values' scale;
+17. K4 and K6 at head dim 112 (Zamba2-7B's shared attention) against
+    their plain versions in bf16 and float32 at path H's shapes: K4 on a
+    prefill of 8 x 512 with 32/32 heads, K6 over a 1024-position cache
+    with ragged lengths, and a case whose blocks are all fully masked but
+    one; tolerances as in 7, the bf16 calls timed beside the plain
+    versions and SDPA;
+18. main path P, ``launch.serve``'s driver at Mamba2-2.7B's full width and
+    depth in bf16 (64 layers, 80 SSD heads of 64, N 128, 2.7e9
+    parameters), with path S's replicas, requests, prompts, tokens and
+    cache: the exact launch counts (K8 once a layer a prefill, K4-K7 none,
+    K1-K3 as the same cap event's CPU run calls their plain versions), the
+    cap event identical to its CPU run, one replica's batch fed back
+    through the plain versions on the card, logits within 2e-2 relative
+    L2; then prefill and decode-step times;
+19. main path H, the same at Zamba2-7B's full width and depth (81 layers,
+    112 SSD heads of 64, N 64, 13 sites of the shared attention block with
+    32 heads of 112, 6.75e9 parameters): K8 once a layer a prefill, K4
+    once a site a prefill, K6 once a site a decode step;
+20. Mamba2-2.7B at full width and 4 layers and Zamba2-7B at full width
+    and 7 layers (one site, then one more layer) in float32: identical
+    greedy tokens through the kernels and through the plain versions,
+    logits within 1e-4 relative L2.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Run from the repository root:
@@ -387,14 +417,16 @@ KERNELS = ("waterfill_dense", "balance_caps", "waterfill_segmented")
 
 
 def _model_wrappers() -> dict:
-    """The model kernels' wrappers (K4, K5, K6, K7) by name."""
+    """The model kernels' wrappers (K4, K5, K6, K7, K8) by name."""
     from repro_torch.kernels.decode_attention import ops as da_ops
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.moe_gmm import ops as gmm_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
     return {"flash_attention": fa_ops.flash_attention,
             "flash_attention_bwd": fa_ops.flash_attention_bwd,
             "decode_attention": da_ops.decode_attention,
-            "grouped_matmul": gmm_ops.grouped_matmul}
+            "grouped_matmul": gmm_ops.grouped_matmul,
+            "ssd_scan": ssd_ops.ssd_scan}
 
 
 def reset_launches() -> None:
@@ -418,21 +450,23 @@ def no_model_launches() -> dict:
 
 
 def build_all() -> float:
-    """Build the four kernel libraries at once (every ``nvcc`` process
+    """Build the five kernel libraries at once (every ``nvcc`` process
     started together) and load them; returns the wall seconds."""
     from repro_torch.kernels.decode_attention import kernel as da_kernel
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.moe_gmm import kernel as gmm_kernel
     from repro_torch.kernels.powercap import kernel
+    from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
 
     t0 = time.perf_counter()
-    builds = (kernel.build, fa_kernel.LIBRARY.build, da_kernel.LIBRARY.build,
-              gmm_kernel.LIBRARY.build)
+    libs = (fa_kernel.LIBRARY, da_kernel.LIBRARY, gmm_kernel.LIBRARY,
+            ssd_kernel.LIBRARY)
+    builds = (kernel.build,) + tuple(lib.build for lib in libs)
     with ThreadPoolExecutor(len(builds)) as pool:
         logs = [f.result()[1] for f in [pool.submit(b) for b in builds]]
     print("\n".join(logs), file=sys.stderr, flush=True)
     kernel.library()
-    for lib in (fa_kernel.LIBRARY, da_kernel.LIBRARY, gmm_kernel.LIBRARY):
+    for lib in libs:
         lib.library()
     return time.perf_counter() - t0
 
@@ -748,8 +782,8 @@ def run_serving_path(dev) -> tuple[dict, dict]:
     want = {"flash_attention": cfg.n_layers * n_rep,
             "flash_attention_bwd": 0,
             "decode_attention": cfg.n_layers * (steps - 1) * n_rep,
-            "grouped_matmul": 0, "waterfill_dense": 1, "balance_caps": 1,
-            "waterfill_segmented": 2}
+            "grouped_matmul": 0, "ssd_scan": 0, "waterfill_dense": 1,
+            "balance_caps": 1, "waterfill_segmented": 2}
     if launches != want:
         raise AssertionError(f"S: kernel launches {launches}, expected "
                              f"{want}")
@@ -933,7 +967,7 @@ def run_training_path(dev) -> tuple[dict, dict]:
         shutil.rmtree(cpu_dir, ignore_errors=True)
     want = dict(power_launches, flash_attention=2 * cfg.n_layers * steps,
                 flash_attention_bwd=cfg.n_layers * steps,
-                decode_attention=0, grouped_matmul=0)
+                decode_attention=0, grouped_matmul=0, ssd_scan=0)
     if steps != 6 or launches != want:
         raise AssertionError(f"T: {steps} steps, kernel launches {launches}, "
                              f"expected {want}")
@@ -1201,7 +1235,7 @@ def run_moe_serving_path(dev) -> tuple[dict, dict]:
     want = dict(power_launches, flash_attention=cfg.n_layers * n_rep,
                 flash_attention_bwd=0,
                 decode_attention=cfg.n_layers * (steps - 1) * n_rep,
-                grouped_matmul=3 * cfg.n_layers * steps * n_rep)
+                grouped_matmul=3 * cfg.n_layers * steps * n_rep, ssd_scan=0)
     if cfg.family != "moe" or launches != want:
         raise AssertionError(f"M: kernel launches {launches}, expected "
                              f"{want}")
@@ -1329,6 +1363,325 @@ def run_moe_f32_check(dev) -> dict:
     log(f"M f32, DeepSeekMoE-16B 4 layers: tokens and routing identical, "
         f"logits {err:.3e} relative L2")
     return dict(rel_l2=err, tokens_identical=True, routing_identical=True)
+
+
+#: Paths P and H: the serving driver at Mamba2-2.7B's and Zamba2-7B's full
+#: width and depth, with path S's replicas, requests, prompts, tokens and
+#: cache.
+SSM_ARGV = {"P": ["--arch", "mamba2_2p7b"] + SERVE_ARGV[2:],
+            "H": ["--arch", "zamba2_7b"] + SERVE_ARGV[2:]}
+#: K8's tolerance, relative to the values' scale (:func:`attn_close`): the
+#: kernel and its plain version both sum in float32, in other orders.
+K8_TOL = 1e-4
+#: K8's cases at the paths' prefill: ``(B, L, H, P, N, Q)``, bf16 inputs.
+K8_CASES = {"P": (8, 512, 80, 64, 128, 256), "H": (8, 512, 112, 64, 64, 256)}
+
+
+def ssd_inputs(b, l, h, p, n, dtype, dev, seed: int):
+    """x, dt (softplus of a normal), a_log (the model's ``log(linspace(1,
+    16, H))``) and B, C rows expanded over the heads (a head stride of 0,
+    as the model hands them to K8), ``dtype`` but a_log float32."""
+    x = randn((b, l, h, p), dtype, dev, seed)
+    dt = torch.nn.functional.softplus(randn((b, l, h), torch.float32, dev,
+                                            seed + 1)).to(dtype)
+    a_log = torch.log(torch.linspace(1.0, 16.0, h, device=dev))
+    bm = randn((b, l, 1, n), dtype, dev, seed + 2).expand(b, l, h, n)
+    cm = randn((b, l, 1, n), dtype, dev, seed + 3).expand(b, l, h, n)
+    return x, dt, a_log, bm, cm
+
+
+def k8_bound(b, l, h, p, n, q, el) -> tuple[float, str]:
+    """K8's least time: x, B and C read once (B and C one row shared by
+    the heads), the log decay and dt in float32, y_intra, contrib and
+    total written in float32; the causal operations of the two products
+    and the state's outer product, over the bf16 or float32 peak."""
+    nc = l // q
+    n_bytes = (el * (b * l * h * p + 2 * b * l * n) + 2 * 4 * b * l * h
+               + 4 * (b * l * h * p + b * nc * h * p * n + b * nc * h))
+    flops = b * nc * h * (q * (q + 1) * (n + p) + 2 * q * p * n)
+    return bound_ms(n_bytes, flops, PEAK_BF16_FLOPS if el == 2
+                    else PEAK_FP32_FLOPS)
+
+
+def check_k8(dev) -> dict:
+    """K8 against its plain version: at paths P's and H's prefill call in
+    bf16 (B and C shared across the heads, as the model passes them; each
+    timed beside the plain version), the same call with B and C packed
+    (bitwise equal to the shared view), and a float32 scan with a ragged
+    tail and an initial state through ``ops.ssd_scan`` against the
+    sequential oracle ``ssd_ref`` (L 40, chunk 16, as in
+    ``tests/test_kernels.py``).  Returns the records at P and H."""
+    from repro_torch.kernels.ssd_scan import ops, ref
+
+    bf = torch.bfloat16
+    records, errs = {}, {}
+    for tag, (b, l, h, p, n, q) in K8_CASES.items():
+        x, dt, a_log, bm, cm = ssd_inputs(b, l, h, p, n, bf, dev, 60)
+        ld = dt.float() * -torch.exp(a_log)
+        got = ops._intra_chunk(x, ld, dt, bm, cm, q)
+        want = ref.ssd_chunk_ref(x, ld, dt, bm, cm, q)
+        err = max(attn_close(g, w, K8_TOL, f"K8 {tag} {name}") for name, g, w
+                  in zip(("y_intra", "contrib", "total"), got, want))
+        packed = ops._intra_chunk(x, ld, dt, bm.contiguous(),
+                                  cm.contiguous(), q)
+        if not all(torch.equal(a, c) for a, c in zip(got, packed)):
+            raise AssertionError(f"K8 {tag}: B and C shared across the "
+                                 f"heads differ from packed copies")
+        ms = time_ms(lambda: ops._intra_chunk(x, ld, dt, bm, cm, q))
+        pms = time_ms(lambda: ref.ssd_chunk_ref(x, ld, dt, bm, cm, q))
+        bound, by = k8_bound(b, l, h, p, n, q, 2)
+        del got, want, packed
+        log(f"{tag}: K8 {b}x{l}x{h}x{p}x{n} chunk {q} err {err:.3e} "
+            f"{ms:.4f} ms (plain {pms:.3f} ms, bound {bound:.4f} ms by {by})")
+        records[tag] = dict(
+            name=f"ssd_scan {b}x{l}x{h}x{p}x{n}", route="cuda",
+            source="src/repro_torch/kernels/ssd_scan/csrc/ssd.cu",
+            replaces="src/repro/kernels/ssd_scan/kernel.py:71",
+            max_abs_err=err, rtol=K8_TOL, atol_per_rms=K8_TOL, ms=ms,
+            plain_ms=pms, bound_ms=bound, bound_by=by, library_ms=None)
+    x, dt, a_log, bm, cm = ssd_inputs(2, 40, 4, 16, 16, torch.float32, dev,
+                                      70)
+    bm, cm = bm * 0.3, cm * 0.3
+    init = randn((2, 4, 16, 16), torch.float32, dev, 75) * 0.2
+    y, state = ops.ssd_scan(x, dt, a_log, bm, cm, chunk=16, init_state=init)
+    oy, ostate = ref.ssd_ref(x, dt, a_log, bm, cm, init_state=init)
+    errs["ragged_f32"] = max(attn_close(y, oy, K8_TOL, "K8 ragged y"),
+                             attn_close(state, ostate, K8_TOL,
+                                        "K8 ragged state"))
+    log(f"K8 float32 L 40 chunk 16 with an initial state, against ssd_ref: "
+        f"err {errs['ragged_f32']:.3e}")
+    for rec in records.values():
+        rec["float32_max_abs_err"] = errs["ragged_f32"]
+    return records
+
+
+def check_d112(dev) -> list:
+    """P1's check: K4 and K6 at head dim 112 against their plain versions
+    at path H's shapes, in bf16 and float32: K4 on a prefill of 8 x 512
+    with 32/32 heads, K6 over a 1024-position cache with ragged lengths
+    and a case whose blocks are all fully masked but one.  The bf16 calls
+    are timed beside the plain versions and SDPA.  Returns their records
+    for path H."""
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.kernels.decode_attention import ref as da_ref
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    b, s, hq, d, cache = 8, 512, 32, 112, 1024
+    g = torch.Generator(device=dev).manual_seed(80)
+    kv_len = torch.randint(1, cache + 1, (b,), generator=g, device=dev,
+                           dtype=torch.int32)
+    k4, k6 = {}, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = (randn((b, s, hq, d), dtype, dev, 81 + i)
+                   for i in range(3))
+        out, lse = fa_ops.flash_attention(q, k, v)
+        pout, plse = fa_ref.flash_attention_ref(q, k, v,
+                                                block_k=fa_ops.BLOCK_K)
+        k4[dtype] = max(attn_err(out, pout, dtype, f"K4 D 112 {dtype}"),
+                        attn_err(lse, plse, dtype, f"K4 D 112 {dtype} lse"))
+        dq = randn((b, hq, d), dtype, dev, 84)
+        dk, dv = (randn((b, cache, hq, d), dtype, dev, 85 + i)
+                  for i in range(2))
+        k6[dtype] = attn_err(
+            da_ops.decode_attention(dq, dk, dv, kv_len),
+            da_ref.decode_attention_split_ref(dq, dk, dv, kv_len,
+                                              da_ops.BLOCK_K),
+            dtype, f"K6 D 112 {dtype}")
+    mq = randn((2, 4, d), torch.float32, dev, 87)
+    mk = randn((2, 512, 4, d), torch.float32, dev, 88)
+    mlen = torch.tensor([1, 3], dtype=torch.int32, device=dev)
+    masked = attn_err(da_ops.decode_attention(mq, mk, mk, mlen, block_k=64),
+                      da_ref.decode_attention_split_ref(mq, mk, mk, mlen, 64),
+                      torch.float32, "K6 D 112 fully masked blocks")
+
+    bf = torch.bfloat16
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    ms4 = time_ms(lambda: fa_ops.flash_attention(q, k, v))
+    pms4 = time_ms(lambda: fa_ref.flash_attention_ref(
+        q, k, v, block_k=fa_ops.BLOCK_K))
+    lms4 = time_ms(lambda: sdpa(qt, kt, vt, is_causal=True))
+    pairs = s * (s + 1) // 2
+    bound4, by4 = bound_ms(2 * 4 * b * s * hq * d + 4 * b * hq * s,
+                           4 * b * hq * d * pairs, PEAK_BF16_FLOPS)
+    mask = (torch.arange(cache, device=dev)[None, :]
+            < kv_len[:, None])[:, None, None, :]
+    ms6 = time_ms(lambda: da_ops.decode_attention(dq, dk, dv, kv_len))
+    pms6 = time_ms(lambda: da_ref.decode_attention_split_ref(
+        dq, dk, dv, kv_len, da_ops.BLOCK_K))
+    lms6 = time_ms(lambda: sdpa(dq[:, :, None], dk.transpose(1, 2),
+                                dv.transpose(1, 2), attn_mask=mask))
+    live = float(kv_len.double().sum())
+    bound6, by6 = bound_ms(2 * 2 * live * hq * d, 4 * live * hq * d,
+                           PEAK_BF16_FLOPS)
+    log(f"H: K4 D 112 err {k4[bf]:.3e} (float32 {k4[torch.float32]:.3e}) "
+        f"{ms4:.4f} ms (plain {pms4:.3f} ms, SDPA {lms4:.4f} ms, bound "
+        f"{bound4:.4f} ms); K6 D 112 err {k6[bf]:.3e} (float32 "
+        f"{k6[torch.float32]:.3e}, masked {masked:.3e}) {ms6:.4f} ms (plain "
+        f"{pms6:.3f} ms, SDPA {lms6:.4f} ms, bound {bound6:.5f} ms), "
+        f"kv_len {kv_len.tolist()}")
+    src = "src/repro_torch/kernels/"
+    return [dict(name=f"flash_attention {b}x{s}x{hq}x{d}", route="cuda",
+                 source=src + "flash_attention/csrc/flash_fwd.cu",
+                 replaces="src/repro/kernels/flash_attention/kernel.py:83",
+                 max_abs_err=k4[bf], float32_max_abs_err=k4[torch.float32],
+                 rtol=ATTN_TOL[bf], atol_per_rms=ATTN_TOL[bf], ms=ms4,
+                 plain_ms=pms4, bound_ms=bound4, bound_by=by4,
+                 library_ms=lms4),
+            dict(name=f"decode_attention {b}x{cache}x{hq}x{d}", route="cuda",
+                 source=src + "decode_attention/csrc/decode.cu",
+                 replaces="src/repro/kernels/decode_attention/kernel.py:55",
+                 max_abs_err=k6[bf], float32_max_abs_err=k6[torch.float32],
+                 masked_max_abs_err=masked, rtol=ATTN_TOL[bf],
+                 atol_per_rms=ATTN_TOL[bf], ms=ms6, plain_ms=pms6,
+                 bound_ms=bound6, bound_by=by6, library_ms=lms6)]
+
+
+@contextlib.contextmanager
+def plain_ssd():
+    """The SSD scan's intra-chunk step through K8's plain version (the
+    comparison runs only)."""
+    from repro_torch.kernels.ssd_scan import ops, ref
+
+    with mock.patch.object(ops, "_intra_chunk", ref.ssd_chunk_ref):
+        yield
+
+
+def run_ssm_serving_path(tag: str, dev) -> tuple[dict, dict]:
+    """Path P or H through ``launch.serve.main`` on the card, with the
+    launch counts of exactly that run (K8 once a layer a prefill; for the
+    hybrid K4 once a site a prefill and K6 once a site a decode step; K1-K3
+    as the same cap event's CPU run calls their plain versions); its cap
+    event held against the CPU; one replica's batch fed back through the
+    plain versions on the card (logits within 2e-2 relative L2); then warm
+    timings."""
+    from repro_torch.core.power_model import H100_HOST
+    from repro_torch.launch import serve
+    from repro_torch.runtime.serve_loop import (generate, make_decode_step,
+                                                make_prefill_step)
+
+    reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    report = serve.main(SSM_ARGV[tag])
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    cfg, params = report.cfg, report.params
+    steps, max_len, prompt_len = 32, 1024, 512
+    n_rep = len(report.routing)
+    sites = cfg.n_layers // cfg.attn_every if cfg.family == "hybrid" else 0
+    snap, router = serve.make_fleet(H100_HOST, n_rep)
+    with count_plain_calls() as power_launches:
+        routing, caps, result = serve.power_event(snap, router, 16, "cpu")
+    want = dict(power_launches, flash_attention=sites * n_rep,
+                flash_attention_bwd=0,
+                decode_attention=sites * (steps - 1) * n_rep,
+                grouped_matmul=0, ssd_scan=cfg.n_layers * n_rep)
+    family = {"P": "ssm", "H": "hybrid"}[tag]
+    if cfg.family != family or launches != want:
+        raise AssertionError(f"{tag}: kernel launches {launches}, expected "
+                             f"{want}")
+    if report.routing != {"rep0": 8, "rep1": 8}:
+        raise AssertionError(f"{tag}: routing {report.routing}")
+    got = (list(report.routing_after.items()), report.caps_after,
+           report.notes, report.cap_changes, report.migrations)
+    cpu = (list(routing.items()), caps, list(result.notes),
+           result.cap_changes, result.migrations)
+    if got != cpu:
+        raise AssertionError(f"{tag}: cap event on the card {got}, on the "
+                             f"CPU {cpu}")
+    for rep, (prompts, toks, logits) in report.batches.items():
+        if toks.shape != (8, steps) or logits.shape != (8, steps,
+                                                        cfg.vocab_size):
+            raise AssertionError(f"{tag} {rep}: shapes {toks.shape}, "
+                                 f"{logits.shape}")
+        if not torch.isfinite(logits).all():
+            raise AssertionError(f"{tag} {rep}: non-finite logits")
+    prompts, toks, logits = report.batches["rep0"]
+    with plain_attention(), plain_ssd():
+        _, plain_logits = generate(cfg, params, prompts, steps, max_len,
+                                   forced=toks)
+    err = rel_l2(logits, plain_logits)
+    if not err <= 2e-2:
+        raise AssertionError(f"{tag}: teacher-forced logits {err:.3e} "
+                             f"relative L2 from the plain versions (bound "
+                             f"2e-2)")
+    same = float((plain_logits.argmax(-1) == toks).float().mean())
+    del plain_logits
+
+    prefill = make_prefill_step(cfg, max_len)
+    decode = make_decode_step(cfg)
+    start = torch.cuda.Event(enable_timing=True)
+    mid = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    prefill_ms, step_ms = [], []
+    for _ in range(3):
+        start.record()
+        lg, state = prefill(params, prompts)
+        mid.record()
+        tok = lg.argmax(-1)
+        for _ in range(steps - 1):
+            lg, state = decode(params, state, tok)
+            tok = lg.argmax(-1)
+        end.record()
+        end.synchronize()
+        prefill_ms.append(start.elapsed_time(mid))
+        step_ms.append(mid.elapsed_time(end) / (steps - 1))
+    del state
+    weights_gb = sum(t.numel() * t.element_size() for grp in params.values()
+                     for t in grp.values()) / 1e9
+    info = dict(wall_s=wall, decode_s=report.seconds, tokens=report.tokens,
+                tokens_per_s=report.tokens / report.seconds,
+                prefill_ms=statistics.median(prefill_ms),
+                decode_step_ms=statistics.median(step_ms),
+                weights_gb=weights_gb, peak_memory_gb=peak_gb,
+                teacher_forced_rel_l2=err, plain_argmax_equal=same,
+                routing=report.routing, routing_after=report.routing_after,
+                caps_after=report.caps_after, notes=report.notes,
+                prompt_len=prompt_len, steps=steps,
+                params=cfg.param_count())
+    log(f"path {tag}: {report.tokens} tokens in {report.seconds:.3f} s "
+        f"({info['tokens_per_s']:.1f} tokens/s; whole driver {wall:.3f} s); "
+        f"prefill {info['prefill_ms']:.2f} ms, decode step "
+        f"{info['decode_step_ms']:.2f} ms (warm, one batch of 8); weights "
+        f"{weights_gb:.3f} GB, peak {peak_gb:.3f} GB; teacher-forced logits "
+        f"{err:.3e} relative L2 (argmax equal {same:.3f}); launches "
+        f"{launches}; cap event {report.caps_after} W, "
+        f"{report.routing_after}, {report.notes}")
+    return launches, info
+
+
+def run_ssm_f32_check(arch: str, n_layers: int, dev) -> dict:
+    """``arch`` at full width and ``n_layers`` layers in float32: greedy
+    tokens identical through the kernels and through the plain versions,
+    logits within 1e-4 relative L2, on one batch of 8 prompts of 512."""
+    from repro_torch import configs
+    from repro_torch.models import transformer as tfm
+    from repro_torch.runtime.serve_loop import generate
+
+    cfg = dataclasses.replace(configs.get(arch), n_layers=n_layers,
+                              param_dtype="float32")
+    params = tfm.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                             dev)
+    prompts = torch.randint(0, cfg.vocab_size, (8, 512), device=dev,
+                            generator=torch.Generator(device=dev)
+                            .manual_seed(1))
+    toks, logits = generate(cfg, params, prompts, 32, 1024)
+    with plain_attention(), plain_ssd():
+        ptoks, plogits = generate(cfg, params, prompts, 32, 1024)
+    err = rel_l2(logits, plogits)
+    if not torch.equal(toks, ptoks):
+        raise AssertionError(f"{arch} f32: greedy tokens differ between the "
+                             f"kernels and the plain versions")
+    if not err <= 1e-4:
+        raise AssertionError(f"{arch} f32: logits {err:.3e} relative L2 "
+                             f"from the plain versions (bound 1e-4)")
+    log(f"{arch} f32, {n_layers} layers: tokens identical, logits "
+        f"{err:.3e} relative L2")
+    return dict(n_layers=n_layers, rel_l2=err, tokens_identical=True)
 
 
 def run_path(tag, specs, policies):
@@ -1475,16 +1828,31 @@ def main() -> int:
     launches_m, info_m = run_moe_serving_path(dev)
     torch.cuda.empty_cache()
     info_m["deepseek_float32_4_layers"] = run_moe_f32_check(dev)
+    torch.cuda.empty_cache()
+
+    k8 = check_k8(dev)
+    records["P"] = [k8["P"]]
+    records["H"] = [k8["H"]] + check_d112(dev)
+    torch.cuda.empty_cache()
+    launches_p, info_p = run_ssm_serving_path("P", dev)
+    torch.cuda.empty_cache()
+    launches_h, info_h = run_ssm_serving_path("H", dev)
+    torch.cuda.empty_cache()
+    info_p["float32_4_layers"] = run_ssm_f32_check("mamba2_2p7b", 4, dev)
+    torch.cuda.empty_cache()
+    info_h["float32_7_layers"] = run_ssm_f32_check("zamba2_7b", 7, dev)
 
     kernels_out = []
     for tag, launches in (("A", launches_a), ("B", launches_b),
                           ("V", launches_v), ("S", launches_s),
-                          ("T", launches_t), ("M", launches_m)):
+                          ("T", launches_t), ("M", launches_m),
+                          ("P", launches_p), ("H", launches_h)):
         for rec in records[tag]:
             name = rec["name"].split()[0]
             kernels_out.append(dict(rec, launches=launches[name], path=tag))
     log(json.dumps({"paths": {"A": info_a, "B": info_b, "V": info_v,
-                              "S": info_s, "T": info_t, "M": info_m}}))
+                              "S": info_s, "T": info_t, "M": info_m,
+                              "P": info_p, "H": info_h}}))
     log(json.dumps({"kernels": kernels_out}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

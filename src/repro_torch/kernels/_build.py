@@ -1,7 +1,8 @@
 """Build a kernel package's CUDA sources into a shared library and load it.
 
 Each kernel package (``powercap``, ``flash_attention``,
-``decode_attention``, ``moe_gmm``) owns one :class:`KernelLibrary`.  At
+``decode_attention``, ``moe_gmm``, ``ssd_scan``) owns one
+:class:`KernelLibrary`.  At
 first use its ``csrc/*.cu`` sources are compiled for ``sm_90a`` with
 ``nvcc`` (one process per source, all started together), linked into
 ``build/repro_torch_kernels/lib<name>.so`` at the repository root, and

@@ -25,7 +25,9 @@
 // memory; a warp per query row then takes the max, the exponentials and
 // the sum.  For o, each thread owns one feature and a strided share of
 // the positions, for four query rows at a time, and the shares are summed
-// in a fixed order, so a launch gives the same bits every time.
+// in a fixed order, so a launch gives the same bits every time.  Where D
+// does not divide the block (D = 112: two shares of 112 threads), the
+// threads past kParts * D take no share; they only reach the barriers.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -145,10 +147,11 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(Params p) {
   __syncthreads();
 
   // o = p @ v: thread (share, d) sums positions share, share + kParts, ...
+  // Threads with share >= kParts (past kParts * D) sit this pass out.
   const int d = threadIdx.x % D, share = threadIdx.x / D;
   const T* vg = static_cast<const T*>(p.v) + b * p.v_sb
                 + (long long)k_start * p.v_ss + (long long)h * D + d;
-  for (int g0 = 0; g0 < G; g0 += kRowsPerPass) {
+  for (int g0 = 0; share < kParts && g0 < G; g0 += kRowsPerPass) {
     const int rows = min(kRowsPerPass, G - g0);
     float acc[kRowsPerPass] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll 4
@@ -200,6 +203,7 @@ int dispatch(const Params& p, int B, int D, cudaStream_t s) {
     case 16: return launch<T, 16>(p, B, s);
     case 32: return launch<T, 32>(p, B, s);
     case 64: return launch<T, 64>(p, B, s);
+    case 112: return launch<T, 112>(p, B, s);
     case 128: return launch<T, 128>(p, B, s);
     case 256: return launch<T, 256>(p, B, s);
     default: return static_cast<int>(cudaErrorInvalidValue);

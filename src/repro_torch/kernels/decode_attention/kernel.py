@@ -18,7 +18,7 @@ import torch
 from repro_torch.kernels._build import KernelLibrary, stream
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (16, 32, 64, 128, 256)
+HEAD_DIMS = (16, 32, 64, 112, 128, 256)
 
 
 def _bind(lib: ctypes.CDLL) -> None:

@@ -220,6 +220,7 @@ int dispatch(const Params& p, int B, int D, cudaStream_t s) {
     case 16: return launch<T, 16>(p, B, s);
     case 32: return launch<T, 32>(p, B, s);
     case 64: return launch<T, 64>(p, B, s);
+    case 112: return launch<T, 112>(p, B, s);
     case 128: return launch<T, 128>(p, B, s);
     case 256: return launch<T, 256>(p, B, s);
     default: return static_cast<int>(cudaErrorInvalidValue);

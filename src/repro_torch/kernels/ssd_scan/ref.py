@@ -1,0 +1,123 @@
+"""Plain PyTorch versions of kernel K8, the SSD intra-chunk step.
+
+:func:`ssd_chunk_ref` is the math of the reference's Pallas body
+(``repro/kernels/ssd_scan/kernel.py:_ssd_kernel``): for every (batch,
+chunk of Q tokens, head), with ``cum`` the in-chunk cumulative sum of the
+log decay,
+
+  y_intra[t]   = sum_{s<=t} (C_t.B_s) exp(cum_t - cum_s) dt_s x_s
+  contrib[p,n] = sum_s exp(cum_Q - cum_s) dt_s B_s[n] x_s[p]
+  total        = cum_Q
+
+all in float32.  The decay is taken as ``exp(cum_t - cum_s)`` for
+``s <= t`` only, never as a product of ``exp(cum_t)`` and ``exp(-cum_s)``,
+which overflows float32 within one chunk.  ``cum`` is summed in the
+kernel's order (:func:`chunk_cumsum`), so the two agree on it to the bit:
+it reaches about -3e3 within a chunk of 256, where two summation orders
+would move the decays by about 1e-3 relative.  :func:`ssd_ref` is the
+reference's sequential oracle (``repro/kernels/ssd_scan/ref.py``): the
+O(L) state recurrence, independent of the chunked algorithm.  Both run on
+any device; the wrapper takes :func:`ssd_chunk_ref` for CPU tensors only.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+#: Positions a segment of the in-chunk cumulative sum (K8's order).
+SEGMENT = 32
+
+
+def chunk_cumsum(ld: torch.Tensor) -> torch.Tensor:
+    """The in-chunk cumulative sum of ``ld`` (B, NC, Q, H) over Q, in K8's
+    order: each segment of :data:`SEGMENT` positions summed in order from
+    zero, then each segment's offset (the segment totals before it,
+    summed in order) added.  Written as elementwise float32 adds, which
+    round the same way on any device (``torch.cumsum`` accumulates in
+    double on the CPU and in float32 on CUDA)."""
+    b, nc, q, h = ld.shape
+    nseg = -(-q // SEGMENT)
+    seg = F.pad(ld, (0, 0, 0, nseg * SEGMENT - q)).reshape(
+        b, nc, nseg, SEGMENT, h)
+    local = torch.empty_like(seg)
+    acc = torch.zeros_like(seg[:, :, :, 0])
+    for i in range(SEGMENT):
+        acc = acc + seg[:, :, :, i]
+        local[:, :, :, i] = acc
+    offsets = torch.empty_like(acc)
+    run = torch.zeros_like(acc[:, :, 0])
+    for k in range(nseg):
+        offsets[:, :, k] = run
+        run = run + local[:, :, k, -1]
+    cum = local + offsets[:, :, :, None]
+    return cum.reshape(b, nc, nseg * SEGMENT, h)[:, :, :q]
+
+
+def _check(x, log_decay, dt, b_mat, c_mat, chunk: int) -> None:
+    if x.dim() != 4 or b_mat.dim() != 4 or c_mat.shape != b_mat.shape:
+        raise ValueError(f"expected x (B,L,H,P) and b, c (B,L,H,N); got "
+                         f"{tuple(x.shape)}, {tuple(b_mat.shape)}, "
+                         f"{tuple(c_mat.shape)}")
+    bsz, l, h, _ = x.shape
+    if tuple(b_mat.shape[:3]) != (bsz, l, h):
+        raise ValueError(f"b {tuple(b_mat.shape)} does not match x "
+                         f"{tuple(x.shape)} in batch, length or heads")
+    for name, t in (("log_decay", log_decay), ("dt", dt)):
+        if tuple(t.shape) != (bsz, l, h):
+            raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
+                             f"{(bsz, l, h)}")
+    if chunk <= 0 or l % chunk:
+        raise ValueError(f"L={l} is not a multiple of chunk={chunk}")
+
+
+def ssd_chunk_ref(x, log_decay, dt, b_mat, c_mat, chunk: int):
+    """x: (B,L,H,P); log_decay, dt: (B,L,H); b, c: (B,L,H,N); L % chunk
+    == 0.  Returns float32 ``(y_intra (B,L,H,P), contrib (B,NC,H,P,N),
+    total (B,NC,H))``."""
+    _check(x, log_decay, dt, b_mat, c_mat, chunk)
+    bsz, l, h, p = x.shape
+    n = b_mat.shape[-1]
+    nc, q = l // chunk, chunk
+    xc = x.float().reshape(bsz, nc, q, h, p)
+    ld = log_decay.float().reshape(bsz, nc, q, h)
+    dtc = dt.float().reshape(bsz, nc, q, h)
+    bc = b_mat.float().reshape(bsz, nc, q, h, n)
+    cc = c_mat.float().reshape(bsz, nc, q, h, n)
+    cum = chunk_cumsum(ld)                                    # (B,NC,Q,H)
+    tri = torch.tril(torch.ones((q, q), dtype=torch.bool, device=x.device))
+    dec = cum[:, :, :, None, :] - cum[:, :, None, :, :]       # (B,NC,t,s,H)
+    lmat = torch.exp(torch.where(tri[None, None, :, :, None], dec,
+                                 float("-inf")))
+    scores = torch.einsum("bcthn,bcshn->bctsh", cc, bc)
+    w = scores * lmat * dtc[:, :, None, :, :]
+    y = torch.einsum("bctsh,bcshp->bcthp", w, xc)
+    total = cum[:, :, -1, :]                                   # (B,NC,H)
+    rem = torch.exp(total[:, :, None, :] - cum)                # (B,NC,Q,H)
+    bw = bc * (rem * dtc)[..., None]
+    contrib = torch.einsum("bcshn,bcshp->bchpn", bw, xc)
+    return y.reshape(bsz, l, h, p), contrib, total
+
+
+def ssd_ref(x, dt, a_log, b_mat, c_mat, init_state=None):
+    """x: (B,L,H,P); dt: (B,L,H); a_log: (H,); b, c: (B,L,H,N).
+
+    ``S_t = exp(dt_t A) S_{t-1} + dt_t B_t (x) x_t`` and ``y_t = C_t.S_t``
+    with ``A = -exp(a_log)``.  Returns float32 ``(y (B,L,H,P), final state
+    (B,H,P,N))``."""
+    bsz, l, h, p = x.shape
+    n = b_mat.shape[-1]
+    a = -torch.exp(a_log.float())
+    state = (torch.zeros((bsz, h, p, n), dtype=torch.float32,
+                         device=x.device)
+             if init_state is None else init_state.float())
+    ys = []
+    for t in range(l):
+        dtt = dt[:, t].float()
+        decay = torch.exp(dtt * a)
+        contrib = torch.einsum("bhn,bhp->bhpn",
+                               b_mat[:, t].float() * dtt[..., None],
+                               x[:, t].float())
+        state = state * decay[..., None, None] + contrib
+        ys.append(torch.einsum("bhn,bhpn->bhp", c_mat[:, t].float(), state))
+    return torch.stack(ys, dim=1), state

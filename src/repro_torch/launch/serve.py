@@ -4,7 +4,8 @@ Each replica is a model instance on one host; the CloudPowerCap manager
 owns the fleet's power budget, and the router follows the power-capped
 capacities.  The driver routes the requests, decodes every replica's batch
 (prefill on kernel K4, decode steps on K6; an MoE model's expert FFN on
-K7), then halves host ``h0``'s cap, runs one manager invocation
+K7; a Mamba2 or Zamba2 model's SSD scan on K8 at prefill, Zamba2's shared
+attention on K4 and K6), then halves host ``h0``'s cap, runs one manager invocation
 (BalancePowerCap on K2, its note on K3, the migration balancer's stopping
 test on K1) and routes again.  The weights are random, from a seeded
 ``torch.Generator``.
@@ -12,6 +13,10 @@ test on K1) and routes again.  The weights are random, from a seeded
   PYTHONPATH=src python -m repro_torch.launch.serve --arch granite_8b \
       --smoke --device cpu --requests 32 --decode-steps 8
   PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe_1b_7b \
+      --smoke --device cpu --requests 32 --decode-steps 8
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2_2p7b \
+      --smoke --device cpu --requests 32 --decode-steps 8
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2_7b \
       --smoke --device cpu --requests 32 --decode-steps 8
 
 Without ``--device`` it runs on the GPU and raises where there is none.

@@ -1,16 +1,19 @@
-"""Decoder-only LM, dense and MoE families (those parts of
-``repro.models.transformer``).
+"""Model zoo: the decoder-only LM (dense and MoE), the Mamba2 SSM and the
+Zamba2-style hybrid (those parts of ``repro.models.transformer``).
 
 Parameters are a nested dict of tensors in the reference's layout: the
 repeated layers stacked on a leading ``(n_layers, ...)`` axis under
-``"blocks"``, so carrying the reference's weights across is a copy
-(:func:`repro_torch.convert.from_reference_params`).  The forward unbinds
-each stacked weight once and loops over the layers in Python; under
-autograd each layer body is checkpointed as ``cfg.remat`` says (the
-reference's ``jax.checkpoint``), so the backward recomputes it.  An MoE
-block's FFN is :func:`repro_torch.models.moe.moe_ffn` (kernel K7), and the
-forward sums its aux loss over the layers.  The other families (``vlm``,
-``ssm``, ``hybrid``, ``encdec``) are later slices and raise.
+``"blocks"`` (and the hybrid's one shared attention block under
+``"shared_attn"``), so carrying the reference's weights across is a copy
+(:func:`repro_torch.convert.from_reference_params`).  The forwards unbind
+each stacked weight once and loop over the layers in Python; under
+autograd each decoder layer body is checkpointed as ``cfg.remat`` says
+(the reference's ``jax.checkpoint``), so the backward recomputes it.  An
+MoE block's FFN is :func:`repro_torch.models.moe.moe_ffn` (kernel K7), and
+the forward sums its aux loss over the layers.  An SSM layer is
+:func:`repro_torch.models.ssd.ssd_block` (kernel K8 at prefill); the SSM
+and hybrid families serve but do not train yet (ROADMAP queue 1, item 14).
+The other families (``vlm``, ``encdec``) are later slices and raise.
 """
 
 from __future__ import annotations
@@ -25,20 +28,18 @@ from torch import nn
 from torch.utils import checkpoint
 
 from repro_torch.backend import resolve_device
-from repro_torch.models import layers, moe
+from repro_torch.models import layers, moe, ssd
 from repro_torch.models.config import ModelConfig
 
 #: The ROADMAP item that brings each family not ported yet.
 _LATER = {
     "vlm": "the VLM prefix (ROADMAP queue 1, item 9)",
-    "ssm": "SSM and hybrid serving on K8 (ROADMAP queue 1, item 12)",
-    "hybrid": "SSM and hybrid serving on K8 (ROADMAP queue 1, item 12)",
     "encdec": "the encoder-decoder family (ROADMAP queue 1, item 9)",
 }
 
 
 def _ported(cfg: ModelConfig) -> None:
-    if cfg.family not in ("dense", "moe"):
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
         raise NotImplementedError(
             f"the {cfg.family} family is not ported yet: it comes with "
             f"{_LATER.get(cfg.family, 'a later slice')}")
@@ -77,7 +78,14 @@ def param_specs(cfg: ModelConfig) -> dict:
     if not cfg.tie_embeddings:
         specs["unembed"] = {"table": ((cfg.d_model, cfg.vocab_size),
                                       ("embed_p", "vocab"))}
-    specs["blocks"] = _stack(block_param_specs(cfg), cfg.n_layers)
+    if cfg.family in ("dense", "moe"):
+        specs["blocks"] = _stack(block_param_specs(cfg), cfg.n_layers)
+        return specs
+    blk = {"ln": ((cfg.d_model,), (None,))}
+    blk.update(ssd.ssd_param_specs(cfg))
+    specs["blocks"] = _stack(blk, cfg.n_layers)
+    if cfg.family == "hybrid":
+        specs["shared_attn"] = block_param_specs(cfg)
     return specs
 
 
@@ -97,7 +105,11 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     (the reference's scheme, which draws a stacked ``(n_layers, d)`` norm
     scale like a weight and an expert weight ``(E, D, F)`` with fan-in D;
     its ``jax.random`` bits differ).  ``generator`` must live on
-    ``device``; a stacked weight is drawn a layer at a time in float32."""
+    ``device``; a stacked weight is drawn a layer at a time in float32.
+    The reference's three SSM fix-ups follow by name: ``a_log`` is
+    ``log(linspace(1, 16, H))`` in every layer, ``dt_bias`` zero and
+    ``d_skip`` one.  Its fix-up of ``"conv_b"`` names no leaf, so the conv
+    biases keep their draw, as do ``ln`` and ``norm_scale``."""
     dev = resolve_device(device)
     dtype = getattr(torch, cfg.param_dtype)
     params: dict = {}
@@ -105,6 +117,16 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
         node = params
         for key in path[:-1]:
             node = node.setdefault(key, {})
+        name = path[-1]
+        if name == "a_log":
+            a_log = torch.log(torch.linspace(1.0, 16.0, shape[-1],
+                                             dtype=torch.float32, device=dev))
+            node[name] = a_log.to(dtype).expand(shape).contiguous()
+            continue
+        if name in ("dt_bias", "d_skip"):
+            fill = torch.zeros if name == "dt_bias" else torch.ones
+            node[name] = fill(shape, dtype=dtype, device=dev)
+            continue
         if len(shape) == 1 or shape[-1] == 1:
             node[path[-1]] = torch.ones(shape, dtype=dtype, device=dev)
             continue
@@ -214,10 +236,106 @@ def decoder_forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
     return ForwardResult(hidden=h, aux_loss=aux, cache=new_cache)
 
 
+def _layer_state(cache: Optional[dict], i: int) -> Optional[dict]:
+    """Layer ``i``'s SSM and conv states: views into the stacked ones."""
+    if cache is None:
+        return None
+    return {"ssm": cache["ssm"][i], "conv": tuple(c[i] for c in
+                                                  cache["conv"])}
+
+
+def _store_state(cache: Optional[dict], i: int, new: dict) -> None:
+    """Copy layer ``i``'s new states into the stacked ones, in place."""
+    if cache is None:
+        return
+    cache["ssm"][i].copy_(new["ssm"])
+    for stacked, state in zip(cache["conv"], new["conv"]):
+        stacked[i].copy_(state)
+
+
+def _mamba_layer(blk, h, cfg, state):
+    out, new_state = ssd.ssd_block(
+        blk, layers.rms_norm(h, blk["ln"], cfg.norm_eps), cfg, state=state)
+    return h + out, new_state
+
+
+def ssm_forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
+                cache: Optional[dict] = None, **_) -> ForwardResult:
+    """Mamba2: a stack of SSD mixers with pre-norm residuals.
+
+    ``cache`` is :func:`init_decode_state`'s stacked states; each layer's
+    new SSM and conv states are copied into it in place (the reference
+    returns new stacked states), and it comes back as ``cache``.  The conv
+    states keep the float32 storage they start in, holding values of the
+    activations' dtype, which is what the next step reads.  Without a
+    cache the forward runs from zero states and returns none."""
+    h = params["embed"]["table"][tokens].to(getattr(torch, cfg.param_dtype))
+    layer_weights = {name: w.unbind(0)
+                     for name, w in params["blocks"].items()}
+    for i in range(cfg.n_layers):
+        blk = {name: ws[i] for name, ws in layer_weights.items()}
+        h, new_state = _mamba_layer(blk, h, cfg, _layer_state(cache, i))
+        _store_state(cache, i, new_state)
+    h = layers.rms_norm(h, params["final_norm"]["scale"], cfg.norm_eps)
+    return ForwardResult(hidden=h, aux_loss=torch.zeros(
+        (), dtype=torch.float32, device=h.device), cache=cache)
+
+
+def hybrid_forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
+                   cache: Optional[dict] = None,
+                   positions: Optional[torch.Tensor] = None, **_
+                   ) -> ForwardResult:
+    """Zamba2-style: Mamba2 backbone + one shared attention block applied
+    after every ``attn_every`` layers (``n_layers // attn_every`` sites,
+    each with its own KV cache; the remaining layers run after the last
+    site).  ``cache`` is ``{"ssm": stacked states, "kv": stacked KV caches
+    of the sites}``, updated in place as :func:`ssm_forward` and
+    :func:`repro_torch.models.layers.attention` update theirs; the KV
+    cursor advances once a forward, for every site."""
+    h = params["embed"]["table"][tokens].to(getattr(torch, cfg.param_dtype))
+    b, s = h.shape[:2]
+    if positions is None:
+        positions = torch.arange(s, device=h.device)[None, :]
+    every = cfg.attn_every
+    kv = None if cache is None else cache["kv"]
+    kv_len = None
+    if kv is not None and s == 1:
+        # One kv_len tensor for every site of a decode step.
+        kv_len = torch.full((b,), kv["cursor"] + 1, dtype=torch.int32,
+                            device=h.device)
+    ssm_cache = None if cache is None else cache["ssm"]
+    layer_weights = {name: w.unbind(0)
+                     for name, w in params["blocks"].items()}
+    for i in range(cfg.n_layers):
+        blk = {name: ws[i] for name, ws in layer_weights.items()}
+        h, new_state = _mamba_layer(blk, h, cfg, _layer_state(ssm_cache, i))
+        _store_state(ssm_cache, i, new_state)
+        if (i + 1) % every == 0:
+            g = (i + 1) // every - 1
+            site_cache = None if kv is None else {
+                "k": kv["k"][g], "v": kv["v"][g], "cursor": kv["cursor"]}
+            h, _, _ = _attn_block(params["shared_attn"], h, cfg, positions,
+                                  site_cache, kv_len)
+    h = layers.rms_norm(h, params["final_norm"]["scale"], cfg.norm_eps)
+    new_cache = None if cache is None else {
+        "ssm": ssm_cache, "kv": dict(kv, cursor=kv["cursor"] + s)}
+    return ForwardResult(hidden=h, aux_loss=torch.zeros(
+        (), dtype=torch.float32, device=h.device), cache=new_cache)
+
+
+FORWARDS = {
+    "dense": decoder_forward,
+    "moe": decoder_forward,
+    "ssm": ssm_forward,
+    "hybrid": hybrid_forward,
+}
+
+
 def forward(params: dict, cfg: ModelConfig, **kwargs) -> ForwardResult:
-    """The family's forward (the dense or MoE decoder; the others
-    raise)."""
-    return decoder_forward(params, kwargs.pop("tokens"), cfg, **kwargs)
+    """The family's forward (the dense or MoE decoder, the SSM or the
+    hybrid; the others raise)."""
+    _ported(cfg)
+    return FORWARDS[cfg.family](params, kwargs.pop("tokens"), cfg, **kwargs)
 
 
 def unembed_weight(params: dict, cfg: ModelConfig) -> torch.Tensor:
@@ -229,16 +347,31 @@ def unembed_weight(params: dict, cfg: ModelConfig) -> torch.Tensor:
 # ======================================================== decode caches
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
                       device=None) -> dict:
-    """The family's decode state: the stacked KV caches (dense and
-    MoE)."""
+    """The family's decode state: the stacked KV caches (dense and MoE),
+    the stacked ``(n_layers, ...)`` SSM and conv states (ssm), or both,
+    with one KV cache per shared-attention site (hybrid)."""
     _ported(cfg)
-    return _make_cache(cfg, cfg.n_layers, batch, max_len, device)
+    if cfg.family in ("dense", "moe"):
+        return _make_cache(cfg, cfg.n_layers, batch, max_len, device)
+    dev = resolve_device(device)
+    st = ssd.ssd_init_state(cfg, batch, dev)
+
+    def stack(t):
+        return t.new_zeros((cfg.n_layers,) + tuple(t.shape))
+
+    stacked = {"ssm": stack(st["ssm"]),
+               "conv": tuple(stack(c) for c in st["conv"])}
+    if cfg.family == "ssm":
+        return stacked
+    return {"ssm": stacked,
+            "kv": _make_cache(cfg, cfg.n_layers // cfg.attn_every, batch,
+                              max_len, dev)}
 
 
 # ================================================================ module
 class DecoderLM(nn.Module):
     """A thin ``nn.Module`` over the same parameter tree (no copies):
-    ``model(tokens, cache=..., positions=...)`` is :func:`decoder_forward`.
+    ``model(tokens, cache=..., positions=...)`` is :func:`forward`.
     """
 
     def __init__(self, cfg: ModelConfig, params: dict):
@@ -257,5 +390,5 @@ class DecoderLM(nn.Module):
 
     def forward(self, tokens: torch.Tensor, cache: Optional[dict] = None,
                 positions: Optional[torch.Tensor] = None) -> ForwardResult:
-        return decoder_forward(self.params(), tokens, self.cfg, cache=cache,
-                               positions=positions)
+        return forward(self.params(), self.cfg, tokens=tokens, cache=cache,
+                       positions=positions)

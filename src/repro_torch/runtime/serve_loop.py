@@ -4,11 +4,14 @@ The router is the serving-plane face of CloudPowerCap: replica throughput
 is proportional to power-capped capacity, so dispatch weights follow the
 caps the manager sets.
 
-Prefill runs kernel K4 in every layer and each decode step kernel K6
-(:mod:`repro_torch.models.layers`); an MoE model's expert FFN runs kernel
-K7 three times a layer a forward (:mod:`repro_torch.models.moe`).  The
-cache cursor is a host ``int``, so the kernels' ``q_offset`` and
-``kv_len`` need no device sync; the
+Prefill runs kernel K4 in every attention layer and each decode step
+kernel K6 (:mod:`repro_torch.models.layers`); an MoE model's expert FFN
+runs kernel K7 three times a layer a forward (:mod:`repro_torch.models.
+moe`); an SSM layer's prefill runs kernel K8 once and its decode step the
+plain recurrence (:mod:`repro_torch.models.ssd`).  The decode state
+(KV caches, SSM and conv states) is updated in place.  The cache cursor
+is a host ``int``, advanced once a forward, so the kernels' ``q_offset``
+and ``kv_len`` need no device sync; the
 token positions stay a ``(B,)`` device tensor for RoPE, and the greedy
 tokens stay on the device from one step to the next.
 """

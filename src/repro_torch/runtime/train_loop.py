@@ -55,6 +55,11 @@ def make_loss_fn(cfg: ModelConfig, aux_weight: float = 0.01):
                 "training the moe family: K7's backward (two K7 calls on "
                 "transposed operands under an autograd Function) comes with "
                 "MoE training (ROADMAP queue 1, item 13)")
+        if cfg.family in ("ssm", "hybrid"):
+            raise NotImplementedError(
+                f"training the {cfg.family} family: K8's backward (an "
+                f"autograd Function over the SSD scan) comes with SSM and "
+                f"hybrid training (ROADMAP queue 1, item 14)")
         if cfg.family != "dense":
             raise NotImplementedError(
                 f"training the {cfg.family} family: it comes with that "

@@ -10,19 +10,23 @@ cache): ``S`` is the whole generation (prefill and 31 decode steps, its
 "ticks" the 32 forward passes), ``Sd`` the 31 decode steps alone; ``M``
 and ``Md`` the same for path M, OLMoE-1B-7B at full width and depth in
 bf16 (its expert FFN on kernel K7; they also report K7's device ms per
-launch); and path T, one training step of MiniCPM-2B at full width and
+launch); ``P`` and ``Pd``, ``H`` and ``Hd`` the same for paths P and H,
+Mamba2-2.7B and Zamba2-7B at full width and depth in bf16 (their SSD
+scans on kernel K8 at prefill, Zamba2's shared attention on K4 and K6;
+they report K8's two kernels' device ms per launch); and path T, one training step of MiniCPM-2B at full width and
 depth in bf16 (4 x 4096 tokens, remat, AdamW; its "tick" the step).  Each
 path runs once to warm up, then once under ``torch.profiler`` and once
 without it.  For the profiled run it reads the Chrome trace and reports
 the device's busy time (union of kernel and copy intervals), its idle
 share of the run's wall, kernel launches per tick (per forward pass for
-S, Sd, M and Md), and device time by kernel name.  Prints one JSON line
+the serving paths), and device time by kernel name.  Prints one JSON line
 per path and writes the Chrome traces to OUT_DIR (default
 ``build/profiles``).
 
     python3 tools/profile_sweep_torch.py [OUT_DIR [PATH ...]]
 
-PATH is any of A, B, V, S, Sd, M, Md and T (default all).
+PATH is any of A, B, V, S, Sd, M, Md, P, Pd, H, Hd and T (default
+all).
 """
 
 from __future__ import annotations
@@ -86,9 +90,10 @@ def vector_runner(specs, policies):
 
 
 def serve_runner(model: dict, arch: str, decode_only: bool):
-    """``(prepare, info)`` for path S (``arch`` granite_8b) or M
-    (olmoe_1b_7b), ``decode_only`` for Sd or Md; ``model`` caches one
-    arch's parameters between the two."""
+    """``(prepare, info)`` for path S (``arch`` granite_8b), M
+    (olmoe_1b_7b), P (mamba2_2p7b) or H (zamba2_7b), ``decode_only`` for
+    Sd, Md, Pd or Hd; ``model`` caches one arch's parameters between the
+    two."""
     from repro_torch import configs
     from repro_torch.models import transformer as tfm
     from repro_torch.runtime.serve_loop import (generate, make_decode_step,
@@ -153,6 +158,13 @@ def train_runner():
     return prepare, dict(batch=4, seq_len=4096, n_layers=cfg.n_layers)
 
 
+#: Kernels whose device ms per launch a profile reports, by name in the
+#: trace (K8's call is one launch of each of its two kernels).
+PER_LAUNCH = {"k7": "gmm_kernel", "k8_intra": "ssd_intra_kernel",
+              "k8_state": "ssd_state_kernel", "k4": "flash_fwd_kernel",
+              "k6": "decode_kernel"}
+
+
 def timed(run) -> tuple[int, float]:
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -186,11 +198,13 @@ def profile(tag: str, runner, out_dir: Path) -> dict:
         count[key] += 1
     busy = busy_us(kernels + copies) * 1e-6
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
-    gmm = [e["dur"] for e in kernels if "gmm_kernel" in e["name"]]
-    if gmm:
-        info = dict(info, k7_launches=len(gmm),
-                    k7_device_ms_per_launch=sum(gmm) * 1e-3 / len(gmm),
-                    k7_device_ms=sum(gmm) * 1e-3)
+    for key, pattern in PER_LAUNCH.items():
+        durs = [e["dur"] for e in kernels if pattern in e["name"]]
+        if durs:
+            info = dict(info, **{
+                f"{key}_launches": len(durs),
+                f"{key}_device_ms_per_launch": sum(durs) * 1e-3 / len(durs),
+                f"{key}_device_ms": sum(durs) * 1e-3})
     return dict(path=tag, ticks=ticks, run_s_untraced=plain_wall,
                 run_s_traced=traced_wall, device_busy_s=busy,
                 device_idle_share=1.0 - busy / traced_wall,
@@ -210,7 +224,8 @@ def main() -> int:
     out_dir = Path(sys.argv[1]) if len(sys.argv) > 1 else (
         ROOT / "build" / "profiles")
     out_dir.mkdir(parents=True, exist_ok=True)
-    wanted = sys.argv[2:] or ["A", "B", "V", "S", "Sd", "M", "Md", "T"]
+    wanted = sys.argv[2:] or ["A", "B", "V", "S", "Sd", "M", "Md", "P",
+                              "Pd", "H", "Hd", "T"]
     model: dict = {}
     print(torch.cuda.get_device_name(0), flush=True)
     spikes = ("flat", "burst", "step", "prime")
@@ -229,6 +244,10 @@ def main() -> int:
         "Sd": lambda: serve_runner(model, "granite_8b", decode_only=True),
         "M": lambda: serve_runner(model, "olmoe_1b_7b", decode_only=False),
         "Md": lambda: serve_runner(model, "olmoe_1b_7b", decode_only=True),
+        "P": lambda: serve_runner(model, "mamba2_2p7b", decode_only=False),
+        "Pd": lambda: serve_runner(model, "mamba2_2p7b", decode_only=True),
+        "H": lambda: serve_runner(model, "zamba2_7b", decode_only=False),
+        "Hd": lambda: serve_runner(model, "zamba2_7b", decode_only=True),
         "T": train_runner,
     }
     for tag in wanted:
