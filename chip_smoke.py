@@ -69,11 +69,16 @@ Phases, each of which raises (and so exits non-zero) when it fails:
     and gradients through the kernels within 1e-4 of the plain versions;
 13. K7 (the grouped expert GEMM) against its plain version on the card:
     path M's three products in bf16 (its prefill's ``(64, 640, 2048) @
-    (64, 2048, 1024)`` and ``(64, 640, 1024) @ (64, 1024, 2048)``, a
-    decode step's ``(64, 8, 2048) @ (64, 2048, 1024)``), a ragged float32
-    case at DeepSeekMoE's d_ff of 1408, C = 1, and a D that is no multiple
-    of 32; tolerances as in 7; each timed beside its plain version and
-    ``torch.bmm``;
+    (64, 2048, 1024)`` and ``(64, 640, 1024) @ (64, 1024, 2048)`` in the
+    wide tensor-core regime, a decode step's ``(64, 8, 2048) @ (64, 2048,
+    1024)`` in the narrow one), a ragged float32 case at DeepSeekMoE's d_ff
+    of 1408 and C = 1 (the CUDA-core kernel), a D that is no multiple of
+    the depth tiles, C = 64 and C = 72 at path M's D and F (the regime
+    boundary), a bf16 shape whose pitches TMA cannot read (the CUDA-core
+    kernel), and a view a regime into a larger allocation whose rows past
+    C and columns past D and F hold NaN; each in the regime the plan must
+    choose, two launches bitwise equal; tolerances as in 7; each timed
+    beside its plain version and ``torch.bmm``;
 14. main path M, ``launch.serve``'s driver at OLMoE-1B-7B's full width and
     depth in bf16 (16 layers, 64 experts top-8, 6.919e9 parameters), with
     path S's replicas, requests, prompts, tokens and cache: the exact
@@ -1085,7 +1090,12 @@ def run_train_f32_check(dev) -> dict:
 #: K7's cases, ``(E, C, D, F, dtype)``: path M's three products (its
 #: prefill's gate and up products, its down product, a decode step's gate
 #: and up products), DeepSeekMoE's ragged d_ff of 1408 with a ragged C in
-#: float32, C = 1, and a D that is no multiple of K7's depth tile (32).
+#: float32, C = 1, a D that is no multiple of K7's depth tiles, the regime
+#: boundary at path M's D and F (C = 64 the narrow regime's widest N, C =
+#: 72 the wide regime with 56 dead rows), a bf16 shape whose pitches TMA
+#: cannot read (the CUDA-core kernel), and two views into larger
+#: allocations whose rows past C and columns past D and F hold NaN (any
+#: read past an edge shows), one a regime.
 K7_CASES = {
     "prefill": (64, 640, 2048, 1024, torch.bfloat16),
     "prefill_down": (64, 640, 1024, 2048, torch.bfloat16),
@@ -1093,28 +1103,66 @@ K7_CASES = {
     "ragged_f32": (64, 650, 2048, 1408, torch.float32),
     "c1_f32": (5, 1, 1000, 136, torch.float32),
     "ragged_d_bf16": (8, 100, 1000, 200, torch.bfloat16),
+    "c64_bf16": (64, 64, 2048, 1024, torch.bfloat16),
+    "c72_bf16": (64, 72, 2048, 1024, torch.bfloat16),
+    "pitch_bf16": (4, 33, 1001, 77, torch.bfloat16),
+    "poisoned_wide": (8, 200, 1000, 1000, torch.bfloat16),
+    "poisoned_narrow": (8, 5, 1000, 1000, torch.bfloat16),
 }
+#: The regime each case must take (``kernel.plan``).
+K7_REGIMES = {"prefill": "wide", "prefill_down": "wide", "decode": "narrow",
+              "ragged_f32": "cuda_core", "c1_f32": "cuda_core",
+              "ragged_d_bf16": "wide", "c64_bf16": "narrow",
+              "c72_bf16": "wide", "pitch_bf16": "cuda_core",
+              "poisoned_wide": "wide", "poisoned_narrow": "narrow"}
 #: Path M: the serving driver at OLMoE-1B-7B's full width and depth, with
 #: path S's replicas, requests, prompts, tokens and cache.
 MOE_ARGV = ["--arch", "olmoe_1b_7b"] + SERVE_ARGV[2:]
 
 
+def k7_operands(case: str, i: int, dev):
+    """x (a standard normal) and w (one scaled by 1/sqrt(D), as the model's
+    weights are drawn) of ``K7_CASES[case]``; a poisoned case's are views
+    into NaN-filled allocations with 56 more rows and 24 more columns."""
+    e, c, d, f, dtype = K7_CASES[case]
+    x = randn((e, c, d), dtype, dev, 20 + i)
+    w = (randn((e, d, f), torch.float32, dev, 40 + i) * d ** -0.5).to(dtype)
+    if case.startswith("poisoned"):
+        big_x = torch.full((e, c + 56, d + 24), float("nan"), dtype=dtype,
+                           device=dev)
+        big_w = torch.full((e, d + 56, f + 24), float("nan"), dtype=dtype,
+                           device=dev)
+        big_x[:, :c, :d] = x
+        big_w[:, :d, :f] = w
+        x, w = big_x[:, :c, :d], big_w[:, :d, :f]
+    return x, w
+
+
 def check_k7(dev) -> dict:
     """K7 against its plain version in every case of ``K7_CASES`` (the
-    attention kernels' tolerances, relative to the values' scale), each
-    timed beside its plain version and ``torch.bmm`` on the same operands.
-    x is a standard normal, w one scaled by 1/sqrt(D), as the model's
-    weights are drawn.  Returns K7's record at path M's prefill product,
-    with every case under ``cases``."""
-    from repro_torch.kernels.moe_gmm import ops, ref
+    attention kernels' tolerances, relative to the values' scale), in the
+    regime ``K7_REGIMES`` names (the plan's shared memory equal to the
+    library's own count), two launches bitwise equal, each timed beside its
+    plain version and ``torch.bmm`` on the same operands.  Returns K7's
+    record at path M's prefill product, with every case under ``cases``."""
+    from repro_torch.kernels.moe_gmm import kernel, ops, ref
 
     cases = {}
     for i, (case, (e, c, d, f, dtype)) in enumerate(K7_CASES.items()):
-        x = randn((e, c, d), dtype, dev, 20 + i)
-        w = (randn((e, d, f), torch.float32, dev, 40 + i)
-             * d ** -0.5).to(dtype)
-        err = attn_err(ops.grouped_matmul(x, w), ref.grouped_matmul_ref(x, w),
-                       dtype, f"K7 {case} {e}x{c}x{d}x{f} {dtype}")
+        x, w = k7_operands(case, i, dev)
+        p = kernel.plan(e, c, d, f, dtype,
+                        ((x.stride(0), x.stride(1)),
+                         (w.stride(0), w.stride(1))))
+        if p.regime != K7_REGIMES[case] or (
+                p.regime != "cuda_core"
+                and kernel.smem_bytes(p.regime, c) != p.smem_bytes):
+            raise AssertionError(f"K7 {case}: plan {p}, library shared "
+                                 f"memory {kernel.smem_bytes(p.regime, c)}")
+        got = ops.grouped_matmul(x, w)
+        err = attn_err(got, ref.grouped_matmul_ref(x, w), dtype,
+                       f"K7 {case} {e}x{c}x{d}x{f} {dtype} ({p.regime})")
+        if not torch.equal(got, ops.grouped_matmul(x, w)):
+            raise AssertionError(f"K7 {case}: two launches differ")
         ms = time_ms(lambda: ops.grouped_matmul(x, w))
         pms = time_ms(lambda: ref.grouped_matmul_ref(x, w))
         lms = time_ms(lambda: torch.bmm(x, w))
@@ -1123,15 +1171,17 @@ def check_k7(dev) -> dict:
             2.0 * e * c * d * f,
             PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_FP32_FLOPS)
         cases[case] = dict(shape=[e, c, d, f], dtype=str(dtype)[6:],
-                           max_abs_err=err, ms=ms, plain_ms=pms,
-                           library_ms=lms, bound_ms=bound, bound_by=by)
-        log(f"M: K7 {case} {e}x{c}x{d}x{f} {str(dtype)[6:]} err {err:.3e} "
-            f"{ms:.4f} ms (plain {pms:.3f} ms, bmm {lms:.4f} ms, bound "
-            f"{bound:.4f} ms by {by})")
+                           regime=p.regime, n=p.n, max_abs_err=err, ms=ms,
+                           plain_ms=pms, library_ms=lms, bound_ms=bound,
+                           bound_by=by)
+        log(f"M: K7 {case} {e}x{c}x{d}x{f} {str(dtype)[6:]} {p.regime}"
+            f"{f' n{p.n}' if p.n else ''} err {err:.3e} {ms:.4f} ms (plain "
+            f"{pms:.3f} ms, bmm {lms:.4f} ms, bound {bound:.4f} ms by {by}); "
+            f"rerun bitwise equal")
     main = cases["prefill"]
     bf = torch.bfloat16
     return dict(name="grouped_matmul 64x640x2048x1024", route="cuda",
-                source="src/repro_torch/kernels/moe_gmm/csrc/gmm.cu",
+                source="src/repro_torch/kernels/moe_gmm/csrc/gmm_tc.cu",
                 replaces="src/repro/kernels/moe_gmm/kernel.py:46",
                 max_abs_err=max(cases[k]["max_abs_err"] for k in
                                 ("prefill", "prefill_down", "decode")),

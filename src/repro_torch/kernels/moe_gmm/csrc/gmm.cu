@@ -1,36 +1,49 @@
 // K7: grouped expert GEMM, out[e] = x[e] @ w[e] for every expert e, with
-// x (E, C, D), w (E, D, F) and out (E, C, F), all packed; the products are
-// summed in float32 and the result is written in the inputs' type.
+// x (E, C, D), w (E, D, F) and out (E, C, F); the products are summed in
+// float32 and the result is written in the inputs' type.  x and w may be
+// views with any expert and row strides (their last dimension
+// contiguous); out is packed.
 //
 // Replaces the TPU kernel grouped_matmul_kernel / _gmm_kernel in
 // src/repro/kernels/moe_gmm/kernel.py:46 (body :26, pallas_call :66).
-// The Pallas kernel zero-pads C, D and F to its blocks and carries a
-// float32 accumulator in VMEM across the sequential D axis of its grid;
-// here each block loops over D itself, keeps its accumulators in
-// registers, and masks the ragged edges instead of padding.
+// The Pallas kernel zero-pads C, D and F to its 128 x 512 x 128 blocks and
+// carries a float32 accumulator in VMEM across the sequential D axis of
+// its grid; here each block loops over D itself and keeps its sums in
+// registers.
 //
-// Bound on an H100: the MoE layer's prefill products (C of hundreds, D and
-// F of 1-2 thousand) do about C operations per weight byte, far above the
-// card's ratio of bf16 tensor-core operations to bytes, so they are bound
-// by operations; a decode step's products (C = 8) read every expert's
-// weight once and are bound by bytes.  This first version runs on the
-// CUDA cores in float32 (no tensor cores), so the prefill products are far
-// from their bound; the decode products come closer, since warps whose
-// rows lie past C skip the arithmetic and each weight is read once when
-// C <= 64.
+// One call is one launch of one of three kernels, chosen by the wrapper's
+// plan (ops.py, kernel.plan) from the dtype and the shape, never by trying:
+//  * wide (bf16, C > 64: the MoE layer's prefill products, C of hundreds,
+//    D and F of 1-2 thousand).  About C operations per weight byte, far
+//    above the H100's ratio of bf16 tensor-core operations to bytes, so
+//    operations bound it: gmm_wide_kernel in gmm_tc.cu, wgmma on the
+//    tensor cores fed by TMA through a ring of shared-memory stages;
+//  * narrow (bf16, C <= 64: a decode step's products, C = 8).  Every
+//    expert's weight is read once, so bytes bound it: gmm_narrow_kernel in
+//    gmm_tc.cu, the operands swapped so that F fills wgmma's 64 rows and
+//    the tokens its N, the weights streamed by TMA;
+//  * CUDA cores (float32, whose checks hold tokens and routing to the
+//    plain version and would not survive TF32; and bf16 that TMA cannot
+//    describe: a row or expert pitch of x, w or out that is no multiple
+//    of 16 bytes, a base address that is not 16-byte aligned, or D = 0).
+//    gmm_kernel below, in float32: one block of 256 threads per (expert,
+//    64 rows of C, 64 columns of F); the D loop takes tiles of 32, x's
+//    (64 x 32) and w's (32 x 64) read with neighbouring threads on
+//    neighbouring addresses, converted to float32 and staged in shared
+//    memory, the next tile's loads in flight in registers; each thread
+//    owns a 4 x 4 tile of accumulators.  Ragged edges are masked.
+// Every output element is one thread's sum over D in a fixed order, with
+// no atomics, so a launch gives the same bits every time.
 //
-// Design: one block of 256 threads per (expert, 64 rows of C, 64 columns
-// of F).  The D loop takes tiles of 32: the x tile (64 x 32) and the w
-// tile (32 x 64) are read from device memory with neighbouring threads on
-// neighbouring addresses, converted to float32 and staged in shared
-// memory; the next tile's loads are in flight in registers while the
-// current one is multiplied.  Each thread owns a 4 x 4 tile of float32
-// accumulators (rows 4 ty .. 4 ty + 3, columns 4 tx .. 4 tx + 3).  Every
-// output element is one thread's sum over D in a fixed order, so a launch
-// gives the same bits every time.
+// The CPU tests reach the plan (tests/test_torch_moe.py); the kernels run
+// only on the card, where chip_smoke.py holds each regime against the
+// plain version (ref.py) and times it.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "gmm.cuh"
+
+namespace k7 {
 namespace {
 
 constexpr int kTileM = 64;  // rows of C a block owns
@@ -52,14 +65,15 @@ __device__ __forceinline__ void put(__nv_bfloat16* p, float v) {
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     gmm_kernel(const T* __restrict__ x, const T* __restrict__ w,
-               T* __restrict__ out, int C, int D, int F) {
+               T* __restrict__ out, int C, int D, int F, long long sxe,
+               long long sxc, long long swe, long long swd) {
   __shared__ float xs[kTileM][kTileK + 1];
   __shared__ __align__(16) float ws[kTileK][kTileN];
 
   const int e = blockIdx.z;
   const int row0 = blockIdx.y * kTileM, col0 = blockIdx.x * kTileN;
-  const T* xe = x + static_cast<long long>(e) * C * D;
-  const T* we = w + static_cast<long long>(e) * D * F;
+  const T* xe = x + e * sxe;
+  const T* we = w + e * swe;
   T* oe = out + static_cast<long long>(e) * C * F;
   const int tid = threadIdx.x;
   const int tx = tid % 16, ty = tid / 16;
@@ -74,14 +88,14 @@ __global__ void __launch_bounds__(kThreads)
       const int idx = tid + i * kThreads;
       const int row = row0 + idx / kTileK, k = k0 + idx % kTileK;
       xr[i] = (row < C && k < D)
-                  ? to_f(xe[static_cast<long long>(row) * D + k]) : 0.f;
+                  ? to_f(xe[row * sxc + k]) : 0.f;
     }
 #pragma unroll
     for (int i = 0; i < kLoadsW; ++i) {
       const int idx = tid + i * kThreads;
       const int k = k0 + idx / kTileN, col = col0 + idx % kTileN;
       wr[i] = (k < D && col < F)
-                  ? to_f(we[static_cast<long long>(k) * F + col]) : 0.f;
+                  ? to_f(we[k * swd + col]) : 0.f;
     }
   };
   auto stash = [&]() {
@@ -148,28 +162,59 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 template <typename T>
-int launch(const void* x, const void* w, void* out, int E, int C, int D,
-           int F, cudaStream_t stream) {
-  const dim3 grid((F + kTileN - 1) / kTileN, (C + kTileM - 1) / kTileM, E);
+int launch(const Args& a, cudaStream_t stream) {
+  const dim3 grid((a.F + kTileN - 1) / kTileN, (a.C + kTileM - 1) / kTileM,
+                  a.E);
   gmm_kernel<T><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w),
-      static_cast<T*>(out), C, D, F);
+      static_cast<const T*>(a.x), static_cast<const T*>(a.w),
+      static_cast<T*>(a.out), a.C, a.D, a.F, a.sxe, a.sxc, a.swe, a.swd);
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
+// TMA's terms for the tensor-core regimes (16-byte aligned bases and
+// pitches, something to contract), and out's rows in 16-byte pitches.
+bool tma_ok(const Args& a) {
+  const auto aligned = [](const void* p) {
+    return reinterpret_cast<unsigned long long>(p) % 16 == 0;
+  };
+  return a.D > 0 && aligned(a.x) && aligned(a.w) && aligned(a.out) &&
+         a.sxe % 8 == 0 && a.sxc % 8 == 0 && a.swe % 8 == 0 &&
+         a.swd % 8 == 0 && a.F % 8 == 0;
+}
 
-// dtype: 0 = float32, 1 = bfloat16 (x, w and out share it).  x (E, C, D),
-// w (E, D, F) and out (E, C, F) are packed.  D = 0 writes zeros.
+}  // namespace
+}  // namespace k7
+
+// dtype: 0 = float32, 1 = bfloat16 (x, w and out share it).  regime: the
+// plan's (0 CUDA cores, 1 wide, 2 narrow); a tensor-core regime takes
+// bfloat16 that TMA can describe (and the narrow one C <= 64), else the
+// call returns cudaErrorInvalidValue.  Strides are in elements.  D = 0
+// writes zeros.
 extern "C" int moe_gmm(const void* x, const void* w, void* out, int E, int C,
-                       int D, int F, int dtype, void* stream) {
+                       int D, int F, long long sxe, long long sxc,
+                       long long swe, long long swd, int dtype, int regime,
+                       void* stream) {
+  using namespace k7;
   if (E <= 0 || C <= 0 || F <= 0) return 0;
   if (D < 0 || E > 65535 || (C + kTileM - 1) / kTileM > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
+  const Args a{x, w, out, E, C, D, F, sxe, sxc, swe, swd};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float>(x, w, out, E, C, D, F, s);
-  if (dtype == 1) return launch<__nv_bfloat16>(x, w, out, E, C, D, F, s);
+  if (regime == kCudaCore) {
+    if (dtype == 0) return launch<float>(a, s);
+    if (dtype == 1) return launch<__nv_bfloat16>(a, s);
+  } else if (dtype == 1 && tma_ok(a)) {
+    if (regime == kWide) return launch_wide(a, s);
+    if (regime == kNarrow && C <= 64) return launch_narrow(a, s);
+  }
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The dynamic shared memory of a tensor-core launch, for the plan's check.
+extern "C" long long moe_gmm_smem_bytes(int regime, int C) {
+  if (regime == k7::kWide) return k7::wide_smem_bytes();
+  if (regime == k7::kNarrow) return k7::narrow_smem_bytes(C);
+  return 0;
 }
 
 extern "C" const char* moe_gmm_error_string(int code) {

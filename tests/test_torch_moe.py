@@ -16,6 +16,8 @@ version on the card by ``chip_smoke.py``.
 """
 
 import dataclasses
+from pathlib import Path
+from unittest import mock
 
 import jax
 import jax.numpy as jnp
@@ -31,6 +33,7 @@ from repro.models import transformer as ref_tfm
 from repro.runtime import serve_loop as ref_loop
 from repro_torch import configs
 from repro_torch.convert import from_reference_params
+from repro_torch.kernels.moe_gmm import kernel as gmm_kernel
 from repro_torch.kernels.moe_gmm import ops as gmm_ops
 from repro_torch.kernels.moe_gmm import ref as gmm_ref
 from repro_torch.models import moe
@@ -124,6 +127,114 @@ def test_k7_raises_under_autograd():
         gmm_ops.grouped_matmul(x.detach(), w.requires_grad_(True))
     with torch.no_grad():
         assert gmm_ops.grouped_matmul(x, w).shape == (2, 3, 5)
+
+
+# ------------------------------------------------------------- K7's plan
+BF16 = torch.bfloat16
+#: Path M's products at OLMoE-1B-7B's widths: the prefill's gate and up
+#: products, its down product, and a decode step's gate and up products.
+PATH_M = {"prefill": (64, 640, 2048, 1024), "down": (64, 640, 1024, 2048),
+          "decode": (64, 8, 2048, 1024)}
+
+
+@pytest.mark.parametrize("case,regime,n", [("prefill", "wide", 0),
+                                           ("down", "wide", 0),
+                                           ("decode", "narrow", 8)])
+def test_k7_plan_puts_path_m_on_the_tensor_cores(case, regime, n):
+    e, c, d, f = PATH_M[case]
+    p = gmm_kernel.plan(e, c, d, f, BF16)
+    assert (p.regime, p.n) == (regime, n)
+    if regime == "wide":     # one persistent block an SM (132 on an H100)
+        assert p.grid == (132, 1, 1)
+        assert gmm_kernel.plan(e, c, d, f, BF16, sms=7000).grid == (
+            5 * (f // 256) * 64, 1, 1)     # a tile each: 1,280 or 2,560
+    else:                    # 64 columns of F a block: 1,024 blocks
+        assert p.grid == (16, 64, 1)
+
+
+@pytest.mark.parametrize("c,regime,n", [(1, "narrow", 8), (8, "narrow", 8),
+                                        (9, "narrow", 16), (32, "narrow", 32),
+                                        (33, "narrow", 64), (64, "narrow", 64),
+                                        (65, "wide", 0), (72, "wide", 0)])
+def test_k7_plan_regime_boundary(c, regime, n):
+    p = gmm_kernel.plan(4, c, 2048, 1024, BF16)
+    assert (p.regime, p.n) == (regime, n)
+
+
+@pytest.mark.parametrize("shape,kw", [
+    (PATH_M["prefill"], {"dtype": torch.float32}),
+    (PATH_M["decode"], {"dtype": torch.float32}),
+    ((64, 650, 2048, 1408), {"dtype": torch.float32}),
+    ((4, 33, 1001, 77), {}),              # x's and w's row pitches
+    ((4, 33, 1024, 77), {}),              # w's and out's row pitch
+    ((4, 33, 1001, 1024), {}),            # x's row pitch
+    ((4, 8, 2048, 1024), {"aligned": False}),
+    ((4, 640, 2048, 1024), {"strides": ((640 * 2052, 2052),
+                                        (2048 * 1024, 1024))}),
+    ((4, 8, 0, 1024), {}),                # nothing to contract
+])
+def test_k7_plan_keeps_float32_and_bad_pitches_on_the_cuda_cores(shape, kw):
+    kw = dict({"dtype": BF16}, **kw)
+    p = gmm_kernel.plan(*shape, kw.pop("dtype"), **kw)
+    e, c, d, f = shape
+    assert p.regime == "cuda_core" and p.smem_bytes == 0
+    assert p.grid == (-(-f // 64), -(-c // 64), e)
+
+
+def test_k7_plan_takes_a_strided_view_whose_pitches_tma_reads():
+    """A view into a larger allocation (rows past C and columns past D
+    beyond it) stays on the tensor cores when its pitches are 16 bytes."""
+    strides = ((648 * 2112, 2112), (2048 * 1024, 1024))
+    assert gmm_kernel.plan(64, 640, 2048, 1024, BF16,
+                           strides).regime == "wide"
+    assert gmm_kernel.plan(64, 8, 2048, 1024, BF16,
+                           ((16 * 2112, 2112), (2048 * 1024, 1024))
+                           ).regime == "narrow"
+
+
+@pytest.mark.parametrize("c", [1, 8, 16, 17, 32, 64, 65, 640, 4096])
+@pytest.mark.parametrize("dtype", [BF16, torch.float32])
+def test_k7_plan_fits_shared_memory_and_covers_the_output(c, dtype):
+    e, d, f = 8, 2048, 1408
+    p = gmm_kernel.plan(e, c, d, f, dtype)
+    assert 0 <= p.smem_bytes <= gmm_kernel.SMEM_LIMIT
+    if p.regime == "narrow":
+        assert p.n >= c and p.grid[0] * 64 >= f and p.grid[1] == e
+        # Two blocks an SM at the least, with 40 KB of weights in flight.
+        assert 2 * p.smem_bytes <= gmm_kernel.SMEM_LIMIT
+    elif p.regime == "wide":     # persistent: a block an SM, tiles left over
+        tiles = -(-c // 128) * -(-f // 256) * e
+        assert p.grid == (min(tiles, 132), 1, 1)
+    else:
+        assert p.grid[0] * 64 >= f and p.grid[1] * 64 >= c
+
+
+def test_k7_cuda_call_with_an_unsupported_dtype_raises():
+    """The plan refuses float16, and the wrapper's CUDA branch goes through
+    it before anything reaches the card (the tensors only claim to be on
+    it here)."""
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        gmm_kernel.plan(4, 8, 64, 64, torch.float16)
+    x = torch.zeros(2, 8, 16, dtype=torch.float16)
+    w = torch.zeros(2, 16, 8, dtype=torch.float16)
+    before = gmm_ops.grouped_matmul.launches
+    cuda = property(lambda self: torch.device("cuda"))
+    with mock.patch.object(torch.Tensor, "device", cuda):
+        with pytest.raises(TypeError, match="float32 or bfloat16"):
+            gmm_ops.grouped_matmul(x, w)
+    assert gmm_ops.grouped_matmul.launches == before
+
+
+def test_k7_sources_use_no_float_atomics():
+    """Each output element is one thread's sum in a fixed order (a launch
+    gives the same bits every time): no atomic adds in K7's sources."""
+    csrc = Path(gmm_kernel.__file__).parent / "csrc"
+    sources = sorted(csrc.glob("*.cu")) + sorted(csrc.glob("*.cuh"))
+    assert len(sources) >= 2
+    for src in sources:
+        text = src.read_text()
+        assert "atomicAdd" not in text and "red.global" not in text, src
+        assert "cp.reduce.async" not in text, src
 
 
 # ------------------------------------------------------------ routing

@@ -10,7 +10,8 @@ cache): ``S`` is the whole generation (prefill and 31 decode steps, its
 "ticks" the 32 forward passes), ``Sd`` the 31 decode steps alone; ``M``
 and ``Md`` the same for path M, OLMoE-1B-7B at full width and depth in
 bf16 (its expert FFN on kernel K7; they also report K7's device ms per
-launch); ``P`` and ``Pd``, ``H`` and ``Hd`` the same for paths P and H,
+launch for each regime's kernel: ``gmm_wide_kernel`` at prefill,
+``gmm_narrow_kernel`` in the decode steps); ``P`` and ``Pd``, ``H`` and ``Hd`` the same for paths P and H,
 Mamba2-2.7B and Zamba2-7B at full width and depth in bf16 (their SSD
 scans on kernel K8 at prefill, Zamba2's shared attention on K4 and K6;
 they report K8's two kernels' device ms per launch); and path T, one training step of MiniCPM-2B at full width and
@@ -159,8 +160,10 @@ def train_runner():
 
 
 #: Kernels whose device ms per launch a profile reports, by name in the
-#: trace (K8's call is one launch of each of its two kernels).
-PER_LAUNCH = {"k7": "gmm_kernel", "k8_intra": "ssd_intra_kernel",
+#: trace (K7's call is one launch of one of its regimes' kernels; K8's one
+#: launch of each of its two kernels).
+PER_LAUNCH = {"k7_wide": "gmm_wide_kernel", "k7_narrow": "gmm_narrow_kernel",
+              "k7_cuda_core": "gmm_kernel", "k8_intra": "ssd_intra_kernel",
               "k8_state": "ssd_state_kernel", "k4": "flash_fwd_kernel",
               "k6": "decode_kernel"}
 
