@@ -26,8 +26,13 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    note) and K2 (one a cpc invocation) checked;
 7. K4 (flash attention forward) and K6 (flash decoding) against their
    plain versions on the card: K4 at path S's prefill (8 x 512 tokens,
-   32 query and 8 KV heads of 128, bf16) and on a float32 case with a
-   query offset and lengths that are no multiple of its blocks; K6 over
+   32 query and 8 KV heads of 128, bf16), on bf16 cases of its
+   tensor-core regime (ragged lengths 100/164 with a query offset of 64,
+   the same as views into caches whose positions past Skv and features
+   past D hold NaN, MQA, non-causal at D 112; each two launches bitwise
+   equal) and on a float32 case with a query offset and lengths that are
+   no multiple of its blocks (the CUDA-core kernel), each in the regime
+   its plan must choose; K6 over
    a 1024-position cache with ragged lengths in bf16 and float32, and a
    case whose blocks are all fully masked but one.  Tolerances: 2e-5 in
    float32, 2e-2 in bf16, relative to the values' scale (the absolute
@@ -46,12 +51,14 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    tokens through the kernels and through the plain versions, logits
    within 1e-4 relative L2;
 10. K5 (flash attention backward) against its plain version on the card
-    in four cases: path T's layer (4 x 4096 tokens, 36/36 heads of 64,
+    in eight cases: path T's layer (4 x 4096 tokens, 36/36 heads of 64,
     causal, bf16), GQA (8 x 512, 32/8 heads of 128, bf16), MQA in float32
     with a query offset of 64 and lengths 100/164 (also against autograd
-    of ``attention_ref``) and float32 non-causal.  Tolerances: 1e-4 in
-    float32, 2e-2 in bf16, relative to the values' scale as in 7.  Timed
-    at path T's layer beside its plain version and
+    of ``attention_ref``), float32 non-causal, and phase 7's four bf16
+    cases; bf16 in the tensor-core regime (two launches bitwise equal),
+    float32 on the CUDA cores, as the plan must choose.  Tolerances: 1e-4
+    in float32, 2e-2 in bf16, relative to the values' scale as in 7.
+    Timed at path T's layer beside its plain version and
     ``scaled_dot_product_attention``'s backward, with K4 at the same
     shape;
 11. main path T, ``launch.train``'s driver at MiniCPM-2B's full width and
@@ -101,12 +108,13 @@ Phases, each of which raises (and so exits non-zero) when it fails:
     equal), and a float32 scan with a ragged tail and an initial state
     through ``ops.ssd_scan`` against the sequential oracle (L 40, chunk
     16); tolerance 1e-4 relative to the values' scale;
-17. K4 and K6 at head dim 112 (Zamba2-7B's shared attention) against
-    their plain versions in bf16 and float32 at path H's shapes: K4 on a
-    prefill of 8 x 512 with 32/32 heads, K6 over a 1024-position cache
-    with ragged lengths, and a case whose blocks are all fully masked but
-    one; tolerances as in 7, the bf16 calls timed beside the plain
-    versions and SDPA;
+17. K4, K5 and K6 at head dim 112 (Zamba2-7B's shared attention)
+    against their plain versions in bf16 and float32 at path H's shapes:
+    K4 and K5 on a prefill of 8 x 512 with 32/32 heads (the tensor cores
+    in bf16, the CUDA cores in float32, two launches bitwise equal), K6
+    over a 1024-position cache with ragged lengths, and a case whose
+    blocks are all fully masked but one; tolerances as in 7 and 10, the
+    bf16 calls timed beside the plain versions and SDPA;
 18. main path P, ``launch.serve``'s driver at Mamba2-2.7B's full width and
     depth in bf16 (64 layers, 80 SSD heads of 64, N 128, 2.7e9
     parameters), with path S's replicas, requests, prompts, tokens and
@@ -503,10 +511,81 @@ def attn_err(got, want, dtype, what: str) -> float:
     return attn_close(got, want, ATTN_TOL[dtype], what)
 
 
+#: bf16 cases of K4's and K5's tensor-core regimes (phases 7 and 10):
+#: ``(B, Sq, Skv, Hq, Hkv, D, causal, q_offset)``.  "view_nan" reads k and
+#: v as views into caches whose positions past Skv and whose features past
+#: D in each head hold NaN.
+ATTN_BF16_CASES = {
+    "ragged": (2, 100, 164, 8, 2, 128, True, 64),
+    "view_nan": (2, 100, 164, 8, 2, 128, True, 64),
+    "mqa": (2, 256, 256, 8, 1, 64, True, 0),
+    "full": (2, 192, 192, 4, 2, 112, False, 0),
+}
+
+
+def attn_operands(b, sq, skv, hq, hkv, d, dtype, dev, seed: int,
+                  view: bool = False):
+    """q, k, v and dO from ``seed``; with ``view``, k and v are views into
+    NaN-filled caches of 36 more positions and 8 more features a head."""
+    q = randn((b, sq, hq, d), dtype, dev, seed)
+    k = randn((b, skv, hkv, d), dtype, dev, seed + 1)
+    v = randn((b, skv, hkv, d), dtype, dev, seed + 2)
+    do = randn((b, sq, hq, d), dtype, dev, seed + 3)
+    if view:
+        def poisoned(t):
+            big = torch.full((b, skv + 36, hkv, d + 8), float("nan"),
+                             dtype=dtype, device=dev)
+            big[:, :skv, :, :d] = t
+            return big[:, :skv, :, :d]
+        k, v = poisoned(k), poisoned(v)
+    return q, k, v, do
+
+
+def attn_plan(q, k, v, dout=None, want: str | None = None, what: str = ""):
+    """The plan that K4's wrapper (K5's, given ``dout``) makes for the
+    call; with ``want``, raises unless it names that regime and, on the
+    tensor cores, its shared memory equals the library's own count."""
+    from repro_torch.kernels.flash_attention import kernel, kernel_bwd
+    b, sq, hq, d = q.shape
+    ts = (q, k, v) if dout is None else (q, k, v, dout)
+    p = (kernel.plan if dout is None else kernel_bwd.plan)(
+        b, sq, k.shape[1], hq, k.shape[2], d, q.dtype,
+        tuple(kernel.bshd_strides(t) for t in ts),
+        all(t.data_ptr() % 16 == 0 for t in ts))
+    if want is not None:
+        lib = (kernel.smem_bytes("fwd", d) if dout is None else
+               (kernel.smem_bytes("dkdv", d), kernel.smem_bytes("dq", d)))
+        if p.regime != want or (want == "tensor_core"
+                                and p.smem_bytes != lib):
+            raise AssertionError(f"{what}: plan {p}, expected {want} "
+                                 f"(library shared memory {lib})")
+    return p
+
+
+def k4_case(q, k, v, causal, q_offset, what: str) -> float:
+    """K4 against its plain version (out and lse), two launches bitwise
+    equal; returns the larger error."""
+    from repro_torch.kernels.flash_attention import ops, ref
+    out, lse = ops.flash_attention(q, k, v, causal=causal, q_offset=q_offset)
+    pout, plse = ref.flash_attention_ref(q, k, v, causal=causal,
+                                         q_offset=q_offset,
+                                         block_k=ops.BLOCK_K)
+    err = max(attn_err(out, pout, q.dtype, what),
+              attn_err(lse, plse, q.dtype, f"{what} lse"))
+    again, again_lse = ops.flash_attention(q, k, v, causal=causal,
+                                           q_offset=q_offset)
+    if not (torch.equal(out, again) and torch.equal(lse, again_lse)):
+        raise AssertionError(f"{what}: two launches differ")
+    return err
+
+
 def check_k4(dev) -> dict:
     """K4 against its plain version: a float32 case with a query offset
-    and ragged lengths, then path S's prefill shape in bf16 (timed, with
-    its bound and SDPA's time on the same inputs)."""
+    and ragged lengths (the CUDA-core kernel), the bf16 cases of
+    ``ATTN_BF16_CASES`` and path S's prefill shape in bf16 (the tensor
+    cores), each in the regime its plan must choose, the bf16 ones two
+    launches bitwise equal; path S's timed, with its bound and SDPA's time
+    on the same inputs."""
     from repro_torch.kernels.flash_attention import ops, ref
     sdpa = torch.nn.functional.scaled_dot_product_attention
 
@@ -514,6 +593,7 @@ def check_k4(dev) -> dict:
     q = randn((2, 100, 32, 128), f32, dev, 1)
     k, v = randn((2, 164, 8, 128), f32, dev, 2), randn((2, 164, 8, 128),
                                                        f32, dev, 3)
+    attn_plan(q, k, v, want="cuda_core", what="K4 float32")
     out, lse = ops.flash_attention(q, k, v, causal=True, q_offset=64)
     pout, plse = ref.flash_attention_ref(q, k, v, causal=True, q_offset=64,
                                          block_k=ops.BLOCK_K)
@@ -521,14 +601,22 @@ def check_k4(dev) -> dict:
     attn_err(lse, plse, f32, "K4 float32 lse")
 
     bf = torch.bfloat16
+    cases = {}
+    for i, (case, (b, sq, skv, hq, hkv, d, causal, qoff)) in enumerate(
+            ATTN_BF16_CASES.items()):
+        q, k, v, _ = attn_operands(b, sq, skv, hq, hkv, d, bf, dev,
+                                   100 + 4 * i, view=case == "view_nan")
+        attn_plan(q, k, v, want="tensor_core", what=f"K4 {case}")
+        cases[case] = k4_case(q, k, v, causal, qoff, f"K4 bf16 {case}")
+    log(f"K4 tensor-core cases (errors, two launches bitwise equal): "
+        f"{json.dumps(cases)}")
+
     b, s, hq, hkv, d = 8, 512, 32, 8, 128
     q = randn((b, s, hq, d), bf, dev, 4)
     k, v = randn((b, s, hkv, d), bf, dev, 5), randn((b, s, hkv, d), bf,
                                                     dev, 6)
-    out, lse = ops.flash_attention(q, k, v)
-    pout, plse = ref.flash_attention_ref(q, k, v, block_k=ops.BLOCK_K)
-    err = attn_err(out, pout, bf, "K4 bf16, path S prefill")
-    attn_err(lse, plse, bf, "K4 bf16 lse")
+    p = attn_plan(q, k, v, want="tensor_core", what="K4 path S")
+    err = k4_case(q, k, v, True, 0, "K4 bf16, path S prefill")
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     ms = time_ms(lambda: ops.flash_attention(q, k, v))
     pms = time_ms(lambda: ref.flash_attention_ref(q, k, v,
@@ -538,15 +626,16 @@ def check_k4(dev) -> dict:
     bound, by = bound_ms(2 * (2 * b * s * hq * d + 2 * b * s * hkv * d)
                          + 4 * b * hq * s, 4 * b * hq * d * pairs,
                          PEAK_BF16_FLOPS)
-    log(f"S: K4 err {err:.3e} (float32 {err32:.3e}) {ms:.4f} ms (plain "
-        f"{pms:.3f} ms, SDPA {lms:.4f} ms, bound {bound:.4f} ms)")
+    log(f"S: K4 ({p.regime}) err {err:.3e} (float32 {err32:.3e}) {ms:.4f} "
+        f"ms (plain {pms:.3f} ms, SDPA {lms:.4f} ms, bound {bound:.4f} ms)")
     return dict(name=f"flash_attention {b}x{s}x{hq}x{d}", route="cuda",
                 source="src/repro_torch/kernels/flash_attention/csrc/"
-                       "flash_fwd.cu",
+                       "flash_fwd_tc.cu",
                 replaces="src/repro/kernels/flash_attention/kernel.py:83",
-                max_abs_err=err, float32_max_abs_err=err32,
-                rtol=ATTN_TOL[bf], atol_per_rms=ATTN_TOL[bf], ms=ms,
-                plain_ms=pms, bound_ms=bound, bound_by=by, library_ms=lms)
+                regime=p.regime, max_abs_err=err, float32_max_abs_err=err32,
+                case_errs=cases, rtol=ATTN_TOL[bf], atol_per_rms=ATTN_TOL[bf],
+                ms=ms, plain_ms=pms, bound_ms=bound, bound_by=by,
+                library_ms=lms)
 
 
 def check_k6(dev) -> dict:
@@ -599,12 +688,15 @@ def check_k6(dev) -> dict:
 
 
 #: K5's cases: ``(B, Sq, Skv, Hq, Hkv, D, causal, q_offset, dtype)``;
-#: "path" is path T's layer, the one timed.
+#: "path" is path T's layer, the one timed; the bf16 cases of
+#: ``ATTN_BF16_CASES`` join them.
 K5_CASES = {
     "path": (4, 4096, 4096, 36, 36, 64, True, 0, torch.bfloat16),
     "gqa": (8, 512, 512, 32, 8, 128, True, 0, torch.bfloat16),
     "mqa": (2, 100, 164, 8, 1, 32, True, 64, torch.float32),
     "full": (2, 192, 192, 4, 2, 16, False, 0, torch.float32),
+    **{f"{case}_bf16": shape + (torch.bfloat16,)
+       for case, shape in ATTN_BF16_CASES.items()},
 }
 #: K5's tolerances (``tests/test_kernels_bwd.py``'s 1e-4 in float32; the
 #: reference's bfloat16 tolerance), relative to the values' scale
@@ -612,48 +704,68 @@ K5_CASES = {
 K5_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
 
+def k5_case(q, k, v, do, causal, q_offset, what: str, bitwise: bool):
+    """K5 against its plain version from K4's forward; with ``bitwise``,
+    two launches must give the same bits.  Returns ``(errors by output,
+    (q, k, v, out, lse, do), K5's outputs)``."""
+    from repro_torch.kernels.flash_attention import ops, ref
+    with torch.no_grad():
+        out, lse = ops.flash_attention(q, k, v, causal=causal,
+                                       q_offset=q_offset)
+    got = ops.flash_attention_bwd(q, k, v, out, lse, do, causal=causal,
+                                  q_offset=q_offset)
+    want = ref.flash_attention_bwd_ref(
+        q, k, v, out, lse, do, causal=causal, q_offset=q_offset,
+        block_q=ops.BLOCK_Q, block_k=ops.BLOCK_K)
+    tol = K5_TOL[q.dtype]
+    errs = {name: attn_close(a, w, tol, f"{what} {name}")
+            for name, a, w in zip(("dq", "dk", "dv"), got, want)}
+    if bitwise:
+        again = ops.flash_attention_bwd(q, k, v, out, lse, do,
+                                        causal=causal, q_offset=q_offset)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"{what}: two launches differ")
+    return errs, (q, k, v, out, lse, do), got
+
+
 def check_k5(dev) -> list:
-    """K5 against its plain version in the four cases (and, in the MQA
-    case, against autograd of ``attention_ref``); the path's case timed
-    beside the plain version and SDPA's backward on the same inputs, and
-    K4 timed at the same shape.  Returns the records of K4 and K5 at path
-    T's layer."""
+    """K5 against its plain version in every case of ``K5_CASES`` (and, in
+    the float32 MQA case, against autograd of ``attention_ref``), each in
+    the regime its plan must choose (the tensor cores for bf16, the CUDA
+    cores for float32), the bf16 ones two launches bitwise equal; the
+    path's case timed beside the plain version and SDPA's backward on the
+    same inputs, and K4 timed at the same shape.  Returns the records of
+    K4 and K5 at path T's layer."""
     from repro_torch.kernels.flash_attention import ops, ref
     sdpa = torch.nn.functional.scaled_dot_product_attention
 
-    errs = {}
+    errs, regimes = {}, {}
     for case, (b, sq, skv, hq, hkv, d, causal, qoff, dtype) in \
             K5_CASES.items():
-        seed = 20 + 4 * len(errs)
-        q = randn((b, sq, hq, d), dtype, dev, seed)
-        k = randn((b, skv, hkv, d), dtype, dev, seed + 1)
-        v = randn((b, skv, hkv, d), dtype, dev, seed + 2)
-        do = randn((b, sq, hq, d), dtype, dev, seed + 3)
-        with torch.no_grad():
-            out, lse = ops.flash_attention(q, k, v, causal=causal,
-                                           q_offset=qoff)
-        got = ops.flash_attention_bwd(q, k, v, out, lse, do, causal=causal,
-                                      q_offset=qoff)
-        want = ref.flash_attention_bwd_ref(
-            q, k, v, out, lse, do, causal=causal, q_offset=qoff,
-            block_q=ops.BLOCK_Q, block_k=ops.BLOCK_K)
-        tol = K5_TOL[dtype]
-        errs[case] = {name: attn_close(a, w, tol, f"K5 {case} {name}")
-                      for name, a, w in zip(("dq", "dk", "dv"), got, want)}
+        q, k, v, do = attn_operands(b, sq, skv, hq, hkv, d, dtype, dev,
+                                    20 + 4 * len(errs),
+                                    view=case.startswith("view"))
+        want = "tensor_core" if dtype == torch.bfloat16 else "cuda_core"
+        regimes[case] = attn_plan(q, k, v, do, want, f"K5 {case}").regime
+        errs[case], operands, got = k5_case(
+            q, k, v, do, causal, qoff, f"K5 {case}",
+            bitwise=want == "tensor_core")
         if case == "mqa":
             qq, kk, vv = (t.detach().requires_grad_() for t in (q, k, v))
             o = ref.attention_ref(qq, kk, vv, causal=causal, q_offset=qoff)
             oracle = torch.autograd.grad(o, (qq, kk, vv), do)
             for name, a, w in zip(("dq", "dk", "dv"), got, oracle):
                 errs[case][f"oracle_{name}"] = attn_close(
-                    a, w, tol, f"K5 {case} {name} against autograd of "
-                    f"attention_ref")
+                    a, w, K5_TOL[dtype], f"K5 {case} {name} against "
+                    f"autograd of attention_ref")
         if case == "path":
-            timed = (q, k, v, out, lse, do)
+            timed = operands
 
     b, s, hq, hkv, d, _, _, dtype = (K5_CASES["path"][i]
                                      for i in (0, 1, 3, 4, 5, 6, 7, 8))
     q, k, v, out, lse, do = timed
+    k4_regime = attn_plan(q, k, v, want="tensor_core",
+                          what="K4 at path T's layer").regime
     k4_err = attn_err(out, ref.flash_attention_ref(
         q, k, v, block_k=ops.BLOCK_K)[0], dtype, "K4 at path T's layer")
     ms = time_ms(lambda: ops.flash_attention_bwd(q, k, v, out, lse, do))
@@ -670,27 +782,30 @@ def check_k5(dev) -> list:
     bound, by = bound_ms(el * (4 * b * s * hq * d + 4 * b * s * hkv * d)
                          + 4 * b * hq * s, 10 * b * hq * d * pairs,
                          PEAK_BF16_FLOPS)
-    log(f"T: K5 errs {json.dumps(errs)} {ms:.3f} ms (plain {pms:.3f} ms, "
-        f"SDPA backward {both_ms - fwd_ms:.3f} ms = {both_ms:.3f} - "
-        f"{fwd_ms:.3f}, bound {bound:.4f} ms, {by})")
+    log(f"T: K5 regimes {json.dumps(regimes)} errs {json.dumps(errs)} "
+        f"{ms:.3f} ms (plain {pms:.3f} ms, SDPA backward "
+        f"{both_ms - fwd_ms:.3f} ms = {both_ms:.3f} - {fwd_ms:.3f}, bound "
+        f"{bound:.4f} ms, {by})")
     k4_ms = time_ms(lambda: ops.flash_attention(q, k, v))
     k4_pms = time_ms(lambda: ref.flash_attention_ref(q, k, v,
                                                      block_k=ops.BLOCK_K))
     k4_bound, k4_by = bound_ms(el * (2 * b * s * hq * d + 2 * b * s * hkv * d)
                                + 4 * b * hq * s, 4 * b * hq * d * pairs,
                                PEAK_BF16_FLOPS)
-    log(f"T: K4 at the same shape err {k4_err:.3e} {k4_ms:.3f} ms (plain "
-        f"{k4_pms:.3f} ms, SDPA {fwd_ms:.3f} ms, bound {k4_bound:.4f} ms)")
+    log(f"T: K4 ({k4_regime}) at the same shape err {k4_err:.3e} "
+        f"{k4_ms:.3f} ms (plain {k4_pms:.3f} ms, SDPA {fwd_ms:.3f} ms, "
+        f"bound {k4_bound:.4f} ms)")
     src = "src/repro_torch/kernels/flash_attention/csrc/"
     k4 = dict(name=f"flash_attention {b}x{s}x{hq}x{d}", route="cuda",
-              source=src + "flash_fwd.cu",
+              source=src + "flash_fwd_tc.cu",
               replaces="src/repro/kernels/flash_attention/kernel.py:83",
-              max_abs_err=k4_err, rtol=ATTN_TOL[dtype],
+              regime=k4_regime, max_abs_err=k4_err, rtol=ATTN_TOL[dtype],
               atol_per_rms=ATTN_TOL[dtype], ms=k4_ms, plain_ms=k4_pms,
               bound_ms=k4_bound, bound_by=k4_by, library_ms=fwd_ms)
     k5 = dict(name=f"flash_attention_bwd {b}x{s}x{hq}x{d}", route="cuda",
-              source=src + "flash_bwd.cu",
+              source=src + "flash_bwd_tc.cu",
               replaces="src/repro/kernels/flash_attention/kernel_bwd.py:125",
+              regime=regimes["path"], case_regimes=regimes,
               max_abs_err=max(errs["path"].values()), case_errs=errs,
               rtol=K5_TOL[dtype], atol_per_rms=K5_TOL[dtype], ms=ms,
               plain_ms=pms, bound_ms=bound, bound_by=by,
@@ -1505,13 +1620,15 @@ def check_k8(dev) -> dict:
     return records
 
 
-def check_d112(dev) -> list:
-    """P1's check: K4 and K6 at head dim 112 against their plain versions
-    at path H's shapes, in bf16 and float32: K4 on a prefill of 8 x 512
-    with 32/32 heads, K6 over a 1024-position cache with ragged lengths
-    and a case whose blocks are all fully masked but one.  The bf16 calls
-    are timed beside the plain versions and SDPA.  Returns their records
-    for path H."""
+def check_d112(dev) -> tuple[list, dict]:
+    """P1's check: K4, K5 and K6 at head dim 112 against their plain
+    versions at path H's shapes, in bf16 and float32: K4 and K5 on a
+    prefill of 8 x 512 with 32/32 heads (the tensor cores in bf16, the CUDA
+    cores in float32, as their plans must choose; two launches bitwise
+    equal), K6 over a 1024-position cache with ragged lengths and a case
+    whose blocks are all fully masked but one.  The bf16 calls are timed
+    beside the plain versions and SDPA.  Returns the records of K4 and K6
+    for path H, and K5's errors and times."""
     from repro_torch.kernels.decode_attention import ops as da_ops
     from repro_torch.kernels.decode_attention import ref as da_ref
     from repro_torch.kernels.flash_attention import ops as fa_ops
@@ -1522,15 +1639,16 @@ def check_d112(dev) -> list:
     g = torch.Generator(device=dev).manual_seed(80)
     kv_len = torch.randint(1, cache + 1, (b,), generator=g, device=dev,
                            dtype=torch.int32)
-    k4, k6 = {}, {}
+    k4, k5, k6, regimes = {}, {}, {}, {}
     for dtype in (torch.float32, torch.bfloat16):
-        q, k, v = (randn((b, s, hq, d), dtype, dev, 81 + i)
-                   for i in range(3))
-        out, lse = fa_ops.flash_attention(q, k, v)
-        pout, plse = fa_ref.flash_attention_ref(q, k, v,
-                                                block_k=fa_ops.BLOCK_K)
-        k4[dtype] = max(attn_err(out, pout, dtype, f"K4 D 112 {dtype}"),
-                        attn_err(lse, plse, dtype, f"K4 D 112 {dtype} lse"))
+        q, k, v, do = attn_operands(b, s, s, hq, hq, d, dtype, dev, 81)
+        want = "tensor_core" if dtype == torch.bfloat16 else "cuda_core"
+        regimes[str(dtype)[6:]] = (
+            attn_plan(q, k, v, want=want, what=f"K4 D 112 {dtype}").regime,
+            attn_plan(q, k, v, do, want, f"K5 D 112 {dtype}").regime)
+        k4[dtype] = k4_case(q, k, v, True, 0, f"K4 D 112 {dtype}")
+        k5[str(dtype)[6:]], timed, _ = k5_case(
+            q, k, v, do, True, 0, f"K5 D 112 {dtype}", bitwise=True)
         dq = randn((b, hq, d), dtype, dev, 84)
         dk, dv = (randn((b, cache, hq, d), dtype, dev, 85 + i)
                   for i in range(2))
@@ -1547,7 +1665,9 @@ def check_d112(dev) -> list:
                       torch.float32, "K6 D 112 fully masked blocks")
 
     bf = torch.bfloat16
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    q, k, v, out, lse, do = timed
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
     ms4 = time_ms(lambda: fa_ops.flash_attention(q, k, v))
     pms4 = time_ms(lambda: fa_ref.flash_attention_ref(
         q, k, v, block_k=fa_ops.BLOCK_K))
@@ -1555,6 +1675,19 @@ def check_d112(dev) -> list:
     pairs = s * (s + 1) // 2
     bound4, by4 = bound_ms(2 * 4 * b * s * hq * d + 4 * b * hq * s,
                            4 * b * hq * d * pairs, PEAK_BF16_FLOPS)
+    ms5 = time_ms(lambda: fa_ops.flash_attention_bwd(q, k, v, out, lse, do))
+    pms5 = time_ms(lambda: fa_ref.flash_attention_bwd_ref(
+        q, k, v, out, lse, do, block_q=fa_ops.BLOCK_Q,
+        block_k=fa_ops.BLOCK_K))
+    both5 = time_ms(lambda: torch.autograd.grad(
+        sdpa(qt, kt, vt, is_causal=True), (qt, kt, vt), do.transpose(1, 2)))
+    bound5, by5 = bound_ms(2 * 8 * b * s * hq * d + 4 * b * hq * s,
+                           10 * b * hq * d * pairs, PEAK_BF16_FLOPS)
+    k5_d112 = dict(regimes=regimes, errs=k5, ms=ms5, plain_ms=pms5,
+                   library_ms=both5 - lms4, bound_ms=bound5, bound_by=by5)
+    log(f"H: K5 D 112 regimes {json.dumps(regimes)} errs {json.dumps(k5)} "
+        f"{ms5:.4f} ms (plain {pms5:.3f} ms, SDPA backward "
+        f"{both5 - lms4:.4f} ms, bound {bound5:.4f} ms)")
     mask = (torch.arange(cache, device=dev)[None, :]
             < kv_len[:, None])[:, None, None, :]
     ms6 = time_ms(lambda: da_ops.decode_attention(dq, dk, dv, kv_len))
@@ -1565,7 +1698,8 @@ def check_d112(dev) -> list:
     live = float(kv_len.double().sum())
     bound6, by6 = bound_ms(2 * 2 * live * hq * d, 4 * live * hq * d,
                            PEAK_BF16_FLOPS)
-    log(f"H: K4 D 112 err {k4[bf]:.3e} (float32 {k4[torch.float32]:.3e}) "
+    log(f"H: K4 D 112 ({regimes['bfloat16'][0]}) err {k4[bf]:.3e} (float32 "
+        f"{k4[torch.float32]:.3e}) "
         f"{ms4:.4f} ms (plain {pms4:.3f} ms, SDPA {lms4:.4f} ms, bound "
         f"{bound4:.4f} ms); K6 D 112 err {k6[bf]:.3e} (float32 "
         f"{k6[torch.float32]:.3e}, masked {masked:.3e}) {ms6:.4f} ms (plain "
@@ -1573,9 +1707,10 @@ def check_d112(dev) -> list:
         f"kv_len {kv_len.tolist()}")
     src = "src/repro_torch/kernels/"
     return [dict(name=f"flash_attention {b}x{s}x{hq}x{d}", route="cuda",
-                 source=src + "flash_attention/csrc/flash_fwd.cu",
+                 source=src + "flash_attention/csrc/flash_fwd_tc.cu",
                  replaces="src/repro/kernels/flash_attention/kernel.py:83",
-                 max_abs_err=k4[bf], float32_max_abs_err=k4[torch.float32],
+                 regime=regimes["bfloat16"][0], max_abs_err=k4[bf],
+                 float32_max_abs_err=k4[torch.float32],
                  rtol=ATTN_TOL[bf], atol_per_rms=ATTN_TOL[bf], ms=ms4,
                  plain_ms=pms4, bound_ms=bound4, bound_by=by4,
                  library_ms=lms4),
@@ -1585,7 +1720,7 @@ def check_d112(dev) -> list:
                  max_abs_err=k6[bf], float32_max_abs_err=k6[torch.float32],
                  masked_max_abs_err=masked, rtol=ATTN_TOL[bf],
                  atol_per_rms=ATTN_TOL[bf], ms=ms6, plain_ms=pms6,
-                 bound_ms=bound6, bound_by=by6, library_ms=lms6)]
+                 bound_ms=bound6, bound_by=by6, library_ms=lms6)], k5_d112
 
 
 @contextlib.contextmanager
@@ -1882,7 +2017,8 @@ def main() -> int:
 
     k8 = check_k8(dev)
     records["P"] = [k8["P"]]
-    records["H"] = [k8["H"]] + check_d112(dev)
+    d112, records["T"][1]["d112"] = check_d112(dev)
+    records["H"] = [k8["H"]] + d112
     torch.cuda.empty_cache()
     launches_p, info_p = run_ssm_serving_path("P", dev)
     torch.cuda.empty_cache()

@@ -6,7 +6,9 @@ Each kernel package (``powercap``, ``flash_attention``,
 first use its ``csrc/*.cu`` sources are compiled for ``sm_90a`` with
 ``nvcc`` (one process per source, all started together), linked into
 ``build/repro_torch_kernels/lib<name>.so`` at the repository root, and
-loaded with ``ctypes`` through their plain C entry points.  A package
+loaded with ``ctypes`` through their plain C entry points.  Headers shared
+between packages live in ``kernels/include/`` (:data:`INCLUDE_DIR`); a
+library that names it is rebuilt when any of its files changes.  A package
 builds only its own sources, so a run that launches only the powercap
 kernels compiles no attention code.  A failed build raises; nothing falls
 back to the plain versions.
@@ -28,6 +30,8 @@ BUILD_DIR = (Path(__file__).resolve().parents[3] / "build"
              / "repro_torch_kernels")
 BASE_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
+#: Headers shared by several packages' sources (``sm90.cuh``).
+INCLUDE_DIR = Path(__file__).resolve().parent / "include"
 
 
 def nvcc() -> str:
@@ -42,8 +46,10 @@ def nvcc() -> str:
 
 
 def stream(t: torch.Tensor) -> int:
-    """PyTorch's current stream on ``t``'s device, as a ``ctypes`` int."""
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """PyTorch's current stream on ``t``'s device, as a ``ctypes`` int
+    (read raw: a ``torch.cuda.Stream`` object for each launch costs
+    microseconds of host time)."""
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
 
 
 class KernelLibrary:
@@ -51,15 +57,18 @@ class KernelLibrary:
 
     ``bind(lib)`` declares the entry points' ``argtypes`` and ``restype``;
     ``error_fn`` names the library's ``const char *(int)`` that spells a
-    CUDA error code.
+    CUDA error code; ``include_dirs`` are passed to ``nvcc`` as ``-I``.
     """
 
     def __init__(self, name: str, src_dir: Path, bind: Callable,
-                 error_fn: str, extra_flags: tuple = ()):
+                 error_fn: str, extra_flags: tuple = (),
+                 include_dirs: tuple = ()):
         self.name = name
         self.src_dir = src_dir
+        self.include_dirs = tuple(Path(p) for p in include_dirs)
         self.lib_path = BUILD_DIR / f"lib{name}.so"
-        self.flags = BASE_FLAGS + tuple(extra_flags)
+        self.flags = (BASE_FLAGS + tuple(extra_flags)
+                      + tuple(f"-I{p}" for p in self.include_dirs))
         self._bind = bind
         self._error_fn = error_fn
         self._lib = None
@@ -68,7 +77,9 @@ class KernelLibrary:
         if not self.lib_path.exists():
             return True
         built = self.lib_path.stat().st_mtime
-        return any(p.stat().st_mtime > built for p in self.src_dir.iterdir())
+        return any(p.stat().st_mtime > built
+                   for d in (self.src_dir, *self.include_dirs)
+                   for p in d.iterdir())
 
     def build(self) -> tuple[float, str]:
         """Compile and link the library; returns ``(seconds, ptxas log)``."""

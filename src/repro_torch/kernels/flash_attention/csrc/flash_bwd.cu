@@ -35,9 +35,9 @@
 //   dq: one block per (64 query rows, query head, batch), looping over the
 //     KV blocks up to the causal diagonal.
 // Shared memory: 4 tiles of 64 x (D + 1) floats, two 64 x 65 tiles
-// (p and ds) and two rows of 64: 100,352 B at D 64, 165,888 B at D 128
-// (of the 232,448 a block may have); D 256 would take 296,960 B, so the
-// wrapper refuses it.  Registers: dk and dv are 2 x 4 x D / 16 floats a
+// (p and ds) and two rows of 64: 100,352 B at D 64, 149,504 B at D 112,
+// 165,888 B at D 128 (of the 232,448 a block may have); D 256 would take
+// 296,960 B, so the wrapper refuses it.  Registers: dk and dv are 2 x 4 x D / 16 floats a
 // thread (64 at D 128).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -352,6 +352,7 @@ int dispatch(const Params& p, int B, int D, bool dkdv, cudaStream_t s) {
     case 16: return launch<T, 16>(p, B, dkdv, s);
     case 32: return launch<T, 32>(p, B, dkdv, s);
     case 64: return launch<T, 64>(p, B, dkdv, s);
+    case 112: return launch<T, 112>(p, B, dkdv, s);
     case 128: return launch<T, 128>(p, B, dkdv, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -1,7 +1,9 @@
 """Wrappers of kernels K4 and K5: checks, launch counters, dispatch by
 device, and the differentiable op that joins them.
 
-A CUDA tensor launches the hand-written kernels (or raises); a CPU tensor
+A CUDA tensor launches the hand-written kernels in the regime that their
+plans choose (``kernel.plan``, ``kernel_bwd.plan``: the tensor cores for
+bf16 that TMA can read, the CUDA cores otherwise), or raises; a CPU tensor
 runs their plain PyTorch versions (:func:`ref.flash_attention_ref`,
 :func:`ref.flash_attention_bwd_ref`).  :func:`flash_attention` is a
 ``torch.autograd.Function`` whose forward is K4 and whose backward is K5,
@@ -33,35 +35,59 @@ def _check(q, k, v) -> None:
         raise ValueError("q, k, v are on different devices")
 
 
-def _check_cuda(q, tensors: dict, head_dims, q_offset: int,
-                what: str) -> None:
-    if q.device.type != "cuda":
-        raise ValueError(f"unsupported device {q.device}")
-    if q.dtype not in kernel.DTYPES:
-        raise TypeError(f"{what} takes float32 or bfloat16, not {q.dtype}")
+def _check_cuda(q, tensors: dict, head_dims, q_offset: int, what: str,
+                packed: bool) -> None:
+    """The CUDA launch's checks: its head dim, a non-negative offset, each
+    tensor's features contiguous and, for the CUDA-core kernels
+    (``packed``), its heads too."""
     d = q.shape[3]
     if d not in head_dims:
         raise ValueError(f"{what} takes head_dim in {head_dims}, not {d}")
     if q_offset < 0:
         raise ValueError("q_offset must be >= 0")
     for name, t in tensors.items():
-        if t.stride(3) != 1 or t.stride(2) != d:
-            raise ValueError(f"{name}: heads and features must be packed "
-                             f"(strides {t.stride()})")
+        if t.stride(3) != 1 or (packed and t.stride(2) != d):
+            raise ValueError(f"{name}: {'heads and ' if packed else ''}"
+                             f"features must be packed (strides "
+                             f"{t.stride()})")
+
+
+def _device(q) -> None:
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+
+
+def _aligned(*tensors) -> bool:
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
 
 
 def _forward(q, k, v, causal: bool, q_offset: int):
     if q.device.type == "cpu":
         return ref.flash_attention_ref(q, k, v, causal=causal,
                                        q_offset=q_offset, block_k=BLOCK_K)
-    _check_cuda(q, {"q": q, "k": k, "v": v}, kernel.HEAD_DIMS, q_offset,
-                "K4")
+    _device(q)
     b, sq, hq, d = q.shape
+    p = kernel.plan(b, sq, k.shape[1], hq, k.shape[2], d, q.dtype,
+                    tuple(kernel.bshd_strides(t) for t in (q, k, v)),
+                    _aligned(q, k, v))
+    _check_cuda(q, {"q": q, "k": k, "v": v}, kernel.HEAD_DIMS, q_offset,
+                "K4", p.regime == "cuda_core")
     out = torch.empty((b, sq, hq, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
-    kernel.flash_fwd(q, k, v, out, lse, causal=causal, q_offset=q_offset)
+    kernel.flash_fwd(q, k, v, out, lse, p, causal=causal, q_offset=q_offset)
     flash_attention.launches += 1
     return out, lse
+
+
+def _pitched(rows: torch.Tensor, pitch: int) -> torch.Tensor:
+    """Float32 (B, Hq, Sq) rows at a row pitch of ``pitch`` values (a
+    multiple of 4, so that TMA can read them), zeros past Sq."""
+    if rows.shape[-1] == pitch:
+        return rows.contiguous()
+    out = torch.zeros(rows.shape[:-1] + (pitch,), dtype=torch.float32,
+                      device=rows.device)
+    out[..., :rows.shape[-1]] = rows
+    return out
 
 
 def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
@@ -79,17 +105,28 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
         return ref.flash_attention_bwd_ref(
             q, k, v, out, lse, dout, causal=causal, q_offset=q_offset,
             block_q=BLOCK_Q, block_k=BLOCK_K)
-    _check_cuda(q, {"q": q, "k": k, "v": v, "dout": dout},
-                kernel_bwd.HEAD_DIMS, q_offset, "K5")
+    _device(q)
     b, sq, hq, d = q.shape
+    p = kernel_bwd.plan(b, sq, k.shape[1], hq, k.shape[2], d, q.dtype,
+                        tuple(kernel.bshd_strides(t)
+                              for t in (q, k, v, dout)),
+                        _aligned(q, k, v, dout))
+    _check_cuda(q, {"q": q, "k": k, "v": v, "dout": dout},
+                kernel_bwd.HEAD_DIMS, q_offset, "K5",
+                p.regime == "cuda_core")
     if lse.shape != (b, hq, sq) or lse.dtype != torch.float32:
         raise ValueError(f"lse {tuple(lse.shape)} {lse.dtype}, expected "
                          f"{(b, hq, sq)} float32")
-    dsum = (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    # One float32 copy of dO, multiplied by O in place (``.float()`` would
+    # alias a float32 dO and overwrite the caller's gradient).
+    dsum = dout.to(torch.float32, copy=True).mul_(out).sum(-1)
+    dsum = dsum.transpose(1, 2)
+    pitch = -(-sq // 4) * 4 if p.regime == "tensor_core" else sq
     dq = torch.empty_like(q, memory_format=torch.contiguous_format)
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
-    kernel_bwd.flash_bwd(q, k, v, dout, lse.contiguous(), dsum, dq, dk, dv,
+    kernel_bwd.flash_bwd(q, k, v, dout, _pitched(lse, pitch),
+                         _pitched(dsum, pitch), dq, dk, dv, p,
                          causal=causal, q_offset=q_offset)
     flash_attention_bwd.launches += 1
     return dq, dk, dv
@@ -126,8 +163,9 @@ def flash_attention(q, k, v, *, causal: bool = True, q_offset: int = 0):
     q: (B, Sq, Hq, D); k/v: (B, Skv, Hkv, D); ``q_offset`` is the absolute
     position of q[:, 0] (a prefill that continues a cache).  Returns
     ``(out (B, Sq, Hq, D) in q.dtype, lse (B, Hq, Sq) float32)``.  On CUDA,
-    k and v may be views into a longer cache: only their head and feature
-    axes must be packed.  Where nothing needs a gradient no graph is
+    k and v may be views into a longer cache: their features must be
+    contiguous, and their heads packed too unless the tensor-core kernels
+    take the call.  Where nothing needs a gradient no graph is
     recorded.
     """
     _check(q, k, v)

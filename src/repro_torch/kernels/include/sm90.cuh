@@ -1,5 +1,9 @@
-// Hopper (sm_90a) building blocks of K7's tensor-core regimes: mbarriers,
-// TMA tile loads, shared-memory matrix descriptors and wgmma.
+// Hopper (sm_90a) building blocks shared by the tensor-core kernels (K7's
+// regimes in moe_gmm/csrc/gmm_tc.cu, K4's and K5's in
+// flash_attention/csrc/*_tc.cu): mbarriers, TMA tile loads and stores,
+// shared-memory matrix descriptors, wgmma, and the host's tensor-map
+// encoder.  Each library that includes it is built with this directory
+// on its include path (kernels/_build.py).
 //
 // Every tile that a wgmma reads is a TMA box whose rows are 128 bytes (64
 // bfloat16) wide, written with the 128-byte swizzle into shared memory
@@ -22,7 +26,6 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-namespace k7 {
 namespace sm90 {
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -85,6 +88,19 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
       : "memory");
 }
 
+// The same for a rank-4 tensor map.
+__device__ __forceinline__ void tma_load4(uint32_t dst,
+                                          const CUtensorMap* map,
+                                          uint32_t bar, int c0, int c1,
+                                          int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
+      : "memory");
+}
+
 // One box of shared memory out to a rank-3 tensor map, in the calling
 // thread's current bulk group; elements past the map's extents are not
 // written.
@@ -126,6 +142,12 @@ __device__ __forceinline__ void named_sync(int id, int threads) {
 
 __device__ __forceinline__ void st_shared(uint32_t addr, uint32_t v) {
   asm volatile("st.shared.u32 [%0], %1;" ::"r"(addr), "r"(v) : "memory");
+}
+
+__device__ __forceinline__ uint32_t ld_shared(uint32_t addr) {
+  uint32_t v;
+  asm volatile("ld.shared.u32 %0, [%1];" : "=r"(v) : "r"(addr) : "memory");
+  return v;
 }
 
 __device__ __forceinline__ void tma_prefetch(const CUtensorMap* map) {
@@ -176,6 +198,14 @@ template <int R>
 __device__ __forceinline__ void fence_regs(float (&d)[R]) {
 #pragma unroll
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// The same for the bf16 pairs of a register-held A operand: the compiler
+// must not reuse them while an asynchronous wgmma still reads them.
+template <int R>
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(a[i])::"memory");
 }
 
 // D (64 x N, float32 in registers) += A (64 x 16) B (16 x N), both bf16
@@ -291,5 +321,199 @@ __device__ __forceinline__ void wgmma_n256(float (&d)[128], uint64_t da,
       : "l"(da), "l"(db), "r"(1), "n"(TransA), "n"(TransB));
 }
 
+// wgmma_n128, as wgmma_n64 with N = 128; wgmma_rs_n64 and wgmma_rs_n128
+// take A (64 x 16, bf16) from registers: thread t holds a[0] = rows
+// 16 (t / 32) + (t % 32) / 4, columns 2 (t % 4) + {0, 1}; a[1] the same
+// columns eight rows below; a[2] and a[3] the same rows at columns
+// 8 + 2 (t % 4) + {0, 1} -- the layout of an accumulator's two 8-column
+// blocks, so a tile of products becomes the next product's A in registers
+// (split_a).
+template <int TransA, int TransB>
+__device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t da,
+                                          uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, %67, %68;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1), "n"(TransA), "n"(TransB));
+}
+
+template <int TransB>
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1),
+        "n"(TransB));
+}
+
+template <int TransB>
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1),
+        "n"(TransB));
+}
+
+// The products of N = 32, 64 or 128 columns chosen by N at compile time:
+// mma_ss reads A from shared memory, mma_rs from registers.
+template <int N, int TransA, int TransB>
+__device__ __forceinline__ void mma_ss(float (&d)[N / 2], uint64_t da,
+                                       uint64_t db) {
+  static_assert(N == 32 || N == 64 || N == 128,
+                "mma_ss takes N = 32, 64 or 128");
+  if constexpr (N == 32) wgmma_n32<TransA, TransB>(d, da, db);
+  else if constexpr (N == 64) wgmma_n64<TransA, TransB>(d, da, db);
+  else wgmma_n128<TransA, TransB>(d, da, db);
+}
+
+template <int N, int TransB>
+__device__ __forceinline__ void mma_rs(float (&d)[N / 2],
+                                       const uint32_t (&a)[4], uint64_t db) {
+  static_assert(N == 64 || N == 128, "mma_rs takes N = 64 or 128");
+  if constexpr (N == 64) wgmma_rs_n64<TransB>(d, a, db);
+  else wgmma_rs_n128<TransB>(d, a, db);
+}
+
+// Two floats as a bf16 pair, the first in the low half.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// x and y as a bf16 pair `hi` and the pair of what rounding left, `lo`:
+// x = hi.x + lo.x to within 2^-16 |x|, where hi.x alone keeps 2^-8.
+__device__ __forceinline__ void split_bf16(float x, float y, uint32_t& hi,
+                                           uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  const float2 hf = __bfloat1622float2(h);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(x - hf.x, y - hf.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+// k-step kk (columns 16 kk .. 16 kk + 15) of a 64 x N float32 accumulator
+// as mma_rs_*'s A operand, split into a bf16 high part and remainder: the
+// two products hi B + lo B keep the float32 operand to 2^-16.
+template <int R>
+__device__ __forceinline__ void split_a(uint32_t (&hi)[4], uint32_t (&lo)[4],
+                                        const float (&d)[R], int kk) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    split_bf16(d[8 * kk + 2 * i], d[8 * kk + 2 * i + 1], hi[i], lo[i]);
+}
+
+// -------------------------------------------------------------------- host
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// libcuda's cuTensorMapEncodeTiled, found through the runtime's entry
+// point query (no link against libcuda); null if libcuda lacks it.
+inline EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = []() -> EncodeTiled {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t rc = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t rc = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (rc != cudaSuccess || found != cudaDriverEntryPointSuccess)
+      return nullptr;
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+// A tensor map of `rank` (at most 5) dimensions, innermost first: extents
+// `dims`, the byte strides of dimensions 1 .. rank - 1 in `strides`, read
+// in boxes of `box` elements; elements past the extents load as zeros and
+// are not stored.  Returns 0 or a cudaError_t code.
+inline int encode_map(CUtensorMap* map, CUtensorMapDataType type, int rank,
+                      const void* ptr, const long long* dims,
+                      const long long* strides, const int* box,
+                      CUtensorMapSwizzle swizzle) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  cuuint64_t d[5], s[4];
+  cuuint32_t b[5], unit[5];
+  for (int i = 0; i < rank; ++i) {
+    d[i] = static_cast<cuuint64_t>(dims[i]);
+    b[i] = static_cast<cuuint32_t>(box[i]);
+    unit[i] = 1;
+    if (i + 1 < rank) s[i] = static_cast<cuuint64_t>(strides[i]);
+  }
+  const CUresult rc = encode(
+      map, type, static_cast<cuuint32_t>(rank), const_cast<void*>(ptr), d, s,
+      b, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return rc == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
 }  // namespace sm90
-}  // namespace k7

@@ -287,33 +287,6 @@ __global__ void __launch_bounds__(kNarrowThreads)
 }
 
 // ------------------------------------------------------------------ host
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// libcuda's cuTensorMapEncodeTiled, found through the runtime's entry
-// point query (no link against libcuda); null if libcuda lacks it.
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = []() -> EncodeTiled {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t rc = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t rc = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (rc != cudaSuccess || found != cudaDriverEntryPointSuccess)
-      return nullptr;
-    return reinterpret_cast<EncodeTiled>(p);
-  }();
-  return fn;
-}
-
 // A rank-3 bf16 map over (d2, d1, d0), d0 contiguous, with strides s1 and
 // s2 (elements), read in boxes of b1 rows of b0 elements, 128-byte
 // swizzled.

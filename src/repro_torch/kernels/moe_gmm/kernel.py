@@ -34,7 +34,7 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels._build import KernelLibrary
+from repro_torch.kernels._build import INCLUDE_DIR, KernelLibrary
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 REGIMES = {"cuda_core": 0, "wide": 1, "narrow": 2}
@@ -117,7 +117,8 @@ def _bind(lib: ctypes.CDLL) -> None:
 
 
 LIBRARY = KernelLibrary("moe_gmm", Path(__file__).resolve().parent / "csrc",
-                        _bind, "moe_gmm_error_string")
+                        _bind, "moe_gmm_error_string",
+                        include_dirs=(INCLUDE_DIR,))
 
 
 def smem_bytes(regime: str, c: int) -> int:

@@ -12,6 +12,8 @@ versions on the card by ``chip_smoke.py``.
 """
 
 import dataclasses
+from pathlib import Path
+from unittest import mock
 
 import jax.numpy as jnp
 import ml_dtypes
@@ -29,6 +31,8 @@ from repro.models import layers as ref_layers
 from repro_torch import configs
 from repro_torch.kernels.decode_attention import ops as da_ops
 from repro_torch.kernels.decode_attention import ref as da_ref
+from repro_torch.kernels.flash_attention import kernel as fa_kernel
+from repro_torch.kernels.flash_attention import kernel_bwd as fa_kernel_bwd
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention import ref as fa_ref
 from repro_torch.models import layers
@@ -120,6 +124,130 @@ def test_k4_wrapper_refuses_what_the_kernel_does_not_take():
     fa_ops.flash_attention(q, torch.zeros(1, 4, 2, 16),
                            torch.zeros(1, 4, 2, 16))
     assert fa_ops.flash_attention.launches == before   # the plain version
+
+
+# ------------------------------------------------------------- K4's plan
+BF16 = torch.bfloat16
+
+
+def _heads(arch: str) -> tuple[int, int, int]:
+    cfg = configs.get(arch)
+    return cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+
+
+def _cache_view_strides(max_len: int, hkv: int, d: int):
+    """K's and V's strides as the cached prefill reads them:
+    ``ck[:, :cur + s]`` of a (B, max_len, Hkv, D) cache."""
+    return (max_len * hkv * d, hkv * d, d)
+
+
+#: The prefill shapes of the paths, ``(arch, B, Sq, Skv, cache or None)``:
+#: T trains on 4 x 4096 without a cache; S, M and H prefill 8 prompts of
+#: 512 into a 1024-position cache.
+PATHS = {"T": ("minicpm_2b", 4, 4096, 4096, None),
+         "S": ("granite_8b", 8, 512, 512, 1024),
+         "M": ("olmoe_1b_7b", 8, 512, 512, 1024),
+         "H": ("zamba2_7b", 8, 512, 512, 1024)}
+
+
+def _path_plan(path: str):
+    arch, b, sq, skv, cache = PATHS[path]
+    hq, hkv, d = _heads(arch)
+    qs = fa_kernel.packed_strides(sq, hq, d)
+    ks = (fa_kernel.packed_strides(skv, hkv, d) if cache is None
+          else _cache_view_strides(cache, hkv, d))
+    return fa_kernel.plan(b, sq, skv, hq, hkv, d, BF16, (qs, ks, ks))
+
+
+@pytest.mark.parametrize("path", list(PATHS))
+def test_k4_plan_puts_the_paths_bf16_prefill_on_the_tensor_cores(path):
+    arch, b, sq, _, _ = PATHS[path]
+    hq = _heads(arch)[0]
+    p = _path_plan(path)
+    assert p.regime == "tensor_core"
+    # One block per (128 query rows, query head, batch row).
+    assert p.grid == (hq, b, -(-sq // 128))
+
+
+@pytest.mark.parametrize("d,kw", [
+    (64, {"dtype": torch.float32}),
+    (128, {"dtype": torch.float32}),
+    (112, {"dtype": torch.float32}),
+    (16, {}), (32, {}), (256, {}),          # head dims it has no tiles for
+    (112, {"aligned": False}),
+    # a head pitch of 116 elements (232 bytes: no multiple of 16)
+    (112, {"strides": ((512 * 4 * 116, 4 * 116, 116),) * 3}),
+    # a row pitch of 4 x 112 + 4 = 452 elements
+    (112, {"strides": ((512 * 452, 452, 112),) * 3}),
+])
+def test_k4_plan_keeps_float32_and_what_tma_cannot_read_on_the_cuda_cores(
+        d, kw):
+    kw = dict({"dtype": BF16}, **kw)
+    p = fa_kernel.plan(2, 512, 512, 4, 4, d, kw.pop("dtype"), **kw)
+    assert p.regime == "cuda_core"
+    assert p.grid == (512 // 64, 4, 2)
+    assert p.smem_bytes == 4 * (3 * 64 * (d + 1) + 64 * 65)
+
+
+def test_k4_plan_takes_a_strided_cache_view():
+    """Path S's continued prefill reads ``ck[:, :cur + s]`` of a longer
+    cache, and a view whose heads lie 8 features apart past D: both keep
+    the tensor cores, as the chip check's NaN-poisoned views do."""
+    hq, hkv, d = _heads("granite_8b")
+    cur, s = 64, 100
+    q = fa_kernel.packed_strides(s, hq, d)
+    ck = _cache_view_strides(1024, hkv, d)
+    assert fa_kernel.plan(8, s, cur + s, hq, hkv, d, BF16,
+                          (q, ck, ck)).regime == "tensor_core"
+    padded = ((cur + s + 36) * hkv * (d + 8), hkv * (d + 8), d + 8)
+    assert fa_kernel.plan(2, s, cur + s, 8, hkv, d, BF16,
+                          (q, padded, padded)).regime == "tensor_core"
+
+
+@pytest.mark.parametrize("d", [16, 32, 64, 112, 128, 256])
+@pytest.mark.parametrize("dtype", [BF16, torch.float32])
+def test_k4_plan_fits_shared_memory(d, dtype):
+    p = fa_kernel.plan(4, 4096, 4096, 36, 36, d, dtype)
+    assert 0 < p.smem_bytes <= fa_kernel.SMEM_LIMIT
+    if p.regime == "tensor_core":
+        assert d in fa_kernel.TC_HEAD_DIMS and dtype == BF16
+
+
+def test_k4_k5_cuda_call_with_an_unsupported_dtype_raises():
+    """The plans refuse float16, and the wrappers' CUDA branches go
+    through them before anything reaches the card (the tensors only claim
+    to be on it here)."""
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        fa_kernel.plan(1, 8, 8, 2, 2, 64, torch.float16)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        fa_kernel_bwd.plan(1, 8, 8, 2, 2, 64, torch.float16)
+    q = torch.zeros(1, 8, 2, 64, dtype=torch.float16)
+    before = (fa_ops.flash_attention.launches,
+              fa_ops.flash_attention_bwd.launches)
+    cuda = property(lambda self: torch.device("cuda"))
+    with mock.patch.object(torch.Tensor, "device", cuda):
+        with pytest.raises(TypeError, match="float32 or bfloat16"):
+            fa_ops.flash_attention(q, q, q)
+        with pytest.raises(TypeError, match="float32 or bfloat16"):
+            fa_ops.flash_attention_bwd(q, q, q, q,
+                                       torch.zeros(1, 2, 8), q)
+    assert (fa_ops.flash_attention.launches,
+            fa_ops.flash_attention_bwd.launches) == before
+
+
+def test_flash_attention_sources_use_no_float_atomics():
+    """Each output element of K4 and K5 is one thread's sum in a fixed
+    order (the dq sum has its own kernel, trap T1): no atomic adds or
+    reductions in the package's CUDA sources or the shared header."""
+    csrc = Path(fa_kernel.__file__).parent / "csrc"
+    sources = sorted(csrc.glob("*.cu")) + sorted(csrc.glob("*.cuh"))
+    sources.append(Path(fa_kernel.__file__).parents[1] / "include"
+                   / "sm90.cuh")
+    assert len(sources) >= 6
+    for src in sources:
+        text = src.read_text()
+        assert "atomicAdd" not in text and "red.global" not in text, src
+        assert "cp.reduce.async" not in text, src
 
 
 # ------------------------------------------------------------------ K6

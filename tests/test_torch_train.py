@@ -45,6 +45,8 @@ from repro_torch.convert import from_reference_train_state
 from repro_torch.core.power_model import PAPER_HOST, HostPowerSpec
 from repro_torch.data.pipeline import SyntheticTokens
 from repro_torch.drs import snapshot
+from repro_torch.kernels.flash_attention import kernel as fa_kernel
+from repro_torch.kernels.flash_attention import kernel_bwd as fa_kernel_bwd
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.launch import train
 from repro_torch.models import layers
@@ -98,6 +100,8 @@ BWD_CASES = [
     (1, 100, 100, 4, 2, 32, True, 0, "float32"),     # non-multiple of block
     (2, 96, 96, 4, 2, 32, True, 0, "bfloat16"),
     (1, 64, 128, 4, 2, 32, True, 64, "float32"),     # continuation
+    (1, 72, 72, 2, 2, 112, True, 0, "float32"),      # Zamba2's head dim
+    (2, 96, 96, 4, 2, 112, True, 0, "bfloat16"),     # the same, GQA
 ]
 
 
@@ -138,6 +142,45 @@ def test_k5_plain_matches_pallas_vjp_and_oracle(b, sq, skv, hq, hkv, d,
                                    err_msg=f"{name} vs attention_ref")
     assert fa_ops.flash_attention.launches == 0
     assert fa_ops.flash_attention_bwd.launches == 0
+
+
+# ------------------------------------------------------------- K5's plan
+def test_k5_plan_puts_path_t_on_the_tensor_cores():
+    """Path T's layer (MiniCPM-2B: 4 x 4096, 36/36 heads of 64) in bf16:
+    the dk/dv kernel one block per (128 keys, KV head, batch row), the dq
+    kernel one per (192 query rows, query head, batch row)."""
+    cfg = configs.get("minicpm_2b")
+    hq, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    p = fa_kernel_bwd.plan(4, 4096, 4096, hq, hkv, d, torch.bfloat16)
+    assert p.regime == "tensor_core"
+    assert p.grid == ((hkv, 4, 32), (hq, 4, 22))
+    assert all(0 < m <= fa_kernel.SMEM_LIMIT for m in p.smem_bytes)
+
+
+@pytest.mark.parametrize("d", [16, 32, 64, 112, 128])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_k5_plan_regimes_and_shared_memory(d, dtype):
+    """K5 takes D 112 in both regimes (fault P1); bf16 at D 64, 112 and
+    128 runs on the tensor cores, the rest on the CUDA cores, and every
+    launch fits a block's shared memory."""
+    assert d in fa_kernel_bwd.HEAD_DIMS
+    p = fa_kernel_bwd.plan(8, 512, 512, 32, 32, d, dtype)
+    tc = dtype == torch.bfloat16 and d in (64, 112, 128)
+    assert p.regime == ("tensor_core" if tc else "cuda_core")
+    assert all(0 < m <= fa_kernel.SMEM_LIMIT for m in p.smem_bytes)
+    if not tc:
+        assert p.grid == ((8, 32, 8), (8, 32, 8))
+
+
+@pytest.mark.parametrize("kw", [
+    {"aligned": False},
+    # dO's row pitch of 32 x 64 + 4 elements
+    {"strides": ((512 * 2048, 2048, 64), (512 * 2048, 2048, 64),
+                 (512 * 2048, 2048, 64), (512 * 2052, 2052, 64))},
+])
+def test_k5_plan_keeps_what_tma_cannot_read_on_the_cuda_cores(kw):
+    assert fa_kernel_bwd.plan(1, 512, 512, 32, 32, 64, torch.bfloat16,
+                              **kw).regime == "cuda_core"
 
 
 # --------------------------------------------------------------- layers

@@ -15,7 +15,8 @@ launch for each regime's kernel: ``gmm_wide_kernel`` at prefill,
 Mamba2-2.7B and Zamba2-7B at full width and depth in bf16 (their SSD
 scans on kernel K8 at prefill, Zamba2's shared attention on K4 and K6;
 they report K8's two kernels' device ms per launch); and path T, one training step of MiniCPM-2B at full width and
-depth in bf16 (4 x 4096 tokens, remat, AdamW; its "tick" the step).  Each
+depth in bf16 (4 x 4096 tokens, remat, AdamW; its "tick" the step; it
+reports K4's and K5's tensor-core kernels' device ms per launch).  Each
 path runs once to warm up, then once under ``torch.profiler`` and once
 without it.  For the profiled run it reads the Chrome trace and reports
 the device's busy time (union of kernel and copy intervals), its idle
@@ -160,12 +161,14 @@ def train_runner():
 
 
 #: Kernels whose device ms per launch a profile reports, by name in the
-#: trace (K7's call is one launch of one of its regimes' kernels; K8's one
-#: launch of each of its two kernels).
+#: trace (K4's and K7's calls are one launch of one of their regimes'
+#: kernels; K5's and K8's one launch of each of their two kernels).
 PER_LAUNCH = {"k7_wide": "gmm_wide_kernel", "k7_narrow": "gmm_narrow_kernel",
               "k7_cuda_core": "gmm_kernel", "k8_intra": "ssd_intra_kernel",
-              "k8_state": "ssd_state_kernel", "k4": "flash_fwd_kernel",
-              "k6": "decode_kernel"}
+              "k8_state": "ssd_state_kernel", "k4": "flash_fwd_tc_kernel",
+              "k4_cuda_core": "flash_fwd_kernel",
+              "k5_dkdv": "flash_bwd_dkdv_tc_kernel",
+              "k5_dq": "flash_bwd_dq_tc_kernel", "k6": "decode_kernel"}
 
 
 def timed(run) -> tuple[int, float]:
