@@ -32,12 +32,15 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    past D hold NaN, MQA, non-causal at D 112; each two launches bitwise
    equal) and on a float32 case with a query offset and lengths that are
    no multiple of its blocks (the CUDA-core kernel), each in the regime
-   its plan must choose; K6 over
-   a 1024-position cache with ragged lengths in bf16 and float32, and a
-   case whose blocks are all fully masked but one.  Tolerances: 2e-5 in
-   float32, 2e-2 in bf16, relative to the values' scale (the absolute
-   term is the tolerance times the RMS of the plain output where that is
-   under 1).  Each is timed beside its plain version and
+   its plan must choose; K6 (one kernel for both dtypes: split-K
+   partials and the combine in one call) over a 1024-position cache with
+   ragged lengths in bf16 and float32, a case whose splits are all fully
+   masked but one, and a bf16 cache whose position pitch is no multiple
+   of 16 bytes (element copies), each two launches bitwise equal, its plan's
+   shared memory the library's own count.  Tolerances: 2e-5 in float32,
+   2e-2 in bf16, relative to the values' scale (the absolute term is the
+   tolerance times the RMS of the plain output where that is under 1).
+   Each is timed beside its plain version and
    ``scaled_dot_product_attention`` on the same inputs;
 8. main path S, ``launch.serve``'s driver at granite-8b's full width and
    depth in bf16 (2 replicas, 16 requests, prompts of 512, 32 tokens, a
@@ -85,7 +88,10 @@ Phases, each of which raises (and so exits non-zero) when it fails:
     kernel), and a view a regime into a larger allocation whose rows past
     C and columns past D and F hold NaN; each in the regime the plan must
     choose, two launches bitwise equal; tolerances as in 7; each timed
-    beside its plain version and ``torch.bmm``;
+    beside its plain version and ``torch.bmm``; then K4 and K6 at path M's
+    shapes (16/16 heads of 128, bf16: K4 on the prefill of 8 x 512, K6 over
+    a 1024-position cache), held as in 7 and timed beside their plain
+    versions and SDPA, with their bounds;
 14. main path M, ``launch.serve``'s driver at OLMoE-1B-7B's full width and
     depth in bf16 (16 layers, 64 experts top-8, 6.919e9 parameters), with
     path S's replicas, requests, prompts, tokens and cache: the exact
@@ -103,18 +109,21 @@ Phases, each of which raises (and so exits non-zero) when it fails:
 16. K8 (the SSD intra-chunk step) against its plain version on the card:
     at path P's and path H's prefill call in bf16 (8 x 512 tokens, chunk
     256; 80 heads of 64 with N 128, and 112 heads of 64 with N 64; B and C
-    one row shared by the heads, as the model passes them), each timed
-    beside its plain version, the same calls with B and C packed (bitwise
-    equal), and a float32 scan with a ragged tail and an initial state
-    through ``ops.ssd_scan`` against the sequential oracle (L 40, chunk
-    16); tolerance 1e-4 relative to the values' scale;
+    one row shared by the heads, as the model passes them) in the
+    tensor-core regime, as the plan must choose (its shared memory the
+    library's own count), two launches bitwise equal, each timed beside
+    its plain version, the same calls with B and C packed (bitwise equal),
+    and a float32 scan (the CUDA-core kernels) with a ragged tail and an
+    initial state through ``ops.ssd_scan`` against the sequential oracle
+    (L 40, chunk 16); tolerance 1e-4 relative to the values' scale;
 17. K4, K5 and K6 at head dim 112 (Zamba2-7B's shared attention)
     against their plain versions in bf16 and float32 at path H's shapes:
     K4 and K5 on a prefill of 8 x 512 with 32/32 heads (the tensor cores
     in bf16, the CUDA cores in float32, two launches bitwise equal), K6
-    over a 1024-position cache with ragged lengths, and a case whose
-    blocks are all fully masked but one; tolerances as in 7 and 10, the
-    bf16 calls timed beside the plain versions and SDPA;
+    over a 1024-position cache with ragged lengths, at Phi-2's head dim 80
+    (32 heads over 512 positions) and on a case whose splits are all fully
+    masked but one, two launches bitwise equal each; tolerances as in 7
+    and 10, the bf16 calls timed beside the plain versions and SDPA;
 18. main path P, ``launch.serve``'s driver at Mamba2-2.7B's full width and
     depth in bf16 (64 layers, 80 SSD heads of 64, N 128, 2.7e9
     parameters), with path S's replicas, requests, prompts, tokens and
@@ -638,13 +647,78 @@ def check_k4(dev) -> dict:
                 library_ms=lms)
 
 
-def check_k6(dev) -> dict:
-    """K6 against its plain version over a 1024-position cache with
-    ragged lengths, in float32 and bf16 (timed, with SDPA on the same
-    inputs), and a case with every block but one fully masked."""
+def k6_plan(q, k, v, what: str):
+    """The plan that K6's wrapper makes for the call, its shared memory
+    held against the library's own count."""
+    from repro_torch.kernels.decode_attention import kernel
+    b, hq, d = q.shape
+    p = kernel.plan(b, k.shape[1], hq, k.shape[2], d, q.dtype,
+                    (k.stride()[:2], v.stride()[:2]),
+                    k.data_ptr() % 16 == 0 and v.data_ptr() % 16 == 0,
+                    torch.cuda.get_device_properties(0).multi_processor_count)
+    lib = kernel.library_smem_bytes(d, q.dtype, p.lanes, p.rows)
+    if lib != p.smem_bytes:
+        raise AssertionError(f"{what}: plan {p}, library shared memory "
+                             f"{lib}")
+    return p
+
+
+def k6_case(q, k, v, kv_len, what: str, block_k: int | None = None):
+    """K6 against its plain version (the reference's blocks of ``block_k``
+    positions, 512 by default), two launches bitwise equal; returns the
+    error and the plan."""
+    from repro_torch.kernels.decode_attention import ops, ref
+    p = k6_plan(q, k, v, what)
+    out = ops.decode_attention(q, k, v, kv_len)
+    err = attn_err(out, ref.decode_attention_split_ref(
+        q, k, v, kv_len, block_k or ops.BLOCK_K), q.dtype, what)
+    if not torch.equal(out, ops.decode_attention(q, k, v, kv_len)):
+        raise AssertionError(f"{what}: two launches differ")
+    return err, p
+
+
+def time_k6(q, k, v, kv_len) -> dict:
+    """K6 beside its plain version and ``scaled_dot_product_attention``
+    (masked to each row's live prefix) on the same inputs, with its bound:
+    the live K and V bytes, or ``4 Hq D`` operations a live position."""
     from repro_torch.kernels.decode_attention import ops, ref
     sdpa = torch.nn.functional.scaled_dot_product_attention
+    hq, d = q.shape[1:]
+    s, hkv = k.shape[1], k.shape[2]
+    mask = (torch.arange(s, device=q.device)[None, :]
+            < kv_len[:, None])[:, None, None, :]
+    q4, kt, vt = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
+    ms = time_ms(lambda: ops.decode_attention(q, k, v, kv_len))
+    pms = time_ms(lambda: ref.decode_attention_split_ref(q, k, v, kv_len,
+                                                         ops.BLOCK_K))
+    lms = time_ms(lambda: sdpa(q4, kt, vt, attn_mask=mask,
+                               enable_gqa=hq != hkv))
+    live = float(kv_len.double().sum())
+    bound, by = bound_ms(2 * 2 * live * hkv * d, 4 * live * hq * d,
+                         PEAK_BF16_FLOPS)
+    return dict(ms=ms, plain_ms=pms, library_ms=lms, bound_ms=bound,
+                bound_by=by)
 
+
+def k6_record(shape, err, err32, p, times, **extra) -> dict:
+    b, s, hq, d = shape
+    bf = torch.bfloat16
+    return dict(name=f"decode_attention {b}x{s}x{hq}x{d}", route="cuda",
+                source="src/repro_torch/kernels/decode_attention/csrc/"
+                       "decode.cu",
+                replaces="src/repro/kernels/decode_attention/kernel.py:55",
+                plan=dict(split=p.split, lanes=p.lanes, rows=p.rows,
+                          grid=list(p.grid), vector_loads=p.vector_loads),
+                max_abs_err=err, float32_max_abs_err=err32,
+                rtol=ATTN_TOL[bf], atol_per_rms=ATTN_TOL[bf], **times,
+                **extra)
+
+
+def check_k6(dev) -> dict:
+    """K6 against its plain version over a 1024-position cache with
+    ragged lengths, in float32 and bf16 (two launches bitwise equal, the
+    plan's shared memory the library's; timed, with SDPA on the same
+    inputs), and a case with every split but the first fully masked."""
     b, s, hq, hkv, d = 8, 1024, 32, 8, 128
     g = torch.Generator(device=dev).manual_seed(7)
     kv_len = torch.randint(1, s + 1, (b,), generator=g, device=dev,
@@ -654,37 +728,77 @@ def check_k6(dev) -> dict:
         q = randn((b, hq, d), dtype, dev, 8)
         k, v = randn((b, s, hkv, d), dtype, dev, 9), randn((b, s, hkv, d),
                                                            dtype, dev, 10)
-        out = ops.decode_attention(q, k, v, kv_len)
-        plain = ref.decode_attention_split_ref(q, k, v, kv_len, ops.BLOCK_K)
-        errs[dtype] = attn_err(out, plain, dtype, f"K6 {dtype}")
+        errs[dtype], p = k6_case(q, k, v, kv_len, f"K6 {dtype}")
     mq = randn((2, 2, 32), torch.float32, dev, 11)
     mk = randn((2, 512, 2, 32), torch.float32, dev, 12)
     mlen = torch.tensor([1, 3], dtype=torch.int32, device=dev)
-    masked = attn_err(ops.decode_attention(mq, mk, mk, mlen, block_k=64),
-                      ref.decode_attention_split_ref(mq, mk, mk, mlen, 64),
-                      torch.float32, "K6 fully masked blocks")
-    mask = (torch.arange(s, device=dev)[None, :]
-            < kv_len[:, None])[:, None, None, :]
-    q4, kt, vt = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
-    ms = time_ms(lambda: ops.decode_attention(q, k, v, kv_len))
-    pms = time_ms(lambda: ref.decode_attention_split_ref(q, k, v, kv_len,
-                                                         ops.BLOCK_K))
-    lms = time_ms(lambda: sdpa(q4, kt, vt, attn_mask=mask, enable_gqa=True))
-    live = float(kv_len.double().sum())
-    bound, by = bound_ms(2 * 2 * live * hkv * d, 4 * live * hq * d,
-                         PEAK_BF16_FLOPS)
+    masked, mp = k6_case(mq, mk, mk, mlen, "K6 fully masked splits", 64)
+    if mp.splits < 2 or mp.split < 3:    # kv_len 1 and 3: one live split
+        raise AssertionError(f"K6 fully masked splits: plan {mp}")
+    # A cache whose positions lie 8 * 128 + 4 elements apart (8 bytes past
+    # a 16-byte multiple in bf16): the element copies instead of cp.async.
+    wide = randn((b, s, hkv * d + 4), torch.bfloat16, dev, 13)
+    uk = wide.as_strided((b, s, hkv, d), (s * (hkv * d + 4), hkv * d + 4,
+                                          d, 1))
+    uq = randn((b, hq, d), torch.bfloat16, dev, 14)
+    unaligned, up = k6_case(uq, uk, uk, kv_len, "K6 unaligned pitch")
+    if up.vector_loads:
+        raise AssertionError(f"K6 unaligned pitch: plan {up}")
+    times = time_k6(q, k, v, kv_len)
     err = errs[torch.bfloat16]
-    log(f"S: K6 err {err:.3e} (float32 {errs[torch.float32]:.3e}, masked "
-        f"{masked:.3e}) {ms:.4f} ms (plain {pms:.3f} ms, SDPA {lms:.4f} "
-        f"ms, bound {bound:.5f} ms), kv_len {kv_len.tolist()}")
-    return dict(name=f"decode_attention {b}x{s}x{hq}x{d}", route="cuda",
-                source="src/repro_torch/kernels/decode_attention/csrc/"
-                       "decode.cu",
-                replaces="src/repro/kernels/decode_attention/kernel.py:55",
-                max_abs_err=err, float32_max_abs_err=errs[torch.float32],
-                masked_max_abs_err=masked, rtol=ATTN_TOL[torch.bfloat16],
-                atol_per_rms=ATTN_TOL[torch.bfloat16], ms=ms, plain_ms=pms,
-                bound_ms=bound, bound_by=by, library_ms=lms)
+    log(f"S: K6 (split {p.split}, lanes {p.lanes}, rows {p.rows}) err "
+        f"{err:.3e} (float32 {errs[torch.float32]:.3e}, masked "
+        f"{masked:.3e}, unaligned pitch {unaligned:.3e}) "
+        f"{times['ms']:.4f} ms (plain {times['plain_ms']:.3f} "
+        f"ms, SDPA {times['library_ms']:.4f} ms, bound "
+        f"{times['bound_ms']:.5f} ms); reruns bitwise equal; kv_len "
+        f"{kv_len.tolist()}")
+    return k6_record((b, s, hq, d), err, errs[torch.float32], p, times,
+                     masked_max_abs_err=masked,
+                     unaligned_max_abs_err=unaligned)
+
+
+def check_m_attention(dev) -> list:
+    """K4 and K6 at path M's shapes (OLMoE-1B-7B's 16/16 heads of 128,
+    bf16): K4 on the prefill of 8 x 512 (the tensor cores), K6 over a
+    1024-position cache with ragged lengths, each against its plain
+    version (K6's reruns bitwise equal), timed beside its plain version
+    and SDPA, with its bound.  Returns their records for path M."""
+    from repro_torch.kernels.flash_attention import ops, ref
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    bf = torch.bfloat16
+    b, s, h, d, cache = 8, 512, 16, 128, 1024
+    q, k, v, _ = attn_operands(b, s, s, h, h, d, bf, dev, 90)
+    p4 = attn_plan(q, k, v, want="tensor_core", what="K4 path M")
+    err4 = k4_case(q, k, v, True, 0, "K4 bf16, path M prefill")
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    ms4 = time_ms(lambda: ops.flash_attention(q, k, v))
+    pms4 = time_ms(lambda: ref.flash_attention_ref(q, k, v,
+                                                   block_k=ops.BLOCK_K))
+    lms4 = time_ms(lambda: sdpa(qt, kt, vt, is_causal=True))
+    bound4, by4 = bound_ms(2 * 4 * b * s * h * d + 4 * b * h * s,
+                           4 * b * h * d * (s * (s + 1) // 2),
+                           PEAK_BF16_FLOPS)
+    g = torch.Generator(device=dev).manual_seed(91)
+    kv_len = torch.randint(1, cache + 1, (b,), generator=g, device=dev,
+                           dtype=torch.int32)
+    dq = randn((b, h, d), bf, dev, 92)
+    dk, dv = (randn((b, cache, h, d), bf, dev, 93 + i) for i in range(2))
+    err6, p6 = k6_case(dq, dk, dv, kv_len, "K6 bf16, path M")
+    times6 = time_k6(dq, dk, dv, kv_len)
+    log(f"M: K4 ({p4.regime}) err {err4:.3e} {ms4:.4f} ms (plain "
+        f"{pms4:.3f} ms, SDPA {lms4:.4f} ms, bound {bound4:.4f} ms); K6 "
+        f"(split {p6.split}) err {err6:.3e} {times6['ms']:.4f} ms (plain "
+        f"{times6['plain_ms']:.3f} ms, SDPA {times6['library_ms']:.4f} ms, "
+        f"bound {times6['bound_ms']:.5f} ms)")
+    return [dict(name=f"flash_attention {b}x{s}x{h}x{d}", route="cuda",
+                 source="src/repro_torch/kernels/flash_attention/csrc/"
+                        "flash_fwd_tc.cu",
+                 replaces="src/repro/kernels/flash_attention/kernel.py:83",
+                 regime=p4.regime, max_abs_err=err4, rtol=ATTN_TOL[bf],
+                 atol_per_rms=ATTN_TOL[bf], ms=ms4, plain_ms=pms4,
+                 bound_ms=bound4, bound_by=by4, library_ms=lms4),
+            k6_record((b, cache, h, d), err6, None, p6, times6)]
 
 
 #: K5's cases: ``(B, Sq, Skv, Hq, Hkv, D, causal, q_offset, dtype)``;
@@ -1570,23 +1684,38 @@ def k8_bound(b, l, h, p, n, q, el) -> tuple[float, str]:
 
 def check_k8(dev) -> dict:
     """K8 against its plain version: at paths P's and H's prefill call in
-    bf16 (B and C shared across the heads, as the model passes them; each
-    timed beside the plain version), the same call with B and C packed
-    (bitwise equal to the shared view), and a float32 scan with a ragged
+    bf16 (B and C shared across the heads, as the model passes them; the
+    tensor-core regime, as the plan must choose, with the library's shared
+    memory; two launches bitwise equal; each timed beside the plain
+    version), the same call with B and C packed (bitwise equal to the
+    shared view), and a float32 scan with a ragged
     tail and an initial state through ``ops.ssd_scan`` against the
     sequential oracle ``ssd_ref`` (L 40, chunk 16, as in
     ``tests/test_kernels.py``).  Returns the records at P and H."""
-    from repro_torch.kernels.ssd_scan import ops, ref
+    from repro_torch.kernels.ssd_scan import kernel, ops, ref
 
     bf = torch.bfloat16
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     records, errs = {}, {}
     for tag, (b, l, h, p, n, q) in K8_CASES.items():
         x, dt, a_log, bm, cm = ssd_inputs(b, l, h, p, n, bf, dev, 60)
-        ld = dt.float() * -torch.exp(a_log)
+        dt = dt.float()          # as ops.ssd_scan hands it to K8
+        ld = dt * -torch.exp(a_log)
+        plan = kernel.plan(b, l, h, p, n, q, bf,
+                           (bm.stride()[:3], cm.stride()[:3]), True, sms)
+        lib = (kernel.smem_bytes("intra", p, n, q, plan.intra_slice),
+               kernel.smem_bytes("state", p, n, q, plan.state_slice))
+        if (plan.regime != "tensor_core"
+                or lib != (plan.intra_smem, plan.state_smem)):
+            raise AssertionError(f"K8 {tag}: plan {plan}, expected "
+                                 f"tensor_core (library shared memory {lib})")
         got = ops._intra_chunk(x, ld, dt, bm, cm, q)
         want = ref.ssd_chunk_ref(x, ld, dt, bm, cm, q)
         err = max(attn_close(g, w, K8_TOL, f"K8 {tag} {name}") for name, g, w
                   in zip(("y_intra", "contrib", "total"), got, want))
+        again = ops._intra_chunk(x, ld, dt, bm, cm, q)
+        if not all(torch.equal(a, c) for a, c in zip(got, again)):
+            raise AssertionError(f"K8 {tag}: two launches differ")
         packed = ops._intra_chunk(x, ld, dt, bm.contiguous(),
                                   cm.contiguous(), q)
         if not all(torch.equal(a, c) for a, c in zip(got, packed)):
@@ -1595,13 +1724,16 @@ def check_k8(dev) -> dict:
         ms = time_ms(lambda: ops._intra_chunk(x, ld, dt, bm, cm, q))
         pms = time_ms(lambda: ref.ssd_chunk_ref(x, ld, dt, bm, cm, q))
         bound, by = k8_bound(b, l, h, p, n, q, 2)
-        del got, want, packed
-        log(f"{tag}: K8 {b}x{l}x{h}x{p}x{n} chunk {q} err {err:.3e} "
-            f"{ms:.4f} ms (plain {pms:.3f} ms, bound {bound:.4f} ms by {by})")
+        del got, want, again, packed
+        log(f"{tag}: K8 {b}x{l}x{h}x{p}x{n} chunk {q} ({plan.regime}, "
+            f"slices {plan.intra_slice}/{plan.state_slice}) err {err:.3e} "
+            f"{ms:.4f} ms (plain {pms:.3f} ms, bound {bound:.4f} ms by {by}); "
+            f"reruns and packed B, C bitwise equal")
         records[tag] = dict(
             name=f"ssd_scan {b}x{l}x{h}x{p}x{n}", route="cuda",
-            source="src/repro_torch/kernels/ssd_scan/csrc/ssd.cu",
+            source="src/repro_torch/kernels/ssd_scan/csrc/ssd_tc.cu",
             replaces="src/repro/kernels/ssd_scan/kernel.py:71",
+            regime=plan.regime, slices=[plan.intra_slice, plan.state_slice],
             max_abs_err=err, rtol=K8_TOL, atol_per_rms=K8_TOL, ms=ms,
             plain_ms=pms, bound_ms=bound, bound_by=by, library_ms=None)
     x, dt, a_log, bm, cm = ssd_inputs(2, 40, 4, 16, 16, torch.float32, dev,
@@ -1625,12 +1757,11 @@ def check_d112(dev) -> tuple[list, dict]:
     versions at path H's shapes, in bf16 and float32: K4 and K5 on a
     prefill of 8 x 512 with 32/32 heads (the tensor cores in bf16, the CUDA
     cores in float32, as their plans must choose; two launches bitwise
-    equal), K6 over a 1024-position cache with ragged lengths and a case
-    whose blocks are all fully masked but one.  The bf16 calls are timed
-    beside the plain versions and SDPA.  Returns the records of K4 and K6
-    for path H, and K5's errors and times."""
-    from repro_torch.kernels.decode_attention import ops as da_ops
-    from repro_torch.kernels.decode_attention import ref as da_ref
+    equal), K6 over a 1024-position cache with ragged lengths, at Phi-2's
+    head dim 80 (4 x 512, 32 heads) and on a case whose splits are all
+    fully masked but one (two launches bitwise equal each).  The bf16 calls
+    are timed beside the plain versions and SDPA.  Returns the records of
+    K4 and K6 for path H, and K5's errors and times."""
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention import ref as fa_ref
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -1639,7 +1770,7 @@ def check_d112(dev) -> tuple[list, dict]:
     g = torch.Generator(device=dev).manual_seed(80)
     kv_len = torch.randint(1, cache + 1, (b,), generator=g, device=dev,
                            dtype=torch.int32)
-    k4, k5, k6, regimes = {}, {}, {}, {}
+    k4, k5, k6, k80, regimes = {}, {}, {}, {}, {}
     for dtype in (torch.float32, torch.bfloat16):
         q, k, v, do = attn_operands(b, s, s, hq, hq, d, dtype, dev, 81)
         want = "tensor_core" if dtype == torch.bfloat16 else "cuda_core"
@@ -1652,17 +1783,17 @@ def check_d112(dev) -> tuple[list, dict]:
         dq = randn((b, hq, d), dtype, dev, 84)
         dk, dv = (randn((b, cache, hq, d), dtype, dev, 85 + i)
                   for i in range(2))
-        k6[dtype] = attn_err(
-            da_ops.decode_attention(dq, dk, dv, kv_len),
-            da_ref.decode_attention_split_ref(dq, dk, dv, kv_len,
-                                              da_ops.BLOCK_K),
-            dtype, f"K6 D 112 {dtype}")
+        k6[dtype], p6 = k6_case(dq, dk, dv, kv_len, f"K6 D 112 {dtype}")
+        # Phi-2's head dim (32 MHA heads of 80), outside K6's old fixed set.
+        k80[str(dtype)[6:]], _ = k6_case(
+            randn((4, 32, 80), dtype, dev, 95),
+            randn((4, 512, 32, 80), dtype, dev, 96),
+            randn((4, 512, 32, 80), dtype, dev, 97), kv_len[:4] // 2 + 1,
+            f"K6 D 80 {dtype}")
     mq = randn((2, 4, d), torch.float32, dev, 87)
     mk = randn((2, 512, 4, d), torch.float32, dev, 88)
     mlen = torch.tensor([1, 3], dtype=torch.int32, device=dev)
-    masked = attn_err(da_ops.decode_attention(mq, mk, mk, mlen, block_k=64),
-                      da_ref.decode_attention_split_ref(mq, mk, mk, mlen, 64),
-                      torch.float32, "K6 D 112 fully masked blocks")
+    masked, _ = k6_case(mq, mk, mk, mlen, "K6 D 112 fully masked splits", 64)
 
     bf = torch.bfloat16
     q, k, v, out, lse, do = timed
@@ -1688,23 +1819,16 @@ def check_d112(dev) -> tuple[list, dict]:
     log(f"H: K5 D 112 regimes {json.dumps(regimes)} errs {json.dumps(k5)} "
         f"{ms5:.4f} ms (plain {pms5:.3f} ms, SDPA backward "
         f"{both5 - lms4:.4f} ms, bound {bound5:.4f} ms)")
-    mask = (torch.arange(cache, device=dev)[None, :]
-            < kv_len[:, None])[:, None, None, :]
-    ms6 = time_ms(lambda: da_ops.decode_attention(dq, dk, dv, kv_len))
-    pms6 = time_ms(lambda: da_ref.decode_attention_split_ref(
-        dq, dk, dv, kv_len, da_ops.BLOCK_K))
-    lms6 = time_ms(lambda: sdpa(dq[:, :, None], dk.transpose(1, 2),
-                                dv.transpose(1, 2), attn_mask=mask))
-    live = float(kv_len.double().sum())
-    bound6, by6 = bound_ms(2 * 2 * live * hq * d, 4 * live * hq * d,
-                           PEAK_BF16_FLOPS)
+    times6 = time_k6(dq, dk, dv, kv_len)
     log(f"H: K4 D 112 ({regimes['bfloat16'][0]}) err {k4[bf]:.3e} (float32 "
         f"{k4[torch.float32]:.3e}) "
         f"{ms4:.4f} ms (plain {pms4:.3f} ms, SDPA {lms4:.4f} ms, bound "
-        f"{bound4:.4f} ms); K6 D 112 err {k6[bf]:.3e} (float32 "
-        f"{k6[torch.float32]:.3e}, masked {masked:.3e}) {ms6:.4f} ms (plain "
-        f"{pms6:.3f} ms, SDPA {lms6:.4f} ms, bound {bound6:.5f} ms), "
-        f"kv_len {kv_len.tolist()}")
+        f"{bound4:.4f} ms); K6 D 112 (split {p6.split}) err {k6[bf]:.3e} "
+        f"(float32 {k6[torch.float32]:.3e}, masked {masked:.3e}; D 80 "
+        f"{json.dumps(k80)}) {times6['ms']:.4f} ms (plain "
+        f"{times6['plain_ms']:.3f} ms, SDPA {times6['library_ms']:.4f} ms, "
+        f"bound {times6['bound_ms']:.5f} ms), reruns bitwise equal, kv_len "
+        f"{kv_len.tolist()}")
     src = "src/repro_torch/kernels/"
     return [dict(name=f"flash_attention {b}x{s}x{hq}x{d}", route="cuda",
                  source=src + "flash_attention/csrc/flash_fwd_tc.cu",
@@ -1714,13 +1838,9 @@ def check_d112(dev) -> tuple[list, dict]:
                  rtol=ATTN_TOL[bf], atol_per_rms=ATTN_TOL[bf], ms=ms4,
                  plain_ms=pms4, bound_ms=bound4, bound_by=by4,
                  library_ms=lms4),
-            dict(name=f"decode_attention {b}x{cache}x{hq}x{d}", route="cuda",
-                 source=src + "decode_attention/csrc/decode.cu",
-                 replaces="src/repro/kernels/decode_attention/kernel.py:55",
-                 max_abs_err=k6[bf], float32_max_abs_err=k6[torch.float32],
-                 masked_max_abs_err=masked, rtol=ATTN_TOL[bf],
-                 atol_per_rms=ATTN_TOL[bf], ms=ms6, plain_ms=pms6,
-                 bound_ms=bound6, bound_by=by6, library_ms=lms6)], k5_d112
+            k6_record((b, cache, hq, d), k6[bf], k6[torch.float32], p6,
+                      times6, masked_max_abs_err=masked,
+                      d80_max_abs_err=k80)], k5_d112
 
 
 @contextlib.contextmanager
@@ -2009,7 +2129,7 @@ def main() -> int:
     info_t["float32_4_layers"] = run_train_f32_check(dev)
     torch.cuda.empty_cache()
 
-    records["M"] = [check_k7(dev)]
+    records["M"] = [check_k7(dev)] + check_m_attention(dev)
     launches_m, info_m = run_moe_serving_path(dev)
     torch.cuda.empty_cache()
     info_m["deepseek_float32_4_layers"] = run_moe_f32_check(dev)

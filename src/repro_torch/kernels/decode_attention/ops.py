@@ -1,27 +1,38 @@
 """Wrapper of kernel K6: checks, launch counter, dispatch by device.
 
-A CUDA tensor launches the hand-written kernel for the per-block partials
-(or raises); a CPU tensor runs their plain PyTorch version
-(:func:`ref.decode_partials_ref`).  Either way the log-sum-exp combine
-runs as PyTorch ops, as the reference runs it outside its Pallas kernel.
-``decode_attention.launches`` counts the kernel launches.
+A CUDA tensor launches the hand-written kernel as :func:`kernel.plan`
+sizes it, partials and log-sum-exp combine in one call (or raises); a CPU
+tensor runs their plain PyTorch version
+(:func:`ref.decode_attention_split_ref`: the partials, then the combine as
+PyTorch ops, as the reference runs it outside its Pallas kernel).
+``decode_attention.launches`` counts the calls that launch the kernel.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
 from repro_torch.kernels.decode_attention import kernel, ref
 
-#: Cache positions a block scores (the reference's default).
+#: Cache positions a block scores in the plain version (the reference's
+#: default).
 BLOCK_K = 512
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def decode_attention(q, k, v, kv_len, *, block_k: int = BLOCK_K):
     """One query token per sequence against a ragged KV cache.
 
     q: (B, Hq, D); k/v: (B, S, Hkv, D); kv_len: (B,) int, the live prefix
-    of each row's cache.  Returns (B, Hq, D) in q.dtype.  On CUDA, k and v
+    of each row's cache.  Returns (B, Hq, D) in q.dtype.  ``block_k`` is
+    the plain version's block of cache positions; on CUDA the plan's split
+    governs instead.  On CUDA, D is a multiple of 8 up to 256, and k and v
     may be views into a larger cache: only their head and feature axes
     must be packed.
     """
@@ -37,12 +48,8 @@ def decode_attention(q, k, v, kv_len, *, block_k: int = BLOCK_K):
         raise ValueError(f"unsupported device {q.device}")
     b, hq, d = q.shape
     s, hkv = k.shape[1], k.shape[2]
-    g = hq // hkv
-    block_k = min(block_k, s)
-    if q.dtype not in kernel.DTYPES:
-        raise TypeError(f"K6 takes float32 or bfloat16, not {q.dtype}")
-    if d not in kernel.HEAD_DIMS:
-        raise ValueError(f"K6 takes head_dim in {kernel.HEAD_DIMS}, not {d}")
+    kernel.check_dtype(q.dtype)
+    kernel.check_head_dim(d)
     if not q.is_contiguous():
         raise ValueError("q must be contiguous")
     for name, t in (("k", k), ("v", v)):
@@ -51,13 +58,16 @@ def decode_attention(q, k, v, kv_len, *, block_k: int = BLOCK_K):
                              f"(strides {t.stride()})")
     if kv_len.dtype != torch.int32 or not kv_len.is_contiguous():
         raise TypeError("kv_len must be a contiguous int32 tensor")
-    nk = -(-s // block_k)
-    o = torch.empty((b, hkv, nk, g, d), dtype=torch.float32, device=q.device)
-    m = torch.empty((b, hkv, nk, g), dtype=torch.float32, device=q.device)
-    l = torch.empty_like(m)
-    kernel.decode_partials(q, k, v, kv_len, o, m, l, block_k=block_k)
+    aligned = k.data_ptr() % 16 == 0 and v.data_ptr() % 16 == 0
+    p = kernel.plan(b, s, hq, hkv, d, q.dtype,
+                    (k.stride()[:2], v.stride()[:2]), aligned,
+                    _sms(q.device.index))
+    ws = torch.empty(kernel.workspace_floats(b, hkv, hq // hkv, d, p),
+                     dtype=torch.float32, device=q.device)
+    out = torch.empty((b, hq, d), dtype=q.dtype, device=q.device)
+    kernel.decode(q, k, v, kv_len, ws, out, p)
     decode_attention.launches += 1
-    return ref.combine_partials(o, m, l, q.dtype)
+    return out
 
 
 decode_attention.launches = 0

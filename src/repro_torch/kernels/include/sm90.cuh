@@ -1,9 +1,10 @@
-// Hopper (sm_90a) building blocks shared by the tensor-core kernels (K7's
-// regimes in moe_gmm/csrc/gmm_tc.cu, K4's and K5's in
-// flash_attention/csrc/*_tc.cu): mbarriers, TMA tile loads and stores,
-// shared-memory matrix descriptors, wgmma, and the host's tensor-map
-// encoder.  Each library that includes it is built with this directory
-// on its include path (kernels/_build.py).
+// Hopper (sm_90a) building blocks shared by the kernels (K7's regimes in
+// moe_gmm/csrc/gmm_tc.cu, K4's and K5's in flash_attention/csrc/*_tc.cu,
+// K6's in decode_attention/csrc/decode.cu, K8's in ssd_scan/csrc/ssd_tc.cu):
+// mbarriers, TMA tile loads and stores, cp.async, shared-memory matrix
+// descriptors, wgmma, and the host's tensor-map encoder.  Each library
+// that includes it is built with this directory on its include path
+// (kernels/_build.py).
 //
 // Every tile that a wgmma reads is a TMA box whose rows are 128 bytes (64
 // bfloat16) wide, written with the 128-byte swizzle into shared memory
@@ -154,6 +155,24 @@ __device__ __forceinline__ void tma_prefetch(const CUtensorMap* map) {
   asm volatile("prefetch.tensormap [%0];" ::"l"(
                    reinterpret_cast<uint64_t>(map))
                : "memory");
+}
+
+// ---------------------------------------------------------------- cp.async
+// 16 bytes from global to shared memory, in this thread's current group.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared::cta.global [%0], [%1], 16;" ::"r"(
+                   smem_u32(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+// Wait until at most one of this thread's groups is in flight.
+__device__ __forceinline__ void cp_wait_one() {
+  asm volatile("cp.async.wait_group 1;" ::: "memory");
 }
 
 // ------------------------------------------------------------------- wgmma

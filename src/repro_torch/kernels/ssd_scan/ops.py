@@ -6,19 +6,27 @@ log decay ``dt * A`` with ``A = -exp(a_log)``, runs the intra-chunk step
 (:func:`_intra_chunk`), then the inter-chunk state recurrence and the
 ``y_inter`` term as PyTorch ops, as the reference runs them in plain JAX
 outside its Pallas kernel.  A CUDA tensor launches the hand-written
-kernel (or raises); a CPU tensor runs its plain version
-(:func:`ref.ssd_chunk_ref`).  ``ssd_scan.launches`` counts the kernel
-launches, one a call (each launch runs K8's two kernels).  K8 has no
+kernel in the regime that :func:`kernel.plan` chooses (or raises); a CPU
+tensor runs its plain version (:func:`ref.ssd_chunk_ref`).
+``ssd_scan.launches`` counts the kernel launches, one a call (each launch
+runs K8's two kernels).  K8 has no
 backward: with grad mode on and an input that requires grad, the wrapper
 raises rather than return a result that autograd cannot differentiate.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.ssd_scan import kernel, ref
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _intra_chunk(x, log_decay, dt, b_mat, c_mat, chunk: int):
@@ -47,6 +55,10 @@ def _intra_chunk(x, log_decay, dt, b_mat, c_mat, chunk: int):
                              f"(strides {t.stride()})")
     bsz, l, h, p = x.shape
     n, nc = b_mat.shape[-1], l // chunk
+    aligned = all(t.data_ptr() % 16 == 0 for t in (x, b_mat, c_mat))
+    plan = kernel.plan(bsz, l, h, p, n, chunk, x.dtype,
+                       (b_mat.stride()[:3], c_mat.stride()[:3]), aligned,
+                       _sms(x.device.index))
     log_decay = log_decay.float().contiguous()
     dt = dt.float().contiguous()
     y = torch.empty((bsz, l, h, p), dtype=torch.float32, device=x.device)
@@ -54,7 +66,7 @@ def _intra_chunk(x, log_decay, dt, b_mat, c_mat, chunk: int):
                           device=x.device)
     total = torch.empty((bsz, nc, h), dtype=torch.float32, device=x.device)
     kernel.ssd_chunk(x, log_decay, dt, b_mat, c_mat, y, contrib, total,
-                     chunk=chunk)
+                     plan, chunk=chunk)
     ssd_scan.launches += 1
     return y, contrib, total
 
@@ -81,7 +93,8 @@ def ssd_scan(x, dt, a_log, b_mat, c_mat, *, chunk: int = 256,
         b_mat = F.pad(b_mat, (0, 0, 0, 0, 0, pad))
         c_mat = F.pad(c_mat, (0, 0, 0, 0, 0, pad))
     a = -torch.exp(a_log.float())
-    log_decay = dt.float() * a
+    dt = dt.float()              # once, for the log decay and for K8
+    log_decay = dt * a
 
     y_intra, contrib, total = _intra_chunk(x, log_decay, dt, b_mat, c_mat, q)
 

@@ -16,8 +16,11 @@ kernel's order (:func:`chunk_cumsum`), so the two agree on it to the bit:
 it reaches about -3e3 within a chunk of 256, where two summation orders
 would move the decays by about 1e-3 relative.  :func:`ssd_ref` is the
 reference's sequential oracle (``repro/kernels/ssd_scan/ref.py``): the
-O(L) state recurrence, independent of the chunked algorithm.  Both run on
-any device; the wrapper takes :func:`ssd_chunk_ref` for CPU tensors only.
+O(L) state recurrence, independent of the chunked algorithm.
+:func:`ssd_chunk_tc_ref` repeats the arithmetic of K8's tensor-core regime
+(its state product's scaled inputs split into bf16 parts), so the split's
+error can be held against the tolerance.  All three run on any device;
+the wrapper takes :func:`ssd_chunk_ref` for CPU tensors only.
 """
 
 from __future__ import annotations
@@ -97,6 +100,39 @@ def ssd_chunk_ref(x, log_decay, dt, b_mat, c_mat, chunk: int):
     bw = bc * (rem * dtc)[..., None]
     contrib = torch.einsum("bcshn,bcshp->bchpn", bw, xc)
     return y.reshape(bsz, l, h, p), contrib, total
+
+
+def bf16_parts(w: torch.Tensor, parts: int) -> list[torch.Tensor]:
+    """``w`` (float32) as ``parts`` bf16 values (held as float32) whose sum
+    approximates it: each the bf16 rounding of what the ones before it
+    left, so ``parts`` of them keep about ``2^(-8 parts)`` of ``w``."""
+    out, rest = [], w.float()
+    for _ in range(parts):
+        part = rest.to(torch.bfloat16).float()
+        out.append(part)
+        rest = rest - part
+    return out
+
+
+def ssd_chunk_tc_ref(x, log_decay, dt, b_mat, c_mat, chunk: int):
+    """The arithmetic of K8's tensor-core regime in plain PyTorch: y_intra
+    and total as :func:`ssd_chunk_ref` computes them (the regime keeps
+    their order), contrib from the scaled inputs
+    ``x_s exp(cum_Q - cum_s) dt_s`` in three bf16 parts
+    (:func:`bf16_parts`), each part's product with bf16 B summed in
+    float32.  Returns what :func:`ssd_chunk_ref` returns."""
+    y, _, total = ssd_chunk_ref(x, log_decay, dt, b_mat, c_mat, chunk)
+    bsz, l, h, p = x.shape
+    n = b_mat.shape[-1]
+    nc, q = l // chunk, chunk
+    xc = x.float().reshape(bsz, nc, q, h, p)
+    dtc = dt.float().reshape(bsz, nc, q, h)
+    bc = b_mat.float().reshape(bsz, nc, q, h, n)
+    cum = chunk_cumsum(log_decay.float().reshape(bsz, nc, q, h))
+    xw = xc * (torch.exp(total[:, :, None, :] - cum) * dtc)[..., None]
+    contrib = sum(torch.einsum("bcshp,bcshn->bchpn", part, bc)
+                  for part in bf16_parts(xw, 3))
+    return y, contrib, total
 
 
 def ssd_ref(x, dt, a_log, b_mat, c_mat, init_state=None):

@@ -12,6 +12,7 @@ versions on the card by ``chip_smoke.py``.
 """
 
 import dataclasses
+import re
 from pathlib import Path
 from unittest import mock
 
@@ -29,6 +30,7 @@ from repro.kernels.flash_attention.kernel import flash_attention_kernel
 from repro.kernels.flash_attention.ref import attention_ref as jax_attn_ref
 from repro.models import layers as ref_layers
 from repro_torch import configs
+from repro_torch.kernels.decode_attention import kernel as da_kernel
 from repro_torch.kernels.decode_attention import ops as da_ops
 from repro_torch.kernels.decode_attention import ref as da_ref
 from repro_torch.kernels.flash_attention import kernel as fa_kernel
@@ -306,6 +308,120 @@ def test_k6_wrapper_refuses_a_wrong_kv_len():
     q, k = torch.zeros(2, 4, 16), torch.zeros(2, 8, 2, 16)
     with pytest.raises(ValueError, match="kv_len"):
         da_ops.decode_attention(q, k, k, torch.ones(3, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_k6_plain_matches_pallas_at_head_dim_80(dtype):
+    """Phi-2's head dim, which the earlier kernel refused: ragged lengths
+    over a cache of 3 blocks, GQA, against the Pallas kernel and the
+    oracle."""
+    rng = np.random.default_rng(80)
+    b, s, hq, hkv, d = 3, 192, 4, 2, 80
+    jq, tq = _pair(rng, (b, hq, d), dtype)
+    jk, tk = _pair(rng, (b, s, hkv, d), dtype)
+    jv, tv = _pair(rng, (b, s, hkv, d), dtype)
+    kv_len = np.array([2, 150, 192], np.int32)
+    out = da_ops.decode_attention(tq, tk, tv, torch.from_numpy(kv_len),
+                                  block_k=64)
+    pallas = pallas_decode(jq, jk, jv, jnp.asarray(kv_len), block_k=64)
+    oracle = jax_decode_ref(jq, jk, jv, jnp.asarray(kv_len))
+    np.testing.assert_allclose(_np(out), _np(pallas), **_tol(dtype))
+    np.testing.assert_allclose(_np(out), _np(oracle), **_tol(dtype))
+
+
+# ------------------------------------------------------------- K6's plan
+#: The decode shapes of the paths: ``(arch, B, cache)``, 8 rows over a
+#: 1024-position cache.
+DECODE_PATHS = {"S": ("granite_8b", 8, 1024), "M": ("olmoe_1b_7b", 8, 1024),
+                "H": ("zamba2_7b", 8, 1024)}
+
+
+@pytest.mark.parametrize("path,split,lanes,rows", [
+    ("S", 64, 16, 4), ("M", 128, 16, 1), ("H", 256, 16, 1)])
+def test_k6_plan_at_the_paths_decode_shapes(path, split, lanes, rows):
+    """The split fills the card from the cache's capacity: four blocks an
+    SM at least, so the live blocks of path S's lengths (513-543) still
+    give every SM two or more; one row group a KV head (G of 4 or 1)."""
+    arch, b, cache = DECODE_PATHS[path]
+    hq, hkv, d = _heads(arch)
+    ks = _cache_view_strides(cache, hkv, d)[:2]
+    p = da_kernel.plan(b, cache, hq, hkv, d, BF16, (ks, ks), True, 132)
+    assert (p.split, p.lanes, p.rows) == (split, lanes, rows)
+    assert p.grid == (-(-cache // split), hkv, b)
+    # one row group a KV head, one output a thread
+    assert p.combine_grid == (hkv, b, -(-rows * d // 128))
+    assert p.grid[0] * p.grid[1] * p.grid[2] >= 4 * 132
+    live = -(-543 // split) * hkv * b
+    assert live >= 2 * 132
+    assert p.vector_loads
+    assert p.smem_bytes == 2 * 2 * 32 * d * 2 <= da_kernel.SMEM_LIMIT
+    assert da_kernel.workspace_floats(b, hkv, hq // hkv, d, p) == \
+        b * hkv * p.grid[0] * (hq // hkv) * (d + 2)
+
+
+@pytest.mark.parametrize("dtype", [BF16, torch.float32])
+@pytest.mark.parametrize("d", list(range(8, 257, 8)))
+def test_k6_plan_takes_any_head_dim_that_is_a_multiple_of_8(d, dtype):
+    p = da_kernel.plan(2, 300, 8, 2, d, dtype)
+    assert p.lanes * 8 >= d and p.lanes in (4, 8, 16, 32)
+    assert 0 < p.smem_bytes <= da_kernel.SMEM_LIMIT
+    assert p.split % 32 == 0 and p.grid[0] * p.split >= 300
+
+
+def test_k6_plan_keeps_the_combine_within_512_splits():
+    p = da_kernel.plan(1, 1 << 20, 4, 1, 64, BF16)
+    assert p.split % 32 == 0 and p.splits <= 512
+    assert p.splits * p.split >= 1 << 20
+
+
+@pytest.mark.parametrize("d", [260, 100, 4, 0])
+def test_k6_refuses_head_dims_it_does_not_take(d):
+    """The plan and the wrapper's CUDA branch say what K6 takes, before
+    anything reaches the card (the tensors only claim to be on it)."""
+    rule = "multiple of 8 up to 256"
+    with pytest.raises(ValueError, match=rule):
+        da_kernel.plan(2, 64, 4, 2, d, BF16)
+    q, k = torch.zeros(2, 4, d, dtype=BF16), torch.zeros(2, 64, 2, d,
+                                                          dtype=BF16)
+    before = da_ops.decode_attention.launches
+    cuda = property(lambda self: torch.device("cuda"))
+    with mock.patch.object(torch.Tensor, "device", cuda):
+        with pytest.raises(ValueError, match=rule):
+            da_ops.decode_attention(q, k, k, torch.ones(2, dtype=torch.int32))
+        with pytest.raises(TypeError, match="float32 or bfloat16"):
+            da_ops.decode_attention(q.half(), k.half(), k.half(),
+                                    torch.ones(2, dtype=torch.int32))
+    assert da_ops.decode_attention.launches == before
+
+
+@pytest.mark.parametrize("dtype,strides,aligned,vector", [
+    (BF16, ((1024 * 8 * 128, 8 * 128),) * 2, True, True),
+    (BF16, ((1024 * 8 * 128, 8 * 128),) * 2, False, False),
+    # a position pitch of 8 x 128 + 4 elements (8 bytes past 16)
+    (BF16, ((1024 * 1028, 1028),) * 2, True, False),
+    (torch.float32, ((1024 * 1028, 1028),) * 2, True, True),
+    (torch.float32, ((1024 * 1026, 1026),) * 2, True, False),
+])
+def test_k6_plan_copies_with_16_byte_loads_only_where_aligned(
+        dtype, strides, aligned, vector):
+    p = da_kernel.plan(8, 1024, 32, 8, 128, dtype, strides, aligned)
+    assert p.vector_loads is vector
+
+
+#: Atomic adds and reductions in a CUDA source (``cp.async...shared.global``
+#: is a copy, not a ``red.global``).
+FLOAT_ATOMICS = re.compile(
+    r"\batomicAdd|\bred\.(global|shared)|cp\.reduce\.async")
+
+
+def test_decode_attention_sources_use_no_float_atomics():
+    """Each partial and each output is one block's sums in a fixed order
+    (the combine reads the splits in order): no atomic adds or reductions
+    in K6's CUDA source."""
+    sources = sorted((Path(da_kernel.__file__).parent / "csrc").glob("*.cu"))
+    assert sources
+    for src in sources:
+        assert not FLOAT_ATOMICS.search(src.read_text()), src
 
 
 # --------------------------------------------------------------- layers

@@ -21,6 +21,8 @@ against the same plain versions on the card by ``chip_smoke.py``.
 """
 
 import dataclasses
+import re
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -41,6 +43,7 @@ from repro_torch import configs
 from repro_torch.convert import from_reference_params
 from repro_torch.kernels.decode_attention import ops as da_ops
 from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.kernels.ssd_scan import ref as ssd_ref
 from repro_torch.launch import serve
@@ -163,6 +166,136 @@ def test_k8_decay_never_overflows_over_a_long_chunk():
                                (x, dt, a_log, bm, cm)))
     np.testing.assert_allclose(y.numpy(), yr.numpy(), **SCAN)
     np.testing.assert_allclose(state.numpy(), sr.numpy(), **SCAN)
+
+
+# ------------------------------------------------------------- K8's plan
+BF16 = torch.bfloat16
+#: K8's tolerance, relative to the values' scale (``chip_smoke.py``'s
+#: ``K8_TOL`` and ``attn_close``).
+K8_TOL = 1e-4
+
+
+def _shared_strides(l, n):
+    """B's or C's (batch, position, head) strides as the models pass them:
+    one (B, L, N) row expanded over the heads."""
+    return (l * n, n, 0)
+
+
+@pytest.mark.parametrize("arch,slices", [("mamba2_2p7b", (8, 4)),
+                                         ("zamba2_7b", (8, 4))])
+def test_k8_plan_puts_the_paths_bf16_prefill_on_the_tensor_cores(arch,
+                                                                 slices):
+    """Paths P's and H's prefill call (8 x 512 tokens, chunk 256): C_t.B_s
+    formed once for a slice of 8 heads (one block per 64 query rows), the
+    state kernel's slices of 4, so that each kernel gives every SM two
+    blocks or more."""
+    cfg = configs.get(arch)
+    b, l, h, p, n, q = 8, 512, cfg.n_ssm_heads, cfg.ssm_head_dim, \
+        cfg.ssm_state, cfg.ssm_chunk
+    st = _shared_strides(l, n)
+    plan = ssd_kernel.plan(b, l, h, p, n, q, BF16, (st, st), True, 132)
+    assert plan.regime == "tensor_core"
+    assert (plan.intra_slice, plan.state_slice) == slices
+    assert plan.intra_grid == (q // 64, -(-h // 8), b * l // q)
+    assert plan.state_grid == (-(-h // 4), b * l // q, 1)
+    for grid in (plan.intra_grid, plan.state_grid):
+        assert grid[0] * grid[1] * grid[2] >= 2 * 132
+    assert 0 < plan.intra_smem <= ssd_kernel.SMEM_LIMIT
+    assert 0 < plan.state_smem <= ssd_kernel.SMEM_LIMIT
+
+
+def test_k8_plan_gives_packed_b_and_c_a_head_a_block():
+    """Packed copies (a head stride of N) stay on the tensor cores, one
+    head a block: the same products on the same tiles as the shared row,
+    so the same bits."""
+    l, n = 512, 128
+    packed = (l * 80 * n, 80 * n, n)
+    plan = ssd_kernel.plan(8, l, 80, 64, n, 256, BF16, (packed, packed))
+    assert plan.regime == "tensor_core"
+    assert (plan.intra_slice, plan.state_slice) == (1, 1)
+    assert plan.intra_grid == (4, 80, 16) and plan.state_grid == (80, 16, 1)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(dtype=torch.float32),
+    dict(p=40),                              # P no multiple of 16
+    dict(p=144),                             # P past 128
+    dict(n=72),                              # N no multiple of 16
+    dict(q=512),                             # four key tiles at most
+    dict(q=96, l=480),                       # Q no multiple of 64
+    dict(aligned=False),
+    # a position pitch of 68 elements (136 bytes: no multiple of 16)
+    dict(strides=((512 * 68, 68, 0), (512 * 68, 68, 0))),
+])
+def test_k8_plan_keeps_float32_and_what_tma_cannot_read_on_the_cuda_cores(
+        kw):
+    a = dict(dict(p=64, n=64, q=256, l=512, dtype=BF16, aligned=True,
+                  strides=None), **kw)
+    strides = a["strides"] or (_shared_strides(a["l"], a["n"]),) * 2
+    plan = ssd_kernel.plan(8, a["l"], 112, a["p"], a["n"], a["q"],
+                           a["dtype"], strides, a["aligned"])
+    assert plan.regime == "cuda_core"
+    assert (plan.intra_slice, plan.state_slice) == (1, 1)
+    assert plan.intra_grid == (-(-a["q"] // 64), 112, 8 * a["l"] // a["q"])
+
+
+def test_k8_plan_refuses_float16():
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        ssd_kernel.plan(1, 64, 2, 16, 16, 64, torch.float16)
+
+
+def _to_scale(got, want, tol=K8_TOL):
+    """``chip_smoke.py``'s ``attn_close``: rtol ``tol`` and atol ``tol``
+    times the RMS of ``want`` where that is under 1."""
+    got, want = got.float(), want.float()
+    atol = tol * min(1.0, float(want.square().mean().sqrt()))
+    return bool(torch.allclose(got, want, rtol=tol, atol=atol))
+
+
+def test_k8_tensor_core_arithmetic_keeps_the_tolerance():
+    """The tensor-core regime's arithmetic (y in the plain version's
+    order; the state product's scaled x split into three bf16 parts, each
+    part's product with B summed in float32) against the Pallas kernel in
+    interpret mode at K8's tolerance, on inputs drawn as the chip check
+    draws them (unit B and C rows shared by the heads, dt a softplus,
+    A = -linspace(1, 16))."""
+    rng = np.random.default_rng(19)
+    b, l, h, p, n, q = 1, 128, 4, 32, 64, 64
+    bf = lambda a: torch.from_numpy(a.astype(np.float32)).to(BF16).float()
+    x = bf(rng.standard_normal((b, l, h, p)))
+    dt = bf(np.log1p(np.exp(rng.standard_normal((b, l, h)))))
+    a = -np.linspace(1.0, 16.0, h).astype(np.float32)
+    bm = bf(rng.standard_normal((b, l, 1, n))).expand(b, l, h, n)
+    cm = bf(rng.standard_normal((b, l, 1, n))).expand(b, l, h, n)
+    ld = dt * torch.from_numpy(a)
+    got = ssd_ref.ssd_chunk_tc_ref(x, ld, dt, bm, cm, q)
+    want = ssd_chunk_kernel(*(jnp.asarray(t.contiguous().numpy())
+                              for t in (x, ld, dt, bm, cm)),
+                            chunk=q, interpret=True)
+    plain = ssd_ref.ssd_chunk_ref(x, ld, dt, bm, cm, q)
+    for name, g, w, pl in zip(("y_intra", "contrib", "total"), got, want,
+                              plain):
+        assert _to_scale(g, torch.from_numpy(_np(w))), name
+        assert _to_scale(g, pl), name
+
+
+def test_k8_bf16_parts_keep_eight_bits_each():
+    w = torch.from_numpy(np.random.default_rng(5).standard_normal(4096)
+                         .astype(np.float32) * 100)
+    for parts, bound in ((1, 2.0 ** -8), (2, 2.0 ** -16), (3, 2.0 ** -23)):
+        err = (sum(ssd_ref.bf16_parts(w, parts)) - w).abs() / w.abs()
+        assert float(err.max()) <= bound, parts
+
+
+def test_ssd_scan_sources_use_no_float_atomics():
+    """Every output of K8 is one thread's sums in a fixed order: no atomic
+    adds or reductions in its CUDA sources."""
+    pattern = re.compile(r"\batomicAdd|\bred\.(global|shared)"
+                         r"|cp\.reduce\.async")
+    sources = sorted((Path(ssd_kernel.__file__).parent / "csrc").glob("*.cu"))
+    assert len(sources) == 2
+    for src in sources:
+        assert not pattern.search(src.read_text()), src
 
 
 def test_k8_raises_under_autograd():

@@ -11,12 +11,14 @@ cache): ``S`` is the whole generation (prefill and 31 decode steps, its
 and ``Md`` the same for path M, OLMoE-1B-7B at full width and depth in
 bf16 (its expert FFN on kernel K7; they also report K7's device ms per
 launch for each regime's kernel: ``gmm_wide_kernel`` at prefill,
-``gmm_narrow_kernel`` in the decode steps); ``P`` and ``Pd``, ``H`` and ``Hd`` the same for paths P and H,
-Mamba2-2.7B and Zamba2-7B at full width and depth in bf16 (their SSD
-scans on kernel K8 at prefill, Zamba2's shared attention on K4 and K6;
-they report K8's two kernels' device ms per launch); and path T, one training step of MiniCPM-2B at full width and
-depth in bf16 (4 x 4096 tokens, remat, AdamW; its "tick" the step; it
-reports K4's and K5's tensor-core kernels' device ms per launch).  Each
+``gmm_narrow_kernel`` in the decode steps); ``P`` and ``Pd``, ``H`` and
+``Hd`` the same for paths P and H, Mamba2-2.7B and Zamba2-7B at full width
+and depth in bf16 (their SSD scans on kernel K8 at prefill, Zamba2's
+shared attention on K4 and K6; they report K8's two kernels' device ms per
+launch, and the decode paths K6's partials and combine kernels'); and
+path T, one training step of MiniCPM-2B at full width and depth in bf16
+(4 x 4096 tokens, remat, AdamW; its "tick" the step; it reports K4's and
+K5's tensor-core kernels' device ms per launch).  Each
 path runs once to warm up, then once under ``torch.profiler`` and once
 without it.  For the profiled run it reads the Chrome trace and reports
 the device's busy time (union of kernel and copy intervals), its idle
@@ -162,13 +164,21 @@ def train_runner():
 
 #: Kernels whose device ms per launch a profile reports, by name in the
 #: trace (K4's and K7's calls are one launch of one of their regimes'
-#: kernels; K5's and K8's one launch of each of their two kernels).
+#: kernels; K5's, K6's and K8's one launch of each of their two kernels:
+#: K6's partials and combine, K8's intra-chunk and state kernels: on bf16
+#: paths the tensor-core regime's, in float32 the CUDA-core ones).
 PER_LAUNCH = {"k7_wide": "gmm_wide_kernel", "k7_narrow": "gmm_narrow_kernel",
-              "k7_cuda_core": "gmm_kernel", "k8_intra": "ssd_intra_kernel",
-              "k8_state": "ssd_state_kernel", "k4": "flash_fwd_tc_kernel",
+              "k7_cuda_core": "gmm_kernel",
+              "k8_intra": "ssd_intra_shared_kernel",
+              "k8_state": "ssd_state_tc_kernel",
+              "k8_intra_cuda_core": "ssd_intra_kernel",
+              "k8_state_cuda_core": "ssd_state_kernel",
+              "k4": "flash_fwd_tc_kernel",
               "k4_cuda_core": "flash_fwd_kernel",
               "k5_dkdv": "flash_bwd_dkdv_tc_kernel",
-              "k5_dq": "flash_bwd_dq_tc_kernel", "k6": "decode_kernel"}
+              "k5_dq": "flash_bwd_dq_tc_kernel",
+              "k6_partials": "decode_partials_kernel",
+              "k6_combine": "decode_combine_kernel"}
 
 
 def timed(run) -> tuple[int, float]:
