@@ -30,7 +30,6 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
-import math
 from pathlib import Path
 
 import torch
@@ -155,16 +154,16 @@ def bshd_strides(t: torch.Tensor) -> tuple[int, int, int]:
 
 
 def flash_fwd(q, k, v, out, lse, p: Plan, *, causal: bool,
-              q_offset: int) -> None:
-    """Launch K4 as ``p`` plans it; the wrapper has checked shapes, types
-    and strides."""
+              q_offset: int, scale: float) -> None:
+    """Launch K4 as ``p`` plans it, scores scaled by ``scale``; the wrapper
+    has checked shapes, types and strides."""
     lib = LIBRARY.library()
     b, sq, hq, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr())
     dims = (b, sq, skv, hq, hkv, d, int(q_offset), int(bool(causal)),
-            1.0 / math.sqrt(d))
+            float(scale))
     if p.regime == "tensor_core":
         rc = lib.flash_attention_fwd_tc(
             *ptrs, *bshd_strides(q), *bshd_strides(k), *bshd_strides(v),

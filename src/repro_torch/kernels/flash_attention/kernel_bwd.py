@@ -17,7 +17,6 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-import math
 
 import torch
 
@@ -87,10 +86,10 @@ def plan(b: int, sq: int, skv: int, hq: int, hkv: int, d: int,
 
 
 def flash_bwd(q, k, v, dout, lse, dsum, dq, dk, dv, p: Plan, *,
-              causal: bool, q_offset: int) -> None:
-    """Launch K5's dk/dv kernel, then its dq kernel, as ``p`` plans them;
-    the wrapper has checked shapes, types and strides and allocated the
-    outputs.  ``lse`` and ``dsum`` are float32 (B, Hq, Sq) rows, their
+              causal: bool, q_offset: int, scale: float) -> None:
+    """Launch K5's dk/dv kernel, then its dq kernel, as ``p`` plans them,
+    with the forward's ``scale``; the wrapper has checked shapes, types and
+    strides and allocated the outputs.  ``lse`` and ``dsum`` are float32 (B, Hq, Sq) rows, their
     pitch a multiple of 4 in the tensor-core regime."""
     lib = LIBRARY.library()
     b, sq, hq, d = q.shape
@@ -99,7 +98,7 @@ def flash_bwd(q, k, v, dout, lse, dsum, dq, dk, dv, p: Plan, *,
             lse.data_ptr(), dsum.data_ptr(), dq.data_ptr(), dk.data_ptr(),
             dv.data_ptr())
     dims = (b, sq, skv, hq, hkv, d, int(q_offset), int(bool(causal)),
-            1.0 / math.sqrt(d))
+            float(scale))
     if p.regime == "tensor_core":
         args = (*ptrs, *kernel.bshd_strides(q), *kernel.bshd_strides(k),
                 *kernel.bshd_strides(v), *kernel.bshd_strides(dout),

@@ -11,11 +11,19 @@ as the reference wires its Pallas kernels with ``jax.custom_vjp``
 (``repro/kernels/flash_attention/ops.py``).  ``flash_attention.launches``
 counts K4's launches, ``flash_attention_bwd.launches`` K5's (each call
 launches its dk/dv kernel and its dq kernel once).
+
+A head dim that the kernels lack is zero-padded along D to the next one
+they take (:func:`padded_forward`, :func:`padded_backward`), and the
+kernels run with the true ``1 / sqrt(D)``: K4 takes any D up to 256, K5 any
+D up to 128.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels.flash_attention import kernel, kernel_bwd, ref
 
@@ -61,11 +69,61 @@ def _aligned(*tensors) -> bool:
     return all(t.data_ptr() % 16 == 0 for t in tensors)
 
 
+def padded_head_dim(d: int, head_dims, what: str) -> int:
+    """The smallest of ``head_dims`` at or above ``d``."""
+    wider = [h for h in head_dims if h >= d]
+    if not wider:
+        raise ValueError(f"{what} takes head dims up to {max(head_dims)}, "
+                         f"not {d}")
+    return min(wider)
+
+
+def pad_head_dim(t: torch.Tensor, d: int) -> torch.Tensor:
+    """``t`` (..., D0) zero-padded along its last dim to ``d`` features, as
+    a new packed tensor."""
+    return F.pad(t, (0, d - t.shape[-1]))
+
+
+def padded_forward(forward, q, k, v, d: int, **kwargs):
+    """``forward(q, k, v, scale=..., **kwargs)`` at head dim ``d``: q, k and
+    v zero-padded along D to ``d``, the scores scaled by the true ``1 /
+    sqrt(D)``, the output sliced back to D.  A zero feature adds nothing
+    to a score and makes a zero output column, so the output and the
+    log-sum-exp are those of the unpadded call."""
+    d0 = q.shape[-1]
+    out, lse = forward(*(pad_head_dim(t, d) for t in (q, k, v)),
+                       scale=1.0 / math.sqrt(d0), **kwargs)
+    return out[..., :d0].contiguous(), lse
+
+
+def padded_backward(backward, q, k, v, out, lse, dout, d: int, **kwargs):
+    """``backward(q, k, v, out, lse, dout, scale=..., **kwargs)`` at head
+    dim ``d``: every (..., D) operand zero-padded along D to ``d``, the
+    forward's ``1 / sqrt(D)`` passed on, the gradients sliced back to D.
+    The padded columns of O and dO are zero, so ``rowsum(dO O)`` and every
+    gradient's first D columns are the unpadded call's."""
+    d0 = q.shape[-1]
+    padded = [pad_head_dim(t, d) for t in (q, k, v, out)]
+    grads = backward(*padded, lse, pad_head_dim(dout, d),
+                     scale=1.0 / math.sqrt(d0), **kwargs)
+    return tuple(g[..., :d0].contiguous() for g in grads)
+
+
 def _forward(q, k, v, causal: bool, q_offset: int):
     if q.device.type == "cpu":
         return ref.flash_attention_ref(q, k, v, causal=causal,
                                        q_offset=q_offset, block_k=BLOCK_K)
     _device(q)
+    d = q.shape[3]
+    if d not in kernel.HEAD_DIMS:
+        return padded_forward(_launch_forward, q, k, v,
+                              padded_head_dim(d, kernel.HEAD_DIMS, "K4"),
+                              causal=causal, q_offset=q_offset)
+    return _launch_forward(q, k, v, causal=causal, q_offset=q_offset,
+                           scale=1.0 / math.sqrt(d))
+
+
+def _launch_forward(q, k, v, *, causal: bool, q_offset: int, scale: float):
     b, sq, hq, d = q.shape
     p = kernel.plan(b, sq, k.shape[1], hq, k.shape[2], d, q.dtype,
                     tuple(kernel.bshd_strides(t) for t in (q, k, v)),
@@ -74,7 +132,8 @@ def _forward(q, k, v, causal: bool, q_offset: int):
                 "K4", p.regime == "cuda_core")
     out = torch.empty((b, sq, hq, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
-    kernel.flash_fwd(q, k, v, out, lse, p, causal=causal, q_offset=q_offset)
+    kernel.flash_fwd(q, k, v, out, lse, p, causal=causal, q_offset=q_offset,
+                     scale=scale)
     flash_attention.launches += 1
     return out, lse
 
@@ -96,7 +155,8 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
     log-sum-exp: ``(dq, dk, dv)`` in the inputs' layouts and types, dk and
     dv summed over each KV head's group.  ``D = rowsum(dO * O)`` is a
     float32 PyTorch op, outside the kernels, as the reference computes it
-    in plain JAX outside its kernels."""
+    in plain JAX outside its kernels.  K5 takes head dims up to 128: its
+    CUDA-core tiles pass a block's shared memory above that."""
     _check(q, k, v)
     if dout.shape != q.shape or dout.dtype != q.dtype:
         raise ValueError(f"dout {tuple(dout.shape)} {dout.dtype} does not "
@@ -106,6 +166,23 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
             q, k, v, out, lse, dout, causal=causal, q_offset=q_offset,
             block_q=BLOCK_Q, block_k=BLOCK_K)
     _device(q)
+    d = q.shape[3]
+    if d not in kernel_bwd.HEAD_DIMS:
+        if d > max(kernel_bwd.HEAD_DIMS):
+            raise ValueError(
+                f"K5 takes head dims up to {max(kernel_bwd.HEAD_DIMS)}, not "
+                f"{d}: its CUDA-core tiles at a wider head dim pass a "
+                f"block's shared memory")
+        return padded_backward(
+            _launch_backward, q, k, v, out, lse, dout,
+            padded_head_dim(d, kernel_bwd.HEAD_DIMS, "K5"), causal=causal,
+            q_offset=q_offset)
+    return _launch_backward(q, k, v, out, lse, dout, causal=causal,
+                            q_offset=q_offset, scale=1.0 / math.sqrt(d))
+
+
+def _launch_backward(q, k, v, out, lse, dout, *, causal: bool,
+                     q_offset: int, scale: float):
     b, sq, hq, d = q.shape
     p = kernel_bwd.plan(b, sq, k.shape[1], hq, k.shape[2], d, q.dtype,
                         tuple(kernel.bshd_strides(t)
@@ -127,7 +204,7 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
     kernel_bwd.flash_bwd(q, k, v, dout, _pitched(lse, pitch),
                          _pitched(dsum, pitch), dq, dk, dv, p,
-                         causal=causal, q_offset=q_offset)
+                         causal=causal, q_offset=q_offset, scale=scale)
     flash_attention_bwd.launches += 1
     return dq, dk, dv
 

@@ -35,8 +35,9 @@ def _check(q, k, v) -> None:
 
 
 def flash_attention_ref(q, k, v, *, causal: bool = True, q_offset: int = 0,
-                        block_k: int = 64):
-    """q: (B, Sq, Hq, D); k/v: (B, Skv, Hkv, D).
+                        block_k: int = 64, scale: float | None = None):
+    """q: (B, Sq, Hq, D); k/v: (B, Skv, Hkv, D); scores scaled by
+    ``scale`` (``1 / sqrt(D)`` when None).
 
     Returns ``(out (B, Sq, Hq, D) in q.dtype, lse (B, Hq, Sq) float32)``.
     """
@@ -44,7 +45,7 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, q_offset: int = 0,
     b, sq, hq, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     g = hq // hkv
-    scale = 1.0 / math.sqrt(d)
+    scale = 1.0 / math.sqrt(d) if scale is None else scale
     dev = q.device
     # (B, Hkv, G, Sq, D): query head h reads KV head h // G.
     qf = q.float().reshape(b, sq, hkv, g, d).permute(0, 2, 3, 1, 4)
@@ -78,7 +79,7 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, q_offset: int = 0,
 
 def flash_attention_bwd_ref(q, k, v, o, lse, do, *, causal: bool = True,
                             q_offset: int = 0, block_q: int = 64,
-                            block_k: int = 64):
+                            block_k: int = 64, scale: float | None = None):
     """The backward of :func:`flash_attention_ref` from its log-sum-exp.
 
     ``D = rowsum(dO * O)`` in float32; for each block of ``block_k`` keys,
@@ -87,13 +88,14 @@ def flash_attention_bwd_ref(q, k, v, o, lse, do, *, causal: bool = True,
     ``ds = p (dp - D) scale``, ``dk = ds^T q`` and ``dq += ds k``, all in
     float32, dk and dv summed over each KV head's group of query heads.  Query
     blocks of ``block_q`` rows that end before a key block starts (causal)
-    are skipped.  Returns ``(dq, dk, dv)`` in the inputs' types.
+    are skipped.  ``scale`` is the forward's (``1 / sqrt(D)`` when None).
+    Returns ``(dq, dk, dv)`` in the inputs' types.
     """
     _check(q, k, v)
     b, sq, hq, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     g = hq // hkv
-    scale = 1.0 / math.sqrt(d)
+    scale = 1.0 / math.sqrt(d) if scale is None else scale
     dev = q.device
 
     def grouped(t):                      # (B, Sq, Hq, D) -> (B, Hkv, G, Sq, D)

@@ -11,21 +11,22 @@
 // touches every item (a multiply, a max, a min and an add), so at the main
 // path's 1000 hosts x 10 items and 200 trips the operations (8e6) outweigh
 // the bytes (each input read once, about 0.4 MB) about twofold, and both
-// are far below the launch.  Design: one warp per host, the host's row in
-// registers (slot j in lane j % 32) and the same row routine as K1, so the
-// arithmetic is the dense waterfill's on a row of JB slots.  Lane j reads
-// item order[start + j] for j < count and nothing else: there is no tail
-// padding and no read past a row.  Slots count..JB-1 are masked (floor 0,
-// ceiling 0, weight 1e-12) as in the plain version.  The items stay in
-// the caller's order and are read and written through the permutation, so
-// a call is one launch with no gather or scatter around it.  An empty host
-// writes nothing.
+// are far below the launch.  Design: the row routine of K1 (waterfill.cuh)
+// on each host's row of JB slots: G lanes a host (JB up to 32; 16 at the
+// main path, so a warp runs two hosts), the row in registers up to 256
+// slots and streamed from memory past that, so a host may hold any number
+// of items.  The arithmetic is the dense waterfill's on a row of JB slots.
+// Lane j reads item order[start + j] for j < count and nothing else: there
+// is no tail padding and no read past a row.  Slots count..JB-1 are masked
+// (floor 0, ceiling 0, weight 1e-12) as in the plain version.  The items
+// stay in the caller's order and are read and written through the
+// permutation, so a call is one launch with no gather or scatter around
+// it.  An empty host writes nothing.
 #include "waterfill.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kRowsPerBlock = kThreads / 32;
 
 // Slot j of one host's CSR window: live for j < count.
 struct CsrSlots {
@@ -47,7 +48,7 @@ struct CsrSlots {
   }
 };
 
-template <int K>
+template <int G, int K>
 __global__ void __launch_bounds__(kThreads) segmented_kernel(
     const double* __restrict__ cap, const long long* __restrict__ starts,
     const long long* __restrict__ counts,
@@ -55,57 +56,39 @@ __global__ void __launch_bounds__(kThreads) segmented_kernel(
     const double* __restrict__ ce, const double* __restrict__ w,
     double* __restrict__ out, long long n_segs, int jb, int iters) {
   const long long h =
-      static_cast<long long>(blockIdx.x) * kRowsPerBlock + (threadIdx.x >> 5);
-  if (h >= n_segs) return;  // whole warps leave together
+      (static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x) / G;
+  if (h >= n_segs) return;  // whole rows leave together
   const int count = static_cast<int>(counts[h]);
   if (count == 0) return;
   const CsrSlots slots{order, fl, ce, w, starts[h], count};
-  double x[K];
-  powercap::waterfill_row<K>(cap[h], slots, jb, iters, x);
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int k = 0; k < K; ++k) {
-    const int j = lane + 32 * k;
-    if (j < count) out[order[slots.start + j]] = x[k];
-  }
-}
-
-template <int K>
-void launch(const void* cap, const void* starts, const void* counts,
-            const void* order, const void* fl, const void* ce, const void* w,
-            void* out, long long n_segs, int jb, int iters,
-            cudaStream_t stream) {
-  const unsigned grid =
-      static_cast<unsigned>((n_segs + kRowsPerBlock - 1) / kRowsPerBlock);
-  segmented_kernel<K><<<grid, kThreads, 0, stream>>>(
-      static_cast<const double*>(cap), static_cast<const long long*>(starts),
-      static_cast<const long long*>(counts),
-      static_cast<const long long*>(order), static_cast<const double*>(fl),
-      static_cast<const double*>(ce), static_cast<const double*>(w),
-      static_cast<double*>(out), n_segs, jb, iters);
+  powercap::waterfill<G, K>(cap[h], slots, jb, iters, [&](int j, double x) {
+    if (j < count) out[order[slots.start + j]] = x;
+  });
 }
 
 }  // namespace
 
 // Pointer order: capacity (n_segs), starts, counts (n_segs, int64), order
 // (n, int64: CSR position -> item), floors, ceilings, weights (n, item
-// order), out (n, item order).  jb: the row width, at most 256.
+// order), out (n, item order).  jb: the row width.
 extern "C" int powercap_waterfill_segmented(
     const void* cap, const void* starts, const void* counts,
     const void* order, const void* fl, const void* ce, const void* w,
     void* out, long long n_segs, int jb, int iters, void* stream) {
   if (n_segs <= 0 || jb <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (powercap::slots_per_lane(jb)) {
-    case 1: launch<1>(cap, starts, counts, order, fl, ce, w, out, n_segs, jb,
-                      iters, s); break;
-    case 2: launch<2>(cap, starts, counts, order, fl, ce, w, out, n_segs, jb,
-                      iters, s); break;
-    case 4: launch<4>(cap, starts, counts, order, fl, ce, w, out, n_segs, jb,
-                      iters, s); break;
-    case 8: launch<8>(cap, starts, counts, order, fl, ce, w, out, n_segs, jb,
-                      iters, s); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return powercap::with_row_shape(jb, [&](auto shape) {
+    using Shape = decltype(shape);
+    constexpr int kRowsPerBlock = kThreads / Shape::G;
+    const unsigned grid =
+        static_cast<unsigned>((n_segs + kRowsPerBlock - 1) / kRowsPerBlock);
+    segmented_kernel<Shape::G, Shape::K><<<grid, kThreads, 0, s>>>(
+        static_cast<const double*>(cap),
+        static_cast<const long long*>(starts),
+        static_cast<const long long*>(counts),
+        static_cast<const long long*>(order), static_cast<const double*>(fl),
+        static_cast<const double*>(ce), static_cast<const double*>(w),
+        static_cast<double*>(out), n_segs, jb, iters);
+    return static_cast<int>(cudaGetLastError());
+  });
 }

@@ -27,9 +27,6 @@ from repro_torch.kernels.powercap.segments import (SegmentLayout,
 
 _F64, _BOOL = torch.float64, torch.bool
 
-#: Widest row K3 takes: 8 slots in each of a warp's 32 lanes.
-MAX_SEGMENT_ROW = 256
-
 
 def _device(first, device) -> torch.device:
     if device is None and isinstance(first, torch.Tensor):
@@ -85,6 +82,10 @@ def balance_caps(hosts: HostCols, caps, dense: DenseCols, cpu_reserved,
 
     Returns ``(caps, did, rounds)``: the balanced caps, whether each cell
     committed a round, and how many rounds each cell entered (``int32``).
+    On the card each cell runs on a thread-block cluster as
+    :func:`~repro_torch.kernels.powercap.kernel.balance_plan` sizes it; a
+    cell above :func:`~repro_torch.kernels.powercap.kernel.balance_limit`
+    hosts raises.
     """
     dev = _device(caps, device)
     cp = _col(caps, _F64, dev, "caps")
@@ -112,14 +113,14 @@ def balance_caps(hosts: HostCols, caps, dense: DenseCols, cpu_reserved,
                             for c in dense[:4]), dense.iters)
     if dev.type == "cpu":
         return ref.balance_caps_ref(hosts, cp, dense, cres, bud, en, params)
-    if kernel.balance_smem_bytes(h) > kernel.MAX_SMEM_BYTES:
-        raise ValueError(f"balance_caps kernel: {h} hosts per cell do not "
-                         f"fit one block's shared memory")
+    j = dense.floors.shape[-1]
+    plan = kernel.balance_plan(s, h, j, kernel.max_active_clusters(j))
     caps_out = torch.empty((s, h), dtype=_F64, device=dev)
     did = torch.empty(s, dtype=_BOOL, device=dev)
     rounds = torch.empty(s, dtype=torch.int32, device=dev)
     kernel.balance_caps((*hosts, *dense[:4], cres, bud, en, cp), caps_out,
-                        did, rounds, iters=dense.iters, params=params)
+                        did, rounds, iters=dense.iters, params=params,
+                        plan=plan)
     balance_caps.launches += 1
     return caps_out, did, rounds
 
@@ -137,8 +138,7 @@ def waterfill_segmented(capacity, floors, ceilings, weights, seg_ids=None,
     The grouping is ``seg_ids`` (``(n,)`` ints in ``[0, n_segs)``), or a
     ``layout`` built from it earlier with
     :func:`~repro_torch.kernels.powercap.segments.segment_layout` (then
-    ``seg_ids`` and ``n_segs`` are not read).  Rows wider than
-    :data:`MAX_SEGMENT_ROW` items raise, on either device.
+    ``seg_ids`` and ``n_segs`` are not read).
     """
     dev = _device(floors, device)
     if layout is None:
@@ -152,9 +152,6 @@ def waterfill_segmented(capacity, floors, ceilings, weights, seg_ids=None,
     cap = _col(capacity, _F64, dev, "capacity", (m,))
     if n == 0:
         return torch.zeros(0, dtype=_F64, device=dev)
-    if layout.jb > MAX_SEGMENT_ROW:
-        raise ValueError(f"waterfill_segmented: a row of {layout.jb} slots "
-                         f"is wider than {MAX_SEGMENT_ROW}")
     if dev.type == "cpu":
         return ref.waterfill_segmented_ref(cap, fl, ce, w, layout, iters)
     out = torch.empty(n, dtype=_F64, device=dev)

@@ -237,6 +237,71 @@ def test_k4_k5_cuda_call_with_an_unsupported_dtype_raises():
             fa_ops.flash_attention_bwd.launches) == before
 
 
+#: ``chip_smoke.py``'s ``attn_close`` tolerances: relative, with an
+#: absolute term of the tolerance times the plain output's RMS under 1.
+ATTN_TOL = {torch.float32: 2e-5, BF16: 2e-2}
+K5_TOL = {torch.float32: 1e-4, BF16: 2e-2}
+
+
+def _attn_close(got, want, tol):
+    got, want = got.float(), want.float()
+    atol = tol * min(1.0, float(want.square().mean().sqrt()))
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, rtol=tol, atol=atol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, BF16])
+@pytest.mark.parametrize("d", [80, 96])
+def test_head_dim_padding_around_the_plain_versions(d, dtype):
+    """The wrappers' zero padding along D (to 112, the next dim both
+    kernels take) with the true 1/sqrt(D), run around the plain versions,
+    gives the plain versions' output, log-sum-exp and gradients at D."""
+    assert fa_ops.padded_head_dim(d, fa_kernel.HEAD_DIMS, "K4") == 112
+    assert fa_ops.padded_head_dim(d, fa_kernel_bwd.HEAD_DIMS, "K5") == 112
+    rng = np.random.default_rng(d)
+    q, k, v, do = (_pair(rng, shape, str(dtype)[6:])[1] for shape in (
+        (2, 100, 4, d), (2, 164, 2, d), (2, 164, 2, d), (2, 100, 4, d)))
+    out, lse = fa_ref.flash_attention_ref(q, k, v, q_offset=64)
+    p_out, p_lse = fa_ops.padded_forward(fa_ref.flash_attention_ref, q, k,
+                                         v, 112, q_offset=64)
+    assert p_out.shape == out.shape and p_out.is_contiguous()
+    _attn_close(p_out, out, ATTN_TOL[dtype])
+    _attn_close(p_lse, lse, ATTN_TOL[dtype])
+    # The scale is the point: padded operands at 1/sqrt(112) are wrong.
+    wrong, _ = fa_ref.flash_attention_ref(
+        *(fa_ops.pad_head_dim(t, 112) for t in (q, k, v)), q_offset=64)
+    with pytest.raises(AssertionError):
+        _attn_close(wrong[..., :d], out, ATTN_TOL[dtype])
+    grads = fa_ref.flash_attention_bwd_ref(q, k, v, out, lse, do,
+                                           q_offset=64)
+    p_grads = fa_ops.padded_backward(fa_ref.flash_attention_bwd_ref, q, k,
+                                     v, out, lse, do, 112, q_offset=64)
+    for got, want in zip(p_grads, grads):
+        assert got.shape == want.shape and got.dtype == want.dtype
+        _attn_close(got, want, K5_TOL[dtype])
+
+
+def test_k4_k5_head_dims_past_the_padding_raise():
+    """Past the widest dim a kernel takes (K4 256, K5 128) the wrappers'
+    CUDA branches raise, naming the limit, before anything reaches the
+    card (the tensors only claim to be on it here)."""
+    assert fa_ops.padded_head_dim(200, fa_kernel.HEAD_DIMS, "K4") == 256
+    assert fa_ops.padded_head_dim(8, fa_kernel.HEAD_DIMS, "K4") == 16
+    q = torch.zeros(1, 8, 2, 264)
+    q5 = torch.zeros(1, 8, 2, 192)
+    before = (fa_ops.flash_attention.launches,
+              fa_ops.flash_attention_bwd.launches)
+    cuda = property(lambda self: torch.device("cuda"))
+    with mock.patch.object(torch.Tensor, "device", cuda):
+        with pytest.raises(ValueError, match="K4 takes head dims up to 256"):
+            fa_ops.flash_attention(q, q, q)
+        with pytest.raises(ValueError, match="K5 takes head dims up to 128"):
+            fa_ops.flash_attention_bwd(q5, q5, q5, q5,
+                                       torch.zeros(1, 2, 8), q5)
+    assert (fa_ops.flash_attention.launches,
+            fa_ops.flash_attention_bwd.launches) == before
+
+
 def test_flash_attention_sources_use_no_float_atomics():
     """Each output element of K4 and K5 is one thread's sum in a fixed
     order (the dq sum has its own kernel, trap T1): no atomic adds or

@@ -21,6 +21,7 @@ import torch
 
 from repro import backend as ref_backend
 from repro.core import kernels as rk
+from repro.drs.entitlement import batched_waterfill as ref_batched_waterfill
 from repro.drs.entitlement import waterfill_core as ref_waterfill_core
 from repro.kernels.powercap.ops import pallas_waterfill_segmented
 from repro.kernels.powercap.ref import lax_waterfill_segmented
@@ -166,8 +167,9 @@ def test_layout_is_the_reference_csr():
 
 def test_wrapper_dispatches_on_device_and_checks_inputs():
     """CPU tensors take the plain version and launch nothing; a prebuilt
-    layout gives the same result; malformed inputs and rows wider than
-    256 slots raise before anything runs."""
+    layout gives the same result; malformed inputs raise before anything
+    runs, and a row wider than 256 slots is taken (here degenerate: its
+    floors exceed the capacity, so each item gets its pro-rata share)."""
     cap, fl, ce, w, seg, m = segmented_problem(7, "plain")
     before = ops.waterfill_segmented.launches
     a = _port(cap, fl, ce, w, seg, m)
@@ -187,10 +189,47 @@ def test_wrapper_dispatches_on_device_and_checks_inputs():
         ops.waterfill_segmented(t[0], t[1][:-1], t[2], t[3], seg, m)
     wide = np.zeros(257, dtype=np.int64)
     x = np.ones(257)
-    with pytest.raises(ValueError, match="wider than 256"):
-        ops.waterfill_segmented(np.ones(1), x, x, x, wide, 1, device="cpu")
+    got = ops.waterfill_segmented(np.ones(1), x, x, x, wide, 1, device="cpu")
+    np.testing.assert_allclose(got.numpy(), np.full(257, 1 / 257), **TOL)
     assert ops.waterfill_segmented(np.ones(2), x[:0], x[:0], x[:0],
                                    wide[:0], 2, device="cpu").shape == (0,)
+
+
+def wide_problem(width: int, seed: int):
+    """Hosts of ``width``, 3, 0 and ``width // 2 + 1`` items, items in a
+    shuffled order, some reservations, capacities from 0.3x to 1.2x the
+    demand, and one wide host whose floors exceed its capacity."""
+    rng = np.random.default_rng(seed)
+    counts = np.array([width, 3, 0, width // 2 + 1, width])
+    seg = rng.permutation(np.repeat(np.arange(counts.size), counts))
+    n = seg.size
+    ceils = rng.uniform(200.0, 3000.0, n)
+    floors = np.where(rng.random(n) < 0.3, rng.uniform(0.0, 150.0, n), 0.0)
+    weights = rng.choice([1000.0, 2000.0], n)
+    demand = np.bincount(seg, weights=ceils, minlength=counts.size)
+    capacity = rng.uniform(0.3, 1.2, counts.size) * demand
+    floors[seg == 4] = 400.0
+    capacity[4] = 0.5 * 400.0 * width
+    return capacity, floors, ceils, weights, seg, counts.size
+
+
+@pytest.mark.parametrize("executor", ("numpy", "jax-pallas"))
+@pytest.mark.parametrize("width", (300, 1000))
+def test_wide_rows_match_reference_batched_waterfill(x64, width, executor):
+    """Rows wider than 256 items (the CUDA kernel streams them) against
+    the reference's ``batched_waterfill``, as its own tests run it: NumPy
+    by default and, under the ``jax-pallas`` executor, its segmented
+    Pallas kernel in interpret mode with a window of 512 or 1024."""
+    cap, fl, ce, w, seg, m = wide_problem(width, seed=width)
+    with ref_backend.executor_scope(executor):
+        want = ref_batched_waterfill(cap, fl, ce, w, seg, m)
+    got = _port(cap, fl, ce, w, seg, m)
+    assert segment_layout(seg, m, "cpu").jb == row_width(width) > 256
+    np.testing.assert_allclose(got, want, **TOL)
+    np.testing.assert_allclose(np.bincount(seg, weights=got, minlength=m),
+                               np.minimum(cap, np.bincount(
+                                   seg, weights=ce, minlength=m)),
+                               rtol=1e-9)
 
 
 def test_entitlement_sums_match_the_reference():

@@ -3,7 +3,8 @@
 
 Builds path A (32 cells x 100 hosts, 60 ticks) and path B (16 cells x
 1000 hosts, 120 ticks) of the batched engine, path V (one cpc cell of
-1000 hosts, 60 ticks, on the vector engine), as ``chip_smoke.py`` does,
+1000 hosts, 60 ticks, on the vector engine), as ``chip_smoke.py`` does
+(they report K1's, K2's and K3's device ms per launch),
 and path S, one replica batch of the serving path at granite-8b's full
 width and depth in bf16 (8 prompts of 512, 32 tokens, a 1024-position
 cache): ``S`` is the whole generation (prefill and 31 decode steps, its
@@ -19,8 +20,9 @@ launch, and the decode paths K6's partials and combine kernels'); and
 path T, one training step of MiniCPM-2B at full width and depth in bf16
 (4 x 4096 tokens, remat, AdamW; its "tick" the step; it reports K4's and
 K5's tensor-core kernels' device ms per launch).  Each
-path runs once to warm up, then once under ``torch.profiler`` and once
-without it.  For the profiled run it reads the Chrome trace and reports
+path runs once to warm up, then five times without ``torch.profiler``
+(``run_s_untraced`` is their median, beside their least and most) and
+once under it.  For the profiled run it reads the Chrome trace and reports
 the device's busy time (union of kernel and copy intervals), its idle
 share of the run's wall, kernel launches per tick (per forward pass for
 the serving paths), and device time by kernel name.  Prints one JSON line
@@ -163,11 +165,14 @@ def train_runner():
 
 
 #: Kernels whose device ms per launch a profile reports, by name in the
-#: trace (K4's and K7's calls are one launch of one of their regimes'
-#: kernels; K5's, K6's and K8's one launch of each of their two kernels:
-#: K6's partials and combine, K8's intra-chunk and state kernels: on bf16
-#: paths the tensor-core regime's, in float32 the CUDA-core ones).
-PER_LAUNCH = {"k7_wide": "gmm_wide_kernel", "k7_narrow": "gmm_narrow_kernel",
+#: trace (K1's, K2's and K3's calls are one launch each; K4's and K7's one
+#: launch of one of their regimes' kernels; K5's, K6's and K8's one launch
+#: of each of their two kernels: K6's partials and combine, K8's
+#: intra-chunk and state kernels: on bf16 paths the tensor-core regime's,
+#: in float32 the CUDA-core ones).
+PER_LAUNCH = {"k1": "waterfill_kernel", "k2": "balance_caps_kernel",
+              "k3": "segmented_kernel",
+              "k7_wide": "gmm_wide_kernel", "k7_narrow": "gmm_narrow_kernel",
               "k7_cuda_core": "gmm_kernel",
               "k8_intra": "ssd_intra_shared_kernel",
               "k8_state": "ssd_state_tc_kernel",
@@ -179,6 +184,10 @@ PER_LAUNCH = {"k7_wide": "gmm_wide_kernel", "k7_narrow": "gmm_narrow_kernel",
               "k5_dq": "flash_bwd_dq_tc_kernel",
               "k6_partials": "decode_partials_kernel",
               "k6_combine": "decode_combine_kernel"}
+
+
+#: Untraced runs of a path; ``run_s_untraced`` is their median.
+UNTRACED_RUNS = 5
 
 
 def timed(run) -> tuple[int, float]:
@@ -194,7 +203,9 @@ def profile(tag: str, runner, out_dir: Path) -> dict:
 
     prepare, info = runner
     timed(prepare())                           # warm-up
-    ticks, plain_wall = timed(prepare())
+    runs = [timed(prepare()) for _ in range(UNTRACED_RUNS)]
+    ticks = runs[0][0]
+    plain = sorted(wall for _, wall in runs)
     run = prepare()
     with torch_profile(activities=[ProfilerActivity.CPU,
                                    ProfilerActivity.CUDA]) as prof:
@@ -221,7 +232,9 @@ def profile(tag: str, runner, out_dir: Path) -> dict:
                 f"{key}_launches": len(durs),
                 f"{key}_device_ms_per_launch": sum(durs) * 1e-3 / len(durs),
                 f"{key}_device_ms": sum(durs) * 1e-3})
-    return dict(path=tag, ticks=ticks, run_s_untraced=plain_wall,
+    return dict(path=tag, ticks=ticks,
+                run_s_untraced=plain[len(plain) // 2],
+                run_s_untraced_min=plain[0], run_s_untraced_max=plain[-1],
                 run_s_traced=traced_wall, device_busy_s=busy,
                 device_idle_share=1.0 - busy / traced_wall,
                 kernel_launches=len(kernels),
