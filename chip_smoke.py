@@ -11,10 +11,11 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    fp64, at the main paths' shapes, timed with CUDA events (median of 20)
    and, for K1 and K2, by their device time under ``torch.profiler`` (the
    profile tool's reading), with K2's plan (cluster size, threads, shared
-   memory): K1 and K2 at paths A
-   and B, K2 at path V (one cell) and on one cell of 10,000 hosts (the
-   reference's ``datacenter_cell``), each with round counts and ``did``
-   flags equal to the plain version's; K3 at path V and on a ragged case
+   memory): K1 and K2 at paths A, B, D and R, K2 at paths V and W (one
+   cell) and on one cell of 10,000 hosts (the reference's
+   ``datacenter_cell``), each with round counts and ``did``
+   flags equal to the plain version's; K3 at paths V and W and on a ragged
+   case
    (empty hosts, a host whose floors exceed its capacity, a 256-wide row,
    huge values in the rows next to each row); then rows of every shape
    the row routine has: K1 and K2 at 3, 40, 100 and 300 slots a row, K3
@@ -31,6 +32,24 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    cells on the CPU and against the batched engine on the card, with the
    launch counts of K3 (one a tick, two more for each committed balance's
    note) and K2 (one a cpc invocation) checked;
+6b. main path D, ``sweep_grid_dpm``'s grid (``benchmarks/run.py:282``,
+   32 cells x 100 hosts x 10 VMs: churn none, dpm, maintenance and
+   failure, 1500 s at 15 s ticks, slot slack 1.5) through ``run_sweep(...,
+   engine="batch")`` on the card (the churn program: DPM, Powercap
+   Redistribution, evacuations, scripted events), held against the same
+   grid on the CPU: exact counts, payload and energy 1e-9, final power
+   states, occupancy and caps equal, the budget within 1e-6, power-offs,
+   power-ons and
+   vMotions in the grid, K1's and K2's launches equal to the CPU run's
+   plain calls; its cells/s, branch reads a tick, launches a tick and
+   the device's idle share (one traced run) printed;
+6c. path W, the vector engine on that grid's first two ``dpm`` specs and
+   its burst homogeneous ``maintenance`` and ``failure`` specs, cpc and
+   static, held against the CPU and against path D, K3 and K2 launches
+   equal to the CPU run's plain calls, ticks/s printed;
+6d. path R, ``row_contention_specs(sizes=(100,))`` (a two-row budget
+   tree) on both engines, each held against the CPU, ``over_tree``
+   within 1e-6;
 7. K4 (flash attention forward) and K6 (flash decoding) against their
    plain versions on the card: K4 at path S's prefill (8 x 512 tokens,
    32 query and 8 KV heads of 128, bf16), on bf16 cases of its
@@ -70,7 +89,10 @@ Phases, each of which raises (and so exits non-zero) when it fails:
     in float32, 2e-2 in bf16, relative to the values' scale as in 7.
     Timed at path T's layer beside its plain version and
     ``scaled_dot_product_attention``'s backward, with K4 at the same
-    shape;
+    shape; then K5 at head dims 192 (Nemotron-4-340B's, zero-padded to
+    256) and 256 on the CUDA cores (32-row blocks), causal, 2 x 256
+    tokens, 8 query heads over 8 and 2 KV heads, bf16 and float32, two
+    launches bitwise equal, timed beside SDPA's backward;
 11. main path T, ``launch.train``'s driver at MiniCPM-2B's full width and
     depth in bf16 (40 layers, 2.725e9 parameters, 6 steps of 4 x 4096
     tokens, 2 pods, the budget cut at step 1 and the straggler from step
@@ -348,10 +370,10 @@ def kernel_inputs(S: int, H: int, J: int, seed: int, dev, iters: int):
             t["weights"], act))
 
 
-def k3_inputs(case: str, dev, seed: int = 11):
+def k3_inputs(case: str, dev, seed: int = 11, m_path: int = 1000):
     """``(capacity, floors, ceilings, weights, seg_ids, n_segs)`` for K3.
 
-    ``path``: the main path's shape, 1000 hosts x 10 VMs placed round
+    ``path``: the main path's shape, ``m_path`` hosts x 10 VMs placed round
     robin (so the CSR permutation is not the identity), demand 200-3000
     MHz, some reservations, capacity of a host capped near 250 W.
     ``ragged``: 300 hosts with 0-24 items each, some empty, one of 256
@@ -360,7 +382,7 @@ def k3_inputs(case: str, dev, seed: int = 11):
     """
     rng = np.random.RandomState(seed)
     if case == "path":
-        m, n = 1000, 10_000
+        m, n = m_path, 10 * m_path
         seg = np.arange(n) % m
         counts = np.bincount(seg, minlength=m)
     else:
@@ -391,15 +413,15 @@ def k3_inputs(case: str, dev, seed: int = 11):
     return (*t, seg, m)
 
 
-def check_k3(dev) -> dict:
-    """K3 against its plain version: the path's shape (timed, with its
-    bound) and the ragged case."""
+def check_k3(dev, m_path: int = 1000, tag: str = "V") -> dict:
+    """K3 against its plain version: the path's shape (``m_path`` hosts,
+    timed, with its bound) and the ragged case."""
     from repro_torch.kernels.powercap import ops, ref
     from repro_torch.kernels.powercap.segments import segment_layout, to_rows
 
     errs = {}
     for case in ("ragged", "path"):
-        cap, fl, ce, w, seg, m = k3_inputs(case, dev)
+        cap, fl, ce, w, seg, m = k3_inputs(case, dev, m_path=m_path)
         lay = segment_layout(seg, m, dev)
         got = ops.waterfill_segmented(cap, fl, ce, w, layout=lay)
         want = ref.waterfill_segmented_ref(cap, fl, ce, w, lay, 200)
@@ -420,7 +442,7 @@ def check_k3(dev) -> dict:
                             to_rows(lay, w, fill=1e-12), active, 200)
     bound, by = bound_ms(8 * m + 16 * m + 8 * n + 3 * 8 * n + 8 * n,
                          float(((4 * trips + 12) * lay.counts).sum()))
-    log(f"V: K3 err {errs['path']:.3e} (ragged {errs['ragged']:.3e}) "
+    log(f"{tag}: K3 err {errs['path']:.3e} (ragged {errs['ragged']:.3e}) "
         f"{ms:.4f} ms (plain {pms:.3f} ms), rows of {lay.jb} slots")
     return dict(name=f"waterfill_segmented {m}x{n}", route="cuda",
                 source="src/repro_torch/kernels/powercap/csrc/segmented.cu",
@@ -2245,6 +2267,255 @@ def run_vector_path(policies):
     return launches, dict(wall_s=wall, cells=len(keys), ticks=ticks,
                           per_cell=cells)
 
+def check_k5_wide(dev) -> list:
+    """P1's check: K5 at head dims 192 (Nemotron-4-340B's, zero-padded to
+    256 by the wrapper) and 256, causal, 2 x 256 tokens, 8 query heads over
+    8 and over 2 KV heads, in bf16 and float32, on the CUDA cores (32-row
+    blocks at D 256), each against its plain version at phase 10's
+    tolerances with two launches bitwise equal; the bf16 MHA calls timed
+    beside the plain version and SDPA's backward.  Returns a record for
+    each head dim."""
+    from repro_torch.kernels.flash_attention import kernel_bwd
+    from repro_torch.kernels.flash_attention import ops, ref
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    b, s, hq = 2, 256, 8
+    out = []
+    for d in (192, 256):
+        errs, timed = {}, None
+        for dtype in (torch.bfloat16, torch.float32):
+            for hkv in (8, 2):
+                q, k, v, do = attn_operands(b, s, s, hq, hkv, d, dtype, dev,
+                                            300 + d + hkv)
+                p = kernel_bwd.plan(b, s, s, hq, hkv, 256, dtype)
+                if p.regime != "cuda_core" or max(p.smem_bytes) > 232_448:
+                    raise AssertionError(f"K5 D {d}: plan {p}")
+                case = f"{str(dtype)[6:]}_{hq}/{hkv}"
+                errs[case], operands, _ = k5_case(
+                    q, k, v, do, True, 0, f"K5 D {d} {case}", bitwise=True)
+                if dtype == torch.bfloat16 and hkv == hq:
+                    timed = operands
+        q, k, v, o, lse, do = timed
+        ms = time_ms(lambda: ops.flash_attention_bwd(q, k, v, o, lse, do))
+        pms = time_ms(lambda: ref.flash_attention_bwd_ref(
+            q, k, v, o, lse, do, block_q=ops.BLOCK_Q, block_k=ops.BLOCK_K))
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                      for t in (q, k, v))
+        fwd_ms = time_ms(lambda: sdpa(qt, kt, vt, is_causal=True))
+        both_ms = time_ms(lambda: torch.autograd.grad(
+            sdpa(qt, kt, vt, is_causal=True), (qt, kt, vt),
+            do.transpose(1, 2)))
+        pairs = s * (s + 1) // 2
+        bound, by = bound_ms(2 * 8 * b * s * hq * d + 4 * b * hq * s,
+                             10 * b * hq * d * pairs, PEAK_BF16_FLOPS)
+        log(f"T: K5 D {d} (cuda_core, {kernel_bwd.core_rows(256)}-row "
+            f"blocks, smem {p.smem_bytes[0]} B) errs {json.dumps(errs)} "
+            f"{ms:.4f} ms (plain {pms:.3f} ms, SDPA backward "
+            f"{both_ms - fwd_ms:.4f} ms, bound {bound:.5f} ms)")
+        out.append(dict(
+            name=f"flash_attention_bwd {b}x{s}x{hq}x{d}", route="cuda",
+            source="src/repro_torch/kernels/flash_attention/csrc/flash_bwd.cu",
+            replaces="src/repro/kernels/flash_attention/kernel_bwd.py:125",
+            regime="cuda_core", padded_to=256, case_errs=errs,
+            max_abs_err=max(errs[f"bfloat16_{hq}/{hq}"].values()),
+            rtol=K5_TOL[torch.bfloat16], atol_per_rms=K5_TOL[torch.bfloat16],
+            float32_max_abs_err=max(v for c, e in errs.items()
+                                    if c.startswith("float32")
+                                    for v in e.values()),
+            ms=ms, plain_ms=pms, bound_ms=bound, bound_by=by,
+            library_ms=both_ms - fwd_ms, smem_bytes=p.smem_bytes[0]))
+    return out
+
+
+#: Path D: ``sweep_grid_dpm``'s grid (``benchmarks/run.py``), as its
+#: benchmark runs it: 100 hosts x 10 VMs, 4 churn families x 2 spikes x 2
+#: host mixes x cpc/static = 32 cells, 1500 s at 15 s ticks, slot slack 1.5.
+DPM_GRID = dict(sizes=(100,), budgets_per_host_w=(250.0,),
+                spikes=("burst", "prime"), heterogeneous=(False, True),
+                churns=("none", "dpm", "maintenance", "failure"),
+                duration_s=1500.0, tick_s=15.0)
+DPM_SLACK = 1.5
+
+
+def compare_final(tag, gpu, cpu, keys) -> None:
+    """Final power states, occupancy and caps of two runs of one grid
+    (``BatchResult``s) equal."""
+    for i, (spec, p) in enumerate(keys):
+        if not (np.array_equal(gpu.final_on[i], cpu.final_on[i])
+                and np.array_equal(gpu.final_occ[i], cpu.final_occ[i])
+                and np.allclose(gpu.final_caps[i], cpu.final_caps[i],
+                                rtol=RTOL, atol=ATOL)):
+            raise AssertionError(f"{tag} {spec.name}/{p}: final power "
+                                 f"states, occupancy or caps differ")
+
+
+def idle_share(run) -> dict:
+    """One traced call of ``run``: the device's busy and idle share of its
+    wall and its kernel launches, read from the ``torch.profiler`` trace as
+    ``tools/profile_sweep_torch.py`` reads them (None when the trace holds
+    no kernel event)."""
+    from torch.profiler import ProfilerActivity, profile
+    sys.path.insert(0, str(ROOT / "tools"))
+    from profile_sweep_torch import busy_us
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        trace = Path(tmp) / "trace.json"
+        prof.export_chrome_trace(str(trace))
+        events = json.loads(trace.read_text())["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    if not kernels:
+        return dict(device_idle_share=None, kernel_launches=None,
+                    traced_wall_s=wall)
+    copies = [e for e in events if e.get("cat") in ("gpu_memcpy",
+                                                    "gpu_memset")]
+    busy = busy_us(kernels + copies) * 1e-6
+    return dict(device_idle_share=1.0 - busy / wall,
+                kernel_launches=len(kernels), traced_wall_s=wall)
+
+
+def run_churn_path(policies):
+    """Path D: the ``sweep_grid_dpm`` grid through ``run_sweep(...,
+    engine="batch")`` on the card, with the launch counts of exactly that
+    run and the tick loop's branch reads, held against the same grid on
+    the CPU (plain versions, their outermost calls counted): exact counts,
+    payload and energy 1e-9, final states equal, every
+    K1 and K2 launch one of the CPU run's plain calls, the budget within
+    1e-6, and power-offs, power-ons and vMotions in the grid."""
+    from repro_torch.sim import sweep
+    from repro_torch.sim.batch import BatchedSimulator
+
+    specs = sweep.scenario_families(**DPM_GRID)
+    keys = [(s, p) for s in specs for p in policies]
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gpu = sweep.run_sweep(specs, policies, engine="batch",
+                          slot_slack=DPM_SLACK)
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    info, res = dict(sweep.LAST_BATCH_INFO), sweep.LAST_BATCH_INFO["result"]
+    info.pop("result")
+    with count_plain_calls() as plain:
+        cpu = sweep.run_sweep(specs, policies, engine="batch", device="cpu",
+                              slot_slack=DPM_SLACK)
+    cpu_res = sweep.LAST_BATCH_INFO["result"]
+    names = [(s.name, p) for s, p in keys]
+    compare("D vs CPU", gpu, cpu, names)
+    compare_final("D vs CPU", res, cpu_res, keys)
+    want = dict(no_model_launches(), **plain)
+    if launches != want or plain["waterfill_dense"] != info["ticks"] or \
+            plain["balance_caps"] != info["invocation_ticks"]:
+        raise AssertionError(f"D: kernel launches {launches}, the CPU run's "
+                             f"plain calls {plain}, loop {info}")
+    totals = {f: int(sum(getattr(gpu[n][p], f) for n, p in names))
+              for f in ("cap_changes", "power_offs", "power_ons",
+                        "vmotions")}
+    if min(totals.values()) <= 0:
+        raise AssertionError(f"D: the grid did not churn: {totals}")
+    over = float(res.over_budget.max())
+    if over > 1e-6:
+        raise AssertionError(f"D: budget over by {over} W")
+    cells, _ = sweep.build_batch_cells(specs, policies)
+    sim = BatchedSimulator(cells, slot_slack=DPM_SLACK)
+    traced = idle_share(sim.run)
+    n = len(keys)
+    engine_s = res.run_s
+    out = dict(wall_s=wall, engine_s=engine_s, pack_s=res.pack_s, cells=n,
+               cells_per_s=n / wall, engine_cells_per_s=n / engine_s,
+               ticks=info["ticks"], invocation_ticks=info["invocation_ticks"],
+               branch_reads=info["branch_reads"],
+               branch_reads_per_tick=info["branch_reads"] / info["ticks"],
+               max_over_budget_w=over, **totals,
+               **traced)
+    if traced["kernel_launches"] is not None:
+        out["launches_per_tick"] = traced["kernel_launches"] / info["ticks"]
+    log(f"path D: {n} cells x {info['ticks']} ticks, {n / wall:.2f} cells/s "
+        f"(engine {n / engine_s:.2f} cells/s, pack {res.pack_s:.3f} s); "
+        f"launches {launches}; {json.dumps(out)}")
+    return gpu, launches, out
+
+
+def run_churn_vector_path(policies, batch):
+    """Path W: the vector engine on the grid's first two ``dpm`` specs
+    (the reference benchmark's sequential baseline) and its burst
+    homogeneous ``maintenance`` and ``failure`` specs, on the card, held
+    against the same cells on the CPU and against path D's results, with
+    K3 and K2 launches equal to the CPU run's plain calls."""
+    from repro_torch.sim.sweep import run_sweep, scenario_families
+
+    specs = scenario_families(**DPM_GRID)
+    chosen = [s for s in specs if s.churn == "dpm"][:2] + [
+        s for s in specs if s.spike == "burst" and not s.heterogeneous
+        and s.churn in ("maintenance", "failure")]
+    names = [(s.name, p) for s in chosen for p in policies]
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gpu = run_sweep(chosen, policies, engine="vector")
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    with count_plain_calls() as plain:
+        cpu = run_sweep(chosen, policies, engine="vector", device="cpu")
+    compare("W vs CPU", gpu, cpu, names)
+    compare("W vs D", gpu, batch, names)
+    if launches != dict(no_model_launches(), **plain):
+        raise AssertionError(f"W: kernel launches {launches}, the CPU run's "
+                             f"plain calls {plain}")
+    ticks = gpu[names[0][0]][names[0][1]].ticks
+    out = dict(wall_s=wall, cells=len(names), ticks=ticks,
+               ticks_per_s=ticks * len(names) / wall,
+               power_offs=sum(gpu[n][p].power_offs for n, p in names),
+               vmotions=sum(gpu[n][p].vmotions for n, p in names))
+    log(f"path W: {len(names)} cells x {ticks} ticks, wall {wall:.3f} s "
+        f"({out['ticks_per_s']:.1f} ticks/s); launches {launches}; "
+        f"{json.dumps(out)}")
+    return launches, out
+
+
+def run_tree_path(policies):
+    """Path R: ``row_contention_specs(sizes=(100,))`` (the ``two_row``
+    budget tree binding row 0) on both engines on the card, each held
+    against the CPU, with ``over_tree`` within 1e-6."""
+    from repro_torch.sim import sweep
+
+    specs = sweep.row_contention_specs(sizes=(100,))
+    names = [(s.name, p) for s in specs for p in policies]
+    gpu, launches_b, info = run_path("R", specs, policies)
+    over_tree = float(sweep.LAST_BATCH_INFO["result"].over_tree.max())
+    cpu = sweep.run_sweep(specs, policies, engine="batch", device="cpu")
+    compare("R vs CPU", gpu, cpu, names)
+    if over_tree > 1e-6 or float(
+            sweep.LAST_BATCH_INFO["result"].over_tree.max()) > 1e-6:
+        raise AssertionError(f"R: a tree node over by {over_tree} W")
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    vgpu = sweep.run_sweep(specs, policies, engine="vector")
+    vwall = time.perf_counter() - t0
+    launches_v = read_launches()
+    with count_plain_calls() as plain:
+        vcpu = sweep.run_sweep(specs, policies, engine="vector",
+                               device="cpu")
+    compare("R vector vs CPU", vgpu, vcpu, names)
+    compare("R vector vs batch", vgpu, gpu, names)
+    if launches_v != dict(no_model_launches(), **plain):
+        raise AssertionError(f"R vector: kernel launches {launches_v}, the "
+                             f"CPU run's plain calls {plain}")
+    info.update(max_over_tree_w=over_tree, vector_wall_s=vwall,
+                vector_launches=launches_v,
+                cap_changes=sum(gpu[n][p].cap_changes for n, p in names))
+    log(f"path R: over_tree {over_tree:.3e} W; vector wall {vwall:.3f} s, "
+        f"launches {launches_v}; {json.dumps(info)}")
+    return launches_b, launches_v, info
+
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -2272,10 +2543,15 @@ def main() -> int:
     # reference's datacenter_cell is one cell of 10,000 hosts.
     shapes = {"A": (32, 100, 10, True, 100), "B": (16, 1000, 10, True, 100),
               "V": (1, 1000, 10, False, 200),
-              "cell": (1, 10_000, 10, False, 100)}
+              "cell": (1, 10_000, 10, False, 100),
+              "D": (32, 100, 15, True, 100), "W": (1, 100, 10, False, 200),
+              "R": (2, 100, 10, True, 100)}
     records = check_kernels(shapes, dev)
     records["V"][0]["datacenter_cell"] = records.pop("cell")[0]
     records["V"].append(check_k3(dev))
+    k3_100 = check_k3(dev, m_path=100, tag="W")
+    records["W"].append(k3_100)
+    records["R"].append(dict(k3_100))
     rows = check_row_shapes(dev)
     for rec in records["A"] + records["V"][1:]:
         rec["row_shapes_max_abs_err"] = rows[
@@ -2303,13 +2579,18 @@ def main() -> int:
 
     launches_v, info_v = run_vector_path(policies)
 
+    gpu_d, launches_d, info_d = run_churn_path(policies)
+    launches_w, info_w = run_churn_vector_path(policies, gpu_d)
+    launches_rb, launches_rv, info_r = run_tree_path(policies)
+    launches_r = {k: launches_rb[k] + launches_rv[k] for k in launches_rb}
+
     records["S"] = [check_k4(dev), check_k6(dev)]
     launches_s, info_s = run_serving_path(dev)
     torch.cuda.empty_cache()
     info_s["float32_4_layers"] = run_f32_depth_check(dev)
     torch.cuda.empty_cache()
 
-    records["T"] = check_k5(dev)
+    records["T"] = check_k5(dev) + check_k5_wide(dev)
     torch.cuda.empty_cache()
     launches_t, info_t = run_training_path(dev)
     torch.cuda.empty_cache()
@@ -2337,13 +2618,16 @@ def main() -> int:
 
     kernels_out = []
     for tag, launches in (("A", launches_a), ("B", launches_b),
-                          ("V", launches_v), ("S", launches_s),
+                          ("V", launches_v), ("D", launches_d),
+                          ("W", launches_w), ("R", launches_r),
+                          ("S", launches_s),
                           ("T", launches_t), ("M", launches_m),
                           ("P", launches_p), ("H", launches_h)):
         for rec in records[tag]:
             name = rec["name"].split()[0]
             kernels_out.append(dict(rec, launches=launches[name], path=tag))
     log(json.dumps({"paths": {"A": info_a, "B": info_b, "V": info_v,
+                              "D": info_d, "W": info_w, "R": info_r,
                               "S": info_s, "T": info_t, "M": info_m,
                               "P": info_p, "H": info_h}}))
     log(json.dumps({"kernels": kernels_out}))

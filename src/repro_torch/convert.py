@@ -5,10 +5,12 @@ For the power path the "weights" are the scenario state.  Two forms:
 * the reference's ``BatchedSimulator`` packs its cells into a dict of NumPy
   arrays (``_arrays``) plus a static spec (``_static``) that shapes the
   program; :func:`from_reference_pack` builds the port's simulator over
-  the very same bytes;
+  the very same bytes, in the cap-only or the churn regime, with or
+  without a budget tree;
 * a reference ``ClusterSnapshot`` and its demand traces, the inputs of its
   ``VectorSimulator``; :func:`from_reference_snapshot` rebuilds them as the
-  port's objects.
+  port's objects (a budget tree too), and :func:`from_reference_config`
+  its ``SimConfig`` (scripted power events too).
 
 For the serving path, :func:`from_reference_params` copies the model's
 parameter tree, and for training :func:`from_reference_train_state` the
@@ -24,10 +26,12 @@ import numpy as np
 import torch
 
 from repro_torch.backend import resolve_device
-from repro_torch.core.kernels import BalanceParams
+from repro_torch.core.budget_tree import BudgetTree
+from repro_torch.core.kernels import BalanceParams, DPMParams
 from repro_torch.core.power_model import HostPowerSpec
 from repro_torch.drs.snapshot import ClusterSnapshot, Host, VirtualMachine
-from repro_torch.sim.batch import BatchedSimulator, BatchUnsupported
+from repro_torch.sim.batch import BatchedSimulator, BatchUnsupported, Schedule
+from repro_torch.sim.cluster import SimConfig
 from repro_torch.sim.workloads import TraceSpec, spec_trace
 
 
@@ -37,15 +41,19 @@ def from_reference_pack(arrays: dict, static, device=None,
 
     ``arrays`` is the reference simulator's ``_arrays``; ``static`` its
     ``_static``, of which the fields ``tick_s``, ``waterfill_iters``,
-    ``balance``, ``keep_timeseries`` and ``n_tags`` are read (the others
-    shape regimes the cap-only port refuses).  Cells are named ``cell{i}``
-    and tags ``tag{g}`` in the reference's (sorted) tag order; a cell has
-    a window when any tick falls inside it.
+    ``balance``, ``keep_timeseries``, ``n_tags``, ``churn``, ``dpm``,
+    ``drs_period_s``, ``drs_first_at_s`` and the power latencies are read.
+    The churn pack's extra keys (``exists``, ``dpm``, ``vm``,
+    ``migratable``, the ``ev_*`` events and the ``tree_*`` columns) come
+    along.  A pack of the migration layer (rules, a live balancer, timed
+    vMotions: ROADMAP queue 1, item 6) raises.  Cells are named
+    ``cell{i}`` and tags ``tag{g}`` in the reference's (sorted) tag order;
+    a cell has a window when any tick falls inside it.
     """
-    if static.churn or static.n_tree_nodes:
+    if static.migration or static.timed:
         raise BatchUnsupported(
-            "the reference pack is in the dynamic regime or carries a "
-            "budget tree; the port replays the cap-only regime only")
+            "the reference pack runs the migration layer, which is not "
+            "ported yet (ROADMAP queue 1, item 6)")
     n_cells = arrays["on"].shape[0]
     return BatchedSimulator.from_pack(
         arrays, names=[f"cell{i}" for i in range(n_cells)],
@@ -54,7 +62,11 @@ def from_reference_pack(arrays: dict, static, device=None,
         tick_s=static.tick_s,
         balance=BalanceParams(**static.balance._asdict()),
         waterfill_iters=static.waterfill_iters,
-        keep_timeseries=static.keep_timeseries, device=device)
+        keep_timeseries=static.keep_timeseries, device=device,
+        churn=static.churn, dpm=DPMParams(**static.dpm._asdict()),
+        schedule=Schedule(static.drs_period_s, static.drs_first_at_s,
+                          static.power_on_latency_s,
+                          static.power_off_latency_s))
 
 
 def _fields(obj, cls) -> dict:
@@ -67,20 +79,24 @@ def from_reference_snapshot(snapshot, traces: dict
     its traces.
 
     Hosts, host specs and VMs are copied field by field (rules as they
-    are: the port's manager refuses them).  A trace with a declarative
-    ``.spec`` becomes the port's :func:`~repro_torch.sim.workloads.
-    spec_trace` of the same segments and period, which is what the vector
-    engines evaluate; a trace without one is carried as the callable it is.
-    A reference budget tree raises, as the port's snapshot does.
+    are: the port's manager refuses them), and a budget tree as the port's
+    :class:`~repro_torch.core.budget_tree.BudgetTree` of the same parents,
+    limits and host nodes.  A trace with a declarative ``.spec`` becomes
+    the port's :func:`~repro_torch.sim.workloads.spec_trace` of the same
+    segments and period, which is what the vector engines evaluate; a
+    trace without one is carried as the callable it is.  The scripted
+    ``power_events`` live in the ``SimConfig``, which the caller builds.
     """
     hosts = [Host(**dict(_fields(h, Host),
                          spec=HostPowerSpec(**_fields(h.spec, HostPowerSpec))))
              for h in snapshot.hosts.values()]
     vms = [VirtualMachine(**_fields(v, VirtualMachine))
            for v in snapshot.vms.values()]
+    tree = getattr(snapshot, "budget_tree", None)
+    if tree is not None:
+        tree = BudgetTree(tree.parent, tree.limit, tree.host_node)
     snap = ClusterSnapshot(hosts, vms, power_budget=snapshot.power_budget,
-                           rules=list(snapshot.rules),
-                           budget_tree=getattr(snapshot, "budget_tree", None))
+                           rules=list(snapshot.rules), budget_tree=tree)
     out = {}
     for vm_id, trace in traces.items():
         spec = getattr(trace, "spec", None)
@@ -88,6 +104,12 @@ def from_reference_snapshot(snapshot, traces: dict
             segments=tuple(tuple(seg) for seg in spec.segments),
             period=spec.period))
     return snap, out
+
+
+def from_reference_config(config) -> SimConfig:
+    """The port's ``SimConfig`` with the reference config's fields (its
+    time grid, latencies, migration model and ``power_events``)."""
+    return SimConfig(**_fields(config, SimConfig))
 
 
 def _param_tensor(a, dtype, dev) -> torch.Tensor:

@@ -56,6 +56,17 @@ def balance_power_cap(snapshot: ClusterSnapshot,
         return f, False
     new_caps, did = _balance_caps_dense(f, av, snapshot.power_budget,
                                         config, resolve_device(device))
+    tree = snapshot.effective_tree()
+    if tree is not None:
+        # Budget trees: transfers conserve the cluster total but may push a
+        # row past its limit; the balanced caps are scaled back under every
+        # node, the reserved floors protected.
+        hosts = av.host_cols()
+        floor_caps = kernels.reserved_floor_caps(
+            hosts, torch.from_numpy(av.cpu_reserved()[None]))
+        new_caps = kernels.tree_project_caps(
+            tree.cols(), hosts.on, torch.from_numpy(new_caps[None]),
+            floor_caps)[0].numpy()
     av.write_caps(f, new_caps)
     if did:
         f.validate()

@@ -252,3 +252,371 @@ def balance_caps(hosts: HostCols, caps, dense: DenseCols, cpu_reserved,
     caps, did, _ = ops.balance_caps(hosts, caps, dense, cpu_reserved,
                                     budget, enabled, params)
     return caps, did
+
+
+# ------------------------------------------------------------ budget tree
+#
+# A hierarchy of budgets (host -> rack -> row -> room) arrives flattened as
+# an ancestor incidence matrix (:class:`repro_torch.core.budget_tree.
+# BudgetTree`), so every tree question is a masked reduction over the node
+# axis: subtree cap-sums up the tree, per-host slack a masked min down,
+# over-limit repair a per-node proportional scale.
+
+#: A node binds for projection only past this overshoot, so kernels whose
+#: totals drift by float-summation ULPs pass through bitwise untouched.
+TREE_PROJECT_EPS = 1e-9
+
+#: Headroom below this counts a node as saturated for evacuation scoping.
+TREE_BIND_EPS = 1e-6
+
+
+class TreeCols(NamedTuple):
+    """Budget-tree columns: ``anc[s, h, m]`` says node ``m`` lies on host
+    ``h``'s root path.  Padded hosts have an all-False row; padded nodes an
+    all-False column with ``limit == inf`` and ``depth == -1``."""
+
+    anc: torch.Tensor              # (S, H, N) bool
+    limit: torch.Tensor            # (S, N) Watts
+    depth: torch.Tensor            # (S, N) int64, root 0
+
+
+def tree_anc_at(tree: TreeCols, host):
+    """Ancestor row of the per-cell host index ``host``: ``(S,) -> (S, N)``."""
+    n = tree.anc.shape[-1]
+    return torch.gather(tree.anc, 1,
+                        host[:, None, None].expand(-1, 1, n))[:, 0, :]
+
+
+def tree_node_sums(tree: TreeCols, on, caps):
+    """Per-node subtree sum of the powered-on caps: ``(S, H) -> (S, N)``."""
+    caps_on = torch.where(on, caps, 0.0)
+    return torch.where(tree.anc, caps_on[..., None], 0.0).sum(-2)
+
+
+def tree_headroom(tree: TreeCols, on, caps):
+    """Per-node Watts left under the node limit (may be < 0)."""
+    return tree.limit - tree_node_sums(tree, on, caps)
+
+
+def tree_host_slack(tree: TreeCols, headroom):
+    """Per-host tightest headroom along the root path (``inf`` for hosts
+    outside the tree, i.e. padding)."""
+    return torch.where(tree.anc, headroom[..., None, :],
+                       torch.inf).amin(-1)
+
+
+def tree_project_caps(tree: TreeCols, on, caps, floors):
+    """Scale caps down until every node limit holds, never below floors.
+
+    Each node whose subtree sum passes its limit by more than
+    :data:`TREE_PROJECT_EPS` scales its hosts' excess over their floors to
+    land on the limit; each host takes the tightest scale on its root path.
+    Nodes that do not bind leave caps bitwise untouched.
+    """
+    fl = torch.where(on, torch.minimum(floors, caps), 0.0)
+    ex = torch.where(on, caps, 0.0) - fl
+    node_fl = torch.where(tree.anc, fl[..., None], 0.0).sum(-2)
+    node_ex = torch.where(tree.anc, ex[..., None], 0.0).sum(-2)
+    binding = node_fl + node_ex > tree.limit + TREE_PROJECT_EPS
+    scale = torch.clamp((tree.limit - node_fl)
+                        / torch.clamp_min(node_ex, 1e-300), 0.0, 1.0)
+    s_node = torch.where(binding, scale, 1.0)
+    s_host = torch.where(tree.anc, s_node[..., None, :], torch.inf).amin(-1)
+    return torch.where(on & (s_host < 1.0), fl + s_host * ex, caps)
+
+
+def tree_evac_scope(tree: TreeCols, on, caps, victim):
+    """Destinations for evacuating ``victim``: the subtree of its deepest
+    saturated ancestor (headroom below :data:`TREE_BIND_EPS`), or every
+    host when no ancestor is saturated."""
+    s, h, _ = tree.anc.shape
+    head = tree_headroom(tree, on, caps)
+    saturated = tree_anc_at(tree, victim) & (head < TREE_BIND_EPS)
+    key = torch.where(saturated, tree.depth, -1)
+    node = key.argmax(-1)                                    # deepest
+    scope = torch.gather(tree.anc, 2,
+                         node[:, None, None].expand(s, h, 1))[..., 0]
+    return torch.where(saturated.any(-1)[:, None], scope,
+                       torch.ones_like(scope))
+
+
+# -------------------------------------------------- DPM + redistribution
+class DPMParams(NamedTuple):
+    """DPM thresholds (:class:`repro_torch.drs.dpm.DPMConfig`'s)."""
+
+    high_util: float = 0.81        # power-on trigger
+    low_util: float = 0.45         # power-off consideration band
+    target_util: float = 0.45      # post-consolidation ceiling on targets
+    stable_window_s: float = 300.0 # utilization must be low this long
+
+
+#: Utilizations are ranked at this resolution (2^-30, about 9.3e-10):
+#: hosts that agree to it rank as equal, the lower index first.
+UTIL_TIE_QUANTUM = 2.0 ** -30
+
+
+def util_rank_key(util):
+    """The key DPM ranks hosts by: ``util`` rounded down to
+    :data:`UTIL_TIE_QUANTUM` (exact in float64, so bitwise the same on any
+    device).  BalancePowerCap equalizes utilizations, so raw values tie
+    to within rounding (a spread of about 1e-15), and which host ranks
+    first would follow each device's and engine's rounding; the reference's
+    own engines split on such ties (ROADMAP trap T5).  Values further apart
+    than the quantum keep their order."""
+    return torch.floor(util / UTIL_TIE_QUANTUM)
+
+
+def stable_argsort(x, dim: int = -1):
+    """Argsort that keeps ties in index order, as NumPy's and JAX's do
+    (``torch.argsort`` is not stable unless asked)."""
+    return torch.argsort(x, dim=dim, stable=True)
+
+
+def sequential_cumsum(x):
+    """Inclusive prefix sum over the last axis, added left to right on any
+    device (``torch.cumsum`` promises no order on CUDA, and the order
+    decides the 1e-9 residue test of :func:`power_on_funding_caps`)."""
+    acc = torch.zeros_like(x[..., 0])
+    out = []
+    for k in range(x.shape[-1]):
+        acc = acc + x[..., k]
+        out.append(acc)
+    return torch.stack(out, -1) if out else torch.zeros_like(x)
+
+
+def host_utilizations(hosts: HostCols, caps, eff_demand_h, mem_demand_h,
+                      host_mem):
+    """Per-host (cpu, mem) utilizations: zero for powered-off hosts and
+    hosts with no capacity."""
+    managed = managed_capacity(hosts, caps)
+    cpu = torch.where(managed > 0.0,
+                      eff_demand_h / torch.clamp_min(managed, 1e-300), 0.0)
+    ok = hosts.on & (host_mem > 0.0)
+    mem = torch.where(ok, mem_demand_h / torch.clamp_min(host_mem, 1e-300),
+                      0.0)
+    return cpu, mem
+
+
+def dpm_hot_mask(on, cpu_util, mem_util, high_util: float):
+    """DPM's power-on trigger: powered-on hosts hot on CPU or memory."""
+    return on & ((cpu_util > high_util) | (mem_util > high_util))
+
+
+def dpm_all_low(on, cpu_util, mem_util, low_util: float):
+    """DPM's power-off consideration: every powered-on host below the low
+    band on CPU and memory (per cell; true with no host on)."""
+    low = (cpu_util < low_util) & (mem_util < low_util)
+    return (~on | low).all(-1)
+
+
+def _at(col, idx):
+    """``col[s, idx[s]]`` for an ``(S, H)`` column and ``(S,)`` indices."""
+    return torch.gather(col, -1, idx[:, None])[:, 0]
+
+
+def power_on_funding_caps(hosts: HostCols, caps, cand, cpu_util,
+                          host_demand, cpu_reserved, budget,
+                          high_util: float, tree: TreeCols | None = None):
+    """Algorithm 3's power-on funding (paper Fig. 5) for host ``cand``
+    (``(S,)``): unallocated budget first, then low-utilization donors,
+    coolest first, drained down to the capacity at which DPM's power-on
+    trigger would fire, never below their reservations or idle power.
+
+    With a ``tree`` the pool is clipped to the candidate's tightest
+    ancestor headroom, and each donation is capped by the headroom of the
+    nodes it crosses (ancestors of the candidate but not of the donor),
+    which it then debits.  Returns ``(new_caps, granted)``: donors drained
+    and the candidate at ``min(granted, peak)``.
+    """
+    on = hosts.on
+    s, h = caps.shape
+    h_idx = torch.arange(h, device=caps.device)
+    peak_c = _at(hosts.power_peak, cand)
+    granted0 = torch.where(_at(on, cand), _at(caps, cand), 0.0)
+    needed = torch.clamp_min(peak_c - granted0, 0.0)
+
+    # Step 1: unallocated budget (within the candidate's ancestor headroom
+    # when a tree is live).
+    pool = torch.clamp_min(budget - torch.where(on, caps, 0.0).sum(-1), 0.0)
+    if tree is not None:
+        head = tree_headroom(tree, on, caps)
+        anc_c = tree_anc_at(tree, cand)
+        pool_c = torch.where(anc_c, head, torch.inf).amin(-1)
+        pool = torch.minimum(pool, torch.clamp_min(pool_c, 0.0))
+    take0 = torch.minimum(pool, needed)
+    needed = needed - take0
+
+    # Step 2: the greedy drain as a sorted prefix sum: the k-th coolest
+    # donor gives clip(needed - taken so far, 0, avail_k), nothing once the
+    # residue is 1e-9 or less (the object plane's early break).
+    is_cand = h_idx == cand[:, None]
+    donor = on & ~is_cand & (cpu_util < high_util)
+    floor_capacity = torch.maximum(host_demand / high_util, cpu_reserved)
+    floor_cap = torch.maximum(cap_for_managed_capacity(hosts, floor_capacity),
+                              hosts.power_idle)
+    avail = torch.where(donor, torch.clamp_min(caps - floor_cap, 0.0), 0.0)
+    order = stable_argsort(torch.where(donor, util_rank_key(cpu_util),
+                                       torch.inf))
+    sorted_avail = torch.gather(avail, -1, order)
+    cum_before = sequential_cumsum(sorted_avail) - sorted_avail
+    residue = needed[:, None] - cum_before
+    take = torch.where(residue > 1e-9,
+                       torch.minimum(torch.clamp_min(residue, 0.0),
+                                     sorted_avail), 0.0)
+    if tree is not None:
+        # Each sorted donation is capped by the headroom of the nodes it
+        # crosses, which it debits; with no crossed node binding the flat
+        # ``take`` passes bitwise.
+        head = head - torch.where(anc_c, take0[:, None], 0.0)
+        anc_sorted = torch.gather(
+            tree.anc, 1, order[..., None].expand(-1, -1, tree.anc.shape[-1]))
+        for k in range(h):
+            crossed = anc_c & ~anc_sorted[:, k, :]
+            room = torch.where(crossed, head, torch.inf).amin(-1)
+            t = torch.minimum(take[:, k], torch.clamp_min(room, 0.0))
+            head = head - torch.where(crossed, t[:, None], 0.0)
+            take = torch.where(h_idx[None, :] == k, t[:, None], take)
+    taken = torch.gather(take, -1, stable_argsort(order))
+
+    granted = torch.minimum(granted0 + take0 + take.sum(-1), peak_c)
+    new_caps = torch.where(is_cand, granted[:, None], caps - taken)
+    return new_caps, granted
+
+
+def power_off_reabsorb_caps(hosts: HostCols, caps, off_idx, budget,
+                            tree: TreeCols | None = None):
+    """Algorithm 3's power-off reabsorption: the victim's cap returns to
+    the pool, spread over the remaining powered-on hosts in proportion to
+    their headroom to peak (victim at 0).  With a ``tree`` the growth is
+    projected back under every node limit (floors at the pre-growth
+    caps)."""
+    h_idx = torch.arange(caps.shape[-1], device=caps.device)
+    is_off = h_idx == off_idx[:, None]
+    on_after = hosts.on & ~is_off
+    caps0 = torch.where(is_off, 0.0, caps)
+    pool = torch.clamp_min(
+        budget - torch.where(on_after, caps0, 0.0).sum(-1), 0.0)
+    recipients = on_after & (caps0 < hosts.power_peak - 1e-9)
+    headroom = torch.where(recipients, hosts.power_peak - caps0, 0.0)
+    total_head = headroom.sum(-1)
+    grant_total = torch.minimum(pool, total_head)
+    grown = torch.minimum(
+        caps0 + grant_total[:, None] * headroom
+        / torch.clamp_min(total_head, 1e-300)[:, None],
+        hosts.power_peak)
+    ok = (total_head > 0.0) & (pool > 0.0)
+    result = torch.where(ok[:, None] & recipients, grown, caps0)
+    if tree is None:
+        return result
+    return tree_project_caps(tree, on_after, result, caps0)
+
+
+def plan_evacuation(hosts: HostCols, caps, victim, occ, eff_slot, mem_slot,
+                    res_slot, migratable, host_mem, target_util: float,
+                    scope=None):
+    """DPM's evacuation plan on the dense slot layout ``(S, H, J)``.
+
+    The victim's VMs leave in decreasing memory order (stable on ties),
+    each to the fitting powered-on host with the strictly lowest
+    utilization after the move (the first on ties), within reservations,
+    memory and ``target_util`` on CPU and memory, and inside ``scope``
+    (``(S, H)`` bool) when given.  All or nothing: one unplaceable or
+    unmigratable VM cancels the plan.  Returns ``(ok, order, dests,
+    n_evac, slot_pressure)``: ``dests[:, k]`` is the k-th evacuee's
+    destination (-1 unused), and ``slot_pressure`` flags cells where the
+    ``J`` bound turned a fitting destination away (placement rules join
+    with the migration layer, ROADMAP queue 1, item 6).
+    """
+    s, h, j = occ.shape
+    dev = caps.device
+    on = hosts.on
+    h_idx = torch.arange(h, device=dev)
+    s_idx = torch.arange(s, device=dev)
+    managed = managed_capacity(hosts, caps)
+    act = occ & on[..., None]
+    eff_h = torch.where(act, eff_slot, 0.0).sum(-1)
+    mem_h = torch.where(act, mem_slot, 0.0).sum(-1)
+    res_h = torch.where(act, res_slot, 0.0).sum(-1)
+    cnt_h = occ.sum(-1)
+    is_vic = h_idx == victim[:, None]
+
+    def at_victim(col):
+        return col[s_idx, victim]
+
+    vic_occ, vic_eff, vic_mem, vic_res, vic_mig = (
+        at_victim(c) for c in (occ, eff_slot, mem_slot, res_slot,
+                               migratable))
+    order = stable_argsort(torch.where(vic_occ, -vic_mem, torch.inf))
+    n_vic = vic_occ.sum(-1)
+    base_fit = on & ~is_vic
+    if scope is not None:
+        base_fit = base_fit & scope
+    dests = torch.full((s, j), -1, dtype=victim.dtype, device=dev)
+    ok = torch.ones(s, dtype=torch.bool, device=dev)
+    pressure = torch.zeros(s, dtype=torch.bool, device=dev)
+    for k in range(j):
+        valid = k < n_vic
+        ko = order[:, k]
+        e, m, r = vic_eff[s_idx, ko], vic_mem[s_idx, ko], vic_res[s_idx, ko]
+        mig = vic_mig[s_idx, ko]
+        fit = base_fit & (res_h + r[:, None] <= managed + 1e-9)
+        fit = fit & (mem_h + m[:, None] <= host_mem + 1e-9)
+        util_after = (eff_h + e[:, None]) / torch.clamp_min(managed, 1e-9)
+        mem_after = (mem_h + m[:, None]) / torch.clamp_min(host_mem, 1e-9)
+        fit = fit & (util_after <= target_util) & (mem_after <= target_util)
+        slot_ok = cnt_h < j
+        pressure = pressure | (valid[:, None] & fit & ~slot_ok).any(-1)
+        fit = fit & slot_ok
+        score = torch.where(fit, util_after, torch.inf)
+        best = score.argmin(-1)
+        found = torch.isfinite(score.amin(-1))
+        ok = ok & (~valid | (mig & found))
+        place = valid & ok
+        upd = place[:, None] & (h_idx == best[:, None])
+        dests[:, k] = torch.where(place, best, dests[:, k])
+        eff_h = eff_h + torch.where(upd, e[:, None], 0.0)
+        mem_h = mem_h + torch.where(upd, m[:, None], 0.0)
+        res_h = res_h + torch.where(upd, r[:, None], 0.0)
+        cnt_h = cnt_h + upd.to(cnt_h.dtype)
+    n_evac = torch.where(ok, n_vic, 0)
+    return ok, order, dests, n_evac, pressure
+
+
+# ------------------------------------------------------- slot moves
+#: Pad values restored to a slot when its VM moves away.  Engines carrying
+#: more per-slot columns (demand traces, tag masks) extend this mapping.
+SLOT_PAD = {"occ": False, "reservation": 0.0, "limit": float("inf"),
+            "weights": 1e-12, "migratable": True, "cpu": 0.0, "mem": 0.0}
+
+
+def move_slot(work: dict, do, src, j, dst, pads=SLOT_PAD):
+    """Move slot ``(src, j)`` to ``dst``'s first free slot, per cell.
+
+    ``work`` maps column names to ``(S, H, J, ...)`` tensors (with
+    ``"occ"``); every column travels with the VM and the vacated slot takes
+    its pad value.  Free slots are found by occupancy, so holes left by
+    earlier moves are reused.  Returns ``(work, moved)``, ``moved``
+    masking the cells whose destination had a free slot.  The update is a
+    two-point copy per column: no accumulation.
+    """
+    occ = work["occ"]
+    s_ax, h_ax, j_ax = occ.shape
+    s_idx = torch.arange(s_ax, device=occ.device)
+    src_c = torch.clamp(src, 0, h_ax - 1)
+    j_c = torch.clamp(j, 0, j_ax - 1)
+    dst_c = torch.clamp(dst, 0, h_ax - 1)
+    occ_d = occ[s_idx, dst_c]                         # (S, J)
+    ns = occ_d.to(torch.uint8).argmin(-1)             # first free slot
+    moved = do & ~occ_d[s_idx, ns]
+    out = {}
+    for key, arr in work.items():
+        val = arr[s_idx, src_c, j_c]                  # (S, *trailing)
+        m = moved.reshape(moved.shape + (1,) * (val.ndim - 1))
+        arr = arr.clone()
+        arr[s_idx, dst_c, ns] = torch.where(m, val, arr[s_idx, dst_c, ns])
+        pad = pads[key]
+        if not isinstance(pad, torch.Tensor):
+            pad = torch.tensor(pad, dtype=arr.dtype, device=arr.device)
+        arr[s_idx, src_c, j_c] = torch.where(m, pad, arr[s_idx, src_c, j_c])
+        out[key] = arr
+    return out, moved

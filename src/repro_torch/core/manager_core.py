@@ -11,11 +11,14 @@ One DRS invocation (default every 300 s) runs:
 
 The simulators call :meth:`ManagerCore.invoke` (through
 :class:`repro_torch.core.manager.CloudPowerCapManager`) on snapshot clones
-and execute the emitted :mod:`repro_torch.drs.actions` list.  The port
-covers the cap-only regime: rules, the migration search and DPM raise
-(ROADMAP queue 1, items 5 and 6); the migration balancer's own stopping
-test runs, so an invocation whose search would stop in its first round
-completes with the reference's default ``BalancerConfig``.
+and execute the emitted :mod:`repro_torch.drs.actions` list, with its
+prerequisite edges (decreases before the increases they fund, funding
+before a power-on, evacuations before a power-off).  Placement rules and
+the migration search raise (the migration layer, ROADMAP queue 1,
+item 6); the migration balancer's own stopping test runs, so an
+invocation whose search would stop in its first round completes with the
+reference's default ``BalancerConfig``.  DPM's evacuations are moves of
+their own and run.
 BalancePowerCap, the entitlement sums behind the invocation's notes and
 the balancer's entitlement waterfill run on the manager's ``device``
 (kernels K2, K3 and K1 on the GPU).
@@ -31,6 +34,7 @@ from typing import Optional
 
 from repro_torch.backend import resolve_device
 from repro_torch.core import balance as bal
+from repro_torch.core import redistribute as redist
 from repro_torch.core import redivvy
 from repro_torch.drs import actions as act
 from repro_torch.drs import balancer, dpm, placement
@@ -77,8 +81,11 @@ class ManagerCore:
         notes: list[str] = []
         working = self._phase_allocation(snapshot, actions, notes)
         working = self._phase_balancing(working, actions, notes)
-        working = self._phase_redistribution(working, now, low_since,
-                                             last_config_change)
+        working = self._phase_redistribution(working, actions, notes, now,
+                                             low_since, last_config_change)
+        # Every phase projects or scopes its own caps, so the tree holds on
+        # the state the invocation hands back (a powering-on candidate's
+        # grant counts through its already-set cap).
         assert working.tree_respected(), (
             "manager invocation left a budget-tree node over its limit")
         migrations = sum(1 for a in actions if a.kind == "migrate")
@@ -138,11 +145,64 @@ class ManagerCore:
         return working
 
     # ---------------- Phase 3: DPM + redistribution -------------------
-    def _phase_redistribution(self, working: ClusterSnapshot, now: float,
+    def _phase_redistribution(self, working: ClusterSnapshot, actions: list,
+                              notes: list, now: float,
                               low_since: Optional[dict],
                               last_config_change: float) -> ClusterSnapshot:
-        if self.config.dpm_enabled:
-            # Not ported yet: run_dpm raises (ROADMAP queue 1, item 5).
-            dpm.run_dpm(working, self.config.dpm, low_since=low_since,
-                        now=now, last_config_change=last_config_change)
+        cfg = self.config
+        if not cfg.dpm_enabled:
+            return working
+        rec = dpm.run_dpm(working, cfg.dpm, low_since=low_since, now=now,
+                          last_config_change=last_config_change)
+        if rec.power_on is not None and cfg.powercap_enabled:
+            funded, granted = redist.redistribute_for_power_on(
+                working, rec.power_on, cfg.dpm)
+            spec = working.hosts[rec.power_on].spec
+            if spec.managed_capacity(granted) <= 0.0:
+                notes.append(
+                    f"dpm power-on {rec.power_on} infeasible: "
+                    f"only {granted:.0f} W available")
+            else:
+                # The candidate's funded cap is an action like any other,
+                # after the decreases that fund it: the host comes up with
+                # its grant applied.
+                cap_actions = redist.emit_actions(
+                    working, funded, reason="powercap-poweron",
+                    include=(rec.power_on,))
+                pon = act.power_on(
+                    rec.power_on,
+                    prereqs=tuple(a.action_id for a in cap_actions),
+                    reason="dpm")
+                actions += cap_actions + [pon]
+                working = funded
+                working.hosts[rec.power_on].powered_on = True
+                notes.append(f"dpm power-on {rec.power_on} "
+                             f"granted {granted:.0f} W")
+        elif rec.power_on is not None:
+            actions.append(act.power_on(rec.power_on, reason="dpm"))
+            notes.append(f"dpm power-on {rec.power_on}")
+            working.hosts[rec.power_on].powered_on = True
+        elif rec.power_off is not None:
+            evac = [act.migrate(vm, dest, reason="dpm-evacuate")
+                    for vm, dest in rec.evacuations]
+            for vm, dest in rec.evacuations:
+                working.move_vm(vm, dest)
+            poff = act.power_off(
+                rec.power_off,
+                prereqs=tuple(a.action_id for a in evac), reason="dpm")
+            actions += evac + [poff]
+            if cfg.powercap_enabled:
+                redistributed = redist.redistribute_after_power_off(
+                    working, rec.power_off)
+                cap_actions = redist.emit_actions(
+                    working, redistributed, reason="powercap-poweroff")
+                for a in cap_actions:
+                    a.prereqs = a.prereqs + (poff.action_id,)
+                actions += cap_actions
+                working = redistributed
+            else:
+                working.hosts[rec.power_off].powered_on = False
+            notes.append(
+                f"dpm power-off {rec.power_off} "
+                f"({len(rec.evacuations)} evacuations)")
         return working

@@ -31,9 +31,17 @@ def redivvy_power_cap(before: ClusterSnapshot, after: ClusterSnapshot,
     av = after.as_arrays()
     caps_start = np.array([before.hosts[hid].power_cap
                            for hid in av.host_ids], dtype=np.float64)
-    new_caps = kernels.redivvy_caps(
-        torch.from_numpy(av.host_on[None]), torch.from_numpy(caps_start[None]),
-        torch.from_numpy(av.power_cap[None]))[0].numpy()
+    on, floors = (torch.from_numpy(av.host_on[None]),
+                  torch.from_numpy(av.power_cap[None]))
+    new_caps = kernels.redivvy_caps(on, torch.from_numpy(caps_start[None]),
+                                    floors)
+    tree = after.effective_tree()
+    if tree is not None:
+        # Budget trees: the redivvied caps scaled back under every node
+        # limit, the reserved floors protected (``after`` arrives floored).
+        new_caps = kernels.tree_project_caps(tree.cols(), on, new_caps,
+                                             floors)
+    new_caps = new_caps[0].numpy()
     for i, hid in enumerate(av.host_ids):
         if av.host_on[i]:
             after.hosts[hid].power_cap = float(new_caps[i])
@@ -74,6 +82,13 @@ def fundable_capacity(flex: ClusterSnapshot, host_id: str) -> float:
         return 0.0
     spare = max(flex.power_budget - sum(
         h.power_cap for h in flex.powered_on_hosts()), 0.0)
+    tree = flex.effective_tree()
+    if tree is not None:
+        # Spare Watts reach the host only up to the tightest headroom on
+        # its root path.
+        av = flex.as_arrays()
+        slack = tree.host_slack(av.power_cap, av.host_on)
+        spare = min(spare, max(float(slack[av.host_index[host_id]]), 0.0))
     cap = min(host.power_cap + spare, host.spec.power_peak)
     return float(host.spec.managed_capacity(cap))
 

@@ -5,10 +5,10 @@ inventory: it clones the snapshot, runs candidate actions on the clone in
 what-if mode, and emits the actions that pass.  Capacity unit is MHz
 (paper convention).
 
-Budget trees belong to a later slice of the port (ROADMAP queue 1, item 5):
-a snapshot given one raises, and :meth:`ClusterSnapshot.effective_tree` is
-always ``None``.  Placement rules are carried so that the manager can
-refuse them (item 6).
+A snapshot may carry a :class:`repro_torch.core.budget_tree.BudgetTree`
+over its hosts (in iteration order).  Placement rules are carried so that
+the manager can refuse them (the migration layer, ROADMAP queue 1,
+item 6).
 """
 
 from __future__ import annotations
@@ -93,13 +93,15 @@ class ClusterSnapshot:
     def __init__(self, hosts: Iterable[Host], vms: Iterable[VirtualMachine],
                  power_budget: float, rules: Optional[list] = None,
                  budget_tree=None):
-        if budget_tree is not None:
-            raise NotImplementedError(
-                "budget trees are not ported yet (ROADMAP queue 1, item 5)")
         self.hosts: dict[str, Host] = {h.host_id: h for h in hosts}
         self.vms: dict[str, VirtualMachine] = {v.vm_id: v for v in vms}
         self.power_budget = float(power_budget)
         self.rules = list(rules or [])
+        #: ``None`` or a trivial tree means the flat scalar budget; trees
+        #: are immutable and shared across clones.
+        self.budget_tree = budget_tree
+        if budget_tree is not None and budget_tree.n_hosts != len(self.hosts):
+            raise ValueError("budget tree host count != cluster host count")
         self._host_sums: Optional[dict] = None
         for vm in self.vms.values():
             if vm.host_id is not None and vm.host_id not in self.hosts:
@@ -111,6 +113,7 @@ class ClusterSnapshot:
         snap.vms = {k: copy.copy(v) for k, v in self.vms.items()}
         snap.power_budget = self.power_budget
         snap.rules = list(self.rules)
+        snap.budget_tree = self.budget_tree
         snap._host_sums = None
         return snap
 
@@ -236,11 +239,21 @@ class ClusterSnapshot:
         return self.total_allocated_power() <= self.power_budget + 1e-6
 
     def effective_tree(self):
-        """Always ``None``: budget trees are not ported yet."""
-        return None
+        """The budget tree when it constrains beyond the scalar budget;
+        ``None`` for a flat or trivial one (the engines then take the
+        scalar path, bitwise)."""
+        tree = self.budget_tree
+        if tree is None or tree.is_trivial(self.power_budget):
+            return None
+        return tree
 
     def tree_respected(self, atol: float = 1e-6) -> bool:
-        return True
+        """Every budget-tree node's subtree cap-sum within its limit."""
+        tree = self.effective_tree()
+        if tree is None:
+            return True
+        av = self.as_arrays()
+        return tree.max_overshoot(av.power_cap, av.host_on) <= atol
 
     def validate(self) -> None:
         assert self.budget_respected(), (

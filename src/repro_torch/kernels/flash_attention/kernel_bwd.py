@@ -24,9 +24,8 @@ from repro_torch.kernels._build import stream
 from repro_torch.kernels.flash_attention import kernel
 from repro_torch.kernels.flash_attention.kernel import DTYPES, LIBRARY
 
-#: Head dims K5 takes: at 256 its CUDA-core tiles pass a block's shared
-#: memory.
-HEAD_DIMS = (16, 32, 64, 112, 128)
+#: Head dims K5 takes (129-255 reach 256 zero-padded by the wrapper).
+HEAD_DIMS = (16, 32, 64, 112, 128, 256)
 
 # The tensor-core kernels' geometry (csrc/flash_bwd_tc.cu): the dk/dv
 # kernel's blocks of 128 keys with ring stages of 64 query rows (32 at D
@@ -37,7 +36,13 @@ HEAD_DIMS = (16, 32, 64, 112, 128)
 _BOX = 64 * 128
 _ALIGN = 1024
 _BLOCK_ROWS = 128
-_CORE_ROWS = 64
+
+
+def core_rows(d: int) -> int:
+    """The CUDA-core kernels' row block at head dim ``d``
+    (``row_block`` in csrc/flash_bwd.cu): 64, or 32 above D 128, where
+    64 rows of D 256 take 296,960 bytes of shared memory a block."""
+    return 32 if d > 128 else 64
 
 
 @dataclasses.dataclass(frozen=True)
@@ -79,10 +84,10 @@ def plan(b: int, sq: int, skv: int, hq: int, hkv: int, d: int,
         return Plan("tensor_core",
                     ((hkv, b, _cdiv(skv, _BLOCK_ROWS)),
                      (hq, b, _cdiv(sq, dq_rows))), (dkdv, dq))
-    smem = 4 * (4 * _CORE_ROWS * (d + 1) + 2 * _CORE_ROWS * 65
-                + 2 * _CORE_ROWS)
-    return Plan("cuda_core", ((_cdiv(skv, _CORE_ROWS), hkv, b),
-                              (_cdiv(sq, _CORE_ROWS), hq, b)), (smem, smem))
+    br = core_rows(d)
+    smem = 4 * (4 * br * (d + 1) + 2 * br * (br + 1) + 2 * br)
+    return Plan("cuda_core", ((_cdiv(skv, br), hkv, b),
+                              (_cdiv(sq, br), hq, b)), (smem, smem))
 
 
 def flash_bwd(q, k, v, dout, lse, dsum, dq, dk, dv, p: Plan, *,

@@ -14,8 +14,7 @@ launches its dk/dv kernel and its dq kernel once).
 
 A head dim that the kernels lack is zero-padded along D to the next one
 they take (:func:`padded_forward`, :func:`padded_backward`), and the
-kernels run with the true ``1 / sqrt(D)``: K4 takes any D up to 256, K5 any
-D up to 128.
+kernels run with the true ``1 / sqrt(D)``: K4 and K5 take any D up to 256.
 """
 
 from __future__ import annotations
@@ -155,8 +154,8 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
     log-sum-exp: ``(dq, dk, dv)`` in the inputs' layouts and types, dk and
     dv summed over each KV head's group.  ``D = rowsum(dO * O)`` is a
     float32 PyTorch op, outside the kernels, as the reference computes it
-    in plain JAX outside its kernels.  K5 takes head dims up to 128: its
-    CUDA-core tiles pass a block's shared memory above that."""
+    in plain JAX outside its kernels.  K5 takes head dims up to 256; one
+    that it lacks is zero-padded to the next it has."""
     _check(q, k, v)
     if dout.shape != q.shape or dout.dtype != q.dtype:
         raise ValueError(f"dout {tuple(dout.shape)} {dout.dtype} does not "
@@ -168,11 +167,6 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
     _device(q)
     d = q.shape[3]
     if d not in kernel_bwd.HEAD_DIMS:
-        if d > max(kernel_bwd.HEAD_DIMS):
-            raise ValueError(
-                f"K5 takes head dims up to {max(kernel_bwd.HEAD_DIMS)}, not "
-                f"{d}: its CUDA-core tiles at a wider head dim pass a "
-                f"block's shared memory")
         return padded_backward(
             _launch_backward, q, k, v, out, lse, dout,
             padded_head_dim(d, kernel_bwd.HEAD_DIMS, "K5"), causal=causal,

@@ -10,14 +10,16 @@ endpoints; power-on and power-off take their latencies.
 Delivery and accounting are the engine's: the port has the vector engine
 (:class:`repro_torch.sim.engine.VectorSimulator`).  The per-object delivery
 of the reference's legacy engine is a later slice (ROADMAP queue 1, item 8),
-as are scripted power events (item 5) and gated migration launches
-(item 6), which raise.
+as are gated migration launches (item 6), which raise.  Scripted power
+events (host failures, maintenance windows) flip hosts on schedule.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional
+
+import numpy as np
 
 from repro_torch.drs.snapshot import ClusterSnapshot
 from repro_torch.sim.metrics import Accumulators
@@ -80,10 +82,6 @@ class Simulator:
         self.manager = manager
         self.traces = traces
         self.config = config or SimConfig()
-        if self.config.power_events:
-            raise NotImplementedError(
-                "scripted power events are not ported yet (the dynamic "
-                "regime is a later slice: ROADMAP queue 1, item 5)")
         if self.config.migration_gated:
             raise NotImplementedError(
                 "gated migration launches are not ported yet (ROADMAP "
@@ -97,6 +95,8 @@ class Simulator:
         self.last_config_change = -1e18
         self.timeline: list = []
         self.events: list = []
+        self._power_events = sorted(self.config.power_events)
+        self._next_power_event = 0
         # Bumped whenever executed actions mutate placement, power state, or
         # caps; array-backed subclasses use it to refresh their columns.
         self._topology_version = 0
@@ -113,6 +113,48 @@ class Simulator:
     def _migration_duration(self, vm) -> float:
         mb = max(vm.mem_demand, 64.0)
         return max(mb / self.config.vmotion_rate_mb_s, self.config.tick_s)
+
+    def _apply_power_events(self, t: float) -> None:
+        """Scripted host lifecycle: power states flip at their scheduled
+        tick, counting as a configuration change for DPM's stability
+        window.  A returning host boots with at most the unallocated budget
+        as its cap, and within its tree slack, with the grants of hosts
+        whose power-on is in flight counted as allocated."""
+        while (self._next_power_event < len(self._power_events)
+               and self._power_events[self._next_power_event][0] <= t):
+            _, host_id, on = self._power_events[self._next_power_event]
+            self._next_power_event += 1
+            host = self.live.hosts[host_id]
+            if host.powered_on == bool(on):
+                continue
+            if on:
+                total = sum(h.power_cap for h in self.live.powered_on_hosts())
+                allocated = {h.host_id for h in self.live.powered_on_hosts()}
+                for p in self.pending:
+                    if p.action.kind == "power_on" and \
+                            p.state in ("waiting", "running"):
+                        tgt = self.live.hosts[p.action.target]
+                        if not tgt.powered_on:
+                            total += tgt.power_cap
+                            allocated.add(tgt.host_id)
+                host.power_cap = min(
+                    host.power_cap,
+                    max(self.live.power_budget - total, 0.0))
+                tree = self.live.effective_tree()
+                if tree is not None:
+                    ids = list(self.live.hosts)
+                    caps = np.array(
+                        [self.live.hosts[h].power_cap for h in ids])
+                    mask = np.array([h in allocated for h in ids])
+                    slack = tree.host_slack(caps, mask)
+                    host.power_cap = min(
+                        host.power_cap,
+                        max(float(slack[ids.index(host_id)]), 0.0))
+            host.powered_on = bool(on)
+            self._topology_version += 1
+            self.last_config_change = t
+            self.events.append(
+                (t, f"power_event {host_id} {'on' if on else 'off'}"))
 
     def _prereqs_done(self, p: _Pending) -> bool:
         return all(pid in self.done_ids for pid in p.action.prereqs)
@@ -226,6 +268,7 @@ class Simulator:
         next_drs = cfg.drs_first_at_s
         t = 0.0
         while t < cfg.duration_s:
+            self._apply_power_events(t)
             self._update_demands(t)
             self._complete_actions(t)
             self._start_actions(t)

@@ -258,6 +258,17 @@ class VectorSimulator(Simulator):
         assert total <= self.live.power_budget + 1e-6, (
             f"budget violated during execution: {total:.1f} W > "
             f"{self.live.power_budget:.1f} W")
+        tree = self.live.effective_tree()
+        if tree is not None:
+            mask = self._host_on.copy()
+            for p in self.pending:
+                if p.action.kind == "power_on" and p.state in ("waiting",
+                                                               "running"):
+                    mask[self._host_idx[p.action.target]] = True
+            over = tree.max_overshoot(self._power_cap, mask)
+            assert over <= 1e-6, (
+                f"budget tree violated during execution: worst node over "
+                f"by {over:.6f} W")
 
     # ----------------------------------------------------------- manager
     def _invoke_manager(self, t: float) -> None:

@@ -1,14 +1,22 @@
 """Scenario sweeps: programmatic scenario families at cluster scale.
 
-The cap-only families of the reference's sweep harness
-(``repro.sim.sweep``): cluster size x rack budget x spike pattern x host
-mix, each under the ``cpc``/``static``/``statichigh`` policies, with the
-same random draws (``np.random.RandomState(spec.seed)``), so both packages
-build byte-identical cells.  :func:`run_sweep` runs them cell by cell on
-the vector engine (the default, as in the reference) or as one batch on the
-batched engine.  The manager runs with no migration search and no DPM.
-Capacity churn, placement rules and budget trees are later slices of the
-port; specs asking for them raise
+The families of the reference's sweep harness (``repro.sim.sweep``):
+cluster size x rack budget x spike pattern x host mix x capacity churn,
+and the ``two_row`` budget tree, each under the
+``cpc``/``static``/``statichigh`` policies, with the same random draws
+(``np.random.RandomState(spec.seed)``), so both packages build
+byte-identical cells.  :func:`run_sweep` runs them cell by cell on the
+vector engine (the default, as in the reference) or as one batch on the
+batched engine.  The manager runs with no migration search.
+
+Capacity churn (``SweepSpec.churn``) exercises the host lifecycle:
+``dpm`` (a demand valley consolidates and powers a host off, a later
+burst powers it back on with Powercap Redistribution funding its cap),
+``maintenance`` (a scripted power-off/power-on window) and ``failure`` (a
+scripted power-off that stays down, with DPM free to bring capacity
+back), all with instantaneous migrations.  The timed families
+(``timed_churn``, ``failure_cascade``) and placement rules need the
+migration layer (ROADMAP queue 1, item 6) and raise
 :class:`repro_torch.sim.batch.BatchUnsupported`.
 """
 
@@ -21,6 +29,7 @@ from typing import Optional, Sequence
 import numpy as np
 
 from repro_torch.backend import resolve_device
+from repro_torch.core.budget_tree import BudgetTree
 from repro_torch.core.manager import CloudPowerCapManager, ManagerConfig
 from repro_torch.core.power_model import PAPER_HOST, HostPowerSpec
 from repro_torch.drs.balancer import BalancerConfig
@@ -41,7 +50,16 @@ SMALL_HOST = HostPowerSpec(
 )
 
 SPIKES = ("flat", "burst", "step", "prime")
+CHURNS = ("none", "dpm", "maintenance", "failure", "timed_churn",
+          "failure_cascade")
+RULESETS = ("none", "violation_burst", "cap_blocked")
+TREES = ("none", "two_row")
 POLICIES = ("cpc", "static", "statichigh")
+
+#: ``two_row``: row 0 (the first half of the hosts) is limited to this
+#: fraction of the rack budget, below its pro-rata share, so the row limit
+#: binds before the rack budget does.
+TWO_ROW_LIMIT_FRAC = 0.45
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,9 +72,9 @@ class SweepSpec:
     rack_budget_w: Optional[float] = None   # default: 250 W per host
     spike: str = "burst"                    # one of SPIKES
     heterogeneous: bool = False             # mix PAPER_HOST with SMALL_HOST
-    churn: str = "none"                     # only "none" is ported
+    churn: str = "none"                     # one of CHURNS
     rules: str = "none"                     # only "none" is ported
-    tree: str = "none"                      # only "none" is ported
+    tree: str = "none"                      # one of TREES
     duration_s: float = 1200.0
     tick_s: float = 10.0
     drs_period_s: float = 300.0
@@ -70,6 +88,23 @@ class SweepSpec:
     @property
     def n_vms(self) -> int:
         return self.n_hosts * self.vms_per_host
+
+    @property
+    def dpm_enabled(self) -> bool:
+        """Churn families where the manager itself drives the lifecycle."""
+        return self.churn in ("dpm", "failure", "timed_churn",
+                              "failure_cascade")
+
+    @property
+    def timed(self) -> bool:
+        """Families of the timed, gated vMotion model (the migration layer,
+        ROADMAP queue 1, item 6)."""
+        return self.churn in ("timed_churn", "failure_cascade")
+
+    @property
+    def migration_enabled(self) -> bool:
+        """Families that run the migration layer (item 6)."""
+        return self.rules != "none" or self.timed
 
 
 def _specs_for(spec: SweepSpec) -> list[HostPowerSpec]:
@@ -89,7 +124,16 @@ def _sweep_traces(spec: SweepSpec, base: np.ndarray, hot_host: np.ndarray,
     segs[:, 0, 1] = base
     counts = np.ones(n, dtype=np.int64)
     periods = np.full(n, np.inf)
-    if spec.spike == "burst":
+    if spec.churn in ("dpm", "timed_churn"):
+        # Valley then burst: the middle third idles the cluster into DPM's
+        # power-off band, the last third runs hot enough to trip its
+        # power-on trigger.
+        counts[:] = 3
+        segs[:, 1, 0] = d / 3.0
+        segs[:, 1, 1] = 0.2 * base
+        segs[:, 2, 0] = 2.0 * d / 3.0
+        segs[:, 2, 1] = 2.2 * base + 1500.0
+    elif spec.spike == "burst":
         # VMs on ~20% of hosts spike >2x in the middle third of the run.
         hot = hot_host[np.arange(n) % n_on]
         counts[hot] = 3
@@ -136,14 +180,17 @@ def build_sweep(spec: SweepSpec, policy: str,
     powered-on host count; ``vm_memo`` (one grid) shares the read-only VM
     list between cells with the same VM count and powered-on hosts.
     """
-    if spec.spike not in SPIKES:
-        raise ValueError(f"unknown spike pattern {spec.spike!r}")
-    for field, later in (("churn", "item 5"), ("rules", "item 6"),
-                         ("tree", "item 5")):
-        if getattr(spec, field) != "none":
-            raise BatchUnsupported(
-                f"{spec.name}: {field}={getattr(spec, field)!r} is not "
-                f"ported yet (a later slice: ROADMAP queue 1, {later})")
+    for field, known in (("spike", SPIKES), ("churn", CHURNS),
+                         ("rules", RULESETS), ("tree", TREES)):
+        if getattr(spec, field) not in known:
+            raise ValueError(f"unknown {field} family "
+                             f"{getattr(spec, field)!r}")
+    if spec.migration_enabled:
+        what = (f"rules={spec.rules!r}" if spec.rules != "none"
+                else f"churn={spec.churn!r}")
+        raise BatchUnsupported(
+            f"{spec.name}: {what} needs the migration layer, which is not "
+            f"ported yet (a later slice: ROADMAP queue 1, item 6)")
     host_specs = _specs_for(spec)
     budget = spec.budget
     total_peak = sum(s.power_peak for s in host_specs)
@@ -172,6 +219,11 @@ def build_sweep(spec: SweepSpec, policy: str,
     # Host-correlated bursts: every VM on a "hot" host spikes together.
     hot_host = rng.rand(spec.n_hosts) < 0.2
     phase_frac = rng.uniform(0.0, 0.5, size=spec.n_vms)
+    if spec.tree == "two_row":
+        # The burst concentrated on row 0, so its limit is what binds (the
+        # draws above still happen: tree-less specs keep their stream).
+        hot_host = np.zeros(spec.n_hosts, dtype=bool)
+        hot_host[:max(spec.n_hosts // 4, 1)] = True
 
     n_on = len(on_hosts)
     vm_key = (spec.n_vms, tuple(on_hosts))
@@ -189,18 +241,42 @@ def build_sweep(spec: SweepSpec, policy: str,
                                [vm.vm_id for vm in vms])
         if trace_memo is not None:
             trace_memo[n_on] = traces
-    snap = ClusterSnapshot(hosts, vms, power_budget=budget)
+    tree = None
+    if spec.tree == "two_row":
+        tree = BudgetTree.two_rows(budget, spec.n_hosts,
+                                   row0_limit=TWO_ROW_LIMIT_FRAC * budget)
+        # The deployment respects the tree from t = 0: each binding row's
+        # caps scaled down to its limit (sweep VMs reserve nothing).
+        caps = np.array([h.power_cap for h in hosts])
+        on_mask = np.array([h.powered_on for h in hosts])
+        caps = tree.project(caps, on_mask, floors=np.zeros(spec.n_hosts))
+        for h, cap in zip(hosts, caps):
+            h.power_cap = float(cap)
+    snap = ClusterSnapshot(hosts, vms, power_budget=budget,
+                           budget_tree=tree)
+    power_events: tuple = ()
+    if spec.churn == "maintenance":
+        # One powered-on host leaves for the middle third and returns.
+        power_events = ((spec.duration_s / 3.0, on_hosts[0], False),
+                        (2.0 * spec.duration_s / 3.0, on_hosts[0], True))
+    elif spec.churn == "failure":
+        # Capacity lost at mid-run; DPM may repair it.
+        power_events = ((spec.duration_s / 2.0, on_hosts[0], False),)
     cfg = SimConfig(duration_s=spec.duration_s, tick_s=spec.tick_s,
                     drs_period_s=spec.drs_period_s,
                     drs_first_at_s=spec.drs_period_s,
-                    record_timeline=False)
+                    record_timeline=False,
+                    instant_migrations=spec.dpm_enabled,
+                    power_events=power_events)
     return snap, traces, cfg
 
 
-def _sweep_manager(policy: str, device=None) -> CloudPowerCapManager:
-    """The sweeps' cap-only manager: the policy's powercap switch, no
-    migration search, no DPM."""
-    cfg = ManagerConfig(powercap_enabled=(policy == "cpc"), dpm_enabled=False,
+def _sweep_manager(policy: str, device=None,
+                   spec: Optional[SweepSpec] = None) -> CloudPowerCapManager:
+    """The sweeps' manager: the policy's powercap switch, DPM where the
+    spec's churn family drives it, no migration search."""
+    cfg = ManagerConfig(powercap_enabled=(policy == "cpc"),
+                        dpm_enabled=bool(spec and spec.dpm_enabled),
                         balancer=BalancerConfig(max_moves=0))
     return CloudPowerCapManager(cfg, device)
 
@@ -247,6 +323,7 @@ def build_batch_cells(specs: Sequence[SweepSpec],
             cells.append(BatchCell(
                 name=f"{spec.name}/{p}", snapshot=snap, traces=traces,
                 config=cfg, powercap_enabled=(p == "cpc"),
+                dpm_enabled=spec.dpm_enabled,
                 trace_bank=banks[id(traces)]))
             keys.append((spec, p))
     return cells, keys
@@ -260,8 +337,8 @@ def run_cell(spec: SweepSpec, policy: str, engine: str = "vector",
                          f"(the legacy engine is ROADMAP queue 1, item 8)")
     dev = resolve_device(device)
     snap, traces, cfg = build_sweep(spec, policy)
-    sim = VectorSimulator(snap, _sweep_manager(policy, dev), traces, cfg,
-                          device=dev)
+    sim = VectorSimulator(snap, _sweep_manager(policy, dev, spec), traces,
+                          cfg, device=dev)
     t0 = time.perf_counter()
     result = sim.run()
     wall = time.perf_counter() - t0
@@ -279,16 +356,26 @@ def run_cell(spec: SweepSpec, policy: str, engine: str = "vector",
         power_offs=acc.power_offs)
 
 
+#: What the most recent batched :func:`run_sweep` reported: the engine's
+#: :attr:`BatchedSimulator.info` (ticks, ticks with an invocation,
+#: device-to-host reads) and, under ``"result"``, its
+#: :class:`~repro_torch.sim.batch.BatchResult` (final states, invariants).
+LAST_BATCH_INFO: dict = {}
+
+
 def run_sweep(specs: Sequence[SweepSpec],
               policies: Sequence[str] = POLICIES,
               engine: str = "vector",
-              device=None) -> dict[str, dict[str, SweepCellResult]]:
+              device=None,
+              slot_slack: float = 3.0
+              ) -> dict[str, dict[str, SweepCellResult]]:
     """Run the grid; returns ``results[spec.name][policy]``.
 
     ``engine="vector"`` runs the cells one by one on
     :class:`repro_torch.sim.engine.VectorSimulator`; ``engine="batch"``
-    runs the whole grid as one :class:`BatchedSimulator`.  ``device=None``
-    runs on the GPU.
+    runs the whole grid as one :class:`BatchedSimulator`, its slot axis
+    widened by ``slot_slack`` for DPM's evacuations (the reference's
+    batched sweeps default to 3.0).  ``device=None`` runs on the GPU.
     """
     if engine == "vector":
         return {spec.name: {p: run_cell(spec, p, device=device)
@@ -297,7 +384,10 @@ def run_sweep(specs: Sequence[SweepSpec],
         raise ValueError(f"engine {engine!r} is not ported: use 'vector' "
                          f"or 'batch'")
     cells, keys = build_batch_cells(specs, policies)
-    res = BatchedSimulator(cells, device=device).run()
+    sim = BatchedSimulator(cells, slot_slack=slot_slack, device=device)
+    res = sim.run()
+    LAST_BATCH_INFO.clear()
+    LAST_BATCH_INFO.update(sim.info, result=res)
     per_cell_wall = max(res.run_s, 1e-9) / len(keys)
     out: dict[str, dict[str, SweepCellResult]] = {}
     for i, (spec, p) in enumerate(keys):
@@ -319,15 +409,31 @@ def scenario_families(sizes: Sequence[int] = (10, 100, 1000),
                       budgets_per_host_w: Sequence[float] = (250.0,),
                       spikes: Sequence[str] = ("burst", "prime"),
                       heterogeneous: Sequence[bool] = (False, True),
+                      churns: Sequence[str] = ("none",),
                       duration_s: float = 1200.0,
                       tick_s: float = 10.0) -> list[SweepSpec]:
-    """The cap-only grid: size x budget x spike x host mix."""
-    return [SweepSpec(name=f"h{n}_b{int(b)}w_{spike}{'_het' if het else ''}",
+    """The grid: size x budget x spike x host mix x churn (the reference's
+    names and order; its ``rules`` axis is ROADMAP queue 1, item 6)."""
+    return [SweepSpec(name=(f"h{n}_b{int(b)}w_{spike}"
+                            f"{'_het' if het else ''}"
+                            f"{'' if churn == 'none' else '_' + churn}"),
                       n_hosts=n, rack_budget_w=b * n, spike=spike,
-                      heterogeneous=het, duration_s=duration_s,
+                      heterogeneous=het, churn=churn, duration_s=duration_s,
                       tick_s=tick_s)
             for n in sizes for b in budgets_per_host_w for spike in spikes
-            for het in heterogeneous]
+            for het in heterogeneous for churn in churns]
+
+
+def row_contention_specs(sizes: Sequence[int] = (10, 100),
+                         duration_s: float = 1200.0,
+                         tick_s: float = 10.0) -> list[SweepSpec]:
+    """The ``two_row`` budget-tree family: a row limit binds before the
+    rack budget does (the burst concentrated on row 0), in the cap-only
+    regime."""
+    return [SweepSpec(name=f"h{n}_row_contention", n_hosts=n,
+                      spike="burst", tree="two_row",
+                      duration_s=duration_s, tick_s=tick_s)
+            for n in sizes]
 
 
 def scale_ladder(sizes: Sequence[int] = (10, 100, 1000),

@@ -251,51 +251,54 @@ def _attn_close(got, want, tol):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, BF16])
-@pytest.mark.parametrize("d", [80, 96])
+@pytest.mark.parametrize("d", [80, 96, 192])
 def test_head_dim_padding_around_the_plain_versions(d, dtype):
-    """The wrappers' zero padding along D (to 112, the next dim both
-    kernels take) with the true 1/sqrt(D), run around the plain versions,
-    gives the plain versions' output, log-sum-exp and gradients at D."""
-    assert fa_ops.padded_head_dim(d, fa_kernel.HEAD_DIMS, "K4") == 112
-    assert fa_ops.padded_head_dim(d, fa_kernel_bwd.HEAD_DIMS, "K5") == 112
+    """The wrappers' zero padding along D (to the next dim both kernels
+    take: 112, or 256 for Nemotron-4-340B's 192) with the true 1/sqrt(D),
+    run around the plain versions, gives the plain versions' output,
+    log-sum-exp and gradients at D."""
+    pad = 112 if d < 112 else 256
+    assert fa_ops.padded_head_dim(d, fa_kernel.HEAD_DIMS, "K4") == pad
+    assert fa_ops.padded_head_dim(d, fa_kernel_bwd.HEAD_DIMS, "K5") == pad
     rng = np.random.default_rng(d)
     q, k, v, do = (_pair(rng, shape, str(dtype)[6:])[1] for shape in (
         (2, 100, 4, d), (2, 164, 2, d), (2, 164, 2, d), (2, 100, 4, d)))
     out, lse = fa_ref.flash_attention_ref(q, k, v, q_offset=64)
     p_out, p_lse = fa_ops.padded_forward(fa_ref.flash_attention_ref, q, k,
-                                         v, 112, q_offset=64)
+                                         v, pad, q_offset=64)
     assert p_out.shape == out.shape and p_out.is_contiguous()
     _attn_close(p_out, out, ATTN_TOL[dtype])
     _attn_close(p_lse, lse, ATTN_TOL[dtype])
-    # The scale is the point: padded operands at 1/sqrt(112) are wrong.
+    # The scale is the point: padded operands at 1/sqrt(pad) are wrong.
     wrong, _ = fa_ref.flash_attention_ref(
-        *(fa_ops.pad_head_dim(t, 112) for t in (q, k, v)), q_offset=64)
+        *(fa_ops.pad_head_dim(t, pad) for t in (q, k, v)), q_offset=64)
     with pytest.raises(AssertionError):
         _attn_close(wrong[..., :d], out, ATTN_TOL[dtype])
     grads = fa_ref.flash_attention_bwd_ref(q, k, v, out, lse, do,
                                            q_offset=64)
     p_grads = fa_ops.padded_backward(fa_ref.flash_attention_bwd_ref, q, k,
-                                     v, out, lse, do, 112, q_offset=64)
+                                     v, out, lse, do, pad, q_offset=64)
     for got, want in zip(p_grads, grads):
         assert got.shape == want.shape and got.dtype == want.dtype
         _attn_close(got, want, K5_TOL[dtype])
 
 
 def test_k4_k5_head_dims_past_the_padding_raise():
-    """Past the widest dim a kernel takes (K4 256, K5 128) the wrappers'
-    CUDA branches raise, naming the limit, before anything reaches the
-    card (the tensors only claim to be on it here)."""
+    """Past the widest dim a kernel takes (256 for both K4 and K5) the
+    wrappers' CUDA branches raise, naming the limit, before anything
+    reaches the card (the tensors only claim to be on it here)."""
     assert fa_ops.padded_head_dim(200, fa_kernel.HEAD_DIMS, "K4") == 256
     assert fa_ops.padded_head_dim(8, fa_kernel.HEAD_DIMS, "K4") == 16
+    assert fa_ops.padded_head_dim(192, fa_kernel_bwd.HEAD_DIMS, "K5") == 256
     q = torch.zeros(1, 8, 2, 264)
-    q5 = torch.zeros(1, 8, 2, 192)
+    q5 = torch.zeros(1, 8, 2, 264)
     before = (fa_ops.flash_attention.launches,
               fa_ops.flash_attention_bwd.launches)
     cuda = property(lambda self: torch.device("cuda"))
     with mock.patch.object(torch.Tensor, "device", cuda):
         with pytest.raises(ValueError, match="K4 takes head dims up to 256"):
             fa_ops.flash_attention(q, q, q)
-        with pytest.raises(ValueError, match="K5 takes head dims up to 128"):
+        with pytest.raises(ValueError, match="K5 takes head dims up to 256"):
             fa_ops.flash_attention_bwd(q5, q5, q5, q5,
                                        torch.zeros(1, 2, 8), q5)
     assert (fa_ops.flash_attention.launches,

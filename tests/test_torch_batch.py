@@ -13,7 +13,9 @@ import jax
 import jax.experimental
 import numpy as np
 import pytest
+import torch
 
+from repro.drs.rules import AffinityRule
 from repro.sim import sweep as ref_sweep
 from repro.sim.batch import BatchCell as RefCell
 from repro.sim.batch import BatchedSimulator as RefSimulator
@@ -157,8 +159,8 @@ def _cell(name="c", **kw):
 
 
 @pytest.mark.parametrize("bad", (
-    dict(dpm_enabled=True),
-    dict(events=((300.0, "host0", False),)),
+    dict(dpm_enabled=True),                  # timed migrations: item 6
+    dict(events=((300.0, "host9", False),)),  # an unknown host
     dict(rules=["vm0 with vm1"]),
     dict(tick_s=20.0),
 ))
@@ -174,9 +176,9 @@ def test_spec_less_traces_raise():
         BatchedSimulator([cell], device="cpu")
 
 
-@pytest.mark.parametrize("field", (dict(churn="dpm"),
+@pytest.mark.parametrize("field", (dict(churn="timed_churn"),
                                    dict(rules="violation_burst"),
-                                   dict(tree="two_row")))
+                                   dict(churn="failure_cascade")))
 def test_unported_sweep_families_raise(field):
     spec = sweep.SweepSpec(name="s", n_hosts=4, **field)
     with pytest.raises(BatchUnsupported):
@@ -184,11 +186,125 @@ def test_unported_sweep_families_raise(field):
 
 
 def test_dynamic_reference_pack_raises():
-    """A pack of the reference's dynamic regime (here: a scripted power
-    event) is refused."""
+    """A pack of the reference's migration layer (here: an affinity rule
+    violated at the start, which compiles constraint correction in) is
+    refused: ROADMAP queue 1, item 6."""
     cell = _paper_cells("headroom")[0]
-    cell.config = dataclasses.replace(
-        cell.config, power_events=((600.0, "host0", False),))
+    first = {}
+    for v in cell.snapshot.vms.values():
+        first.setdefault(v.host_id, v.vm_id)
+    hosts = sorted(first)
+    cell.snapshot.rules = [AffinityRule((first[hosts[0]],
+                                         first[hosts[1]]))]
+    cell.config = dataclasses.replace(cell.config, instant_migrations=True)
     ref = RefSimulator([cell])
+    assert ref._static.migration
     with pytest.raises(BatchUnsupported):
         from_reference_pack(ref._arrays, ref._static, device="cpu")
+
+
+# ------------------------------------------------------------- churn grids
+#: ``sweep_grid_dpm``'s grid (``benchmarks/run.py``), cut to a host count.
+def _dpm_grid(n, churns=("none", "dpm", "maintenance", "failure")):
+    return dict(sizes=(n,), budgets_per_host_w=(250.0,),
+                spikes=("burst", "prime"), heterogeneous=(False, True),
+                churns=churns, duration_s=1500.0, tick_s=15.0)
+
+
+def _final_on(module, spec, policy, **kw):
+    """The vector engine's final power states for one cell of ``module``'s
+    sweep (the reference's or the port's)."""
+    snap, traces, cfg = module.build_sweep(spec, policy)
+    manager = module._sweep_manager(policy, spec=spec, **kw)
+    if module is sweep:
+        from repro_torch.sim.engine import VectorSimulator
+        sim = VectorSimulator(snap, manager, traces, cfg, device="cpu")
+    else:
+        from repro.sim.engine import VectorSimulator as RefVector
+        sim = RefVector(snap, manager, traces, cfg)
+    return np.array([h.powered_on for h in sim.run().final.hosts.values()])
+
+
+@pytest.fixture
+def deterministic():
+    """Every per-host sum of the port must be order-stable (no atomics)."""
+    torch.use_deterministic_algorithms(True)
+    yield
+    torch.use_deterministic_algorithms(False)
+
+
+def _hold_churn_grid(grid):
+    """The grid through both batched engines at ``slot_slack`` 1.5 (the
+    benchmark's): exact counts, 1e-9 floats, equal final states.
+
+    One kind of cell is a tie, not a decision: in a homogeneous ``dpm``
+    cell under cpc, BalancePowerCap equalizes every host's utilization to
+    within rounding (a spread of about 1e-16), so DPM's power-off victim
+    is whichever host rounds lowest.  There the reference's own vector and
+    batched engines pick different hosts; counts and integrals still
+    agree (the hosts are alike), and the port's two engines must pick the
+    same host as each other."""
+    specs = sweep.scenario_families(**grid)
+    policies = ("cpc", "static")
+    ref_cells, _ = ref_sweep._build_batch_cells(
+        ref_sweep.scenario_families(**grid), policies)
+    want = RefSimulator(ref_cells, slot_slack=1.5).run()
+    cells, keys = sweep.build_batch_cells(specs, policies)
+    sim = BatchedSimulator(cells, slot_slack=1.5, device="cpu")
+    got = sim.run()
+    for f in ("cap_changes", "vmotions", "power_ons", "power_offs"):
+        np.testing.assert_array_equal(getattr(got, f), getattr(want, f),
+                                      err_msg=f)
+    for f in FLOATS:
+        np.testing.assert_allclose(getattr(got, f), getattr(want, f),
+                                   rtol=RTOL, err_msg=f)
+    assert want.power_offs.sum() > 0 and want.power_ons.sum() > 0
+    assert want.vmotions.sum() > 0
+    assert sim.info["branch_reads"] == sim.info["ticks"] == got.ticks
+    ref_specs = {s.name: s for s in ref_sweep.scenario_families(**grid)}
+    ties = 0
+    for i, (spec, p) in enumerate(keys):
+        if spec.churn == "dpm" and not spec.heterogeneous and p == "cpc":
+            ties += 1
+            ref_vec = _final_on(ref_sweep, ref_specs[spec.name], p)
+            assert not np.array_equal(ref_vec, want.final_on[i])
+            np.testing.assert_array_equal(
+                _final_on(sweep, spec, p, device="cpu"), got.final_on[i])
+            continue
+        np.testing.assert_array_equal(got.final_on[i], want.final_on[i])
+        np.testing.assert_array_equal(got.final_occ[i], want.final_occ[i])
+        np.testing.assert_allclose(got.final_caps[i], want.final_caps[i],
+                                   rtol=RTOL)
+    assert ties == 2
+
+
+def test_sweep_grid_dpm_at_10_hosts_matches_reference(x64, deterministic):
+    _hold_churn_grid(_dpm_grid(10))
+
+
+def test_sweep_grid_dpm_cells_at_100_hosts_match_reference(x64,
+                                                          deterministic):
+    _hold_churn_grid(_dpm_grid(100, churns=("dpm",)))
+
+
+def test_churn_grid_timeseries_is_bitwise_the_reduced_run():
+    specs = sweep.scenario_families(**_dpm_grid(6))
+    cells, _ = sweep.build_batch_cells(specs, ("cpc", "static"))
+    reduced = BatchedSimulator(cells, slot_slack=3.0, device="cpu").run()
+    full = BatchedSimulator(cells, slot_slack=3.0, keep_timeseries=True,
+                            device="cpu").run()
+    folded = full.reduced_timeseries()
+    for f in FLOATS:
+        np.testing.assert_array_equal(getattr(full, f), getattr(reduced, f))
+        np.testing.assert_array_equal(folded[f], getattr(reduced, f))
+    for f in ("cap_changes", "vmotions", "power_ons", "power_offs"):
+        np.testing.assert_array_equal(full.timeseries[f].sum(0),
+                                      getattr(reduced, f))
+    np.testing.assert_array_equal(full.final_occ, reduced.final_occ)
+
+
+def test_churn_grid_with_slot_slack_1_raises():
+    specs = sweep.scenario_families(**_dpm_grid(10, churns=("dpm",)))
+    with pytest.raises(RuntimeError, match="slot_slack"):
+        sweep.run_sweep(specs, ("cpc", "static"), engine="batch",
+                        device="cpu", slot_slack=1.0)

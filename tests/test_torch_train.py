@@ -102,6 +102,10 @@ BWD_CASES = [
     (1, 64, 128, 4, 2, 32, True, 64, "float32"),     # continuation
     (1, 72, 72, 2, 2, 112, True, 0, "float32"),      # Zamba2's head dim
     (2, 96, 96, 4, 2, 112, True, 0, "bfloat16"),     # the same, GQA
+    (1, 64, 64, 2, 1, 192, True, 0, "float32"),      # Nemotron's head dim
+    (1, 64, 64, 2, 1, 192, True, 0, "bfloat16"),
+    (1, 64, 64, 2, 1, 256, True, 0, "float32"),      # K5's widest
+    (1, 64, 64, 2, 1, 256, True, 0, "bfloat16"),
 ]
 
 
@@ -157,19 +161,34 @@ def test_k5_plan_puts_path_t_on_the_tensor_cores():
     assert all(0 < m <= fa_kernel.SMEM_LIMIT for m in p.smem_bytes)
 
 
-@pytest.mark.parametrize("d", [16, 32, 64, 112, 128])
+@pytest.mark.parametrize("d", [16, 32, 64, 112, 128, 256])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_k5_plan_regimes_and_shared_memory(d, dtype):
-    """K5 takes D 112 in both regimes (fault P1); bf16 at D 64, 112 and
-    128 runs on the tensor cores, the rest on the CUDA cores, and every
-    launch fits a block's shared memory."""
+    """K5 takes D 112 and D 256 in both dtypes (fault P1); bf16 at D 64,
+    112 and 128 runs on the tensor cores, the rest on the CUDA cores, with
+    blocks of 64 rows (32 at D 256), and every launch fits a block's
+    shared memory."""
     assert d in fa_kernel_bwd.HEAD_DIMS
     p = fa_kernel_bwd.plan(8, 512, 512, 32, 32, d, dtype)
     tc = dtype == torch.bfloat16 and d in (64, 112, 128)
     assert p.regime == ("tensor_core" if tc else "cuda_core")
     assert all(0 < m <= fa_kernel.SMEM_LIMIT for m in p.smem_bytes)
     if not tc:
-        assert p.grid == ((8, 32, 8), (8, 32, 8))
+        n = 512 // fa_kernel_bwd.core_rows(d)
+        assert p.grid == ((n, 32, 8), (n, 32, 8))
+        assert fa_kernel_bwd.core_rows(d) == (32 if d == 256 else 64)
+
+
+def test_k5_plan_at_head_dim_256_fits_shared_memory():
+    """At D 256 the CUDA-core kernels take 32-row blocks: 4 x (4 x 32 x 257
+    + 2 x 32 x 33 + 2 x 32) = 140,288 bytes a block, where 64 rows would
+    take 296,960, past the 232,448 an H100 block may have."""
+    p = fa_kernel_bwd.plan(2, 256, 256, 8, 2, 256, torch.bfloat16)
+    assert p.regime == "cuda_core"
+    assert p.smem_bytes == (140_288, 140_288)
+    assert p.grid == ((8, 2, 2), (8, 8, 2))
+    assert 4 * (4 * 64 * 257 + 2 * 64 * 65 + 2 * 64) == 296_960
+    assert 296_960 > fa_kernel.SMEM_LIMIT >= p.smem_bytes[0]
 
 
 @pytest.mark.parametrize("kw", [

@@ -24,6 +24,7 @@ from repro.sim import sweep as ref_sweep
 from repro.sim.engine import VectorSimulator as RefVectorSimulator
 from repro.sim.experiments import SCENARIOS
 from repro_torch.convert import from_reference_snapshot
+from repro_torch.core.budget_tree import BudgetTree
 from repro_torch.core.manager import CloudPowerCapManager, ManagerConfig
 from repro_torch.core.power_model import PAPER_HOST
 from repro_torch.drs.balancer import BalancerConfig
@@ -191,8 +192,11 @@ def test_unported_manager_regimes_raise_at_the_first_invocation(regime):
     # The migration search runs (and raises) only where a host is strained
     # and the imbalance outlasts BalancePowerCap; a quiet cluster stops in
     # the search's first round, as the reference's does.
-    snap, traces = _cluster(rules=["vm0 with vm1"] if regime == "rules"
-                            else None, hot=regime == "max_moves")
+    # DPM runs since its slice; under placement rules its evacuations
+    # need the migration layer's rule admission, and raise with it.
+    snap, traces = _cluster(rules=["vm0 with vm1"]
+                            if regime in ("rules", "dpm") else None,
+                            hot=regime == "max_moves")
     manager = {"rules": _manager("cpc"),
                "max_moves": _manager("cpc",
                                      balancer=BalancerConfig(max_moves=4)),
@@ -204,17 +208,24 @@ def test_unported_manager_regimes_raise_at_the_first_invocation(regime):
 
 
 def test_unported_simulator_regimes_raise():
+    """Gated migration launches need the migration layer (item 6); scripted
+    power events and budget trees run since their slice, and a tree over
+    the wrong host count is refused."""
     snap, traces = _cluster()
-    with pytest.raises(NotImplementedError, match="item 5"):
-        VectorSimulator(snap, _manager("cpc"), traces,
-                        SimConfig(power_events=((300.0, "host0", False),)),
-                        device="cpu")
     with pytest.raises(NotImplementedError, match="item 6"):
         VectorSimulator(snap, _manager("cpc"), traces,
                         SimConfig(migration_bandwidth=2), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 5"):
-        _cluster(budget_tree=object())
+    with pytest.raises(NotImplementedError, match="item 6"):
+        VectorSimulator(snap, _manager("cpc"), traces,
+                        SimConfig(migration_slots_per_host=1), device="cpu")
+    with pytest.raises(ValueError, match="host count"):
+        _cluster(budget_tree=BudgetTree([-1], [500.0], [0, 0, 0]))
+    VectorSimulator(snap, _manager("cpc"), traces,
+                    SimConfig(power_events=((300.0, "host0", False),)),
+                    device="cpu")
     assert snap.effective_tree() is None and snap.tree_respected()
+    flat, _ = _cluster(budget_tree=BudgetTree([-1], [500.0], [0, 0]))
+    assert flat.budget_tree is not None and flat.effective_tree() is None
 
 
 def test_manager_and_simulator_must_share_a_device():
@@ -308,3 +319,37 @@ def test_array_view_and_snapshot_match_the_reference(seed):
             x = np.linspace(-50.0, 40_000.0, 7)
             np.testing.assert_array_equal(getattr(spec, name)(x),
                                           getattr(ref_spec, name)(x))
+
+
+# ------------------------------------------------------------- churn cells
+def _churn_specs(module):
+    """``sweep_grid_dpm``'s ``dpm``, ``maintenance`` and ``failure`` specs
+    at 10 hosts, burst spike, both host mixes."""
+    return module.scenario_families(
+        sizes=(10,), spikes=("burst",), heterogeneous=(False, True),
+        churns=("dpm", "maintenance", "failure"), duration_s=1500.0,
+        tick_s=15.0)
+
+
+def test_churn_cells_match_reference_vector_engine_and_the_batch():
+    """``run_cell`` on the churn specs (DPM with its evacuations and
+    redistribution, scripted maintenance and failure) against the
+    reference's vector engine, and the port's batched engine on the same
+    cells against both."""
+    specs = _churn_specs(sweep)
+    policies = ("cpc", "static")
+    want = {(r.name, p): ref_sweep.run_cell(r, p, engine="vector")
+            for r in _churn_specs(ref_sweep) for p in policies}
+    got = {(s.name, p): sweep.run_cell(s, p, device="cpu")
+           for s in specs for p in policies}
+    batch = sweep.run_sweep(specs, policies, engine="batch", device="cpu",
+                            slot_slack=1.5)
+    for (name, p), w in want.items():
+        for g in (got[name, p], batch[name][p]):
+            for f in COUNTS:
+                assert getattr(g, f) == getattr(w, f), (name, p, f)
+            for f in ("cpu_payload_mhz_s", "energy_j", "cpu_satisfaction"):
+                np.testing.assert_allclose(getattr(g, f), getattr(w, f),
+                                           rtol=RTOL, err_msg=f)
+    assert sum(w.power_offs for w in want.values()) > 0
+    assert sum(w.vmotions for w in want.values()) > 0

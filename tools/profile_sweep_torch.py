@@ -2,9 +2,12 @@
 """Where the time of the port's paths goes, on one GPU.
 
 Builds path A (32 cells x 100 hosts, 60 ticks) and path B (16 cells x
-1000 hosts, 120 ticks) of the batched engine, path V (one cpc cell of
-1000 hosts, 60 ticks, on the vector engine), as ``chip_smoke.py`` does
-(they report K1's, K2's and K3's device ms per launch),
+1000 hosts, 120 ticks) of the batched engine, path D (``sweep_grid_dpm``'s
+32 churn cells x 100 hosts, 100 ticks of 15 s, slot slack 1.5: DPM,
+scripted events and Powercap Redistribution in the batched engine's churn
+program), path V (one cpc cell of 1000 hosts, 60 ticks, on the vector
+engine), as ``chip_smoke.py`` does (they report K1's, K2's and K3's device
+ms per launch),
 and path S, one replica batch of the serving path at granite-8b's full
 width and depth in bf16 (8 prompts of 512, 32 tokens, a 1024-position
 cache): ``S`` is the whole generation (prefill and 31 decode steps, its
@@ -31,7 +34,7 @@ per path and writes the Chrome traces to OUT_DIR (default
 
     python3 tools/profile_sweep_torch.py [OUT_DIR [PATH ...]]
 
-PATH is any of A, B, V, S, Sd, M, Md, P, Pd, H, Hd and T (default
+PATH is any of A, B, D, V, S, Sd, M, Md, P, Pd, H, Hd and T (default
 all).
 """
 
@@ -59,14 +62,14 @@ def busy_us(events) -> float:
     return total
 
 
-def batch_runner(specs, policies):
+def batch_runner(specs, policies, slot_slack: float = 2.0):
     """``(prepare, info)``: ``prepare()`` returns a run of the grid's
     simulator, which returns the ticks it ran."""
     from repro_torch.sim.batch import BatchedSimulator
     from repro_torch.sim.sweep import build_batch_cells
 
     cells, _ = build_batch_cells(specs, policies)
-    sim = BatchedSimulator(cells)
+    sim = BatchedSimulator(cells, slot_slack=slot_slack)
     return (lambda: lambda: sim.run().ticks), dict(cells=len(cells),
                                                    pack_s=sim.pack_s)
 
@@ -253,7 +256,7 @@ def main() -> int:
     out_dir = Path(sys.argv[1]) if len(sys.argv) > 1 else (
         ROOT / "build" / "profiles")
     out_dir.mkdir(parents=True, exist_ok=True)
-    wanted = sys.argv[2:] or ["A", "B", "V", "S", "Sd", "M", "Md", "P",
+    wanted = sys.argv[2:] or ["A", "B", "D", "V", "S", "Sd", "M", "Md", "P",
                               "Pd", "H", "Hd", "T"]
     model: dict = {}
     print(torch.cuda.get_device_name(0), flush=True)
@@ -267,6 +270,12 @@ def main() -> int:
             sizes=(1000,), budgets_per_host_w=(250.0,), spikes=spikes,
             heterogeneous=(False, True), duration_s=1200.0),
             ("cpc", "static")),
+        "D": lambda: batch_runner(scenario_families(
+            sizes=(100,), budgets_per_host_w=(250.0,),
+            spikes=("burst", "prime"), heterogeneous=(False, True),
+            churns=("none", "dpm", "maintenance", "failure"),
+            duration_s=1500.0, tick_s=15.0), ("cpc", "static"),
+            slot_slack=1.5),
         "V": lambda: vector_runner(scale_ladder(
             sizes=(1000,), spike="burst", duration_s=600.0), ("cpc",)),
         "S": lambda: serve_runner(model, "granite_8b", decode_only=False),
