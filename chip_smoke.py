@@ -50,6 +50,27 @@ Phases, each of which raises (and so exits non-zero) when it fails:
 6d. path R, ``row_contention_specs(sizes=(100,))`` (a two-row budget
    tree) on both engines, each held against the CPU, ``over_tree``
    within 1e-6;
+6e. main path G, ``sweep_grid_rules``'s grid (``benchmarks/run.py:347``,
+   32 cells x 100 hosts x 10 VMs: rules violation_burst and cap_blocked,
+   4 spikes, both host mixes, 600 s at 10 s ticks, slot slack 1.5), and
+   main path X, ``sweep_grid_timed``'s (``:409``: churn timed_churn and
+   failure_cascade, rules none and violation_burst, gated timed vMotions
+   of 2 slots a host and a bandwidth of 8) through ``run_sweep(...,
+   engine="batch")`` on the card (the churn program with constraint
+   correction, the hill-climb balancer and, on X, the in-flight table),
+   each held against the same grid on the CPU as path D is (the counts
+   the grid must show: cap changes and vMotions, on X power-ons too), K1
+   and K2 launches equal to the CPU run's plain calls; cells/s, branch and
+   migration reads a tick, launches a tick and the idle share printed;
+   then K1 at the balancer's shapes (its ``(32, 100, 15)`` entitlement
+   waterfill and its ``(32, 2, 15)`` pair refill, 100 trips) on the
+   inputs G's and X's CPU runs gave it, bitwise against its plain
+   version, timed, with device time and bound;
+6f. path Q, both benchmarks' sequential baselines (``specs[:2]`` of each
+   grid, cpc and static: 8 cells) on the vector engine (K3 a tick; K1 and
+   K2 in the manager), held against the CPU, K1-K3 launches equal to the
+   CPU run's plain calls, K1 at the manager's balancer shapes and K3 and
+   K2 at Q's against their plain versions;
 7. K4 (flash attention forward) and K6 (flash decoding) against their
    plain versions on the card: K4 at path S's prefill (8 x 512 tokens,
    32 query and 8 KV heads of 128, bf16), on bf16 cases of its
@@ -71,8 +92,8 @@ Phases, each of which raises (and so exits non-zero) when it fails:
 8. main path S, ``launch.serve``'s driver at granite-8b's full width and
    depth in bf16 (2 replicas, 16 requests, prompts of 512, 32 tokens, a
    1024-position cache): the exact launch counts (K4 once a layer a
-   prefill, K6 once a layer a decode step, K1, K2 and K3 from the cap
-   event), the routing, caps and note of the cap event identical to the
+   prefill, K6 once a layer a decode step, K1, K2 and K3 as the same cap
+   event's CPU run calls their plain versions), the routing, caps and note of the cap event identical to the
    CPU run of the same event, and one replica's batch fed back (teacher
    forcing) through the plain versions on the card, logits within 2e-2
    relative L2; then prefill and decode-step times;
@@ -247,23 +268,30 @@ def time_ms(fn) -> float:
 
 def device_ms(fn, pattern: str, reps: int = 6) -> float | None:
     """Mean device time (ms) of one launch of the kernel whose name holds
-    ``pattern``, over ``reps`` calls of ``fn`` under ``torch.profiler``,
-    read from the trace's kernel events as ``tools/profile_sweep_torch.py``
-    reads them.  Each call launches it once; the trace may miss the first
-    launch of a profile, so it must hold ``reps - 1`` or ``reps``.
+    ``pattern``, over the last ``reps`` of ``2 * reps`` calls of ``fn``
+    under ``torch.profiler``, read from the trace's kernel events as
+    ``tools/profile_sweep_torch.py`` reads them.  Each call launches it
+    once.  The trace may miss the launches of a profile's first moments
+    (for launches of about 0.03 ms, as many as eight of twelve), so the
+    profile idles 0.2 s before the calls, and a trace with fewer than
+    ``reps`` of them is taken again, three times at most; a trace that
+    holds none although it holds kernel events fails (a wrong pattern).
 
     A process whose device activity the profiler cannot see (CUPTI held
-    by another tracer) gets a trace with no kernel event at all.  After a
-    second try that finds none either, the device time is not measured:
-    the result is None, and the run goes on on its CUDA-event times."""
+    by another tracer) gets a trace with no kernel event at all.  When the
+    tries find no kernel event, or never ``reps`` of this one, the device
+    time is not measured: the result is None, and the run goes on on its
+    CUDA-event times."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(2):
+    seen = 0
+    for _ in range(3):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
+            time.sleep(0.2)
+            for _ in range(2 * reps):
                 fn()
             torch.cuda.synchronize()
         with tempfile.TemporaryDirectory() as tmp:
@@ -271,17 +299,20 @@ def device_ms(fn, pattern: str, reps: int = 6) -> float | None:
             prof.export_chrome_trace(str(trace))
             events = json.loads(trace.read_text())["traceEvents"]
         kernels = [e for e in events if e.get("cat") == "kernel"]
-        if kernels:
-            break
-    else:
-        log(f"{pattern}: device time not measured (the profiler's trace "
-            f"held no kernel event in two tries)")
-        return None
-    durs = [e["dur"] for e in kernels if pattern in e["name"]]
-    if not reps - 1 <= len(durs) <= reps:
-        raise AssertionError(f"{pattern}: {len(durs)} kernel events in the "
-                             f"trace of {reps} calls")
-    return sum(durs) / len(durs) * 1e-3
+        durs = [e["dur"] for e in sorted(kernels, key=lambda e: e["ts"])
+                if pattern in e["name"]]
+        if kernels and not durs:
+            raise AssertionError(f"{pattern}: no such kernel in a trace of "
+                                 f"{len(kernels)} kernel events")
+        if len(durs) > 2 * reps:
+            raise AssertionError(f"{pattern}: {len(durs)} kernel events in "
+                                 f"the trace of {2 * reps} calls")
+        if len(durs) >= reps:
+            return sum(durs[-reps:]) / reps * 1e-3
+        seen = max(seen, len(durs))
+    log(f"{pattern}: device time not measured (the profiler's traces held "
+        f"at most {seen} of {2 * reps} launches in three tries)")
+    return None
 
 
 def fmt_ms(ms: float | None) -> str:
@@ -1202,18 +1233,21 @@ def run_serving_path(dev) -> tuple[dict, dict]:
     cfg, params = report.cfg, report.params
     steps, max_len, prompt_len = 32, 1024, 512
     n_rep = len(report.routing)
+    snap, router = serve.make_fleet(H100_HOST, n_rep)
+    with count_plain_calls() as power_launches:
+        routing, caps, result = serve.power_event(snap, router, 16, "cpu")
+    # K1-K3 as the same cap event's CPU run calls their plain versions
+    # (K2 once, K3 twice for the note, K1 for the migration balancer's
+    # entitlements and the round that finds nothing to move).
     want = {"flash_attention": cfg.n_layers * n_rep,
             "flash_attention_bwd": 0,
             "decode_attention": cfg.n_layers * (steps - 1) * n_rep,
-            "grouped_matmul": 0, "ssd_scan": 0, "waterfill_dense": 1,
-            "balance_caps": 1, "waterfill_segmented": 2}
-    if launches != want:
+            "grouped_matmul": 0, "ssd_scan": 0, **power_launches}
+    if launches != want or power_launches["balance_caps"] != 1:
         raise AssertionError(f"S: kernel launches {launches}, expected "
                              f"{want}")
     if report.routing != {"rep0": 8, "rep1": 8}:
         raise AssertionError(f"S: routing {report.routing}")
-    snap, router = serve.make_fleet(H100_HOST, n_rep)
-    routing, caps, result = serve.power_event(snap, router, 16, "cpu")
     got = (list(report.routing_after.items()), report.caps_after,
            report.notes, report.cap_changes, report.migrations)
     cpu = (list(routing.items()), caps, list(result.notes),
@@ -2517,6 +2551,223 @@ def run_tree_path(policies):
 
 
 
+#: Paths G and X: ``sweep_grid_rules``'s and ``sweep_grid_timed``'s grids
+#: (``benchmarks/run.py:347``, ``:409``) at their own size: 32 cells of 100
+#: hosts x 10 VMs each, 600 s at 10 s ticks, slot slack 1.5.
+RULES_GRID = dict(sizes=(100,), budgets_per_host_w=(250.0,),
+                  spikes=("flat", "burst", "step", "prime"),
+                  heterogeneous=(False, True),
+                  rules=("violation_burst", "cap_blocked"),
+                  duration_s=600.0, tick_s=10.0)
+TIMED_GRID = dict(sizes=(100,), budgets_per_host_w=(250.0,),
+                  spikes=("burst", "prime"), heterogeneous=(False, True),
+                  churns=("timed_churn", "failure_cascade"),
+                  rules=("none", "violation_burst"),
+                  duration_s=600.0, tick_s=10.0)
+MIG_SLACK = 1.5
+
+
+@contextlib.contextmanager
+def record_balancer_waterfills():
+    """Yields a dict, filled as the run goes, of the first K1 inputs of each
+    kind the migration balancer makes (``"full"``: its ``(S, H, J)``
+    entitlement waterfill, ``"pair"``: its ``(S, 2, J)`` refill): the
+    path's own inputs for the kernel phase.  The calls themselves go
+    through unchanged."""
+    from repro_torch.core import kernels as ck
+    from repro_torch.kernels.powercap import ops
+
+    seen, real_bm, real_wf = {}, ck.balance_migrations, ops.waterfill_dense
+
+    def waterfill(capacity, floors, ceilings, weights, iters=200,
+                  active=None, device=None):
+        seen.setdefault("pair" if floors.shape[-2] == 2 else "full", (
+            capacity.clone(), floors.clone(), ceilings.clone(),
+            weights.clone(), active.clone(), iters))
+        return real_wf(capacity, floors, ceilings, weights, iters, active,
+                       device)
+
+    def balance_migrations(*args, **kwargs):
+        with mock.patch.object(ops, "waterfill_dense", waterfill):
+            return real_bm(*args, **kwargs)
+
+    with mock.patch.object(ck, "balance_migrations", balance_migrations):
+        yield seen
+
+
+def check_balancer_k1(tag: str, seen: dict, dev) -> list:
+    """K1 against its plain version at the balancer's shapes, on the inputs
+    a path's CPU run gave it (``record_balancer_waterfills``): bitwise,
+    timed by CUDA events beside the plain version, with device time and
+    bound."""
+    from repro_torch.kernels.powercap import kernel, ops, ref
+
+    out = []
+    for kind in ("full", "pair"):
+        cap, fl, ce, w, act = (t.to(dev) for t in seen[kind][:5])
+        iters, shape = seen[kind][5], tuple(seen[kind][1].shape)
+        got = ops.waterfill_dense(cap, fl, ce, w, iters, active=act)
+        want = ref.waterfill_dense_ref(cap, fl, ce, w, iters, act)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        if not torch.equal(got, want):
+            raise AssertionError(f"{tag}: K1 at the balancer's {shape} "
+                                 f"differs from its plain version (max abs "
+                                 f"err {err})")
+        ms = time_ms(lambda: ops.waterfill_dense(cap, fl, ce, w, iters,
+                                                 active=act))
+        pms = time_ms(lambda: ref.waterfill_dense_ref(cap, fl, ce, w, iters,
+                                                      act))
+        dms = device_ms(lambda: ops.waterfill_dense(cap, fl, ce, w, iters,
+                                                    active=act),
+                        "waterfill_kernel")
+        S, H, J = shape
+        n = S * H * J
+        trips = bisection_trips(cap, fl, ce, w, act, iters)
+        b, by = bound_ms(8 * S * H + 3 * 8 * n + n + 8 * n,
+                         float((4 * trips + 12).sum()) * J)
+        g, k = kernel.row_shape(J)
+        log(f"{tag}: K1 at the balancer's {S}x{H}x{J} (bitwise) {ms:.4f} ms, "
+            f"device {fmt_ms(dms)} (plain {pms:.3f} ms), bound {b:.5f} ms")
+        out.append(dict(
+            name=f"waterfill_dense {S}x{H}x{J}", route="cuda",
+            source="src/repro_torch/kernels/powercap/csrc/waterfill.cu",
+            replaces="src/repro/kernels/powercap/kernel.py:48",
+            inputs=f"the migration balancer's {kind} waterfill, from the "
+                   f"path's CPU run",
+            iters=iters, max_abs_err=err, bitwise=True, rtol=0.0, atol=0.0,
+            ms=ms, device_ms=dms, plain_ms=pms, bound_ms=b, bound_by=by,
+            library_ms=None, row_lanes=g, row_slots_a_lane=k,
+            mean_trips=float(trips.double().mean())))
+    return out
+
+
+def cpu_migration_run(grid: dict, policies, engine: str = "batch") -> dict:
+    """A migration grid on the CPU (``engine="batch"``: the whole grid at
+    slot slack 1.5; ``"vector"``: the sequential baseline of path Q), the
+    plain versions' outermost calls counted and the balancer's K1 inputs
+    recorded.  The script makes these runs before the paths' traced ones:
+    the K1 phase they feed reads device times from ``torch.profiler``,
+    whose traces lose launches after a process has traced much."""
+    from repro_torch.sim import sweep
+
+    if engine == "vector":
+        specs = (sweep.scenario_families(**RULES_GRID)[:2]
+                 + sweep.scenario_families(**TIMED_GRID)[:2])
+    else:
+        specs = sweep.scenario_families(**grid)
+    with count_plain_calls() as plain, record_balancer_waterfills() as seen:
+        res = sweep.run_sweep(specs, policies, engine=engine, device="cpu",
+                              slot_slack=MIG_SLACK)
+    out = dict(specs=specs, res=res, plain=plain, seen=seen)
+    if engine == "batch":
+        info = dict(sweep.LAST_BATCH_INFO)
+        out.update(result=info.pop("result"), info=info)
+    return out
+
+
+def run_migration_path(tag: str, cpu: dict, policies, must_show):
+    """Path G or X: the grid through ``run_sweep(..., engine="batch")`` on
+    the card with the launch counts and reads of exactly that run, held
+    against the same grid's CPU run (``cpu_migration_run``): exact counts,
+    payload and energy 1e-9, final states equal, the loop's reads equal,
+    every K1 and K2 launch one of the CPU run's plain calls, the budget
+    within 1e-6, and ``must_show`` counts in the grid.  Returns ``(gpu
+    results, launches, info)``."""
+    from repro_torch.sim import sweep
+    from repro_torch.sim.batch import BatchedSimulator
+
+    specs, plain = cpu["specs"], cpu["plain"]
+    keys = [(s, p) for s in specs for p in policies]
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gpu = sweep.run_sweep(specs, policies, engine="batch",
+                          slot_slack=MIG_SLACK)
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    info, res = dict(sweep.LAST_BATCH_INFO), sweep.LAST_BATCH_INFO["result"]
+    info.pop("result")
+    names = [(s.name, p) for s, p in keys]
+    compare(f"{tag} vs CPU", gpu, cpu["res"], names)
+    compare_final(f"{tag} vs CPU", res, cpu["result"], keys)
+    if launches != dict(no_model_launches(), **plain) or \
+            plain["balance_caps"] != info["invocation_ticks"] or \
+            plain["waterfill_dense"] <= info["ticks"] or \
+            info != cpu["info"]:
+        raise AssertionError(f"{tag}: kernel launches {launches}, the CPU "
+                             f"run's plain calls {plain}, loop {info}, the "
+                             f"CPU run's loop {cpu['info']}")
+    totals = {f: int(sum(getattr(gpu[n][p], f) for n, p in names))
+              for f in ("cap_changes", "power_offs", "power_ons",
+                        "vmotions")}
+    if min(totals[f] for f in must_show) <= 0:
+        raise AssertionError(f"{tag}: the grid shows none of {must_show}: "
+                             f"{totals}")
+    over = float(res.over_budget.max())
+    if over > 1e-6:
+        raise AssertionError(f"{tag}: budget over by {over} W")
+    cells, _ = sweep.build_batch_cells(specs, policies)
+    sim = BatchedSimulator(cells, slot_slack=MIG_SLACK,
+                           balancer=sweep.grid_balancer(specs))
+    traced = idle_share(sim.run)
+    n, ticks = len(keys), info["ticks"]
+    out = dict(wall_s=wall, engine_s=res.run_s, pack_s=res.pack_s, cells=n,
+               cells_per_s=n / wall, engine_cells_per_s=n / res.run_s,
+               ticks=ticks, invocation_ticks=info["invocation_ticks"],
+               branch_reads=info["branch_reads"],
+               migration_reads=info["migration_reads"],
+               reads_per_tick=info["branch_reads"] / ticks,
+               max_over_budget_w=over, **totals, **traced)
+    if traced["kernel_launches"] is not None:
+        out["launches_per_tick"] = traced["kernel_launches"] / ticks
+    log(f"path {tag}: {n} cells x {ticks} ticks, {n / wall:.2f} cells/s "
+        f"(engine {n / res.run_s:.2f} cells/s, pack {res.pack_s:.3f} s); "
+        f"launches {launches}; {json.dumps(out)}")
+    return gpu, launches, out
+
+
+def run_migration_vector_path(policies, batches, cpu: dict):
+    """Path Q: the vector engine on ``specs[:2]`` of G's and X's grids (the
+    reference benchmarks' sequential baselines), cpc and static, on the
+    card, held against the same cells' CPU run (``cpu_migration_run``, K1-K3
+    launches equal to its plain calls) and against paths G's and X's
+    results; ticks/s, launches a tick and the idle share printed.  Returns
+    ``(launches, info)``."""
+    from repro_torch.sim.sweep import run_sweep
+
+    chosen = cpu["specs"]
+    names = [(s.name, p) for s in chosen for p in policies]
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gpu = run_sweep(chosen, policies, engine="vector")
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    compare("Q vs CPU", gpu, cpu["res"], names)
+    for batch, group in zip(batches, (names[:4], names[4:])):
+        compare("Q vs batch", gpu, batch, group)
+    if launches != dict(no_model_launches(), **cpu["plain"]):
+        raise AssertionError(f"Q: kernel launches {launches}, the CPU run's "
+                             f"plain calls {cpu['plain']}")
+    traced = idle_share(lambda: run_sweep(chosen, policies,
+                                          engine="vector"))
+    ticks = gpu[names[0][0]][names[0][1]].ticks
+    out = dict(wall_s=wall, cells=len(names), ticks=ticks,
+               ticks_per_s=ticks * len(names) / wall,
+               cells_per_s=len(names) / wall,
+               vmotions=sum(gpu[n][p].vmotions for n, p in names),
+               cap_changes=sum(gpu[n][p].cap_changes for n, p in names),
+               **traced)
+    if traced["kernel_launches"] is not None:
+        out["launches_per_tick"] = traced["kernel_launches"] / (
+            ticks * len(names))
+    log(f"path Q: {len(names)} cells x {ticks} ticks, wall {wall:.3f} s "
+        f"({out['ticks_per_s']:.1f} ticks/s); launches {launches}; "
+        f"{json.dumps(out)}")
+    return launches, out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false",
@@ -2545,14 +2796,21 @@ def main() -> int:
               "V": (1, 1000, 10, False, 200),
               "cell": (1, 10_000, 10, False, 100),
               "D": (32, 100, 15, True, 100), "W": (1, 100, 10, False, 200),
-              "R": (2, 100, 10, True, 100)}
+              "R": (2, 100, 10, True, 100), "G": (32, 100, 15, False, 100),
+              "X": (32, 100, 15, False, 100), "Q": (1, 100, 10, False, 200)}
     records = check_kernels(shapes, dev)
     records["V"][0]["datacenter_cell"] = records.pop("cell")[0]
     records["V"].append(check_k3(dev))
     k3_100 = check_k3(dev, m_path=100, tag="W")
     records["W"].append(k3_100)
     records["R"].append(dict(k3_100))
+    records["Q"].append(check_k3(dev, m_path=100, tag="Q"))
     rows = check_row_shapes(dev)
+    cpu_g = cpu_migration_run(RULES_GRID, ("cpc", "static"))
+    cpu_x = cpu_migration_run(TIMED_GRID, ("cpc", "static"))
+    cpu_q = cpu_migration_run(None, ("cpc", "static"), engine="vector")
+    for tag, cpu in (("G", cpu_g), ("X", cpu_x), ("Q", cpu_q)):
+        records[tag] = check_balancer_k1(tag, cpu["seen"], dev) + records[tag]
     for rec in records["A"] + records["V"][1:]:
         rec["row_shapes_max_abs_err"] = rows[
             {"waterfill_dense": "K1", "balance_caps": "K2",
@@ -2583,6 +2841,13 @@ def main() -> int:
     launches_w, info_w = run_churn_vector_path(policies, gpu_d)
     launches_rb, launches_rv, info_r = run_tree_path(policies)
     launches_r = {k: launches_rb[k] + launches_rv[k] for k in launches_rb}
+
+    gpu_g, launches_g, info_g = run_migration_path(
+        "G", cpu_g, policies, ("cap_changes", "vmotions"))
+    gpu_x, launches_x, info_x = run_migration_path(
+        "X", cpu_x, policies, ("cap_changes", "vmotions", "power_ons"))
+    launches_q, info_q = run_migration_vector_path(policies, (gpu_g, gpu_x),
+                                                   cpu_q)
 
     records["S"] = [check_k4(dev), check_k6(dev)]
     launches_s, info_s = run_serving_path(dev)
@@ -2620,7 +2885,8 @@ def main() -> int:
     for tag, launches in (("A", launches_a), ("B", launches_b),
                           ("V", launches_v), ("D", launches_d),
                           ("W", launches_w), ("R", launches_r),
-                          ("S", launches_s),
+                          ("G", launches_g), ("X", launches_x),
+                          ("Q", launches_q), ("S", launches_s),
                           ("T", launches_t), ("M", launches_m),
                           ("P", launches_p), ("H", launches_h)):
         for rec in records[tag]:
@@ -2628,6 +2894,7 @@ def main() -> int:
             kernels_out.append(dict(rec, launches=launches[name], path=tag))
     log(json.dumps({"paths": {"A": info_a, "B": info_b, "V": info_v,
                               "D": info_d, "W": info_w, "R": info_r,
+                              "G": info_g, "X": info_x, "Q": info_q,
                               "S": info_s, "T": info_t, "M": info_m,
                               "P": info_p, "H": info_h}}))
     log(json.dumps({"kernels": kernels_out}))

@@ -6,11 +6,13 @@ For the power path the "weights" are the scenario state.  Two forms:
   arrays (``_arrays``) plus a static spec (``_static``) that shapes the
   program; :func:`from_reference_pack` builds the port's simulator over
   the very same bytes, in the cap-only or the churn regime, with or
-  without a budget tree;
+  without a budget tree, placement rules, the migration balancer or timed
+  vMotions;
 * a reference ``ClusterSnapshot`` and its demand traces, the inputs of its
   ``VectorSimulator``; :func:`from_reference_snapshot` rebuilds them as the
-  port's objects (a budget tree too), and :func:`from_reference_config`
-  its ``SimConfig`` (scripted power events too).
+  port's objects (a budget tree and placement rules too), and
+  :func:`from_reference_config` its ``SimConfig`` (scripted power events
+  and launch gates too).
 
 For the serving path, :func:`from_reference_params` copies the model's
 parameter tree, and for training :func:`from_reference_train_state` the
@@ -27,10 +29,13 @@ import torch
 
 from repro_torch.backend import resolve_device
 from repro_torch.core.budget_tree import BudgetTree
-from repro_torch.core.kernels import BalanceParams, DPMParams
+from repro_torch.core.kernels import (BalanceParams, DPMParams,
+                                     MigrationLimits, MigrationParams,
+                                     RulesMeta)
 from repro_torch.core.power_model import HostPowerSpec
+from repro_torch.drs import rules as rules_mod
 from repro_torch.drs.snapshot import ClusterSnapshot, Host, VirtualMachine
-from repro_torch.sim.batch import BatchedSimulator, BatchUnsupported, Schedule
+from repro_torch.sim.batch import BatchedSimulator, MigrationModel, Schedule
 from repro_torch.sim.cluster import SimConfig
 from repro_torch.sim.workloads import TraceSpec, spec_trace
 
@@ -42,19 +47,27 @@ def from_reference_pack(arrays: dict, static, device=None,
     ``arrays`` is the reference simulator's ``_arrays``; ``static`` its
     ``_static``, of which the fields ``tick_s``, ``waterfill_iters``,
     ``balance``, ``keep_timeseries``, ``n_tags``, ``churn``, ``dpm``,
-    ``drs_period_s``, ``drs_first_at_s`` and the power latencies are read.
-    The churn pack's extra keys (``exists``, ``dpm``, ``vm``,
-    ``migratable``, the ``ev_*`` events and the ``tree_*`` columns) come
-    along.  A pack of the migration layer (rules, a live balancer, timed
-    vMotions: ROADMAP queue 1, item 6) raises.  Cells are named
-    ``cell{i}`` and tags ``tag{g}`` in the reference's (sorted) tag order;
-    a cell has a window when any tick falls inside it.
+    ``drs_period_s``, ``drs_first_at_s``, the power latencies and the
+    migration layer's (``migration``, ``rules``, ``balancer``, ``timed``,
+    ``mig_table``, ``limits``, the vMotion rate and overhead) are read.
+    The churn pack's extra keys (``exists``, ``dpm``, ``bal_on``, ``vm``,
+    ``migratable``, the ``ev_*`` events, the ``tree_*`` columns and the
+    rule columns) come along.  Cells are named ``cell{i}`` and tags
+    ``tag{g}`` in the reference's (sorted) tag order; a cell has a window
+    when any tick falls inside it.
     """
-    if static.migration or static.timed:
-        raise BatchUnsupported(
-            "the reference pack runs the migration layer, which is not "
-            "ported yet (ROADMAP queue 1, item 6)")
     n_cells = arrays["on"].shape[0]
+    migration = None
+    if static.churn:
+        on = bool(static.migration)
+        migration = MigrationModel(
+            rules=RulesMeta(*static.rules) if on else RulesMeta(),
+            balancer=(MigrationParams(*static.balancer) if on
+                      else MigrationParams(max_moves=0)),
+            timed=bool(static.timed), mig_table=int(static.mig_table),
+            limits=MigrationLimits(*static.limits),
+            vmotion_rate_mb_s=static.vmotion_rate_mb_s,
+            vmotion_overhead_mhz=static.vmotion_overhead_mhz)
     return BatchedSimulator.from_pack(
         arrays, names=[f"cell{i}" for i in range(n_cells)],
         tag_names=[f"tag{g}" for g in range(static.n_tags)],
@@ -63,7 +76,7 @@ def from_reference_pack(arrays: dict, static, device=None,
         balance=BalanceParams(**static.balance._asdict()),
         waterfill_iters=static.waterfill_iters,
         keep_timeseries=static.keep_timeseries, device=device,
-        churn=static.churn, dpm=DPMParams(**static.dpm._asdict()),
+        migration=migration, dpm=DPMParams(**static.dpm._asdict()),
         schedule=Schedule(static.drs_period_s, static.drs_first_at_s,
                           static.power_on_latency_s,
                           static.power_off_latency_s))
@@ -78,8 +91,9 @@ def from_reference_snapshot(snapshot, traces: dict
     """The port's ``(ClusterSnapshot, traces)`` for a reference snapshot and
     its traces.
 
-    Hosts, host specs and VMs are copied field by field (rules as they
-    are: the port's manager refuses them), and a budget tree as the port's
+    Hosts, host specs and VMs are copied field by field, placement rules as
+    the port's rules of the same class and fields
+    (:mod:`repro_torch.drs.rules`), and a budget tree as the port's
     :class:`~repro_torch.core.budget_tree.BudgetTree` of the same parents,
     limits and host nodes.  A trace with a declarative ``.spec`` becomes
     the port's :func:`~repro_torch.sim.workloads.spec_trace` of the same
@@ -95,8 +109,10 @@ def from_reference_snapshot(snapshot, traces: dict
     tree = getattr(snapshot, "budget_tree", None)
     if tree is not None:
         tree = BudgetTree(tree.parent, tree.limit, tree.host_node)
+    rules = [getattr(rules_mod, type(r).__name__)(**_fields(
+        r, getattr(rules_mod, type(r).__name__))) for r in snapshot.rules]
     snap = ClusterSnapshot(hosts, vms, power_budget=snapshot.power_budget,
-                           rules=list(snapshot.rules), budget_tree=tree)
+                           rules=rules, budget_tree=tree)
     out = {}
     for vm_id, trace in traces.items():
         spec = getattr(trace, "spec", None)

@@ -50,6 +50,61 @@ class DenseCols(NamedTuple):
     iters: int = 200
 
 
+class MigrationParams(NamedTuple):
+    """Configuration of the migration balancer
+    (:class:`repro_torch.drs.balancer.BalancerConfig`'s)."""
+
+    imbalance_threshold: float = 0.05
+    max_moves: int = 16
+    min_goodness: float = 1e-3
+    cost_per_gb: float = 2e-4
+    contention_threshold: float = 0.9
+
+
+class MigrationLimits(NamedTuple):
+    """Per-invocation launch gates on the manager's migrations.
+
+    A host may be an endpoint (source or destination) of at most
+    ``slots_per_host`` launches an invocation, and the cluster may launch
+    at most ``bandwidth``; ``None`` means ungated, ``0`` none at all.  A
+    gated move is not emitted, and the next invocation scores it again.
+    Evacuations are exempt: a power-off is all or nothing.
+    """
+
+    slots_per_host: int | None = None
+    bandwidth: int | None = None
+
+    @property
+    def gated(self) -> bool:
+        return self.slots_per_host is not None or self.bandwidth is not None
+
+
+class RulesMeta(NamedTuple):
+    """The static shape of a grid's rule set: the correction loops'
+    bounds."""
+
+    n_groups: int = 0              # merged affinity groups
+    n_anti: int = 0                # anti-affinity rules
+    n_vmhost: int = 0              # VM-host rules
+    max_group_members: int = 0     # largest affinity group
+    max_anti_members: int = 0      # total anti-rule members
+
+    @property
+    def move_bound(self) -> int:
+        """Most constraint-correction moves one invocation can make."""
+        return (self.n_groups * self.max_group_members + self.n_vmhost
+                + self.max_anti_members)
+
+    @property
+    def any(self) -> bool:
+        return (self.n_groups + self.n_anti + self.n_vmhost) > 0
+
+
+#: Bisection trips of the migration layer's waterfills, in every engine, so
+#: that their entitlement scores (and the argmax decisions on them) agree.
+MIGRATION_WATERFILL_ITERS = 100
+
+
 def clip(x, lo, hi):
     """``jnp.clip`` order: ``min(max(x, lo), hi)``."""
     return torch.minimum(torch.maximum(x, lo), hi)
@@ -366,6 +421,19 @@ def util_rank_key(util):
     return torch.floor(util / UTIL_TIE_QUANTUM)
 
 
+def nearest_rank_key(x):
+    """The key the migration balancer ranks by: ``x`` rounded to the
+    nearest multiple of :data:`UTIL_TIE_QUANTUM` (exact in float64, so
+    bitwise the same on any device; infinities pass).  Its normalized
+    entitlements and gains tie to within rounding where hosts saturate
+    (entitlement sums equal to capacity, so ``N_h`` is 1 up to the order of
+    a sum); to the nearest, not down, so that values a rounding away from
+    1.0 on either side rank together.  Values further apart than the
+    quantum keep their order; ties go to the lower index (ROADMAP trap
+    T5)."""
+    return torch.round(x / UTIL_TIE_QUANTUM)
+
+
 def stable_argsort(x, dim: int = -1):
     """Argsort that keeps ties in index order, as NumPy's and JAX's do
     (``torch.argsort`` is not stable unless asked)."""
@@ -513,19 +581,22 @@ def power_off_reabsorb_caps(hosts: HostCols, caps, off_idx, budget,
 
 def plan_evacuation(hosts: HostCols, caps, victim, occ, eff_slot, mem_slot,
                     res_slot, migratable, host_mem, target_util: float,
-                    scope=None):
+                    allowed=None, anti=None, scope=None):
     """DPM's evacuation plan on the dense slot layout ``(S, H, J)``.
 
     The victim's VMs leave in decreasing memory order (stable on ties),
     each to the fitting powered-on host with the strictly lowest
     utilization after the move (the first on ties), within reservations,
     memory and ``target_util`` on CPU and memory, and inside ``scope``
-    (``(S, H)`` bool) when given.  All or nothing: one unplaceable or
-    unmigratable VM cancels the plan.  Returns ``(ok, order, dests,
-    n_evac, slot_pressure)``: ``dests[:, k]`` is the k-th evacuee's
-    destination (-1 unused), and ``slot_pressure`` flags cells where the
-    ``J`` bound turned a fitting destination away (placement rules join
-    with the migration layer, ROADMAP queue 1, item 6).
+    (``(S, H)`` bool) when given.  ``allowed`` (``(S, H, J, H)``) and
+    ``anti`` (``(S, H, J, R)``) add rule admission: an evacuee lands only
+    on a host its VM-host mask allows and where no member of its
+    anti-affinity rules lives, counting evacuees placed earlier in the
+    plan.  All or nothing: one unplaceable or unmigratable VM cancels the
+    plan.  Returns ``(ok, order, dests, n_evac, slot_pressure)``:
+    ``dests[:, k]`` is the k-th evacuee's destination (-1 unused), and
+    ``slot_pressure`` flags cells where the ``J`` bound turned a fitting
+    destination away.
     """
     s, h, j = occ.shape
     dev = caps.device
@@ -551,6 +622,10 @@ def plan_evacuation(hosts: HostCols, caps, victim, occ, eff_slot, mem_slot,
     base_fit = on & ~is_vic
     if scope is not None:
         base_fit = base_fit & scope
+    vic_allowed = None if allowed is None else at_victim(allowed)
+    vic_anti = None if anti is None else at_victim(anti)
+    if vic_anti is not None:
+        anti_cnt = (anti & act[..., None]).sum(2)            # (S, H, R)
     dests = torch.full((s, j), -1, dtype=victim.dtype, device=dev)
     ok = torch.ones(s, dtype=torch.bool, device=dev)
     pressure = torch.zeros(s, dtype=torch.bool, device=dev)
@@ -564,6 +639,11 @@ def plan_evacuation(hosts: HostCols, caps, victim, occ, eff_slot, mem_slot,
         util_after = (eff_h + e[:, None]) / torch.clamp_min(managed, 1e-9)
         mem_after = (mem_h + m[:, None]) / torch.clamp_min(host_mem, 1e-9)
         fit = fit & (util_after <= target_util) & (mem_after <= target_util)
+        if vic_allowed is not None:
+            fit = fit & vic_allowed[s_idx, ko]
+        if vic_anti is not None:
+            a_k = vic_anti[s_idx, ko]                          # (S, R)
+            fit = fit & ~((anti_cnt > 0) & a_k[:, None, :]).any(-1)
         slot_ok = cnt_h < j
         pressure = pressure | (valid[:, None] & fit & ~slot_ok).any(-1)
         fit = fit & slot_ok
@@ -578,15 +658,27 @@ def plan_evacuation(hosts: HostCols, caps, victim, occ, eff_slot, mem_slot,
         mem_h = mem_h + torch.where(upd, m[:, None], 0.0)
         res_h = res_h + torch.where(upd, r[:, None], 0.0)
         cnt_h = cnt_h + upd.to(cnt_h.dtype)
+        if vic_anti is not None:
+            anti_cnt = anti_cnt + (upd[..., None]
+                                   & a_k[:, None, :]).to(anti_cnt.dtype)
     n_evac = torch.where(ok, n_vic, 0)
     return ok, order, dests, n_evac, pressure
 
 
 # ------------------------------------------------------- slot moves
+#
+# The migration layer (constraint correction and DRS's hill-climb) decides
+# on the dense slot layout ``(S, H, J)``, in the object plane (one cell,
+# :class:`repro_torch.core.migration_core.MigrationCore`) and in the batched
+# engine alike.  Rules arrive as slot columns
+# (:class:`repro_torch.drs.arrays.RulesPack`): ``aff_group`` ``(S, H, J)``
+# int, ``allowed`` ``(S, H, J, H)`` bool, ``anti`` ``(S, H, J, R)`` bool.
+
 #: Pad values restored to a slot when its VM moves away.  Engines carrying
 #: more per-slot columns (demand traces, tag masks) extend this mapping.
 SLOT_PAD = {"occ": False, "reservation": 0.0, "limit": float("inf"),
-            "weights": 1e-12, "migratable": True, "cpu": 0.0, "mem": 0.0}
+            "weights": 1e-12, "migratable": True, "cpu": 0.0, "mem": 0.0,
+            "aff_group": -1, "allowed": True, "anti": False}
 
 
 def move_slot(work: dict, do, src, j, dst, pads=SLOT_PAD):
@@ -620,3 +712,420 @@ def move_slot(work: dict, do, src, j, dst, pads=SLOT_PAD):
         arr[s_idx, src_c, j_c] = torch.where(m, pad, arr[s_idx, src_c, j_c])
         out[key] = arr
     return out, moved
+
+
+def record_move(moves, n_moves, do, src, j, dst):
+    """Append ``(src, j, dst)`` at each cell's cursor where ``do``:
+    ``moves`` is ``(S, M, 3)`` int (-1 padded), ``n_moves`` the cursor."""
+    at = (torch.arange(moves.shape[1], device=moves.device)[None, :]
+          == n_moves[:, None])
+    triple = torch.stack([src, j, dst], -1).to(moves.dtype)
+    upd = (at & do[:, None])[..., None]
+    return (torch.where(upd, triple[:, None, :], moves),
+            n_moves + do.to(n_moves.dtype))
+
+
+def _gather_slots(col, srcs, js):
+    """Per-slot columns at K ``(host, slot)`` coordinates: ``(S, K, ...)``."""
+    s_idx = torch.arange(col.shape[0], device=col.device)[:, None]
+    return col[s_idx, srcs, js]
+
+
+def _affinity_keep_slots(work: dict, act, n_groups: int, srcs, js):
+    """``(S, K, H)``: the (gathered slot, destination) moves that create no
+    affinity split -- a grouped VM moves only where a group mate lives, or
+    when it is its group's only placed member."""
+    s_ax, h_ax, _ = act.shape
+    if "aff_group" not in work or n_groups == 0:
+        return torch.ones((s_ax, srcs.shape[-1], h_ax), dtype=torch.bool,
+                          device=act.device)
+    grp = work["aff_group"]
+    g_idx = torch.arange(n_groups, device=act.device)
+    per_host = ((grp[..., None] == g_idx) & act[..., None]).sum(2)  # (S,H,G)
+    total = per_host.sum(1)                                         # (S, G)
+    g_v = _gather_slots(grp, srcs, js)                              # (S, K)
+    g_c = torch.clamp(g_v, 0, max(n_groups - 1, 0))
+    tot_v = torch.gather(total, 1, g_c)
+    dest_cnt = torch.gather(per_host.transpose(1, 2), 1,
+                            g_c[..., None].expand(-1, -1, h_ax))    # (S,K,H)
+    return (g_v[..., None] < 0) | (tot_v[..., None] <= 1) | (dest_cnt > 0)
+
+
+def _admission_slots(on, work: dict, capacity, host_mem, srcs, js,
+                     limits: MigrationLimits | None = None, launch=None):
+    """Reservation, memory, rule and free-slot admission of K gathered
+    candidate slots against every destination, ``(S, K, H)``.
+
+    Returns ``(fit, fit_unbounded, res_h, mem_h)``: ``fit_unbounded``
+    ignores the free-slot bound (slot-pressure detection), ``res_h`` and
+    ``mem_h`` are the per-host sums at the current placement.
+    ``capacity`` is the injected view (current-cap or fundable managed
+    capacity, paper Fig. 3), 0 for powered-off hosts.  With gated
+    ``limits``, ``launch = (launch_h, launch_n)`` (per-host endpoint counts
+    and the cell's total launched this invocation) must leave headroom at
+    both endpoints and in the cluster budget; the gate lands before the
+    free-slot split, so a deferral it causes is not slot pressure.
+    """
+    occ = work["occ"]
+    act = occ & on[..., None]
+    res_h = torch.where(act, work["reservation"], 0.0).sum(-1)
+    mem_h = torch.where(act, work["mem"], 0.0).sum(-1)
+    h_idx = torch.arange(occ.shape[1], device=occ.device)
+    res_v = _gather_slots(work["reservation"], srcs, js)       # (S, K)
+    mem_v = _gather_slots(work["mem"], srcs, js)
+    fit = on[:, None, :] & (h_idx != srcs[..., None])
+    fit = fit & (res_h[:, None, :] + res_v[..., None]
+                 <= capacity[:, None, :] + 1e-9)
+    fit = fit & (mem_h[:, None, :] + mem_v[..., None]
+                 <= host_mem[:, None, :] + 1e-9)
+    if "allowed" in work:
+        fit = fit & _gather_slots(work["allowed"], srcs, js)
+    if "anti" in work and work["anti"].shape[-1] > 0:
+        present = (work["anti"] & act[..., None]).any(2)        # (S, H, R)
+        a_v = _gather_slots(work["anti"], srcs, js)             # (S, K, R)
+        fit = fit & ~(a_v[:, :, None, :] & present[:, None, :, :]).any(-1)
+    if limits is not None and limits.gated:
+        launch_h, launch_n = launch
+        if limits.slots_per_host is not None:
+            src_launch = torch.gather(launch_h, -1, srcs)
+            fit = fit & (src_launch < limits.slots_per_host)[..., None]
+            fit = fit & (launch_h < limits.slots_per_host)[:, None, :]
+        if limits.bandwidth is not None:
+            fit = fit & (launch_n < limits.bandwidth)[:, None, None]
+    free_slot = (~occ).any(-1)                                 # (S, H)
+    return fit & free_slot[:, None, :], fit, res_h, mem_h
+
+
+def _launch_counter(limits: MigrationLimits, h_idx):
+    """The launch ledger's update for one committed move a cell (a no-op
+    when the launches are not gated)."""
+    def count(launch_h, launch_n, moved, src, dst):
+        if not limits.gated:
+            return launch_h, launch_n
+        ep = (h_idx == src[:, None]) | (h_idx == dst[:, None])
+        return (launch_h + (moved[:, None] & ep).to(launch_h.dtype),
+                launch_n + moved.to(launch_n.dtype))
+    return count
+
+
+def correct_constraints_slots(hosts: HostCols, capacity, work: dict,
+                              host_mem, rmeta: RulesMeta, enabled, moves,
+                              n_moves, pads=SLOT_PAD,
+                              limits: MigrationLimits = MigrationLimits(),
+                              launch=None, read=bool):
+    """Constraint correction on the dense slot layout (paper Fig. 1a/3).
+
+    1. *Affinity*: each group gathers on one home host, all or nothing --
+       the anchor's host (the member with the largest reservation) when it
+       admits the group, else the feasible member host with the most free
+       capacity; with no feasible home the group stays split.
+    2. *VM-host*: each misplaced VM moves to the admissible allowed host
+       with the most free capacity.
+    3. *Anti-affinity*: while a rule has two members on one host, the first
+       surplus member with a feasible destination moves to the admissible
+       host with the most free capacity.
+
+    ``capacity`` is the admission view (current-cap managed capacity for
+    static policies, fundable capacity during Powercap Allocation).  Moves
+    change ``work`` in slot space and are appended to ``moves`` /
+    ``n_moves``.  Returns ``(work, moves, n_moves, pressure, launch)``:
+    ``pressure`` flags cells whose ``J`` bound blocked a feasible
+    correction, ``launch = (launch_h, launch_n)`` the invocation's launch
+    counts (shared with the balancer) after every committed move.  Gated
+    ``limits`` defer an affinity group whose remaining launch headroom
+    cannot cover its whole gather.  The VM-host and anti-affinity loops
+    end when no cell still corrects: each round reads one flag through
+    ``read``.
+    """
+    on = hosts.on
+    s_ax, h_ax, j_ax = work["occ"].shape
+    dev = on.device
+    h_idx = torch.arange(h_ax, device=dev)
+    s_idx = torch.arange(s_ax, device=dev)
+    pressure = torch.zeros(s_ax, dtype=torch.bool, device=dev)
+    gated = limits.gated
+    if launch is None:
+        launch = (torch.zeros((s_ax, h_ax), dtype=n_moves.dtype, device=dev),
+                  torch.zeros(s_ax, dtype=n_moves.dtype, device=dev))
+    launch_h, launch_n = launch
+    count = _launch_counter(limits, h_idx)
+
+    # ---------------------------------------------------- 1. affinity
+    for g in range(rmeta.n_groups):
+        occ = work["occ"]
+        act = occ & on[..., None]
+        res = work["reservation"]
+        memb = act & (work["aff_group"] == g)
+        cnt_h = memb.sum(-1)                                   # (S, H)
+        violated = (cnt_h > 0).sum(-1) > 1
+        n_movers = cnt_h.sum(-1)[:, None] - cnt_h
+        # Every candidate home at once: it hosts a member, admits the other
+        # members' reservations and memory under the capacity view, keeps
+        # each mover's VM-host mask and anti-affinity rules, and has the
+        # free slots.
+        nm_h = (memb & ~work["migratable"]).sum(-1)
+        ok = (nm_h.sum(-1)[:, None] - nm_h) == 0
+        if "allowed" in work:
+            bad = memb[..., None] & ~work["allowed"]           # (S,H,J,H)
+            bad_on_home = torch.diagonal(bad, 0, 1, 3).sum(1)  # (S, H)
+            ok = ok & ((bad.sum((1, 2)) - bad_on_home) == 0)
+        if "anti" in work and rmeta.n_anti:
+            anti = work["anti"]
+            c_rh = (anti & act[..., None]).sum(2)              # (S, H, R)
+            g_rh = (anti & memb[..., None]).sum(2)
+            m_r = g_rh.sum(1)[:, None, :] - g_rh               # movers in r
+            ok = ok & ((m_r == 0) | (c_rh + m_r <= 1)).all(-1)
+        res_h = torch.where(act, res, 0.0).sum(-1)
+        mem_h = torch.where(act, work["mem"], 0.0).sum(-1)
+        memb_res_h = torch.where(memb, res, 0.0).sum(-1)
+        memb_mem_h = torch.where(memb, work["mem"], 0.0).sum(-1)
+        moving_res = memb_res_h.sum(-1)[:, None] - memb_res_h
+        moving_mem = memb_mem_h.sum(-1)[:, None] - memb_mem_h
+        ok = ok & (res_h + moving_res <= capacity + 1e-9)
+        ok = ok & (mem_h + moving_mem <= host_mem + 1e-9)
+        ok = ok & (cnt_h > 0)
+        if gated:
+            # All or nothing under the gates too: each member host has
+            # headroom for its departures, the home for every arrival, the
+            # cluster for the whole gather.
+            if limits.slots_per_host is not None:
+                sl = limits.slots_per_host
+                dep_bad = ((cnt_h > 0) & (launch_h + cnt_h > sl)).to(
+                    launch_h.dtype)
+                ok = ok & ((dep_bad.sum(-1)[:, None] - dep_bad) == 0)
+                ok = ok & (launch_h + n_movers <= sl)
+            if limits.bandwidth is not None:
+                ok = ok & (launch_n[:, None] + n_movers <= limits.bandwidth)
+        ok_full = ok & (j_ax - occ.sum(-1) >= n_movers)
+        feasible = ok_full.any(-1)
+        pressure = pressure | (enabled & violated & ~feasible & ok.any(-1))
+        # The anchor's host (its largest-reservation member, the hardest to
+        # move) when feasible, else the feasible member host with the most
+        # free capacity.
+        anchor_home = torch.where(memb, res, -torch.inf).reshape(
+            s_ax, -1).argmax(-1) // j_ax
+        anchor_ok = ok_full[s_idx, anchor_home]
+        best_home = torch.where(ok_full, capacity - res_h,
+                                -torch.inf).argmax(-1)
+        home = torch.where(anchor_ok, anchor_home, best_home)
+        off_home = h_idx[None, :, None] != home[:, None, None]
+        do_g = enabled & violated & feasible
+        for _ in range(rmeta.max_group_members):
+            movers = ((work["occ"] & on[..., None])
+                      & (work["aff_group"] == g) & off_home).reshape(s_ax, -1)
+            first = movers.to(torch.uint8).argmax(-1)
+            src, jj = first // j_ax, first % j_ax
+            work, moved = move_slot(work, do_g & movers.any(-1), src, jj,
+                                    home, pads)
+            moves, n_moves = record_move(moves, n_moves, moved, src, jj,
+                                         home)
+            launch_h, launch_n = count(launch_h, launch_n, moved, src, home)
+
+    # ------------------------------------ the mover of phases 2 and 3
+    def greedy_move(work, moves, n_moves, pressure, launch_h, launch_n,
+                    viol, k_bound):
+        """Move the first slot of ``viol`` with a feasible destination to
+        the admissible host with the most free capacity, scoring only the
+        first ``k_bound`` violating slots of a cell (the phase's rule
+        bound, so no violator is missed)."""
+        big = h_ax * j_ax
+        keys = torch.where(viol.reshape(s_ax, -1),
+                           torch.arange(big, device=dev), big)
+        order = stable_argsort(keys)[:, :k_bound]              # (S, K)
+        kvalid = torch.gather(keys, 1, order) < big
+        srcs, js = order // j_ax, order % j_ax
+        fit, fit_unb, res_h, _ = _admission_slots(
+            on, work, capacity, host_mem, srcs, js, limits,
+            (launch_h, launch_n))
+        ok_v = (kvalid & _gather_slots(work["migratable"], srcs, js))[
+            ..., None]
+        fit, fit_unb = fit & ok_v, fit_unb & ok_v
+        has_dest = fit.any(-1)                                 # (S, K)
+        pressure = pressure | (enabled & (fit_unb.any(-1)
+                                          & ~has_dest).any(-1))
+        found = enabled & has_dest.any(-1)
+        first_k = has_dest.to(torch.uint8).argmax(-1)
+        src, jj = srcs[s_idx, first_k], js[s_idx, first_k]
+        dest = torch.where(fit[s_idx, first_k], capacity - res_h,
+                           -torch.inf).argmax(-1)
+        work, moved = move_slot(work, found, src, jj, dest, pads)
+        moves, n_moves = record_move(moves, n_moves, moved, src, jj, dest)
+        launch_h, launch_n = count(launch_h, launch_n, moved, src, dest)
+        return work, moves, n_moves, pressure, launch_h, launch_n, found
+
+    def vh_viol(work):
+        act = work["occ"] & on[..., None]
+        return act & ~torch.diagonal(work["allowed"], 0, 1, 3).transpose(1, 2)
+
+    def anti_extra(work):
+        member = work["anti"] & (work["occ"] & on[..., None])[..., None]
+        cnt = member.sum(2)                                    # (S, H, R)
+        keeper = member.to(torch.uint8).argmax(2)              # (S, H, R)
+        j_col = torch.arange(j_ax, device=dev)[None, None, :, None]
+        return (member & (j_col != keeper[:, :, None, :])
+                & (cnt[:, :, None, :] > 1)).any(-1)            # (S, H, J)
+
+    # 2. VM-host, then 3. anti-affinity: a round a move, while any cell
+    # still finds one.
+    for bound, viol_of in ((rmeta.n_vmhost, vh_viol),
+                           (rmeta.max_anti_members if rmeta.n_anti else 0,
+                            anti_extra)):
+        if not bound:
+            continue
+        go = enabled & viol_of(work).reshape(s_ax, -1).any(-1)
+        for _ in range(bound):
+            if not read(go.any()):
+                break
+            (work, moves, n_moves, pressure, launch_h, launch_n,
+             found) = greedy_move(work, moves, n_moves, pressure, launch_h,
+                                  launch_n, viol_of(work), bound)
+            go = go & found
+    return work, moves, n_moves, pressure, (launch_h, launch_n)
+
+
+def balance_migrations(hosts: HostCols, caps, work: dict, host_mem,
+                       params: MigrationParams, rmeta: RulesMeta, enabled,
+                       moves, n_moves, pads=SLOT_PAD,
+                       iters: int = MIGRATION_WATERFILL_ITERS,
+                       limits: MigrationLimits = MigrationLimits(),
+                       launch=None, read=bool):
+    """DRS's greedy hill-climb balancer (paper Sec. IV-A), batched.
+
+    A move a round: every (migratable slot on the most-strained host,
+    below-average destination) candidate that passes reservation, memory
+    and rule admission is scored by the drop in the imbalance (the stddev
+    of normalized entitlements, the VM carrying its current entitlement),
+    and the best wins if its gain beats the risk-cost-benefit floor
+    (``min_goodness`` plus the memory-proportional cost).  Rounds go on
+    until the imbalance meets its threshold, no candidate passes, the
+    imbalance stops improving, or ``max_moves``; each round reads one flag
+    through ``read`` (whether any cell still goes).  The contention gate
+    (no strained host: a migration costs more than it brings) is checked
+    once, on entry.  Scoring is a closed-form update of the stddev; after
+    a move only its two hosts are waterfilled again (the bisection is per
+    host, so the result is bitwise a full pass's).  The entitlement
+    waterfills are kernel K1 on the GPU: ``(S, H, J)`` on entry, then
+    ``(S, 2, J)`` a round.  ``limits`` and ``launch`` gate launches as in
+    :func:`correct_constraints_slots`.  Returns ``(work, moves, n_moves,
+    pressure, launch)``.
+    """
+    # Imported here: the wrappers import this module's column types.
+    from repro_torch.kernels.powercap.ops import waterfill_dense
+
+    on = hosts.on
+    s_ax, h_ax, j_ax = work["occ"].shape
+    dev = on.device
+    if launch is None:
+        launch = (torch.zeros((s_ax, h_ax), dtype=n_moves.dtype, device=dev),
+                  torch.zeros(s_ax, dtype=n_moves.dtype, device=dev))
+    pressure = torch.zeros(s_ax, dtype=torch.bool, device=dev)
+    if params.max_moves <= 0:
+        return work, moves, n_moves, pressure, launch
+    launch_h, launch_n = launch
+    h_idx = torch.arange(h_ax, device=dev)
+    s_idx = torch.arange(s_ax, device=dev)
+    count = _launch_counter(limits, h_idx)
+    n_on = on.sum(-1)
+    managed = managed_capacity(hosts, caps)
+    js = torch.arange(j_ax, device=dev)[None, :].expand(s_ax, -1)
+
+    def fill(managed_cols, occ, res, lim, cpu, weights, on_cols):
+        act = occ & on_cols[..., None]
+        eff = torch.where(act, clip(cpu, res, lim), 0.0)
+        floors = torch.where(act, torch.minimum(res, lim), 0.0)
+        alloc = torch.where(act, waterfill_dense(
+            managed_cols, floors, eff, weights, iters, active=act), 0.0)
+        ents = alloc.sum(-1)
+        ns = torch.where(managed_cols > 0.0,
+                         ents / torch.clamp_min(managed_cols, 1e-300), 0.0)
+        return alloc, ents, ns
+
+    def refill_pair(work, alloc, ents, ns, moved, src, dest):
+        """Waterfill the two hosts of a move again and scatter their rows
+        back into the carried entitlements."""
+        idx2 = torch.stack([src, dest], -1)                    # (S, 2)
+        idx3 = idx2[..., None].expand(-1, -1, j_ax)
+
+        def g3(col):
+            return torch.gather(col, 1, idx3)
+
+        alloc2, ents2, ns2 = fill(
+            torch.gather(managed, 1, idx2), g3(work["occ"]),
+            g3(work["reservation"]), g3(work["limit"]), g3(work["cpu"]),
+            g3(work["weights"]), torch.gather(on, 1, idx2))
+        for row, half in (((h_idx == src[:, None]) & moved[:, None],
+                           slice(0, 1)),
+                          ((h_idx == dest[:, None]) & moved[:, None],
+                           slice(1, 2))):
+            alloc = torch.where(row[..., None], alloc2[:, half], alloc)
+            ents = torch.where(row, ents2[:, half], ents)
+            ns = torch.where(row, ns2[:, half], ns)
+        return alloc, ents, ns
+
+    alloc, ents, ns = fill(managed, work["occ"], work["reservation"],
+                           work["limit"], work["cpu"], work["weights"], on)
+    strained = torch.where(on, ns, 0.0).amax(-1)
+    done = ~enabled | (n_on < 2) | (strained <= params.contention_threshold)
+    prev_imb = torch.full((s_ax,), torch.inf, dtype=ns.dtype, device=dev)
+    safe_cap = torch.where(managed > 0.0, managed, 1.0)
+    # A destination with no managed capacity would pin the mover's
+    # normalized entitlement at 0: never a receiver.
+    has_cap = on & (managed > 0.0)
+    denom = torch.clamp_min(n_on, 1)[:, None, None]
+    for _ in range(params.max_moves):
+        if read(done.all()):
+            break
+        act = work["occ"] & on[..., None]
+        imb = _masked_std(ns, on, n_on)
+        mean_n = (ns * on).sum(-1) / torch.clamp_min(n_on, 1)
+        # Candidates come from the most-strained host.
+        hot = torch.where(on, nearest_rank_key(ns), -torch.inf).argmax(-1)
+        ns_hot = ns[s_idx, hot]
+        halt = ((imb <= params.imbalance_threshold) | (imb >= prev_imb)
+                | (ns_hot <= mean_n))
+        srcs = hot[:, None].expand(-1, j_ax)
+        cand = (_gather_slots(act, srcs, js)
+                & _gather_slots(work["migratable"], srcs, js))
+        recv = has_cap & (ns <= mean_n[:, None])
+        fit, fit_unb, _, _ = _admission_slots(
+            on, work, managed, host_mem, srcs, js, limits,
+            (launch_h, launch_n))
+        keep = (_affinity_keep_slots(work, act, rmeta.n_groups, srcs, js)
+                & cand[..., None] & recv[:, None, :])
+        fit, fit_unb = fit & keep, fit_unb & keep
+        live = ~done & ~halt
+        pressure = pressure | (live & (fit_unb & ~fit).reshape(
+            s_ax, -1).any(-1))
+
+        # The stddev after the move, in closed form: the VM carries its
+        # current entitlement e_v from the hot host to the destination.
+        e_v = _gather_slots(alloc, srcs, js)                   # (S, J)
+        ns_src = ns_hot[:, None]
+        ns_d = ns[:, None, :]
+        ns_src_new = (ents[s_idx, hot][:, None] - e_v) / safe_cap[
+            s_idx, hot][:, None]
+        ns_d_new = (ents[:, None, :] + e_v[..., None]) / safe_cap[:, None, :]
+        t1 = (ns * on).sum(-1)[:, None, None]
+        t2 = (ns * ns * on).sum(-1)[:, None, None]
+        t1n = (t1 - ns_src[..., None] - ns_d + ns_src_new[..., None]
+               + ns_d_new)
+        t2n = (t2 - (ns_src * ns_src)[..., None] - ns_d * ns_d
+               + (ns_src_new * ns_src_new)[..., None] + ns_d_new * ns_d_new)
+        mean_t = t1n / denom
+        var = torch.clamp_min(t2n / denom - mean_t * mean_t, 0.0)
+        gain = imb[:, None, None] - torch.sqrt(var)
+        cost = (params.min_goodness + params.cost_per_gb
+                * _gather_slots(work["mem"], srcs, js) / 1024.0)
+        score = torch.where(fit & (gain > cost[..., None]), gain,
+                            -torch.inf).reshape(s_ax, -1)      # (S, J*H)
+        best = nearest_rank_key(score).argmax(-1)
+        found = torch.isfinite(score[s_idx, best])
+        jj, dest = best // h_ax, best % h_ax
+        work, moved = move_slot(work, live & found, hot, jj, dest, pads)
+        moves, n_moves = record_move(moves, n_moves, moved, hot, jj, dest)
+        alloc, ents, ns = refill_pair(work, alloc, ents, ns, moved, hot,
+                                      dest)
+        launch_h, launch_n = count(launch_h, launch_n, moved, hot, dest)
+        done = done | halt | ~found
+        prev_imb = imb
+    return work, moves, n_moves, pressure, (launch_h, launch_n)

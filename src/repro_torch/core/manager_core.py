@@ -13,14 +13,13 @@ The simulators call :meth:`ManagerCore.invoke` (through
 :class:`repro_torch.core.manager.CloudPowerCapManager`) on snapshot clones
 and execute the emitted :mod:`repro_torch.drs.actions` list, with its
 prerequisite edges (decreases before the increases they fund, funding
-before a power-on, evacuations before a power-off).  Placement rules and
-the migration search raise (the migration layer, ROADMAP queue 1,
-item 6); the migration balancer's own stopping test runs, so an
-invocation whose search would stop in its first round completes with the
-reference's default ``BalancerConfig``.  DPM's evacuations are moves of
-their own and run.
+before a power-on, evacuations before a power-off).  The migration
+decisions of phases 1 and 2 -- constraint correction and the hill-climb
+balancer -- are :class:`repro_torch.core.migration_core.MigrationCore`'s;
+with gated launches both share one
+:class:`~repro_torch.core.migration_core.LaunchBudget` an invocation.
 BalancePowerCap, the entitlement sums behind the invocation's notes and
-the balancer's entitlement waterfill run on the manager's ``device``
+the migration layer's waterfills run on the manager's ``device``
 (kernels K2, K3 and K1 on the GPU).
 
 Baselines from the paper's evaluation (``Static``, ``StaticHigh``) run the
@@ -73,14 +72,18 @@ class ManagerCore:
                low_since: Optional[dict] = None,
                last_config_change: float = -1e18,
                limits=None) -> InvocationResult:
-        if limits is not None:
-            raise NotImplementedError(
-                "gated migration launches are not ported yet (ROADMAP "
-                "queue 1, item 6)")
+        """``limits`` (:class:`repro_torch.core.kernels.MigrationLimits`)
+        gates the migrations correction and balancing may launch this
+        invocation, from one shared ledger; evacuations (phase 3) are
+        exempt."""
         actions: list[act.Action] = []
         notes: list[str] = []
-        working = self._phase_allocation(snapshot, actions, notes)
-        working = self._phase_balancing(working, actions, notes)
+        budget = None
+        if limits is not None and limits.gated:
+            from repro_torch.core.migration_core import LaunchBudget
+            budget = LaunchBudget(limits, len(snapshot.hosts), self.device)
+        working = self._phase_allocation(snapshot, actions, notes, budget)
+        working = self._phase_balancing(working, actions, notes, budget)
         working = self._phase_redistribution(working, actions, notes, now,
                                              low_since, last_config_change)
         # Every phase projects or scopes its own caps, so the tree holds on
@@ -96,11 +99,12 @@ class ManagerCore:
 
     # ---------------- Phase 1: constraint correction ------------------
     def _phase_allocation(self, snapshot: ClusterSnapshot, actions: list,
-                          notes: list) -> ClusterSnapshot:
+                          notes: list, budget=None) -> ClusterSnapshot:
         if self.config.powercap_enabled:
             flex = redivvy.get_flexible_power(snapshot)
             moves = placement.correct_constraints(
-                flex, capacity_fn=redivvy.fundable_capacity)
+                flex, capacity_fn=redivvy.fundable_capacity, budget=budget,
+                device=self.device)
             # Post-correction reserved floors (reservations moved with VMs).
             redivvy.set_reserved_floor_caps(flex)
             new_caps = redivvy.redivvy_power_cap(snapshot, flex)
@@ -114,7 +118,8 @@ class ManagerCore:
             working = flex
         else:
             working = snapshot.clone()
-            moves = placement.correct_constraints(working)
+            moves = placement.correct_constraints(working, budget=budget,
+                                                  device=self.device)
             actions += [act.migrate(vm, dest, reason="constraint-correction")
                         for vm, dest in moves]
         if moves:
@@ -123,7 +128,7 @@ class ManagerCore:
 
     # ---------------- Phase 2: entitlement balancing ------------------
     def _phase_balancing(self, working: ClusterSnapshot, actions: list,
-                         notes: list) -> ClusterSnapshot:
+                         notes: list, budget=None) -> ClusterSnapshot:
         cfg = self.config
         if cfg.powercap_enabled:
             balanced, did = bal.balance_power_cap(working, cfg.balance,
@@ -136,7 +141,7 @@ class ManagerCore:
                     f"imbalance {working.imbalance(self.device):.3f}->"
                     f"{balanced.imbalance(self.device):.3f}")
                 working = balanced
-        residual_moves = balancer.balance(working, cfg.balancer,
+        residual_moves = balancer.balance(working, cfg.balancer, budget,
                                           device=self.device)
         if residual_moves:
             actions += [act.migrate(vm, dest, reason="entitlement-balance")

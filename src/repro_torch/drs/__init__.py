@@ -1,3 +1,3 @@
 """The resource-management substrate: the cluster datamodel and its array
-views, actions, the entitlement waterfills, and the cap-only regime's
-placement, balancer and DPM configurations."""
+views, actions, the entitlement waterfills, placement rules with their
+correction, the hill-climb migration balancer, and DPM."""

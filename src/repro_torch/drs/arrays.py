@@ -1,5 +1,6 @@
-"""Struct-of-arrays views of a snapshot: the dense slot layout, and
-:class:`ArrayView`, flat host and VM columns built in one pass.
+"""Struct-of-arrays views of a snapshot: the dense slot layout,
+:class:`RulesPack` (placement rules as arrays), and :class:`ArrayView`,
+flat host and VM columns built in one pass.
 
 The columns are host-side NumPy, as in the reference; the power-model maps
 over them run as the kernel layer's tensor functions on the CPU, and the
@@ -18,6 +19,100 @@ import torch
 
 from repro_torch.backend import resolve_device
 from repro_torch.core import kernels
+
+
+@dataclasses.dataclass
+class RulesPack:
+    """Placement rules as dense arrays, the kernels' rule encoding.
+
+    * ``affinity_group``: each VM's affinity group (``-1``: none).  VMs in
+      several :class:`~repro_torch.drs.rules.AffinityRule` s merge into one
+      group (union), numbered in first-rule order.
+    * ``anti_member``: ``(R, V)`` membership masks, one a rule; no two
+      members of a rule may share a host.
+    * ``allowed``: ``(V, H)`` allowed-host masks, the AND of every
+      :class:`~repro_torch.drs.rules.VMHostRule` naming the VM (all True
+      without one).
+
+    The engines scatter them into the dense slot layout, so admission reads
+    rules as array lookups.
+    """
+
+    n_groups: int
+    n_anti: int
+    n_vmhost: int
+    max_group_members: int          # the correction loops' bound
+    max_anti_members: int           # total anti-rule members
+    affinity_group: np.ndarray      # (V,) int64
+    anti_member: np.ndarray         # (R, V) bool
+    allowed: np.ndarray             # (V, H) bool
+
+    def meta(self) -> kernels.RulesMeta:
+        """The kernels' static view of this pack: every engine's loop and
+        slack bounds."""
+        return kernels.RulesMeta(
+            n_groups=self.n_groups, n_anti=self.n_anti,
+            n_vmhost=self.n_vmhost,
+            max_group_members=self.max_group_members,
+            max_anti_members=self.max_anti_members)
+
+    @classmethod
+    def from_rules(cls, rules, vm_index: dict, host_index: dict
+                   ) -> "RulesPack":
+        from repro_torch.drs import rules as rules_mod
+        n_vms, n_hosts = len(vm_index), len(host_index)
+        group = np.full(n_vms, -1, dtype=np.int64)
+        anti_rows: list[np.ndarray] = []
+        allowed = np.ones((n_vms, n_hosts), dtype=bool)
+        n_vmhost = 0
+        # Affinity: union-find over the rules' members, ids in rule order.
+        parent: dict[int, int] = {}
+
+        def find(x: int) -> int:
+            while parent.setdefault(x, x) != x:
+                parent[x] = parent[parent[x]]
+                x = parent[x]
+            return x
+
+        aff_rules = [r for r in rules
+                     if isinstance(r, rules_mod.AffinityRule)]
+        for rule in aff_rules:
+            rows = [vm_index[v] for v in rule.vm_ids if v in vm_index]
+            for a, b in zip(rows, rows[1:]):
+                parent[find(a)] = find(b)
+        roots: dict[int, int] = {}
+        for rule in aff_rules:
+            for v in rule.vm_ids:
+                if v not in vm_index:
+                    continue
+                root = find(vm_index[v])
+                if root not in roots:
+                    roots[root] = len(roots)
+                group[vm_index[v]] = roots[root]
+        for rule in rules:
+            if isinstance(rule, rules_mod.AntiAffinityRule):
+                row = np.zeros(n_vms, dtype=bool)
+                for v in rule.vm_ids:
+                    if v in vm_index:
+                        row[vm_index[v]] = True
+                anti_rows.append(row)
+            elif isinstance(rule, rules_mod.VMHostRule):
+                if rule.vm_id in vm_index:
+                    n_vmhost += 1
+                    mask = np.zeros(n_hosts, dtype=bool)
+                    for h in rule.allowed_hosts:
+                        if h in host_index:
+                            mask[host_index[h]] = True
+                    allowed[vm_index[rule.vm_id]] &= mask
+        anti = (np.stack(anti_rows) if anti_rows
+                else np.zeros((0, n_vms), dtype=bool))
+        n_groups = len(roots)
+        sizes = np.bincount(group[group >= 0], minlength=max(n_groups, 1))
+        return cls(
+            n_groups=n_groups, n_anti=len(anti_rows), n_vmhost=n_vmhost,
+            max_group_members=int(sizes.max()) if n_groups else 0,
+            max_anti_members=int(anti.sum()),
+            affinity_group=group, anti_member=anti, allowed=allowed)
 
 
 def dense_slot_assignment(snapshot, n_hosts: int):

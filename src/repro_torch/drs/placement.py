@@ -1,15 +1,23 @@
 """Placement: the fit check, initial placement and constraint correction.
 
-:func:`fits` and :func:`place` are the object-plane primitives DPM's
-evacuation planning uses.  Correcting placement-rule violations needs the
-migration layer, a later slice of the port (ROADMAP queue 1, item 6): a
-snapshot with rules raises, here and in :func:`fits`.
+Constraint correction is the first phase of every DRS invocation: the
+migrations that fix rule violations (affinity, anti-affinity, VM-host).
+CloudPowerCap lets the fit check read *fundable* capacity -- what a host
+could reach if its cap were raised from the cluster's unreserved budget --
+instead of the capacity at its current cap (paper Fig. 3 / Sec. IV-B).
+
+:func:`correct_constraints` packs the snapshot into the dense slot layout,
+runs the batched engine's correction kernel function through
+:class:`repro_torch.core.migration_core.MigrationCore`, and replays the
+moves onto the snapshot.  :func:`fits` and :func:`place` are the per-VM
+primitives DPM's evacuation planning uses.
 """
 
 from __future__ import annotations
 
 from typing import Callable
 
+from repro_torch.drs import rules as rules_mod
 from repro_torch.drs.snapshot import ClusterSnapshot
 
 CapacityFn = Callable[[ClusterSnapshot, str], float]
@@ -20,21 +28,15 @@ def current_capacity(snapshot: ClusterSnapshot, host_id: str) -> float:
     return snapshot.hosts[host_id].managed_capacity
 
 
-def _no_rules(snapshot: ClusterSnapshot) -> None:
-    if snapshot.rules:
-        raise NotImplementedError(
-            "placement rules need the migration layer, which is not ported "
-            "yet (ROADMAP queue 1, item 6)")
-
-
 def fits(snapshot: ClusterSnapshot, vm_id: str, host_id: str,
          capacity_fn: CapacityFn = current_capacity) -> bool:
-    """Reservation and memory admission of a what-if move, from the
+    """Reservation, memory and rule admission of a what-if move, from the
     snapshot's cached per-host sums."""
-    _no_rules(snapshot)
     vm = snapshot.vms[vm_id]
     host = snapshot.hosts[host_id]
     if not host.powered_on:
+        return False
+    if not rules_mod.placement_allowed(snapshot, vm_id, host_id):
         return False
     cpu_after = snapshot.cached_cpu_reserved(host_id) + vm.reservation
     if cpu_after > capacity_fn(snapshot, host_id) + 1e-9:
@@ -59,8 +61,14 @@ def place(snapshot: ClusterSnapshot, vm_id: str,
 
 def correct_constraints(snapshot: ClusterSnapshot,
                         capacity_fn: CapacityFn = current_capacity,
-                        budget=None) -> list[tuple[str, str]]:
-    """The ``(vm_id, dest_host)`` moves that fix rule violations: none
-    without rules."""
-    _no_rules(snapshot)
-    return []
+                        budget=None, device=None) -> list[tuple[str, str]]:
+    """The ``(vm_id, dest_host)`` moves that fix rule violations, applied
+    to ``snapshot`` in place (callers pass a clone).  ``budget`` is the
+    invocation's :class:`~repro_torch.core.migration_core.LaunchBudget`
+    when launches are gated; the kernels run on ``device`` (``None``: the
+    GPU)."""
+    if not snapshot.rules:
+        return []
+    from repro_torch.core.migration_core import MigrationCore
+    return MigrationCore(device=device).correct(snapshot, capacity_fn,
+                                                budget)

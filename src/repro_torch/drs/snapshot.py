@@ -6,9 +6,9 @@ what-if mode, and emits the actions that pass.  Capacity unit is MHz
 (paper convention).
 
 A snapshot may carry a :class:`repro_torch.core.budget_tree.BudgetTree`
-over its hosts (in iteration order).  Placement rules are carried so that
-the manager can refuse them (the migration layer, ROADMAP queue 1,
-item 6).
+over its hosts (in iteration order) and placement rules
+(:mod:`repro_torch.drs.rules`), which the migration layer corrects toward
+and DPM's evacuations keep.
 """
 
 from __future__ import annotations

@@ -6,8 +6,8 @@ capacities.  The driver routes the requests, decodes every replica's batch
 (prefill on kernel K4, decode steps on K6; an MoE model's expert FFN on
 K7; a Mamba2 or Zamba2 model's SSD scan on K8 at prefill, Zamba2's shared
 attention on K4 and K6), then halves host ``h0``'s cap, runs one manager invocation
-(BalancePowerCap on K2, its note on K3, the migration balancer's stopping
-test on K1) and routes again.  The weights are random, from a seeded
+(BalancePowerCap on K2, its note on K3, the migration balancer's
+entitlement waterfills on K1) and routes again.  The weights are random, from a seeded
 ``torch.Generator``.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch granite_8b \

@@ -6,7 +6,7 @@ shard VM each; their power caps become per-pod batch shares (a weight mask
 over the fixed global batch).  Two events drive the power plane: a budget
 cut (``--power-budget-drop-at``: 20% of the budget lost and pod0 capped
 hard, then one manager invocation, BalancePowerCap on kernel K2 and its
-note on K3, the migration balancer's stopping test on K1) and a straggler
+note on K3, the migration balancer's waterfills on K1) and a straggler
 (``--straggler-at``: pod1 reported 45% slow until the mitigator's patience
 runs out, then BalancePowerCap toward it).  Every step runs the model's
 forward attention on kernel K4 and its backward on K5.  The weights are

@@ -14,23 +14,39 @@ Two regimes, chosen at pack time, as in the reference:
   host power states are frozen, so the pack is the whole scenario.  The
   DRS schedule is a host array, and the tick loop takes its branches
   without waiting on the device; the harvest is the only synchronisation.
-* **churn** (some cell has ``dpm_enabled`` or ``config.power_events``):
-  the power states, the slot layout and the DRS schedule are carried state.
+* **churn** (some cell has ``dpm_enabled`` or ``config.power_events``, or
+  the grid can migrate a VM: a placement rule violated at the start, a
+  live migration balancer, or rules that DPM's evacuations must keep): the
+  power states, the slot layout and the DRS schedule are carried state.
   Scripted events flip hosts on schedule; pending power-on and power-off
-  timers fire; an invocation runs RedivvyPowerCap, BalancePowerCap, then
-  DPM's triggers with Powercap Redistribution: a funded power-on, or an
-  evacuation (atomic slot remaps, ``move_slot``) and a power-off whose
-  reabsorbed caps apply when its timer fires.  Whether any cell may invoke
-  depends on device state (power actions in flight), so the loop reads one
-  flag a tick (``any(can)``); no loop runs over cells on the host.
+  timers fire; an invocation runs constraint correction (with the
+  fundable-capacity view under cpc, paper Fig. 3), RedivvyPowerCap,
+  BalancePowerCap, DRS's hill-climb balancer, then DPM's triggers with
+  Powercap Redistribution: a funded power-on, or a rule-aware evacuation
+  and a power-off whose reabsorbed caps apply when its timer fires.
+  Migrations are atomic slot remaps (``move_slot``) in the object plane's
+  ``instant_migrations`` regime; in the gated timed regime
+  (``SimConfig.migration_gated``) they go through an in-flight table
+  carried per cell: launches bounded by per-host slots and the cluster
+  bandwidth, both endpoints burning vMotion overhead during the copy, and
+  entries committing FIFO through the same ``move_slot`` the what-if used.
+  Whether any cell may invoke depends on device state, so the loop reads
+  one flag a tick (``any(can)``), and the migration layer's loops one a
+  round; no loop runs over cells on the host.
+
+Placement rules ride along as slot columns (from
+:class:`repro_torch.drs.arrays.RulesPack`): affinity groups, anti-affinity
+memberships and allowed-host masks, moving with their VM.
 
 A budget tree (``snapshot.budget_tree``) adds ancestor incidence, limit and
 depth columns; the caps are projected under every node limit after the
 redivvy and the balance, funding, reabsorption and evacuation are scoped
 by it, and an ``over_tree`` invariant is checked at the harvest.
 
-Placement rules (and with them the migration layer and timed vMotions)
-raise :class:`BatchUnsupported`: ROADMAP queue 1, item 6.  The reference is
+Cells the engine cannot replay exactly raise :class:`BatchUnsupported`:
+ungated timed migrations (their runtime concurrency gate is
+data-dependent), cells disagreeing on the time grid or the migration
+model, and budget trees with placement rules.  The reference is
 ``repro.sim.batch``; results agree with it to float tolerance with exact
 counts of cap changes, power-ons, power-offs and vMotions.
 """
@@ -47,7 +63,8 @@ import torch
 
 from repro_torch.backend import resolve_device
 from repro_torch.core import kernels
-from repro_torch.drs.arrays import dense_slot_assignment
+from repro_torch.drs import rules as rules_mod
+from repro_torch.drs.arrays import RulesPack, dense_slot_assignment
 from repro_torch.drs.entitlement import waterfill_dense
 from repro_torch.drs.snapshot import ClusterSnapshot
 from repro_torch.sim.cluster import SimConfig
@@ -58,23 +75,29 @@ FIELDS = ("cpu_payload_mhz_s", "cpu_demand_mhz_s", "mem_payload_mb_s",
           "mem_demand_mb_s", "energy_j")
 
 #: The packed arrays: each is bitwise the reference pack's array of the
-#: same key (``repro.sim.batch``).  The last seven serve the churn regime.
+#: same key (``repro.sim.batch``).  The last eight serve the churn regime.
 PACK_KEYS = ("on", "idle", "peak", "cap_peak", "hyp", "host_mem", "caps0",
              "cpu_res", "budget", "enabled", "occ", "reservation", "limit",
              "weights", "tag_masks", "bps", "cpu_vals", "mem_vals", "period",
-             "ts", "drs_mask", "win_mask", "exists", "dpm", "vm",
+             "ts", "drs_mask", "win_mask", "exists", "dpm", "bal_on", "vm",
              "migratable", "ev_t", "ev_host", "ev_on")
 
 #: Packed only when a cell has a budget tree that binds.
 TREE_KEYS = ("tree_anc", "tree_limit", "tree_depth")
 
+#: The rule columns, each packed only when the migration layer runs and
+#: some cell has a rule of its kind.
+RULE_KEYS = ("aff_group", "allowed", "anti")
+
 #: Kept on the host: the loop reads them to take its branches.
 _HOST_KEYS = ("ts", "drs_mask", "ev_t")
 
 #: Read by the churn regime only.
-_CHURN_KEYS = ("exists", "dpm", "vm", "migratable", "ev_host", "ev_on")
+_CHURN_KEYS = ("exists", "dpm", "bal_on", "vm", "migratable", "ev_host",
+               "ev_on")
 
-#: The per-slot columns the churn regime carries, moving with their VM.
+#: The per-slot columns the churn regime carries, moving with their VM (and
+#: the rule columns, when packed).
 SLOT_KEYS = ("occ", "reservation", "limit", "weights", "migratable",
              "period", "bps", "cpu_vals", "mem_vals", "tag_masks", "vm")
 
@@ -82,6 +105,11 @@ SLOT_KEYS = ("occ", "reservation", "limit", "weights", "migratable",
 #: row, built per program).
 _SLOT_PAD = dict(kernels.SLOT_PAD, period=float("inf"), cpu_vals=0.0,
                  mem_vals=0.0, tag_masks=False, vm=-1)
+
+#: The timed regime's in-flight table, its empty rows: ``mig_src`` is -1
+#: there, which masks every other column (a committed row keeps its stale
+#: values), so these fills decide nothing.
+_TABLE_PAD = {"mig_j": -1, "mig_dst": -1, "mig_prev": -1, "mig_end": 0.0}
 
 
 class Schedule(NamedTuple):
@@ -92,6 +120,22 @@ class Schedule(NamedTuple):
     drs_first_at_s: float = 300.0
     power_on_latency_s: float = 120.0
     power_off_latency_s: float = 30.0
+
+
+class MigrationModel(NamedTuple):
+    """What the churn program runs of the migration layer, shared by a
+    batch's cells: the rule set's bounds (``RulesMeta()`` when correction
+    does not run), the balancer (``max_moves=0`` when it does not), and the
+    execution model -- the timed in-flight table of ``mig_table`` rows, the
+    launch gates, the vMotion copy rate and endpoint overhead."""
+
+    rules: kernels.RulesMeta = kernels.RulesMeta()
+    balancer: kernels.MigrationParams = kernels.MigrationParams(max_moves=0)
+    timed: bool = False
+    mig_table: int = 1
+    limits: kernels.MigrationLimits = kernels.MigrationLimits()
+    vmotion_rate_mb_s: float = 128.0
+    vmotion_overhead_mhz: float = 1500.0
 
 
 class BatchUnsupported(ValueError):
@@ -109,6 +153,9 @@ class BatchCell:
     powercap_enabled: bool = True            # False => Static/StaticHigh
     window: Optional[tuple[float, float]] = None
     dpm_enabled: bool = False
+    # Whether the hill-climb balancer runs for this cell, when the batch
+    # has a balancer with ``max_moves > 0``.
+    balancer_enabled: bool = True
     # Optional pre-packed ``TraceBank`` over ``list(snapshot.vms)``, shared
     # by the cells of one spec; ``None`` packs from ``traces``.
     trace_bank: Optional[TraceBank] = None
@@ -200,27 +247,41 @@ def _drs_schedule(cfg: SimConfig) -> tuple[np.ndarray, np.ndarray]:
     return np.asarray(ts, dtype=np.float64), np.asarray(fire, dtype=bool)
 
 
-def _cell_reason(c: BatchCell, ref: SimConfig, churn: bool
-                 ) -> Optional[str]:
+def _mig_capable(c: BatchCell, balancer: kernels.MigrationParams) -> bool:
+    """Whether the cell can move a VM, and so has a migration execution
+    model (instant or timed) to agree on."""
+    return bool(c.dpm_enabled
+                or (balancer.max_moves > 0 and c.balancer_enabled)
+                or (c.snapshot.rules
+                    and rules_mod.all_violations(c.snapshot)))
+
+
+def _cell_reason(c: BatchCell, ref: SimConfig, churn: bool,
+                 balancer: kernels.MigrationParams,
+                 ref_mig: Optional[SimConfig] = None,
+                 check_traces: bool = False) -> Optional[str]:
     """Why this cell cannot join a batch anchored on ``ref`` (``churn``:
-    the batch runs the churn regime)."""
+    the batch runs the churn regime; ``ref_mig``: the config of the first
+    migration-capable cell admitted, whose migration model every such cell
+    must share)."""
     same = (c.config.duration_s == ref.duration_s
             and c.config.tick_s == ref.tick_s
             and c.config.drs_period_s == ref.drs_period_s
             and c.config.drs_first_at_s == ref.drs_first_at_s)
     if not same:
         return "disagrees on the shared time grid"
-    if c.snapshot.rules:
-        return ("placement rules need the migration layer, which is not "
-                "ported yet (ROADMAP queue 1, item 6)")
-    if c.dpm_enabled and not c.config.instant_migrations:
-        if c.config.migration_gated:
-            return ("timed migrations need the migration layer's in-flight "
-                    "table, which is not ported yet (ROADMAP queue 1, "
-                    "item 6)")
-        return ("timed migrations in the batched engine need launch gating "
-                "(and the migration layer, ROADMAP queue 1, item 6); "
-                "ungated timed cells run on the vector engine")
+    if _mig_capable(c, balancer):
+        if (not c.config.instant_migrations
+                and not c.config.migration_gated):
+            return ("timed migrations in the batched engine need launch "
+                    "gating (set migration_slots_per_host and/or "
+                    "migration_bandwidth, and use the same on the vector "
+                    "engine); ungated timed cells run on the vector engine")
+        if ref_mig is not None and _mig_model(c.config) != _mig_model(
+                ref_mig):
+            return ("disagrees on the migration execution model "
+                    "(instant/timed, vMotion rate/overhead, and launch "
+                    "gates are shared across a batch)")
     if churn and (c.config.power_on_latency_s != ref.power_on_latency_s
                   or c.config.power_off_latency_s
                   != ref.power_off_latency_s):
@@ -229,24 +290,98 @@ def _cell_reason(c: BatchCell, ref: SimConfig, churn: bool
     for t, host_id, _ in c.config.power_events:
         if host_id not in c.snapshot.hosts:
             return f"power event at t={t} targets unknown host {host_id!r}"
+    if c.snapshot.effective_tree() is not None and c.snapshot.rules:
+        return ("budget trees with placement rules cannot be batched "
+                "(constraint correction's cap funding is tree-unaware); "
+                "such cells run on the vector engine")
+    if check_traces:
+        bank = c.trace_bank
+        if bank is None:
+            bank = TraceBank.from_traces(c.traces, list(c.snapshot.vms))
+        if bank.fallback:
+            return "traces without a declarative spec cannot be batched"
     return None
 
 
+def _partition(cells: Sequence[BatchCell],
+               balancer: kernels.MigrationParams,
+               check_traces: bool = False
+               ) -> tuple[dict[str, str], Optional[SimConfig]]:
+    """``(reasons, ref_mig)``: cell name -> why it cannot join the batch,
+    in cell order, anchored on the first supportable cell's time grid;
+    and the migration model's anchor, the first supportable cell that can
+    move a VM (``None``: none can)."""
+    churn = any(c.dpm_enabled or c.config.power_events for c in cells)
+    reasons: dict[str, str] = {}
+    ref = ref_mig = None
+    for c in cells:
+        capable = _mig_capable(c, balancer)
+        reason = _cell_reason(c, ref or c.config, churn, balancer,
+                              ref_mig if capable else None, check_traces)
+        if reason is not None:
+            reasons[c.name] = reason
+            continue
+        ref = ref or c.config
+        if capable and ref_mig is None:
+            ref_mig = c.config
+    return reasons, ref_mig
+
+
+def _mig_model(cfg: SimConfig) -> tuple:
+    return (cfg.instant_migrations, cfg.vmotion_rate_mb_s,
+            cfg.vmotion_overhead_mhz, cfg.migration_slots_per_host,
+            cfg.migration_bandwidth)
+
+
+def _migration_model(ref_mig: Optional[SimConfig], migration: bool,
+                     rmeta: kernels.RulesMeta,
+                     balancer: kernels.MigrationParams,
+                     n_slots: int) -> MigrationModel:
+    """The churn program's migration layer, from the migration-capable
+    cells' shared config (``None``: no cell can move a VM).  The timed
+    table holds one invocation's worst case: the correction's and the
+    balancer's launches (within the bandwidth gate) and a full
+    evacuation."""
+    if not migration:
+        rmeta, balancer = (kernels.RulesMeta(),
+                           kernels.MigrationParams(max_moves=0))
+    if ref_mig is None:
+        return MigrationModel(rules=rmeta, balancer=balancer)
+    limits = ref_mig.migration_limits or kernels.MigrationLimits()
+    timed = not ref_mig.instant_migrations
+    mig_table = 1
+    if timed:
+        launches = ((rmeta.move_bound if rmeta.any else 0)
+                    + max(balancer.max_moves, 0))
+        if limits.bandwidth is not None:
+            launches = min(launches, limits.bandwidth)
+        mig_table = max(launches + n_slots, 1)
+    return MigrationModel(rules=rmeta, balancer=balancer, timed=timed,
+                          mig_table=mig_table, limits=limits,
+                          vmotion_rate_mb_s=ref_mig.vmotion_rate_mb_s,
+                          vmotion_overhead_mhz=ref_mig.vmotion_overhead_mhz)
+
+
 def _pack(cells: Sequence[BatchCell], slot_slack: float = 2.0,
-          churn: bool = False) -> tuple[dict, list]:
+          churn: bool = False, migration: bool = False
+          ) -> tuple[dict, list, kernels.RulesMeta]:
     """The pack: NumPy arrays keyed as :data:`PACK_KEYS` (and
-    :data:`TREE_KEYS` when a cell's tree binds), each bitwise the reference
-    packer's (``repro.sim.batch``), and the sorted tag names.  A churn
-    batch with a DPM cell widens the slot axis by ``slot_slack`` for the
-    evacuations to land in."""
+    :data:`TREE_KEYS` when a cell's tree binds, :data:`RULE_KEYS` when the
+    ``migration`` layer runs and a cell has rules of the kind), each
+    bitwise the reference packer's (``repro.sim.batch``), the sorted tag
+    names, and the grid's rule bounds (the fieldwise maximum of the
+    cells').  A batch with a DPM cell or the migration layer widens the
+    slot axis by ``slot_slack`` for the moves to land in."""
     S = len(cells)
     H = max(len(c.snapshot.hosts) for c in cells)
     ts, drs_mask = _drs_schedule(cells[0].config)
     T = ts.shape[0]
 
-    # Pass 1: the dense slot assignment and each cell's trace bank.
+    # Pass 1: the dense slot assignment, each cell's trace bank and rules.
     prepped = []
     n_bps = 1
+    rmeta = kernels.RulesMeta()
+    pack_rules = migration and any(c.snapshot.rules for c in cells)
     for c in cells:
         vms, order, hj, slot, counts = dense_slot_assignment(c.snapshot, H)
         vm_ids = [v.vm_id for v in vms]
@@ -260,10 +395,17 @@ def _pack(cells: Sequence[BatchCell], slot_slack: float = 2.0,
                 f"cannot be batched: {bad[:5]}")
         if bank.rows.size:
             n_bps = max(n_bps, bank.bps.shape[1])
-        prepped.append((vms, bank, order, hj, slot, counts))
+        pack = None
+        if pack_rules:
+            pack = RulesPack.from_rules(
+                c.snapshot.rules, {v: i for i, v in enumerate(vm_ids)},
+                {hid: j for j, hid in enumerate(c.snapshot.hosts)})
+            rmeta = kernels.RulesMeta(
+                *(max(x, y) for x, y in zip(rmeta, pack.meta())))
+        prepped.append((vms, bank, order, hj, slot, counts, pack))
     J = max(max((int(p[5].max()) for p in prepped if p[5].size),
                 default=1), 1)
-    if churn and any(c.dpm_enabled for c in cells):
+    if (churn and any(c.dpm_enabled for c in cells)) or migration:
         J = int(math.ceil(J * max(slot_slack, 1.0)))
     tag_names = sorted({t for c in cells
                         for v in c.snapshot.vms.values() for t in v.tags})
@@ -290,6 +432,7 @@ def _pack(cells: Sequence[BatchCell], slot_slack: float = 2.0,
         "cpu_res": host_col(0.0),
         "budget": np.zeros(S), "enabled": np.zeros(S, dtype=bool),
         "dpm": np.zeros(S, dtype=bool),
+        "bal_on": np.zeros(S, dtype=bool),
         "occ": np.zeros((S, H, J), dtype=bool),
         # Each slot's VM index in the cell (-1 when empty): per-host sums
         # that decide DPM's victim add in this order (trap T1).
@@ -314,10 +457,16 @@ def _pack(cells: Sequence[BatchCell], slot_slack: float = 2.0,
         a["tree_anc"] = np.zeros((S, H, n_tree), dtype=bool)
         a["tree_limit"] = np.full((S, n_tree), np.inf)
         a["tree_depth"] = np.full((S, n_tree), -1, dtype=np.int64)
+    if pack_rules and rmeta.n_groups:
+        a["aff_group"] = np.full((S, H, J), -1, dtype=np.int64)
+    if pack_rules and rmeta.n_vmhost:
+        a["allowed"] = np.ones((S, H, J, H), dtype=bool)
+    if pack_rules and rmeta.n_anti:
+        a["anti"] = np.zeros((S, H, J, rmeta.n_anti), dtype=bool)
 
     for i, c in enumerate(cells):
         snap = c.snapshot
-        vms, bank, order, hj, slot, counts = prepped[i]
+        vms, bank, order, hj, slot, counts, pack = prepped[i]
         host_idx = {hid: j for j, hid in enumerate(snap.hosts)}
         for j, h in enumerate(snap.hosts.values()):
             a["on"][i, j] = h.powered_on
@@ -346,6 +495,12 @@ def _pack(cells: Sequence[BatchCell], slot_slack: float = 2.0,
         for g, tag in enumerate(tag_names):
             tagged = np.array([tag in v.tags for v in vms], dtype=bool)
             a["tag_masks"][i, hj, slot, g] = tagged[order]
+        if "aff_group" in a:
+            a["aff_group"][i, hj, slot] = pack.affinity_group[order]
+        if "allowed" in a:
+            a["allowed"][i, hj, slot, :len(snap.hosts)] = pack.allowed[order]
+        if "anti" in a and pack.n_anti:
+            a["anti"][i, hj, slot, :pack.n_anti] = pack.anti_member.T[order]
         # Demand traces in TraceBank's padded step-function layout;
         # trace-less VMs freeze at their initial demand.
         dem0 = np.array([v.demand for v in vms])
@@ -375,6 +530,7 @@ def _pack(cells: Sequence[BatchCell], slot_slack: float = 2.0,
             a["tree_depth"][i, :tree.n_nodes] = tree.depth
         a["enabled"][i] = c.powercap_enabled
         a["dpm"][i] = c.dpm_enabled
+        a["bal_on"][i] = c.balancer_enabled
         for e, (ev_t, host_id, on) in enumerate(
                 sorted(c.config.power_events)):
             a["ev_t"][i, e] = ev_t
@@ -383,24 +539,29 @@ def _pack(cells: Sequence[BatchCell], slot_slack: float = 2.0,
         if c.window is not None:
             w0, w1 = c.window
             a["win_mask"][:, i] = (w0 <= ts) & (ts < w1)
-    return a, tag_names
+    return a, tag_names, rmeta
 
 
 class BatchedSimulator:
     """Simulate S scenario cells at once.
 
     Cells must share the time grid (``duration_s``/``tick_s``) and DRS
-    schedule, and in the churn regime the power latencies; host counts,
-    VM counts, traces, budgets, trees, policies, windows, DPM flags and
+    schedule, in the churn regime the power latencies, and, when they can
+    migrate a VM, the migration execution model; host counts, VM counts,
+    traces, budgets, trees, rules, policies, windows, DPM flags and
     scripted power events vary per cell (smaller cells are padded).
     ``waterfill_iters``: the bisection trips of every waterfill (100 reaches
-    the float64 fixed point for realistic magnitudes).  ``slot_slack``
-    widens the slot axis of a batch with DPM cells so that evacuations have
-    somewhere to land; a run whose consolidation would need more raises
-    after the run, naming it, rather than diverge.  ``device=None`` runs on
-    the GPU; pass ``device="cpu"`` for the plain PyTorch versions of the
-    kernels.  After :meth:`run`, :attr:`info` holds the tick loop's
-    counts: ticks, ticks with an invocation, and device-to-host reads.
+    the float64 fixed point for realistic magnitudes).  ``balancer`` (a
+    ``kernels.MigrationParams``) runs the hill-climb migration balancer for
+    the cells with ``balancer_enabled``; the default (``max_moves=0``) runs
+    none.  ``slot_slack`` widens the slot axis of a batch with DPM cells or
+    the migration layer so that moves have somewhere to land; a run whose
+    moves would need more raises after the run, naming it, rather than
+    diverge.  ``device=None`` runs on the GPU; pass ``device="cpu"`` for
+    the plain PyTorch versions of the kernels.  After :meth:`run`,
+    :attr:`info` holds the tick loop's counts: ticks, ticks with an
+    invocation, and device-to-host reads (``branch_reads``, of which
+    ``migration_reads`` are the migration layer's, one a round).
     """
 
     def __init__(self, cells: Sequence[BatchCell],
@@ -408,52 +569,82 @@ class BatchedSimulator:
                  dpm: Optional[kernels.DPMParams] = None,
                  waterfill_iters: int = 100,
                  slot_slack: float = 2.0,
+                 balancer: Optional[kernels.MigrationParams] = None,
                  keep_timeseries: bool = False,
                  device=None):
         if not cells:
             raise ValueError("no cells")
         cells = list(cells)
         dev = resolve_device(device)
+        balancer = balancer or kernels.MigrationParams(max_moves=0)
         churn = any(c.dpm_enabled or c.config.power_events for c in cells)
-        for c in cells:
-            reason = _cell_reason(c, cells[0].config, churn)
-            if reason is not None:
-                raise BatchUnsupported(f"cell {c.name!r}: {reason}")
+        # The migration layer runs where the grid can move a VM: rule
+        # violations at the start, a live balancer, or rules that DPM's
+        # evacuations must keep (and a later correction re-gather).
+        has_rules = any(c.snapshot.rules for c in cells)
+        migration = ((balancer.max_moves > 0
+                      and any(c.balancer_enabled for c in cells))
+                     or any(rules_mod.all_violations(c.snapshot)
+                            for c in cells)
+                     or (has_rules and any(c.dpm_enabled for c in cells)))
+        reasons, ref_mig = _partition(cells, balancer)
+        if reasons:
+            name, why = next(iter(reasons.items()))
+            raise BatchUnsupported(f"cell {name!r}: {why}")
         t0 = time.perf_counter()
-        arrays, tag_names = _pack(cells, slot_slack, churn)
+        arrays, tag_names, rmeta = _pack(cells, slot_slack, churn,
+                                         migration)
+        model = None
+        if churn or migration:
+            model = _migration_model(ref_mig, migration, rmeta, balancer,
+                                     arrays["occ"].shape[-1])
         cfg = cells[0].config
         self._setup(arrays, [c.name for c in cells], tag_names,
                     np.array([c.window is not None for c in cells]),
                     cfg.tick_s, balance or kernels.BalanceParams(),
-                    waterfill_iters, keep_timeseries, dev, churn,
+                    waterfill_iters, keep_timeseries, dev, model,
                     dpm or kernels.DPMParams(),
                     Schedule(cfg.drs_period_s, cfg.drs_first_at_s,
                              cfg.power_on_latency_s,
                              cfg.power_off_latency_s))
         self.pack_s = time.perf_counter() - t0
 
+    @staticmethod
+    def unsupported_cells(cells: Sequence[BatchCell],
+                          balancer: Optional[kernels.MigrationParams] = None
+                          ) -> dict[str, str]:
+        """Cell name -> the reason the engine cannot replay it, for every
+        such cell, anchored on the first supportable cell's time grid and
+        migration model."""
+        return _partition(cells, balancer or kernels.MigrationParams(
+            max_moves=0), check_traces=True)[0]
+
     @classmethod
     def from_pack(cls, arrays: dict, names: list, tag_names: list,
                   has_window, tick_s: float,
                   balance: kernels.BalanceParams, waterfill_iters: int,
-                  keep_timeseries: bool, device=None, churn: bool = False,
+                  keep_timeseries: bool, device=None,
+                  migration: Optional[MigrationModel] = None,
                   dpm: Optional[kernels.DPMParams] = None,
                   schedule: Optional[Schedule] = None
                   ) -> "BatchedSimulator":
         """A simulator over arrays already packed (keys :data:`PACK_KEYS`
-        and, when present, :data:`TREE_KEYS`; extra keys are ignored)."""
-        keys = PACK_KEYS + tuple(k for k in TREE_KEYS if k in arrays)
+        and, when present, :data:`TREE_KEYS` and :data:`RULE_KEYS`; extra
+        keys are ignored).  ``migration`` is the churn program's migration
+        layer (``None``: the cap-only regime)."""
+        keys = PACK_KEYS + tuple(k for k in TREE_KEYS + RULE_KEYS
+                                 if k in arrays)
         sim = cls.__new__(cls)
         sim._setup({k: arrays[k] for k in keys}, list(names),
                    list(tag_names), np.asarray(has_window, dtype=bool),
                    tick_s, balance, waterfill_iters, keep_timeseries,
-                   resolve_device(device), churn,
+                   resolve_device(device), migration,
                    dpm or kernels.DPMParams(), schedule or Schedule())
         sim.pack_s = 0.0
         return sim
 
     def _setup(self, arrays, names, tag_names, has_window, tick_s, balance,
-               waterfill_iters, keep_timeseries, device, churn, dpm,
+               waterfill_iters, keep_timeseries, device, migration, dpm,
                schedule) -> None:
         self._arrays = arrays
         self.names = names
@@ -464,7 +655,8 @@ class BatchedSimulator:
         self._iters = int(waterfill_iters)
         self._keep_timeseries = bool(keep_timeseries)
         self.device = device
-        self._churn = bool(churn)
+        self._churn = migration is not None
+        self._mig = migration
         self._dpm = dpm
         self._schedule = schedule
         self.info: dict = {}
@@ -486,11 +678,15 @@ class BatchedSimulator:
                                 a["tree_depth"])
 
     def _deliver(self, a: dict, hosts, caps, active, slots: dict, cpu, mem,
-                 host_mem):
+                 host_mem, overhead=None):
         """One tick's delivery and accounting at the given state: the
-        waterfill (K1 on the GPU), Eq. 1 power and the tick's rates."""
+        waterfill (K1 on the GPU), Eq. 1 power and the tick's rates.
+        ``overhead`` is the in-flight vMotions' CPU on each host: it leaves
+        the delivery capacity and counts toward Eq. 1's utilization."""
         on, limit = hosts.on, slots["limit"]
         managed = kernels.managed_capacity(hosts, caps)
+        if overhead is not None:
+            managed = torch.clamp_min(managed - overhead, 0.0)
         dem = torch.where(active, torch.minimum(cpu, limit), 0.0)
         floors = torch.where(active,
                              torch.minimum(slots["reservation"], dem), 0.0)
@@ -498,8 +694,10 @@ class BatchedSimulator:
                                 self._iters, active=active)
         mem_dem_h = torch.where(active, mem, 0.0).sum(-1)
         # Eq. 1 power, utilization measured against peak capacity.
-        power = kernels.power_consumed(hosts,
-                                       alloc.sum(-1) / a["cap_peak"])
+        busy = alloc.sum(-1)
+        if overhead is not None:
+            busy = busy + overhead
+        power = kernels.power_consumed(hosts, busy / a["cap_peak"])
         tick = {
             "cpu_payload_mhz_s": alloc.sum((-1, -2)),
             "cpu_demand_mhz_s": dem.sum((-1, -2)),
@@ -623,24 +821,33 @@ class BatchedSimulator:
 
     # --------------------------------------------------------------- churn
     def _program_churn(self, a: dict) -> dict:
-        """The capacity-churn tick loop (the reference's ``build_churn``
-        without its migration and timed branches): power states, the slot
-        layout and the DRS schedule are carried per cell."""
+        """The capacity-churn tick loop (the reference's ``build_churn``):
+        power states, the slot layout, the DRS schedule and, in the timed
+        regime, the in-flight migration table are carried per cell."""
         dev, f64, i32, i64 = (self.device, torch.float64, torch.int32,
                               torch.int64)
         S, H = a["on"].shape
         J = a["occ"].shape[-1]
         G = len(self._tag_names)
-        dt, iters, dpmp, sched = (self._tick_s, self._iters, self._dpm,
-                                  self._schedule)
+        dt, iters, dpmp, sched, mig = (self._tick_s, self._iters, self._dpm,
+                                       self._schedule, self._mig)
+        timed, M = mig.timed, mig.mig_table
         h_idx = torch.arange(H, device=dev)
+        s_idx = torch.arange(S, device=dev)
         exists, enabled, budget = a["exists"], a["enabled"], a["budget"]
         host_mem_spec = a["host_mem"]
         tcols = self._tree(a)
+        slot_keys = SLOT_KEYS + tuple(k for k in RULE_KEYS if k in a)
         pads = dict(_SLOT_PAD, bps=torch.where(
             torch.arange(a["bps"].shape[-1], device=dev) == 0, 0.0,
             torch.inf).to(f64))
-        ev_t, ev_done = self._arrays["ev_t"], None
+        ev_t = self._arrays["ev_t"]
+        reads = {"branch": 0, "migration": 0}
+
+        def read(flag) -> bool:
+            """A migration-layer loop's one read a round."""
+            reads["migration"] += 1
+            return bool(flag)
 
         def hosts_of(on):
             return kernels.HostCols(on, a["idle"], a["peak"], a["cap_peak"],
@@ -649,9 +856,9 @@ class BatchedSimulator:
         def host_sum_vm_order(vals, act, vm):
             # Per-host sums added left to right in VM-index order, as the
             # object plane's ``bincount`` adds them: slot order stops
-            # agreeing once an evacuee lands in a free slot, and on the
-            # near-ties BalancePowerCap makes, one ULP flips DPM's victim
-            # (trap T1).  Empty slots sort last and add +0.0.
+            # agreeing once a VM lands in a free slot, and on the near-ties
+            # BalancePowerCap makes, one ULP flips DPM's victim (trap T1).
+            # Empty slots sort last and add +0.0.
             key = torch.where(act, vm, torch.iinfo(i64).max)
             sv = torch.gather(torch.where(act, vals, 0.0), -1,
                               kernels.stable_argsort(key))
@@ -669,16 +876,89 @@ class BatchedSimulator:
                                             order[:, k], dest, pads)
             return work
 
+        def no_moves(n):
+            return (torch.full((S, max(n, 1), 3), -1, dtype=i64, device=dev),
+                    torch.zeros(S, dtype=i64, device=dev))
+
+        def replay(table, moves, n_moves, t):
+            """Append an invocation's moves to the in-flight table (timed
+            regime), replaying them on a scratch ``(occ, mem)`` copy so that
+            a chained move reads the memory that travelled with its VM.
+            Each entry ends at the running maximum of the ends so far
+            (FIFO), and records which entry last moved its slot, so that
+            the endpoint overhead follows the VM's current host while
+            earlier legs are in flight."""
+            (sc, msrc, mj, mdst, mend, mprev, cur, end) = table
+            k_idx = torch.arange(M, device=dev)
+            for k in range(moves.shape[1]):
+                do = k < n_moves
+                src, j, dst = moves[:, k, 0], moves[:, k, 1], moves[:, k, 2]
+                si, ji = torch.clamp(src, 0, H - 1), torch.clamp(j, 0, J - 1)
+                prev_v = sc["idx"][s_idx, si, ji]
+                dur = torch.clamp_min(
+                    torch.clamp_min(sc["mem"][s_idx, si, ji], 64.0)
+                    / mig.vmotion_rate_mb_s, dt)
+                end = torch.where(do, torch.maximum(end, t + dur), end)
+                at = do[:, None] & (k_idx == cur[:, None])
+                msrc = torch.where(at, src[:, None], msrc)
+                mj = torch.where(at, j[:, None], mj)
+                mdst = torch.where(at, dst[:, None], mdst)
+                mend = torch.where(at, end[:, None], mend)
+                mprev = torch.where(at, prev_v[:, None], mprev)
+                idx = sc["idx"].clone()
+                idx[s_idx, si, ji] = torch.where(do, cur, prev_v)
+                sc, _ = kernels.move_slot(dict(sc, idx=idx), do, src, j, dst,
+                                          {"occ": False, "mem": 0.0,
+                                           "idx": -1})
+                cur = cur + do.to(i64)
+            return (sc, msrc, mj, mdst, mend, mprev, cur, end)
+
         def invocation(c, can, t):
+            # Demands at t in the pre-invocation layout; they ride in the
+            # working bundle, so migrations move them with their VM.
             cpu, mem = self._demands(c["slots"], c["finite"], t)
+            mem_pre = mem                   # the timed replay's durations
             on, caps = c["on"], c["caps"]
             hosts = hosts_of(on)
             work = dict(c["slots"], cpu=cpu, mem=mem)
+            vmot = torch.zeros(S, dtype=i32, device=dev)
+            mig_pressure = torch.zeros(S, dtype=torch.bool, device=dev)
+            launch = None
+            corr = bal = None
+
+            # Phase 1a: constraint correction under the capacity view --
+            # fundable capacity (reserved-floor caps plus the whole
+            # unreserved pool, paper Fig. 3) for cpc cells, managed
+            # capacity at the current caps for static ones.
+            if mig.rules.any:
+                act0 = work["occ"] & on[..., None]
+                floors_pre = kernels.reserved_floor_caps(
+                    hosts, torch.where(act0, work["reservation"],
+                                       0.0).sum(-1))
+                spare = torch.clamp_min(
+                    budget - torch.where(on, floors_pre, 0.0).sum(-1), 0.0)
+                fundable = kernels.managed_capacity(
+                    hosts, torch.minimum(floors_pre + spare[:, None],
+                                         a["peak"]))
+                cap_view = torch.where(
+                    on, torch.where(enabled[:, None], fundable,
+                                    kernels.managed_capacity(hosts, caps)),
+                    0.0)
+                work, moves, n_moves, prs, launch = \
+                    kernels.correct_constraints_slots(
+                        hosts, cap_view, work, host_mem_spec, mig.rules, can,
+                        *no_moves(mig.rules.move_bound), pads=pads,
+                        limits=mig.limits, launch=launch, read=read)
+                corr = (moves, n_moves)
+                vmot = vmot + n_moves.to(i32)
+                mig_pressure = mig_pressure | prs
+
             act3 = work["occ"] & on[..., None]
             res, lim = work["reservation"], work["limit"]
             cpu_res = torch.where(act3, res, 0.0).sum(-1)
 
-            # Phase 1: reserved-floor redivvy (Powercap Allocation).
+            # Phase 1b: reserved-floor redivvy (Powercap Allocation) on the
+            # corrected placements.
             apply_cpc = can & enabled
             floor_caps = kernels.reserved_floor_caps(hosts, cpu_res)
             redivvied = kernels.redivvy_caps(on, caps, floor_caps)
@@ -691,7 +971,8 @@ class BatchedSimulator:
 
             # Phase 2: BalancePowerCap.
             vm_floors = torch.where(act3, torch.minimum(res, lim), 0.0)
-            vm_ceils = torch.where(act3, kernels.clip(cpu, res, lim), 0.0)
+            vm_ceils = torch.where(act3, kernels.clip(work["cpu"], res, lim),
+                                   0.0)
             caps2, _ = kernels.balance_caps(
                 hosts, caps1,
                 kernels.DenseCols(vm_floors, vm_ceils, work["weights"], act3,
@@ -705,8 +986,25 @@ class BatchedSimulator:
             changes = changes + torch.where(
                 can, kernels.count_cap_changes(on, caps1, caps2), 0)
 
-            # Phase 3: DPM's triggers and Powercap Redistribution.
-            occ = work["occ"]
+            # Phase 2b: the residual imbalance fixed by migrations (DRS's
+            # hill-climb, for every policy).
+            if mig.balancer.max_moves > 0:
+                work, moves, n_moves, prs, launch = \
+                    kernels.balance_migrations(
+                        hosts, caps2, work, host_mem_spec, mig.balancer,
+                        mig.rules, can & a["bal_on"],
+                        *no_moves(mig.balancer.max_moves), pads=pads,
+                        limits=mig.limits, launch=launch, read=read)
+                bal = (moves, n_moves)
+                vmot = vmot + n_moves.to(i32)
+                mig_pressure = mig_pressure | prs
+                act3 = work["occ"] & on[..., None]
+                res, lim = work["reservation"], work["limit"]
+                cpu_res = torch.where(act3, res, 0.0).sum(-1)
+
+            # Phase 3: DPM's triggers and Powercap Redistribution, on the
+            # layout after the migrations.
+            occ, cpu, mem = work["occ"], work["cpu"], work["mem"]
             eff_slot = torch.where(act3, kernels.clip(cpu, res, lim), 0.0)
             eff_h = host_sum_vm_order(eff_slot, act3, work["vm"])
             mem_h = host_sum_vm_order(mem, act3, work["vm"])
@@ -759,9 +1057,10 @@ class BatchedSimulator:
             ok, order, dests, n_evac, pressure = kernels.plan_evacuation(
                 hosts, caps2, victim, occ, eff_slot, mem, res,
                 work["migratable"], host_mem_spec, dpmp.target_util,
+                allowed=work.get("allowed"), anti=work.get("anti"),
                 scope=scope)
             do_off = maybe_off & ok
-            work = apply_remap(work, do_off, victim, order, dests)
+            vmot = vmot + torch.where(do_off, n_evac, 0).to(i32)
             reabsorbed = kernels.power_off_reabsorb_caps(
                 hosts, caps2, victim, budget, tree=tcols)
             # The deferred actions touch exactly the hosts whose change
@@ -770,15 +1069,12 @@ class BatchedSimulator:
                             > kernels.CAP_CHANGE_EPS)
             off_cpc = do_off & enabled
             pend_cnt = torch.where(off_cpc, changed.sum(-1), 0).to(i32)
-            return dict(
-                c, caps=caps3, slots={k: work[k] for k in SLOT_KEYS},
-                finite=torch.isfinite(work["period"]),
+            out = dict(
+                c, caps=caps3,
                 pon_idx=torch.where(do_on, cand, c["pon_idx"]),
                 pon_end=torch.where(do_on, t + sched.power_on_latency_s,
                                     c["pon_end"]),
                 poff_idx=torch.where(do_off, victim, c["poff_idx"]),
-                poff_end=torch.where(do_off, t + sched.power_off_latency_s,
-                                     c["poff_end"]),
                 pend_caps=torch.where(
                     do_off[:, None],
                     torch.where(off_cpc[:, None], reabsorbed, caps3),
@@ -788,9 +1084,88 @@ class BatchedSimulator:
                                       c["pend_mask"]),
                 pend_cnt=torch.where(do_off, pend_cnt, c["pend_cnt"]),
                 n_changes=c["n_changes"] + changes.to(i32),
-                vmotions=c["vmotions"]
-                + torch.where(do_off, n_evac, 0).to(i32),
-                slot_pressure=c["slot_pressure"] | (maybe_off & pressure))
+                slot_pressure=c["slot_pressure"] | mig_pressure
+                | (maybe_off & pressure))
+            if not timed:
+                work = apply_remap(work, do_off, victim, order, dests)
+                return dict(
+                    out, slots={k: work[k] for k in slot_keys},
+                    finite=torch.isfinite(work["period"]),
+                    poff_end=torch.where(
+                        do_off, t + sched.power_off_latency_s,
+                        c["poff_end"]),
+                    vmotions=c["vmotions"] + vmot)
+            # Timed regime: the what-if layout above shaped decisions only.
+            # The carried slots stay as they were; every move joins the
+            # in-flight table and commits on its vMotion schedule (step 2b)
+            # through the same ``move_slot`` sequence, so the landing slots
+            # coincide.  vMotions are counted as they commit.
+            table = ({"occ": c["slots"]["occ"], "mem": mem_pre,
+                      "idx": torch.full((S, H, J), -1, dtype=i64,
+                                        device=dev)},
+                     c["mig_src"], c["mig_j"], c["mig_dst"], c["mig_end"],
+                     c["mig_prev"], torch.zeros(S, dtype=i64, device=dev),
+                     torch.full((S,), -torch.inf, dtype=f64, device=dev))
+            for moved in (corr, bal):
+                if moved is not None:
+                    table = replay(table, *moved, t)
+            evac = torch.stack([victim[:, None].expand(-1, J), order,
+                                dests], -1)
+            table = replay(table, evac, torch.where(
+                do_off, (dests >= 0).sum(-1), 0), t)
+            # A power-off waits for its evacuations to commit (its
+            # prerequisites); they are appended last and ends are FIFO, so
+            # "last evacuation done" is "table drained".  No evacuee: the
+            # timer starts now.
+            wait = do_off & (n_evac > 0)
+            return dict(
+                out, mig_src=table[1], mig_j=table[2], mig_dst=table[3],
+                mig_end=table[4], mig_prev=table[5],
+                poff_end=torch.where(do_off & ~wait,
+                                     t + sched.power_off_latency_s,
+                                     c["poff_end"]),
+                poff_wait=torch.where(do_off, wait, c["poff_wait"]))
+
+        def commit(c, t):
+            """Step 2b of the timed regime: each due table entry replays its
+            recorded ``move_slot`` against the live layout, in table order
+            from the layout the invocation's what-if started from, so the
+            landing slots coincide.  Commits ignore endpoint power states
+            (a VM may land on a host that failed mid-copy, as the object
+            plane's ``move_vm`` lets it).  No read: an entry not due moves
+            nothing."""
+            slots, cols = c["slots"], []
+            nmig = torch.zeros(S, dtype=i32, device=dev)
+            for k in range(M):
+                src = c["mig_src"][:, k]
+                due = (src >= 0) & (c["mig_end"][:, k] <= t)
+                slots, _ = kernels.move_slot(slots, due, src,
+                                             c["mig_j"][:, k],
+                                             c["mig_dst"][:, k], pads)
+                cols.append(torch.where(due, -1, src))
+                nmig = nmig + due.to(i32)
+            return dict(c, slots=slots, mig_src=torch.stack(cols, -1),
+                        finite=torch.isfinite(slots["period"]),
+                        vmotions=c["vmotions"] + nmig)
+
+        def vmotion_overhead(c):
+            """The in-flight table's endpoint CPU a host: each entry charges
+            its destination and its VM's current host -- for a chained
+            move, the earliest uncommitted leg's source (commits drain
+            FIFO, so a bounded walk over predecessors finds it)."""
+            act_m = c["mig_src"] >= 0
+            eff_src, prev = c["mig_src"], c["mig_prev"]
+            for _ in range(M):
+                pc = torch.clamp(prev, 0, M - 1)
+                live = (prev >= 0) & torch.gather(act_m, 1, pc)
+                eff_src = torch.where(live, torch.gather(c["mig_src"], 1, pc),
+                                      eff_src)
+                prev = torch.where(live, torch.gather(c["mig_prev"], 1, pc),
+                                   -1)
+            ep = ((eff_src[..., None] == h_idx)
+                  | (c["mig_dst"][..., None] == h_idx))
+            return mig.vmotion_overhead_mhz * (act_m[..., None] & ep).sum(
+                1).to(f64)
 
         def scripted_events(c, t, due_host):
             """Events due at ``t`` (decided on the host from the packed
@@ -832,7 +1207,7 @@ class BatchedSimulator:
 
         c = {
             "caps": a["caps0"], "on": a["on"],
-            "slots": {k: a[k] for k in SLOT_KEYS},
+            "slots": {k: a[k] for k in slot_keys},
             "finite": torch.isfinite(a["period"]),
             "low_since": torch.full((S, H), torch.nan, dtype=f64,
                                     device=dev),
@@ -855,10 +1230,15 @@ class BatchedSimulator:
             "over_tree": torch.full((S,), -torch.inf, dtype=f64, device=dev),
             "slot_pressure": zeros(torch.bool),
         }
+        if timed:
+            c.update({k: torch.full((S, M), v, device=dev,
+                                    dtype=f64 if k == "mig_end" else i64)
+                      for k, v in dict(_TABLE_PAD, mig_src=-1).items()})
+            c["poff_wait"] = zeros(torch.bool)
         counters = ("n_changes", "vmotions", "power_ons", "power_offs")
         ev_done = np.zeros(ev_t.shape, dtype=bool)
         series = []
-        reads = invoked = 0
+        invoked = 0
         ts = self._arrays["ts"]
         for i in range(ts.shape[0]):
             t = float(ts[i])
@@ -872,11 +1252,14 @@ class BatchedSimulator:
             # 2. Pending power-on and power-off timers come due; a
             # power-off applies its deferred caps only on the hosts its
             # actions set (a host a scripted event booted meanwhile keeps
-            # its boot cap).
+            # its boot cap).  A timed power-off waiting on its evacuation
+            # holds a stale end: its timer starts when the table drains.
             on, caps = c["on"], c["caps"]
             pon_fire = (c["pon_idx"] >= 0) & (t >= c["pon_end"])
             on = on | (pon_fire[:, None] & (h_idx == c["pon_idx"][:, None]))
             poff_fire = (c["poff_idx"] >= 0) & (t >= c["poff_end"])
+            if timed:
+                poff_fire = poff_fire & ~c["poff_wait"]
             on = on & ~(poff_fire[:, None]
                         & (h_idx == c["poff_idx"][:, None]))
             caps = torch.where(poff_fire[:, None] & c["pend_mask"],
@@ -891,16 +1274,29 @@ class BatchedSimulator:
                 pon_idx=torch.where(pon_fire, -1, c["pon_idx"]),
                 poff_idx=torch.where(poff_fire, -1, c["poff_idx"]))
 
-            # 3. The manager on the carried DRS schedule, deferred per cell
-            # while its power actions are in flight; one read a tick takes
-            # the branch.
+            # 2b. In-flight migrations commit FIFO (timed regime); a
+            # power-off whose evacuations have all committed starts its
+            # latency timer now.
             outstanding = (c["pon_idx"] >= 0) | (c["poff_idx"] >= 0)
+            if timed:
+                c = commit(c, t)
+                drained = ~(c["mig_src"] >= 0).any(-1)
+                start_off = c["poff_wait"] & drained
+                c = dict(c, poff_wait=c["poff_wait"] & ~start_off,
+                         poff_end=torch.where(
+                             start_off, t + sched.power_off_latency_s,
+                             c["poff_end"]))
+                outstanding = outstanding | ~drained
+
+            # 3. The manager on the carried DRS schedule, deferred per cell
+            # while its actions are in flight; one read a tick takes the
+            # branch.
             due_drs = t >= c["next_drs"]
             can = due_drs & ~outstanding
             c["next_drs"] = torch.where(
                 can, t + sched.drs_period_s,
                 torch.where(due_drs, t + dt, c["next_drs"]))
-            reads += 1
+            reads["branch"] += 1
             if bool(can.any()):
                 invoked += 1
                 c = invocation(c, can, t)
@@ -913,7 +1309,8 @@ class BatchedSimulator:
             active = slots["occ"] & on[..., None]
             tick, tp, td, mem_dem_h = self._deliver(
                 a, hosts, caps, active, slots, cpu, mem,
-                torch.where(on, host_mem_spec, 0.0))
+                torch.where(on, host_mem_spec, 0.0),
+                vmotion_overhead(c) if timed else None)
             # Budget invariant: powered-on caps plus the grant of a host
             # whose power-on is pending.
             pending = c["pon_idx"] >= 0
@@ -949,7 +1346,8 @@ class BatchedSimulator:
                     tick, **{("cap_changes" if k == "n_changes" else k):
                              c[k] - start[k] for k in counters}))
         self.info = dict(ticks=int(ts.shape[0]), invocation_ticks=invoked,
-                         branch_reads=reads)
+                         branch_reads=reads["branch"] + reads["migration"],
+                         migration_reads=reads["migration"])
         out = {"acc": c["acc"], "win": c["win"],
                "tag_payload": c["tag_pay"], "tag_demand": c["tag_dem"],
                "cap_changes": c["n_changes"], "vmotions": c["vmotions"],
@@ -974,7 +1372,8 @@ class BatchedSimulator:
         if bool(host["slot_pressure"].any()):
             bad = [self.names[i] for i in np.nonzero(host["slot_pressure"])[0]]
             raise RuntimeError(
-                f"slot capacity bound an evacuation decision in cells "
+                f"slot capacity bound a migration/evacuation decision in "
+                f"cells "
                 f"{bad[:5]}: repack with a larger slot_slack")
         over = host["over_budget"]
         if float(over.max()) > 1e-6:

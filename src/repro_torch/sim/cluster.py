@@ -9,9 +9,11 @@ endpoints; power-on and power-off take their latencies.
 
 Delivery and accounting are the engine's: the port has the vector engine
 (:class:`repro_torch.sim.engine.VectorSimulator`).  The per-object delivery
-of the reference's legacy engine is a later slice (ROADMAP queue 1, item 8),
-as are gated migration launches (item 6), which raise.  Scripted power
-events (host failures, maintenance windows) flip hosts on schedule.
+of the reference's legacy engine is a later slice (ROADMAP queue 1, item 8).
+Scripted power events (host failures, maintenance windows) flip hosts on
+schedule.  With gated migration launches every emitted migration starts at
+its invocation's tick and migrations complete in emission order (FIFO),
+the schedule the batched engine replays.
 """
 
 from __future__ import annotations
@@ -44,7 +46,13 @@ class SimConfig:
     # Scripted host lifecycle events ((t_s, host_id, powered_on), ...),
     # applied at the first tick with t >= t_s.
     power_events: tuple = ()
-    # Per-invocation migration-launch gates (None = ungated).
+    # Per-invocation migration-launch gates (None = ungated, 0 = none): a
+    # host may be an endpoint of at most migration_slots_per_host
+    # correction and balancer launches an invocation, the cluster of at
+    # most migration_bandwidth.  Gated moves are not emitted (the next
+    # invocation scores them again); evacuations are exempt.  Gated
+    # migrations start at their invocation's tick (the launch gate replaces
+    # the runtime concurrency gate) and complete FIFO.
     migration_slots_per_host: Optional[int] = None
     migration_bandwidth: Optional[int] = None
 
@@ -52,6 +60,15 @@ class SimConfig:
     def migration_gated(self) -> bool:
         return (self.migration_slots_per_host is not None
                 or self.migration_bandwidth is not None)
+
+    @property
+    def migration_limits(self):
+        """The kernels' twin of the launch gates, or ``None``."""
+        if not self.migration_gated:
+            return None
+        from repro_torch.core.kernels import MigrationLimits
+        return MigrationLimits(slots_per_host=self.migration_slots_per_host,
+                               bandwidth=self.migration_bandwidth)
 
 
 @dataclasses.dataclass
@@ -82,10 +99,6 @@ class Simulator:
         self.manager = manager
         self.traces = traces
         self.config = config or SimConfig()
-        if self.config.migration_gated:
-            raise NotImplementedError(
-                "gated migration launches are not ported yet (ROADMAP "
-                "queue 1, item 6)")
         self.window = window               # optional payload sub-window
         self.acc = Accumulators()
         self.window_acc = Accumulators() if window else None
@@ -163,10 +176,30 @@ class Simulator:
         return [p for p in self.pending
                 if p.state == "running" and p.action.kind == "migrate"]
 
+    def _host_migration_overhead(self, host_id: str) -> float:
+        """vMotion CPU burned on ``host_id`` by the running migrations it
+        is an endpoint of."""
+        n = 0
+        for p in self._running_migrations():
+            vm = self.live.vms[p.action.target]
+            if vm.host_id == host_id or p.action.dest == host_id:
+                n += 1
+        return n * self.config.vmotion_overhead_mhz
+
     # ------------------------------------------------------------------
     def _complete_actions(self, t: float) -> None:
+        # Gated regime: migrations drain FIFO in emission order -- one may
+        # not complete before every migration emitted ahead of it has.
+        fifo = self.config.migration_gated
+        mig_block = False
         for p in self.pending:
-            if p.state != "running" or p.end_time > t:
+            if p.state != "running":
+                continue
+            if p.action.kind == "migrate" and fifo:
+                if mig_block or p.end_time > t:
+                    mig_block = True
+                    continue
+            elif p.end_time > t:
                 continue
             a = p.action
             if a.kind == "migrate":
@@ -220,7 +253,11 @@ class Simulator:
                     p.state = "done"
                     self.done_ids.add(a.action_id)
                     continue
-                if running_migrations >= self.config.max_concurrent_migrations:
+                if (not self.config.migration_gated
+                        and running_migrations
+                        >= self.config.max_concurrent_migrations):
+                    # The ungated regime's runtime concurrency gate; gated
+                    # clusters bound launches at the manager instead.
                     continue
                 p.state = "running"
                 p.end_time = t + self._migration_duration(vm)
@@ -254,7 +291,8 @@ class Simulator:
         """One DRS + CloudPowerCap invocation; queues the emitted actions."""
         result = self.manager.run_invocation(
             self.live.clone(), now=t, low_since=self.low_since,
-            last_config_change=self.last_config_change)
+            last_config_change=self.last_config_change,
+            limits=self.config.migration_limits)
         for a in result.actions:
             self.pending.append(_Pending(a))
         if result.actions:

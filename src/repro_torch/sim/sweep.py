@@ -1,23 +1,31 @@
 """Scenario sweeps: programmatic scenario families at cluster scale.
 
 The families of the reference's sweep harness (``repro.sim.sweep``):
-cluster size x rack budget x spike pattern x host mix x capacity churn,
-and the ``two_row`` budget tree, each under the
+cluster size x rack budget x spike pattern x host mix x capacity churn x
+placement rules, and the ``two_row`` budget tree, each under the
 ``cpc``/``static``/``statichigh`` policies, with the same random draws
 (``np.random.RandomState(spec.seed)``), so both packages build
 byte-identical cells.  :func:`run_sweep` runs them cell by cell on the
 vector engine (the default, as in the reference) or as one batch on the
-batched engine.  The manager runs with no migration search.
+batched engine.
 
-Capacity churn (``SweepSpec.churn``) exercises the host lifecycle:
-``dpm`` (a demand valley consolidates and powers a host off, a later
-burst powers it back on with Powercap Redistribution funding its cap),
-``maintenance`` (a scripted power-off/power-on window) and ``failure`` (a
-scripted power-off that stays down, with DPM free to bring capacity
-back), all with instantaneous migrations.  The timed families
-(``timed_churn``, ``failure_cascade``) and placement rules need the
-migration layer (ROADMAP queue 1, item 6) and raise
-:class:`repro_torch.sim.batch.BatchUnsupported`.
+* Migration search is off (``max_moves=0``) in the cap-only and churn
+  families.  The rule families (``violation_burst``: split affinity
+  groups, co-placed anti-affinity pairs and misplaced VM-host rules;
+  ``cap_blocked``: a Fig. 1a affinity correction that only fundable
+  capacity admits) run the whole migration layer: constraint correction
+  and the hill-climb balancer (:data:`RULE_BALANCER`).
+* Capacity churn (``SweepSpec.churn``) exercises the host lifecycle:
+  ``dpm`` (a demand valley consolidates and powers a host off, a later
+  burst powers it back on with Powercap Redistribution funding its cap),
+  ``maintenance`` (a scripted power-off/power-on window) and ``failure``
+  (a scripted power-off that stays down, with DPM free to bring capacity
+  back), all with instantaneous migrations.  ``timed_churn`` and
+  ``failure_cascade`` rerun ``dpm`` and ``failure`` under gated timed
+  vMotions (copy windows of at least a tick, both endpoints charged
+  overhead, :data:`TIMED_SLOTS_PER_HOST` launches a host and
+  :data:`TIMED_BANDWIDTH` a cluster an invocation) with the migration
+  layer on, so deferred moves cascade across invocations.
 """
 
 from __future__ import annotations
@@ -33,9 +41,10 @@ from repro_torch.core.budget_tree import BudgetTree
 from repro_torch.core.manager import CloudPowerCapManager, ManagerConfig
 from repro_torch.core.power_model import PAPER_HOST, HostPowerSpec
 from repro_torch.drs.balancer import BalancerConfig
+from repro_torch.drs.rules import AffinityRule, AntiAffinityRule, VMHostRule
 from repro_torch.drs.snapshot import ClusterSnapshot, Host, VirtualMachine
 from repro_torch.sim import workloads
-from repro_torch.sim.batch import BatchCell, BatchedSimulator, BatchUnsupported
+from repro_torch.sim.batch import BatchCell, BatchedSimulator
 from repro_torch.sim.cluster import SimConfig
 from repro_torch.sim.engine import VectorSimulator
 
@@ -61,6 +70,15 @@ POLICIES = ("cpc", "static", "statichigh")
 #: binds before the rack budget does.
 TWO_ROW_LIMIT_FRAC = 0.45
 
+#: The timed families' launch gates: migration slots a host and the
+#: cluster's launches an invocation.
+TIMED_SLOTS_PER_HOST = 2
+TIMED_BANDWIDTH = 8
+
+#: The migration balancer of migration-enabled cells, on every engine (the
+#: manager's for vector cells, its ``params()`` for the batched engine).
+RULE_BALANCER = BalancerConfig(max_moves=8)
+
 
 @dataclasses.dataclass(frozen=True)
 class SweepSpec:
@@ -73,7 +91,7 @@ class SweepSpec:
     spike: str = "burst"                    # one of SPIKES
     heterogeneous: bool = False             # mix PAPER_HOST with SMALL_HOST
     churn: str = "none"                     # one of CHURNS
-    rules: str = "none"                     # only "none" is ported
+    rules: str = "none"                     # one of RULESETS
     tree: str = "none"                      # one of TREES
     duration_s: float = 1200.0
     tick_s: float = 10.0
@@ -97,13 +115,14 @@ class SweepSpec:
 
     @property
     def timed(self) -> bool:
-        """Families of the timed, gated vMotion model (the migration layer,
-        ROADMAP queue 1, item 6)."""
+        """Families of the timed, gated vMotion model: copy windows, both
+        endpoints' overhead, per-host slot and cluster bandwidth gates."""
         return self.churn in ("timed_churn", "failure_cascade")
 
     @property
     def migration_enabled(self) -> bool:
-        """Families that run the migration layer (item 6)."""
+        """Families that run the migration layer (correction and the
+        balancer): the rule families and the timed ones."""
         return self.rules != "none" or self.timed
 
 
@@ -178,19 +197,15 @@ def build_sweep(spec: SweepSpec, policy: str,
     (the rest stay in standby with a zero cap), as in paper Table II.
     ``trace_memo`` (one spec) shares traces between policies with the same
     powered-on host count; ``vm_memo`` (one grid) shares the read-only VM
-    list between cells with the same VM count and powered-on hosts.
+    list between cells with the same VM count and powered-on hosts (the
+    ``cap_blocked`` reservations replace the VMs they change, copy on
+    write).
     """
     for field, known in (("spike", SPIKES), ("churn", CHURNS),
                          ("rules", RULESETS), ("tree", TREES)):
         if getattr(spec, field) not in known:
             raise ValueError(f"unknown {field} family "
                              f"{getattr(spec, field)!r}")
-    if spec.migration_enabled:
-        what = (f"rules={spec.rules!r}" if spec.rules != "none"
-                else f"churn={spec.churn!r}")
-        raise BatchUnsupported(
-            f"{spec.name}: {what} needs the migration layer, which is not "
-            f"ported yet (a later slice: ROADMAP queue 1, item 6)")
     host_specs = _specs_for(spec)
     budget = spec.budget
     total_peak = sum(s.power_peak for s in host_specs)
@@ -241,6 +256,35 @@ def build_sweep(spec: SweepSpec, policy: str,
                                [vm.vm_id for vm in vms])
         if trace_memo is not None:
             trace_memo[n_on] = traces
+
+    rules: list = []
+    if spec.rules != "none":
+        if n_on < 4:
+            raise ValueError("rule families need >= 4 powered-on hosts")
+        if spec.rules == "violation_burst":
+            # Corrections for the first DRS invocation: two affinity groups
+            # split across hosts, two anti-affinity pairs on one host each,
+            # two VMs off their allowed hosts.
+            rules = [
+                AffinityRule(("vm0", "vm1")),
+                AffinityRule(("vm2", "vm3")),
+                AntiAffinityRule(("vm4", f"vm{4 + n_on}")),
+                AntiAffinityRule(("vm5", f"vm{5 + n_on}")),
+                VMHostRule("vm6", frozenset(
+                    {on_hosts[7 % n_on], on_hosts[8 % n_on]})),
+                VMHostRule("vm7", frozenset(
+                    {on_hosts[8 % n_on], on_hosts[9 % n_on]})),
+            ]
+        else:
+            # cap_blocked, paper Fig. 1a at sweep scale: an affinity
+            # correction that fits only when the check reads fundable
+            # capacity (the anchor's host must go past its current cap).
+            anchor, mover = "vm2", "vm0"
+            overrides = {anchor: 14_000.0, mover: 6_000.0,
+                         f"vm{n_on}": 12_000.0}    # host 0's second VM
+            vms = [dataclasses.replace(v, reservation=overrides[v.vm_id])
+                   if v.vm_id in overrides else v for v in vms]
+            rules = [AffinityRule((mover, anchor))]
     tree = None
     if spec.tree == "two_row":
         tree = BudgetTree.two_rows(budget, spec.n_hosts,
@@ -252,21 +296,28 @@ def build_sweep(spec: SweepSpec, policy: str,
         caps = tree.project(caps, on_mask, floors=np.zeros(spec.n_hosts))
         for h, cap in zip(hosts, caps):
             h.power_cap = float(cap)
-    snap = ClusterSnapshot(hosts, vms, power_budget=budget,
+    snap = ClusterSnapshot(hosts, vms, power_budget=budget, rules=rules,
                            budget_tree=tree)
     power_events: tuple = ()
     if spec.churn == "maintenance":
         # One powered-on host leaves for the middle third and returns.
         power_events = ((spec.duration_s / 3.0, on_hosts[0], False),
                         (2.0 * spec.duration_s / 3.0, on_hosts[0], True))
-    elif spec.churn == "failure":
-        # Capacity lost at mid-run; DPM may repair it.
+    elif spec.churn in ("failure", "failure_cascade"):
+        # Capacity lost at mid-run; DPM may repair it (under timed gated
+        # migrations in the cascade family).
         power_events = ((spec.duration_s / 2.0, on_hosts[0], False),)
     cfg = SimConfig(duration_s=spec.duration_s, tick_s=spec.tick_s,
                     drs_period_s=spec.drs_period_s,
                     drs_first_at_s=spec.drs_period_s,
                     record_timeline=False,
-                    instant_migrations=spec.dpm_enabled,
+                    instant_migrations=((spec.dpm_enabled
+                                         or spec.migration_enabled)
+                                        and not spec.timed),
+                    migration_slots_per_host=(TIMED_SLOTS_PER_HOST
+                                              if spec.timed else None),
+                    migration_bandwidth=(TIMED_BANDWIDTH
+                                         if spec.timed else None),
                     power_events=power_events)
     return snap, traces, cfg
 
@@ -274,11 +325,23 @@ def build_sweep(spec: SweepSpec, policy: str,
 def _sweep_manager(policy: str, device=None,
                    spec: Optional[SweepSpec] = None) -> CloudPowerCapManager:
     """The sweeps' manager: the policy's powercap switch, DPM where the
-    spec's churn family drives it, no migration search."""
+    spec's churn family drives it, and :data:`RULE_BALANCER` where it runs
+    the migration layer (no migration search elsewhere)."""
+    balancer = (dataclasses.replace(RULE_BALANCER)
+                if spec is not None and spec.migration_enabled
+                else BalancerConfig(max_moves=0))
     cfg = ManagerConfig(powercap_enabled=(policy == "cpc"),
                         dpm_enabled=bool(spec and spec.dpm_enabled),
-                        balancer=BalancerConfig(max_moves=0))
+                        balancer=balancer)
     return CloudPowerCapManager(cfg, device)
+
+
+def grid_balancer(specs: Sequence[SweepSpec]):
+    """The batched engine's balancer (``MigrationParams``) when a spec runs
+    the migration layer, else ``None``."""
+    if any(s.migration_enabled for s in specs):
+        return RULE_BALANCER.params()
+    return None
 
 
 @dataclasses.dataclass
@@ -324,6 +387,7 @@ def build_batch_cells(specs: Sequence[SweepSpec],
                 name=f"{spec.name}/{p}", snapshot=snap, traces=traces,
                 config=cfg, powercap_enabled=(p == "cpc"),
                 dpm_enabled=spec.dpm_enabled,
+                balancer_enabled=spec.migration_enabled,
                 trace_bank=banks[id(traces)]))
             keys.append((spec, p))
     return cells, keys
@@ -373,9 +437,11 @@ def run_sweep(specs: Sequence[SweepSpec],
 
     ``engine="vector"`` runs the cells one by one on
     :class:`repro_torch.sim.engine.VectorSimulator`; ``engine="batch"``
-    runs the whole grid as one :class:`BatchedSimulator`, its slot axis
-    widened by ``slot_slack`` for DPM's evacuations (the reference's
-    batched sweeps default to 3.0).  ``device=None`` runs on the GPU.
+    runs the whole grid as one :class:`BatchedSimulator` (with
+    :func:`grid_balancer`'s balancer), its slot axis widened by
+    ``slot_slack`` for the migrations and DPM's evacuations (the
+    reference's batched sweeps default to 3.0).  ``device=None`` runs on
+    the GPU.
     """
     if engine == "vector":
         return {spec.name: {p: run_cell(spec, p, device=device)
@@ -384,7 +450,8 @@ def run_sweep(specs: Sequence[SweepSpec],
         raise ValueError(f"engine {engine!r} is not ported: use 'vector' "
                          f"or 'batch'")
     cells, keys = build_batch_cells(specs, policies)
-    sim = BatchedSimulator(cells, slot_slack=slot_slack, device=device)
+    sim = BatchedSimulator(cells, slot_slack=slot_slack,
+                           balancer=grid_balancer(specs), device=device)
     res = sim.run()
     LAST_BATCH_INFO.clear()
     LAST_BATCH_INFO.update(sim.info, result=res)
@@ -410,18 +477,20 @@ def scenario_families(sizes: Sequence[int] = (10, 100, 1000),
                       spikes: Sequence[str] = ("burst", "prime"),
                       heterogeneous: Sequence[bool] = (False, True),
                       churns: Sequence[str] = ("none",),
+                      rules: Sequence[str] = ("none",),
                       duration_s: float = 1200.0,
                       tick_s: float = 10.0) -> list[SweepSpec]:
-    """The grid: size x budget x spike x host mix x churn (the reference's
-    names and order; its ``rules`` axis is ROADMAP queue 1, item 6)."""
+    """The grid: size x budget x spike x host mix x churn x rules (the
+    reference's names and order)."""
     return [SweepSpec(name=(f"h{n}_b{int(b)}w_{spike}"
                             f"{'_het' if het else ''}"
-                            f"{'' if churn == 'none' else '_' + churn}"),
+                            f"{'' if churn == 'none' else '_' + churn}"
+                            f"{'' if rule == 'none' else '_' + rule}"),
                       n_hosts=n, rack_budget_w=b * n, spike=spike,
-                      heterogeneous=het, churn=churn, duration_s=duration_s,
-                      tick_s=tick_s)
+                      heterogeneous=het, churn=churn, rules=rule,
+                      duration_s=duration_s, tick_s=tick_s)
             for n in sizes for b in budgets_per_host_w for spike in spikes
-            for het in heterogeneous for churn in churns]
+            for het in heterogeneous for churn in churns for rule in rules]
 
 
 def row_contention_specs(sizes: Sequence[int] = (10, 100),

@@ -15,13 +15,15 @@ import numpy as np
 import pytest
 import torch
 
-from repro.drs.rules import AffinityRule
+from repro.drs.rules import AffinityRule as RefAffinityRule
 from repro.sim import sweep as ref_sweep
 from repro.sim.batch import BatchCell as RefCell
 from repro.sim.batch import BatchedSimulator as RefSimulator
 from repro.sim.experiments import SCENARIOS
 from repro_torch.convert import from_reference_pack
+from repro_torch.core.budget_tree import BudgetTree
 from repro_torch.core.power_model import PAPER_HOST
+from repro_torch.drs.rules import AffinityRule
 from repro_torch.drs.snapshot import ClusterSnapshot, Host, VirtualMachine
 from repro_torch.sim import sweep
 from repro_torch.sim.batch import (PACK_KEYS, BatchCell, BatchedSimulator,
@@ -151,7 +153,8 @@ def _cell(name="c", **kw):
     traces = {v.vm_id: spec_trace(TraceSpec(((0.0, 1000.0, 2048.0),)))
               for v in vms}
     snap = ClusterSnapshot(hosts, vms, power_budget=500.0,
-                           rules=kw.pop("rules", None))
+                           rules=kw.pop("rules", None),
+                           budget_tree=kw.pop("budget_tree", None))
     cfg = SimConfig(duration_s=600.0, power_events=kw.pop("events", ()),
                     tick_s=kw.pop("tick_s", 10.0))
     return BatchCell(name=name, snapshot=snap, traces=traces, config=cfg,
@@ -159,9 +162,11 @@ def _cell(name="c", **kw):
 
 
 @pytest.mark.parametrize("bad", (
-    dict(dpm_enabled=True),                  # timed migrations: item 6
+    dict(dpm_enabled=True),                  # ungated timed migrations
     dict(events=((300.0, "host9", False),)),  # an unknown host
-    dict(rules=["vm0 with vm1"]),
+    # A budget tree with placement rules (the reference refuses it too).
+    dict(rules=[AffinityRule(("vm0", "vm2"))],
+         budget_tree=BudgetTree([-1, 0, 0], [500.0, 200.0, 400.0], [1, 2])),
     dict(tick_s=20.0),
 ))
 def test_unsupported_cells_raise(bad):
@@ -180,27 +185,49 @@ def test_spec_less_traces_raise():
                                    dict(rules="violation_burst"),
                                    dict(churn="failure_cascade")))
 def test_unported_sweep_families_raise(field):
-    spec = sweep.SweepSpec(name="s", n_hosts=4, **field)
-    with pytest.raises(BatchUnsupported):
-        sweep.run_sweep([spec], engine="batch", device="cpu")
+    """The migration families run on both of the port's engines as on the
+    reference's vector engine (8 hosts, cpc and static): exact counts,
+    payload and energy to 1e-9."""
+    kw = dict(name="s", n_hosts=8, duration_s=1500.0, tick_s=15.0, **field)
+    policies = ("cpc", "static")
+    want = {p: ref_sweep.run_cell(ref_sweep.SweepSpec(**kw), p)
+            for p in policies}
+    spec = sweep.SweepSpec(**kw)
+    for engine in ("batch", "vector"):
+        got = sweep.run_sweep([spec], policies, engine=engine, device="cpu")
+        for p in policies:
+            g, w = got["s"][p], want[p]
+            for f in ("cap_changes", "vmotions", "power_ons", "power_offs"):
+                assert getattr(g, f) == getattr(w, f), (engine, p, f)
+            for f in ("cpu_payload_mhz_s", "energy_j"):
+                np.testing.assert_allclose(getattr(g, f), getattr(w, f),
+                                           rtol=RTOL, err_msg=(engine, p))
+    assert sum(w.vmotions for w in want.values()) > 0
 
 
-def test_dynamic_reference_pack_raises():
-    """A pack of the reference's migration layer (here: an affinity rule
-    violated at the start, which compiles constraint correction in) is
-    refused: ROADMAP queue 1, item 6."""
+def test_dynamic_reference_pack_raises(x64):
+    """A pack of the reference's migration layer (an affinity rule violated
+    at the start compiles constraint correction in) carries over and runs
+    as the reference's batched engine runs it."""
     cell = _paper_cells("headroom")[0]
     first = {}
     for v in cell.snapshot.vms.values():
         first.setdefault(v.host_id, v.vm_id)
     hosts = sorted(first)
-    cell.snapshot.rules = [AffinityRule((first[hosts[0]],
-                                         first[hosts[1]]))]
+    cell.snapshot.rules = [RefAffinityRule((first[hosts[0]],
+                                            first[hosts[1]]))]
     cell.config = dataclasses.replace(cell.config, instant_migrations=True)
     ref = RefSimulator([cell])
-    assert ref._static.migration
-    with pytest.raises(BatchUnsupported):
-        from_reference_pack(ref._arrays, ref._static, device="cpu")
+    assert ref._static.migration and ref._static.rules.n_groups == 1
+    want = ref.run()
+    got = from_reference_pack(ref._arrays, ref._static, device="cpu").run()
+    for f in ("cap_changes", "vmotions", "power_ons", "power_offs"):
+        np.testing.assert_array_equal(getattr(got, f), getattr(want, f))
+    for f in FLOATS:
+        np.testing.assert_allclose(getattr(got, f), getattr(want, f),
+                                   rtol=RTOL, err_msg=f)
+    np.testing.assert_array_equal(got.final_occ, want.final_occ)
+    assert want.vmotions[0] == 1
 
 
 # ------------------------------------------------------------- churn grids

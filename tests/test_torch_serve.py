@@ -10,8 +10,8 @@ tolerance (2e-2) with the reference's own tokens fed back to both; token
 identity is reported, not required.  Then ``launch.serve``'s driver with
 the reference's host spec carried across: the routing before and after
 its cap event, the caps and the manager's note must equal the
-reference's, and the migration balancer's stopping test must agree with
-the reference's ``balance``.
+reference's, and the migration balancer must make the reference's moves
+(none after the cap event).
 """
 
 import contextlib
@@ -287,42 +287,58 @@ def test_balancer_returns_nothing_where_the_reference_stops(case):
     assert ref_balancer.balance(ref_snap, ref_balancer.BalancerConfig()) \
         == []
     assert balancer.balance(snap, cfg, device="cpu") == []
-    assert balancer.stops_in_first_round(snap, cfg, device="cpu")
 
 
 def test_balancer_raises_where_the_reference_moves_a_vm():
     """Everything piled on one host (``tests/test_migration_parity.py``'s
-    contended scenario): the reference's search moves VMs, the port's is
-    not ported and says so."""
+    contended scenario): the port's search makes the reference's moves, and
+    leaves both snapshots with the same placement."""
     loads = np.random.RandomState(3).uniform(1500, 2500, 18)
     ref_snap, snap = _cluster(list(loads), hot_host="host0")
-    assert len(ref_balancer.balance(ref_snap,
-                                    ref_balancer.BalancerConfig())) > 0
-    with pytest.raises(NotImplementedError, match="item 6"):
-        balancer.balance(snap, balancer.BalancerConfig(), device="cpu")
+    want = ref_balancer.balance(ref_snap, ref_balancer.BalancerConfig())
+    assert len(want) > 0
+    assert balancer.balance(snap, balancer.BalancerConfig(),
+                            device="cpu") == want
+    assert ({v.vm_id: v.host_id for v in snap.vms.values()}
+            == {v.vm_id: v.host_id for v in ref_snap.vms.values()})
     assert balancer.balance(snap, balancer.BalancerConfig(max_moves=0),
                             device="cpu") == []
 
 
 def test_normalized_entitlements_match_the_reference_balancer():
+    """The balancer's one-cell dense layout (``_DenseCell``) and its
+    entitlement waterfill (K1's plain version, 100 trips) give the
+    reference balancer's normalized entitlements."""
     from repro.core import kernels as ref_kernels
-    from repro.core.migration_core import _DenseCell
+    from repro.core.migration_core import _DenseCell as RefDenseCell
     from repro import backend as ref_backend
+    from repro_torch.core import kernels
+    from repro_torch.core.migration_core import _DenseCell
+    from repro_torch.drs.entitlement import waterfill_dense
 
     loads = np.random.RandomState(4).uniform(500, 9000, 12)
     ref_snap, snap = _cluster(list(loads))
-    cell = _DenseCell(ref_snap, extra_slots=1)
-    managed = ref_kernels.managed_capacity(np, cell.hosts, cell.caps)
-    act = cell.work["occ"] & cell.hosts.on[..., None]
+    ref_cell = RefDenseCell(ref_snap, extra_slots=1)
+    w = ref_cell.work
+    managed = ref_kernels.managed_capacity(np, ref_cell.hosts, ref_cell.caps)
+    act = w["occ"] & ref_cell.hosts.on[..., None]
     alloc = ref_kernels.waterfill_dense(
         np, ref_backend.NUMPY.fori, managed,
-        np.where(act, np.minimum(cell.work["reservation"],
-                                 cell.work["limit"]), 0.0),
-        np.where(act, np.clip(cell.work["cpu"], cell.work["reservation"],
-                              cell.work["limit"]), 0.0),
-        cell.work["weights"], ref_kernels.MIGRATION_WATERFILL_ITERS,
-        active=act)
+        np.where(act, np.minimum(w["reservation"], w["limit"]), 0.0),
+        np.where(act, np.clip(w["cpu"], w["reservation"], w["limit"]), 0.0),
+        w["weights"], ref_kernels.MIGRATION_WATERFILL_ITERS, active=act)
     want = np.where(managed > 0, (alloc * act).sum(-1) / managed, 0.0)[0]
-    ns, on = balancer.normalized_entitlements(snap, device="cpu")
-    np.testing.assert_allclose(ns.numpy(), want, rtol=1e-12)
-    assert on.all()
+
+    cell = _DenseCell(snap, extra_slots=1)
+    w = cell.work
+    managed = kernels.managed_capacity(cell.hosts, cell.caps)
+    act = w["occ"] & cell.hosts.on[..., None]
+    alloc = waterfill_dense(
+        managed,
+        torch.where(act, torch.minimum(w["reservation"], w["limit"]), 0.0),
+        torch.where(act, kernels.clip(w["cpu"], w["reservation"],
+                                      w["limit"]), 0.0),
+        w["weights"], kernels.MIGRATION_WATERFILL_ITERS, active=act)
+    got = torch.where(managed > 0, (alloc * act).sum(-1) / managed, 0.0)[0]
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-12)
+    assert cell.hosts.on.all()

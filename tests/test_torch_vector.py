@@ -187,37 +187,94 @@ def _cluster(rules=None, hot=False, **snap_kw):
                            **snap_kw), traces
 
 
+def _ref_cluster(rules=(), hot=False):
+    """:func:`_cluster`'s cluster built by the reference, with its
+    traces."""
+    from repro.core.power_model import PAPER_HOST as REF_HOST
+    from repro.drs.snapshot import ClusterSnapshot as RefSnapshot
+    from repro.drs.snapshot import Host as RefHost
+    from repro.drs.snapshot import VirtualMachine as RefVM
+    from repro.sim import workloads as ref_workloads
+
+    hosts = [RefHost(f"host{i}", REF_HOST, power_cap=250.0)
+             for i in range(2)]
+    vms = [RefVM(f"vm{i}", host_id="host0" if hot else f"host{i % 2}")
+           for i in range(4)]
+    traces = {v.vm_id: ref_workloads.constant(9000.0 if hot else 1000.0,
+                                              2048.0) for v in vms}
+    return RefSnapshot(hosts, vms, power_budget=500.0,
+                       rules=list(rules)), traces
+
+
+def _hold_vector_run(ref_snap, ref_traces, ref_cfg, ref_mgr, mgr):
+    """One scenario through both vector engines: exact counts, 1e-9
+    floats, the final placement and power states equal."""
+    from repro_torch.convert import from_reference_config
+
+    snap, traces = from_reference_snapshot(ref_snap, ref_traces)
+    want = RefVectorSimulator(ref_snap, ref_mgr, ref_traces, ref_cfg).run()
+    got = VectorSimulator(snap, mgr, traces, from_reference_config(ref_cfg),
+                          device="cpu").run()
+    for f in COUNTS:
+        assert getattr(got.acc, f) == getattr(want.acc, f), f
+    for f in FLOATS:
+        np.testing.assert_allclose(getattr(got.acc, f),
+                                   getattr(want.acc, f), rtol=RTOL,
+                                   err_msg=f)
+    assert ({v.vm_id: v.host_id for v in got.final.vms.values()}
+            == {v.vm_id: v.host_id for v in want.final.vms.values()})
+    assert ([h.powered_on for h in got.final.hosts.values()]
+            == [h.powered_on for h in want.final.hosts.values()])
+    return got
+
+
 @pytest.mark.parametrize("regime", ("rules", "max_moves", "dpm"))
 def test_unported_manager_regimes_raise_at_the_first_invocation(regime):
-    # The migration search runs (and raises) only where a host is strained
-    # and the imbalance outlasts BalancePowerCap; a quiet cluster stops in
-    # the search's first round, as the reference's does.
-    # DPM runs since its slice; under placement rules its evacuations
-    # need the migration layer's rule admission, and raise with it.
-    snap, traces = _cluster(rules=["vm0 with vm1"]
-                            if regime in ("rules", "dpm") else None,
-                            hot=regime == "max_moves")
-    manager = {"rules": _manager("cpc"),
-               "max_moves": _manager("cpc",
-                                     balancer=BalancerConfig(max_moves=4)),
-               "dpm": _manager("cpc", dpm_enabled=True)}[regime]
-    sim = VectorSimulator(snap, manager, traces,
-                          SimConfig(duration_s=600.0), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        sim.run()
+    """The regimes that needed the migration layer run as the reference's:
+    an affinity rule violated at the start (corrected at the first
+    invocation), the hill-climb balancer on a strained host (static caps,
+    so Watts cannot absorb it), and DPM under placement rules (rule-aware
+    evacuations)."""
+    from repro.drs.rules import AffinityRule as RefAffinity
+    from repro.sim.cluster import SimConfig as RefSimConfig
+
+    rules = ([RefAffinity(("vm0", "vm1"))] if regime in ("rules", "dpm")
+             else [])
+    ref_snap, ref_traces = _ref_cluster(rules, hot=regime == "max_moves")
+    kw = {"rules": {}, "max_moves": dict(max_moves=4),
+          "dpm": dict(dpm_enabled=True)}[regime]
+    policy = "static" if regime == "max_moves" else "cpc"
+    ref_cfg = RefManagerConfig(powercap_enabled=policy == "cpc",
+                               dpm_enabled=kw.get("dpm_enabled", False))
+    ref_cfg.balancer = ref_balancer.BalancerConfig(
+        max_moves=kw.get("max_moves", 0))
+    mgr = _manager(policy, dpm_enabled=kw.get("dpm_enabled", False),
+                   balancer=BalancerConfig(max_moves=kw.get("max_moves", 0)))
+    got = _hold_vector_run(ref_snap, ref_traces, RefSimConfig(
+        duration_s=600.0), RefManager(ref_cfg), mgr)
+    if regime != "dpm":
+        assert got.acc.vmotions > 0
 
 
 def test_unported_simulator_regimes_raise():
-    """Gated migration launches need the migration layer (item 6); scripted
-    power events and budget trees run since their slice, and a tree over
-    the wrong host count is refused."""
+    """Gated migration launches run as the reference's (one launch an
+    invocation, then one a host; FIFO completion): the balancer spreads a
+    hot host over the invocations.  Scripted power events and budget trees
+    run too, and a tree over the wrong host count is refused."""
+    from repro.sim.cluster import SimConfig as RefSimConfig
+
+    for gate in (dict(migration_bandwidth=1),
+                 dict(migration_slots_per_host=1)):
+        ref_snap, ref_traces = _ref_cluster(hot=True)
+        ref_cfg = RefManagerConfig(powercap_enabled=False, dpm_enabled=False)
+        ref_cfg.balancer = ref_balancer.BalancerConfig(max_moves=4)
+        got = _hold_vector_run(
+            ref_snap, ref_traces,
+            RefSimConfig(duration_s=1200.0, record_timeline=False, **gate),
+            RefManager(ref_cfg),
+            _manager("static", balancer=BalancerConfig(max_moves=4)))
+        assert got.acc.vmotions > 0
     snap, traces = _cluster()
-    with pytest.raises(NotImplementedError, match="item 6"):
-        VectorSimulator(snap, _manager("cpc"), traces,
-                        SimConfig(migration_bandwidth=2), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        VectorSimulator(snap, _manager("cpc"), traces,
-                        SimConfig(migration_slots_per_host=1), device="cpu")
     with pytest.raises(ValueError, match="host count"):
         _cluster(budget_tree=BudgetTree([-1], [500.0], [0, 0, 0]))
     VectorSimulator(snap, _manager("cpc"), traces,

@@ -5,9 +5,13 @@ Builds path A (32 cells x 100 hosts, 60 ticks) and path B (16 cells x
 1000 hosts, 120 ticks) of the batched engine, path D (``sweep_grid_dpm``'s
 32 churn cells x 100 hosts, 100 ticks of 15 s, slot slack 1.5: DPM,
 scripted events and Powercap Redistribution in the batched engine's churn
-program), path V (one cpc cell of 1000 hosts, 60 ticks, on the vector
-engine), as ``chip_smoke.py`` does (they report K1's, K2's and K3's device
-ms per launch),
+program), paths G and X (``sweep_grid_rules``'s and ``sweep_grid_timed``'s
+32 cells x 100 hosts, 60 ticks, slot slack 1.5: constraint correction, the
+hill-climb balancer and, on X, gated timed vMotions in the churn program;
+they also report the loop's device-to-host reads a tick, ``any(can)`` and
+the migration layer's one a round), path V (one cpc cell of 1000 hosts,
+60 ticks, on the vector engine), as ``chip_smoke.py`` does (they report
+K1's, K2's and K3's device ms per launch),
 and path S, one replica batch of the serving path at granite-8b's full
 width and depth in bf16 (8 prompts of 512, 32 tokens, a 1024-position
 cache): ``S`` is the whole generation (prefill and 31 decode steps, its
@@ -34,8 +38,8 @@ per path and writes the Chrome traces to OUT_DIR (default
 
     python3 tools/profile_sweep_torch.py [OUT_DIR [PATH ...]]
 
-PATH is any of A, B, D, V, S, Sd, M, Md, P, Pd, H, Hd and T (default
-all).
+PATH is any of A, B, D, G, X, V, S, Sd, M, Md, P, Pd, H, Hd and T
+(default all).
 """
 
 from __future__ import annotations
@@ -64,14 +68,22 @@ def busy_us(events) -> float:
 
 def batch_runner(specs, policies, slot_slack: float = 2.0):
     """``(prepare, info)``: ``prepare()`` returns a run of the grid's
-    simulator, which returns the ticks it ran."""
+    simulator (with the sweeps' balancer), which returns the ticks it ran
+    and leaves the loop's reads a tick in ``info``."""
     from repro_torch.sim.batch import BatchedSimulator
-    from repro_torch.sim.sweep import build_batch_cells
+    from repro_torch.sim.sweep import build_batch_cells, grid_balancer
 
     cells, _ = build_batch_cells(specs, policies)
-    sim = BatchedSimulator(cells, slot_slack=slot_slack)
-    return (lambda: lambda: sim.run().ticks), dict(cells=len(cells),
-                                                   pack_s=sim.pack_s)
+    sim = BatchedSimulator(cells, slot_slack=slot_slack,
+                           balancer=grid_balancer(specs))
+    info = dict(cells=len(cells), pack_s=sim.pack_s)
+
+    def run():
+        ticks = sim.run().ticks
+        info.update(reads_per_tick=sim.info.get("branch_reads", 0) / ticks,
+                    migration_reads=sim.info.get("migration_reads", 0))
+        return ticks
+    return (lambda: run), info
 
 
 def vector_runner(specs, policies):
@@ -256,8 +268,8 @@ def main() -> int:
     out_dir = Path(sys.argv[1]) if len(sys.argv) > 1 else (
         ROOT / "build" / "profiles")
     out_dir.mkdir(parents=True, exist_ok=True)
-    wanted = sys.argv[2:] or ["A", "B", "D", "V", "S", "Sd", "M", "Md", "P",
-                              "Pd", "H", "Hd", "T"]
+    wanted = sys.argv[2:] or ["A", "B", "D", "G", "X", "V", "S", "Sd", "M",
+                              "Md", "P", "Pd", "H", "Hd", "T"]
     model: dict = {}
     print(torch.cuda.get_device_name(0), flush=True)
     spikes = ("flat", "burst", "step", "prime")
@@ -276,6 +288,17 @@ def main() -> int:
             churns=("none", "dpm", "maintenance", "failure"),
             duration_s=1500.0, tick_s=15.0), ("cpc", "static"),
             slot_slack=1.5),
+        "G": lambda: batch_runner(scenario_families(
+            sizes=(100,), budgets_per_host_w=(250.0,), spikes=spikes,
+            heterogeneous=(False, True),
+            rules=("violation_burst", "cap_blocked"), duration_s=600.0,
+            tick_s=10.0), ("cpc", "static"), slot_slack=1.5),
+        "X": lambda: batch_runner(scenario_families(
+            sizes=(100,), budgets_per_host_w=(250.0,),
+            spikes=("burst", "prime"), heterogeneous=(False, True),
+            churns=("timed_churn", "failure_cascade"),
+            rules=("none", "violation_burst"), duration_s=600.0,
+            tick_s=10.0), ("cpc", "static"), slot_slack=1.5),
         "V": lambda: vector_runner(scale_ladder(
             sizes=(1000,), spike="burst", duration_s=600.0), ("cpc",)),
         "S": lambda: serve_runner(model, "granite_8b", decode_only=False),
