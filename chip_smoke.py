@@ -11,17 +11,20 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    fp64, at the main paths' shapes, timed with CUDA events (median of 20)
    and, for K1 and K2, by their device time under ``torch.profiler`` (the
    profile tool's reading), with K2's plan (cluster size, threads, shared
-   memory): K1 and K2 at paths A, B, D and R, K2 at paths V and W (one
-   cell) and on one cell of 10,000 hosts (the reference's
-   ``datacenter_cell``), each with round counts and ``did``
-   flags equal to the plain version's; K3 at paths V and W and on a ragged
-   case
+   memory): K1 and K2 at paths A, B, D and R, at path U's widest pad
+   bucket ``(12, 1024, 16)`` and at path C's ``(2, 16384, 16)``, K2 at
+   paths V and W (one cell) and on one cell of 10,000 hosts (the
+   reference's ``datacenter_cell``), each with round counts and ``did``
+   flags equal to the plain version's; K3 at paths V and W and on a
+   ragged case
    (empty hosts, a host whose floors exceed its capacity, a 256-wide row,
-   huge values in the rows next to each row); then rows of every shape
+   huge values in the rows next to each row); K3 and K2 (bitwise) at each
+   of path E's shapes, on the inputs that E's CPU runs of ``headroom``
+   and ``flexible`` on the legacy engine gave them; then rows of every shape
    the row routine has: K1 and K2 at 3, 40, 100 and 300 slots a row, K3
    at rows of 300 and 1,000 items (streamed from memory);
 4. main path A, the ``sweep_grid`` grid (32 cells x 100 hosts x 10 VMs),
-   through ``run_sweep(..., engine="batch")`` on the card, held against
+   through ``run_sweep_batched`` (the exact pack) on the card, held against
    the same grid run on the CPU (plain versions), with every kernel's
    launch count checked;
 5. main path B, 16 cells x 1000 hosts x 10 VMs over 120 ticks, with one
@@ -34,8 +37,8 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    note) and K2 (one a cpc invocation) checked;
 6b. main path D, ``sweep_grid_dpm``'s grid (``benchmarks/run.py:282``,
    32 cells x 100 hosts x 10 VMs: churn none, dpm, maintenance and
-   failure, 1500 s at 15 s ticks, slot slack 1.5) through ``run_sweep(...,
-   engine="batch")`` on the card (the churn program: DPM, Powercap
+   failure, 1500 s at 15 s ticks, slot slack 1.5) through
+   ``run_sweep_batched`` on the card (the churn program: DPM, Powercap
    Redistribution, evacuations, scripted events), held against the same
    grid on the CPU: exact counts, payload and energy 1e-9, final power
    states, occupancy and caps equal, the budget within 1e-6, power-offs,
@@ -55,8 +58,8 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    4 spikes, both host mixes, 600 s at 10 s ticks, slot slack 1.5), and
    main path X, ``sweep_grid_timed``'s (``:409``: churn timed_churn and
    failure_cascade, rules none and violation_burst, gated timed vMotions
-   of 2 slots a host and a bandwidth of 8) through ``run_sweep(...,
-   engine="batch")`` on the card (the churn program with constraint
+   of 2 slots a host and a bandwidth of 8) through ``run_sweep_batched``
+   on the card (the churn program with constraint
    correction, the hill-climb balancer and, on X, the in-flight table),
    each held against the same grid on the CPU as path D is (the counts
    the grid must show: cap changes and vMotions, on X power-ons too), K1
@@ -71,6 +74,31 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    K2 in the manager), held against the CPU, K1-K3 launches equal to the
    CPU run's plain calls, K1 at the manager's balancer shapes and K3 and
    K2 at Q's against their plain versions;
+6g. path E, the paper's evaluation: ``run_all`` of ``headroom``,
+   ``standby`` and ``flexible`` (three policies each) on the legacy and the
+   vector engine on the card (18 runs), each held against the same run on
+   the CPU (counts and event strings exact, accumulators and window
+   accumulators 1e-9, final states and placement equal, K1-K3 launches
+   equal to its plain calls), legacy against vector on the card; Table
+   II and the Table III-V lines printed and held to EXPERIMENTS.md's;
+6h. path U, the bucketed front door: ``run_sweep(scenario_families(),
+   engine="batch", on_unsupported="fallback")`` (12 specs of 10, 100 and
+   1000 hosts x 3 policies, 120 ticks: pad buckets (16, 16), (128, 16)
+   and (1024, 16), each 120 K1 and 3 K2 launches) and one cell on another
+   time grid, which falls back to the vector engine with its warning;
+   held against the CPU run of the same call (exact counts, 1e-9, final
+   states) and against ``run_sweep_batched`` on the card (equal counts,
+   1e-12); the bucket records, launches a bucket and idle share printed;
+6i. path C, ``datacenter_cell`` (10,000 hosts x 10 VMs, 230 W a host,
+   burst, 600 s at 30 s, cpc and static) through ``run_sweep(...,
+   engine="batch")``: one pad bucket of (16384, 16), held against its CPU
+   run, the cpc cell changing caps; wall, bucket record and idle share
+   printed.  The CPU runs of E, U and C run in two worker processes from
+   the build on, while the card runs the paths before them;
+6j. the budget service: the ``budget_service`` benchmark's replay (50
+   hosts, the two-row tree, 4,000 events from seed 0), headroom against
+   brute force within 1e-9 and the reference's decision and error counts,
+   its host latencies printed beside the card's name and power limit;
 7. K4 (flash attention forward) and K6 (flash decoding) against their
    plain versions on the card: K4 at path S's prefill (8 x 512 tokens,
    32 query and 8 KV heads of 128, bf16), on bf16 cases of its
@@ -212,6 +240,7 @@ import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+from types import SimpleNamespace
 from unittest import mock
 
 import numpy as np
@@ -444,11 +473,37 @@ def k3_inputs(case: str, dev, seed: int = 11, m_path: int = 1000):
     return (*t, seg, m)
 
 
+def k3_cost(cap, fl, ce, w, lay, iters: int) -> tuple:
+    """K3's and its plain version's CUDA-event times on these inputs and
+    K3's bound: ``(ms, plain_ms, bound_ms, bound_by, trips)``."""
+    from repro_torch.kernels.powercap import ops, ref
+    from repro_torch.kernels.powercap.segments import to_rows
+
+    m, n = lay.n_segs, fl.numel()
+    ms = time_ms(lambda: ops.waterfill_segmented(cap, fl, ce, w, iters=iters,
+                                                 layout=lay))
+    pms = time_ms(lambda: ref.waterfill_segmented_ref(cap, fl, ce, w, lay,
+                                                      iters))
+    active = (torch.arange(lay.jb, device=fl.device) < lay.counts[:, None])
+    trips = bisection_trips(cap, to_rows(lay, fl), to_rows(lay, ce),
+                            to_rows(lay, w, fill=1e-12), active, iters)
+    bound, by = bound_ms(8 * m + 16 * m + 8 * n + 3 * 8 * n + 8 * n,
+                         float(((4 * trips + 12) * lay.counts).sum()))
+    return ms, pms, bound, by, trips
+
+
+def k3_record(m: int, n: int, **fields) -> dict:
+    return dict(name=f"waterfill_segmented {m}x{n}", route="cuda",
+                source="src/repro_torch/kernels/powercap/csrc/segmented.cu",
+                replaces="src/repro/kernels/powercap/kernel.py:181",
+                library_ms=None, **fields)
+
+
 def check_k3(dev, m_path: int = 1000, tag: str = "V") -> dict:
     """K3 against its plain version: the path's shape (``m_path`` hosts,
     timed, with its bound) and the ragged case."""
     from repro_torch.kernels.powercap import ops, ref
-    from repro_torch.kernels.powercap.segments import segment_layout, to_rows
+    from repro_torch.kernels.powercap.segments import segment_layout
 
     errs = {}
     for case in ("ragged", "path"):
@@ -463,25 +518,13 @@ def check_k3(dev, m_path: int = 1000, tag: str = "V") -> dict:
                                  f"differ (max abs err {errs[case]})")
         if not torch.isfinite(got).all():
             raise AssertionError(f"K3 {case}: non-finite allocation")
-    n = fl.numel()
-    ms = time_ms(lambda: ops.waterfill_segmented(cap, fl, ce, w,
-                                                 layout=lay))
-    pms = time_ms(lambda: ref.waterfill_segmented_ref(cap, fl, ce, w, lay,
-                                                      200))
-    active = (torch.arange(lay.jb, device=dev) < lay.counts[:, None])
-    trips = bisection_trips(cap, to_rows(lay, fl), to_rows(lay, ce),
-                            to_rows(lay, w, fill=1e-12), active, 200)
-    bound, by = bound_ms(8 * m + 16 * m + 8 * n + 3 * 8 * n + 8 * n,
-                         float(((4 * trips + 12) * lay.counts).sum()))
+    ms, pms, bound, by, trips = k3_cost(cap, fl, ce, w, lay, 200)
     log(f"{tag}: K3 err {errs['path']:.3e} (ragged {errs['ragged']:.3e}) "
         f"{ms:.4f} ms (plain {pms:.3f} ms), rows of {lay.jb} slots")
-    return dict(name=f"waterfill_segmented {m}x{n}", route="cuda",
-                source="src/repro_torch/kernels/powercap/csrc/segmented.cu",
-                replaces="src/repro/kernels/powercap/kernel.py:181",
-                max_abs_err=errs["path"], ragged_max_abs_err=errs["ragged"],
-                rtol=RTOL, atol=ATOL, ms=ms, plain_ms=pms, bound_ms=bound,
-                bound_by=by, library_ms=None,
-                mean_trips=float(trips.double().mean()))
+    return k3_record(m, fl.numel(), max_abs_err=errs["path"],
+                     ragged_max_abs_err=errs["ragged"], rtol=RTOL,
+                     atol=ATOL, ms=ms, plain_ms=pms, bound_ms=bound,
+                     bound_by=by, mean_trips=float(trips.double().mean()))
 
 
 def balance_plan(S: int, H: int, J: int) -> dict:
@@ -539,50 +582,65 @@ def check_kernels(shapes, dev) -> dict:
                 library_ms=None, row_lanes=g, row_slots_a_lane=k,
                 mean_trips=float(trips1.double().mean())))
 
-        args = (x["hosts"], x["caps"], x["dense"], x["cpu_res"], x["budget"],
-                x["enabled"], params)
-        kc, kd, kr = ops.balance_caps(*args)
-        pc, pd, pr = ref.balance_caps_ref(*args)
-        torch.cuda.synchronize()
-        err2 = float((kc - pc).abs().max())
-        if not torch.allclose(kc, pc, rtol=RTOL, atol=0.0):
-            raise AssertionError(f"K2 {tag}: caps differ (max abs err "
-                                 f"{err2})")
-        if not torch.equal(kd, pd):
-            raise AssertionError(f"K2 {tag}: did flags differ")
-        if not torch.equal(kr, pr):
-            raise AssertionError(f"K2 {tag}: rounds {kr.tolist()[:16]} on "
-                                 f"the card, {pr.tolist()[:16]} in the "
-                                 f"plain version")
-        plan = balance_plan(S, H, J)
-        ms2 = time_ms(lambda: ops.balance_caps(*args))
-        dms2 = device_ms(lambda: ops.balance_caps(*args),
-                         "balance_caps_kernel")
-        pms2 = time_ms(lambda: ref.balance_caps_ref(*args))
-        # Each round's waterfills run about as many trips as the first
-        # (at the input caps) does.
-        dense = x["dense"]
-        trips2 = float(bisection_trips(
-            ck.managed_capacity(x["hosts"], x["caps"]), dense.floors,
-            dense.ceils, dense.weights, dense.active,
-            iters).double().mean())
-        waterfills = float((1 + pr.double()).sum()) * H
-        b2, by2 = bound_ms((1 + 4 * 8 + 8 + 8 + 8) * S * H + 25 * n + 9 * S
-                           + 5 * S, waterfills * (4 * trips2 + 12) * J
-                           + float(pr.double().sum()) * 40 * H)
-        log(f"{tag}: K2 err {err2:.3e} rounds {pr.tolist()[:16]} (equal) "
-            f"{ms2:.4f} ms, device {fmt_ms(dms2)} (plain {pms2:.3f} ms), "
-            f"plan {json.dumps(plan)}")
-        out[tag].append(dict(
-            name=f"balance_caps {S}x{H}x{J}", route="cuda",
-            source="src/repro_torch/kernels/powercap/csrc/balance.cu",
-            replaces="src/repro/kernels/powercap/kernel.py:109",
-            max_abs_err=err2, rtol=RTOL, atol=0.0, ms=ms2,
-            device_ms=dms2, plain_ms=pms2, bound_ms=b2, bound_by=by2,
-            library_ms=None, rounds_equal_plain=True,
-            rounds=int(pr.sum()), mean_trips=trips2,
-            cluster=plan["cluster"], plan=plan))
+        out[tag].append(check_k2(tag, (
+            x["hosts"], x["caps"], x["dense"], x["cpu_res"], x["budget"],
+            x["enabled"], params)))
     return out
+
+
+def check_k2(tag: str, args: tuple, bitwise: bool = False,
+             **extra) -> dict:
+    """K2 against its plain version on ``args`` (``balance_caps``'), timed
+    beside it by CUDA events and the profiler, with its bound: caps within
+    ``RTOL`` (no absolute slack), or bitwise where ``bitwise``, round
+    counts and ``did`` flags equal."""
+    from repro_torch.core import kernels as ck
+    from repro_torch.kernels.powercap import ops, ref
+
+    hosts, caps, dense = args[:3]
+    S, H, J = dense.floors.shape
+    n, iters = S * H * J, dense.iters
+    kc, kd, kr = ops.balance_caps(*args)
+    pc, pd, pr = ref.balance_caps_ref(*args)
+    torch.cuda.synchronize()
+    err2 = float((kc - pc).abs().max())
+    if not (torch.equal(kc, pc) if bitwise
+            else torch.allclose(kc, pc, rtol=RTOL, atol=0.0)):
+        raise AssertionError(f"K2 {tag}: caps differ (max abs err "
+                             f"{err2})")
+    if not torch.equal(kd, pd):
+        raise AssertionError(f"K2 {tag}: did flags differ")
+    if not torch.equal(kr, pr):
+        raise AssertionError(f"K2 {tag}: rounds {kr.tolist()[:16]} on "
+                             f"the card, {pr.tolist()[:16]} in the "
+                             f"plain version")
+    plan = balance_plan(S, H, J)
+    ms2 = time_ms(lambda: ops.balance_caps(*args))
+    dms2 = device_ms(lambda: ops.balance_caps(*args),
+                     "balance_caps_kernel")
+    pms2 = time_ms(lambda: ref.balance_caps_ref(*args))
+    # Each round's waterfills run about as many trips as the first
+    # (at the input caps) does.
+    trips2 = float(bisection_trips(
+        ck.managed_capacity(hosts, caps), dense.floors,
+        dense.ceils, dense.weights, dense.active,
+        iters).double().mean())
+    waterfills = float((1 + pr.double()).sum()) * H
+    b2, by2 = bound_ms((1 + 4 * 8 + 8 + 8 + 8) * S * H + 25 * n + 9 * S
+                       + 5 * S, waterfills * (4 * trips2 + 12) * J
+                       + float(pr.double().sum()) * 40 * H)
+    log(f"{tag}: K2 err {err2:.3e} rounds {pr.tolist()[:16]} (equal) "
+        f"{ms2:.4f} ms, device {fmt_ms(dms2)} (plain {pms2:.3f} ms), "
+        f"plan {json.dumps(plan)}")
+    return dict(
+        name=f"balance_caps {S}x{H}x{J}", route="cuda",
+        source="src/repro_torch/kernels/powercap/csrc/balance.cu",
+        replaces="src/repro/kernels/powercap/kernel.py:109", **extra,
+        max_abs_err=err2, bitwise=bool(torch.equal(kc, pc)),
+        rtol=0.0 if bitwise else RTOL, atol=0.0, ms=ms2, device_ms=dms2, plain_ms=pms2, bound_ms=b2,
+        bound_by=by2, library_ms=None, rounds_equal_plain=True,
+        rounds=int(pr.sum()), mean_trips=trips2,
+        cluster=plan["cluster"], plan=plan)
 
 
 def check_row_shapes(dev) -> dict:
@@ -636,9 +694,9 @@ def check_row_shapes(dev) -> dict:
     return errs
 
 
-def compare(tag, gpu, cpu, keys) -> None:
-    """Exact cap-change, vMotion and power-event counts, rtol 1e-9 on
-    payload and energy."""
+def compare(tag, gpu, cpu, keys, rtol: float = RTOL) -> None:
+    """Exact cap-change, vMotion and power-event counts, ``rtol`` (1e-9)
+    on payload and energy."""
     for spec_name, policy in keys:
         g, c = gpu[spec_name][policy], cpu[spec_name][policy]
         for f in ("cap_changes", "vmotions", "power_ons", "power_offs"):
@@ -648,7 +706,7 @@ def compare(tag, gpu, cpu, keys) -> None:
                     f"the card, {getattr(c, f)} in the comparison run")
         for f in ("cpu_payload_mhz_s", "energy_j"):
             a, b = getattr(g, f), getattr(c, f)
-            if not abs(a - b) <= RTOL * abs(b):
+            if not abs(a - b) <= rtol * abs(b):
                 raise AssertionError(f"{tag} {spec_name}/{policy} {f}: "
                                      f"{a!r} vs {b!r}")
         if not np.isfinite(g.cpu_payload_mhz_s) or g.cpu_payload_mhz_s <= 0:
@@ -2225,15 +2283,15 @@ def run_ssm_f32_check(arch: str, n_layers: int, dev) -> dict:
 
 
 def run_path(tag, specs, policies):
-    """One grid through ``run_sweep`` on the card, with the launch counts
-    of exactly that run."""
+    """One grid through ``run_sweep_batched`` (the exact pack) on the card,
+    with the launch counts of exactly that run."""
     from repro_torch.sim.batch import _drs_schedule
-    from repro_torch.sim.sweep import build_sweep, run_sweep
+    from repro_torch.sim.sweep import build_sweep, run_sweep_batched
 
     reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    res = run_sweep(specs, policies, engine="batch")
+    res = run_sweep_batched(specs, policies)
     wall = time.perf_counter() - t0
     launches = read_launches()
     _, _, cfg = build_sweep(specs[0], policies[0])
@@ -2259,7 +2317,8 @@ def run_vector_path(policies):
     the launch counts of exactly that run; then the same cells on the CPU
     and on the batched engine, both held against it."""
     from repro_torch.sim.batch import _drs_schedule
-    from repro_torch.sim.sweep import build_sweep, run_sweep, scale_ladder
+    from repro_torch.sim.sweep import (build_sweep, run_sweep,
+                                       run_sweep_batched, scale_ladder)
 
     specs = scale_ladder(sizes=(1000,), spike="burst", duration_s=600.0)
     reset_launches()
@@ -2287,7 +2346,7 @@ def run_vector_path(policies):
     if launches != want:
         raise AssertionError(f"V: kernel launches {launches}, expected "
                              f"{want}")
-    batch = run_sweep(specs, policies, engine="batch")
+    batch = run_sweep_batched(specs, policies)
     compare("V vs batch", gpu, batch, keys)
     cells = {f"{n}/{p}": dict(wall_s=gpu[n][p].wall_s,
                               ticks_per_s=gpu[n][p].ticks_per_s,
@@ -2430,16 +2489,15 @@ def run_churn_path(policies):
     reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    gpu = sweep.run_sweep(specs, policies, engine="batch",
-                          slot_slack=DPM_SLACK)
+    gpu = sweep.run_sweep_batched(specs, policies, slot_slack=DPM_SLACK)
     wall = time.perf_counter() - t0
     launches = read_launches()
-    info, res = dict(sweep.LAST_BATCH_INFO), sweep.LAST_BATCH_INFO["result"]
-    info.pop("result")
+    (record,) = sweep.LAST_BATCH_INFO
+    info, res = dict(record["info"]), record["result"]
     with count_plain_calls() as plain:
-        cpu = sweep.run_sweep(specs, policies, engine="batch", device="cpu",
-                              slot_slack=DPM_SLACK)
-    cpu_res = sweep.LAST_BATCH_INFO["result"]
+        cpu = sweep.run_sweep_batched(specs, policies, device="cpu",
+                                      slot_slack=DPM_SLACK)
+    cpu_res = sweep.LAST_BATCH_INFO[0]["result"]
     names = [(s.name, p) for s, p in keys]
     compare("D vs CPU", gpu, cpu, names)
     compare_final("D vs CPU", res, cpu_res, keys)
@@ -2522,11 +2580,11 @@ def run_tree_path(policies):
     specs = sweep.row_contention_specs(sizes=(100,))
     names = [(s.name, p) for s in specs for p in policies]
     gpu, launches_b, info = run_path("R", specs, policies)
-    over_tree = float(sweep.LAST_BATCH_INFO["result"].over_tree.max())
-    cpu = sweep.run_sweep(specs, policies, engine="batch", device="cpu")
+    over_tree = float(sweep.LAST_BATCH_INFO[0]["result"].over_tree.max())
+    cpu = sweep.run_sweep_batched(specs, policies, device="cpu")
     compare("R vs CPU", gpu, cpu, names)
     if over_tree > 1e-6 or float(
-            sweep.LAST_BATCH_INFO["result"].over_tree.max()) > 1e-6:
+            sweep.LAST_BATCH_INFO[0]["result"].over_tree.max()) > 1e-6:
         raise AssertionError(f"R: a tree node over by {over_tree} W")
     reset_launches()
     torch.cuda.synchronize()
@@ -2657,12 +2715,15 @@ def cpu_migration_run(grid: dict, policies, engine: str = "batch") -> dict:
     else:
         specs = sweep.scenario_families(**grid)
     with count_plain_calls() as plain, record_balancer_waterfills() as seen:
-        res = sweep.run_sweep(specs, policies, engine=engine, device="cpu",
-                              slot_slack=MIG_SLACK)
+        if engine == "batch":
+            res = sweep.run_sweep_batched(specs, policies, device="cpu",
+                                          slot_slack=MIG_SLACK)
+        else:
+            res = sweep.run_sweep(specs, policies, device="cpu")
     out = dict(specs=specs, res=res, plain=plain, seen=seen)
     if engine == "batch":
-        info = dict(sweep.LAST_BATCH_INFO)
-        out.update(result=info.pop("result"), info=info)
+        (record,) = sweep.LAST_BATCH_INFO
+        out.update(result=record["result"], info=dict(record["info"]))
     return out
 
 
@@ -2682,12 +2743,11 @@ def run_migration_path(tag: str, cpu: dict, policies, must_show):
     reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    gpu = sweep.run_sweep(specs, policies, engine="batch",
-                          slot_slack=MIG_SLACK)
+    gpu = sweep.run_sweep_batched(specs, policies, slot_slack=MIG_SLACK)
     wall = time.perf_counter() - t0
     launches = read_launches()
-    info, res = dict(sweep.LAST_BATCH_INFO), sweep.LAST_BATCH_INFO["result"]
-    info.pop("result")
+    (record,) = sweep.LAST_BATCH_INFO
+    info, res = dict(record["info"]), record["result"]
     names = [(s.name, p) for s, p in keys]
     compare(f"{tag} vs CPU", gpu, cpu["res"], names)
     compare_final(f"{tag} vs CPU", res, cpu["result"], keys)
@@ -2767,6 +2827,531 @@ def run_migration_vector_path(policies, batches, cpu: dict):
         f"{json.dumps(out)}")
     return launches, out
 
+#: Worker processes for the CPU runs that paths E, U and C are held
+#: against, and the torch threads each takes: they run while the card runs
+#: the earlier paths.
+CPU_WORKERS = 2
+CPU_WORKER_THREADS = 2
+
+#: Path E: EXPERIMENTS.md's Tables III-V as ``benchmarks/run.py`` prints
+#: them, and Table II.
+EVAL_SCENARIOS = ("headroom", "standby", "flexible")
+#: The scenarios whose legacy CPU runs give path E's kernel phase its K2
+#: and K3 inputs: 3 hosts x 10 VMs, and 32 hosts x 6-9 VMs (25 hosts under
+#: statichigh).
+E_RECORDED = ("headroom", "flexible")
+EVAL_TABLES = {
+    "headroom": "cpc:cpu0.99/vmo0;static:cpu0.99/vmo4;statichigh:cpu1.00/vmo0",
+    "standby": "cpc:cpu1.00/vmo10/pow1.00;static:cpu1.00/vmo20/pow1.07;"
+               "statichigh:cpu1.00/vmo10/pow1.00",
+    "flexible": "cpc:cpu1.25/mem1.30/trd1.00;static:cpu1.14/mem1.30/trd0.64;"
+                "statichigh:cpu1.00/mem1.00/trd1.00",
+}
+TABLE2 = ("400W:20hosts/cpu1.00/mem1.00;320W:25hosts/cpu1.25/mem1.25;"
+          "285W:28hosts/cpu1.09/mem1.40;250W:32hosts/cpu0.90/mem1.60")
+ACC_FLOATS = ("cpu_payload_mhz_s", "cpu_demand_mhz_s", "mem_payload_mb_s",
+              "mem_demand_mb_s", "energy_j")
+ACC_COUNTS = ("cap_changes", "vmotions", "power_ons", "power_offs")
+
+#: Path U: ``scenario_families()`` (10/100/1000 hosts, burst and prime,
+#: both host mixes, 1200 s at 10 s) under the three policies, and one
+#: cell on another time grid that the batched engine refuses.
+U_POLICIES = ("cpc", "static", "statichigh")
+U_BUCKETS = [(16, 16), (128, 16), (1024, 16)]
+
+#: Path C: ``benchmarks/sweep_sharded.py``'s ``datacenter_cell``.
+C_HOSTS = 10_000
+C_POLICIES = ("cpc", "static")
+
+#: The ``budget_service`` benchmark's replay (``benchmarks/
+#: check_regression.py``), and the decisions and errors the reference's
+#: service gives on it (``tests/test_torch_budget_service.py`` holds the
+#: port's to them bitwise on the CPU).
+SVC_HOSTS, SVC_EVENTS = 50, 4000
+SVC_DECISIONS, SVC_ERRORS = 820, 755
+
+
+def u_specs():
+    from repro_torch.sim.sweep import SweepSpec, scenario_families
+    return scenario_families() + [SweepSpec(
+        name="h10_burst_odd_grid", n_hosts=10, spike="burst",
+        duration_s=600.0, tick_s=10.0)]
+
+
+def c_spec():
+    from repro_torch.sim.sweep import SweepSpec
+    return SweepSpec(name=f"h{C_HOSTS}_burst", n_hosts=C_HOSTS,
+                     spike="burst", rack_budget_w=230.0 * C_HOSTS,
+                     duration_s=600.0, tick_s=30.0)
+
+
+def eval_summary(res: dict) -> dict:
+    """The parts of ``run_all``'s results the gates compare, by policy."""
+    def acc(a):
+        if a is None:
+            return None
+        return dict({f: getattr(a, f) for f in ACC_FLOATS + ACC_COUNTS},
+                    tag_payload=dict(a.tag_payload),
+                    tag_demand=dict(a.tag_demand))
+    return {p: dict(acc=acc(r.acc), window=acc(r.window_acc),
+                    events=list(r.events),
+                    hosts={h: (x.powered_on, x.power_cap)
+                           for h, x in r.final.hosts.items()},
+                    placement={v: x.host_id for v, x in r.final.vms.items()})
+            for p, r in res.items()}
+
+
+def sweep_summary(res: dict) -> dict:
+    return {name: {p: dataclasses.asdict(r) for p, r in per.items()}
+            for name, per in res.items()}
+
+
+def tree_map(fn, x):
+    """``fn`` applied to each tensor in ``x`` (tensors, named tuples and
+    tuples of them, other values as they are)."""
+    if isinstance(x, torch.Tensor):
+        return fn(x)
+    if isinstance(x, tuple):
+        items = [tree_map(fn, v) for v in x]
+        return type(x)(*items) if hasattr(x, "_fields") else tuple(items)
+    return x
+
+
+@contextlib.contextmanager
+def record_eval_inputs():
+    """Yields a dict, filled as a CPU run goes, of the first inputs of each
+    shape that K3's and K2's plain versions get (K3: items x hosts, K2:
+    ``(S, H, J)``): path E's own inputs for its kernel phase
+    (``check_eval_kernels``).  The calls themselves go through unchanged."""
+    from repro_torch.kernels.powercap import ref
+
+    seen = {}
+
+    def recording(name, shape):
+        fn = getattr(ref, f"{name}_ref")
+
+        def call(*args):
+            key = (name, shape(*args))
+            if key not in seen:
+                seen[key] = tree_map(torch.clone, args)
+            return fn(*args)
+        return call
+
+    with mock.patch.object(ref, "waterfill_segmented_ref", recording(
+            "waterfill_segmented", lambda cap, fl, *_: (cap.numel(),
+                                                        fl.numel()))), \
+            mock.patch.object(ref, "balance_caps_ref", recording(
+                "balance_caps", lambda hosts, caps, dense, *_: tuple(
+                    dense.floors.shape))):
+        yield seen
+
+
+def check_eval_kernels(jobs: dict, dev) -> list:
+    """K3 and K2 against their plain versions on the inputs that path E's
+    CPU runs of ``headroom`` and ``flexible`` on the legacy engine gave
+    them, one of each shape (``record_eval_inputs``), bitwise; each timed
+    beside its plain version, with its bound."""
+    from repro_torch.kernels.powercap import ops, ref
+
+    out = []
+    for scenario in E_RECORDED:
+        seen = jobs["E", scenario, "legacy"].result()[2]
+        for (name, shape), args in sorted(seen.items()):
+            args = tree_map(lambda t: t.to(dev), args)
+            inputs = f"path E's CPU run of {scenario} (legacy engine)"
+            if name == "balance_caps":
+                out.append(check_k2(f"E {scenario}", args, bitwise=True,
+                                    inputs=inputs))
+                continue
+            cap, fl, ce, w, lay, iters = args
+            got = ops.waterfill_segmented(cap, fl, ce, w, iters=iters,
+                                          layout=lay)
+            want = ref.waterfill_segmented_ref(cap, fl, ce, w, lay, iters)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            if not torch.equal(got, want):
+                raise AssertionError(f"E {scenario}: K3 at {shape} differs "
+                                     f"from its plain version (max abs err "
+                                     f"{err})")
+            ms, pms, bound, by, trips = k3_cost(cap, fl, ce, w, lay, iters)
+            log(f"E {scenario}: K3 at {shape[0]} hosts x {shape[1]} VMs "
+                f"(bitwise) {ms:.4f} ms (plain {pms:.3f} ms), bound "
+                f"{bound:.6f} ms, rows of {lay.jb} slots")
+            out.append(k3_record(*shape, inputs=inputs, iters=iters,
+                                 max_abs_err=err, bitwise=True, rtol=0.0,
+                                 atol=0.0, ms=ms, plain_ms=pms,
+                                 bound_ms=bound, bound_by=by,
+                                 mean_trips=float(trips.double().mean())))
+    return out
+
+
+def cpu_job(kind: str, *args):
+    """A CPU run in a worker process, its plain calls of K1-K3 counted:
+    ``("E", scenario, engine)`` is ``run_all``, ``("U",)`` path U's
+    ``run_sweep`` and ``("C",)`` path C's.  Returns ``(summary, plain
+    calls, extra)``: U's and C's bucket records, or the K2 and K3 inputs
+    recorded in E's run (``record_eval_inputs``)."""
+    import warnings
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.set_num_threads(CPU_WORKER_THREADS)
+    from repro_torch.sim import experiments, sweep
+
+    with count_plain_calls() as plain, warnings.catch_warnings(), \
+            record_eval_inputs() as seen:
+        warnings.simplefilter("ignore", RuntimeWarning)
+        if kind == "E":
+            out = eval_summary(experiments.run_all(args[0], engine=args[1],
+                                                   device="cpu"))
+        elif kind == "U":
+            out = sweep.run_sweep(u_specs(), U_POLICIES, engine="batch",
+                                  on_unsupported="fallback", device="cpu")
+        else:
+            out = sweep.run_sweep([c_spec()], C_POLICIES, engine="batch",
+                                  device="cpu")
+    if kind != "E":
+        return sweep_summary(out), dict(plain), list(sweep.LAST_BATCH_INFO)
+    return out, dict(plain), seen
+
+
+def start_cpu_jobs(pool) -> dict:
+    """The CPU runs, E's recording runs first: the kernel phase at the
+    script's start waits for them."""
+    jobs = {("E", s, "legacy"): pool.submit(cpu_job, "E", s, "legacy")
+            for s in E_RECORDED}
+    jobs["C",] = pool.submit(cpu_job, "C")
+    jobs["U",] = pool.submit(cpu_job, "U")
+    for scenario in ("flexible", "headroom", "standby"):
+        for engine in ("legacy", "vector"):
+            if ("E", scenario, engine) not in jobs:
+                jobs["E", scenario, engine] = pool.submit(
+                    cpu_job, "E", scenario, engine)
+    return jobs
+
+
+def compare_eval(tag: str, got: dict, want: dict) -> None:
+    """Exact counts and event strings, final power states and placement,
+    payload, demand, memory, energy and per-tag payload (and the window's)
+    within 1e-9."""
+    for p, w in want.items():
+        g = got[p]
+        if g["events"] != w["events"]:
+            raise AssertionError(f"{tag} {p}: event strings differ")
+        if g["placement"] != w["placement"]:
+            raise AssertionError(f"{tag} {p}: final placement differs")
+        for h, (on, cap) in w["hosts"].items():
+            if g["hosts"][h][0] != on or not abs(
+                    g["hosts"][h][1] - cap) <= RTOL * abs(cap):
+                raise AssertionError(f"{tag} {p}: host {h} ends "
+                                     f"{g['hosts'][h]}, not {(on, cap)}")
+        for part in ("acc", "window"):
+            a, b = g[part], w[part]
+            if (a is None) != (b is None):
+                raise AssertionError(f"{tag} {p}: {part} present in one run")
+            if b is None:
+                continue
+            for f in ACC_COUNTS:
+                if a[f] != b[f]:
+                    raise AssertionError(f"{tag} {p} {part}: {f} {a[f]} vs "
+                                         f"{b[f]}")
+            pairs = [(f, a[f], b[f]) for f in ACC_FLOATS]
+            if a["tag_payload"].keys() != b["tag_payload"].keys():
+                raise AssertionError(f"{tag} {p}: tags differ")
+            for t in b["tag_payload"]:
+                pairs += [(f"payload {t}", a["tag_payload"][t],
+                           b["tag_payload"][t]),
+                          (f"demand {t}", a["tag_demand"][t],
+                           b["tag_demand"][t])]
+            for f, x, y in pairs:
+                if not abs(x - y) <= RTOL * abs(y):
+                    raise AssertionError(f"{tag} {p} {part} {f}: {x!r} vs "
+                                         f"{y!r}")
+
+
+def eval_table(summary: dict, scenario: str) -> str:
+    """``benchmarks/run.py``'s Table III, IV or V line."""
+    from repro_torch.sim.metrics import Accumulators, ratio_table
+    accs = {}
+    for p, r in summary.items():
+        a = r["acc"]
+        accs[p] = Accumulators(**{k: a[k] for k in ACC_FLOATS + ACC_COUNTS},
+                               tag_payload=a["tag_payload"],
+                               tag_demand=a["tag_demand"])
+    t = ratio_table(accs, "statichigh")
+    pols = ("cpc", "static", "statichigh")
+    if scenario == "headroom":
+        return ";".join(f"{p}:cpu{t[p]['cpu_payload_ratio']:.2f}"
+                        f"/vmo{t[p]['vmotions']}" for p in pols)
+    if scenario == "standby":
+        return ";".join(f"{p}:cpu{t[p]['cpu_payload_ratio']:.2f}"
+                        f"/vmo{t[p]['vmotions']}"
+                        f"/pow{t[p]['power_ratio']:.2f}" for p in pols)
+    return ";".join(f"{p}:cpu{t[p]['cpu_payload_ratio']:.2f}"
+                    f"/mem{t[p]['mem_payload_ratio']:.2f}"
+                    f"/trd{accs[p].tag_satisfaction('trading'):.2f}"
+                    for p in pols)
+
+
+def run_eval_path(jobs: dict):
+    """Path E: ``run_all`` of the three scenarios on the legacy and the
+    vector engine on the card, each held against its CPU run (counts and
+    event strings exact, accumulators 1e-9, K1-K3 launches equal to its
+    plain calls), legacy against vector on the card; Tables II-V printed
+    and held to EXPERIMENTS.md's lines.  Returns ``(launches, info)``."""
+    from repro_torch.core.power_model import PAPER_HOST, deployment_table
+    from repro_torch.sim import experiments
+
+    rows = deployment_table(PAPER_HOST, 8000.0, [400, 320, 285, 250])
+    table2 = ";".join(f"{int(r['power_cap_w'])}W:{r['host_count']}hosts"
+                      f"/cpu{r['capacity_ratio']:.2f}"
+                      f"/mem{r['memory_ratio']:.2f}" for r in rows)
+    if table2 != TABLE2:
+        raise AssertionError(f"E: Table II {table2}")
+    log(f"E: Table II {table2}")
+    launches = dict(no_model_launches(), **dict.fromkeys(KERNELS, 0))
+    got, info = {}, {"table2": table2, "engines": {}}
+    for engine in ("legacy", "vector"):
+        per = info["engines"][engine] = {}
+        for scenario in EVAL_SCENARIOS:
+            reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = experiments.run_all(scenario, engine=engine)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            run_launches = read_launches()
+            got[scenario, engine] = summary = eval_summary(res)
+            cpu, plain, _ = jobs["E", scenario, engine].result()
+            compare_eval(f"E {scenario}/{engine} vs CPU", summary, cpu)
+            if run_launches != dict(no_model_launches(), **plain):
+                raise AssertionError(
+                    f"E {scenario}/{engine}: kernel launches "
+                    f"{run_launches}, the CPU run's plain calls {plain}")
+            line = eval_table(summary, scenario)
+            if line != EVAL_TABLES[scenario]:
+                raise AssertionError(f"E {scenario}/{engine}: {line}")
+            launches = {k: launches[k] + run_launches[k] for k in launches}
+            per[scenario] = dict(
+                wall_s=wall, launches={k: run_launches[k] for k in KERNELS},
+                table=line, counts={p: {f: summary[p]["acc"][f]
+                                        for f in ACC_COUNTS}
+                                    for p in summary})
+            log(f"E {scenario}/{engine}: wall {wall:.3f} s, launches "
+                f"{json.dumps(per[scenario]['launches'])}; {line}")
+    for scenario in EVAL_SCENARIOS:
+        compare_eval(f"E {scenario} legacy vs vector",
+                     got[scenario, "legacy"], got[scenario, "vector"])
+    for engine, per in info["engines"].items():
+        log(f"E {engine}: wall {sum(r['wall_s'] for r in per.values()):.3f}"
+            f" s for the 9 runs")
+    return launches, info
+
+
+def run_bucket_path(job):
+    """Path U: ``run_sweep(u_specs(), engine="batch",
+    on_unsupported="fallback")`` on the card: three pad buckets of 12
+    cells and the odd-grid cells on the vector engine, with its warning;
+    held against the CPU run of the same call (counts exact, 1e-9, final
+    states equal, K1-K3 launches equal to its plain calls) and against
+    ``run_sweep_batched`` on the card (counts equal, 1e-12).  Returns
+    ``(launches, info)``."""
+    import warnings
+    from repro_torch.sim import sweep
+    from repro_torch.sim.batch import BatchedSimulator
+
+    specs = u_specs()
+    per_bucket = []
+    real = BatchedSimulator.run_async
+
+    def counted(sim):
+        before = read_launches()
+        pending = real(sim)
+        after = read_launches()
+        per_bucket.append({k: after[k] - before[k] for k in KERNELS})
+        return pending
+
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with mock.patch.object(BatchedSimulator, "run_async", counted), \
+            warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        gpu = sweep.run_sweep(specs, U_POLICIES, engine="batch",
+                              on_unsupported="fallback")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    records = list(sweep.LAST_BATCH_INFO)
+    odd = [f"{specs[-1].name}/{p}" for p in U_POLICIES]
+    said = [str(w.message) for w in caught
+            if issubclass(w.category, RuntimeWarning)]
+    if len(said) != 1 or "sequential vector engine" not in said[0] or \
+            not all(name in said[0] for name in odd):
+        raise AssertionError(f"U: the fallback warning {said}")
+    if [r["bucket"] for r in records] != U_BUCKETS or \
+            [r["n_cells"] for r in records] != [12] * len(U_BUCKETS):
+        shapes = [(r["bucket"], r["n_cells"]) for r in records]
+        raise AssertionError(f"U: buckets {shapes}")
+    for r, n in zip(records, per_bucket):
+        want = dict(waterfill_dense=r["info"]["ticks"],
+                    balance_caps=r["info"]["invocation_ticks"],
+                    waterfill_segmented=0)
+        if n != want:
+            raise AssertionError(f"U bucket {r['bucket']}: launches {n}, "
+                                 f"expected {want}")
+    cpu, plain, cpu_records = job.result()
+    names = [(s.name, p) for s in specs for p in U_POLICIES]
+    compare("U vs CPU", gpu, sweep_results(cpu), names)
+    for r, c in zip(records, cpu_records):
+        keys = [n.split("/") for n in r["result"].names]
+        compare_final(f"U bucket {r['bucket']} vs CPU", r["result"],
+                      c["result"], [(SimpleNamespace(name=n), p)
+                                    for n, p in keys])
+    if launches != dict(no_model_launches(), **plain):
+        raise AssertionError(f"U: kernel launches {launches}, the CPU "
+                             f"run's plain calls {plain}")
+    batched = specs[:-1]
+    cells = sweep.build_batch_cells(batched, U_POLICIES)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    exact = sweep.run_sweep_batched(batched, U_POLICIES, _prebuilt=cells)
+    torch.cuda.synchronize()
+    exact_wall = time.perf_counter() - t1
+    exact_record = dict(sweep.LAST_BATCH_INFO[0])
+    compare("U bucketed vs exact pack", gpu, exact,
+            [(s.name, p) for s in batched for p in U_POLICIES], rtol=1e-12)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        traced = idle_share(lambda: sweep.run_sweep(
+            specs, U_POLICIES, engine="batch", on_unsupported="fallback"))
+    n = len(names)
+    buckets = [dict({k: r[k] for k in ("bucket", "n_cells", "n_devices",
+                                        "compile_s", "pack_s", "run_s",
+                                        "wall_s")},
+                    launches=per, **r["info"])
+               for r, per in zip(records, per_bucket)]
+    out = dict(wall_s=wall, cells=n, cells_per_s=n / wall,
+               fallback_cells=len(odd), buckets=buckets,
+               exact_pack_wall_s=exact_wall,
+               exact_pack_run_s=exact_record["run_s"],
+               exact_pack_shape=list(exact_record["result"].final_occ.shape),
+               cap_changes=sum(gpu[a][b].cap_changes for a, b in names),
+               **traced)
+    for b in buckets:
+        log(f"U bucket {b['bucket']}: {json.dumps(b)}")
+    log(f"path U: {n} cells ({len(odd)} on the vector engine), wall "
+        f"{wall:.3f} s ({n / wall:.2f} cells/s), exact pack "
+        f"{exact_wall:.3f} s; launches {launches}; {json.dumps(out)}")
+    return launches, out
+
+
+def sweep_results(summary: dict) -> dict:
+    """``sweep_summary``'s dicts as objects ``compare`` reads."""
+    return {n: {p: SimpleNamespace(**r) for p, r in per.items()}
+            for n, per in summary.items()}
+
+
+def run_datacenter_path(job):
+    """Path C: ``datacenter_cell`` (10,000 hosts x 10 VMs, 230 W a host,
+    burst, 600 s at 30 s) under cpc and static through ``run_sweep(...,
+    engine="batch")`` on the card, one pad bucket of (16384, 16): held
+    against its CPU run (counts exact, 1e-9, final states equal, K1 and
+    K2 launches its plain calls), the cpc cell changing caps.  Returns
+    ``(launches, info)``."""
+    from repro_torch.sim import sweep
+    from repro_torch.sim.batch import BatchedSimulator
+
+    spec = c_spec()
+    names = [(spec.name, p) for p in C_POLICIES]
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gpu = sweep.run_sweep([spec], C_POLICIES, engine="batch")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    (record,) = sweep.LAST_BATCH_INFO
+    if record["bucket"] != (sweep._pow2(C_HOSTS), 16):
+        raise AssertionError(f"C: bucket {record['bucket']}")
+    cpu, plain, (cpu_record,) = job.result()
+    compare("C vs CPU", gpu, sweep_results(cpu), names)
+    compare_final("C vs CPU", record["result"], cpu_record["result"],
+                  [(spec, p) for p in C_POLICIES])
+    if launches != dict(no_model_launches(), **plain) or \
+            plain["waterfill_dense"] != record["info"]["ticks"]:
+        raise AssertionError(f"C: kernel launches {launches}, the CPU run's "
+                             f"plain calls {plain}")
+    if gpu[spec.name]["cpc"].cap_changes <= 0:
+        raise AssertionError("C: the cpc cell changed no cap")
+    cells, _ = sweep.build_batch_cells([spec], C_POLICIES)
+    sim = BatchedSimulator(cells, slot_slack=3.0,
+                           pad_hosts=sweep._pow2(C_HOSTS), pad_slots=16)
+    traced = idle_share(sim.run)
+    out = dict(wall_s=wall, bucket=list(record["bucket"]),
+               compile_s=record["compile_s"], pack_s=record["pack_s"],
+               run_s=record["run_s"], **record["info"],
+               cap_changes={p: gpu[spec.name][p].cap_changes
+                            for p in C_POLICIES},
+               cpu_satisfaction={p: gpu[spec.name][p].cpu_satisfaction
+                                 for p in C_POLICIES}, **traced)
+    log(f"path C: {C_HOSTS} hosts, bucket {record['bucket']}, wall "
+        f"{wall:.3f} s (engine {record['run_s']:.3f} s, pack "
+        f"{record['pack_s']:.3f} s); launches {launches}; {json.dumps(out)}")
+    return launches, out
+
+
+def run_service_phase(smi: str) -> dict:
+    """The ``budget_service`` benchmark's replay on the port: 50 hosts, the
+    two-row tree with row 0 at 45% of the budget, 4,000 events from seed
+    0; headroom against brute force at the reference's 1e-9 bar, the
+    decision and error counts the reference's; p50/p99 host latencies."""
+    from repro_torch.core.budget_tree import BudgetTree
+    from repro_torch.runtime import budget_service as bsvc
+
+    budget = 250.0 * SVC_HOSTS
+    tree = BudgetTree.two_rows(budget, SVC_HOSTS, row0_limit=0.45 * budget)
+    hosts = [f"host{i}" for i in range(SVC_HOSTS)]
+    on = np.ones(SVC_HOSTS, dtype=bool)
+    caps0 = tree.project(np.full(SVC_HOSTS, 250.0), on,
+                         floors=np.zeros(SVC_HOSTS))
+    svc = bsvc.BudgetService(tree, hosts, caps0, on)
+    rep = svc.replay(bsvc.synthetic_feed(tree, n_events=SVC_EVENTS, seed=0))
+    parity = max(abs(svc.headroom(h) - svc.brute_force_headroom(h))
+                 for h in hosts)
+    if parity > 1e-9 or (rep.n_decisions, rep.n_errors) != (SVC_DECISIONS,
+                                                             SVC_ERRORS):
+        raise AssertionError(f"service: parity {parity}, decisions "
+                             f"{rep.n_decisions}, errors {rep.n_errors}")
+    out = dict(n_events=rep.n_events, n_decisions=rep.n_decisions,
+               n_errors=rep.n_errors, host_p50_us=rep.p50_us,
+               host_p99_us=rep.p99_us, headroom_parity_max_w=parity,
+               card=smi)
+    log(f"service: {rep.n_events} events, {rep.n_decisions} decisions, "
+        f"{rep.n_errors} errors; host latency p50 {rep.p50_us:.2f} us, "
+        f"p99 {rep.p99_us:.2f} us (on the host beside {smi}); headroom "
+        f"against brute force {parity:.3e} W")
+    return out
+
+
+@contextlib.contextmanager
+def cpu_workers():
+    """Paths E's, U's and C's CPU runs, started in worker processes
+    (``start_cpu_jobs``) that run while the card runs the paths before
+    them; yields their futures.  On a failure the workers are stopped, not
+    waited for."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    pool = ProcessPoolExecutor(CPU_WORKERS,
+                               mp_context=multiprocessing.get_context("spawn"))
+    try:
+        yield start_cpu_jobs(pool)
+    except BaseException:
+        for proc in list((pool._processes or {}).values()):
+            proc.terminate()
+        pool.shutdown(wait=False, cancel_futures=True)
+        raise
+    pool.shutdown(wait=True)
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -2774,7 +3359,7 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.sim.sweep import run_sweep, scenario_families
+    from repro_torch.sim.sweep import run_sweep_batched, scenario_families
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2789,114 +3374,134 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     log(f"build: {build_all():.2f} s")
+    with cpu_workers() as jobs:
+        # Path V's BalancePowerCap is the object plane's, with 200 trips;
+        # the reference's datacenter_cell is one cell of 10,000 hosts.
+        shapes = {"A": (32, 100, 10, True, 100),
+                  "B": (16, 1000, 10, True, 100),
+                  "V": (1, 1000, 10, False, 200),
+                  "cell": (1, 10_000, 10, False, 100),
+                  "D": (32, 100, 15, True, 100),
+                  "W": (1, 100, 10, False, 200),
+                  "R": (2, 100, 10, True, 100),
+                  "G": (32, 100, 15, False, 100),
+                  "X": (32, 100, 15, False, 100),
+                  "Q": (1, 100, 10, False, 200),
+                  "U": (12, 1024, 16, True, 100),
+                  "C": (2, 16_384, 16, True, 100)}
+        records = check_kernels(shapes, dev)
+        records["V"][0]["datacenter_cell"] = records.pop("cell")[0]
+        records["V"].append(check_k3(dev))
+        k3_100 = check_k3(dev, m_path=100, tag="W")
+        records["W"].append(k3_100)
+        records["R"].append(dict(k3_100))
+        records["Q"].append(check_k3(dev, m_path=100, tag="Q"))
+        records["E"] = check_eval_kernels(jobs, dev)
+        rows = check_row_shapes(dev)
+        cpu_g = cpu_migration_run(RULES_GRID, ("cpc", "static"))
+        cpu_x = cpu_migration_run(TIMED_GRID, ("cpc", "static"))
+        cpu_q = cpu_migration_run(None, ("cpc", "static"), engine="vector")
+        for tag, cpu in (("G", cpu_g), ("X", cpu_x), ("Q", cpu_q)):
+            records[tag] = (check_balancer_k1(tag, cpu["seen"], dev)
+                            + records[tag])
+        for rec in records["A"] + records["V"][1:]:
+            rec["row_shapes_max_abs_err"] = rows[
+                {"waterfill_dense": "K1", "balance_caps": "K2",
+                 "waterfill_segmented": "K3"}[rec["name"].split()[0]]]
 
-    # Path V's BalancePowerCap is the object plane's, with 200 trips; the
-    # reference's datacenter_cell is one cell of 10,000 hosts.
-    shapes = {"A": (32, 100, 10, True, 100), "B": (16, 1000, 10, True, 100),
-              "V": (1, 1000, 10, False, 200),
-              "cell": (1, 10_000, 10, False, 100),
-              "D": (32, 100, 15, True, 100), "W": (1, 100, 10, False, 200),
-              "R": (2, 100, 10, True, 100), "G": (32, 100, 15, False, 100),
-              "X": (32, 100, 15, False, 100), "Q": (1, 100, 10, False, 200)}
-    records = check_kernels(shapes, dev)
-    records["V"][0]["datacenter_cell"] = records.pop("cell")[0]
-    records["V"].append(check_k3(dev))
-    k3_100 = check_k3(dev, m_path=100, tag="W")
-    records["W"].append(k3_100)
-    records["R"].append(dict(k3_100))
-    records["Q"].append(check_k3(dev, m_path=100, tag="Q"))
-    rows = check_row_shapes(dev)
-    cpu_g = cpu_migration_run(RULES_GRID, ("cpc", "static"))
-    cpu_x = cpu_migration_run(TIMED_GRID, ("cpc", "static"))
-    cpu_q = cpu_migration_run(None, ("cpc", "static"), engine="vector")
-    for tag, cpu in (("G", cpu_g), ("X", cpu_x), ("Q", cpu_q)):
-        records[tag] = check_balancer_k1(tag, cpu["seen"], dev) + records[tag]
-    for rec in records["A"] + records["V"][1:]:
-        rec["row_shapes_max_abs_err"] = rows[
-            {"waterfill_dense": "K1", "balance_caps": "K2",
-             "waterfill_segmented": "K3"}[rec["name"].split()[0]]]
+        policies = ("cpc", "static")
+        specs_a = scenario_families(
+            sizes=(100,), budgets_per_host_w=(230.0, 250.0),
+            spikes=("flat", "burst", "step", "prime"),
+            heterogeneous=(False, True), duration_s=600.0)
+        gpu_a, launches_a, info_a = run_path("A", specs_a, policies)
+        cpu_a = run_sweep_batched(specs_a, policies, device="cpu")
+        compare("A", gpu_a, cpu_a, [(s.name, p) for s in specs_a
+                                    for p in policies])
 
-    policies = ("cpc", "static")
-    specs_a = scenario_families(
-        sizes=(100,), budgets_per_host_w=(230.0, 250.0),
-        spikes=("flat", "burst", "step", "prime"),
-        heterogeneous=(False, True), duration_s=600.0)
-    gpu_a, launches_a, info_a = run_path("A", specs_a, policies)
-    cpu_a = run_sweep(specs_a, policies, engine="batch", device="cpu")
-    compare("A", gpu_a, cpu_a, [(s.name, p) for s in specs_a
-                                for p in policies])
+        specs_b = scenario_families(
+            sizes=(1000,), budgets_per_host_w=(250.0,),
+            spikes=("flat", "burst", "step", "prime"),
+            heterogeneous=(False, True), duration_s=1200.0)
+        gpu_b, launches_b, info_b = run_path("B", specs_b, policies)
+        held = [s for s in specs_b if s.spike == "burst" and s.heterogeneous]
+        cpu_b = run_sweep_batched(held, policies, device="cpu")
+        compare("B", gpu_b, cpu_b,
+                [(s.name, p) for s in held for p in policies])
 
-    specs_b = scenario_families(
-        sizes=(1000,), budgets_per_host_w=(250.0,),
-        spikes=("flat", "burst", "step", "prime"),
-        heterogeneous=(False, True), duration_s=1200.0)
-    gpu_b, launches_b, info_b = run_path("B", specs_b, policies)
-    held = [s for s in specs_b if s.spike == "burst" and s.heterogeneous]
-    cpu_b = run_sweep(held, policies, engine="batch", device="cpu")
-    compare("B", gpu_b, cpu_b, [(s.name, p) for s in held for p in policies])
+        launches_v, info_v = run_vector_path(policies)
 
-    launches_v, info_v = run_vector_path(policies)
+        gpu_d, launches_d, info_d = run_churn_path(policies)
+        launches_w, info_w = run_churn_vector_path(policies, gpu_d)
+        launches_rb, launches_rv, info_r = run_tree_path(policies)
+        launches_r = {k: launches_rb[k] + launches_rv[k] for k in launches_rb}
 
-    gpu_d, launches_d, info_d = run_churn_path(policies)
-    launches_w, info_w = run_churn_vector_path(policies, gpu_d)
-    launches_rb, launches_rv, info_r = run_tree_path(policies)
-    launches_r = {k: launches_rb[k] + launches_rv[k] for k in launches_rb}
+        gpu_g, launches_g, info_g = run_migration_path(
+            "G", cpu_g, policies, ("cap_changes", "vmotions"))
+        gpu_x, launches_x, info_x = run_migration_path(
+            "X", cpu_x, policies, ("cap_changes", "vmotions", "power_ons"))
+        launches_q, info_q = run_migration_vector_path(
+            policies, (gpu_g, gpu_x), cpu_q)
 
-    gpu_g, launches_g, info_g = run_migration_path(
-        "G", cpu_g, policies, ("cap_changes", "vmotions"))
-    gpu_x, launches_x, info_x = run_migration_path(
-        "X", cpu_x, policies, ("cap_changes", "vmotions", "power_ons"))
-    launches_q, info_q = run_migration_vector_path(policies, (gpu_g, gpu_x),
-                                                   cpu_q)
+        launches_e, info_e = run_eval_path(jobs)
+        launches_u, info_u = run_bucket_path(jobs["U",])
+        launches_c, info_c = run_datacenter_path(jobs["C",])
+        info_svc = run_service_phase(smi)
 
-    records["S"] = [check_k4(dev), check_k6(dev)]
-    launches_s, info_s = run_serving_path(dev)
-    torch.cuda.empty_cache()
-    info_s["float32_4_layers"] = run_f32_depth_check(dev)
-    torch.cuda.empty_cache()
+        records["S"] = [check_k4(dev), check_k6(dev)]
+        launches_s, info_s = run_serving_path(dev)
+        torch.cuda.empty_cache()
+        info_s["float32_4_layers"] = run_f32_depth_check(dev)
+        torch.cuda.empty_cache()
 
-    records["T"] = check_k5(dev) + check_k5_wide(dev)
-    torch.cuda.empty_cache()
-    launches_t, info_t = run_training_path(dev)
-    torch.cuda.empty_cache()
-    info_t["float32_4_layers"] = run_train_f32_check(dev)
-    torch.cuda.empty_cache()
+        records["T"] = check_k5(dev) + check_k5_wide(dev)
+        torch.cuda.empty_cache()
+        launches_t, info_t = run_training_path(dev)
+        torch.cuda.empty_cache()
+        info_t["float32_4_layers"] = run_train_f32_check(dev)
+        torch.cuda.empty_cache()
 
-    records["M"] = [check_k7(dev)] + check_m_attention(dev)
-    launches_m, info_m = run_moe_serving_path(dev)
-    torch.cuda.empty_cache()
-    info_m["deepseek_float32_4_layers"] = run_moe_f32_check(dev)
-    torch.cuda.empty_cache()
+        records["M"] = [check_k7(dev)] + check_m_attention(dev)
+        launches_m, info_m = run_moe_serving_path(dev)
+        torch.cuda.empty_cache()
+        info_m["deepseek_float32_4_layers"] = run_moe_f32_check(dev)
+        torch.cuda.empty_cache()
 
-    k8 = check_k8(dev)
-    records["P"] = [k8["P"]]
-    d112, records["T"][1]["d112"] = check_d112(dev)
-    records["H"] = [k8["H"]] + d112
-    torch.cuda.empty_cache()
-    launches_p, info_p = run_ssm_serving_path("P", dev)
-    torch.cuda.empty_cache()
-    launches_h, info_h = run_ssm_serving_path("H", dev)
-    torch.cuda.empty_cache()
-    info_p["float32_4_layers"] = run_ssm_f32_check("mamba2_2p7b", 4, dev)
-    torch.cuda.empty_cache()
-    info_h["float32_7_layers"] = run_ssm_f32_check("zamba2_7b", 7, dev)
+        k8 = check_k8(dev)
+        records["P"] = [k8["P"]]
+        d112, records["T"][1]["d112"] = check_d112(dev)
+        records["H"] = [k8["H"]] + d112
+        torch.cuda.empty_cache()
+        launches_p, info_p = run_ssm_serving_path("P", dev)
+        torch.cuda.empty_cache()
+        launches_h, info_h = run_ssm_serving_path("H", dev)
+        torch.cuda.empty_cache()
+        info_p["float32_4_layers"] = run_ssm_f32_check("mamba2_2p7b", 4, dev)
+        torch.cuda.empty_cache()
+        info_h["float32_7_layers"] = run_ssm_f32_check("zamba2_7b", 7, dev)
 
-    kernels_out = []
-    for tag, launches in (("A", launches_a), ("B", launches_b),
-                          ("V", launches_v), ("D", launches_d),
-                          ("W", launches_w), ("R", launches_r),
-                          ("G", launches_g), ("X", launches_x),
-                          ("Q", launches_q), ("S", launches_s),
-                          ("T", launches_t), ("M", launches_m),
-                          ("P", launches_p), ("H", launches_h)):
-        for rec in records[tag]:
-            name = rec["name"].split()[0]
-            kernels_out.append(dict(rec, launches=launches[name], path=tag))
+        kernels_out = []
+        for tag, launches in (("A", launches_a), ("B", launches_b),
+                              ("V", launches_v), ("D", launches_d),
+                              ("W", launches_w), ("R", launches_r),
+                              ("G", launches_g), ("X", launches_x),
+                              ("Q", launches_q), ("E", launches_e),
+                              ("U", launches_u), ("C", launches_c),
+                              ("S", launches_s),
+                              ("T", launches_t), ("M", launches_m),
+                              ("P", launches_p), ("H", launches_h)):
+            for rec in records[tag]:
+                name = rec["name"].split()[0]
+                kernels_out.append(dict(rec, launches=launches[name],
+                                        path=tag))
+
     log(json.dumps({"paths": {"A": info_a, "B": info_b, "V": info_v,
                               "D": info_d, "W": info_w, "R": info_r,
                               "G": info_g, "X": info_x, "Q": info_q,
-                              "S": info_s, "T": info_t, "M": info_m,
-                              "P": info_p, "H": info_h}}))
+                              "E": info_e, "U": info_u, "C": info_c,
+                              "service": info_svc, "S": info_s,
+                              "T": info_t, "M": info_m, "P": info_p,
+                              "H": info_h}}))
     log(json.dumps({"kernels": kernels_out}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -70,6 +70,11 @@ class BudgetTree:
 
     # ------------------------------------------------------------ builders
     @classmethod
+    def flat(cls, budget: float, n_hosts: int) -> "BudgetTree":
+        """One node: the scalar rack budget."""
+        return cls([-1], [float(budget)], np.zeros(n_hosts, dtype=np.int64))
+
+    @classmethod
     def two_rows(cls, budget: float, n_hosts: int, row0_limit: float,
                  row1_limit: float | None = None) -> "BudgetTree":
         """Root and two rows; the first half of the hosts on row 0."""
@@ -78,6 +83,12 @@ class BudgetTree:
         host_node = np.where(np.arange(n_hosts) < n_hosts // 2, 1, 2)
         return cls([-1, 0, 0], [float(budget), float(row0_limit),
                                 float(row1_limit)], host_node)
+
+    def with_limit(self, node: int, limit: float) -> "BudgetTree":
+        """A copy of this tree with one node limit replaced."""
+        new_limit = self.limit.copy()
+        new_limit[int(node)] = float(limit)
+        return BudgetTree(self.parent, new_limit, self.host_node)
 
     # ------------------------------------------------------------- queries
     @property
@@ -119,12 +130,20 @@ class BudgetTree:
         """Largest per-node limit violation in Watts (<= 0 when clean)."""
         return float(np.max(self.node_sums(caps, on) - self.limit))
 
+    def subtree_hosts(self, node: int) -> np.ndarray:
+        """Bool mask of the hosts inside ``node``'s subtree."""
+        return self.host_anc[:, int(node)]
+
     def project(self, caps: np.ndarray, on: np.ndarray,
                 floors: np.ndarray | None = None) -> np.ndarray:
         """Caps scaled down until every node limit holds
-        (:func:`repro_torch.core.kernels.tree_project_caps`)."""
+        (:func:`repro_torch.core.kernels.tree_project_caps` in NumPy on the
+        ``(S = 1, ...)`` columns, so its sums add in the reference's order
+        and the result is bitwise the reference tree's)."""
         if floors is None:
             floors = np.zeros_like(caps)
+        cols = kernels.TreeCols(self.host_anc[None], self.limit[None],
+                                self.depth[None])
         return kernels.tree_project_caps(
-            self.cols(), *(torch.as_tensor(np.asarray(x)[None])
-                           for x in (on, caps, floors)))[0].numpy()
+            cols, *(np.asarray(x)[None] for x in (on, caps, floors)),
+            xp=np)[0]

@@ -360,24 +360,28 @@ def tree_host_slack(tree: TreeCols, headroom):
                        torch.inf).amin(-1)
 
 
-def tree_project_caps(tree: TreeCols, on, caps, floors):
+def tree_project_caps(tree: TreeCols, on, caps, floors, xp=torch):
     """Scale caps down until every node limit holds, never below floors.
 
     Each node whose subtree sum passes its limit by more than
     :data:`TREE_PROJECT_EPS` scales its hosts' excess over their floors to
     land on the limit; each host takes the tightest scale on its root path.
-    Nodes that do not bind leave caps bitwise untouched.
+    Nodes that do not bind leave caps bitwise untouched.  ``xp`` is the
+    array module: ``torch`` for the engines' tensors, ``numpy`` for
+    :meth:`repro_torch.core.budget_tree.BudgetTree.project`, whose sums
+    must add in the reference's NumPy order.
     """
-    fl = torch.where(on, torch.minimum(floors, caps), 0.0)
-    ex = torch.where(on, caps, 0.0) - fl
-    node_fl = torch.where(tree.anc, fl[..., None], 0.0).sum(-2)
-    node_ex = torch.where(tree.anc, ex[..., None], 0.0).sum(-2)
+    fl = xp.where(on, xp.minimum(floors, caps), 0.0)
+    ex = xp.where(on, caps, 0.0) - fl
+    node_fl = xp.where(tree.anc, fl[..., None], 0.0).sum(-2)
+    node_ex = xp.where(tree.anc, ex[..., None], 0.0).sum(-2)
     binding = node_fl + node_ex > tree.limit + TREE_PROJECT_EPS
-    scale = torch.clamp((tree.limit - node_fl)
-                        / torch.clamp_min(node_ex, 1e-300), 0.0, 1.0)
-    s_node = torch.where(binding, scale, 1.0)
-    s_host = torch.where(tree.anc, s_node[..., None, :], torch.inf).amin(-1)
-    return torch.where(on & (s_host < 1.0), fl + s_host * ex, caps)
+    scale = (tree.limit - node_fl) / xp.where(node_ex > 1e-300, node_ex,
+                                              1e-300)
+    scale = xp.where(scale < 0.0, 0.0, xp.where(scale > 1.0, 1.0, scale))
+    s_node = xp.where(binding, scale, 1.0)
+    s_host = xp.amin(xp.where(tree.anc, s_node[..., None, :], xp.inf), -1)
+    return xp.where(on & (s_host < 1.0), fl + s_host * ex, caps)
 
 
 def tree_evac_scope(tree: TreeCols, on, caps, victim):

@@ -94,3 +94,27 @@ H100_HOST = HostPowerSpec(
     hypervisor_overhead=0.0,
     memory_mb=80 * 1024,
 )
+
+
+def deployment_table(spec: HostPowerSpec, rack_budget_watts: float,
+                     power_caps: list[float]) -> list[dict]:
+    """Paper Table II: for each candidate per-host cap, how many hosts fit
+    in the rack budget and the capacity and memory they give, each also
+    as a ratio to the first row's."""
+    rows = []
+    base = None
+    for cap in power_caps:
+        count = int(rack_budget_watts // cap)
+        total_capacity = count * float(spec.capped_capacity(cap))
+        total_memory = count * spec.memory_mb
+        if base is None:
+            base = (total_capacity, total_memory)
+        rows.append({
+            "power_cap_w": cap,
+            "host_count": count,
+            "capacity": total_capacity,
+            "capacity_ratio": total_capacity / base[0] if base[0] else 0.0,
+            "memory_mb": total_memory,
+            "memory_ratio": total_memory / base[1] if base[1] else 0.0,
+        })
+    return rows

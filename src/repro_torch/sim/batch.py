@@ -55,6 +55,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import threading
 import time
 from typing import NamedTuple, Optional, Sequence
 
@@ -187,6 +188,9 @@ class BatchResult:
     device: str = ""                         # where the program ran
     pack_s: float = 0.0                      # host-side packing
     run_s: float = 0.0                       # upload, tick loop, harvest
+    compile_s: float = 0.0                   # kernel builds this run paid
+    wall_s: float = 0.0                      # compile_s + run_s
+    n_devices: int = 1
     # ``keep_timeseries=True`` only: field -> (T, S) per-tick rates and
     # per-tick action counts (end-minus-start deltas of the totals).
     timeseries: Optional[dict] = None
@@ -363,7 +367,8 @@ def _migration_model(ref_mig: Optional[SimConfig], migration: bool,
 
 
 def _pack(cells: Sequence[BatchCell], slot_slack: float = 2.0,
-          churn: bool = False, migration: bool = False
+          churn: bool = False, migration: bool = False,
+          pad_hosts: int = 0, pad_slots: int = 0
           ) -> tuple[dict, list, kernels.RulesMeta]:
     """The pack: NumPy arrays keyed as :data:`PACK_KEYS` (and
     :data:`TREE_KEYS` when a cell's tree binds, :data:`RULE_KEYS` when the
@@ -371,9 +376,11 @@ def _pack(cells: Sequence[BatchCell], slot_slack: float = 2.0,
     bitwise the reference packer's (``repro.sim.batch``), the sorted tag
     names, and the grid's rule bounds (the fieldwise maximum of the
     cells').  A batch with a DPM cell or the migration layer widens the
-    slot axis by ``slot_slack`` for the moves to land in."""
+    slot axis by ``slot_slack`` for the moves to land in.  ``pad_hosts``
+    and ``pad_slots`` force the host axis and the slot axis before the
+    slack up to at least those sizes."""
     S = len(cells)
-    H = max(len(c.snapshot.hosts) for c in cells)
+    H = max(max(len(c.snapshot.hosts) for c in cells), int(pad_hosts))
     ts, drs_mask = _drs_schedule(cells[0].config)
     T = ts.shape[0]
 
@@ -404,7 +411,7 @@ def _pack(cells: Sequence[BatchCell], slot_slack: float = 2.0,
                 *(max(x, y) for x, y in zip(rmeta, pack.meta())))
         prepped.append((vms, bank, order, hj, slot, counts, pack))
     J = max(max((int(p[5].max()) for p in prepped if p[5].size),
-                default=1), 1)
+                default=1), 1, int(pad_slots))
     if (churn and any(c.dpm_enabled for c in cells)) or migration:
         J = int(math.ceil(J * max(slot_slack, 1.0)))
     tag_names = sorted({t for c in cells
@@ -542,6 +549,20 @@ def _pack(cells: Sequence[BatchCell], slot_slack: float = 2.0,
     return a, tag_names, rmeta
 
 
+#: Serializes the kernel builds that :meth:`BatchedSimulator.compile` starts
+#: from the sweep pipeline's worker threads.
+_COMPILE_LOCK = threading.Lock()
+
+
+def check_n_devices(n_devices: Optional[int]) -> None:
+    """Cells run on one card: ``n_devices`` is ``None`` or 1."""
+    if n_devices not in (None, 1):
+        raise NotImplementedError(
+            f"n_devices={n_devices}: splitting the cells over several "
+            f"cards (the reference's device mesh) is not ported yet "
+            f"(ROADMAP queue 1, item 9)")
+
+
 class BatchedSimulator:
     """Simulate S scenario cells at once.
 
@@ -562,6 +583,13 @@ class BatchedSimulator:
     :attr:`info` holds the tick loop's counts: ticks, ticks with an
     invocation, and device-to-host reads (``branch_reads``, of which
     ``migration_reads`` are the migration layer's, one a round).
+
+    ``pad_hosts`` and ``pad_slots`` force the packed host axis and the slot
+    axis before the slack up to at least those sizes: the sweep's pad
+    buckets pack every cell of a pow2 shape class to one shape.  Padded
+    hosts and slots are masked inside every primitive.  ``n_devices``
+    takes ``None`` or 1: the cells are not split over several cards
+    (ROADMAP queue 1, item 9).
     """
 
     def __init__(self, cells: Sequence[BatchCell],
@@ -571,9 +599,13 @@ class BatchedSimulator:
                  slot_slack: float = 2.0,
                  balancer: Optional[kernels.MigrationParams] = None,
                  keep_timeseries: bool = False,
-                 device=None):
+                 device=None,
+                 n_devices: Optional[int] = None,
+                 pad_hosts: int = 0,
+                 pad_slots: int = 0):
         if not cells:
             raise ValueError("no cells")
+        check_n_devices(n_devices)
         cells = list(cells)
         dev = resolve_device(device)
         balancer = balancer or kernels.MigrationParams(max_moves=0)
@@ -593,7 +625,7 @@ class BatchedSimulator:
             raise BatchUnsupported(f"cell {name!r}: {why}")
         t0 = time.perf_counter()
         arrays, tag_names, rmeta = _pack(cells, slot_slack, churn,
-                                         migration)
+                                         migration, pad_hosts, pad_slots)
         model = None
         if churn or migration:
             model = _migration_model(ref_mig, migration, rmeta, balancer,
@@ -662,14 +694,42 @@ class BatchedSimulator:
         self.info: dict = {}
 
     # ------------------------------------------------------------- running
-    def run(self) -> BatchResult:
+    def compile(self) -> float:
+        """Build the kernels the program launches; returns the seconds
+        spent, 0.0 once they are built.  The twin of the reference's AOT
+        compile and its persistent compilation cache: the libraries land
+        in ``build/repro_torch_kernels/`` and later processes load them
+        without building.  K2's plan is taken at the packed shape here, so
+        a cell too wide for it raises before the run.  Thread-safe."""
+        if self.device.type != "cuda":
+            return 0.0
+        from repro_torch.kernels.powercap import kernel
+        t0 = time.perf_counter()
+        with _COMPILE_LOCK:
+            kernel.library()
+        S, H, J = self._arrays["occ"].shape
+        kernel.balance_plan(S, H, J, kernel.max_active_clusters(J))
+        return time.perf_counter() - t0
+
+    def run_async(self) -> "PendingBatch":
+        """Build the kernels if needed, upload the pack and run the
+        program, and return before the harvest: on the GPU the cap-only
+        program is enqueued without a wait, so the caller can pack or
+        dispatch the next batch while the card works.  The churn program
+        reads one flag a tick (and the migration layer one a round, see
+        :attr:`info`), so it waits on the card at each of those reads and
+        has mostly run when this returns.  :meth:`PendingBatch.result`
+        harvests."""
+        compile_s = self.compile()
         t0 = time.perf_counter()
         skip = _HOST_KEYS + (() if self._churn else _CHURN_KEYS)
         a = {k: torch.as_tensor(v, device=self.device)
              for k, v in self._arrays.items() if k not in skip}
         program = self._program_churn if self._churn else self._program
-        out = program(a)
-        return self._harvest(out, t0)
+        return PendingBatch(self, program(a), t0, compile_s)
+
+    def run(self) -> BatchResult:
+        return self.run_async().result()
 
     def _tree(self, a: dict) -> Optional[kernels.TreeCols]:
         if "tree_anc" not in a:
@@ -1362,9 +1422,10 @@ class BatchedSimulator:
                                  for k in series[0]}
         return out
 
-    def _harvest(self, out: dict, t0: float) -> BatchResult:
-        """Copy the outputs to the host, check the invariants, and
-        assemble the result."""
+    def _harvest(self, out: dict, t0: float,
+                 compile_s: float = 0.0) -> BatchResult:
+        """Copy the outputs to the host (the wait on the card), check the
+        invariants, and assemble the result."""
         host = {k: ({kk: vv.cpu().numpy() for kk, vv in v.items()}
                     if isinstance(v, dict) else v.cpu().numpy())
                 for k, v in out.items()}
@@ -1410,7 +1471,26 @@ class BatchedSimulator:
             device=str(self.device),
             pack_s=self.pack_s,
             run_s=run_s,
+            compile_s=compile_s,
+            wall_s=compile_s + run_s,
             timeseries=host.get("timeseries"),
             tick_s=self._tick_s,
             over_budget=over,
             over_tree=over_tree)
+
+
+@dataclasses.dataclass
+class PendingBatch:
+    """A batch whose program has run or been enqueued but whose outputs
+    are still on its device: :meth:`BatchedSimulator.run_async`'s handle.
+    :meth:`result` copies them to the host and builds the
+    :class:`BatchResult`; the sweep pipeline holds one a bucket and
+    harvests them all at the end."""
+
+    sim: BatchedSimulator
+    out: dict
+    dispatch_t0: float
+    compile_s: float
+
+    def result(self) -> BatchResult:
+        return self.sim._harvest(self.out, self.dispatch_t0, self.compile_s)

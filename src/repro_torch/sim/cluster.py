@@ -7,13 +7,17 @@ power-capped capacity, and Eq. 1 power is accounted.  Cap changes are
 instantaneous; vMotions take a copy window with CPU overhead on both
 endpoints; power-on and power-off take their latencies.
 
-Delivery and accounting are the engine's: the port has the vector engine
-(:class:`repro_torch.sim.engine.VectorSimulator`).  The per-object delivery
-of the reference's legacy engine is a later slice (ROADMAP queue 1, item 8).
-Scripted power events (host failures, maintenance windows) flip hosts on
-schedule.  With gated migration launches every emitted migration starts at
-its invocation's tick and migrations complete in emission order (FIFO),
-the schedule the batched engine replays.
+:class:`Simulator` is the reference's per-object legacy engine: the
+accounting runs over host and VM objects on the host, in the reference's
+order (hosts in snapshot order, each host's VMs in ``vms_on`` order), and
+each tick's delivery is one waterfill over the powered-on hosts (kernel K3
+on the GPU, one segment a host; the CSR layout is rebuilt only when the
+topology changes).  :class:`repro_torch.sim.engine.VectorSimulator` keeps
+the per-tick columns as tensors instead.  Scripted power events (host
+failures, maintenance windows) flip hosts on schedule.  With gated
+migration launches every emitted migration starts at its invocation's
+tick and migrations complete in emission order (FIFO), the schedule the
+batched engine replays.
 """
 
 from __future__ import annotations
@@ -22,8 +26,12 @@ import dataclasses
 from typing import Optional
 
 import numpy as np
+import torch
 
+from repro_torch.backend import resolve_device
+from repro_torch.drs.entitlement import deliver_hosts
 from repro_torch.drs.snapshot import ClusterSnapshot
+from repro_torch.kernels.powercap.segments import segment_layout
 from repro_torch.sim.metrics import Accumulators
 from repro_torch.sim.workloads import DemandTrace
 
@@ -87,14 +95,30 @@ class _Pending:
         self.end_time = 0.0
 
 
+def same_device(a, b) -> bool:
+    a, b = torch.device(a), torch.device(b)
+    if a.type != b.type:
+        return False
+    if a.type != "cuda":
+        return True
+    here = torch.cuda.current_device()
+    return ((here if a.index is None else a.index)
+            == (here if b.index is None else b.index))
+
+
 class Simulator:
-    """The tick loop; subclasses supply ``_deliver_and_account`` and
-    ``_budget_invariant``."""
+    """The per-object legacy engine on ``device`` (``None``: the GPU),
+    which must be the manager's."""
 
     def __init__(self, snapshot: ClusterSnapshot, manager,
                  traces: dict[str, DemandTrace],
                  config: Optional[SimConfig] = None,
-                 window: Optional[tuple[float, float]] = None):
+                 window: Optional[tuple[float, float]] = None,
+                 device=None):
+        self.device = dev = resolve_device(device)
+        if not same_device(manager.device, dev):
+            raise ValueError(f"the manager runs on {manager.device}, the "
+                             f"simulator on {dev}: give both one device")
         self.live = snapshot
         self.manager = manager
         self.traces = traces
@@ -111,8 +135,10 @@ class Simulator:
         self._power_events = sorted(self.config.power_events)
         self._next_power_event = 0
         # Bumped whenever executed actions mutate placement, power state, or
-        # caps; array-backed subclasses use it to refresh their columns.
+        # caps; the delivery's layout and the vector engine's columns
+        # refresh on it.
         self._topology_version = 0
+        self._layout_version = -1
 
     # ------------------------------------------------------------------
     def _update_demands(self, t: float) -> None:
@@ -277,15 +303,109 @@ class Simulator:
         return (self.window is not None and
                 self.window[0] <= t < self.window[1])
 
+    def _delivery_layout(self):
+        """The powered-on hosts, their VMs (``vms_on`` order) and the CSR
+        layout of those VMs, one segment a host: rebuilt when the topology
+        version moves."""
+        if self._layout_version != self._topology_version:
+            snap = self.live
+            on = [h for h in snap.hosts.values() if h.powered_on]
+            vms = {h.host_id: snap.vms_on(h.host_id) for h in on}
+            items = [v for h in on for v in vms[h.host_id]]
+            seg = np.repeat(np.arange(len(on)),
+                            [len(vms[h.host_id]) for h in on])
+            dev = self.device
+            self._layout = (on, vms, items,
+                            segment_layout(seg, len(on), dev),
+                            torch.as_tensor(
+                                np.array([v.shares for v in items],
+                                         dtype=np.float64), device=dev))
+            self._layout_version = self._topology_version
+        return self._layout
+
     def _deliver_and_account(self, t: float) -> None:
-        raise NotImplementedError(
-            "the per-object delivery of the legacy engine is not ported yet "
-            "(ROADMAP queue 1, item 8): use VectorSimulator")
+        dt = self.config.tick_s
+        snap = self.live
+        on, vms_of, items, layout, shares = self._delivery_layout()
+        overhead = {h.host_id: self._host_migration_overhead(h.host_id)
+                    for h in on}
+        capacity = [max(h.managed_capacity - overhead[h.host_id], 0.0)
+                    for h in on]
+        # The tick's delivery, one waterfill over every powered-on host.
+        alloc = deliver_hosts(capacity, items, layout, shares)
+        per_host = {}
+        low_util = self.manager.config.dpm.low_util
+        for host in snap.hosts.values():
+            hid = host.host_id
+            if not host.powered_on:
+                per_host[hid] = (host.power_cap, 0.0, 0)
+                continue
+            vms = vms_of[hid]
+            delivered = sum(alloc[v.vm_id] for v in vms)
+            demand = sum(min(v.demand, v.limit) for v in vms)
+            self.acc.cpu_payload_mhz_s += delivered * dt
+            self.acc.cpu_demand_mhz_s += demand * dt
+            for v in vms:
+                for tag in v.tags:
+                    self.acc.tag_payload[tag] = (
+                        self.acc.tag_payload.get(tag, 0.0)
+                        + alloc[v.vm_id] * dt)
+                    self.acc.tag_demand[tag] = (
+                        self.acc.tag_demand.get(tag, 0.0)
+                        + min(v.demand, v.limit) * dt)
+            # Memory: proportional delivery under overcommit.
+            mem_demand = sum(v.mem_demand for v in vms)
+            mem_deliv = (mem_demand if mem_demand <= host.memory_mb
+                         else host.memory_mb)
+            self.acc.mem_payload_mb_s += mem_deliv * dt
+            self.acc.mem_demand_mb_s += mem_demand * dt
+            # Eq. 1 power, utilization measured against peak capacity.
+            util = min((delivered + overhead[hid]) / host.spec.capacity_peak,
+                       1.0)
+            power = host.spec.power_consumed(util)
+            self.acc.energy_j += power * dt
+            if self.window_acc is not None and self._in_window(t):
+                self.window_acc.cpu_payload_mhz_s += delivered * dt
+                self.window_acc.cpu_demand_mhz_s += demand * dt
+                self.window_acc.mem_payload_mb_s += mem_deliv * dt
+                self.window_acc.mem_demand_mb_s += mem_demand * dt
+                self.window_acc.energy_j += power * dt
+            # DPM low-utilization tracking, the snapshot's
+            # host_cpu_utilization and host_mem_utilization over the VM
+            # list already at hand.
+            cap = host.managed_capacity
+            cpu_util = (sum(v.effective_demand for v in vms) / cap
+                        if cap > 0 else 0.0)
+            mem_util = (mem_demand / host.memory_mb
+                        if host.memory_mb > 0 else 0.0)
+            if cpu_util < low_util and mem_util < low_util:
+                self.low_since.setdefault(hid, t)
+            else:
+                self.low_since.pop(hid, None)
+            per_host[hid] = (host.power_cap, cpu_util, len(vms))
+        if self.config.record_timeline:
+            self.timeline.append((t, per_host))
 
     def _budget_invariant(self) -> None:
-        raise NotImplementedError(
-            "the per-object budget check of the legacy engine is not ported "
-            "yet (ROADMAP queue 1, item 8): use VectorSimulator")
+        on_or_pending = {h.host_id for h in self.live.hosts.values()
+                         if h.powered_on}
+        for p in self.pending:
+            if p.action.kind == "power_on" and p.state in ("waiting",
+                                                           "running"):
+                on_or_pending.add(p.action.target)
+        total = sum(self.live.hosts[h].power_cap for h in on_or_pending)
+        assert total <= self.live.power_budget + 1e-6, (
+            f"budget violated during execution: {total:.1f} W > "
+            f"{self.live.power_budget:.1f} W")
+        tree = self.live.effective_tree()
+        if tree is not None:
+            ids = list(self.live.hosts)
+            caps = np.array([self.live.hosts[h].power_cap for h in ids])
+            mask = np.array([h in on_or_pending for h in ids])
+            over = tree.max_overshoot(caps, mask)
+            assert over <= 1e-6, (
+                f"budget tree violated during execution: worst node over "
+                f"by {over:.6f} W")
 
     def _invoke_manager(self, t: float) -> None:
         """One DRS + CloudPowerCap invocation; queues the emitted actions."""

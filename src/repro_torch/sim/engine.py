@@ -24,7 +24,6 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.backend import resolve_device
 from repro_torch.core import kernels
 from repro_torch.drs.entitlement import batched_waterfill
 from repro_torch.drs.snapshot import ClusterSnapshot
@@ -37,17 +36,6 @@ FIELDS = ("cpu_payload_mhz_s", "cpu_demand_mhz_s", "mem_payload_mb_s",
           "mem_demand_mb_s", "energy_j")
 
 
-def same_device(a, b) -> bool:
-    a, b = torch.device(a), torch.device(b)
-    if a.type != b.type:
-        return False
-    if a.type != "cuda":
-        return True
-    here = torch.cuda.current_device()
-    return ((here if a.index is None else a.index)
-            == (here if b.index is None else b.index))
-
-
 class VectorSimulator(Simulator):
     """Tensor-backed simulator on ``device`` (``None``: the GPU), which
     must be the manager's."""
@@ -57,11 +45,8 @@ class VectorSimulator(Simulator):
                  config: Optional[SimConfig] = None,
                  window: Optional[tuple[float, float]] = None,
                  device=None):
-        super().__init__(snapshot, manager, traces, config, window)
-        self.device = dev = resolve_device(device)
-        if not same_device(manager.device, dev):
-            raise ValueError(f"the manager runs on {manager.device}, the "
-                             f"simulator on {dev}: give both one device")
+        super().__init__(snapshot, manager, traces, config, window, device)
+        dev = self.device
         vms = list(self.live.vms.values())
         hosts = list(self.live.hosts.values())
 

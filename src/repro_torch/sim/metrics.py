@@ -1,4 +1,4 @@
-"""Payload / power / cap-change accounting (paper Tables III-V)."""
+"""Payload / power / migration accounting (paper Tables III-V)."""
 
 from __future__ import annotations
 
@@ -27,6 +27,10 @@ class Accumulators:
         return (self.cpu_payload_mhz_s / self.cpu_demand_mhz_s
                 if self.cpu_demand_mhz_s else 1.0)
 
+    def tag_satisfaction(self, tag: str) -> float:
+        d = self.tag_demand.get(tag, 0.0)
+        return self.tag_payload.get(tag, 0.0) / d if d else 1.0
+
 
 def fold_timeseries(timeseries: dict, tick_s: float) -> dict:
     """Reduce per-tick series to run summaries exactly as the engine's tick
@@ -49,4 +53,26 @@ def fold_timeseries(timeseries: dict, tick_s: float) -> dict:
         for t in range(series.shape[0]):
             acc = acc + series[t] * tick_s
         out[k] = acc.numpy()
+    return out
+
+
+def ratio_table(results: dict[str, "Accumulators"], baseline: str
+                ) -> dict[str, dict[str, float]]:
+    """Each policy's metrics normalized to ``baseline``'s (the paper's
+    convention: StaticHigh = 1.00)."""
+    base = results[baseline]
+    out = {}
+    for name, acc in results.items():
+        out[name] = {
+            "cpu_payload_ratio": (acc.cpu_payload_mhz_s /
+                                  base.cpu_payload_mhz_s
+                                  if base.cpu_payload_mhz_s else 0.0),
+            "mem_payload_ratio": (acc.mem_payload_mb_s /
+                                  base.mem_payload_mb_s
+                                  if base.mem_payload_mb_s else 0.0),
+            "power_ratio": (acc.energy_j / base.energy_j
+                            if base.energy_j else 0.0),
+            "vmotions": acc.vmotions,
+            "cpu_satisfaction": acc.cpu_satisfaction(),
+        }
     return out

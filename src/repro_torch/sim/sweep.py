@@ -6,8 +6,12 @@ placement rules, and the ``two_row`` budget tree, each under the
 ``cpc``/``static``/``statichigh`` policies, with the same random draws
 (``np.random.RandomState(spec.seed)``), so both packages build
 byte-identical cells.  :func:`run_sweep` runs them cell by cell on the
-vector engine (the default, as in the reference) or as one batch on the
-batched engine.
+vector engine (the default, as in the reference) or the legacy engine,
+or on the batched engine: grouped into pow2 ``(hosts, VMs a host)`` pad
+buckets, one batch a bucket, packed in a thread pool while earlier buckets
+run, the cells the batched engine cannot replay exactly run on the vector
+engine under ``on_unsupported="fallback"``.  :func:`run_sweep_batched`
+packs the whole grid to its exact maximum shape instead.
 
 * Migration search is off (``max_moves=0``) in the cap-only and churn
   families.  The rule families (``violation_burst``: split affinity
@@ -30,8 +34,11 @@ batched engine.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import gc
 import time
+import warnings
 from typing import Optional, Sequence
 
 import numpy as np
@@ -44,9 +51,10 @@ from repro_torch.drs.balancer import BalancerConfig
 from repro_torch.drs.rules import AffinityRule, AntiAffinityRule, VMHostRule
 from repro_torch.drs.snapshot import ClusterSnapshot, Host, VirtualMachine
 from repro_torch.sim import workloads
-from repro_torch.sim.batch import BatchCell, BatchedSimulator
+from repro_torch.sim.batch import (BatchCell, BatchedSimulator,
+                                   BatchUnsupported, check_n_devices)
 from repro_torch.sim.cluster import SimConfig
-from repro_torch.sim.engine import VectorSimulator
+from repro_torch.sim.experiments import ENGINES, POLICIES
 
 # A smaller, less efficient host mixed in for heterogeneous sweeps:
 # 8 cores x 2.4 GHz, 64 GB, idle 120 W / peak 240 W.
@@ -63,7 +71,6 @@ CHURNS = ("none", "dpm", "maintenance", "failure", "timed_churn",
           "failure_cascade")
 RULESETS = ("none", "violation_burst", "cap_blocked")
 TREES = ("none", "two_row")
-POLICIES = ("cpc", "static", "statichigh")
 
 #: ``two_row``: row 0 (the first half of the hosts) is limited to this
 #: fraction of the rack budget, below its pro-rata share, so the row limit
@@ -360,48 +367,82 @@ class SweepCellResult:
     power_offs: int = 0
 
 
+def _same_trace_specs(a: dict, b: dict, vm_ids: Sequence[str]) -> bool:
+    """Whether two trace dicts compile to the same ``TraceBank``: every VM
+    traced in both with equal declarative specs (a callable without a
+    spec is never shared)."""
+    if a is b:
+        return True
+    for vid in vm_ids:
+        sa = getattr(a.get(vid), "spec", None)
+        sb = getattr(b.get(vid), "spec", None)
+        if sa is None or sa != sb:
+            return False
+    return True
+
+
+@contextlib.contextmanager
+def _gc_pause():
+    """Cyclic garbage collection off while a grid's cells are built: the
+    burst of long-lived objects (VMs, traces) would trip repeated full
+    collections that find nothing to free."""
+    was = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if was:
+            gc.enable()
+
+
 def build_batch_cells(specs: Sequence[SweepSpec],
                       policies: Sequence[str]):
     """The grid's cells in ``specs x policies`` order, with their keys.
 
-    ``cpc``/``static`` of one spec share one ``build_sweep`` result and one
-    ``TraceBank``; a grid-wide memo shares VM lists (the engine only reads
-    the snapshots).
+    ``cpc``/``static`` of one spec share one ``build_sweep`` result, a
+    spec's cells share one ``TraceBank`` wherever their trace specs are
+    equal, and a grid-wide memo shares VM lists (the engine only reads the
+    snapshots).
     """
     cells, keys = [], []
     vm_memo: dict = {}
-    for spec in specs:
-        memo: dict = {}
-        built: dict = {}                # deployment class -> build_sweep()
-        banks: dict = {}                # id(traces) -> TraceBank
-        for p in policies:
-            dep = "statichigh" if p == "statichigh" else "spread"
-            if dep not in built:
-                built[dep] = build_sweep(spec, p, trace_memo=memo,
-                                         vm_memo=vm_memo)
-            snap, traces, cfg = built[dep]
-            if id(traces) not in banks:
-                banks[id(traces)] = workloads.TraceBank.from_traces(
-                    traces, list(snap.vms))
-            cells.append(BatchCell(
-                name=f"{spec.name}/{p}", snapshot=snap, traces=traces,
-                config=cfg, powercap_enabled=(p == "cpc"),
-                dpm_enabled=spec.dpm_enabled,
-                balancer_enabled=spec.migration_enabled,
-                trace_bank=banks[id(traces)]))
-            keys.append((spec, p))
+    with _gc_pause():
+        for spec in specs:
+            bank, bank_traces = None, None
+            memo: dict = {}
+            built: dict = {}            # deployment class -> build_sweep()
+            for p in policies:
+                dep = "statichigh" if p == "statichigh" else "spread"
+                if dep not in built:
+                    built[dep] = build_sweep(spec, p, trace_memo=memo,
+                                             vm_memo=vm_memo)
+                snap, traces, cfg = built[dep]
+                vm_ids = list(snap.vms)
+                if (bank is None or bank.vm_order != vm_ids
+                        or not _same_trace_specs(bank_traces, traces,
+                                                 vm_ids)):
+                    bank = workloads.TraceBank.from_traces(traces, vm_ids)
+                    bank_traces = traces
+                cells.append(BatchCell(
+                    name=f"{spec.name}/{p}", snapshot=snap, traces=traces,
+                    config=cfg, powercap_enabled=(p == "cpc"),
+                    dpm_enabled=spec.dpm_enabled,
+                    balancer_enabled=spec.migration_enabled,
+                    trace_bank=bank))
+                keys.append((spec, p))
     return cells, keys
 
 
 def run_cell(spec: SweepSpec, policy: str, engine: str = "vector",
              device=None) -> SweepCellResult:
-    """One cell on the vector engine (the only per-cell engine ported)."""
-    if engine != "vector":
-        raise ValueError(f"engine {engine!r} is not ported for single cells "
-                         f"(the legacy engine is ROADMAP queue 1, item 8)")
+    """One cell on the vector or the legacy engine, on ``device``
+    (``None``: the GPU)."""
+    if engine not in ENGINES:
+        raise ValueError(f"engine {engine!r} runs no single cell: use one "
+                         f"of {sorted(ENGINES)}")
     dev = resolve_device(device)
     snap, traces, cfg = build_sweep(spec, policy)
-    sim = VectorSimulator(snap, _sweep_manager(policy, dev, spec), traces,
+    sim = ENGINES[engine](snap, _sweep_manager(policy, dev, spec), traces,
                           cfg, device=dev)
     t0 = time.perf_counter()
     result = sim.run()
@@ -420,46 +461,53 @@ def run_cell(spec: SweepSpec, policy: str, engine: str = "vector",
         power_offs=acc.power_offs)
 
 
-#: What the most recent batched :func:`run_sweep` reported: the engine's
-#: :attr:`BatchedSimulator.info` (ticks, ticks with an invocation,
-#: device-to-host reads) and, under ``"result"``, its
-#: :class:`~repro_torch.sim.batch.BatchResult` (final states, invariants).
-LAST_BATCH_INFO: dict = {}
+#: One record a bucket of the most recent batched :func:`run_sweep` or
+#: :func:`run_sweep_batched`, in bucket order: ``bucket`` (the pow2
+#: ``(hosts, slots)`` class, ``(None, None)`` for the exact pack),
+#: ``n_cells``, ``n_devices``, ``compile_s`` (kernel builds), ``pack_s``
+#: (host-side packing), ``run_s`` (upload, tick loop and harvest),
+#: ``wall_s`` (compile and run), ``info`` (the engine's
+#: :attr:`BatchedSimulator.info`: ticks, ticks with an invocation,
+#: device-to-host reads) and ``result`` (its
+#: :class:`~repro_torch.sim.batch.BatchResult`: final states, invariants).
+LAST_BATCH_INFO: list = []
+
+#: Worker threads of the pipeline: bucket i + 1 packs while bucket i runs.
+_PIPELINE_WORKERS = 4
 
 
-def run_sweep(specs: Sequence[SweepSpec],
-              policies: Sequence[str] = POLICIES,
-              engine: str = "vector",
-              device=None,
-              slot_slack: float = 3.0
-              ) -> dict[str, dict[str, SweepCellResult]]:
-    """Run the grid; returns ``results[spec.name][policy]``.
+def _pow2(n: int) -> int:
+    """Smallest power of two >= n (n >= 1)."""
+    return 1 << max(int(n) - 1, 0).bit_length()
 
-    ``engine="vector"`` runs the cells one by one on
-    :class:`repro_torch.sim.engine.VectorSimulator`; ``engine="batch"``
-    runs the whole grid as one :class:`BatchedSimulator` (with
-    :func:`grid_balancer`'s balancer), its slot axis widened by
-    ``slot_slack`` for the migrations and DPM's evacuations (the
-    reference's batched sweeps default to 3.0).  ``device=None`` runs on
-    the GPU.
-    """
-    if engine == "vector":
-        return {spec.name: {p: run_cell(spec, p, device=device)
-                            for p in policies} for spec in specs}
-    if engine != "batch":
-        raise ValueError(f"engine {engine!r} is not ported: use 'vector' "
-                         f"or 'batch'")
-    cells, keys = build_batch_cells(specs, policies)
-    sim = BatchedSimulator(cells, slot_slack=slot_slack,
-                           balancer=grid_balancer(specs), device=device)
-    res = sim.run()
-    LAST_BATCH_INFO.clear()
-    LAST_BATCH_INFO.update(sim.info, result=res)
+
+def _bucket_key(cell) -> tuple[int, int]:
+    """A cell's pow2 shape class: (hosts, most VMs on one host), each
+    rounded up to a power of two, so that a mixed 10/100/1000-host grid
+    packs each size to its own class, not every cell to 1000 hosts."""
+    counts: dict[str, int] = {}
+    for v in cell.snapshot.vms.values():
+        counts[v.host_id] = counts.get(v.host_id, 0) + 1
+    return (_pow2(len(cell.snapshot.hosts)),
+            _pow2(max(counts.values(), default=1)))
+
+
+def _harvest_order(n: int) -> Sequence[int]:
+    """The order the pipeline harvests its buckets in.  Results are keyed
+    by cell and reassembled in ``specs x policies`` order, so any order
+    gives the same grid (the tests shuffle it)."""
+    return range(n)
+
+
+def _cell_results(res, keys) -> dict:
+    """``{(spec.name, policy): SweepCellResult}`` of one bucket's
+    :class:`BatchResult`; each cell's ``wall_s`` is an even share of the
+    bucket's ``run_s``."""
     per_cell_wall = max(res.run_s, 1e-9) / len(keys)
-    out: dict[str, dict[str, SweepCellResult]] = {}
+    out = {}
     for i, (spec, p) in enumerate(keys):
         acc = res.accumulators(i)
-        out.setdefault(spec.name, {})[p] = SweepCellResult(
+        out[(spec.name, p)] = SweepCellResult(
             spec=spec, policy=p, wall_s=per_cell_wall, ticks=res.ticks,
             ticks_per_s=res.ticks / per_cell_wall,
             cpu_satisfaction=acc.cpu_satisfaction(),
@@ -469,6 +517,153 @@ def run_sweep(specs: Sequence[SweepSpec],
             vmotions=acc.vmotions,
             power_ons=acc.power_ons,
             power_offs=acc.power_offs)
+    return out
+
+
+def _run_pipeline(buckets, n_devices: Optional[int] = None,
+                  slot_slack: float = 3.0, device=None) -> dict:
+    """Run prepared buckets, each ``(pad_hosts, pad_slots, cells, keys,
+    balancer)``: a thread pool packs every bucket (host NumPy) and builds
+    its kernels (:meth:`BatchedSimulator.compile`), and the calling thread
+    runs each bucket (:meth:`BatchedSimulator.run_async`) as soon as it is
+    packed, so bucket i + 1 packs while bucket i runs.  The harvest comes
+    at the end, in :func:`_harvest_order`; one record a bucket lands in
+    :data:`LAST_BATCH_INFO` in bucket order.  Returns ``{(spec.name,
+    policy): result}``."""
+    from concurrent.futures import ThreadPoolExecutor, as_completed
+
+    dev = resolve_device(device)
+
+    def build(i):
+        hp, jp, cells, _, balancer = buckets[i]
+        sim = BatchedSimulator(cells, slot_slack=slot_slack,
+                               balancer=balancer, device=dev,
+                               n_devices=n_devices, pad_hosts=hp,
+                               pad_slots=jp)
+        sim.compile()
+        return i, sim
+
+    pendings = [None] * len(buckets)
+    with ThreadPoolExecutor(
+            max_workers=min(len(buckets), _PIPELINE_WORKERS)) as pool:
+        futs = [pool.submit(build, i) for i in range(len(buckets))]
+        for fut in as_completed(futs):
+            i, sim = fut.result()
+            pendings[i] = sim.run_async()
+    flat: dict = {}
+    infos = [None] * len(buckets)
+    for i in _harvest_order(len(buckets)):
+        res = pendings[i].result()
+        hp, jp, cells, keys, _ = buckets[i]
+        infos[i] = {
+            "bucket": (hp or None, jp or None),
+            "n_cells": len(cells),
+            "n_devices": res.n_devices,
+            "compile_s": res.compile_s,
+            "pack_s": res.pack_s,
+            "run_s": res.run_s,
+            "wall_s": res.wall_s,
+            "info": dict(pendings[i].sim.info),
+            "result": res,
+        }
+        flat.update(_cell_results(res, keys))
+    LAST_BATCH_INFO.extend(infos)
+    return flat
+
+
+def _run_buckets(cells, keys, n_devices: Optional[int] = None,
+                 slot_slack: float = 3.0, device=None) -> dict:
+    """Group the cells into pow2 ``(hosts, slots)`` shape classes, one
+    batch a class in ascending order, and run them through the
+    pipeline."""
+    by_bucket: dict[tuple[int, int], list] = {}
+    for c, k in zip(cells, keys):
+        by_bucket.setdefault(_bucket_key(c), []).append((c, k))
+    work = []
+    for (hp, jp), pairs in sorted(by_bucket.items()):
+        bspecs = list(dict.fromkeys(k[0] for _, k in pairs))
+        work.append((hp, jp, [c for c, _ in pairs], [k for _, k in pairs],
+                     grid_balancer(bspecs)))
+    return _run_pipeline(work, n_devices=n_devices, slot_slack=slot_slack,
+                         device=device)
+
+
+def run_sweep(specs: Sequence[SweepSpec],
+              policies: Sequence[str] = POLICIES,
+              engine: str = "vector",
+              on_unsupported: str = "raise",
+              n_devices: Optional[int] = None,
+              device=None,
+              slot_slack: float = 3.0
+              ) -> dict[str, dict[str, SweepCellResult]]:
+    """Run the grid; returns ``results[spec.name][policy]`` in ``specs x
+    policies`` order.
+
+    ``engine="vector"`` or ``"legacy"`` runs the cells one by one.
+    ``engine="batch"`` first probes the whole grid for cells the batched
+    engine cannot replay exactly: by default the first raises
+    :class:`BatchUnsupported`; with ``on_unsupported="fallback"`` a
+    warning names them and they run on the vector engine.  The rest are
+    grouped into pow2 ``(hosts, VMs a host)`` pad buckets, one
+    :class:`BatchedSimulator` a bucket (with :func:`grid_balancer`'s
+    balancer, its slot axis widened by ``slot_slack`` for migrations and
+    DPM's evacuations), run through the pipeline (:data:`LAST_BATCH_INFO`
+    holds a record a bucket).  ``n_devices`` takes ``None`` or 1;
+    ``device=None`` runs on the GPU.
+    """
+    if engine != "batch":
+        if engine not in ENGINES:
+            raise ValueError(f"engine {engine!r}: use 'vector', 'legacy' "
+                             f"or 'batch'")
+        return {spec.name: {p: run_cell(spec, p, engine, device)
+                            for p in policies} for spec in specs}
+    check_n_devices(n_devices)
+    resolve_device(device)
+    LAST_BATCH_INFO.clear()
+    cells, keys = build_batch_cells(specs, policies)
+    reasons = BatchedSimulator.unsupported_cells(cells, grid_balancer(specs))
+    if reasons and on_unsupported != "fallback":
+        # The whole grid is probed first: bucketing could otherwise hide a
+        # time-grid mismatch by splitting the cells that disagree.
+        name, why = min(reasons.items())
+        raise BatchUnsupported(f"cell {name!r}: {why}")
+    if reasons:
+        warnings.warn(
+            "batched engine cannot run cells "
+            f"{sorted(reasons)[:5]}{'...' if len(reasons) > 5 else ''} "
+            f"({next(iter(reasons.values()))}); running those on the "
+            "sequential vector engine and batching the rest",
+            RuntimeWarning, stacklevel=2)
+    good = [(c, k) for c, k in zip(cells, keys)
+            if f"{k[0].name}/{k[1]}" not in reasons]
+    flat = (_run_buckets([c for c, _ in good], [k for _, k in good],
+                         n_devices, slot_slack, device) if good else {})
+    return {spec.name: {p: flat.get((spec.name, p))
+                        or run_cell(spec, p, "vector", device)
+                        for p in policies} for spec in specs}
+
+
+def run_sweep_batched(specs: Sequence[SweepSpec],
+                      policies: Sequence[str] = POLICIES,
+                      slot_slack: float = 3.0,
+                      _prebuilt=None,
+                      n_devices: Optional[int] = None,
+                      device=None
+                      ) -> dict[str, dict[str, SweepCellResult]]:
+    """The whole grid as one batch packed to its exact maximum ``(hosts,
+    slots)``, no pow2 padding: the shape the reference's benchmark
+    baselines use.  All specs must share the time grid.  ``_prebuilt``
+    takes ``build_batch_cells``' output instead of building the grid
+    again."""
+    check_n_devices(n_devices)
+    cells, keys = _prebuilt or build_batch_cells(specs, policies)
+    LAST_BATCH_INFO.clear()
+    flat = _run_pipeline([(0, 0, cells, keys, grid_balancer(specs))],
+                         n_devices=n_devices, slot_slack=slot_slack,
+                         device=device)
+    out: dict[str, dict[str, SweepCellResult]] = {}
+    for spec, p in keys:
+        out.setdefault(spec.name, {})[p] = flat[(spec.name, p)]
     return out
 
 

@@ -331,7 +331,9 @@ def test_churn_grid_timeseries_is_bitwise_the_reduced_run():
 
 
 def test_churn_grid_with_slot_slack_1_raises():
+    # The exact pack: ``run_sweep``'s pad buckets round 10 VMs a host up
+    # to 16 slots, which leaves the evacuations room at slack 1.0.
     specs = sweep.scenario_families(**_dpm_grid(10, churns=("dpm",)))
     with pytest.raises(RuntimeError, match="slot_slack"):
-        sweep.run_sweep(specs, ("cpc", "static"), engine="batch",
-                        device="cpu", slot_slack=1.0)
+        sweep.run_sweep_batched(specs, ("cpc", "static"), device="cpu",
+                                slot_slack=1.0)

@@ -12,8 +12,9 @@ import torch
 
 from repro_torch.core.manager import CloudPowerCapManager
 from repro_torch.kernels.powercap import ops
-from repro_torch.sim import sweep
+from repro_torch.sim import experiments, sweep
 from repro_torch.sim.batch import BatchedSimulator
+from repro_torch.sim.cluster import Simulator
 from repro_torch.sim.engine import VectorSimulator
 
 PORT = Path(__file__).resolve().parents[1] / "src" / "repro_torch"
@@ -71,20 +72,34 @@ def test_entry_points_default_to_the_gpu(no_gpu):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         sweep.run_sweep(specs, ("cpc",), engine="vector")
     with pytest.raises(RuntimeError, match="device='cpu'"):
+        sweep.run_sweep(specs, ("cpc",), engine="legacy")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        sweep.run_sweep(specs, ("cpc",), engine="batch",
+                        on_unsupported="fallback")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        sweep.run_sweep_batched(specs, ("cpc",))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        experiments.run_policy("headroom", "cpc")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        experiments.run_all("standby", engine="vector")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
         CloudPowerCapManager()
     snap, traces, cfg = sweep.build_sweep(specs[0], "cpc")
-    with pytest.raises(RuntimeError, match="device='cpu'"):
-        VectorSimulator(snap, sweep._sweep_manager("cpc", "cpu"), traces,
-                        cfg)
+    for engine in (VectorSimulator, Simulator):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            engine(snap, sweep._sweep_manager("cpc", "cpu"), traces, cfg)
     x = np.ones((1, 2, 3))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ops.waterfill_dense(x[..., 0], x, x, x)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ops.waterfill_segmented(x[0, 0], x[0, 0], x[0, 0], x[0, 0],
                                 [0, 1, 1], 3)
-    for engine in ("batch", "vector"):
+    for engine in ("batch", "vector", "legacy"):
         assert sweep.run_sweep(specs, ("cpc",), engine=engine,
                                device="cpu")[specs[0].name]
+    assert sweep.run_sweep_batched(specs, ("cpc",), device="cpu")
+    assert sweep.run_sweep(specs, ("cpc",), engine="batch",
+                           on_unsupported="fallback", device="cpu")
 
 
 def test_serving_entry_points_default_to_the_gpu(no_gpu):

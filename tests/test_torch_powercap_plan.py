@@ -2,8 +2,9 @@
 
 ``kernel.balance_plan`` is a pure function of the shape and the clusters
 the card holds at once, so its choices are checked here at paths A's, B's
-and V's shapes and at the reference's 10,000-host ``datacenter_cell``
-(``benchmarks/run.py``), with the occupancy answers of an H100 written
+and V's shapes, at path U's pad buckets and at the reference's 10,000-host
+``datacenter_cell`` (``benchmarks/run.py``), exact and in its pad bucket
+of 16,384 hosts (path C), with the occupancy answers of an H100 written
 out.  The row routine's two exits (``csrc/waterfill.cuh``: stop once the
 bisection's bracket has collapsed; run no trip on a degenerate row) are
 held bitwise to the routine without them by a NumPy mirror of it: the
@@ -50,6 +51,10 @@ def test_shared_memory_bound():
     ((16, 1000, 10), 6, 167, 1024),          # path B: 15 clusters of 7 do not
     ((1, 1000, 10), 16, 63, 1024),           # path V: the widest cluster
     ((1, 10_000, 10), 16, 625, 1024),        # the datacenter cell
+    ((2, 16_384, 16), 16, 1024, 1024),       # path C: its pad bucket
+    ((12, 16, 16), 8, 2, 1024),              # path U's three buckets
+    ((12, 128, 16), 8, 16, 1024),
+    ((12, 1024, 16), 8, 128, 1024),
     ((64, 1000, 10), 2, 500, 1024),          # 64 clusters of 3 do not fit
     ((4, 3, 10), 3, 1, 1024),                # never a block without hosts
     ((2, 5000, 100), 16, 313, 512),

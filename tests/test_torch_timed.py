@@ -299,7 +299,8 @@ def test_run_sweep_runs_the_migration_families_on_both_engines():
                                                  heterogeneous=(False,)))):
         bat = sweep.run_sweep(specs, ("cpc", "static"), engine="batch",
                               device="cpu", slot_slack=1.5)
-        info = dict(sweep.LAST_BATCH_INFO)
+        (record,) = sweep.LAST_BATCH_INFO     # one pad bucket, (8, 16)
+        info = record["info"]
         vec = sweep.run_sweep(specs, ("cpc", "static"), device="cpu")
         for s in specs:
             for p in ("cpc", "static"):
