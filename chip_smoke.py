@@ -6,7 +6,7 @@ Phases, each of which raises (and so exits non-zero) when it fails:
 1. the card: its name and power limit, as ``nvidia-smi`` prints them;
 2. the build: ``nvcc`` compiles the five kernel libraries from their
    ``csrc/`` (powercap, flash_attention, decode_attention, moe_gmm,
-   ssd_scan), every source at once;
+   ssd_scan with K8b), every source at once;
 3. each powercap kernel against its plain PyTorch version on the card, in
    fp64, at the main paths' shapes, timed with CUDA events (median of 20)
    and, for K1 and K2, by their device time under ``torch.profiler`` (the
@@ -219,7 +219,41 @@ Phases, each of which raises (and so exits non-zero) when it fails:
 20. Mamba2-2.7B at full width and 4 layers and Zamba2-7B at full width
     and 7 layers (one site, then one more layer) in float32: identical
     greedy tokens through the kernels and through the plain versions,
-    logits within 1e-4 relative L2.
+    logits within 1e-4 relative L2;
+21. K7's backward (two K7 launches through its autograd Function: dX as
+    ``(E, C, F) @ (E, F, D)``, dW as ``(E, D, C) @ (E, C, F)`` on copies of
+    the transposed operands) at path TM's three products (OLMoE's gate,
+    up and down at C = 1280) in bf16 and float32 against its plain version
+    (tolerances as in 7 for bf16, 1e-5 in float32), two passes bitwise
+    equal, timed beside ``torch.bmm``; K4 and K5 at TM's layer (2 x 4096,
+    16 heads of 128, bf16) as in 10;
+22. K8b (the SSD backward, ``ssd_bwd.cu``) against ``ssd_chunk_bwd_ref``
+    at paths TP's and TH's calls (1 x 4096, chunk 256; 80 heads of 64 with
+    N 128, 112 heads of 64 with N 64) in float32 (1e-5 relative L2) and
+    with bf16 inputs (2e-2 as in 7), B and C one row shared by the heads
+    read from NaN-filled allocations, its plan's shared memory the
+    library's own count, two launches bitwise equal, timed with its bound;
+    K8 at the same calls; the scan's float32 gradient on a ragged tail (L
+    40, chunk 16, an initial state) through K8 and K8b against the plain
+    versions (1e-5 relative L2); K4 and K5 at TH's layer (1 x 4096, 32
+    heads of 112);
+23. main paths TM, TP and TH, ``launch.train``'s driver at OLMoE-1B-7B's
+    (8 of 16 layers), Mamba2-2.7B's (all 64) and Zamba2-7B's (36 of 81, 6
+    shared-attention sites) full width in bf16, 4 steps of 4 x 4096
+    tokens in the configs' own microbatches (2, 4, 4), 2 pods and the
+    budget cut at step 1, the final checkpoint in a temporary directory
+    that is removed: exact launch counts (a layer a microbatch: K7 3 + 3 +
+    6 under remat, K4 twice and K5 once; K8 twice and K8b once; the
+    hybrid's shared block K4 and K5 once a site), plans, caps and K1-K3
+    launches equal to the same driver's CPU run at the smoke size, finite
+    losses and gradient norms, one batch's loss and gradients through the
+    kernels against the plain versions on the card in bf16 at the path's
+    depth for TP and TH (1e-2 relative and 5e-2 relative L2), for TM one
+    layer's backward at a microbatch's 2 x 4096 tokens run twice with
+    equal bits; two warm steps timed and a third traced (the device's
+    idle share); and OLMoE-1B-7B at full width and 4 layers in float32 on
+    TM's shape (routing holds there), loss and gradients within 1e-4 of
+    the plain versions.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Run from the repository root:
@@ -717,7 +751,7 @@ KERNELS = ("waterfill_dense", "balance_caps", "waterfill_segmented")
 
 
 def _model_wrappers() -> dict:
-    """The model kernels' wrappers (K4, K5, K6, K7, K8) by name."""
+    """The model kernels' wrappers (K4, K5, K6, K7, K8, K8b) by name."""
     from repro_torch.kernels.decode_attention import ops as da_ops
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.moe_gmm import ops as gmm_ops
@@ -726,7 +760,8 @@ def _model_wrappers() -> dict:
             "flash_attention_bwd": fa_ops.flash_attention_bwd,
             "decode_attention": da_ops.decode_attention,
             "grouped_matmul": gmm_ops.grouped_matmul,
-            "ssd_scan": ssd_ops.ssd_scan}
+            "ssd_scan": ssd_ops.ssd_scan,
+            "ssd_scan_bwd": ssd_ops.ssd_chunk_bwd}
 
 
 def reset_launches() -> None:
@@ -1300,7 +1335,8 @@ def run_serving_path(dev) -> tuple[dict, dict]:
     want = {"flash_attention": cfg.n_layers * n_rep,
             "flash_attention_bwd": 0,
             "decode_attention": cfg.n_layers * (steps - 1) * n_rep,
-            "grouped_matmul": 0, "ssd_scan": 0, **power_launches}
+            "grouped_matmul": 0, "ssd_scan": 0, "ssd_scan_bwd": 0,
+            **power_launches}
     if launches != want or power_launches["balance_caps"] != 1:
         raise AssertionError(f"S: kernel launches {launches}, expected "
                              f"{want}")
@@ -1417,12 +1453,13 @@ def rel_l2_sliced(got, want) -> float:
 def _grads_against_plain(grads_fn, params, batch, loss_rtol, grad_rtol,
                          tag) -> tuple[float, float]:
     """The loss and every gradient of one batch through the kernels and
-    through the plain versions on the card; returns (loss relative error,
-    worst leaf's relative L2), raising past the bounds."""
+    through the plain versions on the card (``plain_kernels``); returns
+    (loss relative error, worst leaf's relative L2), raising past the
+    bounds."""
     from repro_torch.tree import leaves_with_path
 
     grads, metrics = grads_fn(params, batch)
-    with plain_attention():
+    with plain_kernels():
         pgrads, pmetrics = grads_fn(params, batch)
     loss_err = abs(float(metrics["loss"]) - float(pmetrics["loss"])) / abs(
         float(pmetrics["loss"]))
@@ -1482,7 +1519,8 @@ def run_training_path(dev) -> tuple[dict, dict]:
         shutil.rmtree(cpu_dir, ignore_errors=True)
     want = dict(power_launches, flash_attention=2 * cfg.n_layers * steps,
                 flash_attention_bwd=cfg.n_layers * steps,
-                decode_attention=0, grouped_matmul=0, ssd_scan=0)
+                decode_attention=0, grouped_matmul=0, ssd_scan=0,
+                ssd_scan_bwd=0)
     if steps != 6 or launches != want:
         raise AssertionError(f"T: {steps} steps, kernel launches {launches}, "
                              f"expected {want}")
@@ -1795,7 +1833,8 @@ def run_moe_serving_path(dev) -> tuple[dict, dict]:
     want = dict(power_launches, flash_attention=cfg.n_layers * n_rep,
                 flash_attention_bwd=0,
                 decode_attention=cfg.n_layers * (steps - 1) * n_rep,
-                grouped_matmul=3 * cfg.n_layers * steps * n_rep, ssd_scan=0)
+                grouped_matmul=3 * cfg.n_layers * steps * n_rep, ssd_scan=0,
+                ssd_scan_bwd=0)
     if cfg.family != "moe" or launches != want:
         raise AssertionError(f"M: kernel launches {launches}, expected "
                              f"{want}")
@@ -2138,11 +2177,12 @@ def check_d112(dev) -> tuple[list, dict]:
 
 @contextlib.contextmanager
 def plain_ssd():
-    """The SSD scan's intra-chunk step through K8's plain version (the
-    comparison runs only)."""
+    """The SSD scan's intra-chunk step through K8's plain version and its
+    backward through K8b's (the comparison runs only)."""
     from repro_torch.kernels.ssd_scan import ops, ref
 
-    with mock.patch.object(ops, "_intra_chunk", ref.ssd_chunk_ref):
+    with mock.patch.object(ops, "_intra_chunk", ref.ssd_chunk_ref), \
+            mock.patch.object(ops, "ssd_chunk_bwd", ref.ssd_chunk_bwd_ref):
         yield
 
 
@@ -2177,7 +2217,8 @@ def run_ssm_serving_path(tag: str, dev) -> tuple[dict, dict]:
     want = dict(power_launches, flash_attention=sites * n_rep,
                 flash_attention_bwd=0,
                 decode_attention=sites * (steps - 1) * n_rep,
-                grouped_matmul=0, ssd_scan=cfg.n_layers * n_rep)
+                grouped_matmul=0, ssd_scan=cfg.n_layers * n_rep,
+                ssd_scan_bwd=0)
     family = {"P": "ssm", "H": "hybrid"}[tag]
     if cfg.family != family or launches != want:
         raise AssertionError(f"{tag}: kernel launches {launches}, expected "
@@ -2280,6 +2321,530 @@ def run_ssm_f32_check(arch: str, n_layers: int, dev) -> dict:
     log(f"{arch} f32, {n_layers} layers: tokens identical, logits "
         f"{err:.3e} relative L2")
     return dict(n_layers=n_layers, rel_l2=err, tokens_identical=True)
+
+
+#: K7's backward at path TM's products (OLMoE-1B-7B, a microbatch of 2 x
+#: 4096 tokens, C = 1280): ``(E, C, D, F)`` of the forward product whose
+#: backward runs (dX as ``(E, C, F) @ (E, F, D)``, dW as ``(E, D, C) @ (E,
+#: C, F)``): the gate and up products and the down product.
+K7_BWD_CASES = {"gate": (64, 1280, 2048, 1024), "up": (64, 1280, 2048, 1024),
+                "down": (64, 1280, 1024, 2048)}
+
+
+def check_k7_bwd(dev) -> dict:
+    """K7's backward (two K7 launches through ``GroupedMatmul``) against
+    its plain version ``grouped_matmul_bwd_ref`` on the card, at path TM's
+    three products in bf16 (the attention kernels' tolerance) and float32
+    (1e-5, both relative to the values' scale), two backward passes
+    bitwise equal; the bf16 backward timed beside its plain version and
+    ``torch.bmm`` on the same operands (dX and dW).  Returns K7's record at
+    TM's gate product's backward."""
+    from repro_torch.kernels.moe_gmm import ops, ref
+
+    cases = {}
+    for i, (case, (e, c, d, f)) in enumerate(K7_BWD_CASES.items()):
+        for dtype in (torch.bfloat16, torch.float32):
+            name = f"{case}_{str(dtype)[6:]}"
+            x = randn((e, c, d), dtype, dev, 90 + i).requires_grad_()
+            w = (randn((e, d, f), torch.float32, dev, 93 + i) * d ** -0.5
+                 ).to(dtype).requires_grad_()
+            dy = randn((e, c, f), dtype, dev, 96 + i)
+
+            def backward():
+                return torch.autograd.grad(ops.grouped_matmul(x, w), (x, w),
+                                           dy)
+            before = ops.grouped_matmul.launches
+            got = backward()
+            if ops.grouped_matmul.launches - before != 3:
+                raise AssertionError(f"K7 backward {name}: "
+                                     f"{ops.grouped_matmul.launches - before}"
+                                     f" launches for a forward and backward")
+            want = ref.grouped_matmul_bwd_ref(x.detach(), w.detach(), dy)
+            tol = K7_BWD_TOL[dtype]
+            err = max(attn_close(g, wt, tol, f"K7 backward {name} {gn}")
+                      for gn, g, wt in zip(("dx", "dw"), got, want))
+            if not all(torch.equal(a, b) for a, b in zip(got, backward())):
+                raise AssertionError(f"K7 backward {name}: two passes differ")
+            rec = dict(shape=[e, c, d, f], dtype=str(dtype)[6:],
+                       max_abs_err=err, rtol=tol, atol_per_rms=tol)
+            if dtype == torch.bfloat16:
+                out = ops.grouped_matmul(x, w)
+                xd, wd = x.detach(), w.detach()
+                rec["ms"] = time_ms(lambda: torch.autograd.grad(
+                    out, (x, w), dy, retain_graph=True))
+                rec["plain_ms"] = time_ms(
+                    lambda: ref.grouped_matmul_bwd_ref(xd, wd, dy))
+                rec["library_ms"] = time_ms(
+                    lambda: (torch.bmm(dy, wd.transpose(1, 2)),
+                             torch.bmm(xd.transpose(1, 2), dy)))
+                rec["transpose_copies_ms"] = time_ms(
+                    lambda: (wd.transpose(1, 2).contiguous(),
+                             xd.transpose(1, 2).contiguous()))
+                rec["bound_ms"], rec["bound_by"] = bound_ms(
+                    2 * (2 * e * c * d + 2 * e * d * f + e * c * f),
+                    2 * 2.0 * e * c * d * f, PEAK_BF16_FLOPS)
+                del out
+            cases[name] = rec
+            log(f"TM: K7 backward {name} {e}x{c}x{d}x{f} err {err:.3e}"
+                + (f" {rec['ms']:.4f} ms (plain {rec['plain_ms']:.3f} ms, "
+                   f"bmm {rec['library_ms']:.4f} ms; the transposed copies"
+                   f" alone {rec['transpose_copies_ms']:.4f} ms; bound "
+                   f"{rec['bound_ms']:.4f} ms by {rec['bound_by']})"
+                   if "ms" in rec else "") + "; rerun bitwise equal")
+            del x, w, dy, got, want
+    main = cases["gate_bfloat16"]
+    return dict(name="grouped_matmul backward 64x1280x2048x1024",
+                route="cuda",
+                source="src/repro_torch/kernels/moe_gmm/csrc/gmm_tc.cu",
+                replaces="src/repro/kernels/moe_gmm/kernel.py:46",
+                max_abs_err=max(cases[f"{k}_bfloat16"]["max_abs_err"]
+                                for k in K7_BWD_CASES),
+                float32_max_abs_err=max(cases[f"{k}_float32"]["max_abs_err"]
+                                        for k in K7_BWD_CASES),
+                rtol=K7_BWD_TOL[torch.bfloat16],
+                atol_per_rms=K7_BWD_TOL[torch.bfloat16], ms=main["ms"],
+                plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
+                bound_by=main["bound_by"], library_ms=main["library_ms"],
+                cases=cases)
+
+
+#: K7's backward tolerances: the attention kernels' in bf16, 1e-5 in
+#: float32 (its CUDA-core kernel against cuBLAS, both summing in float32),
+#: relative to the values' scale (:func:`attn_close`).
+K7_BWD_TOL = {torch.bfloat16: ATTN_TOL[torch.bfloat16], torch.float32: 1e-5}
+#: K8b's cases at paths TP's and TH's call (one sequence of 4096 a
+#: microbatch, chunk 256): ``(B, L, H, P, N, Q)``.
+K8B_CASES = {"TP": (1, 4096, 80, 64, 128, 256),
+             "TH": (1, 4096, 112, 64, 64, 256)}
+#: K8b's tolerances, relative L2 in float32 (both sum in float32, in other
+#: orders) and :func:`attn_close`'s in bf16 inputs.
+K8B_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+
+
+def k8b_bound(b, l, h, p, n, q, el) -> tuple[float, str]:
+    """K8b's least time: x (``el`` bytes), B and C (one row shared by the
+    heads), the log decay, dt, dy, dcontrib and dtotal read once and its
+    five float32 outputs written once (db and dc a head each); the causal
+    pairs' five products (S, G, dx, dB, dC) and the contrib terms' two,
+    over the float32 peak (the kernel runs on the CUDA cores)."""
+    nc = l // q
+    n_bytes = (el * (b * l * h * p + 2 * b * l * n)
+               + 4 * (2 * b * l * h + b * l * h * p + b * nc * h * p * n
+                      + b * nc * h)
+               + 4 * (b * l * h * p + 2 * b * l * h + 2 * b * l * h * n))
+    flops = b * nc * h * (q * (q + 1) * (3 * n + 2 * p) + 4 * q * p * n)
+    return bound_ms(n_bytes, flops, PEAK_FP32_FLOPS)
+
+
+def check_k8b(dev) -> dict:
+    """K8b against ``ref.ssd_chunk_bwd_ref`` on the card at paths TP's and
+    TH's calls, in float32 (1e-5 relative L2) and with bf16 x, B and C
+    (:func:`attn_close` at 2e-2), B and C one row shared by the heads and
+    read from views into NaN-filled allocations (T3), the plan's shared
+    memory the library's own count, two launches bitwise equal; then K8's
+    forward at the same shapes against its plain version (K8's tolerance);
+    each timed beside its plain version; then the scan's float32 gradient
+    on a ragged tail through K8 and K8b against the plain versions (1e-5
+    relative L2).  Returns ``{tag: [K8b's record, K8's record]}``."""
+    from repro_torch.kernels.ssd_scan import kernel, ops, ref
+
+    out = {}
+    for tag, (b, l, h, p, n, q) in K8B_CASES.items():
+        plan = kernel.plan_bwd(b, l, h, p, n, q)
+        if kernel.bwd_smem_bytes(p, n, q) != plan.smem_bytes:
+            raise AssertionError(f"K8b {tag}: plan {plan}, library shared "
+                                 f"memory {kernel.bwd_smem_bytes(p, n, q)}")
+        nc = l // q
+        errs, timed = {}, {}
+        for dtype in (torch.float32, torch.bfloat16):
+            x, dt, a_log, bm, cm = ssd_inputs(b, l, h, p, n, dtype, dev, 80)
+            views = []
+            for t in (bm, cm):
+                big = torch.full((b, l, 2, n + 8), float("nan"), dtype=dtype,
+                                 device=dev)
+                big[:, :, :1, :n] = t[:, :, :1]
+                views.append(big[:, :, :1, :n].expand(b, l, h, n))
+            bm, cm = views
+            dt = dt.float()
+            ld = dt * -torch.exp(a_log)
+            dy = randn((b, l, h, p), torch.float32, dev, 85)
+            dcon = randn((b, nc, h, p, n), torch.float32, dev, 86)
+            dtot = randn((b, nc, h), torch.float32, dev, 87)
+            args = (x, ld, dt, bm, cm, q, dy, dcon, dtot)
+            got = ops.ssd_chunk_bwd(*args)
+            want = ref.ssd_chunk_bwd_ref(*args)
+            names = ("dx", "dlog_decay", "ddt", "db", "dc")
+            if dtype == torch.float32:
+                errs["float32"] = {}
+                for name, g, w in zip(names, got, want):
+                    e = rel_l2(g, w)
+                    if not (torch.isfinite(g).all() and e <= K8B_TOL[dtype]):
+                        raise AssertionError(
+                            f"K8b {tag} float32 {name}: {e:.3e} relative L2 "
+                            f"from the plain version (bound 1e-5)")
+                    errs["float32"][name] = e
+            else:
+                errs["bfloat16"] = {
+                    name: attn_close(g, w, K8B_TOL[dtype],
+                                     f"K8b {tag} bf16 {name}")
+                    for name, g, w in zip(names, got, want)}
+            if not all(torch.equal(a, c) for a, c in
+                       zip(got, ops.ssd_chunk_bwd(*args))):
+                raise AssertionError(f"K8b {tag} {dtype}: two launches "
+                                     f"differ")
+            del got, want
+            if dtype == torch.bfloat16:
+                timed = dict(
+                    ms=time_ms(lambda: ops.ssd_chunk_bwd(*args)),
+                    plain_ms=time_ms(lambda: ref.ssd_chunk_bwd_ref(*args)))
+                fwd = ops._intra_chunk(x, ld, dt, bm, cm, q)
+                fwd_err = max(attn_close(g, w, K8_TOL, f"K8 at {tag} {nm}")
+                              for nm, g, w in zip(
+                                  ("y_intra", "contrib", "total"), fwd,
+                                  ref.ssd_chunk_ref(x, ld, dt, bm, cm, q)))
+                del fwd
+                k8_ms = time_ms(lambda: ops._intra_chunk(x, ld, dt, bm, cm,
+                                                         q))
+                k8_pms = time_ms(lambda: ref.ssd_chunk_ref(x, ld, dt, bm, cm,
+                                                           q))
+            del args
+        bound, by = k8b_bound(b, l, h, p, n, q, 2)
+        k8_b, k8_by = k8_bound(b, l, h, p, n, q, 2)
+        log(f"{tag}: K8b {b}x{l}x{h}x{p}x{n} chunk {q} (grid {plan.grid}, "
+            f"{plan.smem_bytes} B shared) float32 relative L2 "
+            f"{json.dumps(errs['float32'])}, bf16 max abs "
+            f"{json.dumps(errs['bfloat16'])}; {timed['ms']:.4f} ms (plain "
+            f"{timed['plain_ms']:.3f} ms, bound {bound:.4f} ms by {by}); K8 "
+            f"at the same call err {fwd_err:.3e} {k8_ms:.4f} ms (plain "
+            f"{k8_pms:.3f} ms, bound {k8_b:.4f} ms by {k8_by}); reruns "
+            f"bitwise equal")
+        out[tag] = [
+            dict(name=f"ssd_scan_bwd {b}x{l}x{h}x{p}x{n}", route="cuda",
+                 source="src/repro_torch/kernels/ssd_scan/csrc/ssd_bwd.cu",
+                 replaces="src/repro/kernels/ssd_scan/kernel.py:71 (its "
+                          "backward: the reference differentiates "
+                          "src/repro/models/ssd.py:ssd_chunked)",
+                 max_abs_err=max(errs["bfloat16"].values()),
+                 float32_rel_l2=errs["float32"], rtol=K8B_TOL[torch.bfloat16],
+                 atol_per_rms=K8B_TOL[torch.bfloat16], ms=timed["ms"],
+                 plain_ms=timed["plain_ms"], bound_ms=bound, bound_by=by,
+                 library_ms=None, smem_bytes=plan.smem_bytes),
+            dict(name=f"ssd_scan {b}x{l}x{h}x{p}x{n}", route="cuda",
+                 source="src/repro_torch/kernels/ssd_scan/csrc/ssd_tc.cu",
+                 replaces="src/repro/kernels/ssd_scan/kernel.py:71",
+                 max_abs_err=fwd_err, rtol=K8_TOL, atol_per_rms=K8_TOL,
+                 ms=k8_ms, plain_ms=k8_pms, bound_ms=k8_b,
+                 bound_by=k8_by, library_ms=None)]
+    # The scan's gradient in every input through K8 and K8b against the
+    # plain versions, float32, on a ragged tail with an initial state:
+    # chunks of 16, so K8b's 64-row tiles are mostly masked.
+    x, dt, a_log, bm, cm = ssd_inputs(2, 40, 4, 16, 16, torch.float32, dev,
+                                      88)
+    init = randn((2, 4, 16, 16), torch.float32, dev, 89) * 0.2
+    leaves_in = [t.detach().clone().requires_grad_()
+                 for t in (x, dt, a_log, bm[:, :, :1] * 0.3,
+                           cm[:, :, :1] * 0.3, init)]
+    cots = (randn((2, 40, 4, 16), torch.float32, dev, 90),
+            randn((2, 4, 16, 16), torch.float32, dev, 91))
+
+    def scan_grads():
+        y, state = ops.ssd_scan(*leaves_in[:3],
+                                leaves_in[3].expand(2, 40, 4, 16),
+                                leaves_in[4].expand(2, 40, 4, 16), chunk=16,
+                                init_state=leaves_in[5])
+        return torch.autograd.grad((y, state), leaves_in, cots)
+    before = ops.ssd_chunk_bwd.launches
+    got = scan_grads()
+    if ops.ssd_chunk_bwd.launches != before + 1:
+        raise AssertionError("K8b: the scan's backward did not launch it")
+    with plain_ssd():
+        want = scan_grads()
+    ragged = {name: rel_l2(g, w) for name, g, w in zip(
+        ("x", "dt", "a_log", "b", "c", "init"), got, want)}
+    if not all(e <= K8B_TOL[torch.float32] for e in ragged.values()):
+        raise AssertionError(f"K8b: the ragged scan's gradient {ragged} "
+                             f"relative L2 from the plain versions (bound "
+                             f"1e-5)")
+    log(f"K8b: float32 scan gradient, L 40 chunk 16 with an initial state, "
+        f"against the plain versions: {json.dumps(ragged)} relative L2")
+    for recs in out.values():
+        recs[0]["ragged_scan_grad_rel_l2"] = ragged
+    return out
+
+
+#: K4 and K5 at paths TM's and TH's layers: ``(B, S, H, D)``, causal,
+#: bf16, as many KV heads as query heads (OLMoE's 16 of 128 on a
+#: microbatch of 2 x 4096, Zamba2's 32 of 112 on one of 4096).
+TRAIN_ATTN_CASES = {"TM": (2, 4096, 16, 128), "TH": (1, 4096, 32, 112)}
+
+
+def check_train_attention(tag: str, dev) -> list:
+    """K4 and K5 at path ``tag``'s layer against their plain versions
+    (bf16, the tensor cores as their plans must choose, two launches
+    bitwise equal), timed beside the plain versions and SDPA; returns
+    their records."""
+    from repro_torch.kernels.flash_attention import ops, ref
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    b, s, h, d = TRAIN_ATTN_CASES[tag]
+    bf = torch.bfloat16
+    q, k, v, do = attn_operands(b, s, s, h, h, d, bf, dev, 110)
+    attn_plan(q, k, v, want="tensor_core", what=f"K4 at {tag}")
+    regime = attn_plan(q, k, v, do, "tensor_core", f"K5 at {tag}").regime
+    k4_err = k4_case(q, k, v, True, 0, f"K4 at {tag}")
+    errs, (q, k, v, out, lse, do), _ = k5_case(q, k, v, do, True, 0,
+                                                f"K5 at {tag}", True)
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+    dot = do.transpose(1, 2)
+    fwd_ms = time_ms(lambda: sdpa(qt, kt, vt, is_causal=True))
+    both_ms = time_ms(lambda: torch.autograd.grad(
+        sdpa(qt, kt, vt, is_causal=True), (qt, kt, vt), dot))
+    pairs = s * (s + 1) // 2
+    k4_ms = time_ms(lambda: ops.flash_attention(q, k, v))
+    k4_pms = time_ms(lambda: ref.flash_attention_ref(q, k, v,
+                                                     block_k=ops.BLOCK_K))
+    k4_bound, k4_by = bound_ms(2 * 4 * b * s * h * d + 4 * b * h * s,
+                               4 * b * h * d * pairs, PEAK_BF16_FLOPS)
+    k5_ms = time_ms(lambda: ops.flash_attention_bwd(q, k, v, out, lse, do))
+    k5_pms = time_ms(lambda: ref.flash_attention_bwd_ref(
+        q, k, v, out, lse, do, block_q=ops.BLOCK_Q, block_k=ops.BLOCK_K))
+    k5_bound, k5_by = bound_ms(2 * 8 * b * s * h * d + 4 * b * h * s,
+                               10 * b * h * d * pairs, PEAK_BF16_FLOPS)
+    log(f"{tag}: K4 at {b}x{s}x{h}x{d} err {k4_err:.3e} {k4_ms:.3f} ms "
+        f"(plain {k4_pms:.3f} ms, SDPA {fwd_ms:.3f} ms, bound "
+        f"{k4_bound:.4f} ms); K5 ({regime}) errs {json.dumps(errs)} "
+        f"{k5_ms:.3f} ms (plain {k5_pms:.3f} ms, SDPA backward "
+        f"{both_ms - fwd_ms:.3f} ms, bound {k5_bound:.4f} ms)")
+    src = "src/repro_torch/kernels/flash_attention/csrc/"
+    common = dict(route="cuda", regime=regime, rtol=ATTN_TOL[bf],
+                  atol_per_rms=ATTN_TOL[bf])
+    return [dict(common, name=f"flash_attention {b}x{s}x{h}x{d}",
+                 source=src + "flash_fwd_tc.cu",
+                 replaces="src/repro/kernels/flash_attention/kernel.py:83",
+                 max_abs_err=k4_err, ms=k4_ms, plain_ms=k4_pms,
+                 bound_ms=k4_bound, bound_by=k4_by, library_ms=fwd_ms),
+            dict(common, name=f"flash_attention_bwd {b}x{s}x{h}x{d}",
+                 source=src + "flash_bwd_tc.cu",
+                 replaces="src/repro/kernels/flash_attention/kernel_bwd.py"
+                          ":125",
+                 max_abs_err=max(errs.values()), ms=k5_ms, plain_ms=k5_pms,
+                 bound_ms=k5_bound, bound_by=k5_by,
+                 library_ms=both_ms - fwd_ms)]
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """Every model kernel through its plain version: attention (K4, K5,
+    K6), the experts (K7 and its backward: autograd of the plain einsum)
+    and the SSD scan (K8, K8b).  The comparison runs only."""
+    with plain_attention(), plain_experts(), plain_ssd():
+        yield
+
+
+#: Paths TM, TP and TH: the training driver at OLMoE-1B-7B's, Mamba2-2.7B's
+#: and Zamba2-7B's full width, path T's sequences, pods and budget cut in
+#: 4 steps (the straggler stays on path T), each config's own
+#: microbatches; ``(arch, layers kept or None)``: OLMoE at 8 of its 16
+#: layers and Zamba2 at 36 of its 81 (6 shared-attention sites), where
+#: bf16 parameters and gradients with float32 moments and gradient sums
+#: (about 16 B a parameter) would not fit 80 GB at full depth.
+FAMILY_PATHS = {"TM": ("olmoe_1b_7b", 8), "TP": ("mamba2_2p7b", None),
+                "TH": ("zamba2_7b", 36)}
+FAMILY_EVENTS = ["--global-batch", "4", "--pods", "2", "--steps", "4",
+                 "--power-budget-drop-at", "1", "--checkpoint-every", "0"]
+
+
+@contextlib.contextmanager
+def depth_cut(n_layers):
+    """``configs.get`` as the training driver calls it, with the depth cut
+    to ``n_layers`` (None: as it is)."""
+    from repro_torch import configs
+    real = configs.get
+    if n_layers is None:
+        yield
+        return
+    with mock.patch.object(configs, "get", lambda arch: dataclasses.replace(
+            real(arch), n_layers=n_layers)):
+        yield
+
+
+def family_launches(cfg, steps: int) -> dict:
+    """The model kernels' launches of ``steps`` training steps: each layer
+    a microbatch runs its forward, its recompute under remat and its
+    backward.  MoE: K7 3 + 3 + 6 (two a product's backward), K4 twice and
+    K5 once (the decoder block is checkpointed whole); SSM: K8 1 + 1 and
+    K8b once; the hybrid's shared attention (not checkpointed, as the
+    reference has it): K4 and K5 once a site."""
+    mb = max(cfg.microbatches, 1) * steps
+    n = dict.fromkeys(_model_wrappers(), 0)
+    if cfg.family == "moe":
+        n.update(grouped_matmul=12 * cfg.n_layers * mb,
+                 flash_attention=2 * cfg.n_layers * mb,
+                 flash_attention_bwd=cfg.n_layers * mb)
+    else:
+        sites = cfg.n_layers // cfg.attn_every if cfg.attn_every else 0
+        n.update(ssd_scan=2 * cfg.n_layers * mb,
+                 ssd_scan_bwd=cfg.n_layers * mb,
+                 flash_attention=sites * mb, flash_attention_bwd=sites * mb)
+    return n
+
+
+def run_family_training_path(tag: str, dev) -> tuple[dict, dict]:
+    """Path TM, TP or TH through ``launch.train.main`` on the card, with
+    the launch counts of exactly that run; its power plane held against
+    the same events on the CPU (plans, caps, K1-K3 launches); finite losses
+    and gradient norms; one step's loss and gradients through the kernels
+    against the plain versions on the card in bf16 at the path's depth
+    (TP, TH: loss 1e-2 relative, every gradient 5e-2 relative L2, path T's
+    bounds; TM: one layer's backward rerun bit for bit instead,
+    ``moe_layer_rerun``), after two warm steps timed by CUDA events and a
+    third traced (the device's idle share)."""
+    from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.launch import train
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.runtime.train_loop import make_grads_fn, make_train_step
+
+    arch, n_layers = FAMILY_PATHS[tag]
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        reset_launches()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with depth_cut(n_layers):
+            report = train.main(["--arch", arch, "--seq-len", "4096"]
+                                + FAMILY_EVENTS
+                                + ["--checkpoint-dir", ckpt_dir])
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        ckpt_bytes = os.path.getsize(report.checkpoint_path)
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    cfg, state = report.cfg, report.state
+    steps = len(report.losses)
+    cpu_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        with count_plain_calls() as power_launches:
+            cpu = train.main(["--arch", arch, "--smoke", "--device", "cpu",
+                              "--seq-len", "32"] + FAMILY_EVENTS
+                             + ["--checkpoint-dir", cpu_dir])
+    finally:
+        shutil.rmtree(cpu_dir, ignore_errors=True)
+    want = dict(family_launches(cfg, steps), **power_launches)
+    family = {"TM": "moe", "TP": "ssm", "TH": "hybrid"}[tag]
+    if cfg.family != family or steps != 4 or launches != want:
+        raise AssertionError(f"{tag}: {cfg.family}, {steps} steps, kernel "
+                             f"launches {launches}, expected {want}")
+    if (report.plans, report.caps) != (cpu.plans, cpu.caps):
+        raise AssertionError(f"{tag}: power plane on the card {report.plans}"
+                             f" {report.caps}, on the CPU {cpu.plans} "
+                             f"{cpu.caps}")
+    if not (np.isfinite(report.losses).all()
+            and np.isfinite(report.grad_norms).all()):
+        raise AssertionError(f"{tag}: losses {report.losses}, grad norms "
+                             f"{report.grad_norms}")
+
+    data = SyntheticTokens(vocab_size=cfg.vocab_size, seq_len=4096,
+                           global_batch=4, seed=1, device=dev)
+    b = data.next_batch()
+    batch = {"tokens": b.tokens, "labels": b.labels, "weights": b.weights}
+    opt = AdamW(learning_rate=3e-4, state_dtype=cfg.optimizer_state_dtype)
+    step = make_train_step(cfg, opt)
+    step_ms = [_event_ms(lambda: step(state, batch)) for _ in range(2)]
+    traced = idle_share(lambda: step(state, batch))
+    # The gradient check needs two float32 gradient trees beside the
+    # parameters; AdamW's moments are done with.
+    state.opt_state = None
+    if tag == "TM":
+        checked = dict(layer_grads_bitwise_rerun=moe_layer_rerun(
+            cfg, state.params, dev))
+    else:
+        errs = _grads_against_plain(make_grads_fn(cfg), state.params, batch,
+                                    1e-2, 5e-2, f"{tag} bf16, "
+                                    f"{cfg.n_layers} layers")
+        checked = dict(loss_rel_err_plain=errs[0],
+                       worst_grad_rel_l2_plain=errs[1])
+    trained = float(sum(report.tokens))
+    info = dict(arch=arch, n_layers=cfg.n_layers,
+                microbatches=cfg.microbatches, wall_s=wall,
+                steps_s=report.seconds, trained_tokens=trained,
+                tokens_per_s=trained / report.seconds,
+                processed_tokens_per_s=4 * 4096 * steps / report.seconds,
+                warm_step_ms=min(step_ms), warm_steps_ms=step_ms,
+                peak_memory_gb=peak_gb, checkpoint_s=report.checkpoint_s,
+                checkpoint_bytes=ckpt_bytes, losses=report.losses,
+                grad_norms=report.grad_norms, plans=report.plans,
+                caps=report.caps, params=cfg.param_count(),
+                launches_power_plane=power_launches, **traced, **checked)
+    log(f"path {tag}: {arch} at {cfg.n_layers} layers, {steps} steps of 4 x "
+        f"4096 tokens in {cfg.microbatches} microbatches in "
+        f"{report.seconds:.3f} s ({info['tokens_per_s']:.1f} trained tokens"
+        f"/s; whole driver {wall:.3f} s, checkpoint "
+        f"{report.checkpoint_s:.2f} s for {ckpt_bytes} bytes); warm steps "
+        f"{step_ms} ms; a traced step {json.dumps(traced)}; peak "
+        f"{peak_gb:.3f} GB; losses {report.losses}; grad "
+        f"norms {report.grad_norms}; plans {report.plans}; caps "
+        f"{report.caps}; launches {launches}")
+    return launches, info
+
+
+def moe_layer_rerun(cfg, params, dev) -> int:
+    """Two backward passes of one OLMoE decoder layer (the path's first,
+    in its bf16) at a TM microbatch's shape, 2 x 4096 tokens, on the same
+    inputs and upstream gradients, without deterministic mode: every
+    gradient, the input's and each weight's, must be equal bit for bit
+    (the dispatch's gather sums a token's k rows in a fixed order, and no
+    kernel of the layer adds with float atomics).  Returns the number of
+    gradients compared."""
+    from repro_torch.models import transformer as tfm
+
+    blk = {name: w[0].detach().requires_grad_()
+           for name, w in params["blocks"].items()}
+    h = randn((2, 4096, cfg.d_model), torch.bfloat16, dev, 7
+              ).requires_grad_()
+    dh = randn((2, 4096, cfg.d_model), torch.bfloat16, dev, 8)
+    positions = torch.arange(4096, device=dev)[None, :]
+    leaves_in = [h] + list(blk.values())
+    runs = []
+    for _ in range(2):
+        out, _, aux = tfm._attn_block(blk, h, cfg, positions, None)
+        runs.append(torch.autograd.grad([out, aux], leaves_in,
+                                        [dh, torch.ones_like(aux)]))
+    names = ["h"] + list(blk)
+    for name, a, b in zip(names, *runs):
+        if not torch.equal(a, b):
+            raise AssertionError(f"TM: one layer's gradient of {name} "
+                                 f"differs between two backward passes")
+    log(f"TM: one layer's backward at 2 x 4096 tokens twice: all "
+        f"{len(names)} gradients equal bit for bit")
+    return len(names)
+
+
+def run_moe_train_f32_check(dev) -> dict:
+    """OLMoE-1B-7B at full width and 4 layers in float32 (routing holds
+    there, trap T4): one step of path TM's shape (4 x 4096 tokens in 2
+    microbatches, C = 1280) through the kernels and through the plain
+    versions, loss and every gradient within 1e-4 relative."""
+    from repro_torch import configs
+    from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.runtime.train_loop import init_train_state, make_grads_fn
+
+    cfg = dataclasses.replace(configs.get("olmoe_1b_7b"), n_layers=4,
+                              param_dtype="float32")
+    state = init_train_state(cfg, AdamW(learning_rate=1e-3),
+                             torch.Generator(device=dev).manual_seed(0), dev)
+    data = SyntheticTokens(vocab_size=cfg.vocab_size, seq_len=4096,
+                           global_batch=4, seed=3, device=dev)
+    b = data.next_batch()
+    batch = {"tokens": b.tokens, "labels": b.labels, "weights": b.weights}
+    loss_err, grad_err = _grads_against_plain(
+        make_grads_fn(cfg), state.params, batch, 1e-4, 1e-4,
+        "TM f32, 4 layers")
+    return dict(n_layers=4, loss_rel_err=loss_err,
+                worst_grad_rel_l2=grad_err)
 
 
 def run_path(tag, specs, policies):
@@ -2444,16 +3009,16 @@ def compare_final(tag, gpu, cpu, keys) -> None:
 
 def idle_share(run) -> dict:
     """One traced call of ``run``: the device's busy and idle share of its
-    wall and its kernel launches, read from the ``torch.profiler`` trace as
-    ``tools/profile_sweep_torch.py`` reads them (None when the trace holds
+    wall and its kernel launches, read from a ``torch.profiler`` trace of
+    the device's activity alone (its kernels, copies and sets, as
+    ``tools/profile_sweep_torch.py`` reads them; None when the trace holds
     no kernel event)."""
     from torch.profiler import ProfilerActivity, profile
     sys.path.insert(0, str(ROOT / "tools"))
     from profile_sweep_torch import busy_us
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
@@ -3479,6 +4044,22 @@ def main() -> int:
         info_p["float32_4_layers"] = run_ssm_f32_check("mamba2_2p7b", 4, dev)
         torch.cuda.empty_cache()
         info_h["float32_7_layers"] = run_ssm_f32_check("zamba2_7b", 7, dev)
+        torch.cuda.empty_cache()
+
+        records["TM"] = [check_k7_bwd(dev)] + check_train_attention("TM",
+                                                                    dev)
+        k8b = check_k8b(dev)
+        records["TP"] = k8b["TP"]
+        records["TH"] = k8b["TH"] + check_train_attention("TH", dev)
+        torch.cuda.empty_cache()
+        launches_tm, info_tm = run_family_training_path("TM", dev)
+        torch.cuda.empty_cache()
+        info_tm["float32_4_layers"] = run_moe_train_f32_check(dev)
+        torch.cuda.empty_cache()
+        launches_tp, info_tp = run_family_training_path("TP", dev)
+        torch.cuda.empty_cache()
+        launches_th, info_th = run_family_training_path("TH", dev)
+        torch.cuda.empty_cache()
 
         kernels_out = []
         for tag, launches in (("A", launches_a), ("B", launches_b),
@@ -3489,7 +4070,9 @@ def main() -> int:
                               ("U", launches_u), ("C", launches_c),
                               ("S", launches_s),
                               ("T", launches_t), ("M", launches_m),
-                              ("P", launches_p), ("H", launches_h)):
+                              ("P", launches_p), ("H", launches_h),
+                              ("TM", launches_tm), ("TP", launches_tp),
+                              ("TH", launches_th)):
             for rec in records[tag]:
                 name = rec["name"].split()[0]
                 kernels_out.append(dict(rec, launches=launches[name],
@@ -3501,7 +4084,8 @@ def main() -> int:
                               "E": info_e, "U": info_u, "C": info_c,
                               "service": info_svc, "S": info_s,
                               "T": info_t, "M": info_m, "P": info_p,
-                              "H": info_h}}))
+                              "H": info_h, "TM": info_tm, "TP": info_tp,
+                              "TH": info_th}}))
     log(json.dumps({"kernels": kernels_out}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

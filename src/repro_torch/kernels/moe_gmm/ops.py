@@ -3,9 +3,13 @@
 A CUDA tensor launches the hand-written grouped GEMM in the regime that
 :func:`kernel.plan` chooses (or raises); a CPU tensor runs its plain
 PyTorch version (:func:`ref.grouped_matmul_ref`).
-``grouped_matmul.launches`` counts the kernel launches.  K7 has no
-backward: with grad mode on and an input that requires grad, the wrapper
-raises rather than return a result that autograd cannot differentiate.
+:class:`GroupedMatmul` differentiates it, where the reference
+differentiates its ``einsum``: the backward is two more K7 launches,
+``dX = dY @ W^T`` as ``(E, C, F) @ (E, F, D)`` and ``dW = X^T @ dY`` as
+``(E, D, C) @ (E, C, F)``, on copies of the transposed operands made
+contiguous first (K7 reads a last dimension that is packed); on the CPU
+its plain version, :func:`ref.grouped_matmul_bwd_ref`.
+``grouped_matmul.launches`` counts every K7 launch, the backward's too.
 """
 
 from __future__ import annotations
@@ -22,20 +26,10 @@ def _sms(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def grouped_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x: (E, C, D), w: (E, D, F) -> (E, C, F) in x.dtype, the products
-    summed in float32.  On the card x and w may be views with any expert
-    and row strides whose last dimension is contiguous."""
-    ref._check(x, w)
-    if x.dtype != w.dtype:
-        raise TypeError(f"x and w differ in dtype: {x.dtype}, {w.dtype}")
+def _gmm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """One product on the tensors' device: the plain version on the CPU,
+    one K7 launch on the card (or a raise)."""
     dev = x.device
-    if dev != w.device:
-        raise ValueError("x and w are on different devices")
-    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
-        raise NotImplementedError(
-            "grouped_matmul has no backward: MoE training comes with its "
-            "autograd Function (ROADMAP queue 1, item 13)")
     if dev.type == "cpu":
         return ref.grouped_matmul_ref(x, w)
     if dev.type != "cuda":
@@ -53,6 +47,46 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     kernel.gmm(x, w, out, p)
     grouped_matmul.launches += 1
     return out
+
+
+class GroupedMatmul(torch.autograd.Function):
+    """K7 forward; K7 twice in the backward (the plain versions on the
+    CPU).  Saves x and w."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        ctx.set_materialize_grads(False)
+        return _gmm(x, w)
+
+    @staticmethod
+    def backward(ctx, dy):
+        if dy is None:
+            return None, None
+        x, w = ctx.saved_tensors
+        if x.device.type == "cpu":
+            return ref.grouped_matmul_bwd_ref(x, w, dy)
+        dy = dy.contiguous()
+        dx = _gmm(dy, w.transpose(1, 2).contiguous()) \
+            if ctx.needs_input_grad[0] else None
+        dw = _gmm(x.transpose(1, 2).contiguous(), dy) \
+            if ctx.needs_input_grad[1] else None
+        return dx, dw
+
+
+def grouped_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x: (E, C, D), w: (E, D, F) -> (E, C, F) in x.dtype, the products
+    summed in float32; differentiable in x and w.  On the card x and w may
+    be views with any expert and row strides whose last dimension is
+    contiguous."""
+    ref._check(x, w)
+    if x.dtype != w.dtype:
+        raise TypeError(f"x and w differ in dtype: {x.dtype}, {w.dtype}")
+    if x.device != w.device:
+        raise ValueError("x and w are on different devices")
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return GroupedMatmul.apply(x, w)
+    return _gmm(x, w)
 
 
 grouped_matmul.launches = 0

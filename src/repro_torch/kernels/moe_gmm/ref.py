@@ -27,3 +27,15 @@ def grouped_matmul_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     accumulation)."""
     _check(x, w)
     return torch.einsum("ecd,edf->ecf", x.float(), w.float()).to(x.dtype)
+
+
+def grouped_matmul_bwd_ref(x: torch.Tensor, w: torch.Tensor,
+                           dy: torch.Tensor):
+    """The gradient of :func:`grouped_matmul_ref` at ``x`` (E, C, D), ``w``
+    (E, D, F) for the cotangent ``dy`` (E, C, F): ``(dx = dy @ w^T, dw =
+    x^T @ dy)``, each summed in float32 and cast to its operand's dtype."""
+    _check(x, w)
+    dy = dy.float()
+    dx = torch.einsum("ecf,edf->ecd", dy, w.float()).to(x.dtype)
+    dw = torch.einsum("ecd,ecf->edf", x.float(), dy).to(w.dtype)
+    return dx, dw

@@ -1,4 +1,5 @@
-"""Build, plan and bind kernel K8 (``csrc/ssd.cu``, ``csrc/ssd_tc.cu``).
+"""Build, plan and bind kernel K8 (``csrc/ssd.cu``, ``csrc/ssd_tc.cu``)
+and its backward K8b (``csrc/ssd_bwd.cu``).
 
 The sources are compiled for ``sm_90a`` into
 ``build/repro_torch_kernels/libssd_scan.so`` at first use by the shared
@@ -27,6 +28,11 @@ Both regimes give y_intra and total bit for bit as the plain version does
 (its summation orders, ``ref.chunk_cumsum``'s for the cumulative sum); the
 tensor cores sum the state product in their own order, so ``contrib`` is
 held to K8's tolerance.
+
+:func:`plan_bwd` plans K8b: one block of 256 threads a (head, batch x
+chunk), walking the chunk's causal triangle in 64 x 64 tiles on the CUDA
+cores in float32, its tiles and the chunk's cumulative sums in shared
+memory (:func:`bwd_smem`).
 """
 
 from __future__ import annotations
@@ -144,6 +150,54 @@ def plan(b: int, l: int, h: int, p: int, n: int, q: int, dtype: torch.dtype,
                 4 * (2 * 64 * 65 + 2 * q + _cdiv(q, _SEG)))
 
 
+@dataclasses.dataclass(frozen=True)
+class BwdPlan:
+    """How one call of K8b runs: its grid ``(x, y, z)``, threads a block
+    and dynamic shared memory a block (bytes)."""
+
+    grid: tuple[int, int, int]
+    threads: int
+    smem_bytes: int
+
+
+#: K8b's tile (query and key rows) and threads a block (``ssd_bwd.cu``).
+BWD_TILE = 64
+BWD_THREADS = 256
+#: The widest P and N that K8b takes (a thread's 8 columns of 16 lanes).
+BWD_MAX_WIDTH = 128
+
+
+def bwd_smem(p: int, n: int, q: int) -> int:
+    """``ssd_bwd.cu:bwd_smem_floats`` in bytes: B's and C's tiles (64 x
+    (N + 1)), x's and dy's (64 x (P + 1)), the w, dS and A tiles (64 x
+    65), cum, dt and dcum (Q each), the segment offsets, a key tile's
+    column sums and R (64 each) and one running sum."""
+    t = BWD_TILE
+    return 4 * (2 * t * (n + 1) + 2 * t * (p + 1) + 3 * t * (t + 1)
+                + 3 * q + _cdiv(q, _SEG) + 2 * t + 1)
+
+
+@functools.lru_cache(maxsize=256)
+def plan_bwd(b: int, l: int, h: int, p: int, n: int, q: int) -> BwdPlan:
+    """The plan of K8b on x (b, l, h, p), B and C (b, l, h, n), chunk
+    ``q``.  Raises ValueError where K8b cannot take the shape: P or N
+    above :data:`BWD_MAX_WIDTH`, L no multiple of Q, a grid past CUDA's
+    limits, or shared memory past :data:`SMEM_LIMIT`."""
+    if not (0 < p <= BWD_MAX_WIDTH and 0 < n <= BWD_MAX_WIDTH):
+        raise ValueError(f"K8b takes P and N up to {BWD_MAX_WIDTH}, not "
+                         f"{p} and {n}")
+    if q <= 0 or l % q:
+        raise ValueError(f"L={l} is not a multiple of chunk={q}")
+    if b * (l // q) > 65535:
+        raise ValueError(f"K8b's grid takes at most 65535 batch x chunks, "
+                         f"not {b * (l // q)}")
+    smem = bwd_smem(p, n, q)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"K8b at P {p}, N {n}, Q {q} needs {smem} bytes "
+                         f"of shared memory, past {SMEM_LIMIT}")
+    return BwdPlan((h, b * (l // q), 1), BWD_THREADS, smem)
+
+
 def _bind(lib: ctypes.CDLL) -> None:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.ssd_chunk.argtypes = [p] * 8 + [ll] * 6 + [i] * 7 + [p]
@@ -152,6 +206,10 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.ssd_chunk_tc.restype = i
     lib.ssd_tc_smem_bytes.argtypes = [i] * 5
     lib.ssd_tc_smem_bytes.restype = ll
+    lib.ssd_chunk_bwd.argtypes = [p] * 13 + [ll] * 6 + [i] * 7 + [p]
+    lib.ssd_chunk_bwd.restype = i
+    lib.ssd_bwd_smem_bytes.argtypes = [i] * 3
+    lib.ssd_bwd_smem_bytes.restype = ll
 
 
 LIBRARY = KernelLibrary("ssd_scan", Path(__file__).resolve().parent / "csrc",
@@ -184,3 +242,25 @@ def ssd_chunk(x, log_decay, dt, b_mat, c_mat, y, contrib, total, p: Plan,
     else:
         rc = lib.ssd_chunk(*ptrs, DTYPES[x.dtype], stream(x))
     LIBRARY.check(rc, f"ssd_scan ({p.regime})")
+
+
+def bwd_smem_bytes(p: int, n: int, q: int) -> int:
+    """The library's own count of a K8b launch's dynamic shared memory, to
+    hold :func:`plan_bwd` against."""
+    return LIBRARY.library().ssd_bwd_smem_bytes(p, n, q)
+
+
+def ssd_chunk_bwd(x, log_decay, dt, b_mat, c_mat, dy, dcontrib, dtotal,
+                  dx, dld, ddt, db, dc, *, chunk: int) -> None:
+    """Launch K8b; the wrapper has planned the call, checked shapes, types
+    and strides and allocated the outputs."""
+    bsz, l, h, hp = x.shape
+    n = b_mat.shape[-1]
+    rc = LIBRARY.library().ssd_chunk_bwd(
+        x.data_ptr(), log_decay.data_ptr(), dt.data_ptr(), b_mat.data_ptr(),
+        c_mat.data_ptr(), dy.data_ptr(), dcontrib.data_ptr(),
+        dtotal.data_ptr(), dx.data_ptr(), dld.data_ptr(), ddt.data_ptr(),
+        db.data_ptr(), dc.data_ptr(), *b_mat.stride()[:3],
+        *c_mat.stride()[:3], bsz, l, h, hp, n, chunk, DTYPES[x.dtype],
+        stream(x))
+    LIBRARY.check(rc, "ssd_scan backward")

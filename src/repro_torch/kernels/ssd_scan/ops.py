@@ -9,9 +9,11 @@ outside its Pallas kernel.  A CUDA tensor launches the hand-written
 kernel in the regime that :func:`kernel.plan` chooses (or raises); a CPU
 tensor runs its plain version (:func:`ref.ssd_chunk_ref`).
 ``ssd_scan.launches`` counts the kernel launches, one a call (each launch
-runs K8's two kernels).  K8 has no
-backward: with grad mode on and an input that requires grad, the wrapper
-raises rather than return a result that autograd cannot differentiate.
+runs K8's two kernels).  Under autograd the intra-chunk step is
+:class:`SSDChunk`, whose backward is kernel K8b (``csrc/ssd_bwd.cu``) on
+the card and :func:`ref.ssd_chunk_bwd_ref` on the CPU;
+``ssd_chunk_bwd.launches`` counts K8b's launches.  The recurrence and
+``y_inter`` stay PyTorch ops, which autograd differentiates.
 """
 
 from __future__ import annotations
@@ -29,6 +31,27 @@ def _sms(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+def _check_cuda(x, b_mat, c_mat, what: str) -> None:
+    """What K8 and K8b take on the card: float32 or bf16 x, B and C of one
+    dtype, a head dim up to 128, x packed, B's and C's features packed."""
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    if x.dtype not in kernel.DTYPES:
+        raise TypeError(f"{what} takes float32 or bfloat16, not {x.dtype}")
+    if not (b_mat.dtype == c_mat.dtype == x.dtype):
+        raise TypeError(f"x, b, c differ in dtype: {x.dtype}, "
+                        f"{b_mat.dtype}, {c_mat.dtype}")
+    if x.shape[3] > kernel.MAX_HEAD_DIM:
+        raise ValueError(f"{what} takes head_dim up to "
+                         f"{kernel.MAX_HEAD_DIM}, not {x.shape[3]}")
+    if not x.is_contiguous():
+        raise ValueError("x must be contiguous")
+    for name, t in (("b", b_mat), ("c", c_mat)):
+        if t.stride(3) != 1:
+            raise ValueError(f"{name}: the feature axis must be packed "
+                             f"(strides {t.stride()})")
+
+
 def _intra_chunk(x, log_decay, dt, b_mat, c_mat, chunk: int):
     """K8 on the tensors' device: ``(y_intra, contrib, total)``, float32.
     On CUDA, b and c may be views with any batch, position and head
@@ -37,22 +60,7 @@ def _intra_chunk(x, log_decay, dt, b_mat, c_mat, chunk: int):
     ref._check(x, log_decay, dt, b_mat, c_mat, chunk)
     if x.device.type == "cpu":
         return ref.ssd_chunk_ref(x, log_decay, dt, b_mat, c_mat, chunk)
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
-    if x.dtype not in kernel.DTYPES:
-        raise TypeError(f"K8 takes float32 or bfloat16, not {x.dtype}")
-    if not (b_mat.dtype == c_mat.dtype == x.dtype):
-        raise TypeError(f"x, b, c differ in dtype: {x.dtype}, "
-                        f"{b_mat.dtype}, {c_mat.dtype}")
-    if x.shape[3] > kernel.MAX_HEAD_DIM:
-        raise ValueError(f"K8 takes head_dim up to {kernel.MAX_HEAD_DIM}, "
-                         f"not {x.shape[3]}")
-    if not x.is_contiguous():
-        raise ValueError("x must be contiguous")
-    for name, t in (("b", b_mat), ("c", c_mat)):
-        if t.stride(3) != 1:
-            raise ValueError(f"{name}: the feature axis must be packed "
-                             f"(strides {t.stride()})")
+    _check_cuda(x, b_mat, c_mat, "K8")
     bsz, l, h, p = x.shape
     n, nc = b_mat.shape[-1], l // chunk
     aligned = all(t.data_ptr() % 16 == 0 for t in (x, b_mat, c_mat))
@@ -71,17 +79,60 @@ def _intra_chunk(x, log_decay, dt, b_mat, c_mat, chunk: int):
     return y, contrib, total
 
 
+def ssd_chunk_bwd(x, log_decay, dt, b_mat, c_mat, chunk: int, dy, dcontrib,
+                  dtotal):
+    """K8b on the tensors' device: the gradient of :func:`_intra_chunk`'s
+    outputs, ``(dx, dlog_decay, ddt, db, dc)`` in float32 (db and dc a
+    head each), for the cotangents ``dy`` (B,L,H,P), ``dcontrib``
+    (B,NC,H,P,N) and ``dtotal`` (B,NC,H).  On CUDA it takes the operands
+    that :func:`_intra_chunk` takes."""
+    ref._check(x, log_decay, dt, b_mat, c_mat, chunk)
+    if x.device.type == "cpu":
+        return ref.ssd_chunk_bwd_ref(x, log_decay, dt, b_mat, c_mat, chunk,
+                                     dy, dcontrib, dtotal)
+    _check_cuda(x, b_mat, c_mat, "K8b")
+    bsz, l, h, p = x.shape
+    n = b_mat.shape[-1]
+    kernel.plan_bwd(bsz, l, h, p, n, chunk)     # raises on what K8b refuses
+    f32 = dict(dtype=torch.float32, device=x.device)
+    dx = torch.empty((bsz, l, h, p), **f32)
+    dld = torch.empty((bsz, l, h), **f32)
+    ddt = torch.empty((bsz, l, h), **f32)
+    db = torch.empty((bsz, l, h, n), **f32)
+    dc = torch.empty((bsz, l, h, n), **f32)
+    kernel.ssd_chunk_bwd(
+        x, log_decay.float().contiguous(), dt.float().contiguous(), b_mat,
+        c_mat, dy.float().contiguous(), dcontrib.float().contiguous(),
+        dtotal.float().contiguous(), dx, dld, ddt, db, dc, chunk=chunk)
+    ssd_chunk_bwd.launches += 1
+    return dx, dld, ddt, db, dc
+
+
+class SSDChunk(torch.autograd.Function):
+    """The intra-chunk step under autograd: K8 forward, K8b backward (the
+    plain versions on the CPU).  Saves its inputs; the cotangents of all
+    three outputs go to K8b (zeros where an output is unused)."""
+
+    @staticmethod
+    def forward(ctx, x, log_decay, dt, b_mat, c_mat, chunk: int):
+        ctx.save_for_backward(x, log_decay, dt, b_mat, c_mat)
+        ctx.chunk = chunk
+        return _intra_chunk(x, log_decay, dt, b_mat, c_mat, chunk)
+
+    @staticmethod
+    def backward(ctx, dy, dcontrib, dtotal):
+        x, log_decay, dt, b_mat, c_mat = ctx.saved_tensors
+        dx, dld, ddt, db, dc = ssd_chunk_bwd(
+            x, log_decay, dt, b_mat, c_mat, ctx.chunk, dy, dcontrib, dtotal)
+        return (dx.to(x.dtype), dld.to(log_decay.dtype), ddt.to(dt.dtype),
+                db.to(b_mat.dtype), dc.to(c_mat.dtype), None)
+
+
 def ssd_scan(x, dt, a_log, b_mat, c_mat, *, chunk: int = 256,
              init_state=None):
     """x: (B,L,H,P); dt: (B,L,H) (after softplus); a_log: (H,); b, c:
     (B,L,H,N).  Returns float32 ``(y (B,L,H,P), final state (B,H,P,N))``,
-    the contract of :func:`ref.ssd_ref`."""
-    tensors = (x, dt, a_log, b_mat, c_mat) + (
-        () if init_state is None else (init_state,))
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            "ssd_scan has no backward: SSM and hybrid training comes with "
-            "its autograd Function (ROADMAP queue 1, item 14)")
+    the contract of :func:`ref.ssd_ref`; differentiable in every input."""
     bsz, l, h, p = x.shape
     n = b_mat.shape[-1]
     q = min(chunk, l)
@@ -96,17 +147,22 @@ def ssd_scan(x, dt, a_log, b_mat, c_mat, *, chunk: int = 256,
     dt = dt.float()              # once, for the log decay and for K8
     log_decay = dt * a
 
-    y_intra, contrib, total = _intra_chunk(x, log_decay, dt, b_mat, c_mat, q)
+    operands = (x, log_decay, dt, b_mat, c_mat)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in operands):
+        y_intra, contrib, total = SSDChunk.apply(*operands, q)
+    else:
+        y_intra, contrib, total = _intra_chunk(*operands, q)
 
-    # Inter-chunk recurrence: S_c = exp(total_c) S_{c-1} + contrib_c.
+    # Inter-chunk recurrence: S_c = exp(total_c) S_{c-1} + contrib_c (the
+    # chunks unbound once: their gradient is one stack).
     state = (torch.zeros((bsz, h, p, n), dtype=torch.float32,
                          device=x.device)
              if init_state is None else init_state.float())
-    decay = torch.exp(total)
     prev = []
-    for c in range(nc):
+    for decay_c, contrib_c in zip(torch.exp(total).unbind(1),
+                                  contrib.unbind(1)):
         prev.append(state)
-        state = state * decay[:, c, :, None, None] + contrib[:, c]
+        state = state * decay_c[:, :, None, None] + contrib_c
     prev_states = torch.stack(prev, dim=1)                   # (B,NC,H,P,N)
 
     # y_inter[t] = C_t . (exp(cum_t) S_prev-of-chunk)
@@ -119,3 +175,4 @@ def ssd_scan(x, dt, a_log, b_mat, c_mat, *, chunk: int = 256,
 
 
 ssd_scan.launches = 0
+ssd_chunk_bwd.launches = 0

@@ -19,8 +19,11 @@ reference's sequential oracle (``repro/kernels/ssd_scan/ref.py``): the
 O(L) state recurrence, independent of the chunked algorithm.
 :func:`ssd_chunk_tc_ref` repeats the arithmetic of K8's tensor-core regime
 (its state product's scaled inputs split into bf16 parts), so the split's
-error can be held against the tolerance.  All three run on any device;
-the wrapper takes :func:`ssd_chunk_ref` for CPU tensors only.
+error can be held against the tolerance.  :func:`ssd_chunk_bwd_ref` is
+the gradient of :func:`ssd_chunk_ref`, written out as the einsums that
+kernel K8b sums (``csrc/ssd_bwd.cu``).  All four run on any device; the
+wrappers take :func:`ssd_chunk_ref` and :func:`ssd_chunk_bwd_ref` for CPU
+tensors only.
 """
 
 from __future__ import annotations
@@ -100,6 +103,63 @@ def ssd_chunk_ref(x, log_decay, dt, b_mat, c_mat, chunk: int):
     bw = bc * (rem * dtc)[..., None]
     contrib = torch.einsum("bcshn,bcshp->bchpn", bw, xc)
     return y.reshape(bsz, l, h, p), contrib, total
+
+
+def ssd_chunk_bwd_ref(x, log_decay, dt, b_mat, c_mat, chunk: int, dy,
+                      dcontrib, dtotal):
+    """The gradient of :func:`ssd_chunk_ref` for the cotangents ``dy``
+    (B,L,H,P) of y_intra, ``dcontrib`` (B,NC,H,P,N) and ``dtotal``
+    (B,NC,H).  Returns float32 ``(dx (B,L,H,P), dlog_decay (B,L,H), ddt
+    (B,L,H), db (B,L,H,N), dc (B,L,H,N))``, db and dc a head each (their
+    sum over heads that share one row is the shared row's gradient).
+
+    With ``L_ts = exp(cum_t - cum_s)`` (s <= t), ``S_ts = C_t.B_s``,
+    ``G_ts = dy_t.x_s``, ``A_ts = G_ts S_ts L_ts`` and ``r_s = exp(cum_Q -
+    cum_s) dt_s``: ``dx_s = sum_t S_ts L_ts dt_s dy_t + r_s dcontrib
+    B_s``, ``dC_t = sum_s G_ts L_ts dt_s B_s``, ``dB_s = sum_t G_ts L_ts
+    dt_s C_t + r_s dcontrib^T x_s``, ``ddt_s = sum_t A_ts + exp(cum_Q -
+    cum_s) u_s`` with ``u_s = x_s^T dcontrib B_s``; ``dcum_t = sum_s
+    A_ts dt_s - dt_t sum_t' A_t't - r_t u_t``, plus ``sum_s r_s u_s`` and
+    ``dtotal`` at the chunk's last position; ``dlog_decay`` is the suffix
+    sum of ``dcum`` within the chunk (``cum`` is its prefix sum)."""
+    _check(x, log_decay, dt, b_mat, c_mat, chunk)
+    bsz, l, h, p = x.shape
+    n = b_mat.shape[-1]
+    nc, q = l // chunk, chunk
+    xc = x.float().reshape(bsz, nc, q, h, p)
+    dtc = dt.float().reshape(bsz, nc, q, h)
+    bc = b_mat.float().reshape(bsz, nc, q, h, n)
+    cc = c_mat.float().reshape(bsz, nc, q, h, n)
+    dyc = dy.float().reshape(bsz, nc, q, h, p)
+    dcon = dcontrib.float()
+    cum = chunk_cumsum(log_decay.float().reshape(bsz, nc, q, h))
+    tri = torch.tril(torch.ones((q, q), dtype=torch.bool, device=x.device))
+    dec = cum[:, :, :, None, :] - cum[:, :, None, :, :]       # (B,NC,t,s,H)
+    lmat = torch.exp(torch.where(tri[None, None, :, :, None], dec,
+                                 float("-inf")))
+    scores = torch.einsum("bcthn,bcshn->bctsh", cc, bc)
+    g = torch.einsum("bcthp,bcshp->bctsh", dyc, xc)
+    ldt = lmat * dtc[:, :, None, :, :]
+    ds = g * ldt
+    a = g * scores * lmat
+    dx = torch.einsum("bctsh,bcthp->bcshp", scores * ldt, dyc)
+    dc = torch.einsum("bctsh,bcshn->bcthn", ds, bc)
+    db = torch.einsum("bctsh,bcthn->bcshn", ds, cc)
+    cola = a.sum(2)                                           # (B,NC,s,H)
+    dcum = (a * dtc[:, :, None, :, :]).sum(3) - dtc * cola
+    rem = torch.exp(cum[:, :, -1:, :] - cum)                  # (B,NC,Q,H)
+    r = rem * dtc
+    v = torch.einsum("bchpn,bcshn->bcshp", dcon, bc)
+    dx = dx + r[..., None] * v
+    db = db + r[..., None] * torch.einsum("bchpn,bcshp->bcshn", dcon, xc)
+    u = (xc * v).sum(-1)
+    ddt = cola + rem * u
+    dcum = dcum - r * u
+    dcum[:, :, -1] += (r * u).sum(2) + dtotal.float()
+    dld = dcum.flip(2).cumsum(2).flip(2)
+    return (dx.reshape(bsz, l, h, p), dld.reshape(bsz, l, h),
+            ddt.reshape(bsz, l, h), db.reshape(bsz, l, h, n),
+            dc.reshape(bsz, l, h, n))
 
 
 def bf16_parts(w: torch.Tensor, parts: int) -> list[torch.Tensor]:

@@ -13,7 +13,14 @@ The port has no mesh yet, so the reference's expert-parallel
 1, item 9).  The three expert products are K7
 (:func:`repro_torch.kernels.moe_gmm.grouped_matmul`), where the reference
 writes ``jnp.einsum("ecd,edf->ecf", ...)`` (``models/moe.py:226-230``):
-the same function, float32 sums cast to the input type.
+the same function, float32 sums cast to the input type.  Under
+autograd K7 differentiates through its own Function (two more K7 launches
+a product), and the gradient reaches the gates and the aux loss's
+router probabilities as the reference's ``_moe_ffn_dense`` does.  The
+dispatch's gather of each token k times is :class:`_TokenGather`, whose
+backward sums a token's k rows in a fixed order (autograd's own index
+backward adds them with float atomics on CUDA, in another order each
+run).
 """
 
 from __future__ import annotations
@@ -80,6 +87,26 @@ def _route(params: dict, xt: torch.Tensor, cfg):
     return gate_vals, expert_idx, aux
 
 
+class _TokenGather(torch.autograd.Function):
+    """``xt[token_of]`` for the (token, k) pairs in expert order, each
+    token k times; the gradient of token t is the sum of its k pairs' rows
+    in pair order (``g[inv]`` is pair order, ``inv`` the inverse of the
+    sort), a dense ``(T, k, D)`` sum over k: the same bits every run."""
+
+    @staticmethod
+    def forward(ctx, xt, token_of, inv, k: int):
+        ctx.save_for_backward(inv)
+        ctx.k = k
+        return xt[token_of]
+
+    @staticmethod
+    def backward(ctx, g):
+        inv, = ctx.saved_tensors
+        k = ctx.k
+        return (g[inv].reshape(inv.shape[0] // k, k, g.shape[1]).sum(1),
+                None, None, None)
+
+
 def _shared_experts(params: dict, xt: torch.Tensor) -> torch.Tensor:
     sh = F.silu(xt @ params["shared_w_gate"]) * (xt @ params["shared_w_up"])
     return sh @ params["shared_w_down"]
@@ -111,9 +138,11 @@ def moe_ffn(params: dict, x: torch.Tensor, cfg
     keep = rank < cap
     slot = sorted_expert * cap + torch.clamp_max(rank, cap - 1)  # (T*k,)
     token_of = order // k                                        # source token
+    inv = torch.argsort(order, stable=True)                      # undo sort
 
     buckets = torch.zeros((e * cap, d), dtype=xt.dtype, device=x.device)
-    buckets.index_add_(0, slot, torch.where(keep[:, None], xt[token_of], 0.0))
+    buckets.index_add_(0, slot, torch.where(
+        keep[:, None], _TokenGather.apply(xt, token_of, inv, k), 0.0))
     buckets = buckets.reshape(e, cap, d)
 
     # ---- expert FFN: kernel K7 three times ------------------------------
@@ -123,7 +152,6 @@ def moe_ffn(params: dict, x: torch.Tensor, cfg
 
     # ---- combine: gather, undo the sort, gate-weighted sum over k -------
     gathered = y_flat[slot] * keep[:, None]                      # (T*k, D)
-    inv = torch.argsort(order, stable=True)
     per_pair = gathered[inv].reshape(t, k, d)
     # The reference's einsum("tkd,tk->td") in x.dtype: float32 products
     # and sums, rounded once.

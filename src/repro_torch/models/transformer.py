@@ -11,9 +11,11 @@ autograd each decoder layer body is checkpointed as ``cfg.remat`` says
 (the reference's ``jax.checkpoint``), so the backward recomputes it.  An
 MoE block's FFN is :func:`repro_torch.models.moe.moe_ffn` (kernel K7), and
 the forward sums its aux loss over the layers.  An SSM layer is
-:func:`repro_torch.models.ssd.ssd_block` (kernel K8 at prefill); the SSM
-and hybrid families serve but do not train yet (ROADMAP queue 1, item 14).
-The other families (``vlm``, ``encdec``) are later slices and raise.
+:func:`repro_torch.models.ssd.ssd_block` (kernel K8 at prefill, K8b in
+its backward); under autograd each Mamba layer is checkpointed as the
+reference's ``ssm_forward`` and ``hybrid_forward`` checkpoint their scan
+bodies, and the hybrid's shared attention block is not, as there.  The
+other families (``vlm``, ``encdec``) are later slices and raise.
 """
 
 from __future__ import annotations
@@ -168,6 +170,12 @@ def _remat(fn, cfg: ModelConfig):
     return functools.partial(checkpoint.checkpoint, fn, use_reentrant=False)
 
 
+def _training(params: dict) -> bool:
+    """Whether this forward records a graph for a backward."""
+    return torch.is_grad_enabled() and any(
+        t.requires_grad for grp in params.values() for t in grp.values())
+
+
 def _attn_block(blk, h, cfg, positions, cache, kv_len=None):
     """One block: ``(h, cache, aux)``, aux the MoE layer's loss (``None``
     when dense)."""
@@ -218,9 +226,7 @@ def decoder_forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
     # layer would add a zero-filled (n_layers, ...) gradient a layer.
     layer_weights = {name: w.unbind(0)
                      for name, w in params["blocks"].items()}
-    training = torch.is_grad_enabled() and any(
-        t.requires_grad for grp in params.values() for t in grp.values())
-    body = _remat(_attn_block, cfg) if training else _attn_block
+    body = _remat(_attn_block, cfg) if _training(params) else _attn_block
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for i in range(cfg.n_layers):
         blk = {name: ws[i] for name, ws in layer_weights.items()}
@@ -272,9 +278,10 @@ def ssm_forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
     h = params["embed"]["table"][tokens].to(getattr(torch, cfg.param_dtype))
     layer_weights = {name: w.unbind(0)
                      for name, w in params["blocks"].items()}
+    body = _remat(_mamba_layer, cfg) if _training(params) else _mamba_layer
     for i in range(cfg.n_layers):
         blk = {name: ws[i] for name, ws in layer_weights.items()}
-        h, new_state = _mamba_layer(blk, h, cfg, _layer_state(cache, i))
+        h, new_state = body(blk, h, cfg, _layer_state(cache, i))
         _store_state(cache, i, new_state)
     h = layers.rms_norm(h, params["final_norm"]["scale"], cfg.norm_eps)
     return ForwardResult(hidden=h, aux_loss=torch.zeros(
@@ -306,9 +313,10 @@ def hybrid_forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
     ssm_cache = None if cache is None else cache["ssm"]
     layer_weights = {name: w.unbind(0)
                      for name, w in params["blocks"].items()}
+    body = _remat(_mamba_layer, cfg) if _training(params) else _mamba_layer
     for i in range(cfg.n_layers):
         blk = {name: ws[i] for name, ws in layer_weights.items()}
-        h, new_state = _mamba_layer(blk, h, cfg, _layer_state(ssm_cache, i))
+        h, new_state = body(blk, h, cfg, _layer_state(ssm_cache, i))
         _store_state(ssm_cache, i, new_state)
         if (i + 1) % every == 0:
             g = (i + 1) // every - 1

@@ -48,22 +48,18 @@ def init_train_state(cfg: ModelConfig, opt: AdamW,
     return state
 
 
+#: The families the port trains: the MoE layer's experts on K7 (its
+#: backward two more K7 launches), the SSM and hybrid layers' scan on K8
+#: and K8b; the reference's ``vlm`` and ``encdec`` come with item 9.
+TRAINED = ("dense", "moe", "ssm", "hybrid")
+
+
 def make_loss_fn(cfg: ModelConfig, aux_weight: float = 0.01):
     def loss_fn(params, batch):
-        if cfg.family == "moe":
-            raise NotImplementedError(
-                "training the moe family: K7's backward (two K7 calls on "
-                "transposed operands under an autograd Function) comes with "
-                "MoE training (ROADMAP queue 1, item 13)")
-        if cfg.family in ("ssm", "hybrid"):
-            raise NotImplementedError(
-                f"training the {cfg.family} family: K8's backward (an "
-                f"autograd Function over the SSD scan) comes with SSM and "
-                f"hybrid training (ROADMAP queue 1, item 14)")
-        if cfg.family != "dense":
+        if cfg.family not in TRAINED:
             raise NotImplementedError(
                 f"training the {cfg.family} family: it comes with that "
-                f"family's forward (ROADMAP queue 1)")
+                f"family's forward (ROADMAP queue 1, item 9)")
         res = tfm.forward(params, cfg, tokens=batch["tokens"])
         w_out = tfm.unembed_weight(params, cfg)
         loss_sum, w_sum = streamed_xent(res.hidden, w_out, batch["labels"],
@@ -110,7 +106,9 @@ def make_grads_fn(cfg: ModelConfig, aux_weight: float = 0.01):
             tok_sum = tok_sum + tokens
             aux_sum = aux_sum + metrics["aux_loss"]
         tok = torch.clamp_min(tok_sum, 1.0)
-        grads = map_tree(lambda g: g / tok, gsum)
+        # In place: a second float32 tree beside the sums would double the
+        # gradients' peak.
+        grads = map_tree(lambda g: g.div_(tok), gsum)
         return grads, {"loss": loss_sum / tok, "aux_loss": aux_sum / k,
                        "tokens": tok_sum}
 

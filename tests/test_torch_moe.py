@@ -38,9 +38,7 @@ from repro_torch.kernels.moe_gmm import ops as gmm_ops
 from repro_torch.kernels.moe_gmm import ref as gmm_ref
 from repro_torch.models import moe
 from repro_torch.models import transformer as tfm
-from repro_torch.optim.adamw import AdamW
 from repro_torch.runtime import serve_loop
-from repro_torch.runtime.train_loop import init_train_state, make_train_step
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
@@ -116,17 +114,6 @@ def test_k7_wrapper_checks_and_dispatch():
     # D = 0: zeros, as the empty sum is.
     empty = gmm_ops.grouped_matmul(x[:, :, :0], w[:, :0])
     assert torch.equal(empty, torch.zeros(3, 5, 4))
-
-
-def test_k7_raises_under_autograd():
-    x = torch.ones(2, 3, 4, requires_grad=True)
-    w = torch.ones(2, 4, 5)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        gmm_ops.grouped_matmul(x, w)
-    with pytest.raises(NotImplementedError, match="no backward"):
-        gmm_ops.grouped_matmul(x.detach(), w.requires_grad_(True))
-    with torch.no_grad():
-        assert gmm_ops.grouped_matmul(x, w).shape == (2, 3, 5)
 
 
 # ------------------------------------------------------------- K7's plan
@@ -408,21 +395,3 @@ def test_greedy_generate_matches_reference(smoke, prompt_len):
     tokens = serve_loop.greedy_generate(cfg, params, prompt, 6, 48,
                                         device="cpu")
     assert np.array_equal(tokens.numpy(), ref_tokens)
-
-
-# ------------------------------------------------------- not ported yet
-def test_train_loop_raises_for_moe():
-    cfg = configs.get_smoke("olmoe_1b_7b")
-    opt = AdamW(learning_rate=1e-3)
-    state = init_train_state(cfg, opt, torch.Generator().manual_seed(0),
-                             "cpu")
-    batch = {"tokens": torch.zeros(2, 8, dtype=torch.long),
-             "labels": torch.zeros(2, 8, dtype=torch.long),
-             "weights": torch.ones(2, 8)}
-    with pytest.raises(NotImplementedError, match="item 13"):
-        make_train_step(cfg, opt)(state, batch)
-    # The layer itself refuses to run without expert gradients.
-    x = torch.zeros(1, 4, cfg.d_model)
-    with pytest.raises(NotImplementedError, match="no backward"):
-        moe.moe_ffn({k: state.params["blocks"][k][0]
-                     for k in moe.moe_param_specs(cfg)}, x, cfg)
