@@ -221,22 +221,33 @@ Phases, each of which raises (and so exits non-zero) when it fails:
     greedy tokens through the kernels and through the plain versions,
     logits within 1e-4 relative L2;
 21. K7's backward (two K7 launches through its autograd Function: dX as
-    ``(E, C, F) @ (E, F, D)``, dW as ``(E, D, C) @ (E, C, F)`` on copies of
-    the transposed operands) at path TM's three products (OLMoE's gate,
-    up and down at C = 1280) in bf16 and float32 against its plain version
-    (tolerances as in 7 for bf16, 1e-5 in float32), two passes bitwise
-    equal, timed beside ``torch.bmm``; K4 and K5 at TM's layer (2 x 4096,
-    16 heads of 128, bf16) as in 10;
-22. K8b (the SSD backward, ``ssd_bwd.cu``) against ``ssd_chunk_bwd_ref``
-    at paths TP's and TH's calls (1 x 4096, chunk 256; 80 heads of 64 with
-    N 128, 112 heads of 64 with N 64) in float32 (1e-5 relative L2) and
-    with bf16 inputs (2e-2 as in 7), B and C one row shared by the heads
-    read from NaN-filled allocations, its plan's shared memory the
-    library's own count, two launches bitwise equal, timed with its bound;
-    K8 at the same calls; the scan's float32 gradient on a ragged tail (L
-    40, chunk 16, an initial state) through K8 and K8b against the plain
-    versions (1e-5 relative L2); K4 and K5 at TH's layer (1 x 4096, 32
-    heads of 112);
+    ``(E, C, F) @ (E, F, D)``, dW as ``(E, D, C) @ (E, C, F)``, reading
+    ``W^T`` K-major and ``X^T`` MN-major in place) at path TM's three
+    products (OLMoE's gate, up and down at C = 1280) in bf16 (the wide
+    regime) and float32 (the CUDA-core kernel), and on views into
+    NaN-filled allocations at pitches TMA reads and at pitches it cannot,
+    against its plain version (tolerances as in 7 for bf16, 1e-5 in
+    float32), each product in the regime and layout its plan must choose,
+    three launches a forward and backward, two passes bitwise equal (one
+    on a fresh host thread); timed beside ``torch.bmm``, the parent design (two launches on contiguous
+    copies of the transposed operands) and those copies alone; K4 and K5
+    at TM's layer (2 x 4096, 16 heads of 128, bf16) as in 10;
+22. K8b (the SSD backward) against ``ssd_chunk_bwd_ref`` at paths TP's
+    and TH's calls (1 x 4096, chunk 256; 80 heads of 64 with N 128, 112
+    heads of 64 with N 64) in float32 (the CUDA-core kernel ``ssd_bwd.cu``,
+    1e-5 relative L2) and with bf16 inputs (the tensor-core regime
+    ``ssd_bwd_tc.cu``, 2e-2 as in 7, each of the five outputs' error
+    printed), B and C one row shared by the heads read from NaN-filled
+    allocations, each in the regime its plan must choose with the plan's
+    shared memory the library's own count, two launches bitwise equal,
+    packed B and C bitwise equal to shared ones in bf16, timed with its
+    bound (bytes, or operations over the bf16 tensor-core peak) beside the
+    CUDA-core kernel on the same bf16 inputs; a bf16 call the tensor-core
+    regime refuses (P 32) on the CUDA-core kernel, and the tensor-core
+    regime at two sequences with chunks of 128 and 64; K8 at the same calls;
+    the scan's float32 gradient on a ragged tail (L 40, chunk 16, an
+    initial state) through K8 and K8b against the plain versions (1e-5
+    relative L2); K4 and K5 at TH's layer (1 x 4096, 32 heads of 112);
 23. main paths TM, TP and TH, ``launch.train``'s driver at OLMoE-1B-7B's
     (8 of 16 layers), Mamba2-2.7B's (all 64) and Zamba2-7B's (36 of 81, 6
     shared-attention sites) full width in bf16, 4 steps of 4 x 4096
@@ -271,6 +282,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -1698,9 +1710,7 @@ def check_k7(dev) -> dict:
     cases = {}
     for i, (case, (e, c, d, f, dtype)) in enumerate(K7_CASES.items()):
         x, w = k7_operands(case, i, dev)
-        p = kernel.plan(e, c, d, f, dtype,
-                        ((x.stride(0), x.stride(1)),
-                         (w.stride(0), w.stride(1))))
+        p = kernel.plan(e, c, d, f, dtype, (x.stride(), w.stride()))
         if p.regime != K7_REGIMES[case] or (
                 p.regime != "cuda_core"
                 and kernel.smem_bytes(p.regime, c) != p.smem_bytes):
@@ -2331,24 +2341,96 @@ K7_BWD_CASES = {"gate": (64, 1280, 2048, 1024), "up": (64, 1280, 2048, 1024),
                 "down": (64, 1280, 1024, 2048)}
 
 
+#: K7's backward on views (``(E, C, D, F)``, bf16 and float32): x and w
+#: are views into allocations whose rows past C or D and columns past D or
+#: F hold NaN, so the backward reads ``X^T`` and ``W^T`` through pitches of
+#: the larger allocation; "view_nan" at pitches TMA reads (the wide
+#: regime in bf16), "bad_pitch" at pitches it cannot (the CUDA-core kernel
+#: in both dtypes), each ragged against the kernels' tiles.
+K7_BWD_VIEWS = {"view_nan": ((4, 300, 200, 136), 16),
+                "bad_pitch": ((4, 300, 200, 136), 3)}
+
+
+def k7_bwd_view(e, c, d, f, pad, dtype, dev, seed: int):
+    """x (E, C, D) and w (E, D, F) as views into NaN-filled allocations
+    with ``pad`` extra rows and columns, filled from ``seed``."""
+    xb = torch.full((e, c + pad, d + pad), float("nan"), dtype=dtype,
+                    device=dev)
+    wb = torch.full((e, d + pad, f + pad), float("nan"), dtype=dtype,
+                    device=dev)
+    xb[:, :c, :d] = randn((e, c, d), dtype, dev, seed)
+    wb[:, :d, :f] = (randn((e, d, f), torch.float32, dev, seed + 1)
+                     * d ** -0.5).to(dtype)
+    return xb[:, :c, :d], wb[:, :d, :f]
+
+
+def on_fresh_thread(fn):
+    """``fn()`` on a new host thread whose first CUDA work it is, as the
+    first launch on autograd's worker thread can be; its result, or its
+    exception raised here."""
+    out = {}
+
+    def run():
+        try:
+            out["value"] = fn()
+            torch.cuda.synchronize()
+        except BaseException as exc:     # handed to the caller
+            out["error"] = exc
+    worker = threading.Thread(target=run)
+    worker.start()
+    worker.join()
+    if "error" in out:
+        raise out["error"]
+    return out["value"]
+
+
 def check_k7_bwd(dev) -> dict:
-    """K7's backward (two K7 launches through ``GroupedMatmul``) against
-    its plain version ``grouped_matmul_bwd_ref`` on the card, at path TM's
-    three products in bf16 (the attention kernels' tolerance) and float32
-    (1e-5, both relative to the values' scale), two backward passes
-    bitwise equal; the bf16 backward timed beside its plain version and
-    ``torch.bmm`` on the same operands (dX and dW).  Returns K7's record at
-    TM's gate product's backward."""
-    from repro_torch.kernels.moe_gmm import ops, ref
+    """K7's backward (two K7 launches through ``GroupedMatmul``, reading
+    ``W^T`` and ``X^T`` in place) against its plain version
+    ``grouped_matmul_bwd_ref`` on the card, at path TM's three products in
+    bf16 (the wide regime, the attention kernels' tolerance) and float32
+    (the CUDA-core kernel, 1e-5, both relative to the values' scale), and
+    on views into NaN-filled allocations (:data:`K7_BWD_VIEWS`), each
+    product in the regime and layout its plan must choose, three launches
+    a forward and backward, two backward passes bitwise equal (a view
+    case's also from a fresh host thread, whose first CUDA work it is:
+    autograd's worker thread can start so); the bf16 backward at TM's
+    products timed beside its plain version,
+    ``torch.bmm`` on the same operands (dX and dW), the parent design on
+    the same card (the two launches on contiguous copies of the transposed
+    operands) and those copies alone, the cost the redesign removed.
+    Returns K7's record at TM's gate product's backward."""
+    from repro_torch.kernels.moe_gmm import kernel, ops, ref
 
     cases = {}
-    for i, (case, (e, c, d, f)) in enumerate(K7_BWD_CASES.items()):
+    shapes = [(case, shape, None) for case, shape in K7_BWD_CASES.items()]
+    shapes += [(case, shape, pad)
+               for case, (shape, pad) in K7_BWD_VIEWS.items()]
+    for i, (case, (e, c, d, f), pad) in enumerate(shapes):
         for dtype in (torch.bfloat16, torch.float32):
             name = f"{case}_{str(dtype)[6:]}"
-            x = randn((e, c, d), dtype, dev, 90 + i).requires_grad_()
-            w = (randn((e, d, f), torch.float32, dev, 93 + i) * d ** -0.5
-                 ).to(dtype).requires_grad_()
+            if pad is None:
+                x = randn((e, c, d), dtype, dev, 90 + i)
+                w = (randn((e, d, f), torch.float32, dev, 93 + i)
+                     * d ** -0.5).to(dtype)
+            else:
+                x, w = k7_bwd_view(e, c, d, f, pad, dtype, dev, 90 + i)
+            x.requires_grad_()
+            w.requires_grad_()
             dy = randn((e, c, f), dtype, dev, 96 + i)
+            wt, xt = ops.transposed_operands(x.detach(), w.detach())
+            plans = (kernel.plan(e, c, f, d, dtype, (dy.stride(),
+                                                     wt.stride())),
+                     kernel.plan(e, d, c, f, dtype, (xt.stride(),
+                                                     dy.stride())))
+            regime = ("wide" if dtype == torch.bfloat16 and pad != 3
+                      else "cuda_core")
+            if not (all(pl.regime == regime for pl in plans)
+                    and (plans[0].x_t, plans[0].w_t) == (False, True)
+                    and (plans[1].x_t, plans[1].w_t) == (True, False)):
+                raise AssertionError(f"K7 backward {name}: plans {plans}, "
+                                     f"expected {regime} reading W^T and "
+                                     f"X^T in place")
 
             def backward():
                 return torch.autograd.grad(ops.grouped_matmul(x, w), (x, w),
@@ -2361,13 +2443,14 @@ def check_k7_bwd(dev) -> dict:
                                      f" launches for a forward and backward")
             want = ref.grouped_matmul_bwd_ref(x.detach(), w.detach(), dy)
             tol = K7_BWD_TOL[dtype]
-            err = max(attn_close(g, wt, tol, f"K7 backward {name} {gn}")
-                      for gn, g, wt in zip(("dx", "dw"), got, want))
+            err = max(attn_close(g, wt_, tol, f"K7 backward {name} {gn}")
+                      for gn, g, wt_ in zip(("dx", "dw"), got, want))
             if not all(torch.equal(a, b) for a, b in zip(got, backward())):
                 raise AssertionError(f"K7 backward {name}: two passes differ")
             rec = dict(shape=[e, c, d, f], dtype=str(dtype)[6:],
-                       max_abs_err=err, rtol=tol, atol_per_rms=tol)
-            if dtype == torch.bfloat16:
+                       regime=regime, max_abs_err=err, rtol=tol,
+                       atol_per_rms=tol)
+            if dtype == torch.bfloat16 and pad is None:
                 out = ops.grouped_matmul(x, w)
                 xd, wd = x.detach(), w.detach()
                 rec["ms"] = time_ms(lambda: torch.autograd.grad(
@@ -2377,6 +2460,9 @@ def check_k7_bwd(dev) -> dict:
                 rec["library_ms"] = time_ms(
                     lambda: (torch.bmm(dy, wd.transpose(1, 2)),
                              torch.bmm(xd.transpose(1, 2), dy)))
+                rec["copied_operands_ms"] = time_ms(
+                    lambda: (ops._gmm(dy, wd.transpose(1, 2).contiguous()),
+                             ops._gmm(xd.transpose(1, 2).contiguous(), dy)))
                 rec["transpose_copies_ms"] = time_ms(
                     lambda: (wd.transpose(1, 2).contiguous(),
                              xd.transpose(1, 2).contiguous()))
@@ -2385,26 +2471,39 @@ def check_k7_bwd(dev) -> dict:
                     2 * 2.0 * e * c * d * f, PEAK_BF16_FLOPS)
                 del out
             cases[name] = rec
-            log(f"TM: K7 backward {name} {e}x{c}x{d}x{f} err {err:.3e}"
+            log(f"TM: K7 backward {name} {e}x{c}x{d}x{f} ({regime}) err "
+                f"{err:.3e}"
                 + (f" {rec['ms']:.4f} ms (plain {rec['plain_ms']:.3f} ms, "
-                   f"bmm {rec['library_ms']:.4f} ms; the transposed copies"
-                   f" alone {rec['transpose_copies_ms']:.4f} ms; bound "
-                   f"{rec['bound_ms']:.4f} ms by {rec['bound_by']})"
+                   f"bmm {rec['library_ms']:.4f} ms; the parent's copied "
+                   f"operands {rec['copied_operands_ms']:.4f} ms, the "
+                   f"copies alone {rec['transpose_copies_ms']:.4f} ms; "
+                   f"bound {rec['bound_ms']:.4f} ms by {rec['bound_by']})"
                    if "ms" in rec else "") + "; rerun bitwise equal")
-            del x, w, dy, got, want
+            if case == "view_nan" and dtype == torch.bfloat16:
+                # The backward's first launches on a thread that has not
+                # used the card: bitwise what the main thread gives.
+                if not all(torch.equal(a, b) for a, b in zip(
+                        got, on_fresh_thread(backward))):
+                    raise AssertionError(f"K7 backward {name}: a fresh "
+                                         f"thread's pass differs")
+                rec["fresh_thread_bitwise"] = True
+            del x, w, dy, got, want, wt, xt
     main = cases["gate_bfloat16"]
     return dict(name="grouped_matmul backward 64x1280x2048x1024",
                 route="cuda",
                 source="src/repro_torch/kernels/moe_gmm/csrc/gmm_tc.cu",
                 replaces="src/repro/kernels/moe_gmm/kernel.py:46",
-                max_abs_err=max(cases[f"{k}_bfloat16"]["max_abs_err"]
-                                for k in K7_BWD_CASES),
-                float32_max_abs_err=max(cases[f"{k}_float32"]["max_abs_err"]
-                                        for k in K7_BWD_CASES),
+                max_abs_err=max(r["max_abs_err"] for r in cases.values()
+                                if r["dtype"] == "bfloat16"),
+                float32_max_abs_err=max(r["max_abs_err"]
+                                        for r in cases.values()
+                                        if r["dtype"] == "float32"),
                 rtol=K7_BWD_TOL[torch.bfloat16],
                 atol_per_rms=K7_BWD_TOL[torch.bfloat16], ms=main["ms"],
                 plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
                 bound_by=main["bound_by"], library_ms=main["library_ms"],
+                transpose_copies_ms=main["transpose_copies_ms"],
+                copied_operands_ms=main["copied_operands_ms"],
                 cases=cases)
 
 
@@ -2422,58 +2521,100 @@ K8B_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 
 
 def k8b_bound(b, l, h, p, n, q, el) -> tuple[float, str]:
-    """K8b's least time: x (``el`` bytes), B and C (one row shared by the
-    heads), the log decay, dt, dy, dcontrib and dtotal read once and its
-    five float32 outputs written once (db and dc a head each); the causal
-    pairs' five products (S, G, dx, dB, dC) and the contrib terms' two,
-    over the float32 peak (the kernel runs on the CUDA cores)."""
+    """K8b's least time, whatever runs it: x (``el`` bytes), B and C (one
+    row shared by the heads), the log decay, dt, dy, dcontrib and dtotal
+    read once and its five float32 outputs written once (db and dc a head
+    each); the causal pairs' five products (S, G, dx, dB, dC) and the
+    contrib terms' two, over the bf16 tensor-core peak for bf16 inputs
+    (the card runs them there) and the float32 peak for float32 ones."""
     nc = l // q
     n_bytes = (el * (b * l * h * p + 2 * b * l * n)
                + 4 * (2 * b * l * h + b * l * h * p + b * nc * h * p * n
                       + b * nc * h)
                + 4 * (b * l * h * p + 2 * b * l * h + 2 * b * l * h * n))
     flops = b * nc * h * (q * (q + 1) * (3 * n + 2 * p) + 4 * q * p * n)
-    return bound_ms(n_bytes, flops, PEAK_FP32_FLOPS)
+    return bound_ms(n_bytes, flops, PEAK_BF16_FLOPS if el == 2
+                    else PEAK_FP32_FLOPS)
+
+
+#: A bf16 call that K8b's tensor-core regime refuses (P 32): the CUDA-core
+#: kernel with bf16 inputs, ``(B, L, H, P, N, Q)``.
+K8B_CUDA_CORE_BF16 = (1, 512, 8, 32, 64, 128)
+#: bf16 calls of the tensor-core regime at the shapes the paths do not
+#: give it: two sequences (the batch's offsets), chunks of 128 and 64,
+#: both widths of N.
+K8B_TC_SHAPES = [(2, 384, 6, 64, 64, 128), (2, 256, 4, 64, 128, 64)]
+
+
+def k8b_operands(b, l, h, p, n, q, dtype, dev, seed: int):
+    """K8b's inputs at one call: x, the log decay, dt, B and C one row
+    shared by the heads and read from views into NaN-filled allocations
+    (T3), and float32 cotangents of y_intra, contrib and total."""
+    x, dt, a_log, bm, cm = ssd_inputs(b, l, h, p, n, dtype, dev, seed)
+    views = []
+    for t in (bm, cm):
+        big = torch.full((b, l, 2, n + 8), float("nan"), dtype=dtype,
+                         device=dev)
+        big[:, :, :1, :n] = t[:, :, :1]
+        views.append(big[:, :, :1, :n].expand(b, l, h, n))
+    bm, cm = views
+    dt = dt.float()
+    ld = dt * -torch.exp(a_log)
+    nc = l // q
+    return (x, ld, dt, bm, cm, q,
+            randn((b, l, h, p), torch.float32, dev, seed + 5),
+            randn((b, nc, h, p, n), torch.float32, dev, seed + 6),
+            randn((b, nc, h), torch.float32, dev, seed + 7))
+
+
+def k8b_plan(args):
+    from repro_torch.kernels.ssd_scan import kernel
+
+    x, _, _, bm, cm, q = args[:6]
+    b, l, h, p = x.shape
+    return kernel.plan_bwd(b, l, h, p, bm.shape[-1], q, x.dtype,
+                           (bm.stride()[:3], cm.stride()[:3]), True)
 
 
 def check_k8b(dev) -> dict:
     """K8b against ``ref.ssd_chunk_bwd_ref`` on the card at paths TP's and
-    TH's calls, in float32 (1e-5 relative L2) and with bf16 x, B and C
-    (:func:`attn_close` at 2e-2), B and C one row shared by the heads and
-    read from views into NaN-filled allocations (T3), the plan's shared
-    memory the library's own count, two launches bitwise equal; then K8's
+    TH's calls, in float32 (the CUDA-core kernel, 1e-5 relative L2) and
+    with bf16 x, B and C (the tensor-core regime, :func:`attn_close` at
+    2e-2, each of the five outputs' error printed), B and C one row shared
+    by the heads and read from views into NaN-filled allocations (T3), each
+    in the regime its plan must choose with the plan's shared memory the
+    library's own count, two launches bitwise equal, the bf16 call with B
+    and C packed bitwise equal to the shared one; a bf16 call the
+    tensor-core regime refuses (P 32) on the CUDA-core kernel, and bf16
+    calls of the tensor-core regime at two sequences with chunks of 128
+    and 64 (:data:`K8B_TC_SHAPES`), reruns bitwise equal (one from a fresh
+    host thread); then K8's
     forward at the same shapes against its plain version (K8's tolerance);
-    each timed beside its plain version; then the scan's float32 gradient
-    on a ragged tail through K8 and K8b against the plain versions (1e-5
-    relative L2).  Returns ``{tag: [K8b's record, K8's record]}``."""
+    each timed beside its plain version (K8b in bf16 beside the CUDA-core
+    kernel on the same inputs too, the parent design); then the scan's
+    float32 gradient on a ragged tail through K8 and K8b against the plain
+    versions (1e-5 relative L2).  Returns ``{tag: [K8b's record, K8's
+    record]}``."""
     from repro_torch.kernels.ssd_scan import kernel, ops, ref
 
+    names = ("dx", "dlog_decay", "ddt", "db", "dc")
     out = {}
     for tag, (b, l, h, p, n, q) in K8B_CASES.items():
-        plan = kernel.plan_bwd(b, l, h, p, n, q)
-        if kernel.bwd_smem_bytes(p, n, q) != plan.smem_bytes:
-            raise AssertionError(f"K8b {tag}: plan {plan}, library shared "
-                                 f"memory {kernel.bwd_smem_bytes(p, n, q)}")
         nc = l // q
-        errs, timed = {}, {}
+        errs, timed, plans = {}, {}, {}
         for dtype in (torch.float32, torch.bfloat16):
-            x, dt, a_log, bm, cm = ssd_inputs(b, l, h, p, n, dtype, dev, 80)
-            views = []
-            for t in (bm, cm):
-                big = torch.full((b, l, 2, n + 8), float("nan"), dtype=dtype,
-                                 device=dev)
-                big[:, :, :1, :n] = t[:, :, :1]
-                views.append(big[:, :, :1, :n].expand(b, l, h, n))
-            bm, cm = views
-            dt = dt.float()
-            ld = dt * -torch.exp(a_log)
-            dy = randn((b, l, h, p), torch.float32, dev, 85)
-            dcon = randn((b, nc, h, p, n), torch.float32, dev, 86)
-            dtot = randn((b, nc, h), torch.float32, dev, 87)
-            args = (x, ld, dt, bm, cm, q, dy, dcon, dtot)
+            args = k8b_operands(b, l, h, p, n, q, dtype, dev, 80)
+            plan = plans[str(dtype)[6:]] = k8b_plan(args)
+            regime = ("tensor_core" if dtype == torch.bfloat16
+                      else "cuda_core")
+            if (plan.regime != regime or plan.smem_bytes
+                    != kernel.bwd_smem_bytes(p, n, q, regime)):
+                raise AssertionError(
+                    f"K8b {tag} {dtype}: plan {plan}, expected {regime} "
+                    f"with the library's "
+                    f"{kernel.bwd_smem_bytes(p, n, q, regime)} B")
             got = ops.ssd_chunk_bwd(*args)
             want = ref.ssd_chunk_bwd_ref(*args)
-            names = ("dx", "dlog_decay", "ddt", "db", "dc")
             if dtype == torch.float32:
                 errs["float32"] = {}
                 for name, g, w in zip(names, got, want):
@@ -2488,15 +2629,35 @@ def check_k8b(dev) -> dict:
                     name: attn_close(g, w, K8B_TOL[dtype],
                                      f"K8b {tag} bf16 {name}")
                     for name, g, w in zip(names, got, want)}
+                x, ld, dt, bm, cm = args[:5]
+                packed = (x, ld, dt, bm.contiguous(), cm.contiguous()) \
+                    + args[5:]
+                if k8b_plan(packed).regime != "tensor_core" or not all(
+                        torch.equal(a, c) for a, c in
+                        zip(got, ops.ssd_chunk_bwd(*packed))):
+                    raise AssertionError(f"K8b {tag} bf16: packed B and C "
+                                         f"differ from shared ones")
+                del packed
             if not all(torch.equal(a, c) for a, c in
                        zip(got, ops.ssd_chunk_bwd(*args))):
                 raise AssertionError(f"K8b {tag} {dtype}: two launches "
                                      f"differ")
             del got, want
             if dtype == torch.bfloat16:
+                x, ld, dt, bm, cm = args[:5]
+                core = kernel.BwdPlan((h, b * nc, 1), kernel.BWD_THREADS,
+                                      kernel.bwd_smem(p, n, q))
+                f32 = dict(dtype=torch.float32, device=dev)
+                outs = [torch.empty(sh, **f32) for sh in (
+                    (b, l, h, p), (b, l, h), (b, l, h), (b, l, h, n),
+                    (b, l, h, n))]
                 timed = dict(
                     ms=time_ms(lambda: ops.ssd_chunk_bwd(*args)),
-                    plain_ms=time_ms(lambda: ref.ssd_chunk_bwd_ref(*args)))
+                    plain_ms=time_ms(lambda: ref.ssd_chunk_bwd_ref(*args)),
+                    cuda_core_ms=time_ms(lambda: kernel.ssd_chunk_bwd(
+                        x, ld, dt, bm, cm, *args[6:], *outs, core,
+                        chunk=q)))
+                del outs
                 fwd = ops._intra_chunk(x, ld, dt, bm, cm, q)
                 fwd_err = max(attn_close(g, w, K8_TOL, f"K8 at {tag} {nm}")
                               for nm, g, w in zip(
@@ -2510,31 +2671,73 @@ def check_k8b(dev) -> dict:
             del args
         bound, by = k8b_bound(b, l, h, p, n, q, 2)
         k8_b, k8_by = k8_bound(b, l, h, p, n, q, 2)
-        log(f"{tag}: K8b {b}x{l}x{h}x{p}x{n} chunk {q} (grid {plan.grid}, "
-            f"{plan.smem_bytes} B shared) float32 relative L2 "
-            f"{json.dumps(errs['float32'])}, bf16 max abs "
-            f"{json.dumps(errs['bfloat16'])}; {timed['ms']:.4f} ms (plain "
-            f"{timed['plain_ms']:.3f} ms, bound {bound:.4f} ms by {by}); K8 "
-            f"at the same call err {fwd_err:.3e} {k8_ms:.4f} ms (plain "
+        log(f"{tag}: K8b {b}x{l}x{h}x{p}x{n} chunk {q} (bf16 "
+            f"{plans['bfloat16']}; float32 {plans['float32']}) float32 "
+            f"relative L2 {json.dumps(errs['float32'])}, bf16 max abs "
+            f"{json.dumps(errs['bfloat16'])}; {timed['ms']:.4f} ms (the "
+            f"CUDA-core kernel on the same bf16 inputs "
+            f"{timed['cuda_core_ms']:.4f} ms, plain "
+            f"{timed['plain_ms']:.3f} ms, bound {bound:.4f} ms by {by}); "
+            f"K8 at the same call err {fwd_err:.3e} {k8_ms:.4f} ms (plain "
             f"{k8_pms:.3f} ms, bound {k8_b:.4f} ms by {k8_by}); reruns "
-            f"bitwise equal")
+            f"and packed B and C bitwise equal")
         out[tag] = [
             dict(name=f"ssd_scan_bwd {b}x{l}x{h}x{p}x{n}", route="cuda",
-                 source="src/repro_torch/kernels/ssd_scan/csrc/ssd_bwd.cu",
+                 source="src/repro_torch/kernels/ssd_scan/csrc/"
+                        "ssd_bwd_tc.cu",
+                 cuda_core_source="src/repro_torch/kernels/ssd_scan/csrc/"
+                                  "ssd_bwd.cu",
                  replaces="src/repro/kernels/ssd_scan/kernel.py:71 (its "
                           "backward: the reference differentiates "
                           "src/repro/models/ssd.py:ssd_chunked)",
                  max_abs_err=max(errs["bfloat16"].values()),
+                 bf16_max_abs_err=errs["bfloat16"],
                  float32_rel_l2=errs["float32"], rtol=K8B_TOL[torch.bfloat16],
                  atol_per_rms=K8B_TOL[torch.bfloat16], ms=timed["ms"],
-                 plain_ms=timed["plain_ms"], bound_ms=bound, bound_by=by,
-                 library_ms=None, smem_bytes=plan.smem_bytes),
+                 plain_ms=timed["plain_ms"],
+                 cuda_core_ms=timed["cuda_core_ms"], bound_ms=bound,
+                 bound_by=by, library_ms=None,
+                 smem_bytes=plans["bfloat16"].smem_bytes),
             dict(name=f"ssd_scan {b}x{l}x{h}x{p}x{n}", route="cuda",
                  source="src/repro_torch/kernels/ssd_scan/csrc/ssd_tc.cu",
                  replaces="src/repro/kernels/ssd_scan/kernel.py:71",
                  max_abs_err=fwd_err, rtol=K8_TOL, atol_per_rms=K8_TOL,
                  ms=k8_ms, plain_ms=k8_pms, bound_ms=k8_b,
                  bound_by=k8_by, library_ms=None)]
+    # A bf16 call the tensor-core regime refuses: the CUDA-core kernel.
+    args = k8b_operands(*K8B_CUDA_CORE_BF16, torch.bfloat16, dev, 70)
+    if k8b_plan(args).regime != "cuda_core":
+        raise AssertionError(f"K8b at {K8B_CUDA_CORE_BF16}: plan "
+                             f"{k8b_plan(args)}, expected cuda_core")
+    got = ops.ssd_chunk_bwd(*args)
+    core_bf16 = {name: attn_close(g, w, K8B_TOL[torch.bfloat16],
+                                  f"K8b bf16 P 32 {name}")
+                 for name, g, w in zip(names, got,
+                                       ref.ssd_chunk_bwd_ref(*args))}
+    log(f"K8b: bf16 at {K8B_CUDA_CORE_BF16} on the CUDA cores, max abs "
+        f"{json.dumps(core_bf16)}")
+    del args, got
+    for shape in K8B_TC_SHAPES:
+        args = k8b_operands(*shape, torch.bfloat16, dev, 60)
+        if k8b_plan(args).regime != "tensor_core":
+            raise AssertionError(f"K8b at {shape}: plan {k8b_plan(args)}, "
+                                 f"expected tensor_core")
+        got = ops.ssd_chunk_bwd(*args)
+        errs = {name: attn_close(g, w, K8B_TOL[torch.bfloat16],
+                                 f"K8b bf16 {shape} {name}")
+                for name, g, w in zip(names, got,
+                                      ref.ssd_chunk_bwd_ref(*args))}
+        if not all(torch.equal(a, c) for a, c in
+                   zip(got, ops.ssd_chunk_bwd(*args))):
+            raise AssertionError(f"K8b bf16 {shape}: two launches differ")
+        if not all(torch.equal(a, c) for a, c in zip(
+                got, on_fresh_thread(lambda: ops.ssd_chunk_bwd(*args)))):
+            raise AssertionError(f"K8b bf16 {shape}: a fresh thread's "
+                                 f"launch differs")
+        log(f"K8b: bf16 at {shape} on the tensor cores, max abs "
+            f"{json.dumps(errs)}; reruns (one on a fresh thread) bitwise "
+            f"equal")
+        del args, got
     # The scan's gradient in every input through K8 and K8b against the
     # plain versions, float32, on a ragged tail with an initial state:
     # chunks of 16, so K8b's 64-row tiles are mostly masked.
@@ -2569,6 +2772,7 @@ def check_k8b(dev) -> dict:
         f"against the plain versions: {json.dumps(ragged)} relative L2")
     for recs in out.values():
         recs[0]["ragged_scan_grad_rel_l2"] = ragged
+        recs[0]["cuda_core_bf16_max_abs_err"] = core_bf16
     return out
 
 

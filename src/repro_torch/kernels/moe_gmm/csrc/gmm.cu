@@ -1,8 +1,9 @@
 // K7: grouped expert GEMM, out[e] = x[e] @ w[e] for every expert e, with
 // x (E, C, D), w (E, D, F) and out (E, C, F); the products are summed in
 // float32 and the result is written in the inputs' type.  x and w may be
-// views with any expert and row strides (their last dimension
-// contiguous); out is packed.
+// views with any expert stride and either of their two inner axes packed
+// (a transposed operand is read in place: the backward's W^T and X^T,
+// ops.py), with any pitch for the other; out is packed.
 //
 // Replaces the TPU kernel grouped_matmul_kernel / _gmm_kernel in
 // src/repro/kernels/moe_gmm/kernel.py:46 (body :26, pallas_call :66).
@@ -29,9 +30,10 @@
 //    gmm_kernel below, in float32: one block of 256 threads per (expert,
 //    64 rows of C, 64 columns of F); the D loop takes tiles of 32, x's
 //    (64 x 32) and w's (32 x 64) read with neighbouring threads on
-//    neighbouring addresses, converted to float32 and staged in shared
-//    memory, the next tile's loads in flight in registers; each thread
-//    owns a 4 x 4 tile of accumulators.  Ragged edges are masked.
+//    neighbouring addresses along whichever axis is packed (a template
+//    parameter of each operand), converted to float32 and staged in
+//    shared memory, the next tile's loads in flight in registers; each
+//    thread owns a 4 x 4 tile of accumulators.  Ragged edges are masked.
 // Every output element is one thread's sum over D in a fixed order, with
 // no atomics, so a launch gives the same bits every time.
 //
@@ -50,6 +52,8 @@ constexpr int kTileM = 64;  // rows of C a block owns
 constexpr int kTileN = 64;  // columns of F a block owns
 constexpr int kTileK = 32;  // depth of one step of the D loop
 constexpr int kThreads = 256;
+constexpr int kLdw = kTileN + 4;  // w's tile pitch: 16-byte rows, and a
+                                  // transposed load's stores 4-way at most
 constexpr int kLoadsX = kTileM * kTileK / kThreads;  // 8 a thread
 constexpr int kLoadsW = kTileK * kTileN / kThreads;  // 8 a thread
 
@@ -62,13 +66,17 @@ __device__ __forceinline__ void put(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);
 }
 
-template <typename T>
+// XT: x's C axis is packed (element (c, d) at d * sxp + c), else its D
+// axis (c * sxp + d); WT: w's D axis is packed ((d, f) at f * swp + d),
+// else its F axis (d * swp + f).  Each tile is loaded along the packed
+// axis, so a warp's loads fall on neighbouring addresses either way.
+template <typename T, bool XT, bool WT>
 __global__ void __launch_bounds__(kThreads)
     gmm_kernel(const T* __restrict__ x, const T* __restrict__ w,
                T* __restrict__ out, int C, int D, int F, long long sxe,
-               long long sxc, long long swe, long long swd) {
+               long long sxp, long long swe, long long swp) {
   __shared__ float xs[kTileM][kTileK + 1];
-  __shared__ __align__(16) float ws[kTileK][kTileN];
+  __shared__ __align__(16) float ws[kTileK][kLdw];
 
   const int e = blockIdx.z;
   const int row0 = blockIdx.y * kTileM, col0 = blockIdx.x * kTileN;
@@ -81,33 +89,47 @@ __global__ void __launch_bounds__(kThreads)
   // and synchronise with the block but do no arithmetic.
   const bool live = row0 + ty * 4 < C;
 
+  // Load i of a thread: row r and depth k of x's tile, depth k and column
+  // n of w's, the packed axis fastest across the threads.
+  auto x_at = [&](int idx, int& r, int& k) {
+    if constexpr (XT) r = idx % kTileM, k = idx / kTileM;
+    else r = idx / kTileK, k = idx % kTileK;
+  };
+  auto w_at = [&](int idx, int& k, int& n) {
+    if constexpr (WT) k = idx % kTileK, n = idx / kTileK;
+    else k = idx / kTileN, n = idx % kTileN;
+  };
   float xr[kLoadsX], wr[kLoadsW];
   auto load = [&](int k0) {
 #pragma unroll
     for (int i = 0; i < kLoadsX; ++i) {
-      const int idx = tid + i * kThreads;
-      const int row = row0 + idx / kTileK, k = k0 + idx % kTileK;
-      xr[i] = (row < C && k < D)
-                  ? to_f(xe[row * sxc + k]) : 0.f;
+      int r, k;
+      x_at(tid + i * kThreads, r, k);
+      const int row = row0 + r, kk = k0 + k;
+      xr[i] = (row < C && kk < D)
+                  ? to_f(XT ? xe[kk * sxp + row] : xe[row * sxp + kk]) : 0.f;
     }
 #pragma unroll
     for (int i = 0; i < kLoadsW; ++i) {
-      const int idx = tid + i * kThreads;
-      const int k = k0 + idx / kTileN, col = col0 + idx % kTileN;
-      wr[i] = (k < D && col < F)
-                  ? to_f(we[k * swd + col]) : 0.f;
+      int k, n;
+      w_at(tid + i * kThreads, k, n);
+      const int kk = k0 + k, col = col0 + n;
+      wr[i] = (kk < D && col < F)
+                  ? to_f(WT ? we[col * swp + kk] : we[kk * swp + col]) : 0.f;
     }
   };
   auto stash = [&]() {
 #pragma unroll
     for (int i = 0; i < kLoadsX; ++i) {
-      const int idx = tid + i * kThreads;
-      xs[idx / kTileK][idx % kTileK] = xr[i];
+      int r, k;
+      x_at(tid + i * kThreads, r, k);
+      xs[r][k] = xr[i];
     }
 #pragma unroll
     for (int i = 0; i < kLoadsW; ++i) {
-      const int idx = tid + i * kThreads;
-      ws[idx / kTileN][idx % kTileN] = wr[i];
+      int k, n;
+      w_at(tid + i * kThreads, k, n);
+      ws[k][n] = wr[i];
     }
   };
 
@@ -161,14 +183,22 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T>
-int launch(const Args& a, cudaStream_t stream) {
+template <typename T, bool XT, bool WT>
+int launch_core(const Args& a, cudaStream_t stream) {
   const dim3 grid((a.F + kTileN - 1) / kTileN, (a.C + kTileM - 1) / kTileM,
                   a.E);
-  gmm_kernel<T><<<grid, kThreads, 0, stream>>>(
+  gmm_kernel<T, XT, WT><<<grid, kThreads, 0, stream>>>(
       static_cast<const T*>(a.x), static_cast<const T*>(a.w),
-      static_cast<T*>(a.out), a.C, a.D, a.F, a.sxe, a.sxc, a.swe, a.swd);
+      static_cast<T*>(a.out), a.C, a.D, a.F, a.sxe, a.sxp, a.swe, a.swp);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch(const Args& a, cudaStream_t stream) {
+  if (a.xt && a.wt) return launch_core<T, true, true>(a, stream);
+  if (a.xt) return launch_core<T, true, false>(a, stream);
+  if (a.wt) return launch_core<T, false, true>(a, stream);
+  return launch_core<T, false, false>(a, stream);
 }
 
 // TMA's terms for the tensor-core regimes (16-byte aligned bases and
@@ -178,8 +208,8 @@ bool tma_ok(const Args& a) {
     return reinterpret_cast<unsigned long long>(p) % 16 == 0;
   };
   return a.D > 0 && aligned(a.x) && aligned(a.w) && aligned(a.out) &&
-         a.sxe % 8 == 0 && a.sxc % 8 == 0 && a.swe % 8 == 0 &&
-         a.swd % 8 == 0 && a.F % 8 == 0;
+         a.sxe % 8 == 0 && a.sxp % 8 == 0 && a.swe % 8 == 0 &&
+         a.swp % 8 == 0 && a.F % 8 == 0;
 }
 
 }  // namespace
@@ -187,25 +217,34 @@ bool tma_ok(const Args& a) {
 
 // dtype: 0 = float32, 1 = bfloat16 (x, w and out share it).  regime: the
 // plan's (0 CUDA cores, 1 wide, 2 narrow); a tensor-core regime takes
-// bfloat16 that TMA can describe (and the narrow one C <= 64), else the
-// call returns cudaErrorInvalidValue.  Strides are in elements.  D = 0
-// writes zeros.
+// bfloat16 that TMA can describe (and the narrow one C <= 64 with neither
+// operand transposed), else the call returns cudaErrorInvalidValue.
+// Strides are in elements: sxe and swe the experts', sxp and swp the
+// pitches (the stride of the inner axis that is not packed); xt: x's C
+// axis is the packed one, wt: w's D axis.  device: the tensors' card,
+// made current first, since a host thread that has not used the card yet
+// (autograd's worker thread, whose first work may be the backward's K7
+// launches) has no current context and its launches fail.  D = 0 writes
+// zeros.
 extern "C" int moe_gmm(const void* x, const void* w, void* out, int E, int C,
-                       int D, int F, long long sxe, long long sxc,
-                       long long swe, long long swd, int dtype, int regime,
-                       void* stream) {
+                       int D, int F, long long sxe, long long sxp,
+                       long long swe, long long swp, int xt, int wt,
+                       int dtype, int regime, int device, void* stream) {
   using namespace k7;
+  const cudaError_t set = cudaSetDevice(device);
+  if (set != cudaSuccess) return static_cast<int>(set);
   if (E <= 0 || C <= 0 || F <= 0) return 0;
   if (D < 0 || E > 65535 || (C + kTileM - 1) / kTileM > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  const Args a{x, w, out, E, C, D, F, sxe, sxc, swe, swd};
+  const Args a{x, w, out, E, C, D, F, sxe, sxp, swe, swp, xt != 0, wt != 0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (regime == kCudaCore) {
     if (dtype == 0) return launch<float>(a, s);
     if (dtype == 1) return launch<__nv_bfloat16>(a, s);
   } else if (dtype == 1 && tma_ok(a)) {
     if (regime == kWide) return launch_wide(a, s);
-    if (regime == kNarrow && C <= 64) return launch_narrow(a, s);
+    if (regime == kNarrow && C <= 64 && !a.xt && !a.wt)
+      return launch_narrow(a, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

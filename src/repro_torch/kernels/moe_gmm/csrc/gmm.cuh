@@ -1,6 +1,7 @@
 // K7's launchers, shared by the entry point (gmm.cu) and the tensor-core
-// regimes (gmm_tc.cu).  Strides are in elements; every tensor's last
-// dimension is contiguous.
+// regimes (gmm_tc.cu).  Strides are in elements.  Of x's two inner axes
+// (C, D) one is packed: D, or C where xt is set (x^T read in place); of
+// w's (D, F), F, or D where wt is set.  out is packed.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -13,11 +14,12 @@ constexpr int kWide = 1;
 constexpr int kNarrow = 2;
 
 struct Args {
-  const void* x;  // (E, C, D), strides (sxe, sxc, 1)
-  const void* w;  // (E, D, F), strides (swe, swd, 1)
+  const void* x;  // (E, C, D), strides (sxe, sxp, 1), or (sxe, 1, sxp) if xt
+  const void* w;  // (E, D, F), strides (swe, swp, 1), or (swe, 1, swp) if wt
   void* out;      // (E, C, F), packed
   int E, C, D, F;
-  long long sxe, sxc, swe, swd;
+  long long sxe, sxp, swe, swp;   // expert strides and pitches
+  int xt, wt;
 };
 
 // Dynamic shared memory of a tensor-core launch: the wide regime's, or

@@ -22,6 +22,13 @@
 // stores drain while the next tile's products run (stores straight from
 // registers, 4 bytes a thread, would hold the consumers for the whole
 // epilogue, which matters most for the down product's 16 stages a tile).
+// The kernel is a template on each operand's majorness, so the backward's
+// transposed operands are read in place, with no copy (ops.py): dX = dY W^T
+// reads W^T K-major, as four 64 x 64 boxes of its packed D axis a stage
+// (the layout of x's rows), and dW = X^T dY reads X^T MN-major, as two
+// 64 x 64 boxes of its packed C axis a stage (the layout of w's boxes,
+// through wgmma's transposed A).  A stage moves the same bytes in every
+// layout.
 //
 // Narrow regime (C <= 64: a decode step's buckets), bound by bytes: every
 // expert's weight is read once.  gmm_narrow_kernel swaps the operands,
@@ -79,6 +86,10 @@ __host__ __device__ constexpr int narrow_stage_bytes(int n) {
   return kBox + n * kRowBytes;
 }
 
+// XT: x is read MN-major (its C axis packed: X^T of the backward's dW),
+// else K-major; WT: w is read K-major (its D axis packed: W^T of dX), else
+// MN-major.
+template <int XT, int WT>
 __global__ void __launch_bounds__(kWideThreads, 1)
     gmm_wide_kernel(const __grid_constant__ CUtensorMap xmap,
                     const __grid_constant__ CUtensorMap wmap,
@@ -122,10 +133,20 @@ __global__ void __launch_bounds__(kWideThreads, 1)
           const uint32_t b = a + kWideM * kRowBytes;
           const uint32_t bar = smem_u32(&full[s]);
           bar_expect(bar, kWideStageBytes);
-          tma_load(a, &xmap, bar, kt * kDepth, m0, e);
+          if constexpr (XT) {
 #pragma unroll
-          for (int q = 0; q < kWideN / 64; ++q)
-            tma_load(b + q * kBox, &wmap, bar, n0 + 64 * q, kt * kDepth, e);
+            for (int q = 0; q < kWideM / 64; ++q)
+              tma_load(a + q * kBox, &xmap, bar, m0 + 64 * q, kt * kDepth, e);
+          } else {
+            tma_load(a, &xmap, bar, kt * kDepth, m0, e);
+          }
+#pragma unroll
+          for (int q = 0; q < kWideN / 64; ++q) {
+            if constexpr (WT)
+              tma_load(b + q * kBox, &wmap, bar, kt * kDepth, n0 + 64 * q, e);
+            else
+              tma_load(b + q * kBox, &wmap, bar, n0 + 64 * q, kt * kDepth, e);
+          }
         }
       }
     }
@@ -150,8 +171,12 @@ __global__ void __launch_bounds__(kWideThreads, 1)
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < kDepth / 16; ++kk)
-          wgmma_n256<0, 1>(acc, desc(a + 32 * kk, kKLbo, kKSbo),
-                           desc(b + 16 * kRowBytes * kk, kMnLbo, kMnSbo));
+          wgmma_n256<XT, 1 - WT>(
+              acc,
+              XT ? desc(a + 16 * kRowBytes * kk, kMnLbo, kMnSbo)
+                 : desc(a + 32 * kk, kKLbo, kKSbo),
+              WT ? desc(b + 32 * kk, kKLbo, kKSbo)
+                 : desc(b + 16 * kRowBytes * kk, kMnLbo, kMnSbo));
         wgmma_commit();
         fence_regs(acc);
         wgmma_wait<1>();
@@ -335,9 +360,9 @@ int sm_count() {
 template <int N>
 int launch_narrow_n(const Args& a, cudaStream_t stream) {
   CUtensorMap xm, wm;
-  int rc = make_map(&xm, a.x, a.D, a.C, a.E, a.sxc, a.sxe, kDepth, N);
+  int rc = make_map(&xm, a.x, a.D, a.C, a.E, a.sxp, a.sxe, kDepth, N);
   if (rc == 0)
-    rc = make_map(&wm, a.w, a.F, a.D, a.E, a.swd, a.swe, 64, kDepth);
+    rc = make_map(&wm, a.w, a.F, a.D, a.E, a.swp, a.swe, 64, kDepth);
   if (rc != 0) return rc;
   const long long smem = narrow_smem_bytes(N);
   const cudaError_t attr = allow_smem<gmm_narrow_kernel<N>>(smem);
@@ -360,25 +385,41 @@ long long narrow_smem_bytes(int C) {
              narrow_stage_bytes(narrow_n(C)) + kAlign;
 }
 
-int launch_wide(const Args& a, cudaStream_t stream) {
+// The maps of one layout: x over (D, C, E) in boxes of 64 x 128 (K-major)
+// or, transposed, over (C, D, E) in 64 x 64 boxes (MN-major); w over
+// (F, D, E) in 64 x 64 boxes (MN-major) or, transposed, over (D, F, E) in
+// 64 x 64 boxes too (K-major: four boxes of 64 rows make the tile's 256).
+template <int XT, int WT>
+int launch_wide_t(const Args& a, cudaStream_t stream) {
   CUtensorMap xm, wm, om;
-  int rc = make_map(&xm, a.x, a.D, a.C, a.E, a.sxc, a.sxe, kDepth, kWideM);
+  int rc = XT ? make_map(&xm, a.x, a.C, a.D, a.E, a.sxp, a.sxe, 64, kDepth)
+              : make_map(&xm, a.x, a.D, a.C, a.E, a.sxp, a.sxe, kDepth,
+                         kWideM);
   if (rc == 0)
-    rc = make_map(&wm, a.w, a.F, a.D, a.E, a.swd, a.swe, 64, kDepth);
+    rc = WT ? make_map(&wm, a.w, a.D, a.F, a.E, a.swp, a.swe, kDepth, 64)
+            : make_map(&wm, a.w, a.F, a.D, a.E, a.swp, a.swe, 64, kDepth);
   if (rc == 0)
     rc = make_map(&om, a.out, a.F, a.C, a.E, a.F,
                   static_cast<long long>(a.C) * a.F, 64, 64);
   if (rc != 0) return rc;
-  const cudaError_t attr = allow_smem<gmm_wide_kernel>(wide_smem_bytes());
+  const cudaError_t attr =
+      allow_smem<gmm_wide_kernel<XT, WT>>(wide_smem_bytes());
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const long long tiles = static_cast<long long>((a.F + kWideN - 1) / kWideN) *
                           ((a.C + kWideM - 1) / kWideM) * a.E;
   const int sms = sm_count();
   if (sms <= 0) return static_cast<int>(cudaErrorInvalidDevice);
   const int blocks = static_cast<int>(tiles < sms ? tiles : sms);
-  gmm_wide_kernel<<<blocks, kWideThreads, wide_smem_bytes(), stream>>>(
-      xm, wm, om, a.E, a.C, a.D, a.F);
+  gmm_wide_kernel<XT, WT><<<blocks, kWideThreads, wide_smem_bytes(),
+                            stream>>>(xm, wm, om, a.E, a.C, a.D, a.F);
   return static_cast<int>(cudaGetLastError());
+}
+
+int launch_wide(const Args& a, cudaStream_t stream) {
+  if (a.xt && a.wt) return launch_wide_t<1, 1>(a, stream);
+  if (a.xt) return launch_wide_t<1, 0>(a, stream);
+  if (a.wt) return launch_wide_t<0, 1>(a, stream);
+  return launch_wide_t<0, 0>(a, stream);
 }
 
 int launch_narrow(const Args& a, cudaStream_t stream) {

@@ -6,9 +6,10 @@ PyTorch version (:func:`ref.grouped_matmul_ref`).
 :class:`GroupedMatmul` differentiates it, where the reference
 differentiates its ``einsum``: the backward is two more K7 launches,
 ``dX = dY @ W^T`` as ``(E, C, F) @ (E, F, D)`` and ``dW = X^T @ dY`` as
-``(E, D, C) @ (E, C, F)``, on copies of the transposed operands made
-contiguous first (K7 reads a last dimension that is packed); on the CPU
-its plain version, :func:`ref.grouped_matmul_bwd_ref`.
+``(E, D, C) @ (E, C, F)``, with ``W^T`` and ``X^T`` transposed views of
+the saved operands that K7 reads in place (:func:`transposed_operands`;
+its plan takes either inner axis packed); on the CPU its plain version,
+:func:`ref.grouped_matmul_bwd_ref`.
 ``grouped_matmul.launches`` counts every K7 launch, the backward's too.
 """
 
@@ -37,16 +38,21 @@ def _gmm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if x.dtype not in kernel.DTYPES:
         raise TypeError(f"K7 takes float32 or bfloat16, not {x.dtype}")
     (e, c, d), f = x.shape, w.shape[2]
-    xs, ws = x.stride(), w.stride()
-    if (d > 1 and xs[2] != 1) or (f > 1 and ws[2] != 1):
-        raise ValueError("x's and w's last dimensions must be contiguous")
     aligned = x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0
-    p = kernel.plan(e, c, d, f, x.dtype, (xs[:2], ws[:2]), aligned,
+    # Raises on an operand with neither inner axis packed.
+    p = kernel.plan(e, c, d, f, x.dtype, (x.stride(), w.stride()), aligned,
                     _sms(dev.index))
     out = torch.empty((e, c, f), dtype=x.dtype, device=dev)
     kernel.gmm(x, w, out, p)
     grouped_matmul.launches += 1
     return out
+
+
+def transposed_operands(x: torch.Tensor, w: torch.Tensor):
+    """``(W^T, X^T)``, the backward's right operand of dX and left
+    operand of dW: views of ``w`` (E, F, D) and ``x`` (E, D, C) sharing
+    their storage, no copy (K7 reads the packed inner axis where it is)."""
+    return w.transpose(1, 2), x.transpose(1, 2)
 
 
 class GroupedMatmul(torch.autograd.Function):
@@ -67,18 +73,16 @@ class GroupedMatmul(torch.autograd.Function):
         if x.device.type == "cpu":
             return ref.grouped_matmul_bwd_ref(x, w, dy)
         dy = dy.contiguous()
-        dx = _gmm(dy, w.transpose(1, 2).contiguous()) \
-            if ctx.needs_input_grad[0] else None
-        dw = _gmm(x.transpose(1, 2).contiguous(), dy) \
-            if ctx.needs_input_grad[1] else None
+        wt, xt = transposed_operands(x, w)
+        dx = _gmm(dy, wt) if ctx.needs_input_grad[0] else None
+        dw = _gmm(xt, dy) if ctx.needs_input_grad[1] else None
         return dx, dw
 
 
 def grouped_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x: (E, C, D), w: (E, D, F) -> (E, C, F) in x.dtype, the products
     summed in float32; differentiable in x and w.  On the card x and w may
-    be views with any expert and row strides whose last dimension is
-    contiguous."""
+    be views with any expert stride and either inner axis packed."""
     ref._check(x, w)
     if x.dtype != w.dtype:
         raise TypeError(f"x and w differ in dtype: {x.dtype}, {w.dtype}")

@@ -1,5 +1,5 @@
 """Build, plan and bind kernel K8 (``csrc/ssd.cu``, ``csrc/ssd_tc.cu``)
-and its backward K8b (``csrc/ssd_bwd.cu``).
+and its backward K8b (``csrc/ssd_bwd_tc.cu``, ``csrc/ssd_bwd.cu``).
 
 The sources are compiled for ``sm_90a`` into
 ``build/repro_torch_kernels/libssd_scan.so`` at first use by the shared
@@ -29,10 +29,17 @@ Both regimes give y_intra and total bit for bit as the plain version does
 tensor cores sum the state product in their own order, so ``contrib`` is
 held to K8's tolerance.
 
-:func:`plan_bwd` plans K8b: one block of 256 threads a (head, batch x
-chunk), walking the chunk's causal triangle in 64 x 64 tiles on the CUDA
-cores in float32, its tiles and the chunk's cumulative sums in shared
-memory (:func:`bwd_smem`).
+:func:`plan_bwd` plans K8b, from the same kind of facts, in one of two
+regimes; each walks the chunk's causal triangle in 64 x 64 tiles, one
+block a (head, batch x chunk):
+
+* ``"tensor_core"``: bfloat16 x, B and C with P = 64, N = 64 or 128, Q a
+  multiple of 64 up to 256, B's and C's pitches multiples of 8 elements
+  and every base 16-byte aligned (TMA reads B, C and x): ``ssd_bwd_tc.cu``,
+  one warpgroup a block, two blocks an SM, the products on wgmma with the
+  float32 operands in bf16 parts (:func:`bwd_tc_smem`);
+* ``"cuda_core"``: float32 and everything else: ``ssd_bwd.cu``, 256
+  threads a block, in float32 on the CUDA cores (:func:`bwd_smem`).
 """
 
 from __future__ import annotations
@@ -152,12 +159,13 @@ def plan(b: int, l: int, h: int, p: int, n: int, q: int, dtype: torch.dtype,
 
 @dataclasses.dataclass(frozen=True)
 class BwdPlan:
-    """How one call of K8b runs: its grid ``(x, y, z)``, threads a block
-    and dynamic shared memory a block (bytes)."""
+    """How one call of K8b runs: its grid ``(x, y, z)``, threads a block,
+    dynamic shared memory a block (bytes) and regime."""
 
     grid: tuple[int, int, int]
     threads: int
     smem_bytes: int
+    regime: str = "cuda_core"
 
 
 #: K8b's tile (query and key rows) and threads a block (``ssd_bwd.cu``).
@@ -165,6 +173,11 @@ BWD_TILE = 64
 BWD_THREADS = 256
 #: The widest P and N that K8b takes (a thread's 8 columns of 16 lanes).
 BWD_MAX_WIDTH = 128
+#: The tensor-core regime's threads a block (``ssd_bwd_tc.cu``: one
+#: warpgroup), head dim and state widths.
+BWD_TC_THREADS = 128
+BWD_TC_P = 64
+BWD_TC_N = (64, 128)
 
 
 def bwd_smem(p: int, n: int, q: int) -> int:
@@ -177,12 +190,31 @@ def bwd_smem(p: int, n: int, q: int) -> int:
                 + 3 * q + _cdiv(q, _SEG) + 2 * t + 1)
 
 
+def bwd_tc_smem(n: int, q: int) -> int:
+    """``ssd_bwd_tc.cu:tc_smem`` in bytes: the alignment slack, B's and
+    C's tiles (N / 64 boxes of 64 x 64 bf16 each), x's, dy's three parts
+    and dS's two (one box each), then cum, dt and dcum (Q floats each), the
+    segment offsets, four warps' column sums, a key tile's R and their
+    total."""
+    return (_ALIGN + (2 * (n // 64) + 6) * _BOX
+            + 4 * (3 * q + q // _SEG + 4 * 64 + 64 + 1))
+
+
 @functools.lru_cache(maxsize=256)
-def plan_bwd(b: int, l: int, h: int, p: int, n: int, q: int) -> BwdPlan:
-    """The plan of K8b on x (b, l, h, p), B and C (b, l, h, n), chunk
-    ``q``.  Raises ValueError where K8b cannot take the shape: P or N
-    above :data:`BWD_MAX_WIDTH`, L no multiple of Q, a grid past CUDA's
-    limits, or shared memory past :data:`SMEM_LIMIT`."""
+def plan_bwd(b: int, l: int, h: int, p: int, n: int, q: int,
+             dtype: torch.dtype = torch.float32,
+             bc_strides: tuple | None = None,
+             aligned: bool = True) -> BwdPlan:
+    """The plan of K8b on x (b, l, h, p), B and C (b, l, h, n) in
+    ``dtype``, chunk ``q``; ``bc_strides`` is ``(B's, C's)`` (batch,
+    position, head) strides in elements (packed when None), ``aligned``
+    says that x's, B's and C's bases are 16-byte aligned.  Raises
+    TypeError for a dtype that K8b does not take, ValueError where it
+    cannot take the shape: P or N above :data:`BWD_MAX_WIDTH`, L no
+    multiple of Q, a grid past CUDA's limits, or shared memory past
+    :data:`SMEM_LIMIT`."""
+    if dtype not in DTYPES:
+        raise TypeError(f"K8b takes float32 or bfloat16, not {dtype}")
     if not (0 < p <= BWD_MAX_WIDTH and 0 < n <= BWD_MAX_WIDTH):
         raise ValueError(f"K8b takes P and N up to {BWD_MAX_WIDTH}, not "
                          f"{p} and {n}")
@@ -191,6 +223,15 @@ def plan_bwd(b: int, l: int, h: int, p: int, n: int, q: int) -> BwdPlan:
     if b * (l // q) > 65535:
         raise ValueError(f"K8b's grid takes at most 65535 batch x chunks, "
                          f"not {b * (l // q)}")
+    if bc_strides is None:
+        bc_strides = ((l * h * n, h * n, n),) * 2
+    pitches = [s for st in bc_strides for s in st[:2]] + [
+        st[2] for st in bc_strides if st[2]]
+    if (dtype == torch.bfloat16 and aligned and p == BWD_TC_P
+            and n in BWD_TC_N and q % 64 == 0 and q <= 256
+            and all(s > 0 and s % 8 == 0 for s in pitches)):
+        return BwdPlan((h, b * (l // q), 1), BWD_TC_THREADS,
+                       bwd_tc_smem(n, q), "tensor_core")
     smem = bwd_smem(p, n, q)
     if smem > SMEM_LIMIT:
         raise ValueError(f"K8b at P {p}, N {n}, Q {q} needs {smem} bytes "
@@ -210,6 +251,10 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.ssd_chunk_bwd.restype = i
     lib.ssd_bwd_smem_bytes.argtypes = [i] * 3
     lib.ssd_bwd_smem_bytes.restype = ll
+    lib.ssd_chunk_bwd_tc.argtypes = [p] * 13 + [ll] * 6 + [i] * 7 + [p]
+    lib.ssd_chunk_bwd_tc.restype = i
+    lib.ssd_bwd_tc_smem_bytes.argtypes = [i] * 2
+    lib.ssd_bwd_tc_smem_bytes.restype = ll
 
 
 LIBRARY = KernelLibrary("ssd_scan", Path(__file__).resolve().parent / "csrc",
@@ -244,23 +289,31 @@ def ssd_chunk(x, log_decay, dt, b_mat, c_mat, y, contrib, total, p: Plan,
     LIBRARY.check(rc, f"ssd_scan ({p.regime})")
 
 
-def bwd_smem_bytes(p: int, n: int, q: int) -> int:
-    """The library's own count of a K8b launch's dynamic shared memory, to
-    hold :func:`plan_bwd` against."""
-    return LIBRARY.library().ssd_bwd_smem_bytes(p, n, q)
+def bwd_smem_bytes(p: int, n: int, q: int,
+                   regime: str = "cuda_core") -> int:
+    """The library's own count of a K8b launch's dynamic shared memory in
+    ``regime``, to hold :func:`plan_bwd` against."""
+    lib = LIBRARY.library()
+    if regime == "tensor_core":
+        return lib.ssd_bwd_tc_smem_bytes(n, q)
+    return lib.ssd_bwd_smem_bytes(p, n, q)
 
 
 def ssd_chunk_bwd(x, log_decay, dt, b_mat, c_mat, dy, dcontrib, dtotal,
-                  dx, dld, ddt, db, dc, *, chunk: int) -> None:
-    """Launch K8b; the wrapper has planned the call, checked shapes, types
-    and strides and allocated the outputs."""
+                  dx, dld, ddt, db, dc, p: BwdPlan, *, chunk: int) -> None:
+    """Launch K8b in the regime ``p`` plans; the wrapper has checked
+    shapes, types and strides and allocated the outputs."""
     bsz, l, h, hp = x.shape
     n = b_mat.shape[-1]
-    rc = LIBRARY.library().ssd_chunk_bwd(
-        x.data_ptr(), log_decay.data_ptr(), dt.data_ptr(), b_mat.data_ptr(),
-        c_mat.data_ptr(), dy.data_ptr(), dcontrib.data_ptr(),
-        dtotal.data_ptr(), dx.data_ptr(), dld.data_ptr(), ddt.data_ptr(),
-        db.data_ptr(), dc.data_ptr(), *b_mat.stride()[:3],
-        *c_mat.stride()[:3], bsz, l, h, hp, n, chunk, DTYPES[x.dtype],
-        stream(x))
-    LIBRARY.check(rc, "ssd_scan backward")
+    ptrs = (x.data_ptr(), log_decay.data_ptr(), dt.data_ptr(),
+            b_mat.data_ptr(), c_mat.data_ptr(), dy.data_ptr(),
+            dcontrib.data_ptr(), dtotal.data_ptr(), dx.data_ptr(),
+            dld.data_ptr(), ddt.data_ptr(), db.data_ptr(), dc.data_ptr(),
+            *b_mat.stride()[:3], *c_mat.stride()[:3], bsz, l, h, hp, n,
+            chunk)
+    lib = LIBRARY.library()
+    if p.regime == "tensor_core":   # x's card made current on this thread
+        rc = lib.ssd_chunk_bwd_tc(*ptrs, x.device.index, stream(x))
+    else:
+        rc = lib.ssd_chunk_bwd(*ptrs, DTYPES[x.dtype], stream(x))
+    LIBRARY.check(rc, f"ssd_scan backward ({p.regime})")

@@ -10,8 +10,10 @@ kernel in the regime that :func:`kernel.plan` chooses (or raises); a CPU
 tensor runs its plain version (:func:`ref.ssd_chunk_ref`).
 ``ssd_scan.launches`` counts the kernel launches, one a call (each launch
 runs K8's two kernels).  Under autograd the intra-chunk step is
-:class:`SSDChunk`, whose backward is kernel K8b (``csrc/ssd_bwd.cu``) on
-the card and :func:`ref.ssd_chunk_bwd_ref` on the CPU;
+:class:`SSDChunk`, whose backward is kernel K8b on the card, in the regime
+:func:`kernel.plan_bwd` chooses (``csrc/ssd_bwd_tc.cu`` for bf16 on the
+tensor cores, ``csrc/ssd_bwd.cu``), and :func:`ref.ssd_chunk_bwd_ref` on
+the CPU;
 ``ssd_chunk_bwd.launches`` counts K8b's launches.  The recurrence and
 ``y_inter`` stay PyTorch ops, which autograd differentiates.
 """
@@ -93,7 +95,10 @@ def ssd_chunk_bwd(x, log_decay, dt, b_mat, c_mat, chunk: int, dy, dcontrib,
     _check_cuda(x, b_mat, c_mat, "K8b")
     bsz, l, h, p = x.shape
     n = b_mat.shape[-1]
-    kernel.plan_bwd(bsz, l, h, p, n, chunk)     # raises on what K8b refuses
+    aligned = all(t.data_ptr() % 16 == 0 for t in (x, b_mat, c_mat))
+    plan = kernel.plan_bwd(bsz, l, h, p, n, chunk, x.dtype,
+                           (b_mat.stride()[:3], c_mat.stride()[:3]),
+                           aligned)           # raises on what K8b refuses
     f32 = dict(dtype=torch.float32, device=x.device)
     dx = torch.empty((bsz, l, h, p), **f32)
     dld = torch.empty((bsz, l, h), **f32)
@@ -103,7 +108,8 @@ def ssd_chunk_bwd(x, log_decay, dt, b_mat, c_mat, chunk: int, dy, dcontrib,
     kernel.ssd_chunk_bwd(
         x, log_decay.float().contiguous(), dt.float().contiguous(), b_mat,
         c_mat, dy.float().contiguous(), dcontrib.float().contiguous(),
-        dtotal.float().contiguous(), dx, dld, ddt, db, dc, chunk=chunk)
+        dtotal.float().contiguous(), dx, dld, ddt, db, dc, plan,
+        chunk=chunk)
     ssd_chunk_bwd.launches += 1
     return dx, dld, ddt, db, dc
 

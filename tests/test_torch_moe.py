@@ -156,8 +156,8 @@ def test_k7_plan_regime_boundary(c, regime, n):
     ((4, 33, 1024, 77), {}),              # w's and out's row pitch
     ((4, 33, 1001, 1024), {}),            # x's row pitch
     ((4, 8, 2048, 1024), {"aligned": False}),
-    ((4, 640, 2048, 1024), {"strides": ((640 * 2052, 2052),
-                                        (2048 * 1024, 1024))}),
+    ((4, 640, 2048, 1024), {"strides": ((640 * 2052, 2052, 1),
+                                        (2048 * 1024, 1024, 1))}),
     ((4, 8, 0, 1024), {}),                # nothing to contract
 ])
 def test_k7_plan_keeps_float32_and_bad_pitches_on_the_cuda_cores(shape, kw):
@@ -171,11 +171,11 @@ def test_k7_plan_keeps_float32_and_bad_pitches_on_the_cuda_cores(shape, kw):
 def test_k7_plan_takes_a_strided_view_whose_pitches_tma_reads():
     """A view into a larger allocation (rows past C and columns past D
     beyond it) stays on the tensor cores when its pitches are 16 bytes."""
-    strides = ((648 * 2112, 2112), (2048 * 1024, 1024))
+    strides = ((648 * 2112, 2112, 1), (2048 * 1024, 1024, 1))
     assert gmm_kernel.plan(64, 640, 2048, 1024, BF16,
                            strides).regime == "wide"
     assert gmm_kernel.plan(64, 8, 2048, 1024, BF16,
-                           ((16 * 2112, 2112), (2048 * 1024, 1024))
+                           ((16 * 2112, 2112, 1), (2048 * 1024, 1024, 1))
                            ).regime == "narrow"
 
 

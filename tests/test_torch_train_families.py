@@ -39,6 +39,7 @@ from repro.optim import schedule as ref_schedule
 from repro.runtime import train_loop as ref_loop
 from repro_torch import configs
 from repro_torch.convert import from_reference_train_state
+from repro_torch.kernels.moe_gmm import kernel as gmm_kernel
 from repro_torch.kernels.moe_gmm import ops as gmm_ops
 from repro_torch.kernels.moe_gmm import ref as gmm_ref
 from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
@@ -109,6 +110,83 @@ def test_k7_backward_on_the_cpu_launches_nothing_and_keeps_dtypes():
     assert dx.dtype == dw.dtype == torch.bfloat16
     with torch.no_grad():
         assert gmm_ops.grouped_matmul(x, w).requires_grad is False
+
+
+# ------------------------------------------------- K7's backward's plan
+#: Path TM's three products at OLMoE-1B-7B's widths and a microbatch's
+#: capacity: ``(E, C, D, F)`` of the forward ``x @ w``.
+TM_PRODUCTS = {"gate": (64, 1280, 2048, 1024), "up": (64, 1280, 2048, 1024),
+               "down": (64, 1280, 1024, 2048)}
+
+
+@pytest.mark.parametrize("case", sorted(TM_PRODUCTS))
+def test_k7_plan_reads_the_backwards_transposed_operands_in_place(case):
+    """dX = dY W^T and dW = X^T dY at path TM's shapes, on the views the
+    backward passes: the wide regime, W^T read K-major and X^T MN-major,
+    shared memory within an H100 block's; float32 on the CUDA cores with
+    the same layouts."""
+    e, c, d, f = TM_PRODUCTS[case]
+    x = torch.empty((e, c, d), dtype=torch.bfloat16)
+    w = torch.empty((e, d, f), dtype=torch.bfloat16)
+    dy = torch.empty((e, c, f), dtype=torch.bfloat16)
+    wt, xt = gmm_ops.transposed_operands(x, w)
+    for dtype in (torch.bfloat16, torch.float32):
+        dx_plan = gmm_kernel.plan(e, c, f, d, dtype, (dy.stride(),
+                                                      wt.stride()))
+        dw_plan = gmm_kernel.plan(e, d, c, f, dtype, (xt.stride(),
+                                                      dy.stride()))
+        want = "wide" if dtype == torch.bfloat16 else "cuda_core"
+        assert (dx_plan.regime, dx_plan.x_t, dx_plan.w_t) == (want, False,
+                                                               True)
+        assert (dw_plan.regime, dw_plan.x_t, dw_plan.w_t) == (want, True,
+                                                               False)
+        for plan in (dx_plan, dw_plan):
+            assert plan.smem_bytes <= gmm_kernel.SMEM_LIMIT
+    assert dx_plan.grid == (-(-d // 64), -(-c // 64), e)
+    # The forward's and the decode step's plans are unchanged.
+    fwd = gmm_kernel.plan(e, c, d, f, torch.bfloat16)
+    assert (fwd.regime, fwd.x_t, fwd.w_t) == ("wide", False, False)
+    assert gmm_kernel.plan(e, 8, d, f, torch.bfloat16).regime == "narrow"
+
+
+def test_k7_plan_takes_either_packed_axis_and_refuses_neither():
+    """A transposed operand never goes to the narrow regime (its weight
+    stream reads F packed), a pitch TMA cannot read keeps it on the CUDA
+    cores, and an operand with neither inner axis packed raises."""
+    e, c, d, f = 4, 8, 256, 128
+    x = torch.empty((e, d, c), dtype=torch.bfloat16).transpose(1, 2)
+    w = torch.empty((e, d, f), dtype=torch.bfloat16)
+    p = gmm_kernel.plan(e, c, d, f, torch.bfloat16, (x.stride(),
+                                                     w.stride()))
+    assert (p.regime, p.x_t, p.w_t) == ("wide", True, False)
+    assert gmm_kernel.plan(e, c, d, f, torch.bfloat16).regime == "narrow"
+    odd = torch.empty((e, d, c + 3),
+                      dtype=torch.bfloat16)[:, :, :c].transpose(1, 2)
+    p = gmm_kernel.plan(e, c, d, f, torch.bfloat16, (odd.stride(),
+                                                     w.stride()))
+    assert (p.regime, p.x_t) == ("cuda_core", True)
+    strided = torch.empty((e, c, 2 * d), dtype=torch.bfloat16)[:, :, ::2]
+    with pytest.raises(ValueError, match="inner axes packed"):
+        gmm_kernel.plan(e, c, d, f, torch.bfloat16, (strided.stride(),
+                                                     w.stride()))
+    with pytest.raises(ValueError, match="inner axes packed"):
+        gmm_kernel.plan(e, c, d, f, torch.float32,
+                        (x.stride(), (d * f * 2, 2 * f, 2)))
+
+
+def test_k7_backward_operands_share_storage_with_x_and_w():
+    """The backward's W^T and X^T are views: the saved x's and w's
+    storage and element, their inner strides swapped, no copy made."""
+    x = torch.randn(3, 40, 24, dtype=torch.bfloat16)
+    w = torch.randn(3, 24, 16, dtype=torch.bfloat16)
+    wt, xt = gmm_ops.transposed_operands(x, w)
+    for t, src in ((wt, w), (xt, x)):
+        assert t.data_ptr() == src.data_ptr()
+        assert t.untyped_storage().data_ptr() == \
+            src.untyped_storage().data_ptr()
+        assert t.stride() == (src.stride(0), src.stride(2), src.stride(1))
+        assert not t.is_contiguous() and torch.equal(t, src.transpose(1, 2))
+    assert wt.shape == (3, 16, 24) and xt.shape == (3, 24, 40)
 
 
 # ------------------------------------------------------------------ K8b
@@ -321,12 +399,63 @@ def test_k8b_plan_refuses_what_the_kernel_cannot_take():
 
 def test_k8b_source_uses_no_float_atomics():
     """Every output of K8b is one block's sums in a fixed order: no atomic
-    adds or reductions in ``ssd_bwd.cu``."""
-    pattern = re.compile(r"\batomicAdd|\bred\.(global|shared)"
-                         r"|cp\.reduce\.async")
-    src = Path(ssd_kernel.__file__).parent / "csrc" / "ssd_bwd.cu"
-    text = src.read_text()
-    assert "ssd_chunk_bwd" in text and not pattern.search(text)
+    adds or reductions in either regime's source (``ssd_bwd.cu``,
+    ``ssd_bwd_tc.cu``)."""
+    pattern = re.compile(r"\batomic[A-Z]|\bred\.(global|shared)"
+                         r"|\batom\.|cp\.reduce\.async")
+    csrc = Path(ssd_kernel.__file__).parent / "csrc"
+    for name, entry in (("ssd_bwd.cu", "ssd_chunk_bwd"),
+                        ("ssd_bwd_tc.cu", "ssd_chunk_bwd_tc")):
+        text = (csrc / name).read_text()
+        assert entry in text and not pattern.search(text), name
+
+
+#: Paths TP's and TH's bf16 calls with B and C one row shared by the heads
+#: (head stride 0, position stride N): ``(B, L, H, P, N, Q)``.
+def _shared_strides(l, n):
+    return ((l * n, n, 0), (l * n, n, 0))
+
+
+@pytest.mark.parametrize("tag", sorted(PLAN_CASES))
+def test_k8b_plan_puts_the_paths_bf16_calls_on_the_tensor_cores(tag):
+    b, l, h, p, n, q = PLAN_CASES[tag]
+    plan = ssd_kernel.plan_bwd(b, l, h, p, n, q, torch.bfloat16,
+                               _shared_strides(l, n))
+    assert plan.regime == "tensor_core"
+    assert plan.grid == (h, b * l // q, 1) and plan.threads == 128
+    assert plan.smem_bytes == ssd_kernel.bwd_tc_smem(n, q)
+    # Two blocks an SM: one block's loads run under the other's products.
+    assert 2 * (plan.smem_bytes + 1024) <= 233_472
+    # Packed B and C (a head each) take the same regime.
+    assert ssd_kernel.plan_bwd(b, l, h, p, n, q, torch.bfloat16).regime == \
+        "tensor_core"
+    # float32 stays on the CUDA cores, as before.
+    assert ssd_kernel.plan_bwd(b, l, h, p, n, q, torch.float32,
+                               _shared_strides(l, n)) == \
+        ssd_kernel.plan_bwd(b, l, h, p, n, q)
+
+
+@pytest.mark.parametrize("shape,kw", [
+    ((1, 512, 8, 32, 64, 128), {}),                  # P 32
+    ((1, 512, 8, 64, 96, 128), {}),                  # N 96
+    ((1, 512, 8, 64, 32, 128), {}),                  # N 32
+    ((1, 1024, 8, 64, 64, 512), {}),                 # Q 512
+    ((1, 480, 8, 64, 64, 96), {}),                   # Q no multiple of 64
+    ((1, 512, 8, 64, 64, 128), {"aligned": False}),
+    ((1, 512, 8, 64, 64, 128),                        # B's row pitch 68
+     {"bc_strides": ((512 * 68, 68, 0), (512 * 64, 64, 0))}),
+])
+def test_k8b_plan_keeps_what_the_tensor_cores_refuse_on_the_cuda_cores(
+        shape, kw):
+    b, l, h, p, n, q = shape
+    plan = ssd_kernel.plan_bwd(b, l, h, p, n, q, torch.bfloat16, **kw)
+    assert plan.regime == "cuda_core" and plan.threads == 256
+    assert plan.smem_bytes == ssd_kernel.bwd_smem(p, n, q)
+
+
+def test_k8b_plan_refuses_a_dtype_it_does_not_take():
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        ssd_kernel.plan_bwd(1, 512, 8, 64, 64, 128, torch.float16)
 
 
 # ------------------------------------------------------- the MoE dispatch

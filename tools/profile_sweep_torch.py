@@ -26,7 +26,16 @@ shared attention on K4 and K6; they report K8's two kernels' device ms per
 launch, and the decode paths K6's partials and combine kernels'); and
 path T, one training step of MiniCPM-2B at full width and depth in bf16
 (4 x 4096 tokens, remat, AdamW; its "tick" the step; it reports K4's and
-K5's tensor-core kernels' device ms per launch).  Each
+K5's tensor-core kernels' device ms per launch); and paths TM, TP and TH,
+one training step of OLMoE-1B-7B (8 of its 16 layers), Mamba2-2.7B (all
+64) and Zamba2-7B (36 of its 81) at full width in bf16, as
+``chip_smoke.py`` cuts them (4 x 4096 tokens in the configs' own
+microbatches, remat, AdamW): they report K7's backward launches (the wide
+kernel reading ``W^T`` for dX and ``X^T`` for dW) and K8b's, each
+regime's, device ms per launch, and TP and TH the CUDA-event time at the
+path's shape of what follows K8b for B and C: the cast of its per-head
+float32 dB and dC to bf16 and autograd's sum over the heads that share
+one row.  Each
 path runs once to warm up, then five times without ``torch.profiler``
 (``run_s_untraced`` is their median, beside their least and most) and
 once under it.  For the profiled run it reads the Chrome trace and reports
@@ -38,12 +47,14 @@ per path and writes the Chrome traces to OUT_DIR (default
 
     python3 tools/profile_sweep_torch.py [OUT_DIR [PATH ...]]
 
-PATH is any of A, B, D, G, X, V, S, Sd, M, Md, P, Pd, H, Hd and T
-(default all).
+PATH is any of A, B, D, G, X, V, S, Sd, M, Md, P, Pd, H, Hd, T, TM, TP
+and TH (default all but the last three).  Every path also reports the 25
+kernels with the most launches in its traced run (``launches_top``).
 """
 
 from __future__ import annotations
 
+import gc
 import json
 import sys
 import time
@@ -151,9 +162,45 @@ def serve_runner(model: dict, arch: str, decode_only: bool):
                          decode_only=decode_only)
 
 
-def train_runner():
-    """``(prepare, info)`` for path T: ``prepare()`` returns one training
+def event_ms(fn, reps: int = 20) -> float:
+    """Median CUDA-event time of ``fn`` after a warm-up."""
+    fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return sorted(times)[reps // 2]
+
+
+def bc_fold_ms(cfg) -> dict:
+    """What runs after K8b for B and C at a training path's shape (one
+    sequence of 4096 a microbatch): ``SSDChunk.backward`` casts K8b's
+    per-head float32 dB and dC to bf16, and autograd sums each over the
+    heads that share one row (the expand's backward); CUDA events."""
+    dev = torch.device("cuda")
+    shape = (1, 4096, cfg.n_ssm_heads, cfg.ssm_state)
+    db = torch.randn(shape, device=dev)
+    dc = torch.randn(shape, device=dev)
+    cast = [g.to(torch.bfloat16) for g in (db, dc)]
+    return dict(
+        bc_cast_ms=event_ms(lambda: [g.to(torch.bfloat16)
+                                     for g in (db, dc)]),
+        bc_head_sum_ms=event_ms(lambda: [g.sum(2, keepdim=True)
+                                         for g in cast]),
+        bc_fold_shape=list(shape))
+
+
+def train_runner(arch: str = "minicpm_2b", n_layers: int | None = None):
+    """``(prepare, info)`` for path T (or, with ``arch`` and the depth
+    ``n_layers`` kept, TM, TP and TH): ``prepare()`` returns one training
     step on a fixed batch (the state carries over between steps)."""
+    import dataclasses
+
     from repro_torch import configs
     from repro_torch.data.pipeline import SyntheticTokens
     from repro_torch.optim.adamw import AdamW
@@ -161,7 +208,9 @@ def train_runner():
                                                 make_train_step)
 
     dev = torch.device("cuda")
-    cfg = configs.get("minicpm_2b")
+    cfg = configs.get(arch)
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
     opt = AdamW(learning_rate=3e-4, state_dtype=cfg.optimizer_state_dtype)
     state = [init_train_state(
         cfg, opt, torch.Generator(device=dev).manual_seed(0), dev)]
@@ -176,7 +225,11 @@ def train_runner():
             return 1
         return run
 
-    return prepare, dict(batch=4, seq_len=4096, n_layers=cfg.n_layers)
+    info = dict(arch=arch, batch=4, seq_len=4096, n_layers=cfg.n_layers,
+                microbatches=cfg.microbatches)
+    if cfg.family in ("ssm", "hybrid"):
+        info.update(bc_fold_ms(cfg))
+    return prepare, info
 
 
 #: Kernels whose device ms per launch a profile reports, by name in the
@@ -184,10 +237,16 @@ def train_runner():
 #: launch of one of their regimes' kernels; K5's, K6's and K8's one launch
 #: of each of their two kernels: K6's partials and combine, K8's
 #: intra-chunk and state kernels: on bf16 paths the tensor-core regime's,
-#: in float32 the CUDA-core ones).
+#: in float32 the CUDA-core ones; K7's wide kernel also by its layout, the
+#: forward's and the backward's dX and dW; K8b's one launch of a regime's
+#: kernel).
 PER_LAUNCH = {"k1": "waterfill_kernel", "k2": "balance_caps_kernel",
               "k3": "segmented_kernel",
               "k7_wide": "gmm_wide_kernel", "k7_narrow": "gmm_narrow_kernel",
+              "k7_wide_fwd": "gmm_wide_kernel<0, 0>",
+              "k7_wide_dx": "gmm_wide_kernel<0, 1>",
+              "k7_wide_dw": "gmm_wide_kernel<1, 0>",
+              "k8b_tc": "ssd_bwd_tc_kernel", "k8b_cuda_core": "ssd_bwd_kernel",
               "k7_cuda_core": "gmm_kernel",
               "k8_intra": "ssd_intra_shared_kernel",
               "k8_state": "ssd_state_tc_kernel",
@@ -240,6 +299,7 @@ def profile(tag: str, runner, out_dir: Path) -> dict:
         count[key] += 1
     busy = busy_us(kernels + copies) * 1e-6
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    most = sorted(count.items(), key=lambda kv: -kv[1])[:25]
     for key, pattern in PER_LAUNCH.items():
         durs = [e["dur"] for e in kernels if pattern in e["name"]]
         if durs:
@@ -255,7 +315,8 @@ def profile(tag: str, runner, out_dir: Path) -> dict:
                 kernel_launches=len(kernels),
                 launches_per_tick=len(kernels) / ticks,
                 device_ms_by_kernel={k: v * 1e-3 for k, v in top},
-                launches_by_kernel={k: count[k] for k, _ in top}, **info)
+                launches_by_kernel={k: count[k] for k, _ in top},
+                launches_top=dict(most), **info)
 
 
 def main() -> int:
@@ -310,10 +371,14 @@ def main() -> int:
         "H": lambda: serve_runner(model, "zamba2_7b", decode_only=False),
         "Hd": lambda: serve_runner(model, "zamba2_7b", decode_only=True),
         "T": train_runner,
+        "TM": lambda: train_runner("olmoe_1b_7b", 8),
+        "TP": lambda: train_runner("mamba2_2p7b"),
+        "TH": lambda: train_runner("zamba2_7b", 36),
     }
     for tag in wanted:
-        if tag == "T":
+        if tag.startswith("T"):
             model.clear()              # the serving weights, 14-17 GB
+            gc.collect()               # the last training state, if any
             torch.cuda.empty_cache()
         print(json.dumps(profile(tag, paths[tag](), out_dir)), flush=True)
     return 0
