@@ -264,7 +264,54 @@ Phases, each of which raises (and so exits non-zero) when it fails:
     equal bits; two warm steps timed and a third traced (the device's
     idle share); and OLMoE-1B-7B at full width and 4 layers in float32 on
     TM's shape (routing holds there), loss and gradients within 1e-4 of
-    the plain versions.
+    the plain versions;
+24. every kernel entry point (K1, K2 and its occupancy query, K3, K4 and
+    K5 in both regimes, K6, K7, K8 and K8b in both regimes) launched again
+    from a new host thread whose first CUDA work it is, into NaN-filled
+    outputs, bitwise equal to the same launch from the main thread; then
+    K4, K5 and K6 against their plain versions in bf16 and float32 (two
+    launches bitwise equal) at the new paths' shapes, timed beside the
+    plain versions and SDPA with their bounds: I's prefill (8 x 768 rows,
+    48/8 heads of 128, causal) and decode step (784 of 1,024 positions
+    live), TI's microbatch (1 x 4096, K4 and K5), Y's encoder (8 x 1500
+    frames, 6/6 heads of 64, non-causal: a ragged last key tile), its
+    prefill's cross attention (4 rows over 1,500 keys) and its decode
+    step's on K6 (kv_len 1,500), TY's encoder (32 x 1500) and cross
+    attention (32 x 448 rows over 1,500 keys, K4 and K5);
+25. main paths Y and I, serving: Y is Whisper-tiny whole in bf16 behind
+    ``make_fleet``'s router (``launch.serve.main`` first, which raises for
+    want of frames, as the reference's driver fails), each replica's 8
+    requests through ``generate`` with 1,500 frames a request, prompts of
+    4, 64 tokens, a 448-position cache, then ``power_event``'s cap event;
+    I is ``launch.serve``'s driver at InternVL2-26B's full width and depth
+    in bf16 (48 layers, 1.99e10 parameters; path S's arguments, text
+    only, as the reference's driver serves it), then each replica's batch
+    through ``generate`` again with a 256-patch prefix.  Exact launch
+    counts (Y: K4 4 + 4 + 4 a prefill and 4 a decode step, which re-runs
+    the encoder, K6 8 a decode step; I: K4 once a layer a prefill and K6
+    once a layer a decode step, both runs), the cap event identical to
+    its CPU run, one replica's batch fed back through the plain versions
+    on the card (logits within 2e-2 relative L2), prefill and decode-step
+    times; and each in float32 (Whisper-tiny whole, InternVL2-26B at 4
+    layers) with identical greedy tokens and logits within 1e-4;
+26. main paths TY and TI, training in bf16 under ``launch.train``'s power
+    plane (2 pods, the budget cut at step 1; the model through
+    ``make_train_step`` on batches with ``launch.inputs``' frontend
+    stand-ins, since the training driver passes none): TY Whisper-tiny
+    whole, 4 steps of 32 x 448 tokens over 1,500 frames; TI
+    InternVL2-26B at 6 of 48 layers, 4 steps of 4 x 4096 rows (256
+    patches, 3,840 tokens) in the config's 4 microbatches.  Exact launch
+    counts (a microbatch, under remat: K4 twice and K5 once an attention,
+    Y's encoder, self and cross attentions each), the plans and caps
+    equal to the same events' CPU run, finite losses and gradient norms,
+    one batch's loss and every gradient (``vision_proj`` too) against the
+    plain versions on the card (1e-2 relative and 5e-2 relative L2; TY's
+    at its initial parameters, and at its trained state, where training
+    shuts its cross attention and leaves those gradients to the rounding
+    of two forwards' bf16 O, K4 launch by launch against its plain
+    forward and K5 against its plain version fed K4's O; float32 after
+    the same 4 steps within 1e-4); two warm steps timed and a third
+    traced (the device's idle share).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Run from the repository root:
@@ -1253,6 +1300,24 @@ def check_k5(dev) -> list:
     return [k4, k5]
 
 
+def plain_k4(q, k, v, causal, q_offset):
+    """K4's plain version, as ``ops._forward`` is called."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    return fa_ref.flash_attention_ref(q, k, v, causal=causal,
+                                      q_offset=q_offset,
+                                      block_k=fa_ops.BLOCK_K)
+
+
+def plain_k5(q, k, v, out, lse, dout, *, causal, q_offset):
+    """K5's plain version, as ``ops.flash_attention_bwd`` is called."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    return fa_ref.flash_attention_bwd_ref(
+        q, k, v, out, lse, dout, causal=causal, q_offset=q_offset,
+        block_q=fa_ops.BLOCK_Q, block_k=fa_ops.BLOCK_K)
+
+
 @contextlib.contextmanager
 def plain_attention():
     """The model's attention through the plain versions of K4, K5 and K6,
@@ -1262,26 +1327,40 @@ def plain_attention():
     from repro_torch.kernels.decode_attention import ops as da_ops
     from repro_torch.kernels.decode_attention import ref as da_ref
     from repro_torch.kernels.flash_attention import ops as fa_ops
-    from repro_torch.kernels.flash_attention import ref as fa_ref
     from repro_torch.models import layers
-
-    def forward(q, k, v, causal, q_offset):
-        return fa_ref.flash_attention_ref(q, k, v, causal=causal,
-                                          q_offset=q_offset,
-                                          block_k=fa_ops.BLOCK_K)
-
-    def backward(q, k, v, out, lse, dout, *, causal, q_offset):
-        return fa_ref.flash_attention_bwd_ref(
-            q, k, v, out, lse, dout, causal=causal, q_offset=q_offset,
-            block_q=fa_ops.BLOCK_Q, block_k=fa_ops.BLOCK_K)
 
     def decode(q, k, v, kv_len):
         return da_ref.decode_attention_split_ref(q, k, v, kv_len,
                                                  da_ops.BLOCK_K)
 
-    with mock.patch.object(fa_ops, "_forward", forward), \
-            mock.patch.object(fa_ops, "flash_attention_bwd", backward), \
+    with mock.patch.object(fa_ops, "_forward", plain_k4), \
+            mock.patch.object(fa_ops, "flash_attention_bwd", plain_k5), \
             mock.patch.object(layers, "decode_attention", decode):
+        yield
+
+
+@contextlib.contextmanager
+def plain_k5_given_k4(errs: list, tag: str):
+    """K4 on the card, each launch's O and log-sum-exp held against the
+    plain forward on the same inputs (``attn_err``; the larger error of
+    each launch appended to ``errs``), and K5 swapped for its plain
+    version fed K4's O and lse.  K4 launches are bitwise repeatable, so a
+    run in here has the kernels' forward, and its gradients differ from
+    the kernels' by K5's arithmetic alone, not by the bf16 rounding of two
+    forwards' O (the comparison runs only)."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    k4 = fa_ops._forward
+
+    def forward(q, k, v, causal, q_offset):
+        out, lse = k4(q, k, v, causal, q_offset)
+        pout, plse = plain_k4(q, k, v, causal, q_offset)
+        what = f"{tag}: K4 at {tuple(q.shape)} x {k.shape[1]} keys"
+        errs.append(max(attn_err(out, pout, q.dtype, what),
+                        attn_err(lse, plse, q.dtype, f"{what}, lse")))
+        return out, lse
+
+    with mock.patch.object(fa_ops, "_forward", forward), \
+            mock.patch.object(fa_ops, "flash_attention_bwd", plain_k5):
         yield
 
 
@@ -1322,10 +1401,8 @@ def run_serving_path(dev) -> tuple[dict, dict]:
     """Path S through ``launch.serve.main`` on the card, with the launch
     counts of exactly that run; its cap event held against the CPU, one
     replica's batch against the plain versions; then warm timings."""
-    from repro_torch.core.power_model import H100_HOST
     from repro_torch.launch import serve
-    from repro_torch.runtime.serve_loop import (generate, make_decode_step,
-                                                make_prefill_step)
+    from repro_torch.runtime.serve_loop import generate
 
     reset_launches()
     torch.cuda.synchronize()
@@ -1338,29 +1415,20 @@ def run_serving_path(dev) -> tuple[dict, dict]:
     cfg, params = report.cfg, report.params
     steps, max_len, prompt_len = 32, 1024, 512
     n_rep = len(report.routing)
-    snap, router = serve.make_fleet(H100_HOST, n_rep)
-    with count_plain_calls() as power_launches:
-        routing, caps, result = serve.power_event(snap, router, 16, "cpu")
     # K1-K3 as the same cap event's CPU run calls their plain versions
     # (K2 once, K3 twice for the note, K1 for the migration balancer's
     # entitlements and the round that finds nothing to move).
+    power_launches = hold_cap_event("S", report, 16, n_rep)
     want = {"flash_attention": cfg.n_layers * n_rep,
             "flash_attention_bwd": 0,
             "decode_attention": cfg.n_layers * (steps - 1) * n_rep,
             "grouped_matmul": 0, "ssd_scan": 0, "ssd_scan_bwd": 0,
             **power_launches}
-    if launches != want or power_launches["balance_caps"] != 1:
+    if launches != want:
         raise AssertionError(f"S: kernel launches {launches}, expected "
                              f"{want}")
     if report.routing != {"rep0": 8, "rep1": 8}:
         raise AssertionError(f"S: routing {report.routing}")
-    got = (list(report.routing_after.items()), report.caps_after,
-           report.notes, report.cap_changes, report.migrations)
-    cpu = (list(routing.items()), caps, list(result.notes),
-           result.cap_changes, result.migrations)
-    if got != cpu:
-        raise AssertionError(f"S: cap event on the card {got}, on the CPU "
-                             f"{cpu}")
     for rep, (prompts, toks, logits) in report.batches.items():
         if toks.shape != (8, steps) or logits.shape != (8, steps,
                                                         cfg.vocab_size):
@@ -1378,32 +1446,16 @@ def run_serving_path(dev) -> tuple[dict, dict]:
                              f"L2 from the plain versions (bound 2e-2)")
     same = float((plain_logits.argmax(-1) == toks).float().mean())
 
-    prefill = make_prefill_step(cfg, max_len)
-    decode = make_decode_step(cfg)
-    start = torch.cuda.Event(enable_timing=True)
-    mid = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    prefill_ms, step_ms = [], []
-    for _ in range(3):
-        start.record()
-        lg, state = prefill(params, prompts)
-        mid.record()
-        tok = lg.argmax(-1)
-        for _ in range(steps - 1):
-            lg, state = decode(params, state, tok)
-            tok = lg.argmax(-1)
-        end.record()
-        end.synchronize()
-        prefill_ms.append(start.elapsed_time(mid))
-        step_ms.append(mid.elapsed_time(end) / (steps - 1))
+    prefill_ms, step_ms = warm_serve_ms(cfg, params, prompts, None, steps,
+                                        max_len, 3)
     weights_gb = sum(t.numel() * t.element_size() for grp in params.values()
                      for t in grp.values()) / 1e9
     cache_gb = (2 * cfg.n_layers * 8 * max_len * cfg.n_kv_heads
                 * cfg.head_dim * params["blocks"]["wk"].element_size()) / 1e9
     info = dict(wall_s=wall, decode_s=report.seconds, tokens=report.tokens,
                 tokens_per_s=report.tokens / report.seconds,
-                prefill_ms=statistics.median(prefill_ms),
-                decode_step_ms=statistics.median(step_ms),
+                prefill_ms=prefill_ms,
+                decode_step_ms=step_ms,
                 weights_gb=weights_gb, cache_gb_per_batch=cache_gb,
                 peak_memory_gb=peak_gb, teacher_forced_rel_l2=err,
                 plain_argmax_equal=same, routing=report.routing,
@@ -1463,15 +1515,15 @@ def rel_l2_sliced(got, want) -> float:
 
 
 def _grads_against_plain(grads_fn, params, batch, loss_rtol, grad_rtol,
-                         tag) -> tuple[float, float]:
+                         tag, plain=None) -> tuple[float, float]:
     """The loss and every gradient of one batch through the kernels and
-    through the plain versions on the card (``plain_kernels``); returns
-    (loss relative error, worst leaf's relative L2), raising past the
-    bounds."""
+    through the plain versions on the card (``plain``, a context manager:
+    ``plain_kernels()`` when not given); returns (loss relative error,
+    worst leaf's relative L2), raising past the bounds."""
     from repro_torch.tree import leaves_with_path
 
     grads, metrics = grads_fn(params, batch)
-    with plain_kernels():
+    with plain_kernels() if plain is None else plain:
         pgrads, pmetrics = grads_fn(params, batch)
     loss_err = abs(float(metrics["loss"]) - float(pmetrics["loss"])) / abs(
         float(pmetrics["loss"]))
@@ -1820,11 +1872,9 @@ def run_moe_serving_path(dev) -> tuple[dict, dict]:
     K4, K6 and K7 on the card (logits within 5e-2 relative L2, the
     reference's bar for MoE in bfloat16, where routing near ties flips),
     with the share of top-k sets that differ; then warm timings."""
-    from repro_torch.core.power_model import H100_HOST
     from repro_torch.launch import serve
     from repro_torch.models import moe
-    from repro_torch.runtime.serve_loop import (generate, make_decode_step,
-                                                make_prefill_step)
+    from repro_torch.runtime.serve_loop import generate
 
     reset_launches()
     torch.cuda.synchronize()
@@ -1837,9 +1887,7 @@ def run_moe_serving_path(dev) -> tuple[dict, dict]:
     cfg, params = report.cfg, report.params
     steps, max_len, prompt_len = 32, 1024, 512
     n_rep = len(report.routing)
-    snap, router = serve.make_fleet(H100_HOST, n_rep)
-    with count_plain_calls() as power_launches:
-        routing, caps, result = serve.power_event(snap, router, 16, "cpu")
+    power_launches = hold_cap_event("M", report, 16, n_rep)
     want = dict(power_launches, flash_attention=cfg.n_layers * n_rep,
                 flash_attention_bwd=0,
                 decode_attention=cfg.n_layers * (steps - 1) * n_rep,
@@ -1850,13 +1898,6 @@ def run_moe_serving_path(dev) -> tuple[dict, dict]:
                              f"{want}")
     if report.routing != {"rep0": 8, "rep1": 8}:
         raise AssertionError(f"M: routing {report.routing}")
-    got = (list(report.routing_after.items()), report.caps_after,
-           report.notes, report.cap_changes, report.migrations)
-    cpu = (list(routing.items()), caps, list(result.notes),
-           result.cap_changes, result.migrations)
-    if got != cpu:
-        raise AssertionError(f"M: cap event on the card {got}, on the CPU "
-                             f"{cpu}")
     for rep, (prompts, toks, logits) in report.batches.items():
         if toks.shape != (8, steps) or logits.shape != (8, steps,
                                                         cfg.vocab_size):
@@ -1891,30 +1932,14 @@ def run_moe_serving_path(dev) -> tuple[dict, dict]:
     same = float((plain_logits.argmax(-1) == toks).float().mean())
     del k_routes, p_routes, k_logits, plain_logits
 
-    prefill = make_prefill_step(cfg, max_len)
-    decode = make_decode_step(cfg)
-    start = torch.cuda.Event(enable_timing=True)
-    mid = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    prefill_ms, step_ms = [], []
-    for _ in range(3):
-        start.record()
-        lg, state = prefill(params, prompts)
-        mid.record()
-        tok = lg.argmax(-1)
-        for _ in range(steps - 1):
-            lg, state = decode(params, state, tok)
-            tok = lg.argmax(-1)
-        end.record()
-        end.synchronize()
-        prefill_ms.append(start.elapsed_time(mid))
-        step_ms.append(mid.elapsed_time(end) / (steps - 1))
+    prefill_ms, step_ms = warm_serve_ms(cfg, params, prompts, None, steps,
+                                        max_len, 3)
     weights_gb = sum(t.numel() * t.element_size() for grp in params.values()
                      for t in grp.values()) / 1e9
     info = dict(wall_s=wall, decode_s=report.seconds, tokens=report.tokens,
                 tokens_per_s=report.tokens / report.seconds,
-                prefill_ms=statistics.median(prefill_ms),
-                decode_step_ms=statistics.median(step_ms),
+                prefill_ms=prefill_ms,
+                decode_step_ms=step_ms,
                 weights_gb=weights_gb, peak_memory_gb=peak_gb,
                 first_layer_moe_max_abs_err=gate_err,
                 teacher_forced_rel_l2=err, topk_sets_differing=flips,
@@ -2204,10 +2229,8 @@ def run_ssm_serving_path(tag: str, dev) -> tuple[dict, dict]:
     event held against the CPU; one replica's batch fed back through the
     plain versions on the card (logits within 2e-2 relative L2); then warm
     timings."""
-    from repro_torch.core.power_model import H100_HOST
     from repro_torch.launch import serve
-    from repro_torch.runtime.serve_loop import (generate, make_decode_step,
-                                                make_prefill_step)
+    from repro_torch.runtime.serve_loop import generate
 
     reset_launches()
     torch.cuda.synchronize()
@@ -2221,9 +2244,7 @@ def run_ssm_serving_path(tag: str, dev) -> tuple[dict, dict]:
     steps, max_len, prompt_len = 32, 1024, 512
     n_rep = len(report.routing)
     sites = cfg.n_layers // cfg.attn_every if cfg.family == "hybrid" else 0
-    snap, router = serve.make_fleet(H100_HOST, n_rep)
-    with count_plain_calls() as power_launches:
-        routing, caps, result = serve.power_event(snap, router, 16, "cpu")
+    power_launches = hold_cap_event(tag, report, 16, n_rep)
     want = dict(power_launches, flash_attention=sites * n_rep,
                 flash_attention_bwd=0,
                 decode_attention=sites * (steps - 1) * n_rep,
@@ -2235,13 +2256,6 @@ def run_ssm_serving_path(tag: str, dev) -> tuple[dict, dict]:
                              f"{want}")
     if report.routing != {"rep0": 8, "rep1": 8}:
         raise AssertionError(f"{tag}: routing {report.routing}")
-    got = (list(report.routing_after.items()), report.caps_after,
-           report.notes, report.cap_changes, report.migrations)
-    cpu = (list(routing.items()), caps, list(result.notes),
-           result.cap_changes, result.migrations)
-    if got != cpu:
-        raise AssertionError(f"{tag}: cap event on the card {got}, on the "
-                             f"CPU {cpu}")
     for rep, (prompts, toks, logits) in report.batches.items():
         if toks.shape != (8, steps) or logits.shape != (8, steps,
                                                         cfg.vocab_size):
@@ -2261,31 +2275,14 @@ def run_ssm_serving_path(tag: str, dev) -> tuple[dict, dict]:
     same = float((plain_logits.argmax(-1) == toks).float().mean())
     del plain_logits
 
-    prefill = make_prefill_step(cfg, max_len)
-    decode = make_decode_step(cfg)
-    start = torch.cuda.Event(enable_timing=True)
-    mid = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    prefill_ms, step_ms = [], []
-    for _ in range(3):
-        start.record()
-        lg, state = prefill(params, prompts)
-        mid.record()
-        tok = lg.argmax(-1)
-        for _ in range(steps - 1):
-            lg, state = decode(params, state, tok)
-            tok = lg.argmax(-1)
-        end.record()
-        end.synchronize()
-        prefill_ms.append(start.elapsed_time(mid))
-        step_ms.append(mid.elapsed_time(end) / (steps - 1))
-    del state
+    prefill_ms, step_ms = warm_serve_ms(cfg, params, prompts, None, steps,
+                                        max_len, 3)
     weights_gb = sum(t.numel() * t.element_size() for grp in params.values()
                      for t in grp.values()) / 1e9
     info = dict(wall_s=wall, decode_s=report.seconds, tokens=report.tokens,
                 tokens_per_s=report.tokens / report.seconds,
-                prefill_ms=statistics.median(prefill_ms),
-                decode_step_ms=statistics.median(step_ms),
+                prefill_ms=prefill_ms,
+                decode_step_ms=step_ms,
                 weights_gb=weights_gb, peak_memory_gb=peak_gb,
                 teacher_forced_rel_l2=err, plain_argmax_equal=same,
                 routing=report.routing, routing_after=report.routing_after,
@@ -3049,6 +3046,822 @@ def run_moe_train_f32_check(dev) -> dict:
         "TM f32, 4 layers")
     return dict(n_layers=4, loss_rel_err=loss_err,
                 worst_grad_rel_l2=grad_err)
+
+
+# ------------------------------------------- every entry point, fresh thread
+def replay_on_fresh_thread(module, name: str, outputs, run, what: str):
+    """Runs ``run()`` (a wrapper's call) here, recording the last launch of
+    ``module.name`` that it makes; then replays that launch on a new host
+    thread whose first CUDA work it is (no PyTorch op runs there before
+    it), into new outputs filled with NaN (or a value no output holds),
+    and raises unless each of ``outputs`` equals the first launch's bit
+    for bit."""
+    import inspect
+    real = getattr(module, name)
+    sig = inspect.signature(real)
+    calls = []
+
+    def record(*args, **kwargs):
+        calls.append(dict(sig.bind(*args, **kwargs).arguments))
+        return real(*args, **kwargs)
+
+    with mock.patch.object(module, name, record):
+        run()
+    torch.cuda.synchronize()
+    if not calls:
+        raise AssertionError(f"{what}: {name} never launched")
+    args = calls[-1]
+    want = {o: args[o].clone() for o in outputs}
+    for o in outputs:
+        t = args[o]
+        fresh = torch.empty_strided(t.shape, t.stride(), dtype=t.dtype,
+                                    device=t.device)
+        if t.dtype == torch.bool:
+            fresh.copy_(~t)
+        else:
+            fresh.fill_(float("nan") if t.dtype.is_floating_point else -7)
+        args[o] = fresh
+    torch.cuda.synchronize()
+    on_fresh_thread(lambda: real(**args))
+    for o in outputs:
+        if not torch.equal(args[o], want[o]):
+            raise AssertionError(f"{what}: {o} from a fresh thread's launch "
+                                 f"differs from this thread's")
+
+
+def check_fresh_threads(dev) -> dict:
+    """Every kernel entry point launched from a new host thread whose first
+    CUDA work it is (autograd's worker thread can be such a thread), each
+    bitwise equal to the same launch from this thread: K1, K2 and its
+    occupancy query, K3, K4 and K5 in both regimes, K6, K7, and K8 and K8b
+    in both regimes.  Returns ``{entry point: True}``."""
+    from repro_torch.core import kernels as ck
+    from repro_torch.kernels.decode_attention import kernel as da_kernel
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.flash_attention import kernel_bwd as fa_bwd
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.moe_gmm import kernel as gmm_kernel
+    from repro_torch.kernels.moe_gmm import ops as gmm_ops
+    from repro_torch.kernels.powercap import kernel as pc_kernel
+    from repro_torch.kernels.powercap import ops as pc_ops
+    from repro_torch.kernels.powercap.segments import segment_layout
+    from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+
+    done = {}
+    x = kernel_inputs(2, 40, 10, seed=5, dev=dev, iters=100)
+    cap, fl, ce, w, act = x["wf"]
+    replay_on_fresh_thread(
+        pc_kernel, "waterfill", ("out",),
+        lambda: pc_ops.waterfill_dense(cap, fl, ce, w, 100, active=act),
+        "powercap_waterfill")
+    done["powercap_waterfill"] = True
+    replay_on_fresh_thread(
+        pc_kernel, "balance_caps", ("caps_out", "did_out", "rounds_out"),
+        lambda: pc_ops.balance_caps(x["hosts"], x["caps"], x["dense"],
+                                    x["cpu_res"], x["budget"], x["enabled"],
+                                    ck.BalanceParams()),
+        "powercap_balance_caps")
+    done["powercap_balance_caps"] = True
+    here = pc_kernel.max_active_clusters(10, dev.index or 0)
+    pc_kernel.max_active_clusters.cache_clear()
+    there = on_fresh_thread(lambda: pc_kernel.max_active_clusters(
+        10, dev.index or 0))
+    if there != here or not any(there):
+        raise AssertionError(f"powercap_balance_max_active_clusters: a fresh "
+                             f"thread's answer {there}, this thread's {here}")
+    done["powercap_balance_max_active_clusters"] = True
+    k3cap, k3fl, k3ce, k3w, seg, m = k3_inputs("ragged", dev)
+    lay = segment_layout(seg, m, dev)
+    replay_on_fresh_thread(
+        pc_kernel, "waterfill_segmented", ("out",),
+        lambda: pc_ops.waterfill_segmented(k3cap, k3fl, k3ce, k3w,
+                                           layout=lay),
+        "powercap_waterfill_segmented")
+    done["powercap_waterfill_segmented"] = True
+
+    for dtype, suffix in ((torch.float32, ""), (torch.bfloat16, "_tc")):
+        q, k, v, do = attn_operands(2, 100, 164, 8, 2, 64, dtype, dev, 300)
+        replay_on_fresh_thread(
+            fa_kernel, "flash_fwd", ("out", "lse"),
+            lambda: fa_ops.flash_attention(q, k, v, causal=False),
+            f"flash_attention_fwd{suffix}")
+        done[f"flash_attention_fwd{suffix}"] = True
+        with torch.no_grad():
+            out, lse = fa_ops.flash_attention(q, k, v, causal=True,
+                                              q_offset=64)
+        replay_on_fresh_thread(
+            fa_bwd, "flash_bwd", ("dq", "dk", "dv"),
+            lambda: fa_ops.flash_attention_bwd(q, k, v, out, lse, do,
+                                               causal=True, q_offset=64),
+            f"flash_attention_bwd_dkdv{suffix} and _dq{suffix}")
+        done[f"flash_attention_bwd_dkdv{suffix}"] = True
+        done[f"flash_attention_bwd_dq{suffix}"] = True
+
+    dq = randn((4, 8, 64), torch.bfloat16, dev, 310)
+    dk, dv = (randn((4, 300, 2, 64), torch.bfloat16, dev, 311 + i)
+              for i in range(2))
+    kv_len = torch.tensor([300, 1, 77, 256], dtype=torch.int32, device=dev)
+    replay_on_fresh_thread(
+        da_kernel, "decode", ("out",),
+        lambda: da_ops.decode_attention(dq, dk, dv, kv_len),
+        "decode_attention")
+    done["decode_attention"] = True
+
+    gx = randn((4, 128, 256), torch.bfloat16, dev, 320)
+    gw = randn((4, 256, 128), torch.bfloat16, dev, 321)
+    replay_on_fresh_thread(gmm_kernel, "gmm", ("out",),
+                           lambda: gmm_ops.grouped_matmul(gx, gw), "moe_gmm")
+    done["moe_gmm"] = True
+
+    for dtype, suffix in ((torch.float32, ""), (torch.bfloat16, "_tc")):
+        sx, sdt, a_log, bm, cm = ssd_inputs(1, 512, 8, 64, 64, dtype, dev,
+                                            330)
+        sdt = sdt.float()
+        ld = sdt * -torch.exp(a_log)
+        replay_on_fresh_thread(
+            ssd_kernel, "ssd_chunk", ("y", "contrib", "total"),
+            lambda: ssd_ops._intra_chunk(sx, ld, sdt, bm, cm, 256),
+            f"ssd_chunk{suffix}")
+        done[f"ssd_chunk{suffix}"] = True
+        args = k8b_operands(1, 512, 8, 64, 64, 256, dtype, dev, 340)
+        replay_on_fresh_thread(
+            ssd_kernel, "ssd_chunk_bwd", ("dx", "dld", "ddt", "db", "dc"),
+            lambda: ssd_ops.ssd_chunk_bwd(*args), f"ssd_chunk_bwd{suffix}")
+        done[f"ssd_chunk_bwd{suffix}"] = True
+    log(f"fresh host threads: {len(done)} entry points launched from a new "
+        f"thread, bitwise equal to this thread's: {sorted(done)}")
+    return done
+
+
+# ------------------------------------- paths I, Y, TI, TY: vlm and encdec
+#: Whisper-tiny's encoder (1,500 frames) and its decoder's text context
+#: (448 positions); InternVL2-26B's vision prefix (256 patches).
+ENC_FRAMES, TEXT_CTX, N_PATCHES = 1500, 448, 256
+#: Path I's serving driver: path S's replicas, requests, prompts, tokens
+#: and cache at InternVL2-26B (text only, as the reference's driver
+#: serves it), then each replica's batch again with a 256-patch prefix.
+VLM_ARGV = ["--arch", "internvl2_26b"] + SERVE_ARGV[2:]
+#: Path Y: 2 replicas of 8 requests, prompts of 4 tokens over 1,500
+#: frames, 64 tokens in a 448-position cache.
+Y_PROMPT, Y_STEPS = 4, 64
+#: Paths TI and TY: 4 steps, 2 pods, the budget cut at step 1.  TI: 4 x
+#: 4096 rows (256 patches and 3,840 tokens) in the config's 4
+#: microbatches, 6 of InternVL2-26B's 48 layers; TY: Whisper-tiny whole,
+#: 32 segments of 448 tokens over 1,500 frames.
+TI_LAYERS, TI_BATCH, TI_ROWS = 6, 4, 4096
+TY_BATCH = 32
+FRONTEND_STEPS = 4
+
+
+def attn_bounds(b, sq, skv, hq, hkv, d, causal, el) -> dict:
+    """K4's and K5's bounds at a shape: the bytes (q, k, v and out, or
+    those and dO, dq, dk and dv, with the float32 lse and D rows) and the
+    operations, ``4 B Hq D`` a (query, key) pair for K4 and ``10 B Hq D``
+    for K5, over the pairs the mask keeps."""
+    pairs = sq * (sq + 1) // 2 if causal and sq == skv else sq * skv
+    peak = PEAK_BF16_FLOPS if el == 2 else PEAK_FP32_FLOPS
+    k4 = bound_ms(el * (2 * b * sq * hq * d + 2 * b * skv * hkv * d)
+                  + 4 * b * hq * sq, 4 * b * hq * d * pairs, peak)
+    k5 = bound_ms(el * (4 * b * sq * hq * d + 4 * b * skv * hkv * d)
+                  + 8 * b * hq * sq, 10 * b * hq * d * pairs, peak)
+    return {"k4": k4, "k5": k5}
+
+
+def attn_shape_records(tag, cases, dev, with_k5: bool) -> list:
+    """K4 (and, ``with_k5``, K5) against their plain versions at each of
+    ``cases`` (``{case: (B, Sq, Skv, Hq, Hkv, D, causal)}``) in bf16 (the
+    tensor cores, two launches bitwise equal) and float32 (the CUDA cores),
+    each in the regime its plan must choose; the bf16 calls timed beside
+    the plain versions and SDPA (its backward: forward and backward less
+    forward), with their bounds.  Returns one record a kernel and case."""
+    from repro_torch.kernels.flash_attention import ops, ref
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    src = "src/repro_torch/kernels/flash_attention/csrc/"
+    records = []
+    for i, (case, (b, sq, skv, hq, hkv, d, causal)) in enumerate(
+            cases.items()):
+        errs, plans = {}, {}
+        for dtype in (torch.float32, torch.bfloat16):
+            want = "tensor_core" if dtype == torch.bfloat16 else "cuda_core"
+            q, k, v, do = attn_operands(b, sq, skv, hq, hkv, d, dtype, dev,
+                                        400 + 8 * i)
+            plans["k4", dtype] = attn_plan(q, k, v, want=want,
+                                           what=f"K4 {tag} {case}").regime
+            errs["k4", dtype] = k4_case(q, k, v, causal, 0,
+                                        f"K4 {tag} {case} {dtype}")
+            if with_k5:
+                plans["k5", dtype] = attn_plan(
+                    q, k, v, do, want, f"K5 {tag} {case}").regime
+                e, timed, _ = k5_case(q, k, v, do, causal, 0,
+                                      f"K5 {tag} {case} {dtype}",
+                                      bitwise=want == "tensor_core")
+                errs["k5", dtype] = max(e.values())
+        q, k, v, out, lse, do = timed if with_k5 else (q, k, v, None, None,
+                                                       do)
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                      for t in (q, k, v))
+        gqa = hq != hkv
+        fwd_ms = time_ms(lambda: sdpa(qt, kt, vt, is_causal=causal,
+                                      enable_gqa=gqa))
+        bounds = attn_bounds(b, sq, skv, hq, hkv, d, causal, 2)
+        k4_ms = time_ms(lambda: ops.flash_attention(q, k, v, causal=causal))
+        k4_pms = time_ms(lambda: ref.flash_attention_ref(
+            q, k, v, causal=causal, block_k=ops.BLOCK_K))
+        shape = f"{b}x{sq}x{skv}x{hq}x{hkv}x{d}"
+        common = dict(route="cuda", case=case, causal=causal,
+                      rtol=ATTN_TOL[torch.bfloat16],
+                      atol_per_rms=ATTN_TOL[torch.bfloat16])
+        records.append(dict(
+            common, name=f"flash_attention {shape}",
+            source=src + "flash_fwd_tc.cu",
+            replaces="src/repro/kernels/flash_attention/kernel.py:83",
+            regime=plans["k4", torch.bfloat16],
+            max_abs_err=errs["k4", torch.bfloat16],
+            float32_max_abs_err=errs["k4", torch.float32], ms=k4_ms,
+            plain_ms=k4_pms, bound_ms=bounds["k4"][0],
+            bound_by=bounds["k4"][1], library_ms=fwd_ms))
+        line = (f"{tag}: K4 {case} {shape} ({plans['k4', torch.bfloat16]}) "
+                f"err {errs['k4', torch.bfloat16]:.3e} (float32 "
+                f"{errs['k4', torch.float32]:.3e}) {k4_ms:.4f} ms (plain "
+                f"{k4_pms:.3f} ms, SDPA {fwd_ms:.4f} ms, bound "
+                f"{bounds['k4'][0]:.4f} ms)")
+        if with_k5:
+            dot = do.transpose(1, 2)
+            both_ms = time_ms(lambda: torch.autograd.grad(
+                sdpa(qt, kt, vt, is_causal=causal, enable_gqa=gqa),
+                (qt, kt, vt), dot))
+            k5_ms = time_ms(lambda: ops.flash_attention_bwd(
+                q, k, v, out, lse, do, causal=causal))
+            k5_pms = time_ms(lambda: ref.flash_attention_bwd_ref(
+                q, k, v, out, lse, do, causal=causal, block_q=ops.BLOCK_Q,
+                block_k=ops.BLOCK_K))
+            records.append(dict(
+                common, name=f"flash_attention_bwd {shape}",
+                source=src + "flash_bwd_tc.cu",
+                replaces="src/repro/kernels/flash_attention/kernel_bwd.py"
+                         ":125",
+                regime=plans["k5", torch.bfloat16],
+                max_abs_err=errs["k5", torch.bfloat16],
+                float32_max_abs_err=errs["k5", torch.float32], ms=k5_ms,
+                plain_ms=k5_pms, bound_ms=bounds["k5"][0],
+                bound_by=bounds["k5"][1], library_ms=both_ms - fwd_ms))
+            line += (f"; K5 err {errs['k5', torch.bfloat16]:.3e} (float32 "
+                     f"{errs['k5', torch.float32]:.3e}) {k5_ms:.4f} ms "
+                     f"(plain {k5_pms:.3f} ms, SDPA backward "
+                     f"{both_ms - fwd_ms:.4f} ms, bound "
+                     f"{bounds['k5'][0]:.4f} ms)")
+        log(line)
+        del q, k, v, do, out, lse, qt, kt, vt
+    return records
+
+
+def k6_shape_record(tag, b, s, hq, hkv, d, kv_len, dev, seed) -> dict:
+    """K6 against its plain version over a cache of ``s`` positions with
+    ``kv_len`` live on every row, in bf16 and float32 (two launches
+    bitwise equal each), timed beside its plain version and SDPA in
+    bf16, with its bound."""
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        q = randn((b, hq, d), dtype, dev, seed)
+        k, v = (randn((b, s, hkv, d), dtype, dev, seed + 1 + i)
+                for i in range(2))
+        lens = torch.full((b,), kv_len, dtype=torch.int32, device=dev)
+        errs[dtype], p = k6_case(q, k, v, lens, f"K6 {tag} {dtype}")
+    times = time_k6(q, k, v, lens)
+    log(f"{tag}: K6 {b}x{s}x{hq}x{hkv}x{d} kv_len {kv_len} (split "
+        f"{p.split}) err {errs[torch.bfloat16]:.3e} (float32 "
+        f"{errs[torch.float32]:.3e}) {times['ms']:.4f} ms (plain "
+        f"{times['plain_ms']:.3f} ms, SDPA {times['library_ms']:.4f} ms, "
+        f"bound {times['bound_ms']:.5f} ms)")
+    return k6_record((b, s, hq, d), errs[torch.bfloat16],
+                     errs[torch.float32], p, times, kv_len=kv_len)
+
+
+def check_frontend_attention(dev) -> dict:
+    """K4, K5 and K6 at the four new paths' shapes, held and timed as
+    :func:`attn_shape_records` and :func:`k6_shape_record` hold them: I's
+    prefill (8 x 768 rows, 48/8 heads of 128, causal) and decode step
+    (a 1024-position cache, 784 live); TI's microbatch (1 x 4096, causal,
+    K4 and K5); Y's encoder (8 x 1500 frames, 6/6 heads of 64, non-causal:
+    1,500 = 11 x 128 + 92 keys, a ragged last tile) and its prefill's
+    cross attention (4 rows over 1,500), and its decode step's cross
+    attention on K6 (kv_len 1,500); TY's encoder (32 x 1500) and cross
+    attention (32 x 448 rows over 1,500 keys), K4 and K5.  Returns the
+    records by path."""
+    seq = N_PATCHES + 512
+    return {
+        "I": attn_shape_records("I", {"prefill": (8, seq, seq, 48, 8, 128,
+                                                  True)}, dev, False)
+        + [k6_shape_record("I", 8, 1024, 48, 8, 128, seq + 16, dev, 500)],
+        "TI": attn_shape_records("TI", {"layer": (1, TI_ROWS, TI_ROWS, 48,
+                                                  8, 128, True)}, dev, True),
+        "Y": attn_shape_records("Y", {
+            "encoder": (8, ENC_FRAMES, ENC_FRAMES, 6, 6, 64, False),
+            "cross_prefill": (8, Y_PROMPT, ENC_FRAMES, 6, 6, 64, False)},
+            dev, False)
+        + [k6_shape_record("Y", 8, ENC_FRAMES, 6, 6, 64, ENC_FRAMES, dev,
+                           510)],
+        "TY": attn_shape_records("TY", {
+            "encoder": (TY_BATCH, ENC_FRAMES, ENC_FRAMES, 6, 6, 64, False),
+            "cross": (TY_BATCH, TEXT_CTX, ENC_FRAMES, 6, 6, 64, False)},
+            dev, True)}
+
+
+def serve_launches(cfg, n_rep: int, prompt_len: int, steps: int) -> dict:
+    """The model kernels' launches of ``n_rep`` batches of ``generate``:
+    a decoder layer's prefill runs K4 and its decode step K6; an
+    encoder-decoder's prefill runs K4 in each encoder layer and twice in
+    each decoder layer (self and cross attention), and its decode step the
+    encoder again (K4 a layer) and K6 twice a decoder layer."""
+    n = dict.fromkeys(_model_wrappers(), 0)
+    if cfg.family == "encdec":
+        n["flash_attention"] = n_rep * (cfg.enc_layers + 2 * cfg.n_layers
+                                        + (steps - 1) * cfg.enc_layers)
+        n["decode_attention"] = n_rep * (steps - 1) * 2 * cfg.n_layers
+    else:
+        n["flash_attention"] = n_rep * cfg.n_layers
+        n["decode_attention"] = n_rep * (steps - 1) * cfg.n_layers
+    return n
+
+
+def frontend_extras(cfg, n: int, text_len: int, dev, seed: int) -> dict:
+    """A prefill's frontend stand-ins for ``n`` requests (float32 patch or
+    frame embeddings, 0.1 a standard normal), drawn from ``seed`` through
+    ``launch.inputs``."""
+    from repro_torch.launch import inputs
+    from repro_torch.models.config import ShapeConfig
+
+    prefix = cfg.n_prefix_embeds if cfg.family == "vlm" else 0
+    _, extras = inputs.prefill_specs(
+        cfg, ShapeConfig("serve", "prefill", text_len + prefix, n))
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return {k: inputs.draw(spec, g) for k, spec in extras.items()}
+
+
+def warm_serve_ms(cfg, params, prompts, extras, steps, max_len, reps):
+    """Prefill and decode-step ms of one warm batch (CUDA events, the
+    median of ``reps``)."""
+    from repro_torch.runtime.serve_loop import (make_decode_step,
+                                                make_prefill_step)
+    prefill = make_prefill_step(cfg, max_len)
+    decode = make_decode_step(cfg)
+    start, mid, end = (torch.cuda.Event(enable_timing=True)
+                       for _ in range(3))
+    prefill_ms, step_ms = [], []
+    for _ in range(reps):
+        start.record()
+        lg, state = prefill(params, prompts, extras)
+        mid.record()
+        tok = lg.argmax(-1)
+        for _ in range(steps - 1):
+            lg, state = decode(params, state, tok)
+            tok = lg.argmax(-1)
+        end.record()
+        end.synchronize()
+        prefill_ms.append(start.elapsed_time(mid))
+        step_ms.append(mid.elapsed_time(end) / (steps - 1))
+    return statistics.median(prefill_ms), statistics.median(step_ms)
+
+
+def hold_cap_event(tag, report, n_requests: int, n_rep: int) -> dict:
+    """The card's cap event (``report``'s ``routing_after``,
+    ``caps_after``, ``notes``, ``cap_changes`` and ``migrations``) against
+    the same event's CPU run on a new fleet of ``n_rep`` replicas; returns
+    the K1-K3 launches that run's plain calls make (K2 once)."""
+    from repro_torch.core.power_model import H100_HOST
+    from repro_torch.launch import serve
+    snap, router = serve.make_fleet(H100_HOST, n_rep)
+    with count_plain_calls() as power_launches:
+        routing, caps, result = serve.power_event(snap, router, n_requests,
+                                                  "cpu")
+    got = (list(report.routing_after.items()), report.caps_after,
+           list(report.notes), report.cap_changes, report.migrations)
+    cpu = (list(routing.items()), caps, list(result.notes),
+           result.cap_changes, result.migrations)
+    if got != cpu or power_launches["balance_caps"] != 1:
+        raise AssertionError(f"{tag}: cap event on the card {got}, on the "
+                             f"CPU {cpu} ({power_launches})")
+    return power_launches
+
+
+def teacher_forced(tag, cfg, params, prompts, toks, logits, steps, max_len,
+                   extras) -> tuple[float, float]:
+    """One replica's batch fed back through the plain versions on the
+    card: logits within 2e-2 relative L2 (path S's bar); returns the error
+    and the share of argmax equal to the kernels' tokens."""
+    from repro_torch.runtime.serve_loop import generate
+    with plain_attention():
+        _, plain_logits = generate(cfg, params, prompts, steps, max_len,
+                                   forced=toks, extras=extras)
+    err = rel_l2(logits, plain_logits)
+    if not err <= 2e-2:
+        raise AssertionError(f"{tag}: teacher-forced logits {err:.3e} "
+                             f"relative L2 from the plain versions (bound "
+                             f"2e-2)")
+    return err, float((plain_logits.argmax(-1) == toks).float().mean())
+
+
+def run_vlm_serving_path(dev) -> tuple[dict, dict]:
+    """Path I: ``launch.serve.main`` at InternVL2-26B's full width and
+    depth in bf16 (text only, as the reference's driver serves a VLM),
+    then each replica's batch through ``generate`` again with a 256-patch
+    prefix; the launch counts of both together exact, the cap event held
+    against its CPU run, one replica's prefixed batch against the plain
+    versions; then warm prefill and decode-step times with the prefix."""
+    from repro_torch.launch import serve
+    from repro_torch.runtime.serve_loop import generate
+
+    steps, max_len, prompt_len = 32, 1024, 512
+    reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    report = serve.main(VLM_ARGV)
+    wall = time.perf_counter() - t0
+    cfg, params = report.cfg, report.params
+    n_rep = len(report.routing)
+    batches = {}
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for i, (rep, (prompts, _, _)) in enumerate(report.batches.items()):
+        extras = frontend_extras(cfg, prompts.shape[0], prompt_len, dev,
+                                 20 + i)
+        toks, logits = generate(cfg, params, prompts, steps, max_len,
+                                extras=extras)
+        batches[rep] = (prompts, extras, toks, logits)
+    torch.cuda.synchronize()
+    prefix_s = time.perf_counter() - t1
+    launches = read_launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    power = hold_cap_event("I", report, 16, n_rep)
+    text = serve_launches(cfg, n_rep, prompt_len, steps)
+    want = {k: 2 * n for k, n in text.items()}
+    want.update(power)
+    if (cfg.family != "vlm" or launches != want
+            or report.routing != {"rep0": 8, "rep1": 8}):
+        raise AssertionError(f"I: {cfg.family}, routing {report.routing}, "
+                             f"kernel launches {launches}, expected {want}")
+    tokens = sum(t.numel() for _, _, t, _ in batches.values())
+    for rep, (_, _, toks, logits) in batches.items():
+        if toks.shape != (8, steps) or not torch.isfinite(logits).all():
+            raise AssertionError(f"I {rep}: tokens {tuple(toks.shape)} or "
+                                 f"non-finite logits")
+    prompts, extras, toks, logits = batches["rep0"]
+    err, same = teacher_forced("I", cfg, params, prompts, toks, logits,
+                               steps, max_len, extras)
+    prefill_ms, step_ms = warm_serve_ms(cfg, params, prompts, extras, steps,
+                                        max_len, 2)
+    weights_gb = sum(t.numel() * t.element_size() for grp in params.values()
+                     for t in grp.values()) / 1e9
+    info = dict(arch="internvl2_26b", wall_s=wall,
+                text_decode_s=report.seconds, text_tokens=report.tokens,
+                text_tokens_per_s=report.tokens / report.seconds,
+                prefix_decode_s=prefix_s, tokens=tokens,
+                tokens_per_s=tokens / prefix_s, prefill_ms=prefill_ms,
+                decode_step_ms=step_ms, weights_gb=weights_gb,
+                peak_memory_gb=peak_gb, teacher_forced_rel_l2=err,
+                plain_argmax_equal=same, routing=report.routing,
+                routing_after=report.routing_after,
+                caps_after=report.caps_after, notes=report.notes,
+                prompt_len=prompt_len, patches=N_PATCHES, steps=steps,
+                params=cfg.param_count())
+    log(f"path I: text only {report.tokens} tokens in {report.seconds:.3f} s "
+        f"({info['text_tokens_per_s']:.1f} tokens/s; whole driver "
+        f"{wall:.3f} s); with the 256-patch prefix {tokens} tokens in "
+        f"{prefix_s:.3f} s ({info['tokens_per_s']:.1f} tokens/s); prefill "
+        f"{prefill_ms:.2f} ms, decode step {step_ms:.2f} ms (warm, one batch "
+        f"of 8, 256 + 512 rows); weights {weights_gb:.3f} GB, peak "
+        f"{peak_gb:.3f} GB; teacher-forced logits {err:.3e} relative L2 "
+        f"(argmax equal {same:.3f}); launches {launches}; cap event "
+        f"{report.caps_after} W, {report.routing_after}")
+    del report, params, batches
+    return launches, info
+
+
+def run_frontend_f32_check(arch: str, n_layers, prompt_len: int,
+                           steps: int, max_len: int, dev) -> dict:
+    """``arch`` at full width in float32 (``n_layers`` layers, None: all)
+    on one batch of 8 with its frontend stand-ins: greedy tokens through
+    the kernels identical to the plain versions', logits within 1e-4
+    relative L2."""
+    from repro_torch import configs
+    from repro_torch.models import transformer as tfm
+    from repro_torch.runtime.serve_loop import generate
+
+    cfg = configs.get(arch)
+    cfg = dataclasses.replace(cfg, n_layers=n_layers or cfg.n_layers,
+                              param_dtype="float32")
+    params = tfm.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                             dev)
+    prompts = torch.randint(0, cfg.vocab_size, (8, prompt_len), device=dev,
+                            generator=torch.Generator(device=dev)
+                            .manual_seed(1))
+    extras = frontend_extras(cfg, 8, prompt_len, dev, 2)
+    toks, logits = generate(cfg, params, prompts, steps, max_len,
+                            extras=extras)
+    with plain_attention():
+        ptoks, plogits = generate(cfg, params, prompts, steps, max_len,
+                                  extras=extras)
+    err = rel_l2(logits, plogits)
+    if not torch.equal(toks, ptoks) or not err <= 1e-4:
+        raise AssertionError(f"{arch} f32: tokens equal "
+                             f"{torch.equal(toks, ptoks)}, logits {err:.3e} "
+                             f"relative L2 from the plain versions (bound "
+                             f"1e-4)")
+    log(f"{arch} f32, {cfg.n_layers} layers: tokens identical, logits "
+        f"{err:.3e} relative L2")
+    return dict(n_layers=cfg.n_layers, rel_l2=err, tokens_identical=True)
+
+
+def run_encdec_serving_path(dev) -> tuple[dict, dict]:
+    """Path Y: Whisper-tiny whole in bf16 behind ``make_fleet``'s router:
+    ``launch.serve.main`` first (it raises for want of frames, as the
+    reference's driver does), then each replica's batch through
+    ``generate`` with 1,500 frames a request, the cap event through
+    ``power_event``; launch counts exact, the cap event held against its
+    CPU run, one replica's batch against the plain versions; then warm
+    prefill and decode-step times."""
+    from repro_torch import configs
+    from repro_torch.core.power_model import H100_HOST
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as tfm
+    from repro_torch.runtime.serve_loop import generate
+
+    try:
+        serve.main(["--arch", "whisper_tiny", "--requests", "16"])
+    except ValueError as exc:
+        if "frames" not in str(exc):
+            raise
+        refused = str(exc)
+    else:
+        raise AssertionError("Y: launch.serve served whisper_tiny without "
+                             "frames")
+    reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg = configs.get("whisper_tiny")
+    params = tfm.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                             dev)
+    snap, router = serve.make_fleet(H100_HOST, 2)
+    routing = serve._count(router.route(16))
+    batches = {}
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for i, (rep, n) in enumerate(routing.items()):
+        prompts = torch.randint(0, cfg.vocab_size, (n, Y_PROMPT), device=dev,
+                                generator=torch.Generator(device=dev)
+                                .manual_seed(1))
+        extras = frontend_extras(cfg, n, Y_PROMPT, dev, 30 + i)
+        toks, logits = generate(cfg, params, prompts, Y_STEPS, TEXT_CTX,
+                                extras=extras)
+        batches[rep] = (prompts, extras, toks, logits)
+        for _ in range(n):
+            router.complete(rep)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t1
+    routing_after, caps_after, result = serve.power_event(snap, router, 16,
+                                                          dev)
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    power = hold_cap_event("Y", SimpleNamespace(
+        routing_after=routing_after, caps_after=caps_after,
+        notes=result.notes, cap_changes=result.cap_changes,
+        migrations=result.migrations), 16, 2)
+    want = dict(serve_launches(cfg, 2, Y_PROMPT, Y_STEPS), **power)
+    if launches != want or routing != {"rep0": 8, "rep1": 8}:
+        raise AssertionError(f"Y: routing {routing}, kernel launches "
+                             f"{launches}, expected {want}")
+    tokens = sum(t.numel() for _, _, t, _ in batches.values())
+    for rep, (_, _, toks, logits) in batches.items():
+        if toks.shape != (8, Y_STEPS) or not torch.isfinite(logits).all():
+            raise AssertionError(f"Y {rep}: tokens {tuple(toks.shape)} or "
+                                 f"non-finite logits")
+    prompts, extras, toks, logits = batches["rep0"]
+    err, same = teacher_forced("Y", cfg, params, prompts, toks, logits,
+                               Y_STEPS, TEXT_CTX, extras)
+    prefill_ms, step_ms = warm_serve_ms(cfg, params, prompts, extras,
+                                        Y_STEPS, TEXT_CTX, 3)
+    info = dict(arch="whisper_tiny", wall_s=wall, decode_s=decode_s,
+                tokens=tokens, tokens_per_s=tokens / decode_s,
+                prefill_ms=prefill_ms, decode_step_ms=step_ms,
+                peak_memory_gb=peak_gb, teacher_forced_rel_l2=err,
+                plain_argmax_equal=same, routing=routing,
+                routing_after=routing_after, caps_after=caps_after,
+                notes=list(result.notes), prompt_len=Y_PROMPT,
+                frames=ENC_FRAMES, steps=Y_STEPS, max_len=TEXT_CTX,
+                params=cfg.param_count(), driver_refused=refused)
+    log(f"path Y: {tokens} tokens in {decode_s:.3f} s "
+        f"({info['tokens_per_s']:.1f} tokens/s; whole path {wall:.3f} s); "
+        f"prefill {prefill_ms:.2f} ms, decode step {step_ms:.2f} ms (warm, "
+        f"one batch of 8 over 1500 frames); peak {peak_gb:.3f} GB; "
+        f"teacher-forced logits {err:.3e} relative L2 (argmax equal "
+        f"{same:.3f}); launches {launches}; cap event {caps_after} W, "
+        f"{routing_after}; launch.serve without frames: {refused}")
+    return launches, info
+
+
+def frontend_training(cfg, shape, steps: int, dev, seed: int = 0,
+                      peak_lr: float = 3e-3):
+    """``steps`` training steps of ``cfg`` on batches of ``shape`` with the
+    frontend's stand-ins (``launch.inputs``), under ``launch.train``'s
+    power plane: 2 pods at 85% of peak, the budget cut at step 1 (20% of
+    the budget lost and pod0 capped hard, then one manager invocation and
+    a new batch plan), as ``launch.train.main`` runs it (its cosine
+    schedule to ``peak_lr``, the driver's default ``--lr``).  Returns
+    ``(state, plans, caps, losses, tokens, grad_norms, seconds, last
+    batch)``."""
+    from repro_torch.core.power_model import H100_HOST
+    from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.launch import inputs, train
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.optim.schedule import cosine_schedule
+    from repro_torch.runtime.power_integration import PowerAwareBatchScheduler
+    from repro_torch.runtime.train_loop import init_train_state, make_train_step
+
+    opt = AdamW(learning_rate=cosine_schedule(peak_lr, 10, steps),
+                state_dtype=cfg.optimizer_state_dtype)
+    state = init_train_state(cfg, opt,
+                             torch.Generator(device=dev).manual_seed(seed),
+                             dev)
+    specs = inputs.train_batch_specs(cfg, shape)
+    data = SyntheticTokens(vocab_size=cfg.vocab_size,
+                           seq_len=specs["tokens"].shape[1],
+                           global_batch=shape.global_batch, device=dev)
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    snap, manager = train.build_power_plane(2, H100_HOST,
+                                            0.85 * H100_HOST.power_peak, dev)
+    scheduler = PowerAwareBatchScheduler(shape.global_batch,
+                                         [["pod0"], ["pod1"]])
+    step_fn = make_train_step(cfg, opt)
+    plan = scheduler.plan(snap)
+    plans, caps, metrics_log = [(0, plan.examples_per_pod.tolist())], [], []
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for step in range(steps):
+        if step == 1:
+            snap.power_budget *= 0.8
+            snap.hosts["pod0"].power_cap *= 0.6
+            snap = manager.run_invocation(snap).snapshot
+            plan = scheduler.plan(snap)
+            plans.append((step, plan.examples_per_pod.tolist()))
+            caps.append((step, "budget cut", train._caps(snap)))
+        b = data.next_batch()
+        batch = {"tokens": b.tokens, "labels": b.labels,
+                 "weights": b.weights}
+        batch.update({k: inputs.draw(spec, g) for k, spec in specs.items()
+                      if k not in batch})
+        batch = scheduler.apply(batch, plan)
+        state, metrics = step_fn(state, batch)
+        metrics_log.append(metrics)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    read = {k: [float(m[k]) for m in metrics_log]
+            for k in ("loss", "tokens", "grad_norm")}
+    return (state, plans, caps, read["loss"], read["tokens"],
+            read["grad_norm"], seconds, batch, step_fn)
+
+
+def frontend_path(tag: str):
+    """``(arch, config, batch shape)`` of path TI or TY."""
+    from repro_torch import configs
+    from repro_torch.models.config import ShapeConfig
+    if tag == "TI":
+        arch = "internvl2_26b"
+        return (arch, dataclasses.replace(configs.get(arch),
+                                          n_layers=TI_LAYERS),
+                ShapeConfig(tag, "train", TI_ROWS, TI_BATCH))
+    arch = "whisper_tiny"
+    return (arch, configs.get(arch),
+            ShapeConfig(tag, "train", TEXT_CTX, TY_BATCH))
+
+
+def run_frontend_training_path(tag: str, dev) -> tuple[dict, dict]:
+    """Path TI (InternVL2-26B, 6 of 48 layers, 4 x 4096 rows: 256 patches
+    and 3,840 tokens) or TY (Whisper-tiny whole, 32 x 448 tokens over
+    1,500 frames) through :func:`frontend_training` on the card, in bf16;
+    launch counts exact (a layer a microbatch, under remat: K4 twice and
+    K5 once an attention), the power plane held against the same events'
+    CPU run at the smoke size (the same global batch, 32 rows), finite
+    losses and gradient norms, one
+    batch's loss and every gradient (``vision_proj`` too) against the
+    plain versions on the card (loss 1e-2 relative, each gradient 5e-2
+    relative L2, path T's bounds; TY's at its initial parameters, at its
+    trained state K4 launch by launch and K5 against its plain version fed
+    K4's O, and float32 after the same 4 steps within 1e-4); two warm
+    steps timed and a third traced (the device's idle share)."""
+    from repro_torch import configs
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.runtime.train_loop import init_train_state, make_grads_fn
+
+    arch, cfg, shape = frontend_path(tag)
+    reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    (state, plans, caps, losses, tokens, gnorms, seconds, batch,
+     step_fn) = frontend_training(cfg, shape, FRONTEND_STEPS, dev)
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    scfg = configs.get_smoke(arch)
+    with count_plain_calls() as power_launches:
+        cpu = frontend_training(
+            scfg, ShapeConfig(tag, "train", 32, shape.global_batch),
+            FRONTEND_STEPS, torch.device("cpu"))
+    mb = max(cfg.microbatches, 1) * FRONTEND_STEPS
+    attn = cfg.n_layers * (2 if cfg.family == "encdec" else 1) + (
+        cfg.enc_layers if cfg.family == "encdec" else 0)
+    want = dict.fromkeys(_model_wrappers(), 0)
+    want.update(flash_attention=2 * attn * mb, flash_attention_bwd=attn * mb,
+                **power_launches)
+    if launches != want:
+        raise AssertionError(f"{tag}: kernel launches {launches}, expected "
+                             f"{want}")
+    if (plans, caps) != (cpu[1], cpu[2]):
+        raise AssertionError(f"{tag}: power plane on the card {plans} "
+                             f"{caps}, on the CPU {cpu[1]} {cpu[2]}")
+    if not (np.isfinite(losses).all() and np.isfinite(gnorms).all()):
+        raise AssertionError(f"{tag}: losses {losses}, grad norms {gnorms}")
+    step_ms = [_event_ms(lambda: step_fn(state, batch)) for _ in range(2)]
+    traced = idle_share(lambda: step_fn(state, batch))
+    state.opt_state = None
+    held = state.params
+    if tag == "TY":
+        # Training shuts TY's cross attention (random frames say nothing
+        # of random labels): after the path's 7 steps its leaves' gradients
+        # are about 2,000x smaller than at init, and the bf16 rounding of
+        # two forwards' O, through D = rowsum(dO O), moves them by up to
+        # 26% between the kernels and the plain versions.  So at the
+        # trained state K4 is held launch by launch against its plain
+        # version, and K5 through every gradient against its plain version
+        # fed K4's O (path T's bounds); the whole plain route's loss is
+        # gated there and its gradients printed.  The whole plain route is
+        # gated in bf16 at the initial parameters, and in float32 after the
+        # path's 4 steps (1e-4, as the other float32 checks).
+        k4_errs = []
+        given = _grads_against_plain(
+            make_grads_fn(cfg), held, batch, 1e-2, 5e-2,
+            "TY bf16, trained state, K5 against its plain version given "
+            "K4's O", plain=plain_k5_given_k4(k4_errs, "TY trained"))
+        whole = _grads_against_plain(
+            make_grads_fn(cfg), held, batch, 1e-2, float("inf"),
+            "TY bf16, trained state, the whole plain route (loss gated, "
+            "gradients printed)")
+        log(f"TY trained state: {len(k4_errs)} K4 launches within bf16's "
+            f"bound of the plain forward, worst max abs err "
+            f"{max(k4_errs)}")
+        trained_state = dict(
+            k5_given_k4_loss_rel_err=given[0],
+            k5_given_k4_worst_grad_rel_l2=given[1],
+            k4_launches_held=len(k4_errs), k4_max_abs_err=max(k4_errs),
+            whole_plain_loss_rel_err=whole[0],
+            whole_plain_worst_grad_rel_l2=whole[1])
+        held = init_train_state(cfg, AdamW(learning_rate=1e-3),
+                                torch.Generator(device=dev).manual_seed(0),
+                                dev).params
+        cfg32 = dataclasses.replace(cfg, param_dtype="float32")
+        state32 = frontend_training(cfg32, shape, FRONTEND_STEPS, dev)[0]
+        state32.opt_state = None
+        f32 = _grads_against_plain(make_grads_fn(cfg32), state32.params,
+                                   batch, 1e-4, 1e-4,
+                                   "TY float32 after 4 steps")
+        del state32
+    loss_err, grad_err = _grads_against_plain(
+        make_grads_fn(cfg), held, batch, 1e-2, 5e-2,
+        f"{tag} bf16, {cfg.n_layers} layers"
+        + (", initial parameters" if tag == "TY" else ""))
+    trained = float(sum(tokens))
+    rows = shape.global_batch * shape.seq_len
+    info = dict(arch=arch, n_layers=cfg.n_layers, enc_layers=cfg.enc_layers,
+                microbatches=cfg.microbatches, wall_s=wall, steps_s=seconds,
+                trained_tokens=trained, tokens_per_s=trained / seconds,
+                processed_rows_per_s=rows * FRONTEND_STEPS / seconds,
+                warm_step_ms=min(step_ms), warm_steps_ms=step_ms,
+                peak_memory_gb=peak_gb, losses=losses, grad_norms=gnorms,
+                plans=plans, caps=caps, params=cfg.param_count(),
+                loss_rel_err_plain=loss_err, worst_grad_rel_l2_plain=grad_err,
+                launches_power_plane=power_launches, **traced)
+    if tag == "TY":
+        info["float32_trained"] = dict(loss_rel_err_plain=f32[0],
+                                       worst_grad_rel_l2_plain=f32[1])
+        info["bf16_trained"] = trained_state
+    log(f"path {tag}: {arch} at {cfg.n_layers} layers, {FRONTEND_STEPS} "
+        f"steps of {shape.global_batch} x {shape.seq_len} in "
+        f"{cfg.microbatches} microbatches in {seconds:.3f} s "
+        f"({info['tokens_per_s']:.1f} trained tokens/s; whole path "
+        f"{wall:.3f} s); warm steps {step_ms} ms; a traced step "
+        f"{json.dumps(traced)}; peak {peak_gb:.3f} GB; losses {losses}; "
+        f"grad norms {gnorms}; plans {plans}; caps {caps}; launches "
+        f"{launches}")
+    del state, batch, step_fn
+    return launches, info
 
 
 def run_path(tag, specs, policies):
@@ -4265,6 +5078,29 @@ def main() -> int:
         launches_th, info_th = run_family_training_path("TH", dev)
         torch.cuda.empty_cache()
 
+        t_new = time.perf_counter()
+        fresh = check_fresh_threads(dev)
+        new = check_frontend_attention(dev)
+        for tag in ("I", "Y", "TI", "TY"):
+            records[tag] = new[tag]
+        torch.cuda.empty_cache()
+        launches_y, info_y = run_encdec_serving_path(dev)
+        info_y["float32_whole"] = run_frontend_f32_check(
+            "whisper_tiny", None, Y_PROMPT, Y_STEPS, TEXT_CTX, dev)
+        torch.cuda.empty_cache()
+        launches_ty, info_ty = run_frontend_training_path("TY", dev)
+        torch.cuda.empty_cache()
+        launches_i, info_i = run_vlm_serving_path(dev)
+        torch.cuda.empty_cache()
+        info_i["float32_4_layers"] = run_frontend_f32_check(
+            "internvl2_26b", 4, 512, 32, 1024, dev)
+        info_i["fresh_thread_entry_points"] = fresh
+        torch.cuda.empty_cache()
+        launches_ti, info_ti = run_frontend_training_path("TI", dev)
+        torch.cuda.empty_cache()
+        log(f"the fresh-thread launches, paths I, Y, TI and TY and their "
+            f"kernel checks: {time.perf_counter() - t_new:.1f} s")
+
         kernels_out = []
         for tag, launches in (("A", launches_a), ("B", launches_b),
                               ("V", launches_v), ("D", launches_d),
@@ -4276,7 +5112,9 @@ def main() -> int:
                               ("T", launches_t), ("M", launches_m),
                               ("P", launches_p), ("H", launches_h),
                               ("TM", launches_tm), ("TP", launches_tp),
-                              ("TH", launches_th)):
+                              ("TH", launches_th), ("I", launches_i),
+                              ("Y", launches_y), ("TI", launches_ti),
+                              ("TY", launches_ty)):
             for rec in records[tag]:
                 name = rec["name"].split()[0]
                 kernels_out.append(dict(rec, launches=launches[name],
@@ -4289,7 +5127,8 @@ def main() -> int:
                               "service": info_svc, "S": info_s,
                               "T": info_t, "M": info_m, "P": info_p,
                               "H": info_h, "TM": info_tm, "TP": info_tp,
-                              "TH": info_th}}))
+                              "TH": info_th, "I": info_i, "Y": info_y,
+                              "TI": info_ti, "TY": info_ty}}))
     log(json.dumps({"kernels": kernels_out}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

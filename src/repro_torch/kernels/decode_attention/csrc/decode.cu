@@ -424,7 +424,11 @@ extern "C" int decode_attention(const void* q, const void* k, const void* v,
                                 long long v_sb, long long v_ss, int B, int S,
                                 int Hq, int Hkv, int D, int split, int lanes,
                                 int rows, int vec, float scale, int dtype,
-                                void* stream) {
+                                int device, void* stream) {
+  // The tensors' card first: a host thread that has not used it has no
+  // current context, and a launch there fails.
+  const cudaError_t set = cudaSetDevice(device);
+  if (set != cudaSuccess) return static_cast<int>(set);
   if (B <= 0 || Hq <= 0) return 0;
   if (S <= 0 || Hkv <= 0 || Hq % Hkv != 0 || D <= 0 || D > 256 ||
       D % 8 != 0 || split <= 0 || split % kStage != 0 || lanes * 8 < D ||

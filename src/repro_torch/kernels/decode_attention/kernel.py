@@ -139,7 +139,7 @@ def workspace_floats(b: int, hkv: int, g: int, d: int, p: Plan) -> int:
 def _bind(lib: ctypes.CDLL) -> None:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.decode_attention.argtypes = ([p] * 6 + [ll] * 4 + [i] * 9
-                                     + [ctypes.c_float, i, p])
+                                     + [ctypes.c_float, i, i, p])
     lib.decode_attention.restype = i
     lib.decode_attention_smem_bytes.argtypes = [i] * 4
     lib.decode_attention_smem_bytes.restype = ll
@@ -169,5 +169,5 @@ def decode(q, k, v, kv_len, ws, out, p: Plan) -> None:
         ws.data_ptr(), out.data_ptr(), k.stride(0), k.stride(1),
         v.stride(0), v.stride(1), b, s, hq, hkv, d, p.split, p.lanes,
         p.rows, int(p.vector_loads), 1.0 / math.sqrt(d), DTYPES[q.dtype],
-        stream(q))
+        q.device.index, stream(q))
     LIBRARY.check(rc, "decode_attention")

@@ -412,10 +412,18 @@ int run(bool dkdv, const void* q, const void* k, const void* v,
       do_sb, do_ss, B, Sq, Skv, Hq, Hkv, D, q_offset, causal, scale, dtype, \
       stream
 
-extern "C" int flash_attention_bwd_dkdv(BWD_ARGS) {
+extern "C" int flash_attention_bwd_dkdv(BWD_ARGS, int device) {
+  // The tensors' card first: a host thread that has not used it has no
+  // current context, and a launch there fails.
+  const cudaError_t set = cudaSetDevice(device);
+  if (set != cudaSuccess) return static_cast<int>(set);
   return run(true, BWD_CALL);
 }
 
-extern "C" int flash_attention_bwd_dq(BWD_ARGS) {
+extern "C" int flash_attention_bwd_dq(BWD_ARGS, int device) {
+  // The tensors' card first: a host thread that has not used it has no
+  // current context, and a launch there fails.
+  const cudaError_t set = cudaSetDevice(device);
+  if (set != cudaSuccess) return static_cast<int>(set);
   return run(false, BWD_CALL);
 }

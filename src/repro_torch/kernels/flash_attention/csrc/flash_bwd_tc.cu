@@ -610,10 +610,18 @@ int bwd_tc(bool dkdv, BWD_TC_ARGS) {
       v_sb, v_ss, v_sh, do_sb, do_ss, do_sh, sqp, B, Sq, Skv, Hq, Hkv, D,    \
       q_offset, causal, scale, stream
 
-extern "C" int flash_attention_bwd_dkdv_tc(BWD_TC_ARGS) {
+extern "C" int flash_attention_bwd_dkdv_tc(BWD_TC_ARGS, int device) {
+  // The tensors' card first: a host thread that has not used it has no
+  // current context, and a launch there fails.
+  const cudaError_t set = cudaSetDevice(device);
+  if (set != cudaSuccess) return static_cast<int>(set);
   return bwd_tc(true, BWD_TC_CALL);
 }
 
-extern "C" int flash_attention_bwd_dq_tc(BWD_TC_ARGS) {
+extern "C" int flash_attention_bwd_dq_tc(BWD_TC_ARGS, int device) {
+  // The tensors' card first: a host thread that has not used it has no
+  // current context, and a launch there fails.
+  const cudaError_t set = cudaSetDevice(device);
+  if (set != cudaSuccess) return static_cast<int>(set);
   return bwd_tc(false, BWD_TC_CALL);
 }

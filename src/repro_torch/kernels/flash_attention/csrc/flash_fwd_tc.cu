@@ -282,8 +282,12 @@ extern "C" int flash_attention_fwd_tc(
     long long q_sb, long long q_ss, long long q_sh, long long k_sb,
     long long k_ss, long long k_sh, long long v_sb, long long v_ss,
     long long v_sh, int B, int Sq, int Skv, int Hq, int Hkv, int D,
-    int q_offset, int causal, float scale, void* stream) {
+    int q_offset, int causal, float scale, int device, void* stream) {
   using namespace fa_tc;
+  // The tensors' card first: a host thread that has not used it has no
+  // current context, and a launch there fails.
+  const cudaError_t set = cudaSetDevice(device);
+  if (set != cudaSuccess) return static_cast<int>(set);
   if (B <= 0 || Sq <= 0 || Hq <= 0) return 0;
   if (Skv <= 0 || Hkv <= 0 || Hq % Hkv != 0 || q_offset < 0)
     return static_cast<int>(cudaErrorInvalidValue);

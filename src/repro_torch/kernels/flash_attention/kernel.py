@@ -118,17 +118,18 @@ def plan(b: int, sq: int, skv: int, hq: int, hkv: int, d: int,
 def _bind(lib: ctypes.CDLL) -> None:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.flash_attention_fwd.argtypes = ([p] * 5 + [ll] * 6 + [i] * 8
-                                        + [ctypes.c_float, i, p])
+                                        + [ctypes.c_float, i, i, p])
     lib.flash_attention_fwd.restype = i
     lib.flash_attention_fwd_tc.argtypes = ([p] * 5 + [ll] * 9 + [i] * 8
-                                           + [ctypes.c_float, p])
+                                           + [ctypes.c_float, i, p])
     lib.flash_attention_fwd_tc.restype = i
     for fn in (lib.flash_attention_bwd_dkdv, lib.flash_attention_bwd_dq):
-        fn.argtypes = [p] * 9 + [ll] * 8 + [i] * 8 + [ctypes.c_float, i, p]
+        fn.argtypes = ([p] * 9 + [ll] * 8 + [i] * 8
+                       + [ctypes.c_float, i, p, i])
         fn.restype = i
     for fn in (lib.flash_attention_bwd_dkdv_tc,
                lib.flash_attention_bwd_dq_tc):
-        fn.argtypes = [p] * 9 + [ll] * 13 + [i] * 8 + [ctypes.c_float, p]
+        fn.argtypes = [p] * 9 + [ll] * 13 + [i] * 8 + [ctypes.c_float, p, i]
         fn.restype = i
     lib.flash_attention_tc_smem_bytes.argtypes = [i, i]
     lib.flash_attention_tc_smem_bytes.restype = ll
@@ -167,9 +168,10 @@ def flash_fwd(q, k, v, out, lse, p: Plan, *, causal: bool,
     if p.regime == "tensor_core":
         rc = lib.flash_attention_fwd_tc(
             *ptrs, *bshd_strides(q), *bshd_strides(k), *bshd_strides(v),
-            *dims, stream(q))
+            *dims, q.device.index, stream(q))
     else:
         rc = lib.flash_attention_fwd(
             *ptrs, q.stride(0), q.stride(1), k.stride(0), k.stride(1),
-            v.stride(0), v.stride(1), *dims, DTYPES[q.dtype], stream(q))
+            v.stride(0), v.stride(1), *dims, DTYPES[q.dtype],
+            q.device.index, stream(q))
     LIBRARY.check(rc, f"flash_attention ({p.regime})")

@@ -107,12 +107,12 @@ def flash_bwd(q, k, v, dout, lse, dsum, dq, dk, dv, p: Plan, *,
     if p.regime == "tensor_core":
         args = (*ptrs, *kernel.bshd_strides(q), *kernel.bshd_strides(k),
                 *kernel.bshd_strides(v), *kernel.bshd_strides(dout),
-                lse.stride(1), *dims, stream(q))
+                lse.stride(1), *dims, stream(q), q.device.index)
         fns = (lib.flash_attention_bwd_dkdv_tc, lib.flash_attention_bwd_dq_tc)
     else:
         args = (*ptrs, q.stride(0), q.stride(1), k.stride(0), k.stride(1),
                 v.stride(0), v.stride(1), dout.stride(0), dout.stride(1),
-                *dims, DTYPES[q.dtype], stream(q))
+                *dims, DTYPES[q.dtype], stream(q), q.device.index)
         fns = (lib.flash_attention_bwd_dkdv, lib.flash_attention_bwd_dq)
     LIBRARY.check(fns[0](*args), f"flash_attention_bwd dk/dv ({p.regime})")
     LIBRARY.check(fns[1](*args), f"flash_attention_bwd dq ({p.regime})")

@@ -431,8 +431,13 @@ void cluster_config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute& attr,
 // `smem` bytes a block (cudaOccupancyMaxActiveClusters), in *out.
 extern "C" int powercap_balance_max_active_clusters(int J, int c,
                                                     long long smem,
+                                                    int device,
                                                     int* out) {
   *out = 0;
+  // The tensors' card first: a host thread that has not used it has no
+  // current context, and a launch there fails.
+  const cudaError_t set = cudaSetDevice(device);
+  if (set != cudaSuccess) return static_cast<int>(set);
   if (J <= 0 || c < 1 || c > kMaxCluster) return 0;
   return powercap::with_row_shape(J, [&](auto shape) {
     using Shape = decltype(shape);
@@ -463,7 +468,11 @@ extern "C" int powercap_balance_caps(
     const void* enabled, const void* caps_in, void* caps_out, void* did_out,
     void* rounds_out, long long S, int H, int J, int iters, double threshold,
     int max_iters, double min_transfer, int cluster, int threads,
-    long long smem, void* stream) {
+    long long smem, int device, void* stream) {
+  // The tensors' card first: a host thread that has not used it has no
+  // current context, and a launch there fails.
+  const cudaError_t set = cudaSetDevice(device);
+  if (set != cudaSuccess) return static_cast<int>(set);
   if (S <= 0 || H <= 0) return 0;
   if (J <= 0 || cluster < 1 || cluster > kMaxCluster ||
       smem < smem_bytes((H + cluster - 1) / cluster))

@@ -74,7 +74,12 @@ __global__ void __launch_bounds__(kThreads) segmented_kernel(
 extern "C" int powercap_waterfill_segmented(
     const void* cap, const void* starts, const void* counts,
     const void* order, const void* fl, const void* ce, const void* w,
-    void* out, long long n_segs, int jb, int iters, void* stream) {
+    void* out, long long n_segs, int jb, int iters, int device,
+    void* stream) {
+  // The tensors' card first: a host thread that has not used it has no
+  // current context, and a launch there fails.
+  const cudaError_t set = cudaSetDevice(device);
+  if (set != cudaSuccess) return static_cast<int>(set);
   if (n_segs <= 0 || jb <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return powercap::with_row_shape(jb, [&](auto shape) {

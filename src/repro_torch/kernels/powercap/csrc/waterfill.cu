@@ -40,7 +40,12 @@ __global__ void __launch_bounds__(kThreads) waterfill_kernel(
 extern "C" int powercap_waterfill(const void* cap, const void* fl,
                                   const void* ce, const void* w,
                                   const void* act, void* out, long long rows,
-                                  int J, int iters, void* stream) {
+                                  int J, int iters, int device,
+                                  void* stream) {
+  // The tensors' card first: a host thread that has not used it has no
+  // current context, and a launch there fails.
+  const cudaError_t set = cudaSetDevice(device);
+  if (set != cudaSuccess) return static_cast<int>(set);
   if (rows <= 0 || J <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return powercap::with_row_shape(J, [&](auto shape) {

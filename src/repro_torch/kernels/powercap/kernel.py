@@ -25,6 +25,8 @@ import dataclasses
 import functools
 from pathlib import Path
 
+import torch
+
 from repro_torch.kernels._build import KernelLibrary, stream as _stream
 
 #: Dynamic shared memory one block may take on Hopper (227 KB).
@@ -127,15 +129,15 @@ def balance_plan(s: int, h: int, j: int,
 def _bind(lib: ctypes.CDLL) -> None:
     p, i, ll, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
         ctypes.c_double
-    lib.powercap_waterfill.argtypes = [p] * 6 + [ll, i, i, p]
+    lib.powercap_waterfill.argtypes = [p] * 6 + [ll, i, i, i, p]
     lib.powercap_waterfill.restype = i
     lib.powercap_balance_caps.argtypes = [p] * 16 + [ll, i, i, i, d, i, d,
-                                                     i, i, ll, p]
+                                                     i, i, ll, i, p]
     lib.powercap_balance_caps.restype = i
-    lib.powercap_waterfill_segmented.argtypes = [p] * 8 + [ll, i, i, p]
+    lib.powercap_waterfill_segmented.argtypes = [p] * 8 + [ll, i, i, i, p]
     lib.powercap_waterfill_segmented.restype = i
     lib.powercap_balance_max_active_clusters.argtypes = [
-        i, i, ll, ctypes.POINTER(i)]
+        i, i, ll, i, ctypes.POINTER(i)]
     lib.powercap_balance_max_active_clusters.restype = i
 
 
@@ -160,7 +162,8 @@ def waterfill(cap, fl, ce, w, act, out, iters: int) -> None:
     rows, j = cap.numel(), fl.shape[-1]
     rc = lib.powercap_waterfill(cap.data_ptr(), fl.data_ptr(),
                                 ce.data_ptr(), w.data_ptr(), act.data_ptr(),
-                                out.data_ptr(), rows, j, iters, _stream(fl))
+                                out.data_ptr(), rows, j, iters,
+                                fl.device.index, _stream(fl))
     LIBRARY.check(rc, "waterfill")
 
 
@@ -172,22 +175,25 @@ def waterfill_segmented(cap, layout, fl, ce, w, out, iters: int) -> None:
         cap.data_ptr(), layout.starts.data_ptr(), layout.counts.data_ptr(),
         layout.order.data_ptr(), fl.data_ptr(), ce.data_ptr(), w.data_ptr(),
         out.data_ptr(), layout.starts.numel(), layout.jb, iters,
-        _stream(out))
+        out.device.index, _stream(out))
     LIBRARY.check(rc, "waterfill_segmented")
 
 
 @functools.lru_cache(maxsize=64)
-def max_active_clusters(j: int) -> tuple[int, ...]:
+def max_active_clusters(j: int, device=None) -> tuple[int, ...]:
     """Clusters of 1 to :data:`MAX_CLUSTER` blocks of K2 (rows of ``j``
-    slots) that the card holds at once, as the CUDA occupancy calculator
-    answers for a block's largest shared memory (so each answer holds for
-    every plan); 0 for a size the card cannot launch."""
+    slots) that card ``device`` (an index; ``None``: the current one)
+    holds at once, as the CUDA occupancy calculator answers for a block's
+    largest shared memory (so each answer holds for every plan); 0 for a
+    size the card cannot launch."""
     lib = library()
+    if device is None:
+        device = torch.cuda.current_device()
     smem = balance_smem_bytes(MAX_HOSTS_A_BLOCK)
     out = []
     for c in range(1, MAX_CLUSTER + 1):
         n = ctypes.c_int(0)
-        rc = lib.powercap_balance_max_active_clusters(j, c, smem,
+        rc = lib.powercap_balance_max_active_clusters(j, c, smem, device,
                                                       ctypes.byref(n))
         out.append(n.value if rc == 0 else 0)
     return tuple(out)
@@ -205,5 +211,5 @@ def balance_caps(tensors, caps_out, did_out, rounds_out, *, iters: int,
         did_out.data_ptr(), rounds_out.data_ptr(), s, h, j, iters,
         float(params.imbalance_threshold), int(params.max_iters),
         float(params.min_transfer), plan.cluster, plan.threads,
-        plan.smem_bytes, _stream(caps_out))
+        plan.smem_bytes, caps_out.device.index, _stream(caps_out))
     LIBRARY.check(rc, "balance_caps")

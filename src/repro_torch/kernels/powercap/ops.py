@@ -114,7 +114,8 @@ def balance_caps(hosts: HostCols, caps, dense: DenseCols, cpu_reserved,
     if dev.type == "cpu":
         return ref.balance_caps_ref(hosts, cp, dense, cres, bud, en, params)
     j = dense.floors.shape[-1]
-    plan = kernel.balance_plan(s, h, j, kernel.max_active_clusters(j))
+    plan = kernel.balance_plan(s, h, j,
+                               kernel.max_active_clusters(j, dev.index))
     caps_out = torch.empty((s, h), dtype=_F64, device=dev)
     did = torch.empty(s, dtype=_BOOL, device=dev)
     rounds = torch.empty(s, dtype=torch.int32, device=dev)

@@ -363,7 +363,11 @@ extern "C" int ssd_chunk(const void* x, const void* log_decay, const void* dt,
                          void* total, long long b_sb, long long b_sl,
                          long long b_sh, long long c_sb, long long c_sl,
                          long long c_sh, int B, int L, int H, int P, int N,
-                         int Q, int dtype, void* stream) {
+                         int Q, int dtype, int device, void* stream) {
+  // The tensors' card first: a host thread that has not used it has no
+  // current context, and a launch there fails.
+  const cudaError_t set = cudaSetDevice(device);
+  if (set != cudaSuccess) return static_cast<int>(set);
   if (B <= 0 || L <= 0 || H <= 0) return 0;
   if (P <= 0 || N <= 0 || Q <= 0 || L % Q != 0 || H > 65535 ||
       static_cast<long long>(B) * (L / Q) > 65535)

@@ -547,7 +547,12 @@ extern "C" int ssd_chunk_tc(const void* x, const void* log_decay,
                             long long b_sb, long long b_sl, long long b_sh,
                             long long c_sb, long long c_sl, long long c_sh,
                             int B, int L, int H, int P, int N, int Q,
-                            int intra_slice, int state_slice, void* stream) {
+                            int intra_slice, int state_slice, int device,
+                            void* stream) {
+  // The tensors' card first: a host thread that has not used it has no
+  // current context, and a launch there fails.
+  const cudaError_t set = cudaSetDevice(device);
+  if (set != cudaSuccess) return static_cast<int>(set);
   using namespace ssd_tc;
   if (B <= 0 || L <= 0 || H <= 0) return 0;
   const bool shared = b_sh == 0 && c_sh == 0;

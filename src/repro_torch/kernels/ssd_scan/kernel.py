@@ -241,13 +241,13 @@ def plan_bwd(b: int, l: int, h: int, p: int, n: int, q: int,
 
 def _bind(lib: ctypes.CDLL) -> None:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.ssd_chunk.argtypes = [p] * 8 + [ll] * 6 + [i] * 7 + [p]
+    lib.ssd_chunk.argtypes = [p] * 8 + [ll] * 6 + [i] * 8 + [p]
     lib.ssd_chunk.restype = i
-    lib.ssd_chunk_tc.argtypes = [p] * 8 + [ll] * 6 + [i] * 8 + [p]
+    lib.ssd_chunk_tc.argtypes = [p] * 8 + [ll] * 6 + [i] * 9 + [p]
     lib.ssd_chunk_tc.restype = i
     lib.ssd_tc_smem_bytes.argtypes = [i] * 5
     lib.ssd_tc_smem_bytes.restype = ll
-    lib.ssd_chunk_bwd.argtypes = [p] * 13 + [ll] * 6 + [i] * 7 + [p]
+    lib.ssd_chunk_bwd.argtypes = [p] * 13 + [ll] * 6 + [i] * 8 + [p]
     lib.ssd_chunk_bwd.restype = i
     lib.ssd_bwd_smem_bytes.argtypes = [i] * 3
     lib.ssd_bwd_smem_bytes.restype = ll
@@ -283,9 +283,10 @@ def ssd_chunk(x, log_decay, dt, b_mat, c_mat, y, contrib, total, p: Plan,
     lib = LIBRARY.library()
     if p.regime == "tensor_core":
         rc = lib.ssd_chunk_tc(*ptrs, p.intra_slice, p.state_slice,
-                              stream(x))
+                              x.device.index, stream(x))
     else:
-        rc = lib.ssd_chunk(*ptrs, DTYPES[x.dtype], stream(x))
+        rc = lib.ssd_chunk(*ptrs, DTYPES[x.dtype], x.device.index,
+                           stream(x))
     LIBRARY.check(rc, f"ssd_scan ({p.regime})")
 
 
@@ -312,8 +313,9 @@ def ssd_chunk_bwd(x, log_decay, dt, b_mat, c_mat, dy, dcontrib, dtotal,
             *b_mat.stride()[:3], *c_mat.stride()[:3], bsz, l, h, hp, n,
             chunk)
     lib = LIBRARY.library()
-    if p.regime == "tensor_core":   # x's card made current on this thread
+    if p.regime == "tensor_core":
         rc = lib.ssd_chunk_bwd_tc(*ptrs, x.device.index, stream(x))
     else:
-        rc = lib.ssd_chunk_bwd(*ptrs, DTYPES[x.dtype], stream(x))
+        rc = lib.ssd_chunk_bwd(*ptrs, DTYPES[x.dtype], x.device.index,
+                               stream(x))
     LIBRARY.check(rc, f"ssd_scan backward ({p.regime})")

@@ -1,1 +1,1 @@
-"""Launchers: the serving driver."""
+"""Launchers: the serving and training drivers, and the input stand-ins."""

@@ -8,7 +8,13 @@ K7; a Mamba2 or Zamba2 model's SSD scan on K8 at prefill, Zamba2's shared
 attention on K4 and K6), then halves host ``h0``'s cap, runs one manager invocation
 (BalancePowerCap on K2, its note on K3, the migration balancer's
 entitlement waterfills on K1) and routes again.  The weights are random, from a seeded
-``torch.Generator``.
+``torch.Generator``.  As the reference's driver, it passes no frontend
+inputs: a VLM (``internvl2_26b``) serves its text prompts alone, and an
+encoder-decoder (``whisper_tiny``) raises ``ValueError`` for want of
+frames (the reference's raises ``KeyError``; ROADMAP fault F4).  Serving
+with a patch prefix or frames goes through
+:func:`repro_torch.runtime.serve_loop.generate`'s ``extras``, with
+:mod:`repro_torch.launch.inputs` for their shapes.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch granite_8b \
       --smoke --device cpu --requests 32 --decode-steps 8

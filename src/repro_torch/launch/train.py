@@ -11,7 +11,10 @@ note on K3, the migration balancer's waterfills on K1) and a straggler
 runs out, then BalancePowerCap toward it).  Every step runs the model's
 forward attention on kernel K4 and its backward on K5.  The weights are
 random, from a seeded ``torch.Generator``; a checkpoint is written at the
-end, as the reference writes one.
+end, as the reference writes one.  As the reference's driver, its batches
+carry no frontend inputs: a VLM trains on text alone, and an
+encoder-decoder raises ``ValueError`` at its first step for want of
+frames (the reference's raises ``KeyError``; ROADMAP fault F4).
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch granite_8b \
       --smoke --device cpu --steps 20 --power-budget-drop-at 5

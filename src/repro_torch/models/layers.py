@@ -14,8 +14,9 @@ the same call: its backward is K5
 as ``torch.autograd.Function``s.
 
 The reference's ``shard(...)`` constraints are no-ops without a mesh, and
-one card has none, so the port drops them.  Cross-attention is a later
-slice (ROADMAP queue 1).
+one card has none, so the port drops them.  Cross attention (the
+encoder-decoder's) projects only the queries, applies no RoPE and attends
+non-causally over the given K/V: on K4, or on K6 for a one-token step.
 """
 
 from __future__ import annotations
@@ -165,7 +166,14 @@ def attention(params: dict, x: torch.Tensor, cfg, *, causal: bool = True,
               kv_cache: dict | None = None, cross_kv: tuple | None = None,
               kv_len: torch.Tensor | None = None
               ) -> tuple[torch.Tensor, dict | None]:
-    """GQA self-attention with an optional KV cache; x: (B, S, D).
+    """GQA attention with an optional KV cache, or cross attention over
+    ``cross_kv``; x: (B, S, D).
+
+    With ``cross_kv = (k, v)``, each (B, S_kv, Hkv, hd), only the queries
+    are projected, no RoPE is applied and every query row attends to every
+    key: a one-token step runs K6 with ``S_kv`` keys on every row (``kv_len``
+    is not read), a longer one K4 with ``causal=False``.  A query that
+    needs a gradient takes K4 at any length.
 
     With a cache (``{"k", "v"}`` of shape (B, max_len, Hkv, hd) and a host
     ``int`` ``"cursor"``), the new keys and values are written into the
@@ -176,15 +184,20 @@ def attention(params: dict, x: torch.Tensor, cfg, *, causal: bool = True,
     cache functionally; the port writes in place to keep one cache.
     Returns ``(out, cache with the cursor advanced)``.
     """
-    if cross_kv is not None:
-        raise NotImplementedError(
-            "cross-attention (the encdec family) is not ported yet "
-            "(ROADMAP queue 1, item 9)")
     b, s, _ = x.shape
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = (x @ params["wq"]).reshape(b, s, hq, hd)
+    if cross_kv is not None:
+        k, v = cross_kv
+        if s == 1 and not q.requires_grad:
+            every = torch.full((b,), k.shape[1], dtype=torch.int32,
+                               device=x.device)
+            out = decode_attention(q[:, 0], k, v, every)[:, None]
+        else:
+            out, _ = flash_attention(q, k, v, causal=False)
+        return out.reshape(b, s, hq * hd) @ params["wo"], kv_cache
     if positions is None:
         positions = torch.arange(s, device=x.device)[None, :]
-    q = (x @ params["wq"]).reshape(b, s, hq, hd)
     k = (x @ params["wk"]).reshape(b, s, hkv, hd)
     v = (x @ params["wv"]).reshape(b, s, hkv, hd)
     q = apply_rope(q, positions, cfg.rope_theta)

@@ -1,5 +1,6 @@
-"""Model zoo: the decoder-only LM (dense and MoE), the Mamba2 SSM and the
-Zamba2-style hybrid (those parts of ``repro.models.transformer``).
+"""Model zoo: the decoder-only LM (dense, MoE and the VLM's vision prefix),
+the Mamba2 SSM, the Zamba2-style hybrid and the Whisper-style
+encoder-decoder (``repro.models.transformer``).
 
 Parameters are a nested dict of tensors in the reference's layout: the
 repeated layers stacked on a leading ``(n_layers, ...)`` axis under
@@ -15,7 +16,12 @@ the forward sums its aux loss over the layers.  An SSM layer is
 its backward); under autograd each Mamba layer is checkpointed as the
 reference's ``ssm_forward`` and ``hybrid_forward`` checkpoint their scan
 bodies, and the hybrid's shared attention block is not, as there.  The
-other families (``vlm``, ``encdec``) are later slices and raise.
+``vlm`` family is the dense decoder with precomputed patch embeddings
+projected and prepended (``vision_embeds``); the ``encdec`` family runs a
+non-causal encoder over precomputed frame embeddings (``frames``) and a
+decoder whose blocks add cross attention over the encoder's output (K4,
+or K6 for a one-token step), each body checkpointed as ``cfg.remat``
+says.
 """
 
 from __future__ import annotations
@@ -33,20 +39,6 @@ from repro_torch.backend import resolve_device
 from repro_torch.models import layers, moe, ssd
 from repro_torch.models.config import ModelConfig
 
-#: The ROADMAP item that brings each family not ported yet.
-_LATER = {
-    "vlm": "the VLM prefix (ROADMAP queue 1, item 9)",
-    "encdec": "the encoder-decoder family (ROADMAP queue 1, item 9)",
-}
-
-
-def _ported(cfg: ModelConfig) -> None:
-    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
-        raise NotImplementedError(
-            f"the {cfg.family} family is not ported yet: it comes with "
-            f"{_LATER.get(cfg.family, 'a later slice')}")
-
-
 # =========================================================== param specs
 def _stack(specs: dict, n: int) -> dict:
     """Prepend a stacked-layer axis to every spec in ``specs``."""
@@ -56,7 +48,6 @@ def _stack(specs: dict, n: int) -> dict:
 
 def block_param_specs(cfg: ModelConfig) -> dict:
     """One decoder block (attention + FFN or MoE) including norms."""
-    _ported(cfg)
     specs = {
         "ln1": ((cfg.d_model,), (None,)),
         "ln2": ((cfg.d_model,), (None,)),
@@ -71,7 +62,6 @@ def block_param_specs(cfg: ModelConfig) -> dict:
 
 def param_specs(cfg: ModelConfig) -> dict:
     """Full tree of ``(shape, logical_axes)`` for the model."""
-    _ported(cfg)
     specs: dict = {
         "embed": {"table": ((cfg.vocab_size, cfg.d_model),
                             ("vocab", "embed_p"))},
@@ -80,14 +70,33 @@ def param_specs(cfg: ModelConfig) -> dict:
     if not cfg.tie_embeddings:
         specs["unembed"] = {"table": ((cfg.d_model, cfg.vocab_size),
                                       ("embed_p", "vocab"))}
-    if cfg.family in ("dense", "moe"):
+    if cfg.family in ("dense", "moe", "vlm"):
         specs["blocks"] = _stack(block_param_specs(cfg), cfg.n_layers)
-        return specs
-    blk = {"ln": ((cfg.d_model,), (None,))}
-    blk.update(ssd.ssd_param_specs(cfg))
-    specs["blocks"] = _stack(blk, cfg.n_layers)
-    if cfg.family == "hybrid":
-        specs["shared_attn"] = block_param_specs(cfg)
+        if cfg.family == "vlm":
+            specs["vision_proj"] = {
+                "w": ((cfg.d_model, cfg.d_model), ("embed_p", None))}
+    elif cfg.family in ("ssm", "hybrid"):
+        blk = {"ln": ((cfg.d_model,), (None,))}
+        blk.update(ssd.ssd_param_specs(cfg))
+        specs["blocks"] = _stack(blk, cfg.n_layers)
+        if cfg.family == "hybrid":
+            specs["shared_attn"] = block_param_specs(cfg)
+    elif cfg.family == "encdec":
+        enc_blk = {
+            "ln1": ((cfg.d_model,), (None,)),
+            "ln2": ((cfg.d_model,), (None,)),
+        }
+        enc_blk.update(layers.attention_param_specs(cfg))
+        enc_blk.update(layers.mlp_param_specs(cfg))
+        specs["enc_blocks"] = _stack(enc_blk, cfg.enc_layers)
+        dec_blk = dict(block_param_specs(cfg))
+        dec_blk["ln_cross"] = ((cfg.d_model,), (None,))
+        dec_blk.update({f"cross_{k}": v for k, v in
+                        layers.attention_param_specs(cfg).items()})
+        specs["dec_blocks"] = _stack(dec_blk, cfg.n_layers)
+        specs["enc_norm"] = {"scale": ((cfg.d_model,), (None,))}
+    else:
+        raise ValueError(f"unknown family {cfg.family}")
     return specs
 
 
@@ -176,13 +185,22 @@ def _training(params: dict) -> bool:
         t.requires_grad for grp in params.values() for t in grp.values())
 
 
-def _attn_block(blk, h, cfg, positions, cache, kv_len=None):
+def _attn_block(blk, h, cfg, positions, cache, kv_len=None, cross=None):
     """One block: ``(h, cache, aux)``, aux the MoE layer's loss (``None``
-    when dense)."""
+    when dense).  With ``cross`` (the encoder's ``(k, v)``), a cross
+    attention sub-layer over them follows the self attention, its input
+    normed by ``ln_cross`` and its weights the ``cross_``-prefixed ones."""
     hn1 = layers.rms_norm(h, blk["ln1"], cfg.norm_eps)
     a, cache = layers.attention(blk, hn1, cfg, positions=positions,
                                 kv_cache=cache, kv_len=kv_len)
     h = h + a
+    if cross is not None:
+        c, _ = layers.attention(
+            {k[len("cross_"):]: v for k, v in blk.items()
+             if k.startswith("cross_")},
+            layers.rms_norm(h, blk["ln_cross"], cfg.norm_eps), cfg,
+            cross_kv=cross)
+        h = h + c
     hn = layers.rms_norm(h, blk["ln2"], cfg.norm_eps)
     if cfg.family == "moe":
         f, aux = moe.moe_ffn(blk, hn, cfg)
@@ -207,13 +225,18 @@ def _make_cache(cfg: ModelConfig, n_layers: int, batch: int, max_len: int,
 def decoder_forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
                     vision_embeds: Optional[torch.Tensor] = None,
                     cache: Optional[dict] = None,
-                    positions: Optional[torch.Tensor] = None
+                    positions: Optional[torch.Tensor] = None, **_
                     ) -> ForwardResult:
-    """Dense or MoE decoder-only forward over the stacked blocks."""
-    _ported(cfg)
-    if vision_embeds is not None:
-        raise NotImplementedError(f"vision embeddings: {_LATER['vlm']}")
+    """Dense, MoE or VLM decoder-only forward over the stacked blocks.
+
+    A ``vlm`` model given ``vision_embeds`` (B, P, d_model) projects them
+    by ``vision_proj`` in the parameters' dtype and prepends them to the
+    token embeddings: the positions run over all ``P + S`` rows, and a
+    cache takes ``P + S`` rows and advances its cursor by as many."""
     h = params["embed"]["table"][tokens].to(getattr(torch, cfg.param_dtype))
+    if cfg.family == "vlm" and vision_embeds is not None:
+        ve = vision_embeds.to(h.dtype) @ params["vision_proj"]["w"]
+        h = torch.cat([ve, h], dim=1)
     b, s = h.shape[:2]
     if positions is None:
         positions = torch.arange(s, device=h.device)[None, :]
@@ -331,18 +354,104 @@ def hybrid_forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
         (), dtype=torch.float32, device=h.device), cache=new_cache)
 
 
+def _enc_layer(blk, h, cfg, positions):
+    """One encoder block: non-causal self attention and the MLP, each
+    behind its pre-norm residual."""
+    a, _ = layers.attention(
+        blk, layers.rms_norm(h, blk["ln1"], cfg.norm_eps), cfg,
+        causal=False, positions=positions)
+    h = h + a
+    return h + layers.mlp(blk, layers.rms_norm(h, blk["ln2"], cfg.norm_eps),
+                          cfg)
+
+
+def _dec_layer(blk, h, enc_out, cfg, positions, cache, kv_len):
+    """One decoder block with its cross K/V formed from ``enc_out`` inside
+    it (so a checkpointed block recomputes them, as the reference's
+    ``dec_body`` does)."""
+    b, se, _ = enc_out.shape
+    hkv, hd = cfg.n_kv_heads, cfg.head_dim
+    ck = (enc_out @ blk["cross_wk"]).reshape(b, se, hkv, hd)
+    cv = (enc_out @ blk["cross_wv"]).reshape(b, se, hkv, hd)
+    h, _, _ = _attn_block(blk, h, cfg, positions, cache, kv_len,
+                          cross=(ck, cv))
+    return h
+
+
+def encode(params: dict, frames: torch.Tensor, cfg: ModelConfig
+           ) -> torch.Tensor:
+    """The encoder over precomputed frame embeddings (B, S_enc, d_model),
+    cast to the parameters' dtype: ``enc_layers`` non-causal blocks with
+    RoPE at ``arange(S_enc)``, then ``enc_norm``."""
+    e = frames.to(getattr(torch, cfg.param_dtype))
+    positions = torch.arange(e.shape[1], device=e.device)[None, :]
+    layer_weights = {name: w.unbind(0)
+                     for name, w in params["enc_blocks"].items()}
+    body = _remat(_enc_layer, cfg) if _training(params) else _enc_layer
+    for i in range(cfg.enc_layers):
+        e = body({name: ws[i] for name, ws in layer_weights.items()}, e, cfg,
+                 positions)
+    return layers.rms_norm(e, params["enc_norm"]["scale"], cfg.norm_eps)
+
+
+def encdec_forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
+                   frames: Optional[torch.Tensor] = None,
+                   cache: Optional[dict] = None,
+                   enc_out: Optional[torch.Tensor] = None,
+                   positions: Optional[torch.Tensor] = None, **_
+                   ) -> ForwardResult:
+    """Whisper-style: the encoder over ``frames`` (:func:`encode`; skipped
+    when ``enc_out`` is given), then the decoder, each block self attention
+    (with ``cache``, as :func:`decoder_forward`'s), cross attention over
+    its own K/V of the encoder's output (no RoPE, non-causal) and the
+    MLP.  Raises ``ValueError`` without ``frames`` or ``enc_out``: the
+    reference's serving and training drivers pass no frames and stop
+    there with a ``KeyError``."""
+    if enc_out is None:
+        if frames is None:
+            raise ValueError(
+                "the encdec family needs frames (B, enc_seq, d_model), the "
+                "audio frontend's precomputed frame embeddings; none were "
+                "given (the reference's serve and train drivers pass none "
+                "and fail with KeyError: 'frames', ROADMAP fault F4)")
+        enc_out = encode(params, frames, cfg)
+    h = params["embed"]["table"][tokens].to(getattr(torch, cfg.param_dtype))
+    b, s = h.shape[:2]
+    if positions is None:
+        positions = torch.arange(s, device=h.device)[None, :]
+    kv_len = None
+    if cache is not None and s == 1:
+        # One kv_len tensor for every layer of a decode step.
+        kv_len = torch.full((b,), cache["cursor"] + 1, dtype=torch.int32,
+                            device=h.device)
+    layer_weights = {name: w.unbind(0)
+                     for name, w in params["dec_blocks"].items()}
+    body = _remat(_dec_layer, cfg) if _training(params) else _dec_layer
+    for i in range(cfg.n_layers):
+        blk = {name: ws[i] for name, ws in layer_weights.items()}
+        layer_cache = None if cache is None else {
+            "k": cache["k"][i], "v": cache["v"][i],
+            "cursor": cache["cursor"]}
+        h = body(blk, h, enc_out, cfg, positions, layer_cache, kv_len)
+    h = layers.rms_norm(h, params["final_norm"]["scale"], cfg.norm_eps)
+    new_cache = None if cache is None else dict(cache,
+                                                cursor=cache["cursor"] + s)
+    return ForwardResult(hidden=h, aux_loss=torch.zeros(
+        (), dtype=torch.float32, device=h.device), cache=new_cache)
+
+
 FORWARDS = {
     "dense": decoder_forward,
     "moe": decoder_forward,
+    "vlm": decoder_forward,
     "ssm": ssm_forward,
     "hybrid": hybrid_forward,
+    "encdec": encdec_forward,
 }
 
 
 def forward(params: dict, cfg: ModelConfig, **kwargs) -> ForwardResult:
-    """The family's forward (the dense or MoE decoder, the SSM or the
-    hybrid; the others raise)."""
-    _ported(cfg)
+    """The family's forward."""
     return FORWARDS[cfg.family](params, kwargs.pop("tokens"), cfg, **kwargs)
 
 
@@ -355,12 +464,14 @@ def unembed_weight(params: dict, cfg: ModelConfig) -> torch.Tensor:
 # ======================================================== decode caches
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
                       device=None) -> dict:
-    """The family's decode state: the stacked KV caches (dense and MoE),
-    the stacked ``(n_layers, ...)`` SSM and conv states (ssm), or both,
-    with one KV cache per shared-attention site (hybrid)."""
-    _ported(cfg)
-    if cfg.family in ("dense", "moe"):
+    """The family's decode state: the stacked KV caches (dense, MoE, VLM
+    and the encoder-decoder's self attention), the stacked ``(n_layers,
+    ...)`` SSM and conv states (ssm), or both, with one KV cache per
+    shared-attention site (hybrid)."""
+    if cfg.family in ("dense", "moe", "vlm", "encdec"):
         return _make_cache(cfg, cfg.n_layers, batch, max_len, device)
+    if cfg.family not in ("ssm", "hybrid"):
+        raise ValueError(cfg.family)
     dev = resolve_device(device)
     st = ssd.ssd_init_state(cfg, batch, dev)
 
@@ -379,12 +490,12 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
 # ================================================================ module
 class DecoderLM(nn.Module):
     """A thin ``nn.Module`` over the same parameter tree (no copies):
-    ``model(tokens, cache=..., positions=...)`` is :func:`forward`.
+    ``model(tokens, cache=..., positions=..., vision_embeds=...,
+    frames=...)`` is :func:`forward`.
     """
 
     def __init__(self, cfg: ModelConfig, params: dict):
         super().__init__()
-        _ported(cfg)
         self.cfg = cfg
         self.groups = nn.ModuleDict({
             group: nn.ParameterDict({
@@ -397,6 +508,9 @@ class DecoderLM(nn.Module):
                 for group, tensors in self.groups.items()}
 
     def forward(self, tokens: torch.Tensor, cache: Optional[dict] = None,
-                positions: Optional[torch.Tensor] = None) -> ForwardResult:
+                positions: Optional[torch.Tensor] = None, *,
+                vision_embeds: Optional[torch.Tensor] = None,
+                frames: Optional[torch.Tensor] = None) -> ForwardResult:
         return forward(self.params(), self.cfg, tokens=tokens, cache=cache,
-                       positions=positions)
+                       positions=positions, vision_embeds=vision_embeds,
+                       frames=frames)

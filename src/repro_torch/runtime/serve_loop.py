@@ -8,7 +8,15 @@ Prefill runs kernel K4 in every attention layer and each decode step
 kernel K6 (:mod:`repro_torch.models.layers`); an MoE model's expert FFN
 runs kernel K7 three times a layer a forward (:mod:`repro_torch.models.
 moe`); an SSM layer's prefill runs kernel K8 once and its decode step the
-plain recurrence (:mod:`repro_torch.models.ssd`).  The decode state
+plain recurrence (:mod:`repro_torch.models.ssd`).  A VLM's prefill takes
+the patch embeddings from ``extras["vision_embeds"]``; an
+encoder-decoder's takes ``extras["frames"]``, keeps them in the state,
+and every decode step runs the encoder over them again (K4 a layer) before
+its self and cross attention (K6 each), as the reference's does.  As
+there, ``state["pos"]`` starts at the text prompt's length, also behind a
+vision prefix, while the cache cursor counts the prefix too (ROADMAP fault
+F3: a VLM's decode steps rotate their queries and keys by positions short
+of their cache rows by the prefix's length).  The decode state
 (KV caches, SSM and conv states) is updated in place.  The cache cursor
 is a host ``int``, advanced once a forward, so the kernels' ``q_offset``
 and ``kv_len`` need no device sync; the
@@ -28,27 +36,22 @@ from repro_torch.models import transformer as tfm
 from repro_torch.models.config import ModelConfig
 
 
-def _no_extras(cfg: ModelConfig, extras: Optional[dict]) -> None:
-    tfm._ported(cfg)
-    if extras:
-        raise NotImplementedError(
-            f"serving extras {sorted(extras)} belong to families not "
-            f"ported yet")
-
-
 def make_prefill_step(cfg: ModelConfig, max_len: int):
     def prefill(params, tokens, extras: Optional[dict] = None):
         """tokens: (B, S) prompt -> (last-position logits (B, V) float32,
-        decode state)."""
-        _no_extras(cfg, extras)
+        decode state).  ``extras``: ``vision_embeds`` (vlm), ``frames``
+        (encdec; without them the forward raises ``ValueError``)."""
+        extras = extras or {}
         b, s = tokens.shape
         cache = tfm.init_decode_state(cfg, b, max_len, tokens.device)
-        res = tfm.forward(params, cfg, tokens=tokens, cache=cache)
+        res = tfm.forward(params, cfg, tokens=tokens, cache=cache, **extras)
         w_out = tfm.unembed_weight(params, cfg)
         logits = (res.hidden[:, -1] @ w_out).float()
         state = {"cache": res.cache,
                  "pos": torch.full((b,), s, dtype=torch.int32,
                                    device=tokens.device)}
+        if cfg.family == "encdec":
+            state["enc_frames"] = extras["frames"]
         return logits, state
     return prefill
 
@@ -57,8 +60,11 @@ def make_decode_step(cfg: ModelConfig, sample: str = "greedy"):
     def decode(params, state, tokens):
         """tokens: (B,) last emitted tokens -> (next_logits, new state)."""
         pos = state["pos"]
+        extras = ({"frames": state["enc_frames"]} if "enc_frames" in state
+                  else {})
         res = tfm.forward(params, cfg, tokens=tokens[:, None],
-                          cache=state["cache"], positions=pos[:, None])
+                          cache=state["cache"], positions=pos[:, None],
+                          **extras)
         w_out = tfm.unembed_weight(params, cfg)
         logits = (res.hidden[:, -1] @ w_out).float()
         new_state = dict(state)
@@ -69,10 +75,12 @@ def make_decode_step(cfg: ModelConfig, sample: str = "greedy"):
 
 
 def generate(cfg: ModelConfig, params, prompt: torch.Tensor, steps: int,
-             max_len: int, forced: Optional[torch.Tensor] = None
+             max_len: int, forced: Optional[torch.Tensor] = None,
+             extras: Optional[dict] = None
              ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Prefill + ``steps - 1`` decode steps; returns ``(tokens (B, steps),
-    logits (B, steps, V) float32)``, the logits each token was read from.
+    """Prefill (with ``extras``, as :func:`make_prefill_step` takes them)
+    + ``steps - 1`` decode steps; returns ``(tokens (B, steps), logits
+    (B, steps, V) float32)``, the logits each token was read from.
 
     Greedy: each step feeds back the argmax of the last logits.  With
     ``forced`` ((B, steps) tokens), step ``i + 1`` is fed ``forced[:, i]``
@@ -80,7 +88,7 @@ def generate(cfg: ModelConfig, params, prompt: torch.Tensor, steps: int,
     """
     prefill = make_prefill_step(cfg, max_len)
     decode = make_decode_step(cfg)
-    logits, state = prefill(params, prompt)
+    logits, state = prefill(params, prompt, extras)
     out, seen = [torch.argmax(logits, -1)], [logits]
     for i in range(steps - 1):
         fed = out[-1] if forced is None else forced[:, i]
@@ -95,9 +103,12 @@ def greedy_generate(cfg: ModelConfig, params, prompt, steps: int,
                     device=None) -> torch.Tensor:
     """Prefill + N greedy decode steps on ``device`` (``None``: the GPU);
     returns the (B, steps) tokens."""
-    _no_extras(cfg, extras)
-    prompt = torch.as_tensor(prompt, device=resolve_device(device))
-    return generate(cfg, params, prompt, steps, max_len)[0]
+    dev = resolve_device(device)
+    prompt = torch.as_tensor(prompt, device=dev)
+    extras = {k: torch.as_tensor(v, device=dev)
+              for k, v in (extras or {}).items()}
+    return generate(cfg, params, prompt, steps, max_len,
+                    extras=extras)[0]
 
 
 # ------------------------------------------------------------------ router

@@ -1,7 +1,8 @@
 """Training step: streamed-xent loss, gradients, AdamW update (the
 reference's ``repro.runtime.train_loop``).
 
-The batch is a plain dict (tokens/labels/weights).  ``weights`` carries the
+The batch is a plain dict (tokens/labels/weights, and the frontend's
+``vision_embeds`` or ``frames``).  ``weights`` carries the
 power-aware batch mask (:mod:`repro_torch.runtime.power_integration`):
 examples a capped pod cannot afford this step weigh zero and the loss
 renormalizes.  The state's tensors are updated in place (the optimizer's
@@ -48,21 +49,28 @@ def init_train_state(cfg: ModelConfig, opt: AdamW,
     return state
 
 
-#: The families the port trains: the MoE layer's experts on K7 (its
-#: backward two more K7 launches), the SSM and hybrid layers' scan on K8
-#: and K8b; the reference's ``vlm`` and ``encdec`` come with item 9.
-TRAINED = ("dense", "moe", "ssm", "hybrid")
+#: The families the port trains (all of the reference's): attention on K4
+#: and K5, the MoE layer's experts on K7 (its backward two more K7
+#: launches), the SSM and hybrid layers' scan on K8 and K8b.
+TRAINED = ("dense", "moe", "vlm", "ssm", "hybrid", "encdec")
+
+
+#: The batch's keys that are not the forward's frontend inputs.
+_TEXT = ("tokens", "labels", "weights")
 
 
 def make_loss_fn(cfg: ModelConfig, aux_weight: float = 0.01):
     def loss_fn(params, batch):
-        if cfg.family not in TRAINED:
-            raise NotImplementedError(
-                f"training the {cfg.family} family: it comes with that "
-                f"family's forward (ROADMAP queue 1, item 9)")
-        res = tfm.forward(params, cfg, tokens=batch["tokens"])
+        """The batch's frontend inputs (``vision_embeds``, ``frames``) go
+        to the family's forward, which takes those it knows; an ``encdec``
+        forward raises ``ValueError`` without ``frames``.  Only the last
+        ``labels.shape[1]`` positions are scored: a ``vlm`` prefix's rows
+        are not."""
+        extras = {k: v for k, v in batch.items() if k not in _TEXT}
+        res = tfm.forward(params, cfg, tokens=batch["tokens"], **extras)
+        h = res.hidden[:, res.hidden.shape[1] - batch["labels"].shape[1]:]
         w_out = tfm.unembed_weight(params, cfg)
-        loss_sum, w_sum = streamed_xent(res.hidden, w_out, batch["labels"],
+        loss_sum, w_sum = streamed_xent(h, w_out, batch["labels"],
                                         batch["weights"],
                                         chunk=cfg.xent_chunk)
         w_sum = torch.clamp_min(w_sum, 1.0)
@@ -83,13 +91,22 @@ def make_grads_fn(cfg: ModelConfig, aux_weight: float = 0.01):
 
     def grads_of(params, batch):
         loss, metrics = loss_fn(params, batch)
-        paths = leaves(params)
-        grads = iter(torch.autograd.grad(loss, paths))
-        return map_tree(lambda _: next(grads), params), metrics
+        # A text-only VLM batch does not reach ``vision_proj``: it gets a
+        # zero gradient, as ``jax.grad`` gives it.  Any other leaf the loss
+        # does not reach is autograd's error.
+        unused = ("vision_proj" if cfg.family == "vlm"
+                  and "vision_embeds" not in batch else None)
+        reached = {g: t for g, t in params.items() if g != unused}
+        grads = iter(torch.autograd.grad(loss, leaves(reached)))
+        return {g: (map_tree(torch.zeros_like, t) if g == unused
+                    else map_tree(lambda _: next(grads), t))
+                for g, t in params.items()}, metrics
 
     def grads_fn(params, batch):
         if k == 1:
             return grads_of(params, batch)
+        # Every value of the batch, the frontend's embeddings too, is
+        # split along the batch axis.
         mbs = [dict(zip(batch, parts)) for parts in
                zip(*(v.chunk(k, dim=0) for v in batch.values()))]
         gsum = map_tree(lambda p: torch.zeros(p.shape, dtype=torch.float32,

@@ -708,7 +708,8 @@ class BatchedSimulator:
         with _COMPILE_LOCK:
             kernel.library()
         S, H, J = self._arrays["occ"].shape
-        kernel.balance_plan(S, H, J, kernel.max_active_clusters(J))
+        kernel.balance_plan(S, H, J, kernel.max_active_clusters(
+            J, self.device.index))
         return time.perf_counter() - t0
 
     def run_async(self) -> "PendingBatch":

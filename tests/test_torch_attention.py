@@ -590,11 +590,8 @@ def test_flash_attention_xla_twin_matches_reference(sq, kv_len):
 def test_unported_layers_raise_naming_their_roadmap_item():
     cfg = _cfg()
     x = torch.zeros(1, 2, cfg.d_model)
-    w = {name: torch.zeros(shape) for name, (shape, _) in
-         layers.attention_param_specs(cfg).items()}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        layers.attention(w, x, cfg, cross_kv=(x, x))
-    # The streamed cross-entropy is ported now (training, ROADMAP item
+    # Cross attention is ported now (the encdec family, ROADMAP item 9:
+    # tests/test_torch_encdec.py).  The streamed cross-entropy is ported now (training, ROADMAP item
     # 10): on zero logits every token's loss is log(V).
     loss, w_sum = layers.streamed_xent(x, torch.zeros(cfg.d_model, 4),
                                        torch.zeros(1, 2, dtype=torch.long),

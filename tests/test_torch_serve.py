@@ -155,13 +155,6 @@ def test_bfloat16_logits_match_reference(smoke, prompt_len):
     print(f"bfloat16 greedy tokens equal to the reference's: {same:.3f}")
 
 
-def test_unported_families_raise_naming_their_roadmap_item():
-    for arch in ("whisper_tiny", "internvl2_26b"):
-        cfg = configs.get_smoke(arch)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tfm.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
-
-
 def test_init_params_follows_the_reference_scheme():
     cfg = configs.get_smoke("granite_8b")
     params = tfm.init_params(cfg, torch.Generator().manual_seed(0), "cpu")

@@ -672,16 +672,6 @@ def test_remat_keeps_the_gradients(arch, remat):
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("arch", ["internvl2_26b", "whisper_tiny"])
-def test_training_vlm_and_encdec_raises_naming_item_9(arch):
-    cfg = configs.get_smoke(arch)
-    tokens = torch.zeros((1, 8), dtype=torch.long)
-    batch = {"tokens": tokens, "labels": tokens,
-             "weights": torch.ones((1, 8))}
-    with pytest.raises(NotImplementedError, match="item 9"):
-        train_loop.make_loss_fn(cfg)({}, batch)
-
-
 # ---------------------------------------------------------- the driver
 ARGV = ["--smoke", "--device", "cpu", "--steps", "4", "--global-batch", "4",
         "--seq-len", "32", "--pods", "2", "--power-budget-drop-at", "1",
