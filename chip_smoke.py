@@ -311,7 +311,40 @@ Phases, each of which raises (and so exits non-zero) when it fails:
     of two forwards' bf16 O, K4 launch by launch against its plain
     forward and K5 against its plain version fed K4's O; float32 after
     the same 4 steps within 1e-4); two warm steps timed and a third
-    traced (the device's idle share).
+    traced (the device's idle share);
+27. the device mesh, each path its own ranks started by
+    ``launch.mesh.spawn`` (their backend and devices printed first, by
+    the mesh's rule: gloo for two ranks sharing the card, nccl for one
+    rank on it); gloo moves the ranks' CUDA tensors through host memory,
+    so their collectives' times are not an interconnect's.  Path SC: path A's grid, path D's
+    dynamic grid, ``row_contention_specs(sizes=(10,))`` through the pad
+    buckets and A's first three specs under cpc (three cells: two ranks
+    pad one copy) split over two ranks and run on one rank under nccl,
+    every per-cell count, energy, payload, final placement, power state
+    and cap bitwise equal to the same grids in this process on every
+    rank, each bucket split over ``min(world, cells)`` ranks, each rank's
+    K1 and K2 launches those of its shard of the cells run alone here (K1
+    a tick and K2 a DRS invocation through the buckets), with K1 and K2
+    held against their plain versions at a rank's shard (16 x 100 x 10);
+    path ME: one OLMoE-1B-7B MoE layer at full width (64 experts top-8,
+    d_ff 1024, its capacity factor) on 8 x 512 tokens, expert-parallel on
+    a ``("data", "model") = (1, 2)`` mesh (32 experts a rank) against the
+    dense dispatch on the whole weights on the card: float32 output within
+    1e-6 and the gradients of x, the router and every expert leaf within
+    1e-5 relative L2, bf16 within 2e-2 as in 7, K7 3 launches a forward
+    and 6 a backward on each rank, with K7 at a rank's products against
+    its plain version; path TE: MiniCPM-2B at full width and 4 layers in
+    float32, data parallel on ``("pod", "data") = (2, 1)``, one batch's
+    gradients within 1e-4 (loss 1e-5) of one rank's,
+    ``compressed_cross_pod_mean`` of each pod's gradients equal on both
+    ranks and to the plain mean of the dequantized values, then 3 steps,
+    a resize 2 -> 1 (``dpm-poweroff``), 3 steps, a resize 1 -> 2
+    (``dpm-poweron``) and 3 steps (``AdamW(learning_rate=1e-3)``, 4 x
+    1024 tokens), every restored leaf, the moments and step too, bitwise
+    the saved one and the data cursor saved with it, every loss within
+    1e-5 of one unresized rank on the same batches, the reference
+    example's assertions, K4 twice and K5 once a layer a step, with K4 and
+    K5 at its layer in float32 against their plain versions.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Run from the repository root:
@@ -631,11 +664,13 @@ def balance_plan(S: int, H: int, J: int) -> dict:
                 limit_hosts=kernel.balance_limit(clusters))
 
 
-def check_kernels(shapes, dev) -> dict:
+def check_kernels(shapes, dev, plan_cells=None) -> dict:
     """K2 (and K1, where ``shapes`` flags it) against their plain versions
     at each ``(S, H, J, with_k1, iters)``: K1 runs 100 bisection trips, as
     the batched engine's delivery does; K2 runs ``iters``, with round
-    counts and ``did`` flags equal to the plain version's."""
+    counts and ``did`` flags equal to the plain version's, its plan sized
+    for ``plan_cells`` cells (``None``: S), as a shard of a larger grid
+    sizes it."""
     from repro_torch.core import kernels as ck
     from repro_torch.kernels.powercap import kernel, ops, ref
 
@@ -677,23 +712,24 @@ def check_kernels(shapes, dev) -> dict:
 
         out[tag].append(check_k2(tag, (
             x["hosts"], x["caps"], x["dense"], x["cpu_res"], x["budget"],
-            x["enabled"], params)))
+            x["enabled"], params), plan_cells=plan_cells))
     return out
 
 
 def check_k2(tag: str, args: tuple, bitwise: bool = False,
-             **extra) -> dict:
+             plan_cells=None, **extra) -> dict:
     """K2 against its plain version on ``args`` (``balance_caps``'), timed
     beside it by CUDA events and the profiler, with its bound: caps within
     ``RTOL`` (no absolute slack), or bitwise where ``bitwise``, round
-    counts and ``did`` flags equal."""
+    counts and ``did`` flags equal.  ``plan_cells`` as
+    ``balance_caps`` takes it."""
     from repro_torch.core import kernels as ck
     from repro_torch.kernels.powercap import ops, ref
 
     hosts, caps, dense = args[:3]
     S, H, J = dense.floors.shape
     n, iters = S * H * J, dense.iters
-    kc, kd, kr = ops.balance_caps(*args)
+    kc, kd, kr = ops.balance_caps(*args, plan_cells=plan_cells)
     pc, pd, pr = ref.balance_caps_ref(*args)
     torch.cuda.synchronize()
     err2 = float((kc - pc).abs().max())
@@ -707,9 +743,9 @@ def check_k2(tag: str, args: tuple, bitwise: bool = False,
         raise AssertionError(f"K2 {tag}: rounds {kr.tolist()[:16]} on "
                              f"the card, {pr.tolist()[:16]} in the "
                              f"plain version")
-    plan = balance_plan(S, H, J)
-    ms2 = time_ms(lambda: ops.balance_caps(*args))
-    dms2 = device_ms(lambda: ops.balance_caps(*args),
+    plan = balance_plan(plan_cells or S, H, J)
+    ms2 = time_ms(lambda: ops.balance_caps(*args, plan_cells=plan_cells))
+    dms2 = device_ms(lambda: ops.balance_caps(*args, plan_cells=plan_cells),
                      "balance_caps_kernel")
     pms2 = time_ms(lambda: ref.balance_caps_ref(*args))
     # Each round's waterfills run about as many trips as the first
@@ -4914,6 +4950,709 @@ def run_service_phase(smi: str) -> dict:
     return out
 
 
+# ====================================================== paths SC, ME, TE
+#: Path SC's per-cell fields, held bitwise across worlds.
+SC_FIELDS = ("cap_changes", "vmotions", "power_ons", "power_offs",
+             "energy_j", "cpu_payload_mhz_s", "cpu_satisfaction")
+#: Path SC's grid A's cells (16 specs x cpc/static): a rank of world 2
+#: runs 16 of them with K2 planned for all 32 (``sim/batch.py``'s
+#: ``plan_cells``), and SC's K2 record is timed at that plan.
+SC_CELLS = 32
+#: A spawned phase's time limit (s): past it every rank is killed.
+MESH_TIMEOUT_S = 600.0
+#: Path ME: one OLMoE-1B-7B MoE layer on 8 x 512 tokens; path TE:
+#: MiniCPM-2B at full width and 4 layers, 3 steps a phase of a global
+#: batch of 4 x 1024 tokens.
+ME_TOKENS = (8, 512)
+TE_LAYERS, TE_SEQ, TE_BATCH, TE_STEPS = 4, 1024, 4, 3
+
+
+def mesh_line(kind: str, world: int) -> str:
+    """The backend and devices the mesh's rule gives ``world`` ranks."""
+    from repro_torch.launch import mesh
+    n = torch.cuda.device_count()
+    return (f"mesh: {world} rank(s) on {kind} "
+            f"({', '.join(f'cuda:{r % n}' for r in range(world))}), backend "
+            f"{mesh.backend_for(kind, world)} by the rule (nccl when each "
+            f"rank owns a card, gloo when ranks share one)")
+
+
+@contextlib.contextmanager
+def timed_collectives(*modules):
+    """Each module's ``all_reduce`` and ``all_gather`` timed, the card
+    synchronized on both sides; yields a list whose one item is the
+    seconds spent in them."""
+    from repro_torch.runtime import sharding
+    spent = [0.0]
+
+    def timed(real):
+        def call(*args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = real(*args)
+            torch.cuda.synchronize()
+            spent[0] += time.perf_counter() - t0
+            return out
+        return call
+    with contextlib.ExitStack() as stack:
+        for mod in modules:
+            for name in ("all_reduce", "all_gather"):
+                if hasattr(mod, name):
+                    stack.enter_context(mock.patch.object(
+                        mod, name, timed(getattr(sharding, name))))
+        yield spent
+
+
+def sc_grids() -> dict:
+    """Path SC's grids, ``tag -> (specs, policies, entry point, slot
+    slack)``: path A's ``sweep_grid`` (32 cells of 100 hosts), path D's
+    dynamic grid (32 cells on the churn program), the reference's
+    ``row_contention_specs(sizes=(10,))`` through the pad buckets, and
+    A's first three specs under cpc (three cells: two ranks pad one
+    copy)."""
+    from repro_torch.sim import sweep
+    specs_a = sweep.scenario_families(
+        sizes=(100,), budgets_per_host_w=(230.0, 250.0),
+        spikes=("flat", "burst", "step", "prime"),
+        heterogeneous=(False, True), duration_s=600.0)
+    return {"A": (specs_a, ("cpc", "static"), "exact", 3.0),
+            "D": (sweep.scenario_families(**DPM_GRID), ("cpc", "static"),
+                  "exact", DPM_SLACK),
+            "R": (sweep.row_contention_specs(sizes=(10,)),
+                  ("cpc", "static"), "buckets", 3.0),
+            "pad": (specs_a[:3], ("cpc",), "exact", 3.0)}
+
+
+def sc_run(grids: dict) -> dict:
+    """Each grid on this process's rank(s), ``n_devices=None`` (the world):
+    per-cell fields, each bucket's final states, split and loop counts,
+    the K1-K8 launches and the wall."""
+    from repro_torch.sim import sweep
+    out = {}
+    for tag, (specs, pols, how, slack) in grids.items():
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if how == "exact":
+            res = sweep.run_sweep_batched(specs, pols, slot_slack=slack)
+        else:
+            res = sweep.run_sweep(specs, pols, engine="batch",
+                                  slot_slack=slack)
+        wall = time.perf_counter() - t0
+        out[tag] = dict(
+            cells={(n, p): tuple(getattr(r, f) for f in SC_FIELDS)
+                   for n, by in res.items() for p, r in by.items()},
+            finals=[(b["result"].final_caps, b["result"].final_on,
+                     b["result"].final_occ) for b in sweep.LAST_BATCH_INFO],
+            n_devices=[b["n_devices"] for b in sweep.LAST_BATCH_INFO],
+            info=[b["info"] for b in sweep.LAST_BATCH_INFO],
+            launches=read_launches(), wall_s=wall)
+    return out
+
+
+def sc_rank(grids: dict) -> dict:
+    """A rank of path SC."""
+    import torch.distributed as dist
+    from repro_torch.runtime import sharding
+    return dict(runs=sc_run(grids), rank=sharding.rank(),
+                backend=dist.get_backend(),
+                device=str(sharding.rank_device()))
+
+
+def sc_shard_launches(grids: dict, tag: str, n: int) -> list:
+    """K1's and K2's launches of each of ``n`` contiguous shards of an
+    exact grid's cells (the padding's copies of the leading cells
+    included) run alone on this process."""
+    from repro_torch.sim import sweep
+    from repro_torch.sim.batch import BatchedSimulator
+    specs, pols, _, slack = grids[tag]
+    cells, _ = sweep.build_batch_cells(specs, pols)
+    cells = cells + cells[:(-len(cells)) % n]
+    per = len(cells) // n
+    out = []
+    for r in range(n):
+        reset_launches()
+        BatchedSimulator(cells[r * per:(r + 1) * per], slot_slack=slack,
+                         balancer=sweep.grid_balancer(specs)).run()
+        launches = read_launches()
+        out.append({k: launches[k] for k in ("waterfill_dense",
+                                             "balance_caps")})
+    return out
+
+
+def run_sharded_sweep_path() -> tuple[dict, dict]:
+    """Path SC: the grids of :func:`sc_grids` split over two ranks that
+    share the card (gloo) and on one rank under nccl, each rank a spawned
+    process, against the same grids in this process: every per-cell
+    count, energy, payload, final placement, power state and cap bitwise
+    equal on every rank, each bucket split over ``min(world, cells)``
+    ranks, and each rank's K1 and K2 launches those of its shard of the
+    cells run alone (cap-only grids through the buckets: K1 a tick, K2 a
+    DRS invocation)."""
+    from repro_torch.launch import mesh
+    grids = sc_grids()
+    single = sc_run(grids)
+    if len(single["A"]["cells"]) != SC_CELLS:
+        raise AssertionError(f"SC: grid A has {len(single['A']['cells'])} "
+                             f"cells, its K2 record was planned for "
+                             f"{SC_CELLS}")
+    shards = {tag: sc_shard_launches(grids, tag, 2)
+              for tag, g in grids.items() if g[2] == "exact"}
+    torch.cuda.empty_cache()
+    worlds = {}
+    for world in (2, 1):
+        log(mesh_line("cuda", world))
+        t0 = time.perf_counter()
+        outs = mesh.spawn(sc_rank, world, "cuda", grids,
+                          timeout_s=MESH_TIMEOUT_S)
+        worlds[world] = (outs, time.perf_counter() - t0)
+    info = {"single": {t: dict(wall_s=r["wall_s"]) for t, r in
+                       single.items()}}
+    for world, (outs, wall) in worlds.items():
+        rec = info[f"world{world}"] = dict(spawn_wall_s=wall, ranks=[])
+        for o in outs:
+            if o["backend"] != mesh.backend_for("cuda", world):
+                raise AssertionError(f"SC: rank {o['rank']} ran "
+                                     f"{o['backend']}")
+            rank_rec = dict(rank=o["rank"], backend=o["backend"],
+                            device=o["device"], grids={})
+            for tag, run in o["runs"].items():
+                want = single[tag]
+                bad = [k for k in want["cells"]
+                       if run["cells"].get(k) != want["cells"][k]]
+                if bad or run["cells"].keys() != want["cells"].keys():
+                    raise AssertionError(
+                        f"SC {tag} world {world} rank {o['rank']}: cells "
+                        f"{bad[:3]} differ from one process's run")
+                for fa, fb in zip(run["finals"], want["finals"],
+                                  strict=True):
+                    if not all(np.array_equal(x, y) for x, y in
+                               zip(fa, fb)):
+                        raise AssertionError(f"SC {tag} world {world}: "
+                                             f"final states differ")
+                n_cells = len(want["cells"])
+                if max(run["n_devices"]) != min(world, n_cells):
+                    raise AssertionError(f"SC {tag}: split "
+                                         f"{run['n_devices']}")
+                got = {k: run["launches"][k] for k in ("waterfill_dense",
+                                                       "balance_caps")}
+                if world == 1:
+                    exp = {k: want["launches"][k] for k in got}
+                elif tag in shards:
+                    exp = shards[tag][o["rank"]]
+                else:
+                    loop = run["info"][0]
+                    exp = ({"waterfill_dense": loop["ticks"],
+                            "balance_caps": loop["invocation_ticks"]}
+                           if loop else dict.fromkeys(got, 0))
+                rest = {k: v for k, v in run["launches"].items()
+                        if k not in got}
+                if got != exp or any(rest.values()):
+                    raise AssertionError(f"SC {tag} world {world} rank "
+                                         f"{o['rank']}: launches "
+                                         f"{run['launches']}, expected "
+                                         f"{exp}")
+                gather = sum(i.get("gather_s", 0.0) for i in run["info"])
+                rank_rec["grids"][tag] = dict(
+                    wall_s=run["wall_s"], gather_s=gather,
+                    gather_share=gather / run["wall_s"],
+                    n_devices=run["n_devices"], launches=got,
+                    cells=n_cells)
+            rec["ranks"].append(rank_rec)
+        log(f"path SC, world {world} ({outs[0]['backend']} on "
+            f"{outs[0]['device']}): bitwise equal to one process on every "
+            f"grid; spawn wall {wall:.1f} s; "
+            + "; ".join(f"{t} {g['wall_s']:.3f} s (gather {g['gather_s']:.3f}"
+                        f" s), K1/K2 {g['launches']}" for t, g in
+                        rec["ranks"][0]["grids"].items()))
+    lead = worlds[2][0][0]["runs"]
+    launches = dict(no_model_launches(),
+                    waterfill_dense=sum(r["launches"]["waterfill_dense"]
+                                        for r in lead.values()),
+                    balance_caps=sum(r["launches"]["balance_caps"]
+                                     for r in lead.values()),
+                    waterfill_segmented=0)
+    return launches, info
+
+
+def me_rank() -> dict:
+    """A rank of path ME: one OLMoE-1B-7B MoE layer at full width on a
+    ``("data", "model") = (1, 2)`` mesh, each rank 32 of the 64 experts,
+    against the dense dispatch on the whole weights on the card, in
+    float32 and bf16; raises past a gate."""
+    import torch.distributed as dist
+    from repro_torch import configs
+    from repro_torch.launch import mesh
+    from repro_torch.models import moe
+    from repro_torch.runtime import sharding
+    from repro_torch.runtime.sharding import Rules, sharding_context
+
+    cfg = configs.get("olmoe_1b_7b")
+    dev = sharding.rank_device()
+    m = mesh.make_host_mesh((1, 2), ("data", "model"))
+    _, mi = m.get_coordinate()
+    rules = Rules(batch=("data",), expert=("model",))
+    d, e, f = cfg.d_model, cfg.n_experts, cfg.d_ff
+    f32 = torch.float32
+    full32 = {"router": randn((d, e), f32, dev, 70) * d ** -0.5,
+              "w_gate": randn((e, d, f), f32, dev, 71) * d ** -0.5,
+              "w_up": randn((e, d, f), f32, dev, 72) * d ** -0.5,
+              "w_down": randn((e, f, d), f32, dev, 73) * f ** -0.5}
+    x32 = randn(ME_TOKENS + (d,), f32, dev, 74)
+    probe = randn(ME_TOKENS + (d,), f32, dev, 75)
+    out = dict(rank=sharding.rank(), backend=dist.get_backend(),
+               device=str(dev), experts=e // 2)
+    for dtype in (f32, torch.bfloat16):
+        tag = str(dtype)[6:]
+        full = {k: v.to(dtype).requires_grad_(True)
+                for k, v in full32.items()}
+        own = {k: v.detach().clone().requires_grad_(True) for k, v in
+               moe.expert_shard({k: v.detach() for k, v in full.items()},
+                                cfg, mi, 2).items()}
+        xd = x32.to(dtype).requires_grad_(True)
+        xe = x32.to(dtype).requires_grad_(True)
+        y_d, aux_d = moe._moe_ffn_dense(full, xd, cfg)
+        g_d = torch.autograd.grad((y_d.float() * probe).sum() + aux_d,
+                                  [xd] + list(full.values()))
+        reset_launches()
+        with sharding_context(m, rules), timed_collectives(moe) as coll:
+            y_e, aux_e = moe.moe_ffn(own, xe, cfg)
+            fwd = read_launches()
+            reset_launches()
+            g_e = torch.autograd.grad((y_e.float() * probe).sum() + aux_e,
+                                      [xe] + list(own.values()))
+            bwd = read_launches()
+        for what, got, exp in (("forward", fwd, 3), ("backward", bwd, 6)):
+            if got != dict(no_model_launches(), grouped_matmul=exp,
+                           **dict.fromkeys(KERNELS, 0)):
+                raise AssertionError(f"ME {tag} {what}: launches {got}")
+        rec = dict(fwd_launches=fwd["grouped_matmul"],
+                   bwd_launches=bwd["grouped_matmul"],
+                   collective_s=coll[0])
+        if dtype == f32:
+            err = float((y_e - y_d).detach().abs().max())
+            aux = (float(aux_e.detach()), float(aux_d.detach()))
+            if not err <= 1e-6 or aux[0] != aux[1]:
+                raise AssertionError(f"ME float32: output {err} from the "
+                                     f"dense dispatch (bound 1e-6), aux "
+                                     f"{aux[0]} vs {aux[1]}")
+            sl = slice(mi * (e // 2), (mi + 1) * (e // 2))
+            names = ["x"] + list(full)
+            grad_errs = {}
+            for name, ge, gd in zip(names, g_e, g_d):
+                want = gd[sl] if name.startswith("w_") else gd
+                grad_errs[name] = rel_l2(ge, want)
+                if not grad_errs[name] <= 1e-5:
+                    raise AssertionError(f"ME float32: gradient {name} "
+                                         f"{grad_errs[name]:.3e} relative "
+                                         f"L2 from the dense dispatch")
+            rec.update(max_abs_err=err, grad_rel_l2=grad_errs)
+        else:
+            rec["max_abs_err"] = attn_err(y_e, y_d, dtype, "ME bf16 output")
+        with torch.no_grad():
+            with sharding_context(m, rules):
+                rec["ep_forward_ms"] = time_ms(
+                    lambda: moe.moe_ffn(own, xe, cfg))
+            rec["dense_forward_ms"] = time_ms(
+                lambda: moe._moe_ffn_dense(full, xd, cfg))
+        out[tag] = rec
+        del full, own, xd, xe, y_d, y_e, g_d, g_e
+        torch.cuda.empty_cache()
+    return out
+
+
+def run_expert_parallel_path() -> tuple[dict, dict]:
+    """Path ME: :func:`me_rank` on two ranks sharing the card (gloo); each
+    rank's K7 launches 3 a forward and 6 a backward."""
+    from repro_torch.launch import mesh
+    torch.cuda.empty_cache()
+    log(mesh_line("cuda", 2))
+    t0 = time.perf_counter()
+    outs = mesh.spawn(me_rank, 2, "cuda", timeout_s=MESH_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    for o in outs:
+        f, b = o["float32"], o["bfloat16"]
+        log(f"path ME rank {o['rank']} ({o['backend']} on {o['device']}, "
+            f"{o['experts']} experts): float32 err {f['max_abs_err']:.3e}, "
+            f"worst gradient {max(f['grad_rel_l2'].values()):.3e}; bf16 err "
+            f"{b['max_abs_err']:.3e}; forward {b['ep_forward_ms']:.3f} ms "
+            f"expert-parallel vs {b['dense_forward_ms']:.3f} ms dense "
+            f"(bf16), collectives {f['collective_s']:.3f} / "
+            f"{b['collective_s']:.3f} s; K7 {b['fwd_launches']} + "
+            f"{b['bwd_launches']}")
+    lead = outs[0]["bfloat16"]
+    launches = dict(no_model_launches(), **dict.fromkeys(KERNELS, 0),
+                    grouped_matmul=lead["fwd_launches"]
+                    + lead["bwd_launches"])
+    return launches, dict(spawn_wall_s=wall, ranks=outs)
+
+
+def me_k7_record(dev) -> dict:
+    """K7 at path ME's local products (32 experts, C 640, bf16: gate and
+    up (32, 640, 2048) @ (32, 2048, 1024), down (32, 640, 1024) @ (32,
+    1024, 2048)) against its plain version, timed beside it and
+    ``torch.bmm``, with its bound; the record is the gate product's."""
+    from repro_torch.kernels.moe_gmm import ops, ref
+    cases = {}
+    for i, (case, (e, c, d, f)) in enumerate((
+            ("gate", (32, 640, 2048, 1024)), ("down", (32, 640, 1024, 2048)))):
+        x = randn((e, c, d), torch.bfloat16, dev, 80 + i)
+        w = (randn((e, d, f), torch.float32, dev, 90 + i)
+             * d ** -0.5).to(torch.bfloat16)
+        got = ops.grouped_matmul(x, w)
+        err = attn_err(got, ref.grouped_matmul_ref(x, w), torch.bfloat16,
+                       f"K7 ME {case}")
+        if not torch.equal(got, ops.grouped_matmul(x, w)):
+            raise AssertionError(f"K7 ME {case}: two launches differ")
+        bound, by = bound_ms(2 * (e * c * d + e * d * f + e * c * f),
+                             2.0 * e * c * d * f, PEAK_BF16_FLOPS)
+        cases[case] = dict(
+            shape=[e, c, d, f], max_abs_err=err, bound_ms=bound, bound_by=by,
+            ms=time_ms(lambda: ops.grouped_matmul(x, w)),
+            plain_ms=time_ms(lambda: ref.grouped_matmul_ref(x, w)),
+            library_ms=time_ms(lambda: torch.bmm(x, w)))
+        log(f"ME: K7 {case} {e}x{c}x{d}x{f} err {err:.3e} "
+            f"{cases[case]['ms']:.4f} ms (plain {cases[case]['plain_ms']:.3f}"
+            f" ms, bmm {cases[case]['library_ms']:.4f} ms, bound "
+            f"{bound:.4f} ms by {by})")
+    g = cases["gate"]
+    return dict(name="grouped_matmul 32x640x2048x1024", route="cuda",
+                source="src/repro_torch/kernels/moe_gmm/csrc/gmm_tc.cu",
+                replaces="src/repro/kernels/moe_gmm/kernel.py:46",
+                max_abs_err=max(c["max_abs_err"] for c in cases.values()),
+                rtol=ATTN_TOL[torch.bfloat16],
+                atol_per_rms=ATTN_TOL[torch.bfloat16], ms=g["ms"],
+                plain_ms=g["plain_ms"], bound_ms=g["bound_ms"],
+                bound_by=g["bound_by"], library_ms=g["library_ms"],
+                cases=cases)
+
+
+def te_attention_records(dev) -> list:
+    """K4 and K5 at path TE's layer in float32 (a rank's 2 x 1024 tokens,
+    36/36 heads of 64, causal: the CUDA-core kernels, as the plan must
+    choose) against their plain versions, timed beside them and SDPA,
+    with their bounds over the float32 peak."""
+    from repro_torch.kernels.flash_attention import ops, ref
+    b, s, h, d = TE_BATCH // 2, TE_SEQ, 36, 64
+    q, k, v, do = attn_operands(b, s, s, h, h, d, torch.float32, dev, 500)
+    attn_plan(q, k, v, want="cuda_core", what="K4 TE")
+    attn_plan(q, k, v, do, "cuda_core", "K5 TE")
+    err4 = k4_case(q, k, v, True, 0, "K4 TE float32")
+    errs5, (q, k, v, out, lse, do), _ = k5_case(q, k, v, do, True, 0,
+                                                "K5 TE float32", True)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+    fwd = time_ms(lambda: sdpa(qt, kt, vt, is_causal=True))
+    both = time_ms(lambda: torch.autograd.grad(
+        sdpa(qt, kt, vt, is_causal=True), (qt, kt, vt), do.transpose(1, 2)))
+    bounds = attn_bounds(b, s, s, h, h, d, True, 4)
+    shape = f"{b}x{s}x{s}x{h}x{h}x{d}"
+    src = "src/repro_torch/kernels/flash_attention/csrc/"
+    common = dict(route="cuda", case="TE float32", causal=True,
+                  rtol=ATTN_TOL[torch.float32],
+                  atol_per_rms=ATTN_TOL[torch.float32], regime="cuda_core")
+    k4 = dict(common, name=f"flash_attention {shape}",
+              source=src + "flash_fwd.cu",
+              replaces="src/repro/kernels/flash_attention/kernel.py:83",
+              max_abs_err=err4,
+              ms=time_ms(lambda: ops.flash_attention(q, k, v, causal=True)),
+              plain_ms=time_ms(lambda: ref.flash_attention_ref(
+                  q, k, v, causal=True, block_k=ops.BLOCK_K)),
+              bound_ms=bounds["k4"][0], bound_by=bounds["k4"][1],
+              library_ms=fwd)
+    k5 = dict(common, name=f"flash_attention_bwd {shape}",
+              source=src + "flash_bwd.cu",
+              replaces="src/repro/kernels/flash_attention/kernel_bwd.py:125",
+              max_abs_err=max(errs5.values()),
+              ms=time_ms(lambda: ops.flash_attention_bwd(
+                  q, k, v, out, lse, do, causal=True)),
+              plain_ms=time_ms(lambda: ref.flash_attention_bwd_ref(
+                  q, k, v, out, lse, do, causal=True, block_q=ops.BLOCK_Q,
+                  block_k=ops.BLOCK_K)),
+              bound_ms=bounds["k5"][0], bound_by=bounds["k5"][1],
+              library_ms=both - fwd)
+    for r in (k4, k5):
+        log(f"TE: {r['name']} float32 err {r['max_abs_err']:.3e} "
+            f"{r['ms']:.4f} ms (plain {r['plain_ms']:.3f} ms, SDPA "
+            f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms)")
+    return [k4, k5]
+
+
+def state_digest(tree) -> list:
+    """Per leaf, in path order: the sum, and a position-weighted sum, of
+    its bits as integers (int64 on the card, a slice at a time)."""
+    from repro_torch.checkpoint.checkpointer import _flatten
+    out = []
+    for path, leaf in sorted(_flatten(tree).items()):
+        if isinstance(leaf, int):
+            out.append((path, leaf))
+            continue
+        bits = leaf.detach().reshape(-1).view(
+            {4: torch.int32, 2: torch.int16, 1: torch.int8}[
+                leaf.element_size()])
+        s = w = 0
+        for part in bits.split(1 << 24):
+            v = part.to(torch.int64)
+            s += int(v.sum())
+            w += int((v * (torch.arange(v.numel(), device=v.device)
+                           % 1021 + 1)).sum())
+        out.append((path, s, w))
+    return out
+
+
+def te_rank(ckpt_dir: str) -> dict:
+    """A rank of path TE: MiniCPM-2B at full width and 4 layers in float32
+    on a ``("pod", "data") = (2, 1)`` mesh; raises past a gate.  First one
+    batch's data-parallel gradients against one rank's (rank 0, 1e-4 a
+    leaf, loss 1e-5) and ``compressed_cross_pod_mean`` of each pod's own
+    gradients (equal on both ranks, equal to the plain mean of the
+    dequantized values); then 3 steps, a resize 2 -> 1 pods
+    (``dpm-poweroff``), 3 steps on rank 0 alone, a resize 1 -> 2
+    (``dpm-poweron``) and 3 steps, every restored leaf equal to the saved
+    one (rank 0 bitwise, rank 1 by its digest) and the data cursor with
+    them; then, on rank 0, the same 9 batches unresized on one rank (every
+    loss within 1e-5 relative) and the reference example's assertions."""
+    import torch.distributed as dist
+    from repro_torch import configs
+    from repro_torch.checkpoint.checkpointer import Checkpointer, _flatten
+    from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.launch import mesh, shardspecs
+    from repro_torch.optim import compress
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.runtime import train_loop
+    from repro_torch.runtime import sharding
+    from repro_torch.runtime.elastic import ElasticController
+    from repro_torch.runtime.sharding import Rules, sharding_context
+    from repro_torch.tree import leaves, leaves_with_path
+
+    cfg = dataclasses.replace(configs.get("minicpm_2b"), n_layers=TE_LAYERS,
+                              param_dtype="float32")
+    dev, r = sharding.rank_device(), sharding.rank()
+    opt = AdamW(learning_rate=1e-3)
+    rules = Rules(batch=("pod", "data"), heads=None, kv_heads=None,
+                  ffn=None, vocab=None, expert=None, fsdp=None, embed_p=None)
+
+    def make_mesh(n_pods):
+        return mesh.make_host_mesh((n_pods, 1), ("pod", "data"))
+
+    ctl = ElasticController(
+        Checkpointer(ckpt_dir, keep=1), make_mesh,
+        lambda m, target: shardspecs.train_state_shardings(cfg, m, rules))
+    ck_s = {"save": 0.0, "restore": 0.0}
+
+    def timed(name, fn):
+        def call(*args, **kwargs):
+            t0 = time.perf_counter()
+            result = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            ck_s[name] += time.perf_counter() - t0
+            return result
+        return call
+    ctl.checkpointer.save = timed("save", ctl.checkpointer.save)
+    ctl.checkpointer.restore = timed("restore", ctl.checkpointer.restore)
+    m = make_mesh(2)
+    specs = shardspecs.param_shardings(cfg, m, rules)
+
+    def fresh_state():
+        return train_loop.init_train_state(
+            cfg, opt, torch.Generator(device=dev).manual_seed(0), dev)
+
+    def stream():
+        return SyntheticTokens(cfg.vocab_size, TE_SEQ, TE_BATCH, seed=3,
+                               device=dev)
+
+    def as_batch(b):
+        return {"tokens": b.tokens, "labels": b.labels,
+                "weights": b.weights}
+
+    out = dict(rank=r, backend=dist.get_backend(), device=str(dev))
+    state = fresh_state()
+    grads_fn = train_loop.make_grads_fn(cfg, grad_shardings=specs)
+    first = as_batch(stream().next_batch())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with sharding_context(m, rules), \
+            timed_collectives(train_loop) as coll:
+        g_dp, met_dp = grads_fn(state.params, first)
+    out["dp_grads_s"], out["dp_grads_collective_s"] = (
+        time.perf_counter() - t0, coll[0])
+    half = TE_BATCH // 2
+    own, _ = grads_fn(state.params, {k: v[r * half:(r + 1) * half]
+                                     for k, v in first.items()})
+    t0 = time.perf_counter()
+    means = []
+    for g in leaves(own):
+        cm = compress.compressed_cross_pod_mean(g, m)
+        # Written apart from the port's: every pod's float32 gradient
+        # gathered as it is, each quantized to int8 steps and dequantized
+        # here, summed in pod order and divided by the pods.
+        pods = sharding.all_gather(g.float(), m, "pod")
+        plain = torch.zeros_like(cm)
+        for x in pods:
+            step = x.abs().max() / 127.0 + 1e-30
+            plain += torch.clamp(torch.round(x / step), -127, 127) * step
+        plain /= pods.shape[0]
+        if not torch.equal(cm, plain):
+            raise AssertionError(
+                f"TE: compressed_cross_pod_mean differs from the plain "
+                f"mean of the dequantized values by "
+                f"{float((cm - plain).abs().max()):.3e}")
+        del pods, plain
+        means.append(cm)
+    out["cross_pod_mean_s"] = time.perf_counter() - t0
+    digests = sharding.all_gather_objects(state_digest({"g": dict(enumerate(
+        means))}))
+    if digests[0] != digests[1]:
+        raise AssertionError("TE: compressed_cross_pod_mean differs "
+                             "between the ranks")
+    del own, means
+    if r == 0:
+        g_one, met_one = grads_fn(state.params, first)
+        loss_err = abs(float(met_dp["loss"]) - float(met_one["loss"])) / abs(
+            float(met_one["loss"]))
+        worst = max((rel_l2_sliced(a, b), "/".join(p)) for (p, a), (_, b) in
+                    zip(leaves_with_path(g_dp), leaves_with_path(g_one)))
+        if not (loss_err <= 1e-5 and worst[0] <= 1e-4):
+            raise AssertionError(f"TE: data-parallel loss {loss_err:.3e}, "
+                                 f"gradient {worst} from one rank")
+        out.update(dp_loss_rel_err=loss_err, dp_worst_grad=worst)
+        del g_one
+    del g_dp
+    torch.cuda.empty_cache()
+
+    step_fn = train_loop.make_train_step(cfg, opt, grad_shardings=specs)
+    data = stream()
+    losses, phases = [], []
+
+    def run(m, state):
+        lost, t0 = [], time.perf_counter()
+        reset_launches()
+        with timed_collectives(train_loop) as coll:
+            for _ in range(TE_STEPS):
+                b = as_batch(data.next_batch())
+                if state is None:
+                    continue
+                with sharding_context(m, rules):
+                    state, met = step_fn(state, b)
+                lost.append(float(met["loss"]))
+        torch.cuda.synchronize()
+        phases.append(dict(wall_s=time.perf_counter() - t0,
+                           collective_s=coll[0], launches=read_launches(),
+                           steps=len(lost)))
+        return state, lost
+
+    resizes = []
+    for frm, to, reason in ((2, 1, "dpm-poweroff"), (1, 2, "dpm-poweron")):
+        state, lost = run(m, state)
+        losses.append(lost)
+        before = state
+        t0, ck0 = time.perf_counter(), dict(ck_s)
+        m, state = ctl.resize(state, data.step, frm, to, reason,
+                              {"data": data.state_dict()})
+        wall = time.perf_counter() - t0
+        meta = ctl.checkpointer.metadata(data.step)
+        if meta["data"] != data.state_dict():
+            raise AssertionError(f"TE: data cursor {meta['data']} saved, "
+                                 f"{data.state_dict()} in the run")
+        if r == 0:
+            a, b = _flatten(before), _flatten(state)
+            same = sorted(a) == sorted(b) and all(
+                a[k] == b[k] if isinstance(a[k], int) else torch.equal(
+                    a[k].detach().reshape(-1).view(torch.int32),
+                    b[k].detach().reshape(-1).view(torch.int32))
+                for k in a)
+            if not same:
+                raise AssertionError(f"TE: a leaf restored after {reason} "
+                                     f"differs from the leaf saved")
+        del before
+        digest = None if state is None else state_digest(state)
+        held = [d for d in sharding.all_gather_objects(digest)
+                if d is not None]
+        if len(held) != to or any(d != held[0] for d in held):
+            raise AssertionError(f"TE: after {reason} {len(held)} ranks hold "
+                                 f"the state, their digests differ")
+        resizes.append(dict(reason=reason, wall_s=wall,
+                            in_mesh=state is not None,
+                            **{f"{k}_s": ck_s[k] - ck0[k] for k in ck_s}))
+    state, lost = run(m, state)
+    losses.append(lost)
+    out.update(losses=losses, phases=phases, resizes=resizes,
+               history=[(e.step, e.from_pods, e.to_pods, e.reason)
+                        for e in ctl.history],
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    if r != 0:
+        return out
+    del state
+    torch.cuda.empty_cache()
+    state, data, want = fresh_state(), stream(), []
+    step_one = train_loop.make_train_step(cfg, opt)
+    for _ in range(3 * TE_STEPS):
+        state, met = step_one(state, as_batch(data.next_batch()))
+        want.append(float(met["loss"]))
+    got = [x for phase in losses for x in phase]
+    errs = [abs(a - b) / abs(b) for a, b in zip(got, want)]
+    if len(got) != len(want) or not max(errs) <= 1e-5:
+        raise AssertionError(f"TE: losses {got} against one unresized rank's "
+                             f"{want}")
+    l1, l2, l3 = losses
+    if not (l2[0] < l1[0] and l3[-1] < l1[0]):
+        raise AssertionError(f"TE: the example's assertions fail: {losses}")
+    out.update(single_rank_losses=want, loss_rel_err=max(errs))
+    return out
+
+
+def mesh_path_records(tag: str, dev) -> list:
+    """The kernel records of mesh path ``tag`` at the shapes its ranks
+    launch: SC's K1 and K2 at a rank's 16 cells of 100 hosts x 10 VMs (K2
+    planned for the grid's :data:`SC_CELLS`), ME's K7 at a rank's 32
+    experts, TE's K4 and K5 at its float32 layer."""
+    if tag == "SC":
+        return check_kernels({"SC": (16, 100, 10, True, 100)}, dev,
+                             plan_cells=SC_CELLS)["SC"]
+    if tag == "ME":
+        return [me_k7_record(dev)]
+    return te_attention_records(dev)
+
+
+def run_elastic_path() -> tuple[dict, dict]:
+    """Path TE: :func:`te_rank` on two ranks sharing the card (gloo), the
+    checkpoints in a temporary directory that is removed; K4 twice and K5
+    once a layer a step on each rank that steps (full remat), no other
+    kernel."""
+    from repro_torch.launch import mesh
+    torch.cuda.empty_cache()
+    log(mesh_line("cuda", 2))
+    with tempfile.TemporaryDirectory(prefix="te_ckpt_") as tmp:
+        t0 = time.perf_counter()
+        outs = mesh.spawn(te_rank, 2, "cuda", tmp, timeout_s=MESH_TIMEOUT_S)
+        wall = time.perf_counter() - t0
+    for o in outs:
+        for ph in o["phases"]:
+            exp = dict(no_model_launches(), **dict.fromkeys(KERNELS, 0),
+                       flash_attention=2 * TE_LAYERS * ph["steps"],
+                       flash_attention_bwd=TE_LAYERS * ph["steps"])
+            if ph["launches"] != exp:
+                raise AssertionError(f"TE rank {o['rank']}: launches "
+                                     f"{ph['launches']}, expected {exp}")
+    lead = outs[0]
+    log(f"path TE ({lead['backend']} on {lead['device']}): losses "
+        f"{lead['losses']} (one unresized rank {lead['single_rank_losses']},"
+        f" worst {lead['loss_rel_err']:.3e}); data-parallel gradients "
+        f"{lead['dp_worst_grad']} from one rank; phases "
+        + ", ".join(f"{p['wall_s']:.2f} s (collectives "
+                    f"{p['collective_s']:.2f} s)" for p in lead["phases"])
+        + "; resizes " + ", ".join(
+            f"{z['reason']} {z['wall_s']:.2f} s (save {z['save_s']:.2f} s, "
+            f"restore {z['restore_s']:.2f} s)" for z in lead["resizes"])
+        + f"; spawn wall {wall:.1f} s, peak {lead['peak_gb']:.2f} GB a rank")
+    launches = dict(no_model_launches(), **dict.fromkeys(KERNELS, 0))
+    for ph in lead["phases"]:
+        for k in ("flash_attention", "flash_attention_bwd"):
+            launches[k] += ph["launches"][k]
+    return launches, dict(spawn_wall_s=wall, ranks=outs)
+
+
 @contextlib.contextmanager
 def cpu_workers():
     """Paths E's, U's and C's CPU runs, started in worker processes
@@ -5101,6 +5840,19 @@ def main() -> int:
         log(f"the fresh-thread launches, paths I, Y, TI and TY and their "
             f"kernel checks: {time.perf_counter() - t_new:.1f} s")
 
+        t_mesh = time.perf_counter()
+        records["SC"] = mesh_path_records("SC", dev)
+        launches_sc, info_sc = run_sharded_sweep_path()
+        records["ME"] = mesh_path_records("ME", dev)
+        launches_me, info_me = run_expert_parallel_path()
+        records["TE"] = mesh_path_records("TE", dev)
+        launches_te, info_te = run_elastic_path()
+        log(f"paths SC, ME and TE and their kernel checks: "
+            f"{time.perf_counter() - t_mesh:.1f} s on {smi} (the ranks "
+            f"share one card, and gloo moves their tensors through host "
+            f"memory: the "
+            f"collectives' times are not an interconnect's)")
+
         kernels_out = []
         for tag, launches in (("A", launches_a), ("B", launches_b),
                               ("V", launches_v), ("D", launches_d),
@@ -5114,7 +5866,8 @@ def main() -> int:
                               ("TM", launches_tm), ("TP", launches_tp),
                               ("TH", launches_th), ("I", launches_i),
                               ("Y", launches_y), ("TI", launches_ti),
-                              ("TY", launches_ty)):
+                              ("TY", launches_ty), ("SC", launches_sc),
+                              ("ME", launches_me), ("TE", launches_te)):
             for rec in records[tag]:
                 name = rec["name"].split()[0]
                 kernels_out.append(dict(rec, launches=launches[name],
@@ -5128,7 +5881,8 @@ def main() -> int:
                               "T": info_t, "M": info_m, "P": info_p,
                               "H": info_h, "TM": info_tm, "TP": info_tp,
                               "TH": info_th, "I": info_i, "Y": info_y,
-                              "TI": info_ti, "TY": info_ty}}))
+                              "TI": info_ti, "TY": info_ty, "SC": info_sc,
+                              "ME": info_me, "TE": info_te}}))
     log(json.dumps({"kernels": kernels_out}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -137,11 +137,12 @@ class Checkpointer:
                                f"step_{step:010d}.json")) as f:
             return json.load(f)
 
-    def restore(self, step: int, target):
+    def restore(self, step: int, target, device=None):
         """A tree of ``target``'s structure from checkpoint ``step``: each
         tensor leaf in the dtype, on the device and with the
         ``requires_grad`` of ``target``'s leaf; an ``int`` leaf (the step)
-        as an ``int``."""
+        as an ``int``.  ``device`` puts every leaf there instead (a target
+        of meta-device tensors needs it)."""
         self.wait()
         data = np.load(os.path.join(self.directory,
                                     f"step_{step:010d}.npz"))
@@ -156,7 +157,8 @@ class Checkpointer:
                     raise ValueError(f"{prefix}: checkpoint shape "
                                      f"{arr.shape} != target "
                                      f"{tuple(node.shape)}")
-                t = _to_tensor(arr).to(dtype=node.dtype, device=node.device)
+                t = _to_tensor(arr).to(dtype=node.dtype,
+                                       device=device or node.device)
                 return t.requires_grad_(node.requires_grad)
             out = {name: None if child is None else
                    build(child, f"{prefix}/{name}" if prefix else name)

@@ -11,7 +11,7 @@ it decides a result: the engines must agree on exact cap-change counts.
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -293,19 +293,23 @@ def balance_round(hosts: HostCols, caps, managed, ents, ns, done, did,
 
 
 def balance_caps(hosts: HostCols, caps, dense: DenseCols, cpu_reserved,
-                 budget, enabled, params: BalanceParams = BalanceParams()):
+                 budget, enabled, params: BalanceParams = BalanceParams(),
+                 plan_cells: Optional[int] = None):
     """Algorithm 2 (BalancePowerCap): progressive filling toward max-min
     fairness on normalized entitlements, moving Watts instead of VMs.
 
     Returns ``(caps, did)``.  Cells with ``enabled == False`` or fewer than
     two powered-on hosts pass through unchanged.  On CUDA tensors the whole
-    loop runs as one launch of the balance kernel; on CPU tensors as its
-    plain version (:func:`repro_torch.kernels.powercap.ref.balance_caps_ref`).
+    loop runs as one launch of the balance kernel, planned for
+    ``plan_cells`` cells (:func:`repro_torch.kernels.powercap.ops.
+    balance_caps`); on CPU tensors as its plain version
+    (:func:`repro_torch.kernels.powercap.ref.balance_caps_ref`).
     """
     # Imported here: the plain version builds on this module's round.
     from repro_torch.kernels.powercap import ops
     caps, did, _ = ops.balance_caps(hosts, caps, dense, cpu_reserved,
-                                    budget, enabled, params)
+                                    budget, enabled, params,
+                                    plan_cells=plan_cells)
     return caps, did
 
 

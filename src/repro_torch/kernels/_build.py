@@ -6,7 +6,9 @@ Each kernel package (``powercap``, ``flash_attention``,
 first use its ``csrc/*.cu`` sources are compiled for ``sm_90a`` with
 ``nvcc`` (one process per source, all started together), linked into
 ``build/repro_torch_kernels/lib<name>.so`` at the repository root, and
-loaded with ``ctypes`` through their plain C entry points.  Headers shared
+loaded with ``ctypes`` through their plain C entry points; processes that
+find a library stale at once (ranks sharing a card) take turns on a file
+lock, and only the first builds it.  Headers shared
 between packages live in ``kernels/include/`` (:data:`INCLUDE_DIR`); a
 library that names it is rebuilt when any of its files changes.  A package
 builds only its own sources, so a run that launches only the powercap
@@ -17,6 +19,7 @@ back to the plain versions.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import os
 import shutil
 import subprocess
@@ -84,7 +87,7 @@ class KernelLibrary:
     def build(self) -> tuple[float, str]:
         """Compile and link the library; returns ``(seconds, ptxas log)``."""
         exe = nvcc()
-        obj_dir = BUILD_DIR / self.name
+        obj_dir = self.lib_path.parent / self.name
         obj_dir.mkdir(parents=True, exist_ok=True)
         t0 = time.perf_counter()
         procs = []
@@ -115,12 +118,28 @@ class KernelLibrary:
         os.replace(tmp, self.lib_path)
         return time.perf_counter() - t0, "\n".join(logs)
 
+    def ensure_built(self) -> bool:
+        """Build the library if it is missing or older than a source;
+        returns whether this call built it.  The check and the build run
+        under an exclusive ``flock`` on ``<name>.lock`` beside the library,
+        and the check runs again once the lock is held, so of several
+        processes that find the library stale only the first builds it and
+        none links or loads another's half-written objects."""
+        if not self._stale():
+            return False
+        self.lib_path.parent.mkdir(parents=True, exist_ok=True)
+        with open(self.lib_path.parent / f"{self.name}.lock", "w") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)
+            if not self._stale():
+                return False
+            self.build()
+            return True
+
     def library(self) -> ctypes.CDLL:
         """The loaded library, built first if missing or older than a
-        source."""
+        source (:meth:`ensure_built`)."""
         if self._lib is None:
-            if self._stale():
-                self.build()
+            self.ensure_built()
             lib = ctypes.CDLL(str(self.lib_path))
             self._bind(lib)
             err = getattr(lib, self._error_fn)

@@ -76,16 +76,20 @@ waterfill_dense.launches = 0
 
 
 def balance_caps(hosts: HostCols, caps, dense: DenseCols, cpu_reserved,
-                 budget, enabled, params, device=None):
+                 budget, enabled, params, device=None,
+                 plan_cells: int | None = None):
     """The BalancePowerCap loop for every cell: host columns ``(S, H)``,
     slot columns ``(S, H, J)``, ``budget``/``enabled`` ``(S,)``.
 
     Returns ``(caps, did, rounds)``: the balanced caps, whether each cell
     committed a round, and how many rounds each cell entered (``int32``).
     On the card each cell runs on a thread-block cluster as
-    :func:`~repro_torch.kernels.powercap.kernel.balance_plan` sizes it; a
-    cell above :func:`~repro_torch.kernels.powercap.kernel.balance_limit`
-    hosts raises.
+    :func:`~repro_torch.kernels.powercap.kernel.balance_plan` sizes it for
+    ``plan_cells`` cells (default ``S``); a cell above
+    :func:`~repro_torch.kernels.powercap.kernel.balance_limit` hosts
+    raises.  The cluster's width sets the order of each cell's sums, so a
+    shard of a grid passes the whole grid's cell count to get the same
+    bits as the whole grid.
     """
     dev = _device(caps, device)
     cp = _col(caps, _F64, dev, "caps")
@@ -114,7 +118,7 @@ def balance_caps(hosts: HostCols, caps, dense: DenseCols, cpu_reserved,
     if dev.type == "cpu":
         return ref.balance_caps_ref(hosts, cp, dense, cres, bud, en, params)
     j = dense.floors.shape[-1]
-    plan = kernel.balance_plan(s, h, j,
+    plan = kernel.balance_plan(plan_cells or s, h, j,
                                kernel.max_active_clusters(j, dev.index))
     caps_out = torch.empty((s, h), dtype=_F64, device=dev)
     did = torch.empty(s, dtype=_BOOL, device=dev)

@@ -1,12 +1,17 @@
 """Gradient compression for cross-pod data parallelism: int8 quantization
 with a per-tensor scale, plus error feedback (each round's residual is
-added back the next round).  ``compressed_cross_pod_mean`` is a collective
-over pods and is not ported yet."""
+added back the next round).
+
+``compressed_cross_pod_mean`` is the cross-pod building block: quantize
+the local (per-pod) partial gradient, all-gather the int8 payload and the
+scales over the mesh's ``pod`` dimension, dequantize and average locally
+(the reference's ``shard_map`` body, on a ``DeviceMesh``)."""
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch.runtime.sharding import all_gather
 from repro_torch.tree import map_tree
 
 
@@ -40,7 +45,14 @@ class ErrorFeedbackCompressor:
         return deq, res
 
 
-def compressed_cross_pod_mean(g: torch.Tensor, axis_name: str = "pod"):
-    raise NotImplementedError(
-        "the int8 all-gather over pods is a collective across cards: it "
-        "comes with the mesh (ROADMAP queue 1, item 9)")
+def compressed_cross_pod_mean(g: torch.Tensor, mesh,
+                              axis_name: str = "pod") -> torch.Tensor:
+    """The mean over ``mesh``'s ``axis_name`` ranks of their ``g``, each
+    sent as int8 with its scale: a quarter of a float32 all-reduce's
+    bytes, at one quantization error a step (bounded by error feedback
+    at the caller).  Every rank ends with the same bits."""
+    q, scale = quantize_int8(g)
+    qs = all_gather(q, mesh, axis_name)                  # (pods, ...)
+    scales = all_gather(scale, mesh, axis_name)          # (pods,)
+    deq = qs.to(torch.float32) * scales.reshape((-1,) + (1,) * g.ndim)
+    return deq.mean(0)

@@ -6,9 +6,21 @@ The batch is a plain dict (tokens/labels/weights, and the frontend's
 power-aware batch mask (:mod:`repro_torch.runtime.power_integration`):
 examples a capped pod cannot afford this step weigh zero and the loss
 renormalizes.  The state's tensors are updated in place (the optimizer's
-departure from the reference); ``step`` is a host ``int``.  The
-reference's ``grad_shardings`` constrain gradients to a mesh's layout; one
-card has no mesh, so the port has no such argument.
+departure from the reference); ``step`` is a host ``int``.
+
+Data parallelism: under a sharding context
+(:mod:`repro_torch.runtime.sharding`) whose batch axes have more than one
+rank, each rank takes its shard of each microbatch, and the gradients are
+summed over the batch ranks, one all-reduce a leaf in the tree's order,
+the twin of the reduction ``jit`` inserts.  The reference runs the whole
+microbatch in one program, so each rank differentiates its part of the
+microbatch's loss: its xent sum, plus the aux loss times the
+microbatch's weight sum (all-reduced, never the rank's own), the aux
+loss's value being the whole microbatch's (an MoE layer's dense dispatch
+routes the whole microbatch: :func:`repro_torch.models.moe
+._moe_ffn_dense`) and its gradient this rank's part.  The sum over ranks
+and microbatches, divided by the global weight sum, is then the
+reference's gradient, whatever each rank's weights.
 """
 
 from __future__ import annotations
@@ -24,7 +36,10 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import streamed_xent
 from repro_torch.optim.adamw import AdamW, OptState, global_norm
 from repro_torch.optim.compress import ErrorFeedbackCompressor
-from repro_torch.tree import leaves, map_tree
+from repro_torch.runtime.sharding import (all_reduce, current_context,
+                                          dims_coordinate, dims_size,
+                                          entry_axes)
+from repro_torch.tree import leaves, leaves_with_path, map_tree
 
 
 @dataclasses.dataclass
@@ -59,11 +74,13 @@ TRAINED = ("dense", "moe", "vlm", "ssm", "hybrid", "encdec")
 _TEXT = ("tokens", "labels", "weights")
 
 
-def make_loss_fn(cfg: ModelConfig, aux_weight: float = 0.01):
-    def loss_fn(params, batch):
-        """The batch's frontend inputs (``vision_embeds``, ``frames``) go
-        to the family's forward, which takes those it knows; an ``encdec``
-        forward raises ``ValueError`` without ``frames``.  Only the last
+def _loss_terms(cfg: ModelConfig):
+    def terms(params, batch):
+        """``(loss_sum, w_sum, aux)``: the token-weighted xent sum, the
+        weights' sum and the MoE layers' aux loss.  The batch's frontend
+        inputs (``vision_embeds``, ``frames``) go to the family's forward,
+        which takes those it knows; an ``encdec`` forward raises
+        ``ValueError`` without ``frames``.  Only the last
         ``labels.shape[1]`` positions are scored: a ``vlm`` prefix's rows
         are not."""
         extras = {k: v for k, v in batch.items() if k not in _TEXT}
@@ -73,70 +90,148 @@ def make_loss_fn(cfg: ModelConfig, aux_weight: float = 0.01):
         loss_sum, w_sum = streamed_xent(h, w_out, batch["labels"],
                                         batch["weights"],
                                         chunk=cfg.xent_chunk)
+        return loss_sum, w_sum, res.aux_loss
+    return terms
+
+
+def make_loss_fn(cfg: ModelConfig, aux_weight: float = 0.01):
+    terms = _loss_terms(cfg)
+
+    def loss_fn(params, batch):
+        loss_sum, w_sum, aux = terms(params, batch)
         w_sum = torch.clamp_min(w_sum, 1.0)
-        loss = loss_sum / w_sum + aux_weight * res.aux_loss
+        loss = loss_sum / w_sum + aux_weight * aux
         metrics = {"loss": (loss_sum / w_sum).detach(),
-                   "aux_loss": res.aux_loss.detach(), "tokens": w_sum}
+                   "aux_loss": aux.detach(), "tokens": w_sum}
         return loss, metrics
     return loss_fn
 
 
-def make_grads_fn(cfg: ModelConfig, aux_weight: float = 0.01):
+def batch_split(grad_shardings: Optional[dict] = None):
+    """``(mesh, dims, index, n)`` of the data-parallel split in the bound
+    sharding context (the batch's mesh dims larger than 1, this rank's
+    row-major position along them), or None.  ``grad_shardings`` (the
+    parameters' specs, :func:`repro_torch.launch.shardspecs
+    .param_shardings`) must keep every gradient whole on each rank: a
+    leaf sharded over a mesh dim larger than 1 (FSDP storage, tensor
+    parallelism) raises."""
+    ctx = current_context()
+    if ctx is None:
+        return None
+    mesh, rules = ctx
+    if grad_shardings is not None:
+        for path, spec in leaves_with_path(grad_shardings):
+            if any(dims_size(mesh, entry_axes(e)) > 1 for e in spec):
+                raise NotImplementedError(
+                    f"{'/'.join(path)}: spec {spec} shards a gradient; "
+                    f"FSDP storage and tensor parallelism are ROADMAP "
+                    f"queue 1, item 9, part 2b")
+    dims = tuple(a for a in entry_axes(rules.mesh_axes("batch", mesh))
+                 if dims_size(mesh, (a,)) > 1)
+    if not dims:
+        return None
+    return mesh, dims, dims_coordinate(mesh, dims), dims_size(mesh, dims)
+
+
+def _grad_tree(cfg: ModelConfig, params: dict, batch: dict, objective):
+    """The gradient of ``objective`` in every leaf of ``params`` (same
+    tree).  A text-only VLM batch does not reach ``vision_proj``: it gets
+    a zero gradient, as ``jax.grad`` gives it.  Any other leaf the
+    objective does not reach is autograd's error."""
+    unused = ("vision_proj" if cfg.family == "vlm"
+              and "vision_embeds" not in batch else None)
+    reached = {g: t for g, t in params.items() if g != unused}
+    grads = iter(torch.autograd.grad(objective, leaves(reached)))
+    return {g: (map_tree(torch.zeros_like, t) if g == unused
+                else map_tree(lambda _: next(grads), t))
+            for g, t in params.items()}
+
+
+def make_grads_fn(cfg: ModelConfig, aux_weight: float = 0.01,
+                  grad_shardings: Optional[dict] = None):
     """``grads_fn(params, batch) -> (grads, metrics)``: the gradient of the
     loss in every parameter (same tree), accumulated over
     ``cfg.microbatches`` slices of the batch (token-weighted, in float32,
-    so it equals the whole batch's gradient under power-aware masking)."""
+    so it equals the whole batch's gradient under power-aware masking),
+    and under data parallelism (:func:`batch_split`) over the batch ranks
+    too: microbatch ``j`` is the reference's (the batch's ``j``-th
+    contiguous slice), of which each rank takes its contiguous shard."""
     loss_fn = make_loss_fn(cfg, aux_weight)
+    terms = _loss_terms(cfg)
     k = max(cfg.microbatches, 1)
 
-    def grads_of(params, batch):
-        loss, metrics = loss_fn(params, batch)
-        # A text-only VLM batch does not reach ``vision_proj``: it gets a
-        # zero gradient, as ``jax.grad`` gives it.  Any other leaf the loss
-        # does not reach is autograd's error.
-        unused = ("vision_proj" if cfg.family == "vlm"
-                  and "vision_embeds" not in batch else None)
-        reached = {g: t for g, t in params.items() if g != unused}
-        grads = iter(torch.autograd.grad(loss, leaves(reached)))
-        return {g: (map_tree(torch.zeros_like, t) if g == unused
-                    else map_tree(lambda _: next(grads), t))
-                for g, t in params.items()}, metrics
-
     def grads_fn(params, batch):
-        if k == 1:
-            return grads_of(params, batch)
+        split = batch_split(grad_shardings)
+        if k == 1 and split is None:
+            loss, metrics = loss_fn(params, batch)
+            return _grad_tree(cfg, params, batch, loss), metrics
         # Every value of the batch, the frontend's embeddings too, is
         # split along the batch axis.
         mbs = [dict(zip(batch, parts)) for parts in
                zip(*(v.chunk(k, dim=0) for v in batch.values()))]
+        if split is not None:
+            _, _, index, n = split
+            b = next(iter(mbs[0].values())).shape[0]
+            if b % n:
+                raise ValueError(f"a microbatch of {b} does not split over "
+                                 f"{n} data-parallel ranks")
+            mbs = [{key: v[index * (b // n):(index + 1) * (b // n)]
+                    for key, v in mb.items()} for mb in mbs]
         gsum = map_tree(lambda p: torch.zeros(p.shape, dtype=torch.float32,
                                               device=p.device), params)
         zero = torch.zeros((), dtype=torch.float32,
                            device=leaves(params)[0].device)
         loss_sum, tok_sum, aux_sum = zero, zero, zero
         for mb in mbs:
-            grads, metrics = grads_of(params, mb)
-            tokens = metrics["tokens"]
-            for a, g in zip(leaves(gsum), leaves(grads)):
-                a.add_(g.float() * tokens)
-            loss_sum = loss_sum + metrics["loss"] * tokens
+            if split is None:
+                loss, metrics = loss_fn(params, mb)
+                tokens = metrics["tokens"]
+                grads = _grad_tree(cfg, params, mb, loss)
+                for a, g in zip(leaves(gsum), leaves(grads)):
+                    a.add_(g.float() * tokens)
+                loss_sum = loss_sum + metrics["loss"] * tokens
+                aux = metrics["aux_loss"]
+            else:
+                # The microbatch's loss times its (all-reduced) weight:
+                # this rank's xent sum, and the aux loss, whose value is
+                # the microbatch's and whose gradient is this rank's part.
+                mesh, dims, _, _ = split
+                part, w_part, aux = terms(params, mb)
+                tokens = torch.clamp_min(
+                    all_reduce(w_part.detach().clone(), mesh, dims), 1.0)
+                grads = _grad_tree(cfg, params, mb,
+                                   part + aux_weight * tokens * aux)
+                for a, g in zip(leaves(gsum), leaves(grads)):
+                    a.add_(g.float())
+                loss_sum = loss_sum + part.detach()
+                aux = aux.detach()
             tok_sum = tok_sum + tokens
-            aux_sum = aux_sum + metrics["aux_loss"]
+            aux_sum = aux_sum + aux
+        if split is not None:
+            mesh, dims, _, _ = split
+            for g in leaves(gsum):
+                all_reduce(g, mesh, dims)
+            loss_sum = all_reduce(loss_sum.clone(), mesh, dims)
         tok = torch.clamp_min(tok_sum, 1.0)
         # In place: a second float32 tree beside the sums would double the
         # gradients' peak.
         grads = map_tree(lambda g: g.div_(tok), gsum)
-        return grads, {"loss": loss_sum / tok, "aux_loss": aux_sum / k,
+        return grads, {"loss": loss_sum / tok,
+                       "aux_loss": aux_sum / len(mbs),
                        "tokens": tok_sum}
 
     return grads_fn
 
 
 def make_train_step(cfg: ModelConfig, opt: AdamW, aux_weight: float = 0.01,
-                    compression: bool = False):
+                    compression: bool = False,
+                    grad_shardings: Optional[dict] = None):
     """``train_step(state, batch) -> (state, metrics)``; the metrics are
-    device tensors (``loss``, ``aux_loss``, ``tokens``, ``grad_norm``)."""
-    grads_fn = make_grads_fn(cfg, aux_weight)
+    device tensors (``loss``, ``aux_loss``, ``tokens``, ``grad_norm``).
+    Under data parallelism every rank passes the whole ``batch`` and
+    takes its shard; ``grad_shardings`` as :func:`batch_split` takes
+    it."""
+    grads_fn = make_grads_fn(cfg, aux_weight, grad_shardings)
 
     def train_step(state: TrainState, batch: dict):
         grads, metrics = grads_fn(state.params, batch)

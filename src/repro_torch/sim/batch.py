@@ -68,6 +68,7 @@ from repro_torch.drs import rules as rules_mod
 from repro_torch.drs.arrays import RulesPack, dense_slot_assignment
 from repro_torch.drs.entitlement import waterfill_dense
 from repro_torch.drs.snapshot import ClusterSnapshot
+from repro_torch.runtime import sharding
 from repro_torch.sim.cluster import SimConfig
 from repro_torch.sim.metrics import Accumulators, fold_timeseries
 from repro_torch.sim.workloads import DemandTrace, TraceBank
@@ -554,13 +555,40 @@ def _pack(cells: Sequence[BatchCell], slot_slack: float = 2.0,
 _COMPILE_LOCK = threading.Lock()
 
 
-def check_n_devices(n_devices: Optional[int]) -> None:
-    """Cells run on one card: ``n_devices`` is ``None`` or 1."""
-    if n_devices not in (None, 1):
-        raise NotImplementedError(
-            f"n_devices={n_devices}: splitting the cells over several "
-            f"cards (the reference's device mesh) is not ported yet "
-            f"(ROADMAP queue 1, item 9)")
+def check_n_devices(n_devices: Optional[int], n_cells: int) -> int:
+    """The ranks a grid of ``n_cells`` splits over: ``n_devices``
+    (``None``: the process group's world size, 1 without one) clamped to
+    ``[1, n_cells]``, as the reference clamps it; above the world size
+    it raises ``ValueError``."""
+    world = sharding.world_size()
+    n = world if n_devices is None else int(n_devices)
+    n = max(1, min(n, n_cells))
+    if n > world:
+        raise ValueError(f"n_devices={n_devices}: {n} ranks outside [1, "
+                         f"{world}] in the process group (start the ranks "
+                         f"with repro_torch.launch.mesh.spawn)")
+    return n
+
+
+def pad_cells(arrays: dict, pad: int) -> dict:
+    """The packed arrays with ``pad`` copies of the leading cells appended
+    to the cells axis (axis 1 of ``win_mask``, none for the time grid's
+    ``ts`` and ``drs_mask``).  Cells are independent, so the copies'
+    results are dropped and the kept cells' are exact."""
+    if not pad:
+        return arrays
+    return {k: (v if k in ("ts", "drs_mask")
+                else np.concatenate([v, v[:, :pad]], axis=1)
+                if k == "win_mask"
+                else np.concatenate([v, v[:pad]], axis=0))
+            for k, v in arrays.items()}
+
+
+def _cell_slice(arrays: dict, lo: int, hi: int) -> dict:
+    """Cells ``lo:hi`` of the packed arrays."""
+    return {k: (v if k in ("ts", "drs_mask") else v[:, lo:hi]
+                if k == "win_mask" else v[lo:hi])
+            for k, v in arrays.items()}
 
 
 class BatchedSimulator:
@@ -587,9 +615,22 @@ class BatchedSimulator:
     ``pad_hosts`` and ``pad_slots`` force the packed host axis and the slot
     axis before the slack up to at least those sizes: the sweep's pad
     buckets pack every cell of a pow2 shape class to one shape.  Padded
-    hosts and slots are masked inside every primitive.  ``n_devices``
-    takes ``None`` or 1: the cells are not split over several cards
-    (ROADMAP queue 1, item 9).
+    hosts and slots are masked inside every primitive.
+
+    ``n_devices`` splits the cells over the first ``n_devices`` ranks of
+    the process group, by world rank, clamped by :func:`check_n_devices`
+    (``None``: every rank of the process group; one rank without one):
+    the reference's ``("cells",)`` mesh, whose one dimension is the world
+    order, so no ``DeviceMesh`` is built.  Every rank of the world runs
+    the same call: the cells axis is padded with copies of the leading
+    cells to a multiple of the ranks (:func:`pad_cells`), world rank
+    ``r < n_devices`` runs the ``r``-th contiguous shard through the same
+    program on its own device (K1 a tick and K2 a DRS period over its
+    shard, no collective inside the tick loop), a rank past the split
+    runs nothing, and the harvest gathers the per-cell results over the
+    whole world (``all_gather_objects``) to every rank in grid order and
+    drops the copies.  :attr:`info` counts the rank's own loop, and its
+    ``gather_s`` is the gather's wall.
     """
 
     def __init__(self, cells: Sequence[BatchCell],
@@ -605,8 +646,8 @@ class BatchedSimulator:
                  pad_slots: int = 0):
         if not cells:
             raise ValueError("no cells")
-        check_n_devices(n_devices)
         cells = list(cells)
+        n_dev = check_n_devices(n_devices, len(cells))
         dev = resolve_device(device)
         balancer = balancer or kernels.MigrationParams(max_moves=0)
         churn = any(c.dpm_enabled or c.config.power_events for c in cells)
@@ -639,6 +680,7 @@ class BatchedSimulator:
                     Schedule(cfg.drs_period_s, cfg.drs_first_at_s,
                              cfg.power_on_latency_s,
                              cfg.power_off_latency_s))
+        self.n_devices = n_dev
         self.pack_s = time.perf_counter() - t0
 
     @staticmethod
@@ -691,6 +733,7 @@ class BatchedSimulator:
         self._mig = migration
         self._dpm = dpm
         self._schedule = schedule
+        self.n_devices = 1
         self.info: dict = {}
 
     # ------------------------------------------------------------- running
@@ -723,11 +766,29 @@ class BatchedSimulator:
         harvests."""
         compile_s = self.compile()
         t0 = time.perf_counter()
+        host = self._shard()
+        if host is None:
+            return PendingBatch(self, None, t0, compile_s)
         skip = _HOST_KEYS + (() if self._churn else _CHURN_KEYS)
         a = {k: torch.as_tensor(v, device=self.device)
-             for k, v in self._arrays.items() if k not in skip}
-        program = self._program_churn if self._churn else self._program
-        return PendingBatch(self, program(a), t0, compile_s)
+             for k, v in host.items() if k not in skip}
+        if self._churn:
+            return PendingBatch(self, self._program_churn(a, host["ev_t"]),
+                                t0, compile_s)
+        return PendingBatch(self, self._program(a), t0, compile_s)
+
+    def _shard(self) -> dict:
+        """This rank's cells of the packed arrays (all of them on one
+        rank), after :func:`pad_cells`; None on a rank past the split."""
+        n, r = self.n_devices, sharding.rank()
+        if n == 1:
+            return self._arrays
+        if r >= n:
+            return None
+        S = len(self.names)
+        per = (S + (-S) % n) // n
+        return _cell_slice(pad_cells(self._arrays, (-S) % n), r * per,
+                           (r + 1) * per)
 
     def run(self) -> BatchResult:
         return self.run_async().result()
@@ -818,7 +879,8 @@ class BatchedSimulator:
                 hosts, caps1,
                 kernels.DenseCols(vm_floors, vm_ceils, weights, active,
                                   iters),
-                a["cpu_res"], a["budget"], enabled, self._balance)
+                a["cpu_res"], a["budget"], enabled, self._balance,
+                plan_cells=len(self.names))
             if tcols is not None:
                 caps2 = torch.where(
                     enabled[:, None],
@@ -881,7 +943,7 @@ class BatchedSimulator:
         return out
 
     # --------------------------------------------------------------- churn
-    def _program_churn(self, a: dict) -> dict:
+    def _program_churn(self, a: dict, ev_t: np.ndarray) -> dict:
         """The capacity-churn tick loop (the reference's ``build_churn``):
         power states, the slot layout, the DRS schedule and, in the timed
         regime, the in-flight migration table are carried per cell."""
@@ -902,7 +964,6 @@ class BatchedSimulator:
         pads = dict(_SLOT_PAD, bps=torch.where(
             torch.arange(a["bps"].shape[-1], device=dev) == 0, 0.0,
             torch.inf).to(f64))
-        ev_t = self._arrays["ev_t"]
         reads = {"branch": 0, "migration": 0}
 
         def read(flag) -> bool:
@@ -1038,7 +1099,8 @@ class BatchedSimulator:
                 hosts, caps1,
                 kernels.DenseCols(vm_floors, vm_ceils, work["weights"], act3,
                                   iters),
-                cpu_res, budget, apply_cpc, self._balance)
+                cpu_res, budget, apply_cpc, self._balance,
+                plan_cells=len(self.names))
             if tcols is not None:
                 caps2 = torch.where(
                     apply_cpc[:, None],
@@ -1427,9 +1489,14 @@ class BatchedSimulator:
                  compile_s: float = 0.0) -> BatchResult:
         """Copy the outputs to the host (the wait on the card), check the
         invariants, and assemble the result."""
-        host = {k: ({kk: vv.cpu().numpy() for kk, vv in v.items()}
-                    if isinstance(v, dict) else v.cpu().numpy())
-                for k, v in out.items()}
+        host = None if out is None else {
+            k: ({kk: vv.cpu().numpy() for kk, vv in v.items()}
+                if isinstance(v, dict) else v.cpu().numpy())
+            for k, v in out.items()}
+        if self.n_devices > 1:
+            t1 = time.perf_counter()
+            host = self._gather(host)
+            self.info["gather_s"] = time.perf_counter() - t1
         run_s = time.perf_counter() - t0
         if bool(host["slot_pressure"].any()):
             bad = [self.names[i] for i in np.nonzero(host["slot_pressure"])[0]]
@@ -1474,10 +1541,28 @@ class BatchedSimulator:
             run_s=run_s,
             compile_s=compile_s,
             wall_s=compile_s + run_s,
+            n_devices=self.n_devices,
             timeseries=host.get("timeseries"),
             tick_s=self._tick_s,
             over_budget=over,
             over_tree=over_tree)
+
+
+    def _gather(self, host: dict) -> dict:
+        """Every rank's shard of the outputs, in rank (grid) order, the
+        padding's copies dropped: the per-cell arrays split on their
+        leading cells axis, the timeseries (``(T, S)``) on axis 1."""
+        n, S = self.n_devices, len(self.names)
+        parts = sharding.all_gather_objects(host)[:n]
+
+        def join(key, vals):
+            if isinstance(vals[0], dict):
+                return {kk: join(key, [v[kk] for v in vals])
+                        for kk in vals[0]}
+            if key == "timeseries":
+                return np.concatenate(vals, axis=1)[:, :S]
+            return np.concatenate(vals, axis=0)[:S]
+        return {k: join(k, [p[k] for p in parts]) for k in parts[0]}
 
 
 @dataclasses.dataclass

@@ -52,7 +52,7 @@ from repro_torch.drs.rules import AffinityRule, AntiAffinityRule, VMHostRule
 from repro_torch.drs.snapshot import ClusterSnapshot, Host, VirtualMachine
 from repro_torch.sim import workloads
 from repro_torch.sim.batch import (BatchCell, BatchedSimulator,
-                                   BatchUnsupported, check_n_devices)
+                                   BatchUnsupported)
 from repro_torch.sim.cluster import SimConfig
 from repro_torch.sim.experiments import ENGINES, POLICIES
 
@@ -608,8 +608,12 @@ def run_sweep(specs: Sequence[SweepSpec],
     :class:`BatchedSimulator` a bucket (with :func:`grid_balancer`'s
     balancer, its slot axis widened by ``slot_slack`` for migrations and
     DPM's evacuations), run through the pipeline (:data:`LAST_BATCH_INFO`
-    holds a record a bucket).  ``n_devices`` takes ``None`` or 1;
-    ``device=None`` runs on the GPU.
+    holds a record a bucket).  ``n_devices`` splits each bucket's cells
+    over that many ranks of the process group (clamped to the bucket's
+    cells; ``None``: every rank, one without a process group): every rank
+    runs the same call and gets the whole grid's results (see
+    :class:`~repro_torch.sim.batch.BatchedSimulator`).  ``device=None``
+    runs on the GPU.
     """
     if engine != "batch":
         if engine not in ENGINES:
@@ -617,7 +621,6 @@ def run_sweep(specs: Sequence[SweepSpec],
                              f"or 'batch'")
         return {spec.name: {p: run_cell(spec, p, engine, device)
                             for p in policies} for spec in specs}
-    check_n_devices(n_devices)
     resolve_device(device)
     LAST_BATCH_INFO.clear()
     cells, keys = build_batch_cells(specs, policies)
@@ -654,8 +657,7 @@ def run_sweep_batched(specs: Sequence[SweepSpec],
     slots)``, no pow2 padding: the shape the reference's benchmark
     baselines use.  All specs must share the time grid.  ``_prebuilt``
     takes ``build_batch_cells``' output instead of building the grid
-    again."""
-    check_n_devices(n_devices)
+    again.  ``n_devices`` as :func:`run_sweep` takes it."""
     cells, keys = _prebuilt or build_batch_cells(specs, policies)
     LAST_BATCH_INFO.clear()
     flat = _run_pipeline([(0, 0, cells, keys, grid_balancer(specs))],

@@ -7,7 +7,8 @@ The reference's bar for the bucketed grid against the exact pack
 partition and its warning, any harvest order giving ``specs x policies``
 order) hold on the port; the port's bucketed ``run_sweep`` equals the
 reference's on the same grids (exact counts, 1e-9); poisoned host and slot
-padding changes no bit (trap T3); more than one device raises.
+padding changes no bit (trap T3); more than one device raises without a
+process group.
 """
 
 import contextlib
@@ -199,6 +200,8 @@ def test_run_sweep_async_completion_order_independent(monkeypatch, order):
 
 
 def test_more_than_one_device_raises():
+    """Without a process group the world is one rank: two devices raise
+    (``tests/test_torch_sharded_sweep.py`` splits grids over ranks)."""
     specs = hetero_specs(sweep)[:1]
     cells, _ = sweep.build_batch_cells(specs, POLICIES)
     for call in (lambda: sweep.run_sweep(specs, POLICIES, engine="batch",
@@ -206,7 +209,7 @@ def test_more_than_one_device_raises():
                  lambda: sweep.run_sweep_batched(specs, POLICIES,
                                                  n_devices=2, device="cpu"),
                  lambda: BatchedSimulator(cells, n_devices=2, device="cpu")):
-        with pytest.raises(NotImplementedError, match="item 9"):
+        with pytest.raises(ValueError, match="process group"):
             call()
     assert sweep.run_sweep(specs, POLICIES, engine="batch", n_devices=1,
                            device="cpu")["s4"]["cpc"].cap_changes > 0
