@@ -249,8 +249,10 @@ Phases, each of which raises (and so exits non-zero) when it fails:
     initial state) through K8 and K8b against the plain versions (1e-5
     relative L2); K4 and K5 at TH's layer (1 x 4096, 32 heads of 112);
 23. main paths TM, TP and TH, ``launch.train``'s driver at OLMoE-1B-7B's
-    (8 of 16 layers), Mamba2-2.7B's (all 64) and Zamba2-7B's (36 of 81, 6
-    shared-attention sites) full width in bf16, 4 steps of 4 x 4096
+    (4 of 16 layers), Mamba2-2.7B's (32 of 64) and Zamba2-7B's (18 of 81,
+    3 shared-attention sites) full width in bf16 (the depths halved from
+    8, 64 and 36 when paths ST and TT joined the run, to keep it within
+    its time limit), 4 steps of 4 x 4096
     tokens in the configs' own microbatches (2, 4, 4), 2 pods and the
     budget cut at step 1, the final checkpoint in a temporary directory
     that is removed: exact launch counts (a layer a microbatch: K7 3 + 3 +
@@ -344,7 +346,24 @@ Phases, each of which raises (and so exits non-zero) when it fails:
     the saved one and the data cursor saved with it, every loss within
     1e-5 of one unresized rank on the same batches, the reference
     example's assertions, K4 twice and K5 once a layer a step, with K4 and
-    K5 at its layer in float32 against their plain versions.
+    K5 at its layer in float32 against their plain versions; path ST:
+    granite-8b whole (36 layers, bf16) served tensor parallel on
+    ``("pod", "data", "model") = (1, 1, 2)`` (16 of 32 heads, 4 of 8 kv
+    heads, half the ffn and vocabulary a rank; the prefill's rules equal
+    to the decode's), 8 prompts of 512, 32 greedy tokens, a 1,024-position
+    cache, against one rank of the same parameters: teacher-forced logits
+    within 1e-2 relative L2, K4 36 and K6 36 x 31 launches a rank, a
+    decode step's collectives timed, a rank's peak memory; at 4 layers in
+    float32 tokens identical and logits within 1e-5; path TT: granite-8b
+    at full width and 4 layers, 3 steps of 4 x 4096 tokens in bf16,
+    tensor parallel on (1, 1, 2) and ZeRO-3 on (1, 2, 1), each against
+    one rank: the first step's gradients within 4.9e-3 relative L2 a leaf
+    or within 1.25 times one rank's distance from the float32 gradient,
+    ZeRO-3's peak memory a rank below one rank's, K4 twice and K5 once a
+    layer a microbatch; at 2 layers in float32 (4 x 1024 tokens; tensor
+    parallel 2 steps, ZeRO-3 1) every gradient leaf and the losses within
+    1e-5; with K4, K5 and K6 at both paths' local-head shapes against
+    their plain versions, timed (device times too) beside SDPA.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Run from the repository root:
@@ -2886,8 +2905,8 @@ def plain_kernels():
 #: layers and Zamba2 at 36 of its 81 (6 shared-attention sites), where
 #: bf16 parameters and gradients with float32 moments and gradient sums
 #: (about 16 B a parameter) would not fit 80 GB at full depth.
-FAMILY_PATHS = {"TM": ("olmoe_1b_7b", 8), "TP": ("mamba2_2p7b", None),
-                "TH": ("zamba2_7b", 36)}
+FAMILY_PATHS = {"TM": ("olmoe_1b_7b", 4), "TP": ("mamba2_2p7b", 32),
+                "TH": ("zamba2_7b", 18)}
 FAMILY_EVENTS = ["--global-batch", "4", "--pods", "2", "--steps", "4",
                  "--power-budget-drop-at", "1", "--checkpoint-every", "0"]
 
@@ -3265,13 +3284,16 @@ def attn_bounds(b, sq, skv, hq, hkv, d, causal, el) -> dict:
     return {"k4": k4, "k5": k5}
 
 
-def attn_shape_records(tag, cases, dev, with_k5: bool) -> list:
+def attn_shape_records(tag, cases, dev, with_k5: bool,
+                       device: bool = False) -> list:
     """K4 (and, ``with_k5``, K5) against their plain versions at each of
     ``cases`` (``{case: (B, Sq, Skv, Hq, Hkv, D, causal)}``) in bf16 (the
     tensor cores, two launches bitwise equal) and float32 (the CUDA cores),
     each in the regime its plan must choose; the bf16 calls timed beside
     the plain versions and SDPA (its backward: forward and backward less
-    forward), with their bounds.  Returns one record a kernel and case."""
+    forward), with their bounds; with ``device``, each bf16 kernel's
+    device time too (``device_ms``; K5's two kernels summed).  Returns
+    one record a kernel and case."""
     from repro_torch.kernels.flash_attention import ops, ref
     sdpa = torch.nn.functional.scaled_dot_product_attention
     src = "src/repro_torch/kernels/flash_attention/csrc/"
@@ -3305,6 +3327,10 @@ def attn_shape_records(tag, cases, dev, with_k5: bool) -> list:
         k4_ms = time_ms(lambda: ops.flash_attention(q, k, v, causal=causal))
         k4_pms = time_ms(lambda: ref.flash_attention_ref(
             q, k, v, causal=causal, block_k=ops.BLOCK_K))
+        dev_ms = {}
+        if device:
+            dev_ms["k4"] = device_ms(lambda: ops.flash_attention(
+                q, k, v, causal=causal), "flash_fwd_tc")
         shape = f"{b}x{sq}x{skv}x{hq}x{hkv}x{d}"
         common = dict(route="cuda", case=case, causal=causal,
                       rtol=ATTN_TOL[torch.bfloat16],
@@ -3317,7 +3343,8 @@ def attn_shape_records(tag, cases, dev, with_k5: bool) -> list:
             max_abs_err=errs["k4", torch.bfloat16],
             float32_max_abs_err=errs["k4", torch.float32], ms=k4_ms,
             plain_ms=k4_pms, bound_ms=bounds["k4"][0],
-            bound_by=bounds["k4"][1], library_ms=fwd_ms))
+            bound_by=bounds["k4"][1], library_ms=fwd_ms,
+            **({"device_ms": dev_ms["k4"]} if device else {})))
         line = (f"{tag}: K4 {case} {shape} ({plans['k4', torch.bfloat16]}) "
                 f"err {errs['k4', torch.bfloat16]:.3e} (float32 "
                 f"{errs['k4', torch.float32]:.3e}) {k4_ms:.4f} ms (plain "
@@ -3333,6 +3360,11 @@ def attn_shape_records(tag, cases, dev, with_k5: bool) -> list:
             k5_pms = time_ms(lambda: ref.flash_attention_bwd_ref(
                 q, k, v, out, lse, do, causal=causal, block_q=ops.BLOCK_Q,
                 block_k=ops.BLOCK_K))
+            if device:
+                parts = [device_ms(lambda: ops.flash_attention_bwd(
+                    q, k, v, out, lse, do, causal=causal), name)
+                    for name in ("flash_bwd_dkdv_tc", "flash_bwd_dq_tc")]
+                dev_ms["k5"] = None if None in parts else sum(parts)
             records.append(dict(
                 common, name=f"flash_attention_bwd {shape}",
                 source=src + "flash_bwd_tc.cu",
@@ -3342,22 +3374,28 @@ def attn_shape_records(tag, cases, dev, with_k5: bool) -> list:
                 max_abs_err=errs["k5", torch.bfloat16],
                 float32_max_abs_err=errs["k5", torch.float32], ms=k5_ms,
                 plain_ms=k5_pms, bound_ms=bounds["k5"][0],
-                bound_by=bounds["k5"][1], library_ms=both_ms - fwd_ms))
+                bound_by=bounds["k5"][1], library_ms=both_ms - fwd_ms,
+                **({"device_ms": dev_ms["k5"]} if device else {})))
             line += (f"; K5 err {errs['k5', torch.bfloat16]:.3e} (float32 "
                      f"{errs['k5', torch.float32]:.3e}) {k5_ms:.4f} ms "
                      f"(plain {k5_pms:.3f} ms, SDPA backward "
                      f"{both_ms - fwd_ms:.4f} ms, bound "
                      f"{bounds['k5'][0]:.4f} ms)")
+        if device:
+            line += "; device " + ", ".join(
+                f"{k.upper()} {fmt_ms(v)}" for k, v in dev_ms.items())
         log(line)
         del q, k, v, do, out, lse, qt, kt, vt
     return records
 
 
-def k6_shape_record(tag, b, s, hq, hkv, d, kv_len, dev, seed) -> dict:
+def k6_shape_record(tag, b, s, hq, hkv, d, kv_len, dev, seed,
+                    device: bool = False) -> dict:
     """K6 against its plain version over a cache of ``s`` positions with
     ``kv_len`` live on every row, in bf16 and float32 (two launches
     bitwise equal each), timed beside its plain version and SDPA in
-    bf16, with its bound."""
+    bf16, with its bound; with ``device``, its device time too (the
+    partials and the combine summed)."""
     errs = {}
     for dtype in (torch.float32, torch.bfloat16):
         q = randn((b, hq, d), dtype, dev, seed)
@@ -3366,6 +3404,12 @@ def k6_shape_record(tag, b, s, hq, hkv, d, kv_len, dev, seed) -> dict:
         lens = torch.full((b,), kv_len, dtype=torch.int32, device=dev)
         errs[dtype], p = k6_case(q, k, v, lens, f"K6 {tag} {dtype}")
     times = time_k6(q, k, v, lens)
+    if device:
+        from repro_torch.kernels.decode_attention import ops
+        parts = [device_ms(lambda: ops.decode_attention(q, k, v, lens), n)
+                 for n in ("decode_partials", "decode_combine")]
+        times["device_ms"] = None if None in parts else sum(parts)
+        log(f"{tag}: K6 device {fmt_ms(times['device_ms'])}")
     log(f"{tag}: K6 {b}x{s}x{hq}x{hkv}x{d} kv_len {kv_len} (split "
         f"{p.split}) err {errs[torch.bfloat16]:.3e} (float32 "
         f"{errs[torch.float32]:.3e}) {times['ms']:.4f} ms (plain "
@@ -4967,36 +5011,39 @@ ME_TOKENS = (8, 512)
 TE_LAYERS, TE_SEQ, TE_BATCH, TE_STEPS = 4, 1024, 4, 3
 
 
-def mesh_line(kind: str, world: int) -> str:
-    """The backend and devices the mesh's rule gives ``world`` ranks."""
+def mesh_line(kind: str, world: int, layout: str | None = None) -> str:
+    """The backend and devices the mesh's rule gives ``world`` ranks, and
+    the ``layout`` they run."""
     from repro_torch.launch import mesh
     n = torch.cuda.device_count()
     return (f"mesh: {world} rank(s) on {kind} "
             f"({', '.join(f'cuda:{r % n}' for r in range(world))}), backend "
             f"{mesh.backend_for(kind, world)} by the rule (nccl when each "
-            f"rank owns a card, gloo when ranks share one)")
+            f"rank owns a card, gloo when ranks share one)"
+            + (f"; layout {layout}" if layout else ""))
 
 
 @contextlib.contextmanager
 def timed_collectives(*modules):
-    """Each module's ``all_reduce`` and ``all_gather`` timed, the card
-    synchronized on both sides; yields a list whose one item is the
-    seconds spent in them."""
+    """Each module's ``all_reduce``, ``all_gather`` and ``reduce_scatter``
+    timed, the card synchronized on both sides; yields a list: the
+    seconds spent in them, and their count."""
     from repro_torch.runtime import sharding
-    spent = [0.0]
+    spent = [0.0, 0]
 
     def timed(real):
-        def call(*args):
+        def call(*args, **kwargs):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            out = real(*args)
+            out = real(*args, **kwargs)
             torch.cuda.synchronize()
             spent[0] += time.perf_counter() - t0
+            spent[1] += 1
             return out
         return call
     with contextlib.ExitStack() as stack:
         for mod in modules:
-            for name in ("all_reduce", "all_gather"):
+            for name in ("all_reduce", "all_gather", "reduce_scatter"):
                 if hasattr(mod, name):
                     stack.enter_context(mock.patch.object(
                         mod, name, timed(getattr(sharding, name))))
@@ -5215,7 +5262,8 @@ def me_rank() -> dict:
         g_d = torch.autograd.grad((y_d.float() * probe).sum() + aux_d,
                                   [xd] + list(full.values()))
         reset_launches()
-        with sharding_context(m, rules), timed_collectives(moe) as coll:
+        with sharding_context(m, rules), \
+                timed_collectives(moe, sharding) as coll:
             y_e, aux_e = moe.moe_ffn(own, xe, cfg)
             fwd = read_launches()
             reset_launches()
@@ -5606,12 +5654,15 @@ def mesh_path_records(tag: str, dev) -> list:
     """The kernel records of mesh path ``tag`` at the shapes its ranks
     launch: SC's K1 and K2 at a rank's 16 cells of 100 hosts x 10 VMs (K2
     planned for the grid's :data:`SC_CELLS`), ME's K7 at a rank's 32
-    experts, TE's K4 and K5 at its float32 layer."""
+    experts, TE's K4 and K5 at its float32 layer, ST's and TT's K4, K5
+    and K6 at their ranks' heads (:func:`split_attention_records`)."""
     if tag == "SC":
         return check_kernels({"SC": (16, 100, 10, True, 100)}, dev,
                              plan_cells=SC_CELLS)["SC"]
     if tag == "ME":
         return [me_k7_record(dev)]
+    if tag in ("ST", "TT"):
+        return split_attention_records(tag, dev)
     return te_attention_records(dev)
 
 
@@ -5651,6 +5702,421 @@ def run_elastic_path() -> tuple[dict, dict]:
         for k in ("flash_attention", "flash_attention_bwd"):
             launches[k] += ph["launches"][k]
     return launches, dict(spawn_wall_s=wall, ranks=outs)
+
+
+#: Paths ST and TT: tensor parallelism and FSDP storage on two ranks that
+#: share the card (gloo).  ST serves granite-8b whole (36 layers, bf16) on
+#: ``("pod", "data", "model") = (1, 1, 2)`` with path S's arguments for one
+#: replica (8 requests, prompts of 512, 32 greedy tokens, a 1,024-position
+#: cache); TT trains granite-8b at full width and 4 of 36 layers, 3 steps
+#: of 4 x 4096 tokens, tensor parallel on (1, 1, 2) and ZeRO-3 on
+#: (1, 2, 1).  The float32 checks: ST at 4 layers, TT at 2 layers on 4 x
+#: 1024 tokens (tensor parallel 2 steps, ZeRO-3, whose every float32
+#: gather moves the whole tables through the host, 1).
+SPLIT_AXES = ("pod", "data", "model")
+ST_BATCH, ST_PROMPT, ST_STEPS, ST_MAX_LEN, ST_F32_LAYERS = 8, 512, 32, 1024, 4
+TT_LAYERS, TT_BATCH, TT_SEQ, TT_STEPS = 4, 4, 4096, 3
+TT_F32 = dict(layers=2, batch=4, seq=1024, steps={"tp": 2, "zero3": 1})
+#: TT's layouts: mesh shape, the ``rules_for`` config change and model axis.
+TT_LAYOUTS = {"tp": ((1, 1, 2), "tp", 2), "zero3": ((1, 2, 1), "dp", 1)}
+
+
+def split_rules(cfg, shape_name: str, model_axis: int, world: int = 2):
+    from repro_torch.launch import shardspecs
+    from repro_torch.models.config import SHAPES
+    return shardspecs.rules_for(cfg, SHAPES[shape_name],
+                                model_axis=model_axis, mesh_size=world)
+
+
+def st_rank() -> dict:
+    """A rank of path ST: granite-8b whole in bf16, then at 4 layers in
+    float32, each served greedily on one rank (each rank runs it: the
+    ranks share the card) and then split over ``(1, 1, 2)`` under the
+    decode rules (equal to the prefill's here: every head count divides
+    2); the split run greedy (timed, its launches counted), teacher-forced
+    on one rank's tokens (bf16: logits 1e-2 relative L2), one of its
+    decode steps' collectives timed; float32: tokens identical and logits
+    1e-5.  Raises past a gate."""
+    import torch.distributed as dist
+    from repro_torch import configs
+    from repro_torch.launch import mesh, shardspecs
+    from repro_torch.models import transformer as tfm
+    from repro_torch.runtime import sharding
+    from repro_torch.runtime.serve_loop import (generate, make_decode_step,
+                                                make_prefill_step)
+    from repro_torch.runtime.sharding import sharding_context
+    from repro_torch.tree import leaves
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = sharding.rank_device()
+    m = mesh.make_host_mesh((1, 1, 2), SPLIT_AXES)
+    out = dict(rank=sharding.rank(), backend=dist.get_backend(),
+               device=str(dev))
+    for tag in ("bfloat16", "float32"):
+        cfg = configs.get("granite_8b")
+        if tag == "float32":
+            cfg = dataclasses.replace(cfg, n_layers=ST_F32_LAYERS,
+                                      param_dtype="float32")
+        rules = split_rules(cfg, "decode_32k", 2)
+        if rules != split_rules(cfg, "prefill_32k", 2):
+            raise AssertionError(f"ST: prefill rules {rules} differ from "
+                                 f"the decode rules")
+        params = tfm.init_params(
+            cfg, torch.Generator(device=dev).manual_seed(0), dev)
+        prompts = torch.randint(
+            0, cfg.vocab_size, (ST_BATCH, ST_PROMPT), device=dev,
+            generator=torch.Generator(device=dev).manual_seed(1))
+        with torch.no_grad():
+            want_tok, want = generate(cfg, params, prompts, ST_STEPS,
+                                      ST_MAX_LEN)
+        local = shardspecs.local_params(params, cfg, m, rules)
+        del params
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        rec = {}
+        with torch.no_grad(), sharding_context(m, rules):
+            reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            toks, logits = generate(cfg, local, prompts, ST_STEPS,
+                                    ST_MAX_LEN)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            rec["launches"] = read_launches()
+            # Teacher-forced on one rank's tokens, as generate(forced=)
+            # runs it, its third step's collectives timed.
+            lg, state = make_prefill_step(cfg, ST_MAX_LEN)(local, prompts)
+            decode, seen = make_decode_step(cfg), [lg]
+            for i in range(ST_STEPS - 1):
+                with timed_collectives(sharding) as coll:
+                    torch.cuda.synchronize()
+                    t1 = time.perf_counter()
+                    lg, state = decode(local, state, want_tok[:, i])
+                    torch.cuda.synchronize()
+                if i == 2:
+                    step_s, step_coll = time.perf_counter() - t1, coll
+                seen.append(lg)
+            forced = sharding.gather_dims(torch.stack(seen, 1), m,
+                                          ("model",), 2)
+        weights_gb = sum(t.numel() * t.element_size()
+                         for t in leaves(local)) / 1e9
+        rec.update(wall_s=wall, tokens_per_s=ST_BATCH * ST_STEPS / wall,
+                   decode_step_s=step_s, step_collective_s=step_coll[0],
+                   step_collectives=step_coll[1], weights_gb=weights_gb,
+                   peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                   forced_rel_l2=rel_l2(forced, want),
+                   greedy_equal=float((toks == want_tok).float().mean()))
+        if not torch.isfinite(logits).all() or logits.shape != want.shape:
+            raise AssertionError(f"ST {tag}: logits {logits.shape}")
+        if tag == "bfloat16" and not rec["forced_rel_l2"] <= 1e-2:
+            raise AssertionError(f"ST bf16: teacher-forced logits "
+                                 f"{rec['forced_rel_l2']:.3e} relative L2 "
+                                 f"from one rank's (bound 1e-2)")
+        if tag == "float32":
+            rec["greedy_rel_l2"] = rel_l2(logits, want)
+            if not torch.equal(toks, want_tok) or \
+                    not rec["greedy_rel_l2"] <= 1e-5:
+                raise AssertionError(
+                    f"ST float32: tokens equal {rec['greedy_equal']}, "
+                    f"logits {rec['greedy_rel_l2']:.3e} relative L2 from "
+                    f"one rank's (bounds: identical, 1e-5)")
+        out[tag] = rec
+        del local, toks, logits, forced, want, state, seen, lg
+        torch.cuda.empty_cache()
+    return out
+
+
+def run_split_serving_path() -> tuple[dict, dict]:
+    """Path ST: :func:`st_rank` on two ranks sharing the card (gloo); each
+    rank's K4 36 (the prefill) and K6 36 x 31 (the decode steps) in the
+    greedy run."""
+    from repro_torch.launch import mesh
+    torch.cuda.empty_cache()
+    log(mesh_line("cuda", 2, "ST (pod, data, model) = (1, 1, 2): heads, "
+                  "kv heads, ffn and vocabulary over model"))
+    t0 = time.perf_counter()
+    outs = mesh.spawn(st_rank, 2, "cuda", timeout_s=MESH_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    n_layers = 36
+    want = dict(no_model_launches(), **dict.fromkeys(KERNELS, 0),
+                flash_attention=n_layers,
+                decode_attention=n_layers * (ST_STEPS - 1))
+    for o in outs:
+        if o["bfloat16"]["launches"] != want:
+            raise AssertionError(f"ST rank {o['rank']}: launches "
+                                 f"{o['bfloat16']['launches']}, expected "
+                                 f"{want}")
+        b, f = o["bfloat16"], o["float32"]
+        log(f"path ST rank {o['rank']} ({o['backend']} on {o['device']}): "
+            f"{b['tokens_per_s']:.1f} tokens/s ({b['wall_s']:.3f} s for "
+            f"{ST_BATCH} x {ST_STEPS}); a decode step {b['decode_step_s']:.4f}"
+            f" s, {b['step_collectives']} collectives "
+            f"{b['step_collective_s']:.4f} s; weights {b['weights_gb']:.3f} "
+            f"GB, peak {b['peak_gb']:.3f} GB; teacher-forced logits "
+            f"{b['forced_rel_l2']:.3e} relative L2 from one rank (greedy "
+            f"tokens equal {b['greedy_equal']:.3f}); float32 at "
+            f"{ST_F32_LAYERS} layers: tokens equal {f['greedy_equal']:.3f}, "
+            f"logits {f['greedy_rel_l2']:.3e}")
+    launches = dict(outs[0]["bfloat16"]["launches"])
+    return launches, dict(spawn_wall_s=wall, ranks=outs)
+
+
+def tt_batch(cfg, batch: int, seq: int, dev, seed: int) -> dict:
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return {"tokens": torch.randint(0, cfg.vocab_size, (batch, seq),
+                                    device=dev, generator=g),
+            "labels": torch.randint(0, cfg.vocab_size, (batch, seq),
+                                    device=dev, generator=g),
+            "weights": torch.ones((batch, seq), dtype=torch.float32,
+                                  device=dev)}
+
+
+def tt_steps(cfg, state, batches, layout=None):
+    """AdamW steps over ``batches`` as ``make_train_step`` takes them (the
+    gradients, their norm, the update), keeping the first step's
+    gradients; ``layout``: the bound context's ``(specs, mesh)``."""
+    from repro_torch.optim.adamw import AdamW, global_norm
+    from repro_torch.runtime.train_loop import _norm_dims, make_grads_fn
+    opt = AdamW(learning_rate=1e-4)
+    specs = None if layout is None else layout[0]
+    grads_fn = make_grads_fn(cfg, grad_shardings=specs)
+    losses, first, walls = [], None, []
+    for i, batch in enumerate(batches):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        grads, metrics = grads_fn(state.params, batch)
+        gnorm = global_norm(grads, _norm_dims(cfg, specs))
+        opt.update(grads, state.opt_state, state.params, grad_norm=gnorm)
+        losses.append(float(metrics["loss"]))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        if i == 0:
+            first = grads
+        del grads
+    return losses, first, walls
+
+
+def tt_rank() -> dict:
+    """A rank of path TT: granite-8b at full width and 4 layers in bf16
+    (3 steps of 4 x 4096), then 2 layers in float32 (2 steps of 4 x
+    1024), under each of :data:`TT_LAYOUTS` (tensor parallel on (1, 1, 2),
+    ZeRO-3 on (1, 2, 1)): rank 0 first runs the first step (float32: every
+    step) on one rank, its peak memory kept, then both ranks run the steps
+    on their blocks, and the first step's gradients are gathered whole.
+    Float32: every leaf within 1e-5 relative L2 of one rank's, the losses
+    within 1e-5.  Bf16: each leaf within T's 4.9e-3 of one rank's, or,
+    where it is not, within 1.25 times one rank's own distance from the
+    float32 gradient of the same parameters (computed then): two bf16
+    computations that round their partial sums differently differ by
+    bf16's noise, which at this width is above 4.9e-3 (tensor parallel
+    against one rank up to 9.1e-3 while one rank is 1.2e-2 from float32,
+    ``tools/tp_rounding.py``).  ZeRO-3's peak below one rank's.  Raises
+    past a gate."""
+    import torch.distributed as dist
+    from repro_torch import configs
+    from repro_torch.launch import mesh, shardspecs
+    from repro_torch.models.config import SHAPES
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.runtime import sharding
+    from repro_torch.runtime.sharding import gather_whole, sharding_context
+    from repro_torch.runtime.train_loop import (init_train_state,
+                                                make_grads_fn)
+    from repro_torch.tree import leaves, leaves_with_path, map_tree
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev, r = sharding.rank_device(), sharding.rank()
+    out = dict(rank=r, backend=dist.get_backend(), device=str(dev))
+    def errors(got: dict, want: dict) -> dict:
+        """Relative L2 a leaf, on the card a leaf at a time."""
+        flat = dict(leaves_with_path(want))
+        return {"/".join(p): rel_l2(g.to(dev), flat[p].to(dev))
+                for p, g in got.items()}
+
+    for name, (shape, parallelism, model_axis) in TT_LAYOUTS.items():
+        m = mesh.make_host_mesh(shape, SPLIT_AXES)
+        for dtype, n_layers, batch, seq, steps in (
+                ("bfloat16", TT_LAYERS, TT_BATCH, TT_SEQ, TT_STEPS),
+                ("float32", TT_F32["layers"], TT_F32["batch"],
+                 TT_F32["seq"], TT_F32["steps"][name])):
+            base = dataclasses.replace(
+                configs.get("granite_8b"), n_layers=n_layers,
+                param_dtype=dtype, parallelism=parallelism)
+            rules = split_rules(base, "train_4k", model_axis)
+            cfg = shardspecs.effective_config(base, SHAPES["train_4k"], 2)
+            batches = [tt_batch(cfg, batch, seq, dev, 10 + i)
+                       for i in range(steps)]
+            rec = dict(microbatches=cfg.microbatches, phase_s={})
+            phase = rec["phase_s"]
+
+            def fresh():
+                return init_train_state(
+                    cfg, AdamW(learning_rate=1e-4),
+                    torch.Generator(device=dev).manual_seed(0), dev)
+            t0 = time.perf_counter()
+            if r == 0:
+                state = fresh()
+                torch.cuda.reset_peak_memory_stats()
+                want_losses, want, _ = tt_steps(
+                    cfg, state, batches[:1] if dtype == "bfloat16"
+                    else batches)
+                rec["one_rank_peak_gb"] = (torch.cuda.max_memory_allocated()
+                                           / 1e9)
+                want = map_tree(lambda g: g.cpu(), want)   # off the card
+                del state
+                torch.cuda.empty_cache()
+            sharding.barrier()
+            phase["one_rank"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            whole = fresh()
+            specs = shardspecs.param_shardings(cfg, m, rules)
+            local = shardspecs.local_train_state(whole, cfg, m, rules)
+            del whole
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            with sharding_context(m, rules), \
+                    timed_collectives(sharding) as coll:
+                reset_launches()
+                losses, first, walls = tt_steps(cfg, local, batches,
+                                                (specs, m))
+                rec["launches"] = read_launches()
+                rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+            phase["split"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            rec.update(losses=losses, step_s=walls, collective_s=coll[0],
+                       collectives=coll[1],
+                       tokens_per_s=batch * seq * steps / sum(walls),
+                       block_gb=sum(t.numel() * t.element_size()
+                                    for t in leaves(local.params)) / 1e9)
+            del local
+            torch.cuda.empty_cache()
+            flat, split = dict(leaves_with_path(specs)), {}
+            for path, g in leaves_with_path(first):
+                g = gather_whole(g, flat[path], m)
+                if r == 0:
+                    split[path] = g
+                del g
+            del first
+            torch.cuda.empty_cache()
+            if r == 0:
+                bar = 4.9e-3 if dtype == "bfloat16" else 1e-5
+                direct = errors(split, want)
+                over = {k: e / bar for k, e in direct.items()}
+                rec["grad_rel_l2"] = direct
+                if dtype == "bfloat16" and max(over.values()) > 1.0:
+                    # One rank's float32 gradient of the same parameters.
+                    p32 = map_tree(lambda t: t.detach().float()
+                                   .requires_grad_(True), fresh().params)
+                    exact, _ = make_grads_fn(dataclasses.replace(
+                        cfg, param_dtype="float32"))(p32, batches[0])
+                    exact = map_tree(lambda g: g.cpu(), exact)
+                    del p32
+                    torch.cuda.empty_cache()
+                    hi = errors(split, exact)
+                    one = errors(dict(leaves_with_path(want)), exact)
+                    rec.update(grad_rel_l2_float32=hi,
+                               one_rank_rel_l2_float32=one)
+                    over = {k: min(e, hi[k] / (1.25 * one[k]))
+                            for k, e in over.items()}
+                    del exact
+                worst = max(over, key=over.get)
+                loss_err = max(abs(a - b) / abs(b)
+                               for a, b in zip(losses, want_losses))
+                rec.update(grad_rel_l2_worst=(worst, direct[worst]),
+                           one_rank_losses=want_losses,
+                           loss_rel_err=loss_err)
+                if not over[worst] <= 1.0:
+                    raise AssertionError(
+                        f"TT {name} {dtype}: first step's gradient {worst} "
+                        f"{direct[worst]:.3e} relative L2 from one rank's "
+                        f"(bound {bar})" + (
+                            "" if dtype == "float32" else
+                            f", {rec['grad_rel_l2_float32'][worst]:.3e} "
+                            f"from one rank's float32 against one rank's "
+                            f"{rec['one_rank_rel_l2_float32'][worst]:.3e}"))
+                if dtype == "float32" and not loss_err <= 1e-5:
+                    raise AssertionError(
+                        f"TT {name} float32: losses {losses} against one "
+                        f"rank's {want_losses}")
+                if name == "zero3" and dtype == "bfloat16" and \
+                        not rec["peak_gb"] < rec["one_rank_peak_gb"]:
+                    raise AssertionError(
+                        f"TT zero3: peak {rec['peak_gb']:.3f} GB a rank, "
+                        f"not below one rank's "
+                        f"{rec['one_rank_peak_gb']:.3f} GB")
+                del want, split
+            phase["check"] = time.perf_counter() - t0
+            out[name, dtype] = rec
+            sharding.barrier()
+    return out
+
+
+def run_split_training_path() -> tuple[dict, dict]:
+    """Path TT: :func:`tt_rank` on two ranks sharing the card (gloo); a
+    layer's K4 twice (forward and the checkpoint's recompute) and K5 once
+    a microbatch a step on each rank."""
+    from repro_torch.launch import mesh
+    torch.cuda.empty_cache()
+    log(mesh_line("cuda", 2, "TT tensor parallel (1, 1, 2) (heads, ffn, "
+                  "vocabulary over model), then ZeRO-3 (1, 2, 1) (batch "
+                  "and parameter storage over data)"))
+    t0 = time.perf_counter()
+    outs = mesh.spawn(tt_rank, 2, "cuda", timeout_s=MESH_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    launches = dict(no_model_launches(), **dict.fromkeys(KERNELS, 0))
+    for o in outs:
+        for name in TT_LAYOUTS:
+            rec = o[name, "bfloat16"]
+            per = TT_LAYERS * rec["microbatches"] * TT_STEPS
+            exp = dict(no_model_launches(), **dict.fromkeys(KERNELS, 0),
+                       flash_attention=2 * per, flash_attention_bwd=per)
+            if rec["launches"] != exp:
+                raise AssertionError(f"TT {name} rank {o['rank']}: launches "
+                                     f"{rec['launches']}, expected {exp}")
+            if o["rank"] == 0:
+                for k in ("flash_attention", "flash_attention_bwd"):
+                    launches[k] += rec["launches"][k]
+    lead = outs[0]
+    for name in TT_LAYOUTS:
+        b, f = lead[name, "bfloat16"], lead[name, "float32"]
+        worst = b["grad_rel_l2_worst"][0]
+        hi = b.get("grad_rel_l2_float32", {}).get(worst)
+        one = b.get("one_rank_rel_l2_float32", {}).get(worst)
+        log(f"path TT {name} ({lead['backend']} on {lead['device']}): "
+            f"steps {', '.join(f'{x:.3f}' for x in b['step_s'])} s "
+            f"({b['tokens_per_s']:.1f} tokens/s a rank's view), collectives "
+            f"{b['collective_s']:.2f} s in {b['collectives']} calls; losses "
+            f"{b['losses']} (one rank's first {b['one_rank_losses']}); "
+            f"first-step gradients worst {b['grad_rel_l2_worst']} (from "
+            f"float32 {hi}, one rank's {one}); phases {b['phase_s']}, "
+            f"float32 {f['phase_s']}; peak "
+            f"{outs[0][name, 'bfloat16']['peak_gb']:.3f} / "
+            f"{outs[1][name, 'bfloat16']['peak_gb']:.3f} GB a rank (one "
+            f"rank {b['one_rank_peak_gb']:.3f} GB), blocks "
+            f"{b['block_gb']:.3f} GB; float32 at {TT_F32['layers']} layers: "
+            f"gradients worst {f['grad_rel_l2_worst']}, losses "
+            f"{f['loss_rel_err']:.3e}")
+    return launches, dict(spawn_wall_s=wall, ranks=[
+        {f"{k[0]}/{k[1]}" if isinstance(k, tuple) else k: v
+         for k, v in o.items()} for o in outs])
+
+
+def split_attention_records(tag: str, dev) -> list:
+    """K4, K5 and K6 at split path ``tag``'s local-head shapes, held and
+    timed as :func:`attn_shape_records` and :func:`k6_shape_record` hold
+    them, with each kernel's device time: ST's prefill (8 x 512, 16/4
+    heads of 128: half of granite-8b's 32/8) and decode step (a
+    1,024-position cache, 543 live); TT's tensor-parallel microbatch (1 x
+    4096, 16/4 heads) and ZeRO-3's rank batch (2 x 4096, 32/8 heads)."""
+    if tag == "ST":
+        return attn_shape_records("ST", {"prefill": (
+            ST_BATCH, ST_PROMPT, ST_PROMPT, 16, 4, 128, True)}, dev, False,
+            device=True) + [k6_shape_record(
+                "ST", ST_BATCH, ST_MAX_LEN, 16, 4, 128,
+                ST_PROMPT + ST_STEPS - 1, dev, 520, device=True)]
+    return attn_shape_records("TT", {
+        "tp": (1, TT_SEQ, TT_SEQ, 16, 4, 128, True),
+        "zero3": (TT_BATCH // 2, TT_SEQ, TT_SEQ, 32, 8, 128, True)},
+        dev, True, device=True)
 
 
 @contextlib.contextmanager
@@ -5847,7 +6313,14 @@ def main() -> int:
         launches_me, info_me = run_expert_parallel_path()
         records["TE"] = mesh_path_records("TE", dev)
         launches_te, info_te = run_elastic_path()
-        log(f"paths SC, ME and TE and their kernel checks: "
+        t_split = time.perf_counter()
+        records["ST"] = mesh_path_records("ST", dev)
+        launches_st, info_st = run_split_serving_path()
+        records["TT"] = mesh_path_records("TT", dev)
+        launches_tt, info_tt = run_split_training_path()
+        log(f"paths ST and TT and their kernel checks: "
+            f"{time.perf_counter() - t_split:.1f} s")
+        log(f"paths SC, ME, TE, ST and TT and their kernel checks: "
             f"{time.perf_counter() - t_mesh:.1f} s on {smi} (the ranks "
             f"share one card, and gloo moves their tensors through host "
             f"memory: the "
@@ -5867,7 +6340,8 @@ def main() -> int:
                               ("TH", launches_th), ("I", launches_i),
                               ("Y", launches_y), ("TI", launches_ti),
                               ("TY", launches_ty), ("SC", launches_sc),
-                              ("ME", launches_me), ("TE", launches_te)):
+                              ("ME", launches_me), ("TE", launches_te),
+                              ("ST", launches_st), ("TT", launches_tt)):
             for rec in records[tag]:
                 name = rec["name"].split()[0]
                 kernels_out.append(dict(rec, launches=launches[name],
@@ -5882,7 +6356,8 @@ def main() -> int:
                               "H": info_h, "TM": info_tm, "TP": info_tp,
                               "TH": info_th, "I": info_i, "Y": info_y,
                               "TI": info_ti, "TY": info_ty, "SC": info_sc,
-                              "ME": info_me, "TE": info_te}}))
+                              "ME": info_me, "TE": info_te,
+                              "ST": info_st, "TT": info_tt}}, default=str))
     log(json.dumps({"kernels": kernels_out}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

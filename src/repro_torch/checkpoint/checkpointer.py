@@ -12,6 +12,14 @@ and read back through an int16 view, bit for bit.
 
 Writes are atomic (tmp + rename, marker last) and can run on a background
 thread (``save_async``); ``wait`` joins the write in flight.
+
+A state split over ranks (tensor parallelism, FSDP storage: each rank's
+blocks under :mod:`repro_torch.launch.shardspecs`' specs) is saved whole:
+every rank of the mesh calls :meth:`Checkpointer.save` with its blocks
+and the specs, the leaves are gathered whole (:func:`whole_state`), and
+rank 0 writes the same bytes a one-rank save of the whole state writes.
+:meth:`Checkpointer.restore` with specs gives each rank its block under
+any layout.
 """
 
 from __future__ import annotations
@@ -25,6 +33,7 @@ import numpy as np
 import torch
 
 from repro_torch.optim.adamw import OptState
+from repro_torch.runtime.sharding import gather_whole, local_shard, rank
 from repro_torch.runtime.train_loop import TrainState
 
 BF16_STORED = np.dtype("V2")
@@ -56,6 +65,38 @@ def _flatten(tree, prefix: str = "") -> dict[str, Any]:
     return out
 
 
+def map_leaves(fn, tree, prefix: str = ""):
+    """``tree`` with each leaf ``x`` at path ``p`` replaced by ``fn(p,
+    x)`` (None subtrees stay None)."""
+    kids = _children(tree)
+    if kids is None:
+        return fn(prefix, tree)
+    out = {name: None if child is None else
+           map_leaves(fn, child, f"{prefix}/{name}" if prefix else name)
+           for name, child in kids}
+    if isinstance(tree, TrainState):
+        return TrainState(params=out["0"], opt_state=out["1"],
+                          step=out["2"], compress_residual=out["3"])
+    if isinstance(tree, OptState):
+        return OptState(m=out["0"], v=out["1"], count=out["2"])
+    return {k: out[str(k)] for k in tree}
+
+
+def whole_state(tree, shardings, mesh):
+    """``tree`` of this rank's blocks with every leaf gathered whole under
+    ``shardings`` (a tree of specs of its structure) on ``mesh``: a
+    collective that every rank of the mesh calls."""
+    specs = _flatten(shardings)
+
+    def whole(path, leaf):
+        spec = specs.get(path, ())
+        if not isinstance(leaf, torch.Tensor) or not spec:
+            return leaf
+        return gather_whole(leaf.detach(), spec, mesh).requires_grad_(
+            leaf.requires_grad)
+    return map_leaves(whole, tree)
+
+
 def _to_numpy(leaf) -> np.ndarray:
     if isinstance(leaf, int):
         return np.asarray(leaf, dtype=np.int32)
@@ -79,9 +120,16 @@ class Checkpointer:
         self._thread: Optional[threading.Thread] = None
 
     # ------------------------------------------------------------------
-    def save(self, step: int, tree, extra_metadata: Optional[dict] = None
-             ) -> str:
+    def save(self, step: int, tree, extra_metadata: Optional[dict] = None,
+             shardings=None, mesh=None) -> Optional[str]:
+        """Write ``tree``; with ``shardings`` and ``mesh``, ``tree`` is this
+        rank's blocks: every rank of the mesh calls, the leaves are
+        gathered whole, and rank 0 writes (the others return None)."""
         self.wait()
+        if shardings is not None:
+            tree = whole_state(tree, shardings, mesh)
+            if rank() != 0:
+                return None
         flat = {k: _to_numpy(v) for k, v in _flatten(tree).items()}
         return self._write(step, flat, extra_metadata or {})
 
@@ -137,37 +185,30 @@ class Checkpointer:
                                f"step_{step:010d}.json")) as f:
             return json.load(f)
 
-    def restore(self, step: int, target, device=None):
-        """A tree of ``target``'s structure from checkpoint ``step``: each
-        tensor leaf in the dtype, on the device and with the
-        ``requires_grad`` of ``target``'s leaf; an ``int`` leaf (the step)
-        as an ``int``.  ``device`` puts every leaf there instead (a target
-        of meta-device tensors needs it)."""
+    def restore(self, step: int, target, device=None, shardings=None,
+                mesh=None):
+        """A tree of ``target``'s structure (whole shapes) from checkpoint
+        ``step``: each tensor leaf in the dtype, on the device and with
+        the ``requires_grad`` of ``target``'s leaf; an ``int`` leaf (the
+        step) as an ``int``.  ``device`` puts every leaf there instead (a
+        target of meta-device tensors needs it).  With ``shardings`` (a
+        tree of specs) and ``mesh``, each leaf is this rank's block."""
         self.wait()
         data = np.load(os.path.join(self.directory,
                                     f"step_{step:010d}.npz"))
+        specs = {} if shardings is None else _flatten(shardings)
 
-        def build(node, prefix):
-            kids = _children(node)
-            if kids is None:
-                arr = data[prefix]
-                if isinstance(node, int):
-                    return int(arr)
-                if arr.shape != tuple(node.shape):
-                    raise ValueError(f"{prefix}: checkpoint shape "
-                                     f"{arr.shape} != target "
-                                     f"{tuple(node.shape)}")
-                t = _to_tensor(arr).to(dtype=node.dtype,
-                                       device=device or node.device)
-                return t.requires_grad_(node.requires_grad)
-            out = {name: None if child is None else
-                   build(child, f"{prefix}/{name}" if prefix else name)
-                   for name, child in kids}
-            if isinstance(node, TrainState):
-                return TrainState(params=out["0"], opt_state=out["1"],
-                                  step=out["2"], compress_residual=out["3"])
-            if isinstance(node, OptState):
-                return OptState(m=out["0"], v=out["1"], count=out["2"])
-            return {k: out[str(k)] for k in node}
+        def build(path, node):
+            arr = data[path]
+            if isinstance(node, int):
+                return int(arr)
+            if arr.shape != tuple(node.shape):
+                raise ValueError(f"{path}: checkpoint shape {arr.shape} "
+                                 f"!= target {tuple(node.shape)}")
+            t = _to_tensor(arr).to(dtype=node.dtype,
+                                   device=device or node.device)
+            if specs.get(path):
+                t = local_shard(t, specs[path], mesh)
+            return t.requires_grad_(node.requires_grad)
 
-        return build(target, "")
+        return map_leaves(build, target)

@@ -16,7 +16,8 @@ For the power path the "weights" are the scenario state.  Two forms:
 
 For the serving path, :func:`from_reference_params` copies the model's
 parameter tree, and for training :func:`from_reference_train_state` the
-whole train state.  They read attributes or arrays only and import nothing
+whole train state, either whole or as one rank's blocks of a split
+layout.  They read attributes or arrays only and import nothing
 of the reference, so both packages can run identical inputs.
 """
 
@@ -142,12 +143,19 @@ def _param_tensor(a, dtype, dev) -> torch.Tensor:
     return t.to(dev)
 
 
-def from_reference_params(params, cfg, device=None) -> dict:
+def from_reference_params(params, cfg, device=None, mesh=None,
+                          rules=None) -> dict:
     """The reference's parameter tree (nested mappings of NumPy arrays, as
     ``jax.tree_util.tree_map(np.asarray, params)`` gives them) as the
     port's, in the same layout and dtype, on ``device`` (``None``: the
     GPU).  Every leaf of :func:`repro_torch.models.transformer.
-    param_specs` must be there, with its shape, and nothing else."""
+    param_specs` must be there, with its shape, and nothing else.  With
+    ``mesh`` and ``rules``, each leaf is this rank's block
+    (:func:`repro_torch.launch.shardspecs.local_params`)."""
+    if mesh is not None:
+        from repro_torch.launch.shardspecs import local_params
+        return local_params(from_reference_params(params, cfg, device),
+                            cfg, mesh, rules)
     from repro_torch.models.transformer import param_specs
 
     dev = resolve_device(device)
@@ -172,14 +180,22 @@ def from_reference_params(params, cfg, device=None) -> dict:
     return walk(param_specs(cfg), params, ())
 
 
-def from_reference_train_state(state, cfg, device=None):
+def from_reference_train_state(state, cfg, device=None, mesh=None,
+                               rules=None):
     """The reference's ``TrainState`` (params, AdamW's ``m``, ``v`` and
     ``count``, ``step`` and the compression residual when there is one),
     its leaves as NumPy arrays (``jax.tree_util.tree_map(np.asarray,
     state)``), as the port's on ``device`` (``None``: the GPU).  The
     parameters require grad; the moments keep their dtype (bfloat16 bit
     for bit through an int16 view); ``count`` stays an int32 tensor and
-    ``step`` becomes a host ``int``."""
+    ``step`` becomes a host ``int``.  With ``mesh`` and ``rules``, each
+    leaf is this rank's block
+    (:func:`repro_torch.launch.shardspecs.local_train_state`)."""
+    if mesh is not None:
+        from repro_torch.launch.shardspecs import local_train_state
+        return local_train_state(from_reference_train_state(state, cfg,
+                                                            device),
+                                 cfg, mesh, rules)
     from repro_torch.optim.adamw import OptState
     from repro_torch.runtime.train_loop import TrainState
     from repro_torch.tree import leaves, map_tree

@@ -11,6 +11,10 @@ axis names and sizes, so a :class:`~repro_torch.runtime.sharding.MeshAxes`
 of the production 16 x 16 or 2 x 16 x 16 mesh serves as well as a
 ``DeviceMesh``.  The abstract states are trees of ``meta``-device tensors,
 the twin of ``jax.ShapeDtypeStruct``.
+
+:func:`local_params` and :func:`local_train_state` cut a whole tree into
+one rank's blocks under these specs: what each rank of a tensor-parallel
+or FSDP layout holds (the reference leaves that to GSPMD).
 """
 
 from __future__ import annotations
@@ -23,8 +27,11 @@ import torch
 from repro_torch.models import transformer as tfm
 from repro_torch.models.config import ModelConfig, ShapeConfig
 from repro_torch.optim.adamw import OptState
-from repro_torch.runtime.sharding import Rules, axes_of, entry_axes
+from repro_torch.runtime.sharding import (Rules, axis_size, live_dims,
+                                          local_shard, refuse_part_2c,
+                                          spec_for)
 from repro_torch.runtime.train_loop import TrainState
+from repro_torch.tree import leaves_with_path, map_tree
 
 #: The replicated spec (the reference's ``PartitionSpec()``).
 REPLICATED: tuple = ()
@@ -104,22 +111,11 @@ def rules_for(cfg: ModelConfig, shape: ShapeConfig,
     return Rules(**kw)
 
 
-def _axis_size(mesh, entry) -> int:
-    m = axes_of(mesh)
-    out = 1
-    for a in entry_axes(entry):
-        out *= m.size(a)
-    return out
-
-
 def _sharding(mesh, rules: Rules, axes, shape=None) -> tuple:
     """Logical axes -> spec; ``shape`` (if given) drops sharding on dims
-    the mesh axes do not divide."""
-    entries = [rules.mesh_axes(a, mesh) for a in axes]
-    if shape is not None:
-        entries = [e if (e is None or shape[i] % _axis_size(mesh, e) == 0)
-                   else None for i, e in enumerate(entries)]
-    return tuple(entries)
+    the mesh axes do not divide (:func:`repro_torch.runtime.sharding
+    .spec_for`)."""
+    return spec_for(mesh, rules, axes, shape)
 
 
 def _map_specs(fn, specs: dict) -> dict:
@@ -163,6 +159,63 @@ def train_state_shardings(cfg: ModelConfig, mesh, rules: Rules
     return TrainState(params=param_shardings(cfg, mesh, rules),
                       opt_state=opt_state_shardings(cfg, mesh, rules),
                       step=replicated(mesh), compress_residual=None)
+
+
+def _check_whole_heads(cfg: ModelConfig, mesh, rules: Rules) -> None:
+    """A ``heads`` or ``kv_heads`` dim splits the flattened ``H x hd``
+    column: each rank's block must be whole heads."""
+    counts = {"heads": cfg.n_heads, "kv_heads": cfg.n_kv_heads}
+    specs = tfm.param_specs(cfg)
+    for path, spec in leaves_with_path(param_shardings(cfg, mesh, rules)):
+        node = specs
+        for key in path:
+            node = node[key]
+        for name, entry in zip(node[1], spec):
+            n = axis_size(mesh, entry)
+            if name in counts and n > 1 and counts[name] % n:
+                raise ValueError(
+                    f"{'/'.join(path)}: {counts[name]} {name} do not split "
+                    f"into whole heads over {n} ranks ({entry})")
+
+
+def local_params(params: dict, cfg: ModelConfig, mesh, rules: Rules
+                 ) -> dict:
+    """This rank's block of each whole parameter under
+    :func:`param_shardings` on ``mesh`` (a ``DeviceMesh``): a dim whose
+    mesh axes do not divide it stays whole (an odd vocabulary, kv heads
+    that do not divide the model axis).  Raises ``ValueError`` for a
+    ``heads`` or ``kv_heads`` block that is not whole heads, and
+    ``NotImplementedError`` for a layout of ROADMAP queue 1, item 9,
+    part 2c.  A leaf that requires grad gives a block that does too (a
+    new leaf); a replicated leaf is passed through."""
+    refuse_part_2c(mesh, rules, cfg.family)
+    _check_whole_heads(cfg, mesh, rules)
+
+    def block(t, spec):
+        if not any(live_dims(mesh, e) for e in spec):
+            return t
+        return local_shard(t.detach(), spec, mesh).requires_grad_(
+            t.requires_grad)
+    return map_tree(block, params, param_shardings(cfg, mesh, rules))
+
+
+def local_train_state(state: TrainState, cfg: ModelConfig, mesh,
+                      rules: Rules) -> TrainState:
+    """:func:`local_params` of a whole train state: the parameters, AdamW's
+    moments and the compression residual cut alike, the count and step as
+    they are."""
+    params = local_params(state.params, cfg, mesh, rules)
+    specs = param_shardings(cfg, mesh, rules)
+
+    def cut(tree):
+        return None if tree is None else map_tree(
+            lambda t, spec: local_shard(t, spec, mesh), tree, specs)
+    opt = state.opt_state
+    return TrainState(params=params,
+                      opt_state=OptState(m=cut(opt.m), v=cut(opt.v),
+                                         count=opt.count),
+                      step=state.step,
+                      compress_residual=cut(state.compress_residual))
 
 
 def decode_state_shardings(cfg: ModelConfig, mesh, rules: Rules,

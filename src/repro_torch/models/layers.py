@@ -13,10 +13,29 @@ the same call: its backward is K5
 :func:`rms_norm` and :func:`streamed_xent` carry the reference's backward
 as ``torch.autograd.Function``s.
 
-The reference's ``shard(...)`` constraints are no-ops without a mesh, and
-one card has none, so the port drops them.  Cross attention (the
-encoder-decoder's) projects only the queries, applies no RoPE and attends
-non-causally over the given K/V: on K4, or on K6 for a one-token step.
+Tensor parallelism (the reference's ``shard(...)`` annotations over
+``heads``, ``kv_heads``, ``ffn`` and ``vocab``, which GSPMD turns into
+collectives) is explicit here, on each rank's blocks of the weights
+(:func:`repro_torch.launch.shardspecs.local_params`): a layer finds its
+split from its weights' shapes (:func:`repro_torch.runtime.sharding
+.split_over`).  Attention column-splits ``wq``, ``wk`` and ``wv`` into
+the rank's heads and row-splits ``wo``, its input entering through
+Megatron's ``f`` (:func:`~repro_torch.runtime.sharding.copy_to`) and its
+output leaving through ``g`` (:func:`~repro_torch.runtime.sharding
+.sum_over`, one all-reduce); K4, K5 and K6 see only the rank's heads.
+Where the kv heads stay whole (they do not divide the model axis), each
+rank projects all of them and attends with the ones its q heads read.
+The MLP splits its hidden dim over ``ffn`` the same way.
+:func:`streamed_xent` over a vocabulary split across ranks takes each
+chunk's log-sum-exp from an all-reduced max and sum of exponentials and
+the gold logit from the rank that owns it; its backward recomputes the
+rank's logits alone and sums the ranks' parts of the input's gradient in
+float32.
+Without a bound context, or where every split is of one rank, each
+function computes what it computes on one rank.  Cross attention (the
+encoder-decoder's) projects only the queries, applies no RoPE and
+attends non-causally over the given K/V: on K4, or on K6 for a one-token
+step.
 """
 
 from __future__ import annotations
@@ -27,6 +46,9 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.decode_attention.ops import decode_attention
 from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.runtime.sharding import (all_reduce, copy_to,
+                                          current_context, live_dims,
+                                          spec_for, split_over, sum_over)
 
 NEG_INF = -1e30
 
@@ -161,6 +183,21 @@ def attention_param_specs(cfg) -> dict:
     }
 
 
+def _kv_for_heads(k, v, q_lo: int, hq_l: int, groups: int):
+    """The K/V heads of q heads ``q_lo .. q_lo + hq_l`` (``groups`` q heads
+    a kv head) from whole K/V (B, S, Hkv, hd): a slice where the grouping
+    allows, else one kv head a q head."""
+    if hq_l % groups == 0 and q_lo % groups == 0:
+        lo = q_lo // groups
+        return k[:, :, lo:lo + hq_l // groups], v[:, :, lo:lo + hq_l // groups]
+    if groups % hq_l == 0:
+        j = q_lo // groups
+        return k[:, :, j:j + 1], v[:, :, j:j + 1]
+    idx = torch.div(torch.arange(q_lo, q_lo + hq_l, device=k.device),
+                    groups, rounding_mode="floor")
+    return k.index_select(2, idx), v.index_select(2, idx)
+
+
 def attention(params: dict, x: torch.Tensor, cfg, *, causal: bool = True,
               positions: torch.Tensor | None = None,
               kv_cache: dict | None = None, cross_kv: tuple | None = None,
@@ -183,27 +220,44 @@ def attention(params: dict, x: torch.Tensor, cfg, *, causal: bool = True,
     over the cache's first ``cursor + S`` rows.  The reference updates its
     cache functionally; the port writes in place to keep one cache.
     Returns ``(out, cache with the cursor advanced)``.
+
+    ``params`` may be a rank's blocks (tensor parallelism): ``wq``'s
+    columns and ``wo``'s rows its q heads, ``wk``'s and ``wv``'s columns
+    its kv heads, or all of them where they stay whole; the cache and
+    ``cross_kv`` hold the kv heads ``wk`` gives.  The output is then the
+    sum over the ranks.
     """
     b, s, _ = x.shape
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = (x @ params["wq"]).reshape(b, s, hq, hd)
+    hq_l = params["wq"].shape[1] // hd
+    tp = split_over("heads", hq_l, hq)
+    if tp is not None:
+        x = copy_to(x, tp[0], tp[1])
+    q = (x @ params["wq"]).reshape(b, s, hq_l, hd)
+
+    def heads_of(k, v):
+        if tp is None or k.shape[2] != hkv:
+            return k, v
+        return _kv_for_heads(k, v, tp[2] * hq_l, hq_l, hq // hkv)
+
     if cross_kv is not None:
-        k, v = cross_kv
+        k, v = heads_of(*cross_kv)
         if s == 1 and not q.requires_grad:
             every = torch.full((b,), k.shape[1], dtype=torch.int32,
                                device=x.device)
             out = decode_attention(q[:, 0], k, v, every)[:, None]
         else:
             out, _ = flash_attention(q, k, v, causal=False)
-        return out.reshape(b, s, hq * hd) @ params["wo"], kv_cache
+        return _out_proj(out.reshape(b, s, hq_l * hd), params, tp), kv_cache
     if positions is None:
         positions = torch.arange(s, device=x.device)[None, :]
-    k = (x @ params["wk"]).reshape(b, s, hkv, hd)
-    v = (x @ params["wv"]).reshape(b, s, hkv, hd)
+    hkv_l = params["wk"].shape[1] // hd
+    k = (x @ params["wk"]).reshape(b, s, hkv_l, hd)
+    v = (x @ params["wv"]).reshape(b, s, hkv_l, hd)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     if kv_cache is None:
-        out, _ = flash_attention(q, k, v, causal=causal)
+        out, _ = flash_attention(q, *heads_of(k, v), causal=causal)
     else:
         cur = int(kv_cache["cursor"])
         ck, cv = kv_cache["k"], kv_cache["v"]
@@ -217,12 +271,37 @@ def attention(params: dict, x: torch.Tensor, cfg, *, causal: bool = True,
             if kv_len is None:
                 kv_len = torch.full((b,), cur + 1, dtype=torch.int32,
                                     device=x.device)
-            out = decode_attention(q[:, 0], ck, cv, kv_len)[:, None]
+            out = decode_attention(q[:, 0], *heads_of(ck, cv),
+                                   kv_len)[:, None]
         else:
-            out, _ = flash_attention(q, ck[:, :cur + s], cv[:, :cur + s],
+            out, _ = flash_attention(q, *heads_of(ck[:, :cur + s],
+                                                  cv[:, :cur + s]),
                                      causal=True, q_offset=cur)
-    out = out.reshape(b, s, hq * hd) @ params["wo"]
-    return out, kv_cache
+    return _out_proj(out.reshape(b, s, hq_l * hd), params, tp), kv_cache
+
+
+def _out_proj(out, params, tp):
+    """``out @ wo``, summed over the ranks of a split (Megatron's ``g``)."""
+    out = out @ params["wo"]
+    return out if tp is None else sum_over(out, tp[0], tp[1])
+
+
+def attention_partial_leaves(cfg) -> tuple:
+    """The attention leaves whose gradient on a rank is its part of a sum
+    over the ``heads`` split in the bound context: ``wk`` and ``wv`` where
+    the q heads are split and the kv heads stay whole (each rank's q heads
+    read only their kv heads).  Returns ``(names, mesh dims)``."""
+    ctx = current_context()
+    if ctx is None:
+        return (), ()
+    mesh, rules = ctx
+    specs = attention_param_specs(cfg)
+    q_dims, kv_dims = (
+        live_dims(mesh, spec_for(mesh, rules, specs[n][1], specs[n][0])[1])
+        for n in ("wq", "wk"))
+    if q_dims and not kv_dims:
+        return ("wk", "wv"), q_dims
+    return (), ()
 
 
 # --------------------------------------------------------------------- MLP
@@ -241,6 +320,11 @@ def mlp_param_specs(cfg, d_ff: int | None = None) -> dict:
 
 
 def mlp(params: dict, x: torch.Tensor, cfg) -> torch.Tensor:
+    """The MLP; ``params`` may be a rank's blocks of the hidden dim
+    (tensor parallelism: the output is then summed over the ranks)."""
+    tp = split_over("ffn", params["w_up"].shape[1], cfg.d_ff)
+    if tp is not None:
+        x = copy_to(x, tp[0], tp[1])
     if cfg.activation == "swiglu":
         h = F.silu(x @ params["w_gate"]) * (x @ params["w_up"])
     elif cfg.activation == "squared_relu":
@@ -248,7 +332,8 @@ def mlp(params: dict, x: torch.Tensor, cfg) -> torch.Tensor:
     else:
         # jax.nn.gelu defaults to the tanh approximation.
         h = F.gelu(x @ params["w_up"], approximate="tanh")
-    return h @ params["w_down"]
+    out = h @ params["w_down"]
+    return out if tp is None else sum_over(out, tp[0], tp[1])
 
 
 # -------------------------------------------------- streamed cross-entropy
@@ -306,9 +391,84 @@ class _StreamedXent(torch.autograd.Function):
                 None)
 
 
+class _VocabParallelXent(torch.autograd.Function):
+    """:class:`_StreamedXent` over this rank's block of the vocabulary
+    (``w_out``: (D, V_local), entries ``offset ..``) of a split over mesh
+    ``dims``: each chunk's logits are the rank's own; the log-sum-exp comes
+    from the all-reduced max and sum of exponentials, the gold logit from
+    the rank that owns it (an all-reduce of the rank's share, zero
+    elsewhere).  Every rank returns the whole loss.  The backward
+    recomputes the rank's logits against the saved log-sum-exp, needs no
+    other rank for them, and gives ``w_out`` its own block's gradient.
+    ``h``'s gradient is the sum of the ranks' parts: each part a float32
+    product of the rank's bf16 ``d logits``, summed over the ranks in
+    float32 and rounded once to ``h``'s type (Megatron's ``f`` in
+    float32).  Rounding each part to bf16 before the sum (``d logits`` is
+    mostly the gold row, so a part is large where the sum cancels) put
+    path TT's bf16 gradients twice as far from float32 as one rank's
+    (``tools/tp_rounding.py``)."""
+
+    @staticmethod
+    def forward(ctx, h, w_out, labels, weights, chunk, mesh, dims, offset):
+        v_l = w_out.shape[1]
+        loss_sum = torch.zeros((), dtype=torch.float32, device=h.device)
+        lses = []
+        for c0 in range(0, h.shape[1], chunk):
+            logits = _chunk_logits(h[:, c0:c0 + chunk], w_out)
+            ll = labels[:, c0:c0 + chunk].long() - offset
+            own = (ll >= 0) & (ll < v_l)
+            m = all_reduce(logits.amax(-1), mesh, dims, op="max")
+            parts = torch.stack([
+                torch.exp(logits - m[..., None]).sum(-1),
+                torch.where(own, logits.gather(
+                    -1, ll.clamp(0, v_l - 1)[..., None])[..., 0], 0.0)])
+            del logits
+            sum_exp, gold = all_reduce(parts, mesh, dims)
+            lse = m + torch.log(sum_exp)
+            lses.append(lse)
+            loss_sum = loss_sum + ((lse - gold)
+                                   * weights[:, c0:c0 + chunk]).sum()
+        ctx.save_for_backward(h, w_out, labels, weights, torch.cat(lses, 1))
+        ctx.chunk, ctx.offset, ctx.mesh, ctx.dims = chunk, offset, mesh, dims
+        return loss_sum
+
+    @staticmethod
+    def backward(ctx, dloss):
+        h, w_out, labels, weights, lse = ctx.saved_tensors
+        need_h, need_w = ctx.needs_input_grad[:2]
+        v_l = w_out.shape[1]
+        dh = (torch.empty(h.shape, dtype=torch.float32, device=h.device)
+              if need_h else None)
+        w32 = w_out.float() if need_h else None
+        dw = (torch.zeros(w_out.shape, dtype=torch.float32,
+                          device=w_out.device) if need_w else None)
+        for c0 in range(0, h.shape[1], ctx.chunk):
+            sl = slice(c0, c0 + ctx.chunk)
+            hh = h[:, sl]
+            g = _chunk_logits(hh, w_out)
+            g.sub_(lse[:, sl, None]).exp_()
+            ll = labels[:, sl, None].long() - ctx.offset
+            own = (ll >= 0) & (ll < v_l)
+            g.scatter_add_(-1, ll.clamp(0, v_l - 1),
+                           torch.where(own, -1.0, 0.0))
+            g.mul_((weights[:, sl, None] * dloss))
+            g = g.to(h.dtype)
+            if need_h:
+                dh[:, sl] = g.float() @ w32.T
+            if need_w:
+                dw += (hh.reshape(-1, hh.shape[-1]).T
+                       @ g.reshape(-1, g.shape[-1])).float()
+            del g
+        if need_h:
+            dh = all_reduce(dh, ctx.mesh, ctx.dims).to(h.dtype)
+        return (dh, None if dw is None else dw.to(w_out.dtype), None, None,
+                None, None, None, None)
+
+
 def streamed_xent(h: torch.Tensor, w_out: torch.Tensor,
                   labels: torch.Tensor, weights: torch.Tensor,
-                  chunk: int = 2048) -> tuple[torch.Tensor, torch.Tensor]:
+                  chunk: int = 2048, vocab: int | None = None
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
     """Cross-entropy without materializing (B, S, V) logits.
 
     h: (B, S, D), w_out: (D, V), labels and weights: (B, S).  Each chunk of
@@ -318,8 +478,18 @@ def streamed_xent(h: torch.Tensor, w_out: torch.Tensor,
     recomputes them a chunk at a time.  Returns ``(sum of losses, sum of
     weights)``, both float32.  The reference pads the sequence to a
     multiple of ``chunk``; the padded tokens weigh 0, so the port runs the
-    last chunk short instead.
+    last chunk short instead.  ``w_out`` may be this rank's block of the
+    ``vocab`` entries (a vocabulary split over ranks:
+    :class:`_VocabParallelXent`).
     """
     chunk = min(chunk, h.shape[1])
-    loss_sum = _StreamedXent.apply(h, w_out, labels, weights, chunk)
+    tp = (None if vocab is None
+          else split_over("vocab", w_out.shape[1], vocab))
+    if tp is None:
+        loss_sum = _StreamedXent.apply(h, w_out, labels, weights, chunk)
+    else:
+        mesh, dims, index, _ = tp
+        loss_sum = _VocabParallelXent.apply(
+            h, w_out, labels, weights, chunk, mesh, dims,
+            index * w_out.shape[1])
     return loss_sum, weights.float().sum()

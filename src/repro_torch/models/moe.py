@@ -17,9 +17,19 @@ each rank holds ``n_experts / n`` experts (:func:`expert_shard`), builds
 buckets for its own experts, runs K7 on them, and one all-reduce sums the
 ranks' outputs, the shared experts' ffn slices riding in the same sum.
 Under autograd this needs Megatron's pair of functions: the sum is an
-all-reduce forward and the identity backward (:class:`_SumOverRanks`),
-and the replicated inputs of each rank's part are the identity forward
-and an all-reduce of their gradient backward (:class:`_ToRanks`).
+all-reduce forward and the identity backward
+(:func:`repro_torch.runtime.sharding.sum_over`), and the replicated
+inputs of each rank's part are the identity forward and an all-reduce of
+their gradient backward (:func:`~repro_torch.runtime.sharding.copy_to`).
+The rank's leaves are its :func:`expert_shard`, or its block under
+:func:`repro_torch.launch.shardspecs.local_params`, which also splits the
+router's expert columns: the dispatch then gathers the router whole (each
+rank keeps its own columns' gradient, which every rank holds whole).
+Attention's tensor parallelism over the same ``model`` axis composes with
+it (OLMoE's cells): both read the replicated activations and sum their
+outputs over the axis.  Under the dense dispatch, shared experts whose
+ffn dim is split over ranks (``ffn``) run column- and row-split, their
+output summed over the ranks.
 Under a context whose batch axes have more than one rank and no expert
 axis that qualifies, the dense dispatch routes each rank's shard of the
 tokens as the whole batch would be routed: the reference's dense
@@ -48,9 +58,10 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.moe_gmm.ops import grouped_matmul
-from repro_torch.runtime.sharding import (all_reduce, current_context,
-                                          dims_coordinate, dims_size,
-                                          entry_axes)
+from repro_torch.runtime.sharding import (all_reduce, copy_to,
+                                          current_context, dims_coordinate,
+                                          dims_size, entry_axes,
+                                          gather_param, split_over, sum_over)
 
 
 def moe_param_specs(cfg) -> dict:
@@ -146,41 +157,6 @@ class _TokenGather(torch.autograd.Function):
                 None, None, None)
 
 
-class _ToRanks(torch.autograd.Function):
-    """A tensor replicated over the expert ranks, entering each rank's
-    part: the identity forward, the sum of the ranks' gradients
-    backward."""
-
-    @staticmethod
-    def forward(ctx, t, mesh, dims):
-        ctx.mesh, ctx.dims = mesh, dims
-        return t.view_as(t)
-
-    @staticmethod
-    def backward(ctx, g):
-        return all_reduce(g.contiguous().clone(), ctx.mesh, ctx.dims), \
-            None, None
-
-
-class _SumOverRanks(torch.autograd.Function):
-    """The sum of the ranks' parts over mesh ``dims``, divided by ``n``
-    (the ranks' count: their mean; 1: their sum): an all-reduce forward;
-    backward, each rank's part takes the gradient divided by ``n`` and is
-    differentiated where it was made, the ranks' gradients summed
-    afterwards (over the expert axis by :class:`_ToRanks`, over the batch
-    axes by the training step)."""
-
-    @staticmethod
-    def forward(ctx, t, mesh, dims, n: int):
-        ctx.n = n
-        out = all_reduce(t.contiguous().clone(), mesh, dims)
-        return out / n if n != 1 else out
-
-    @staticmethod
-    def backward(ctx, g):
-        return (g / ctx.n if ctx.n != 1 else g), None, None, None
-
-
 def _shared_experts(params: dict, xt: torch.Tensor) -> torch.Tensor:
     sh = F.silu(xt @ params["shared_w_gate"]) * (xt @ params["shared_w_up"])
     return sh @ params["shared_w_down"]
@@ -263,6 +239,9 @@ def _moe_ffn_expert_parallel(params: dict, x: torch.Tensor, cfg, mesh,
     e_loc = e // n
     shard = dims_coordinate(mesh, (ax,))
     xt = x.reshape(t, d)
+    if params["router"].shape[1] != e:
+        params = dict(params, router=gather_param(
+            params["router"], mesh, ((1, (ax,)),), replicated_grad=True))
     gate_vals, expert_idx, aux = _route(params, xt, cfg)
 
     cap = expert_capacity(t, cfg)
@@ -282,8 +261,8 @@ def _moe_ffn_expert_parallel(params: dict, x: torch.Tensor, cfg, mesh,
                        e_loc * cap)
     inv = torch.argsort(order, stable=True)
 
-    xin = _ToRanks.apply(xt, mesh, (ax,))
-    gin = _ToRanks.apply(gate_vals, mesh, (ax,))
+    xin = copy_to(xt, mesh, (ax,))
+    gin = copy_to(gate_vals, mesh, (ax,))
     buckets = torch.zeros((e_loc * cap + 1, d), dtype=xt.dtype,
                           device=x.device)
     buckets.index_add_(0, slot, torch.where(
@@ -303,11 +282,11 @@ def _moe_ffn_expert_parallel(params: dict, x: torch.Tensor, cfg, mesh,
          ).sum(1)
     if cfg.n_shared_experts:
         y = y + _shared_experts(params, xin).float()
-    y = _SumOverRanks.apply(y, mesh, (ax,), 1).to(x.dtype)
+    y = sum_over(y, mesh, (ax,)).to(x.dtype)
 
     batch = _batch_dims(mesh, rules)
     if batch:
-        aux = _SumOverRanks.apply(aux, mesh, batch, dims_size(mesh, batch))
+        aux = sum_over(aux, mesh, batch, dims_size(mesh, batch))
     return y.reshape(b, s, d), aux
 
 
@@ -329,7 +308,8 @@ def _moe_ffn_dense(params: dict, x: torch.Tensor, cfg, dp=None
     count of the ranks before it plus its place among the rank's own
     (the whole batch's stable sort), the capacity is the whole batch's,
     and the aux loss takes the router's mean probabilities summed over
-    the ranks (:class:`_SumOverRanks`: its gradient is this rank's part,
+    the ranks (:func:`~repro_torch.runtime.sharding.sum_over`: its
+    gradient is this rank's part,
     which the training step sums over the ranks) and the summed counts.
     Each rank fills only its own pairs' rows of the ``(E, cap, D)``
     buckets; a row's expert output does not depend on the others.
@@ -360,7 +340,7 @@ def _moe_ffn_dense(params: dict, x: torch.Tensor, cfg, dp=None
         all_reduce(table, mesh, dims)                            # (n, E)
         rank = rank + table[:index].sum(0)[sorted_expert]
         cap = expert_capacity(t * n, cfg)
-        me = _SumOverRanks.apply(probs.sum(0), mesh, dims, 1) / (t * n)
+        me = sum_over(probs.sum(0), mesh, dims) / (t * n)
         aux = _aux(me, table.sum(0), t * n * k, cfg)
     keep = rank < cap
     slot = sorted_expert * cap + torch.clamp_max(rank, cap - 1)  # (T*k,)
@@ -386,5 +366,11 @@ def _moe_ffn_dense(params: dict, x: torch.Tensor, cfg, dp=None
            ).sum(1).to(per_pair.dtype)
 
     if cfg.n_shared_experts:
-        out = out + _shared_experts(params, xt)
+        tp = split_over("ffn", params["shared_w_down"].shape[0],
+                        cfg.d_ff * cfg.n_shared_experts)
+        if tp is None:
+            out = out + _shared_experts(params, xt)
+        else:
+            out = out + sum_over(_shared_experts(
+                params, copy_to(xt, tp[0], tp[1])), tp[0], tp[1])
     return out.reshape(b, s, d), aux

@@ -22,6 +22,20 @@ non-causal encoder over precomputed frame embeddings (``frames``) and a
 decoder whose blocks add cross attention over the encoder's output (K4,
 or K6 for a one-token step), each body checkpointed as ``cfg.remat``
 says.
+
+Under a bound sharding context (:mod:`repro_torch.runtime.sharding`) the
+parameters are this rank's blocks
+(:func:`repro_torch.launch.shardspecs.local_params`).  Each layer body
+gathers its FSDP leaves whole where it starts, inside the checkpoint, so
+that the backward's recompute gathers them again and only the blocks
+stay alive between the passes; their gradients leave by reduce-scatter.
+Attention and the MLP run tensor parallel on their blocks
+(:mod:`repro_torch.models.layers`), the embedding over a split
+vocabulary looks up the rank's rows and all-reduces, and the decode
+state is allocated at the rank's block of
+:func:`repro_torch.launch.shardspecs.decode_state_shardings`.  Every
+forward first refuses the layouts of ROADMAP queue 1, item 9, part 2c
+(:func:`repro_torch.runtime.sharding.check_layout`).
 """
 
 from __future__ import annotations
@@ -38,6 +52,12 @@ from torch.utils import checkpoint
 from repro_torch.backend import resolve_device
 from repro_torch.models import layers, moe, ssd
 from repro_torch.models.config import ModelConfig
+from repro_torch.runtime.sharding import (check_layout, copy_to,
+                                          current_context,
+                                          gather_block, gather_param,
+                                          gather_plan, leaf_gathers,
+                                          local_shape, sharding_context,
+                                          split_over, sum_over)
 
 # =========================================================== param specs
 def _stack(specs: dict, n: int) -> dict:
@@ -60,6 +80,33 @@ def block_param_specs(cfg: ModelConfig) -> dict:
     return specs
 
 
+def _enc_block_specs(cfg: ModelConfig) -> dict:
+    specs = {"ln1": ((cfg.d_model,), (None,)),
+             "ln2": ((cfg.d_model,), (None,))}
+    specs.update(layers.attention_param_specs(cfg))
+    specs.update(layers.mlp_param_specs(cfg))
+    return specs
+
+
+def _dec_block_specs(cfg: ModelConfig) -> dict:
+    specs = dict(block_param_specs(cfg))
+    specs["ln_cross"] = ((cfg.d_model,), (None,))
+    specs.update({f"cross_{k}": v for k, v in
+                  layers.attention_param_specs(cfg).items()})
+    return specs
+
+
+def _ssm_block_specs(cfg: ModelConfig) -> dict:
+    specs = {"ln": ((cfg.d_model,), (None,))}
+    specs.update(ssd.ssd_param_specs(cfg))
+    return specs
+
+
+#: One layer's specs by the kind of its body.
+_BLOCK_SPECS = {"block": block_param_specs, "enc": _enc_block_specs,
+                "dec": _dec_block_specs, "ssm": _ssm_block_specs}
+
+
 def param_specs(cfg: ModelConfig) -> dict:
     """Full tree of ``(shape, logical_axes)`` for the model."""
     specs: dict = {
@@ -76,24 +123,12 @@ def param_specs(cfg: ModelConfig) -> dict:
             specs["vision_proj"] = {
                 "w": ((cfg.d_model, cfg.d_model), ("embed_p", None))}
     elif cfg.family in ("ssm", "hybrid"):
-        blk = {"ln": ((cfg.d_model,), (None,))}
-        blk.update(ssd.ssd_param_specs(cfg))
-        specs["blocks"] = _stack(blk, cfg.n_layers)
+        specs["blocks"] = _stack(_ssm_block_specs(cfg), cfg.n_layers)
         if cfg.family == "hybrid":
             specs["shared_attn"] = block_param_specs(cfg)
     elif cfg.family == "encdec":
-        enc_blk = {
-            "ln1": ((cfg.d_model,), (None,)),
-            "ln2": ((cfg.d_model,), (None,)),
-        }
-        enc_blk.update(layers.attention_param_specs(cfg))
-        enc_blk.update(layers.mlp_param_specs(cfg))
-        specs["enc_blocks"] = _stack(enc_blk, cfg.enc_layers)
-        dec_blk = dict(block_param_specs(cfg))
-        dec_blk["ln_cross"] = ((cfg.d_model,), (None,))
-        dec_blk.update({f"cross_{k}": v for k, v in
-                        layers.attention_param_specs(cfg).items()})
-        specs["dec_blocks"] = _stack(dec_blk, cfg.n_layers)
+        specs["enc_blocks"] = _stack(_enc_block_specs(cfg), cfg.enc_layers)
+        specs["dec_blocks"] = _stack(_dec_block_specs(cfg), cfg.n_layers)
         specs["enc_norm"] = {"scale": ((cfg.d_model,), (None,))}
     else:
         raise ValueError(f"unknown family {cfg.family}")
@@ -165,9 +200,15 @@ def _remat(fn, cfg: ModelConfig):
     inputs and recomputes the rest in the backward; ``"dots"`` also keeps
     the outputs of its matrix products (the reference's
     ``checkpoint_dots_with_no_batch_dims``: the 2-D ``mm`` the products
-    lower to); ``"none"`` runs it as is."""
+    lower to); ``"none"`` runs it as is.  Under a bound sharding context
+    ``fn`` runs inside the context it was checkpointed in, so that its
+    recompute, which autograd runs on its own thread for a CUDA backward,
+    splits and gathers as the forward did."""
     if cfg.remat == "none":
         return fn
+    ctx = current_context()
+    if ctx is not None:
+        fn = functools.partial(_in_context, ctx, fn)
     if cfg.remat == "dots":
         context = functools.partial(
             checkpoint.create_selective_checkpoint_contexts,
@@ -179,17 +220,75 @@ def _remat(fn, cfg: ModelConfig):
     return functools.partial(checkpoint.checkpoint, fn, use_reentrant=False)
 
 
+def _in_context(ctx: tuple, fn, *args):
+    with sharding_context(*ctx):
+        return fn(*args)
+
+
 def _training(params: dict) -> bool:
     """Whether this forward records a graph for a backward."""
     return torch.is_grad_enabled() and any(
         t.requires_grad for grp in params.values() for t in grp.values())
 
 
-def _attn_block(blk, h, cfg, positions, cache, kv_len=None, cross=None):
+@functools.lru_cache(maxsize=64)
+def _block_plan(cfg: ModelConfig, kind: str, mesh, rules):
+    return gather_plan(_BLOCK_SPECS[kind](cfg), mesh, rules)
+
+
+def _gathered(blk: dict, cfg: ModelConfig, kind: str) -> dict:
+    """A layer's leaves with its FSDP leaves gathered whole (``kind`` names
+    its specs in :data:`_BLOCK_SPECS`); ``blk`` itself without a bound
+    context."""
+    ctx = current_context()
+    if ctx is None:
+        return blk
+    return gather_block(blk, _block_plan(cfg, kind, *ctx))
+
+
+def _top_leaf(params: dict, group: str, cfg: ModelConfig) -> torch.Tensor:
+    """A leaf outside the layers (``embed``, ``unembed`` or
+    ``vision_proj``), gathered whole along its FSDP dims."""
+    (name, t), = params[group].items()
+    ctx = current_context()
+    if ctx is None:
+        return t
+    shape, axes = param_specs(cfg)[group][name]
+    return gather_param(t, ctx[0], leaf_gathers(*ctx, shape, axes))
+
+
+def embed(params: dict, tokens: torch.Tensor, cfg: ModelConfig
+          ) -> torch.Tensor:
+    """The token embeddings in the parameters' dtype.  Over a vocabulary
+    split across ranks, each rank looks up the tokens its rows hold, zeros
+    the others, and one all-reduce sums the ranks' parts (the identity
+    backward: each rank's rows get their own tokens' gradients)."""
+    table = _top_leaf(params, "embed", cfg)
+    dtype = getattr(torch, cfg.param_dtype)
+    tp = split_over("vocab", table.shape[0], cfg.vocab_size)
+    if tp is None:
+        return table[tokens].to(dtype)
+    mesh, dims, index, _ = tp
+    rows = table.shape[0]
+    local = tokens - index * rows
+    own = (local >= 0) & (local < rows)
+    e = torch.where(own[..., None], table[local.clamp(0, rows - 1)], 0.0)
+    return sum_over(e, mesh, dims).to(dtype)
+
+
+def _attn_block(blk, h, cfg, positions, cache, kv_len=None):
     """One block: ``(h, cache, aux)``, aux the MoE layer's loss (``None``
-    when dense).  With ``cross`` (the encoder's ``(k, v)``), a cross
-    attention sub-layer over them follows the self attention, its input
-    normed by ``ln_cross`` and its weights the ``cross_``-prefixed ones."""
+    when dense), its FSDP leaves gathered first (:func:`_gathered`)."""
+    return _attn_sublayers(_gathered(blk, cfg, "block"), h, cfg, positions,
+                           cache, kv_len)
+
+
+def _attn_sublayers(blk, h, cfg, positions, cache, kv_len=None,
+                    cross=None):
+    """One block's sub-layers on whole (or tensor-parallel) leaves.  With
+    ``cross`` (the encoder's ``(k, v)``), a cross attention sub-layer over
+    them follows the self attention, its input normed by ``ln_cross`` and
+    its weights the ``cross_``-prefixed ones."""
     hn1 = layers.rms_norm(h, blk["ln1"], cfg.norm_eps)
     a, cache = layers.attention(blk, hn1, cfg, positions=positions,
                                 kv_cache=cache, kv_len=kv_len)
@@ -209,16 +308,15 @@ def _attn_block(blk, h, cfg, positions, cache, kv_len=None, cross=None):
 
 
 def _make_cache(cfg: ModelConfig, n_layers: int, batch: int, max_len: int,
-                device=None) -> dict:
+                device: torch.device) -> dict:
     """Stacked K/V caches ``(n_layers, B, max_len, Hkv, hd)`` in the
     parameter dtype; the cursor is one host ``int`` for every layer (the
     reference keeps a per-layer int32 on the device), so the kernels'
     ``q_offset`` and ``kv_len`` come from it with no device sync."""
-    dev = resolve_device(device)
     shape = (n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
     dtype = getattr(torch, cfg.param_dtype)
-    return {"k": torch.zeros(shape, dtype=dtype, device=dev),
-            "v": torch.zeros(shape, dtype=dtype, device=dev),
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device),
             "cursor": 0}
 
 
@@ -233,9 +331,11 @@ def decoder_forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
     by ``vision_proj`` in the parameters' dtype and prepends them to the
     token embeddings: the positions run over all ``P + S`` rows, and a
     cache takes ``P + S`` rows and advances its cursor by as many."""
-    h = params["embed"]["table"][tokens].to(getattr(torch, cfg.param_dtype))
+    check_layout(cfg.family)
+    h = embed(params, tokens, cfg)
     if cfg.family == "vlm" and vision_embeds is not None:
-        ve = vision_embeds.to(h.dtype) @ params["vision_proj"]["w"]
+        ve = vision_embeds.to(h.dtype) @ _top_leaf(params, "vision_proj",
+                                                   cfg)
         h = torch.cat([ve, h], dim=1)
     b, s = h.shape[:2]
     if positions is None:
@@ -283,6 +383,7 @@ def _store_state(cache: Optional[dict], i: int, new: dict) -> None:
 
 
 def _mamba_layer(blk, h, cfg, state):
+    blk = _gathered(blk, cfg, "ssm")
     out, new_state = ssd.ssd_block(
         blk, layers.rms_norm(h, blk["ln"], cfg.norm_eps), cfg, state=state)
     return h + out, new_state
@@ -298,7 +399,8 @@ def ssm_forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
     states keep the float32 storage they start in, holding values of the
     activations' dtype, which is what the next step reads.  Without a
     cache the forward runs from zero states and returns none."""
-    h = params["embed"]["table"][tokens].to(getattr(torch, cfg.param_dtype))
+    check_layout(cfg.family)
+    h = embed(params, tokens, cfg)
     layer_weights = {name: w.unbind(0)
                      for name, w in params["blocks"].items()}
     body = _remat(_mamba_layer, cfg) if _training(params) else _mamba_layer
@@ -322,7 +424,8 @@ def hybrid_forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
     of the sites}``, updated in place as :func:`ssm_forward` and
     :func:`repro_torch.models.layers.attention` update theirs; the KV
     cursor advances once a forward, for every site."""
-    h = params["embed"]["table"][tokens].to(getattr(torch, cfg.param_dtype))
+    check_layout(cfg.family)
+    h = embed(params, tokens, cfg)
     b, s = h.shape[:2]
     if positions is None:
         positions = torch.arange(s, device=h.device)[None, :]
@@ -357,6 +460,7 @@ def hybrid_forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
 def _enc_layer(blk, h, cfg, positions):
     """One encoder block: non-causal self attention and the MLP, each
     behind its pre-norm residual."""
+    blk = _gathered(blk, cfg, "enc")
     a, _ = layers.attention(
         blk, layers.rms_norm(h, blk["ln1"], cfg.norm_eps), cfg,
         causal=False, positions=positions)
@@ -368,13 +472,19 @@ def _enc_layer(blk, h, cfg, positions):
 def _dec_layer(blk, h, enc_out, cfg, positions, cache, kv_len):
     """One decoder block with its cross K/V formed from ``enc_out`` inside
     it (so a checkpointed block recomputes them, as the reference's
-    ``dec_body`` does)."""
+    ``dec_body`` does).  Under tensor parallelism ``cross_wk`` and
+    ``cross_wv`` give the rank's kv heads (or all of them where they stay
+    whole), and ``enc_out`` enters through Megatron's ``f``."""
+    blk = _gathered(blk, cfg, "dec")
     b, se, _ = enc_out.shape
-    hkv, hd = cfg.n_kv_heads, cfg.head_dim
-    ck = (enc_out @ blk["cross_wk"]).reshape(b, se, hkv, hd)
-    cv = (enc_out @ blk["cross_wv"]).reshape(b, se, hkv, hd)
-    h, _, _ = _attn_block(blk, h, cfg, positions, cache, kv_len,
-                          cross=(ck, cv))
+    hd = cfg.head_dim
+    tp = split_over("heads", blk["cross_wq"].shape[1] // hd, cfg.n_heads)
+    if tp is not None:
+        enc_out = copy_to(enc_out, tp[0], tp[1])
+    ck = (enc_out @ blk["cross_wk"]).reshape(b, se, -1, hd)
+    cv = (enc_out @ blk["cross_wv"]).reshape(b, se, -1, hd)
+    h, _, _ = _attn_sublayers(blk, h, cfg, positions, cache, kv_len,
+                              cross=(ck, cv))
     return h
 
 
@@ -415,7 +525,8 @@ def encdec_forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
                 "given (the reference's serve and train drivers pass none "
                 "and fail with KeyError: 'frames', ROADMAP fault F4)")
         enc_out = encode(params, frames, cfg)
-    h = params["embed"]["table"][tokens].to(getattr(torch, cfg.param_dtype))
+    check_layout(cfg.family)
+    h = embed(params, tokens, cfg)
     b, s = h.shape[:2]
     if positions is None:
         positions = torch.arange(s, device=h.device)[None, :]
@@ -456,9 +567,31 @@ def forward(params: dict, cfg: ModelConfig, **kwargs) -> ForwardResult:
 
 
 def unembed_weight(params: dict, cfg: ModelConfig) -> torch.Tensor:
+    """``(d_model, V)``: the unembedding (the embedding's transpose when
+    tied), gathered whole along its FSDP dims; this rank's block of the
+    vocabulary where it is split."""
     if cfg.tie_embeddings:
-        return params["embed"]["table"].T
-    return params["unembed"]["table"]
+        return _top_leaf(params, "embed", cfg).T
+    return _top_leaf(params, "unembed", cfg)
+
+
+def partial_sum_leaves(cfg: ModelConfig) -> dict:
+    """``{leaf path: mesh dims}``: the leaves stored whole on every rank
+    whose gradient on a rank is its part of a sum over those dims in the
+    bound context (:func:`repro_torch.models.layers
+    .attention_partial_leaves`: ``wk`` and ``wv`` where the q heads are
+    split and the kv heads are not).  Empty without a context."""
+    names, dims = layers.attention_partial_leaves(cfg)
+    if not names:
+        return {}
+    out = {}
+    for group, node in param_specs(cfg).items():
+        for leaf in node:
+            base = leaf[len("cross_"):] if leaf.startswith("cross_") \
+                else leaf
+            if base in names and group != "embed":
+                out[(group, leaf)] = dims
+    return out
 
 
 # ======================================================== decode caches
@@ -467,12 +600,37 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
     """The family's decode state: the stacked KV caches (dense, MoE, VLM
     and the encoder-decoder's self attention), the stacked ``(n_layers,
     ...)`` SSM and conv states (ssm), or both, with one KV cache per
-    shared-attention site (hybrid)."""
+    shared-attention site (hybrid).  Under a bound sharding context each
+    tensor is this rank's block of
+    :func:`repro_torch.launch.shardspecs.decode_state_shardings`' layout
+    (``kv_heads`` over the model dims, ``batch`` over the batch dims)."""
+    dev = resolve_device(device)
+    ctx = current_context()
+    if ctx is None:
+        return _decode_state(cfg, batch, max_len, dev)
+    from repro_torch.launch.shardspecs import decode_state_shardings
+    check_layout(cfg.family)
+    whole = _decode_state(cfg, batch, max_len, torch.device("meta"))
+    specs = decode_state_shardings(cfg, *ctx, whole)
+
+    def block(node, spec):
+        if isinstance(node, dict):
+            return {k: block(v, spec[k]) for k, v in node.items()}
+        if isinstance(node, tuple):
+            return tuple(block(v, sp) for v, sp in zip(node, spec))
+        if not isinstance(node, torch.Tensor):
+            return node
+        return torch.zeros(local_shape(node.shape, spec, ctx[0]),
+                           dtype=node.dtype, device=dev)
+    return block(whole, specs)
+
+
+def _decode_state(cfg: ModelConfig, batch: int, max_len: int,
+                  dev: torch.device) -> dict:
     if cfg.family in ("dense", "moe", "vlm", "encdec"):
-        return _make_cache(cfg, cfg.n_layers, batch, max_len, device)
+        return _make_cache(cfg, cfg.n_layers, batch, max_len, dev)
     if cfg.family not in ("ssm", "hybrid"):
         raise ValueError(cfg.family)
-    dev = resolve_device(device)
     st = ssd.ssd_init_state(cfg, batch, dev)
 
     def stack(t):

@@ -9,7 +9,9 @@ runs in place on the parameters and moments (the reference returns new
 trees), and a leaf is updated in slices of at most ``SLICE`` elements, so
 its float32 temporaries stay small.  The step count, the clip scale and
 the learning rate stay tensors on the device: an update reads nothing
-back to the host.
+back to the host.  On a rank's blocks of a split model the update is
+elementwise on the blocks, and only the clip's norm is summed over the
+ranks (:func:`global_norm`'s ``layout``).
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from typing import Callable, Optional
 
 import torch
 
+from repro_torch.runtime.sharding import all_reduce
 from repro_torch.tree import leaves, map_tree
 
 #: Elements a slice of the update touches at once.
@@ -38,14 +41,35 @@ def _slices(t: torch.Tensor, inplace: bool = False):
     return (t.view(-1) if inplace else t.reshape(-1)).split(SLICE)
 
 
-def global_norm(grads: dict) -> torch.Tensor:
+def global_norm(grads: dict, layout: Optional[tuple] = None
+                ) -> torch.Tensor:
     """sqrt of the sum of every gradient's squares, in float32 (a slice at
-    a time)."""
-    total = None
-    for g in leaves(grads):
+    a time).
+
+    ``layout = (mesh, dims)``: ``grads`` are this rank's blocks, leaf
+    ``i`` split over the mesh dims ``dims[i]`` (``()``: whole on every
+    rank).  The squares are summed a group of leaves of equal dims at a
+    time, in the tree's order, each group's sum all-reduced over its
+    dims, and the groups added in a fixed order: a leaf stored whole
+    counts once, and every rank gets the whole model's norm, bit for
+    bit."""
+    if layout is None:
+        total = None
+        for g in leaves(grads):
+            for part in _slices(g):
+                sq = part.float().square().sum()
+                total = sq if total is None else total + sq
+        return torch.sqrt(total)
+    mesh, dims = layout
+    groups: dict = {}
+    for g, d in zip(leaves(grads), dims):
         for part in _slices(g):
             sq = part.float().square().sum()
-            total = sq if total is None else total + sq
+            groups[d] = sq if d not in groups else groups[d] + sq
+    total = None
+    for d in sorted(groups):
+        part = all_reduce(groups[d].clone(), mesh, d)
+        total = part if total is None else total + part
     return torch.sqrt(total)
 
 
@@ -80,7 +104,9 @@ class AdamW:
                ) -> tuple[dict, OptState]:
         """One step, in place on ``params``, ``state.m`` and ``state.v``;
         returns them with the count advanced.  ``grad_norm`` is the
-        gradients' global norm when the caller has it already."""
+        gradients' global norm when the caller has it already (on a
+        rank's blocks, the whole model's: :func:`global_norm`'s
+        ``layout``)."""
         scale = None
         if self.grad_clip_norm is not None:
             gnorm = global_norm(grads) if grad_norm is None else grad_norm

@@ -16,7 +16,10 @@ onto its own device and keeps its block of each leaf under the layout
 waits, at the next resize's barrier, until a resize takes it back.  The
 controller is synchronous and explicit: resize is a rare, heavyweight
 transition, where no lost optimizer state and a reproducible data cursor
-matter more than overlap.
+matter more than overlap.  A state split over the old mesh (tensor
+parallelism, FSDP storage: ``resize(..., mesh=old_mesh)``) is gathered
+whole first, so the checkpoint is the one-rank state's, and the new mesh
+may take any layout: ZeRO-3 on two ranks resizes to one whole rank.
 """
 
 from __future__ import annotations
@@ -26,12 +29,9 @@ from typing import Any, Callable, Optional
 
 import torch
 
-from repro_torch.checkpoint.checkpointer import (Checkpointer, _children,
-                                                 _flatten)
-from repro_torch.optim.adamw import OptState
-from repro_torch.runtime.sharding import (barrier, local_shard, rank,
-                                          rank_device)
-from repro_torch.runtime.train_loop import TrainState
+from repro_torch.checkpoint.checkpointer import (Checkpointer, map_leaves,
+                                                 whole_state)
+from repro_torch.runtime.sharding import barrier, rank, rank_device
 
 PyTree = Any
 
@@ -47,19 +47,12 @@ class ResizeEvent:
 def _abstract(tree):
     """``tree`` with each tensor leaf a meta-device tensor of its shape
     and dtype (``requires_grad`` kept), other leaves as they are."""
-    kids = _children(tree)
-    if kids is None:
-        if isinstance(tree, torch.Tensor):
-            return torch.empty(tree.shape, dtype=tree.dtype, device="meta"
-                               ).requires_grad_(tree.requires_grad)
-        return tree
-    out = {name: None if child is None else _abstract(child)
-           for name, child in kids}
-    if isinstance(tree, TrainState):
-        return TrainState(out["0"], out["1"], out["2"], out["3"])
-    if isinstance(tree, OptState):
-        return OptState(out["0"], out["1"], out["2"])
-    return {k: out[str(k)] for k in tree}
+    def meta(_, leaf):
+        if isinstance(leaf, torch.Tensor):
+            return torch.empty(leaf.shape, dtype=leaf.dtype, device="meta"
+                               ).requires_grad_(leaf.requires_grad)
+        return leaf
+    return map_leaves(meta, tree)
 
 
 class ElasticController:
@@ -85,26 +78,24 @@ class ElasticController:
         under ``make_shardings``' layout; None outside ``mesh``."""
         if mesh.get_coordinate() is None:
             return None
-        state = self.checkpointer.restore(step, target,
-                                          device=rank_device())
-        specs = _flatten(self.make_shardings(mesh, target))
-        flat = _flatten(state)
-        for path, leaf in flat.items():
-            spec = specs.get(path, ())
-            if isinstance(leaf, torch.Tensor) and spec:
-                block = local_shard(leaf.detach(), spec, mesh)
-                if block is not leaf:
-                    leaf.data = block
-        return state
+        return self.checkpointer.restore(
+            step, target, device=rank_device(),
+            shardings=self.make_shardings(mesh, target), mesh=mesh)
 
     def resize(self, state: Optional[PyTree], step: int, from_pods: int,
                to_pods: int, reason: str,
-               extra_metadata: Optional[dict] = None
+               extra_metadata: Optional[dict] = None, mesh=None
                ) -> tuple[Any, Optional[PyTree]]:
         """Checkpoint -> new mesh -> restore onto it.  Every rank calls
-        it; a rank outside the old mesh passes ``state=None``.  Returns
-        ``(new_mesh, new_state)``, the state None on a rank outside the
-        new mesh."""
+        it; a rank outside the old mesh passes ``state=None``.  ``mesh``:
+        the old mesh, where ``state`` is each rank's blocks under
+        ``make_shardings(mesh, state)`` (every rank of it gathers the
+        leaves whole first); None where each rank holds the whole state.
+        Returns ``(new_mesh, new_state)``, the state None on a rank
+        outside the new mesh."""
+        if state is not None and mesh is not None:
+            state = whole_state(state, self.make_shardings(mesh, state),
+                                mesh)
         if state is not None:
             self._target = _abstract(state)
         if rank() == 0:

@@ -22,6 +22,17 @@ is a host ``int``, advanced once a forward, so the kernels' ``q_offset``
 and ``kv_len`` need no device sync; the
 token positions stay a ``(B,)`` device tensor for RoPE, and the greedy
 tokens stay on the device from one step to the next.
+
+Under a bound sharding context the parameters are a rank's blocks
+(:func:`repro_torch.launch.shardspecs.local_params`) and every rank
+passes the whole prompt: each takes its rows of a batch split over the
+batch dims (:func:`repro_torch.runtime.sharding.batch_block`), its cache
+is its block of :func:`repro_torch.launch.shardspecs
+.decode_state_shardings`' layout (its kv heads and rows), and its logits
+are its rows and its block of the vocabulary.  The greedy token is the
+largest logit over every rank's block, ties to the lower global index
+(:func:`repro_torch.runtime.sharding.vocab_argmax`), and
+:func:`generate` gathers the whole batch's tokens and logits at the end.
 """
 
 from __future__ import annotations
@@ -34,16 +45,26 @@ import torch
 from repro_torch.backend import resolve_device
 from repro_torch.models import transformer as tfm
 from repro_torch.models.config import ModelConfig
+from repro_torch.runtime.sharding import (batch_block, batch_whole,
+                                          check_layout, current_context,
+                                          gather_dims,
+                                          live_dims, vocab_argmax)
 
 
 def make_prefill_step(cfg: ModelConfig, max_len: int):
     def prefill(params, tokens, extras: Optional[dict] = None):
         """tokens: (B, S) prompt -> (last-position logits (B, V) float32,
         decode state).  ``extras``: ``vision_embeds`` (vlm), ``frames``
-        (encdec; without them the forward raises ``ValueError``)."""
-        extras = extras or {}
+        (encdec; without them the forward raises ``ValueError``).  Under
+        a batch split the logits and the state are this rank's rows, and
+        under a vocabulary split the logits its block."""
+        check_layout(cfg.family)
+        extras = {k: batch_block(v) for k, v in (extras or {}).items()}
+        whole = tokens.shape[0]
+        tokens = batch_block(tokens)
         b, s = tokens.shape
-        cache = tfm.init_decode_state(cfg, b, max_len, tokens.device)
+        # The whole batch: the state's layout gives each rank its rows.
+        cache = tfm.init_decode_state(cfg, whole, max_len, tokens.device)
         res = tfm.forward(params, cfg, tokens=tokens, cache=cache, **extras)
         w_out = tfm.unembed_weight(params, cfg)
         logits = (res.hidden[:, -1] @ w_out).float()
@@ -85,17 +106,31 @@ def generate(cfg: ModelConfig, params, prompt: torch.Tensor, steps: int,
     Greedy: each step feeds back the argmax of the last logits.  With
     ``forced`` ((B, steps) tokens), step ``i + 1`` is fed ``forced[:, i]``
     instead (teacher forcing), so two runs can be compared logit by logit.
+    Under a bound sharding context every rank passes the whole prompt
+    and gets the whole batch's tokens and logits (gathered once, at the
+    end).
     """
     prefill = make_prefill_step(cfg, max_len)
     decode = make_decode_step(cfg)
     logits, state = prefill(params, prompt, extras)
-    out, seen = [torch.argmax(logits, -1)], [logits]
+    if forced is not None:
+        forced = batch_block(forced)
+    out = [vocab_argmax(logits, cfg.vocab_size)]
+    seen = [logits]
     for i in range(steps - 1):
         fed = out[-1] if forced is None else forced[:, i]
         logits, state = decode(params, state, fed)
-        out.append(torch.argmax(logits, -1))
+        out.append(vocab_argmax(logits, cfg.vocab_size))
         seen.append(logits)
-    return torch.stack(out, dim=1), torch.stack(seen, dim=1)
+    tokens, logits = torch.stack(out, dim=1), torch.stack(seen, dim=1)
+    ctx = current_context()
+    if ctx is not None and logits.shape[-1] != cfg.vocab_size:
+        mesh, rules = ctx
+        logits = gather_dims(logits, mesh,
+                             live_dims(mesh, rules.mesh_axes("vocab", mesh)),
+                             2)
+    b = prompt.shape[0]
+    return batch_whole(tokens, b), batch_whole(logits, b)
 
 
 def greedy_generate(cfg: ModelConfig, params, prompt, steps: int,

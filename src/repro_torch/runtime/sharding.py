@@ -20,9 +20,28 @@ The collectives the port runs over a ``DeviceMesh``
 meshes are built, and the ranks started, by
 :mod:`repro_torch.launch.mesh`.  A collective takes the names of the
 mesh dimensions to run over and passes tensors to the backend where they
-lie: gloo takes CUDA tensors for ``all_reduce`` and ``all_gather`` and
-moves them through host memory itself (checked on the H100 by
-``chip_smoke.py``'s path ME).
+lie: gloo takes CUDA tensors for ``all_reduce``, ``all_gather`` and
+``reduce_scatter`` and moves them through host memory itself (checked on
+the H100 by ``chip_smoke.py``'s paths ME, ST and TT), so no caller stages
+a tensor through the host.
+
+**Split layers** (tensor parallelism and FSDP storage).  Each rank holds
+its block of every parameter under :func:`spec_for`'s layout
+(:func:`repro_torch.launch.shardspecs.local_params`).  A parameter whose
+``embed_p`` dim is sharded (FSDP) is gathered whole where it is used
+(:func:`gather_param`: an all-gather forward, a reduce-scatter of its
+gradient backward, the ZeRO-3 pair); a block's plan of those gathers is
+:func:`gather_plan`.  A ``heads``, ``kv_heads``, ``ffn``, ``vocab`` or
+``expert`` dim stays split, and the layer computes on its block with
+Megatron's conjugate pair around it: :func:`copy_to` (the identity
+forward, the sum of the ranks' gradients backward) where a replicated
+activation enters the rank's block, and :func:`sum_over` (the sum
+forward, the identity backward) where the ranks' partial outputs leave
+it.  :func:`split_over` says whether, and
+over which mesh dims, this rank holds a block of a logical axis.  The
+layouts the port does not run yet raise in :func:`check_layout`.
+Every collective's gradient adds in a fixed order: gloo's ring, no float
+atomics (ROADMAP trap T1).
 """
 
 from __future__ import annotations
@@ -30,6 +49,7 @@ from __future__ import annotations
 import contextlib
 import contextvars
 import dataclasses
+import functools
 import math
 from typing import NamedTuple, Optional, Sequence
 
@@ -121,6 +141,23 @@ def logical_spec(*names: Optional[str]) -> Optional[tuple]:
     return tuple(rules.mesh_axes(n, mesh) for n in names)
 
 
+def axis_size(mesh, entry) -> int:
+    """The number of ranks along a spec ``entry``'s mesh axes."""
+    m = axes_of(mesh)
+    return math.prod(m.size(a) for a in entry_axes(entry))
+
+
+def spec_for(mesh, rules: Rules, axes, shape=None) -> tuple:
+    """Logical ``axes`` -> spec; ``shape`` (if given) drops the sharding
+    of each dim that the mesh axes do not divide (it stays replicated: an
+    odd vocabulary, kv heads that do not divide the model axis)."""
+    entries = [rules.mesh_axes(a, mesh) for a in axes]
+    if shape is not None:
+        entries = [e if (e is None or shape[i] % axis_size(mesh, e) == 0)
+                   else None for i, e in enumerate(entries)]
+    return tuple(entries)
+
+
 def to_placements(spec: tuple, mesh) -> tuple:
     """DTensor placements of ``spec`` on ``mesh``: one a mesh dimension,
     ``Shard(d)`` where the spec puts tensor dimension ``d`` on it, else
@@ -201,15 +238,29 @@ def dims_coordinate(mesh, dims: Sequence[str]) -> int:
     return pos
 
 
-def all_reduce(t: torch.Tensor, mesh, dims: Sequence[str]) -> torch.Tensor:
-    """Sum ``t`` in place over the mesh ``dims``: one ``all_reduce`` a dim
-    larger than 1, in the order given, each rank ending with the same
-    bits.  Returns ``t``."""
+def all_reduce(t: torch.Tensor, mesh, dims: Sequence[str],
+               op: str = "sum") -> torch.Tensor:
+    """Sum (``op="max"``: the largest) ``t`` in place over the mesh
+    ``dims``: one ``all_reduce`` a dim larger than 1, in the order given,
+    each rank ending with the same bits.  Returns ``t``."""
+    red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
     for d in dims:
         if mesh.size(mesh.mesh_dim_names.index(d)) == 1:
             continue
-        dist.all_reduce(t, group=mesh.get_group(d))
+        dist.all_reduce(t, op=red, group=mesh.get_group(d))
     return t
+
+
+def reduce_scatter(t: torch.Tensor, mesh, dim: str,
+                   tensor_dim: int) -> torch.Tensor:
+    """This rank's chunk (its coordinate along the mesh ``dim``) of the
+    sum over ``dim``'s ranks of ``t``, chunked evenly along
+    ``tensor_dim``."""
+    n = mesh.size(mesh.mesh_dim_names.index(dim))
+    parts = [c.contiguous() for c in t.chunk(n, dim=tensor_dim)]
+    out = torch.empty_like(parts[0])
+    dist.reduce_scatter(out, parts, group=mesh.get_group(dim))
+    return out
 
 
 def all_gather(t: torch.Tensor, mesh, dim: str) -> torch.Tensor:
@@ -236,3 +287,268 @@ def all_gather_objects(obj) -> list:
     out = [None] * dist.get_world_size()
     dist.all_gather_object(out, obj)
     return out
+
+
+# ------------------------------------------------------------ split layers
+#: The logical axis that FSDP stores sharded and gathers on use.
+FSDP_AXES = ("embed_p",)
+#: Where the layouts the port refuses are planned.
+PART_2C = "ROADMAP queue 1, item 9, part 2c"
+
+
+def live_dims(mesh, entry) -> tuple:
+    """A spec ``entry``'s mesh axes of more than one rank."""
+    return tuple(a for a in entry_axes(entry) if axis_size(mesh, a) > 1)
+
+
+def refuse_part_2c(mesh, rules: Rules, family: Optional[str] = None
+                   ) -> None:
+    """Raise ``NotImplementedError`` for a layout the port does not run:
+    ``seq`` or ``inner_seq`` over a mesh dim larger than 1 (Megatron-SP,
+    the odd-head archs' layout), ``kv_seq`` (the distributed flash-decode
+    of odd-kv decode cells and ``long_500k``), or ``heads`` over one on a
+    Mamba2 mixer (``family`` ``ssm`` or ``hybrid``)."""
+    for name, what in (("seq", "Megatron-SP's sequence-sharded "
+                        "activations"),
+                       ("inner_seq", "Megatron-SP's sequence-sharded "
+                        "attention and MLP"),
+                       ("kv_seq", "the distributed flash-decode over a "
+                        "sequence-sharded KV cache")):
+        dims = live_dims(mesh, rules.mesh_axes(name, mesh))
+        if dims:
+            raise NotImplementedError(
+                f"{name} over mesh dims {dims} ({what}) is {PART_2C}")
+    if family in ("ssm", "hybrid"):
+        dims = live_dims(mesh, rules.mesh_axes("heads", mesh))
+        if dims:
+            raise NotImplementedError(
+                f"a Mamba2 mixer's heads over mesh dims {dims} is "
+                f"{PART_2C}")
+
+
+def check_layout(family: Optional[str] = None) -> None:
+    """:func:`refuse_part_2c` in the bound context (nothing without one):
+    the check every model entry point makes."""
+    ctx = _CTX.get()
+    if ctx is not None:
+        refuse_part_2c(*ctx, family)
+
+
+@functools.lru_cache(maxsize=256)
+def _axis_split(mesh, rules: Rules, name: str) -> Optional[tuple]:
+    dims = live_dims(mesh, rules.mesh_axes(name, mesh))
+    if not dims:
+        return None
+    return mesh, dims, dims_coordinate(mesh, dims), dims_size(mesh, dims)
+
+
+def split_over(name: str, local: int, whole: int) -> Optional[tuple]:
+    """``(mesh, dims, index, n)`` when this rank holds block ``index`` of
+    ``n`` (``local`` of ``whole`` entries) of the logical axis ``name``
+    over the mesh ``dims``; None when it holds the whole axis."""
+    if local == whole:
+        return None
+    ctx = _CTX.get()
+    split = None if ctx is None else _axis_split(*ctx, name)
+    if split is None or local * split[3] != whole:
+        raise ValueError(f"a block of {local} of the {whole} entries of "
+                         f"{name!r}, and the bound context does not split "
+                         f"{name!r} {whole // max(local, 1)} ways")
+    return split
+
+
+def batch_split_dims() -> Optional[tuple]:
+    """``(mesh, dims, index, n)`` of the batch's split in the bound context
+    (its mesh dims larger than 1), or None."""
+    ctx = _CTX.get()
+    return None if ctx is None else _axis_split(*ctx, "batch")
+
+
+class _CopyToRanks(torch.autograd.Function):
+    """A tensor replicated over the ranks of mesh ``dims`` entering each
+    rank's block of a split layer: the identity forward, the sum of the
+    ranks' gradients backward (Megatron's ``f``)."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, dims):
+        ctx.mesh, ctx.dims = mesh, dims
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g.contiguous().clone(), ctx.mesh, ctx.dims), \
+            None, None
+
+
+class _SumOverRanks(torch.autograd.Function):
+    """The sum of the ranks' parts over mesh ``dims``, divided by ``n``
+    (the ranks' count: their mean; 1: their sum): an all-reduce forward;
+    backward, each rank's part takes the gradient divided by ``n``
+    (Megatron's ``g``)."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, dims, n: int):
+        ctx.n = n
+        out = all_reduce(t.contiguous().clone(), mesh, dims)
+        return out / n if n != 1 else out
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g / ctx.n if ctx.n != 1 else g), None, None, None
+
+
+def copy_to(t: torch.Tensor, mesh, dims: Sequence[str]) -> torch.Tensor:
+    """:class:`_CopyToRanks`: identity forward, all-reduce backward."""
+    return _CopyToRanks.apply(t, mesh, tuple(dims))
+
+
+def sum_over(t: torch.Tensor, mesh, dims: Sequence[str], n: int = 1
+             ) -> torch.Tensor:
+    """:class:`_SumOverRanks`: all-reduce forward (over ``n``), identity
+    backward."""
+    return _SumOverRanks.apply(t, mesh, tuple(dims), n)
+
+
+def gather_dims(t: torch.Tensor, mesh, dims: Sequence[str],
+                tensor_dim: int) -> torch.Tensor:
+    """The whole of ``t`` along ``tensor_dim`` from the blocks of the
+    ranks of mesh ``dims`` (the first the slowest, as
+    :func:`local_shard` cuts them): an all-gather a dim, the innermost
+    first."""
+    for d in reversed(tuple(dims)):
+        if mesh.size(mesh.mesh_dim_names.index(d)) > 1:
+            t = torch.cat(all_gather(t, mesh, d).unbind(0), dim=tensor_dim)
+    return t
+
+
+def scatter_dims(t: torch.Tensor, mesh, dims: Sequence[str],
+                 tensor_dim: int) -> torch.Tensor:
+    """This rank's block along ``tensor_dim`` of the sum of ``t`` over the
+    ranks of mesh ``dims`` (the adjoint of :func:`gather_dims`): a
+    reduce-scatter a dim, the outermost first."""
+    for d in dims:
+        if mesh.size(mesh.mesh_dim_names.index(d)) > 1:
+            t = reduce_scatter(t, mesh, d, tensor_dim)
+    return t
+
+
+def _block_of(t: torch.Tensor, mesh, dims, tensor_dim: int) -> torch.Tensor:
+    n = dims_size(mesh, dims)
+    return t.chunk(n, dim=tensor_dim)[dims_coordinate(mesh, dims)]
+
+
+class _GatherParam(torch.autograd.Function):
+    """A parameter block gathered whole along its split dims, ``plan`` a
+    tuple of ``(tensor dim, mesh dims)``.  Backward, the gradient's blocks
+    are reduce-scattered back (the ranks' gradients summed: FSDP's
+    ZeRO-3 pair), or, with ``replicated_grad``, each rank keeps its own
+    block of a gradient every rank holds whole."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, plan, replicated_grad: bool):
+        ctx.mesh, ctx.plan, ctx.replicated = mesh, plan, replicated_grad
+        for dim, dims in plan:
+            t = gather_dims(t, mesh, dims, dim)
+        return t
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous()
+        for dim, dims in reversed(ctx.plan):
+            g = (_block_of(g, ctx.mesh, dims, dim) if ctx.replicated
+                 else scatter_dims(g, ctx.mesh, dims, dim))
+        return g.contiguous(), None, None, None
+
+
+def gather_param(t: torch.Tensor, mesh, plan: tuple,
+                 replicated_grad: bool = False) -> torch.Tensor:
+    """``t`` gathered whole along ``plan``'s ``(tensor dim, mesh dims)``
+    (:class:`_GatherParam`); ``t`` itself for an empty plan."""
+    if not plan:
+        return t
+    return _GatherParam.apply(t, mesh, tuple(plan), replicated_grad)
+
+
+def leaf_gathers(mesh, rules: Rules, shape, axes) -> tuple:
+    """The FSDP gathers of a whole leaf of ``shape`` and logical ``axes``:
+    ``(tensor dim, mesh dims)`` for each dim of :data:`FSDP_AXES` that
+    the layout shards over more than one rank."""
+    spec = spec_for(mesh, rules, axes, shape)
+    return tuple((d, live_dims(mesh, e)) for d, (a, e) in
+                 enumerate(zip(axes, spec))
+                 if a in FSDP_AXES and live_dims(mesh, e))
+
+
+def gather_plan(specs: dict, mesh, rules: Rules) -> Optional[tuple]:
+    """``(mesh, {leaf name: gathers})`` for a block of ``specs`` (name ->
+    ``(whole shape, logical axes)``) under ``rules`` on ``mesh``, the
+    leaves stored whole left out; None when nothing is to be gathered."""
+    plan = {name: g for name, (shape, axes) in specs.items()
+            if (g := leaf_gathers(mesh, rules, shape, axes))}
+    return (mesh, plan) if plan else None
+
+
+def gather_block(blk: dict, plan: Optional[tuple]) -> dict:
+    """A block's leaves, each FSDP leaf gathered whole (:func:`gather_param`)
+    as ``plan`` (:func:`gather_plan`) says; ``blk`` itself without one."""
+    if plan is None:
+        return blk
+    mesh, leaves = plan
+    return {name: gather_param(t, mesh, leaves[name]) if name in leaves
+            else t for name, t in blk.items()}
+
+
+def local_shape(shape, spec: tuple, mesh) -> tuple:
+    """The shape of a rank's block of a whole ``shape`` under ``spec``."""
+    return tuple(n // (axis_size(mesh, spec[d]) if d < len(spec) else 1)
+                 for d, n in enumerate(shape))
+
+
+def gather_whole(t: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
+    """The whole tensor from each rank's block under ``spec`` (the inverse
+    of :func:`local_shard`; a collective over the spec's mesh dims)."""
+    for d, entry in enumerate(spec):
+        t = gather_dims(t, mesh, live_dims(mesh, entry), d)
+    return t
+
+
+def batch_block(t: torch.Tensor) -> torch.Tensor:
+    """This rank's rows of a whole batch ``t`` (dim 0) under the bound
+    context's batch split; ``t`` itself without one, or where the split
+    does not divide the batch (it stays replicated, as the specs' shape
+    rule keeps it)."""
+    split = batch_split_dims()
+    if split is None or t.shape[0] % split[3]:
+        return t
+    _, _, index, n = split
+    b = t.shape[0] // n
+    return t[index * b:(index + 1) * b]
+
+
+def batch_whole(t: torch.Tensor, whole: int) -> torch.Tensor:
+    """The whole batch (dim 0, ``whole`` rows) from each rank's rows
+    (:func:`batch_block`'s inverse)."""
+    if t.shape[0] == whole:
+        return t
+    mesh, dims, _, _ = batch_split_dims()
+    return gather_dims(t, mesh, dims, 0)
+
+
+def vocab_argmax(logits: torch.Tensor, vocab: int) -> torch.Tensor:
+    """The greedy token of each row of ``logits`` (..., V_local), this
+    rank's block of the ``vocab`` entries (the whole of them: ``argmax``):
+    the largest logit over every rank's block, ties to the lower global
+    index, as ``lax.top_k`` orders them (ROADMAP trap T4).  One
+    all-gather of each block's best value and index."""
+    split = split_over("vocab", logits.shape[-1], vocab)
+    if split is None:
+        return torch.argmax(logits, -1)
+    mesh, dims, index, _ = split
+    local = torch.argmax(logits, -1, keepdim=True)
+    best = torch.cat([logits.gather(-1, local).double(),
+                      (local + index * logits.shape[-1]).double()], -1)
+    every = gather_dims(best[..., None, :], mesh, dims, -2)  # (..., n, 2)
+    # argmax takes the first of equal values: the lowest rank's block,
+    # whose indices are the lowest.
+    pick = torch.argmax(every[..., 0], -1, keepdim=True)
+    return every[..., 1].gather(-1, pick)[..., 0].long()

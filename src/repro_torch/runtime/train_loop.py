@@ -21,6 +21,19 @@ routes the whole microbatch: :func:`repro_torch.models.moe
 ._moe_ffn_dense`) and its gradient this rank's part.  The sum over ranks
 and microbatches, divided by the global weight sum, is then the
 reference's gradient, whatever each rank's weights.
+
+Tensor parallelism and FSDP storage: the parameters are each rank's
+blocks (:func:`repro_torch.launch.shardspecs.local_params`) and every
+rank of a ``model`` split takes the same batch shard.  Three kinds of
+gradient each take their own reduction (:func:`grad_reductions`): a
+block split over ``model`` is whole on its rank and stays local; an FSDP
+leaf's gradient arrives reduce-scattered over the dims it is stored
+over (:func:`repro_torch.runtime.sharding.gather_param`'s backward), so
+it is summed only over the batch dims it is not stored over; and a leaf
+stored whole whose gradient is each rank's part of a sum over ``model``
+(the kv projections where the q heads are split and the kv heads are
+not) is all-reduced over ``model``.  The layouts of ROADMAP queue 1,
+item 9, part 2c raise (:func:`batch_split`).
 """
 
 from __future__ import annotations
@@ -36,9 +49,10 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import streamed_xent
 from repro_torch.optim.adamw import AdamW, OptState, global_norm
 from repro_torch.optim.compress import ErrorFeedbackCompressor
-from repro_torch.runtime.sharding import (all_reduce, current_context,
-                                          dims_coordinate, dims_size,
-                                          entry_axes)
+from repro_torch.runtime.sharding import (FSDP_AXES, all_reduce,
+                                          batch_split_dims, check_layout,
+                                          current_context, dims_size,
+                                          live_dims, spec_for)
 from repro_torch.tree import leaves, leaves_with_path, map_tree
 
 
@@ -89,7 +103,8 @@ def _loss_terms(cfg: ModelConfig):
         w_out = tfm.unembed_weight(params, cfg)
         loss_sum, w_sum = streamed_xent(h, w_out, batch["labels"],
                                         batch["weights"],
-                                        chunk=cfg.xent_chunk)
+                                        chunk=cfg.xent_chunk,
+                                        vocab=cfg.vocab_size)
         return loss_sum, w_sum, res.aux_loss
     return terms
 
@@ -107,30 +122,57 @@ def make_loss_fn(cfg: ModelConfig, aux_weight: float = 0.01):
     return loss_fn
 
 
-def batch_split(grad_shardings: Optional[dict] = None):
+def batch_split(grad_shardings: Optional[dict] = None,
+                cfg: Optional[ModelConfig] = None):
     """``(mesh, dims, index, n)`` of the data-parallel split in the bound
     sharding context (the batch's mesh dims larger than 1, this rank's
-    row-major position along them), or None.  ``grad_shardings`` (the
+    row-major position along them), or None.  A layout of ROADMAP queue
+    1, item 9, part 2c raises ``NotImplementedError`` (``seq``,
+    ``inner_seq`` or ``kv_seq`` over a mesh dim larger than 1, and with
+    ``cfg`` a Mamba2 mixer's heads over one); ``grad_shardings`` (the
     parameters' specs, :func:`repro_torch.launch.shardspecs
-    .param_shardings`) must keep every gradient whole on each rank: a
-    leaf sharded over a mesh dim larger than 1 (FSDP storage, tensor
-    parallelism) raises."""
+    .param_shardings`) may shard any leaf: tensor parallelism and FSDP
+    storage are :func:`grad_reductions`' to reduce."""
+    check_layout(None if cfg is None else cfg.family)
+    return batch_split_dims()
+
+
+def grad_reductions(cfg: ModelConfig, grad_shardings: Optional[dict] = None
+                    ) -> Optional[list]:
+    """Per leaf in the tree's order, ``(sum dims, partial dims, divisor)``
+    in the bound context, or None where no leaf needs anything (no
+    context, or one whose splits are all of one rank).  ``sum dims``: the
+    batch's mesh dims larger than 1 that the leaf is not stored over
+    (FSDP's reduce-scatter summed those); ``partial dims``: the dims over
+    which a leaf stored whole holds each rank's part of its gradient
+    (:func:`repro_torch.models.transformer.partial_sum_leaves`);
+    ``divisor``: the ranks of the leaf's FSDP dims that took the same
+    batch shard (their reduce-scatter summed copies).  ``grad_shardings``
+    is :func:`repro_torch.launch.shardspecs.param_shardings`' tree (made
+    from the context when None)."""
     ctx = current_context()
     if ctx is None:
         return None
     mesh, rules = ctx
-    if grad_shardings is not None:
-        for path, spec in leaves_with_path(grad_shardings):
-            if any(dims_size(mesh, entry_axes(e)) > 1 for e in spec):
-                raise NotImplementedError(
-                    f"{'/'.join(path)}: spec {spec} shards a gradient; "
-                    f"FSDP storage and tensor parallelism are ROADMAP "
-                    f"queue 1, item 9, part 2b")
-    dims = tuple(a for a in entry_axes(rules.mesh_axes("batch", mesh))
-                 if dims_size(mesh, (a,)) > 1)
-    if not dims:
-        return None
-    return mesh, dims, dims_coordinate(mesh, dims), dims_size(mesh, dims)
+    batch = live_dims(mesh, rules.mesh_axes("batch", mesh))
+    partial = tfm.partial_sum_leaves(cfg)
+    specs = tfm.param_specs(cfg)
+    out, needed = [], False
+    for path, (shape, axes) in leaves_with_path(specs):
+        spec = spec_for(mesh, rules, axes, shape)
+        if grad_shardings is not None:
+            node = grad_shardings
+            for key in path:
+                node = node[key]
+            spec = node
+        fsdp = tuple(a for ax, e in zip(axes, spec) if ax in FSDP_AXES
+                     for a in live_dims(mesh, e))
+        red = (tuple(a for a in batch if a not in fsdp),
+               partial.get(path, ()),
+               dims_size(mesh, [a for a in fsdp if a not in batch]))
+        needed = needed or red != (batch, (), 1)
+        out.append(red)
+    return out if needed else None
 
 
 def _grad_tree(cfg: ModelConfig, params: dict, batch: dict, objective):
@@ -161,10 +203,18 @@ def make_grads_fn(cfg: ModelConfig, aux_weight: float = 0.01,
     k = max(cfg.microbatches, 1)
 
     def grads_fn(params, batch):
-        split = batch_split(grad_shardings)
+        split = batch_split(grad_shardings, cfg)
+        plan = grad_reductions(cfg, grad_shardings)
         if k == 1 and split is None:
             loss, metrics = loss_fn(params, batch)
-            return _grad_tree(cfg, params, batch, loss), metrics
+            grads = _grad_tree(cfg, params, batch, loss)
+            if plan is not None:
+                mesh = current_context()[0]
+                for g, (_, part, div) in zip(leaves(grads), plan):
+                    all_reduce(g, mesh, part)
+                    if div != 1:
+                        g.div_(div)
+            return grads, metrics
         # Every value of the batch, the frontend's embeddings too, is
         # split along the batch axis.
         mbs = [dict(zip(batch, parts)) for parts in
@@ -207,10 +257,17 @@ def make_grads_fn(cfg: ModelConfig, aux_weight: float = 0.01,
                 aux = aux.detach()
             tok_sum = tok_sum + tokens
             aux_sum = aux_sum + aux
+        if plan is not None:
+            mesh = current_context()[0]
+            for g, (dims, part, div) in zip(leaves(gsum), plan):
+                all_reduce(g, mesh, dims + part)
+                if div != 1:
+                    g.div_(div)
+        elif split is not None:
+            for g in leaves(gsum):
+                all_reduce(g, split[0], split[1])
         if split is not None:
             mesh, dims, _, _ = split
-            for g in leaves(gsum):
-                all_reduce(g, mesh, dims)
             loss_sum = all_reduce(loss_sum.clone(), mesh, dims)
         tok = torch.clamp_min(tok_sum, 1.0)
         # In place: a second float32 tree beside the sums would double the
@@ -221,6 +278,25 @@ def make_grads_fn(cfg: ModelConfig, aux_weight: float = 0.01,
                        "tokens": tok_sum}
 
     return grads_fn
+
+
+def _norm_dims(cfg: ModelConfig, grad_shardings: Optional[dict]):
+    """``(mesh, per-leaf mesh dims that shard it)`` for
+    :func:`repro_torch.optim.adamw.global_norm` in the bound context, or
+    None where no leaf is split over more than one rank."""
+    ctx = current_context()
+    if ctx is None:
+        return None
+    mesh, rules = ctx
+    dims = []
+    for path, (shape, axes) in leaves_with_path(tfm.param_specs(cfg)):
+        spec = spec_for(mesh, rules, axes, shape)
+        if grad_shardings is not None:
+            spec = grad_shardings
+            for key in path:
+                spec = spec[key]
+        dims.append(tuple(a for e in spec for a in live_dims(mesh, e)))
+    return (mesh, dims) if any(dims) else None
 
 
 def make_train_step(cfg: ModelConfig, opt: AdamW, aux_weight: float = 0.01,
@@ -239,7 +315,7 @@ def make_train_step(cfg: ModelConfig, opt: AdamW, aux_weight: float = 0.01,
         if compression and residual is not None:
             grads, residual = ErrorFeedbackCompressor().compress(grads,
                                                                  residual)
-        gnorm = global_norm(grads)
+        gnorm = global_norm(grads, _norm_dims(cfg, grad_shardings))
         params, opt_state = opt.update(grads, state.opt_state, state.params,
                                        grad_norm=gnorm)
         metrics["grad_norm"] = gnorm

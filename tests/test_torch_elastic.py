@@ -220,9 +220,12 @@ class _Mesh:
 
 def test_batch_split_takes_the_batch_axes_and_refuses_sharded_gradients():
     """The split runs over the batch's mesh dims larger than 1, at this
-    rank's row-major position (``pod`` the slowest); a gradient spec that
-    shards a leaf over a mesh dim larger than 1 (FSDP storage, tensor
-    parallelism: ROADMAP item 9, part 2b) raises."""
+    rank's row-major position (``pod`` the slowest).  A gradient spec that
+    shards a leaf (FSDP storage, tensor parallelism) is taken: those
+    gradients are reduced by ``grad_reductions``.  Only the layouts of
+    ROADMAP queue 1, item 9, part 2c raise: ``seq``, ``inner_seq`` or
+    ``kv_seq`` over a mesh dim larger than 1, and a Mamba2 mixer's heads
+    over ``model``."""
     from repro_torch.runtime.sharding import Rules, sharding_context
     from repro_torch.runtime.train_loop import batch_split
 
@@ -230,9 +233,21 @@ def test_batch_split_takes_the_batch_axes_and_refuses_sharded_gradients():
     m = _Mesh(("pod", "data", "model"), (2, 3, 2), (1, 2, 0))
     with sharding_context(m, Rules()):
         assert batch_split()[1:] == (("pod", "data"), 5, 6)
-        for spec in ((("data",), None), (None, "model")):
-            with pytest.raises(NotImplementedError, match="part 2b"):
-                batch_split({"blocks": {"w": spec}})
-        assert batch_split({"blocks": {"w": (None, None)}})[3] == 6
+        for spec in ((("data",), None), (None, "model"), (None, None)):
+            assert batch_split({"blocks": {"w": spec}})[1:] == (
+                ("pod", "data"), 5, 6)
+        assert batch_split(None, configs.get_smoke(ARCH))[3] == 6
+        with pytest.raises(NotImplementedError, match="part 2c"):
+            batch_split(None, configs.get_smoke("mamba2_2p7b"))
+    for name in ("seq", "inner_seq", "kv_seq"):
+        with sharding_context(m, Rules(**{name: ("model",)})):
+            with pytest.raises(NotImplementedError, match="part 2c"):
+                batch_split()
+    with sharding_context(m, Rules(seq=("model",), heads=None)):
+        with pytest.raises(NotImplementedError, match=r"seq over mesh"):
+            batch_split({"blocks": {"w": (None, None)}})
+    one = _Mesh(("pod", "data", "model"), (2, 3, 1), (1, 2, 0))
+    with sharding_context(one, Rules(seq=("model",), kv_seq=("model",))):
+        assert batch_split(None, configs.get_smoke("zamba2_7b"))[3] == 6
     with sharding_context(_Mesh(("pod", "data"), (1, 1), (0, 0)), Rules()):
         assert batch_split() is None

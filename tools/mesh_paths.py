@@ -6,7 +6,9 @@ ranks sharing the card under gloo, and on one rank under nccl, bitwise
 against one process), ME (one OLMoE-1B-7B MoE layer expert-parallel over
 two ranks against the dense dispatch) and TE (MiniCPM-2B at full width
 and 4 layers, data parallel over two pods, resized 2 -> 1 -> 2 by
-checkpoint and restore), each through ``chip_smoke``'s own function with
+checkpoint and restore), ST (granite-8b served tensor parallel over
+two ranks) and TT (granite-8b at 4 layers trained tensor parallel, then
+ZeRO-3, over two ranks), each through ``chip_smoke``'s own function with
 the same gates; prints, beside the card's name and power limit, each
 path's kernel records (``chip_smoke.mesh_path_records``: each kernel
 against its plain version at the path's shapes, timed), its launches and
@@ -15,7 +17,7 @@ one JSON line, and the paths' wall.  Two ranks share
 the card and gloo moves their tensors through host memory, so the
 collectives' seconds are not an interconnect's.
 
-    python3 tools/mesh_paths.py [SC ME TE]            (default: all three)
+    python3 tools/mesh_paths.py [SC ME TE ST TT]      (default: all five)
 """
 
 from __future__ import annotations
@@ -41,7 +43,9 @@ def main(argv: list[str]) -> int:
     import chip_smoke as cs
 
     paths = {"SC": cs.run_sharded_sweep_path,
-             "ME": cs.run_expert_parallel_path, "TE": cs.run_elastic_path}
+             "ME": cs.run_expert_parallel_path, "TE": cs.run_elastic_path,
+             "ST": cs.run_split_serving_path,
+             "TT": cs.run_split_training_path}
     tags = [a for a in argv if a in paths] or list(paths)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
