@@ -142,9 +142,9 @@ Phases, each of which raises (and so exits non-zero) when it fails:
     256) and 256 on the CUDA cores (32-row blocks), causal, 2 x 256
     tokens, 8 query heads over 8 and 2 KV heads, bf16 and float32, two
     launches bitwise equal, timed beside SDPA's backward;
-11. main path T, ``launch.train``'s driver at MiniCPM-2B's full width and
-    depth in bf16 (40 layers, 2.725e9 parameters, 6 steps of 4 x 4096
-    tokens, 2 pods, the budget cut at step 1 and the straggler from step
+11. main path T, ``launch.train``'s driver at MiniCPM-2B's full width in
+    bf16 (10 of 40 layers since the sequence layouts' paths joined the
+    run, 2.725e9 parameters whole; 6 steps of 4 x 4096 tokens, 2 pods, the budget cut at step 1 and the straggler from step
     2, the final checkpoint in a temporary directory that is removed):
     exact launch counts (K4 twice a layer a step under remat, K5 once a
     layer a step, K1, K2 and K3 as often as the same events' CPU run
@@ -249,10 +249,11 @@ Phases, each of which raises (and so exits non-zero) when it fails:
     initial state) through K8 and K8b against the plain versions (1e-5
     relative L2); K4 and K5 at TH's layer (1 x 4096, 32 heads of 112);
 23. main paths TM, TP and TH, ``launch.train``'s driver at OLMoE-1B-7B's
-    (4 of 16 layers), Mamba2-2.7B's (32 of 64) and Zamba2-7B's (18 of 81,
-    3 shared-attention sites) full width in bf16 (the depths halved from
-    8, 64 and 36 when paths ST and TT joined the run, to keep it within
-    its time limit), 4 steps of 4 x 4096
+    (1 of 16 layers), Mamba2-2.7B's (8 of 64) and Zamba2-7B's (6 of 81,
+    one shared-attention site) full width in bf16 (the depths cut from 8,
+    64 and 36 when paths ST and TT joined the run, and again from 4, 32
+    and 18 when SQ, SM and TS did, to keep it within its time limit), 4
+    steps of 4 x 4096
     tokens in the configs' own microbatches (2, 4, 4), 2 pods and the
     budget cut at step 1, the final checkpoint in a temporary directory
     that is removed: exact launch counts (a layer a microbatch: K7 3 + 3 +
@@ -347,23 +348,62 @@ Phases, each of which raises (and so exits non-zero) when it fails:
     1e-5 of one unresized rank on the same batches, the reference
     example's assertions, K4 twice and K5 once a layer a step, with K4 and
     K5 at its layer in float32 against their plain versions; path ST:
-    granite-8b whole (36 layers, bf16) served tensor parallel on
+    granite-8b at full width and 18 of 36 layers in bf16 served tensor
+    parallel on
     ``("pod", "data", "model") = (1, 1, 2)`` (16 of 32 heads, 4 of 8 kv
     heads, half the ffn and vocabulary a rank; the prefill's rules equal
     to the decode's), 8 prompts of 512, 32 greedy tokens, a 1,024-position
     cache, against one rank of the same parameters: teacher-forced logits
-    within 1e-2 relative L2, K4 36 and K6 36 x 31 launches a rank, a
+    within 1e-2 relative L2, K4 18 and K6 18 x 31 launches a rank, a
     decode step's collectives timed, a rank's peak memory; at 4 layers in
     float32 tokens identical and logits within 1e-5; path TT: granite-8b
     at full width and 4 layers, 3 steps of 4 x 4096 tokens in bf16,
     tensor parallel on (1, 1, 2) and ZeRO-3 on (1, 2, 1), each against
     one rank: the first step's gradients within 4.9e-3 relative L2 a leaf
-    or within 1.25 times one rank's distance from the float32 gradient,
+    or within 1.05 times one rank's distance from the float32 gradient,
     ZeRO-3's peak memory a rank below one rank's, K4 twice and K5 once a
     layer a microbatch; at 2 layers in float32 (4 x 1024 tokens; tensor
     parallel 2 steps, ZeRO-3 1) every gradient leaf and the losses within
     1e-5; with K4, K5 and K6 at both paths' local-head shapes against
-    their plain versions, timed (device times too) beside SDPA.
+    their plain versions, timed (device times too) beside SDPA; paths
+    SQ and SM (one spawn of two ranks sharing the card) and TS (another),
+    each under the production rules (``rules_for(configs.get(arch),
+    SHAPES[...], mesh_size=256 or 512)`` at ``model_axis=16``) bound on
+    the small mesh and against one rank of the same parameters: SQ serves
+    MiniCPM-2B at full width (4 of 40 layers in bf16, 2 in float32; 20
+    and 18 tokens: each decode step gathers its FSDP-stored layers through
+    host memory, 7.6 s a step at full depth) and Granite-8B at 4 layers
+    in float32 (32 tokens), 8 prompts of 512, the prefill under
+    ``prefill_32k``'s rules (the sequence over ``model``; Granite's kv
+    heads whole) and the decode steps under ``decode_32k``'s (the cache's
+    positions over ``model``: a 1,056-position cache split at 528, rank
+    1's block empty for 16 steps), the state carried by
+    ``relayout_decode_state``, teacher forced on one rank's greedy tokens;
+    SM serves Mamba2-2.7B whole in bf16 (40 of 80 heads a rank, 12
+    tokens) and at 4 layers in float32 with S's other arguments for one
+    replica, and Zamba2-7B at 6 of 81 layers (one shared-attention site)
+    under ``long_500k``'s rules on ``(1, 2, 1)`` (the cache's positions
+    over ``data``, no batch split): one 8,192-token prompt, 4 tokens in
+    bf16 and 2 in float32, a 65,536-position cache whose rank-1 block
+    stays empty; bf16 teacher-forced logits within 1e-2 (SQ) or 2e-2 (SM)
+    relative L2 of one rank's or, where not, no farther from one rank's
+    float32 logits than 1.05 times one rank's own distance from them;
+    float32 argmaxes identical and logits within 1e-5; exact launches (K4
+    a layer at prefill, K6 through its log-sum-exp entry a layer a decode
+    step, K8 a Mamba2 layer); TS trains MiniCPM-2B at 2 of 40 layers
+    (``seq`` and ``inner_seq``: K4 and K5 at ``q_offset`` 2048 on rank
+    1), InternVL2-26B at 1 of 48 with its 256-patch prefix (Megatron-SP)
+    and Mamba2-2.7B at 8 of 64 (its heads), 2 steps of 4 x 4096 under
+    ``train_4k``'s rules at 512 chips, TT's gates (4.9e-3 or 1.05 times
+    one rank's distance from float32) and float32 at 2 layers (InternVL2
+    1; 4 x 1024, one microbatch, 2 steps) within 1e-5 in the losses and
+    the gradients (Mamba2's ``a_log`` and ``dt_bias``, where past it,
+    within 1.05 times one rank's distance from a float64 gradient written
+    apart); with K6's log-sum-exp entry (rows with
+    0, 1 and every position live: the output equal bit for bit to
+    ``decode_attention``'s, the log-sum-exp within 1e-6 of the plain
+    version's) and K4 and K5 at
+    a query offset against their plain versions first.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Run from the repository root:
@@ -400,6 +440,9 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_S = 3.35e12
 REPS = 20
+#: :func:`time_ms`'s repetitions where one call takes over ``SLOW_MS``
+#: (the plain versions at the paths' shapes, up to 270 ms a call).
+SLOW_REPS, SLOW_MS = 5, 20.0
 RTOL = ATOL = 1e-9
 F64 = torch.float64
 #: The attention kernels' tolerances (the reference's own ``_tol``),
@@ -409,9 +452,11 @@ ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 SERVE_ARGV = ["--arch", "granite_8b", "--replicas", "2", "--requests", "16",
               "--prompt-len", "512", "--decode-steps", "32",
               "--max-len", "1024"]
-#: Path T: the training driver at MiniCPM-2B's full width and depth; its
-#: power plane is held against the same events at the smoke size on the
-#: CPU.
+#: Path T: the training driver at MiniCPM-2B's full width and 10 of its 40
+#: layers (its final checkpoint at full depth, 27 GB, took 43.5 s on an
+#: H100 host); its power plane is held against the same events at the
+#: smoke size on the CPU.
+T_LAYERS = 10
 TRAIN_EVENTS = ["--global-batch", "4", "--pods", "2", "--steps", "6",
                 "--power-budget-drop-at", "1", "--straggler-at", "2",
                 "--checkpoint-every", "0"]
@@ -425,11 +470,14 @@ def log(msg: str) -> None:
 
 
 def time_ms(fn) -> float:
-    """Median wall of ``fn`` on the card, by CUDA events, after a warm-up."""
+    """Median wall of ``fn`` on the card, by CUDA events, after a warm-up:
+    of :data:`REPS` calls, or of :data:`SLOW_REPS` where the first timed
+    call takes over :data:`SLOW_MS`."""
     fn()
     torch.cuda.synchronize()
     times = []
-    for _ in range(REPS):
+    while len(times) < (SLOW_REPS if times and times[0] > SLOW_MS
+                        else REPS):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -1618,7 +1666,8 @@ def run_training_path(dev) -> tuple[dict, dict]:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        report = train.main(TRAIN_ARGV + ["--checkpoint-dir", ckpt_dir])
+        with depth_cut(T_LAYERS):
+            report = train.main(TRAIN_ARGV + ["--checkpoint-dir", ckpt_dir])
         wall = time.perf_counter() - t0
         launches = read_launches()
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -1658,7 +1707,7 @@ def run_training_path(dev) -> tuple[dict, dict]:
     batch = {"tokens": b.tokens, "labels": b.labels, "weights": b.weights}
     grads_fn = make_grads_fn(cfg)
     loss_err, grad_err = _grads_against_plain(
-        grads_fn, state.params, batch, 1e-2, 5e-2, "T bf16, full depth")
+        grads_fn, state.params, batch, 1e-2, 5e-2, "T bf16")
 
     # Warm timings: a whole step (forward, backward, AdamW; it updates the
     # state's tensors in place), AdamW alone, and one layer's forward and
@@ -2905,8 +2954,8 @@ def plain_kernels():
 #: layers and Zamba2 at 36 of its 81 (6 shared-attention sites), where
 #: bf16 parameters and gradients with float32 moments and gradient sums
 #: (about 16 B a parameter) would not fit 80 GB at full depth.
-FAMILY_PATHS = {"TM": ("olmoe_1b_7b", 4), "TP": ("mamba2_2p7b", 32),
-                "TH": ("zamba2_7b", 18)}
+FAMILY_PATHS = {"TM": ("olmoe_1b_7b", 1), "TP": ("mamba2_2p7b", 8),
+                "TH": ("zamba2_7b", 6)}
 FAMILY_EVENTS = ["--global-batch", "4", "--pods", "2", "--steps", "4",
                  "--power-budget-drop-at", "1", "--checkpoint-every", "0"]
 
@@ -5663,6 +5712,8 @@ def mesh_path_records(tag: str, dev) -> list:
         return [me_k7_record(dev)]
     if tag in ("ST", "TT"):
         return split_attention_records(tag, dev)
+    if tag in ("SQ", "SM", "TS"):
+        return part2c_records(tag, dev)
     return te_attention_records(dev)
 
 
@@ -5705,16 +5756,25 @@ def run_elastic_path() -> tuple[dict, dict]:
 
 
 #: Paths ST and TT: tensor parallelism and FSDP storage on two ranks that
-#: share the card (gloo).  ST serves granite-8b whole (36 layers, bf16) on
+#: share the card (gloo).  ST serves granite-8b at 18 of 36 layers in bf16 on
 #: ``("pod", "data", "model") = (1, 1, 2)`` with path S's arguments for one
 #: replica (8 requests, prompts of 512, 32 greedy tokens, a 1,024-position
 #: cache); TT trains granite-8b at full width and 4 of 36 layers, 3 steps
 #: of 4 x 4096 tokens, tensor parallel on (1, 1, 2) and ZeRO-3 on
 #: (1, 2, 1).  The float32 checks: ST at 4 layers, TT at 2 layers on 4 x
-#: 1024 tokens (tensor parallel 2 steps, ZeRO-3, whose every float32
-#: gather moves the whole tables through the host, 1).
+#: 1024 tokens, 2 steps tensor parallel and 1 under ZeRO-3 (every float32
+#: gather moves the whole tables through the host).
 SPLIT_AXES = ("pod", "data", "model")
 ST_BATCH, ST_PROMPT, ST_STEPS, ST_MAX_LEN, ST_F32_LAYERS = 8, 512, 32, 1024, 4
+#: ST's bf16 depth (of 36; whole before the sequence layouts' paths).
+ST_LAYERS = 18
+#: The bar of a split where its direct one cannot hold: no farther from a
+#: more exact result of the same parameters on one rank (float32 for a
+#: bf16 run, float64 for a float32 leaf of :data:`SPLIT_F64_LEAVES`) than
+#: this times one rank's own distance from it.  On an H100 at 700 W the
+#: largest bf16 ratio over TT's, TS's and SM's leaves was 1.045 (TS's
+#: Mamba2 ``conv_b_b``).
+SPLIT_ARM = 1.05
 TT_LAYERS, TT_BATCH, TT_SEQ, TT_STEPS = 4, 4, 4096, 3
 TT_F32 = dict(layers=2, batch=4, seq=1024, steps={"tp": 2, "zero3": 1})
 #: TT's layouts: mesh shape, the ``rules_for`` config change and model axis.
@@ -5729,7 +5789,7 @@ def split_rules(cfg, shape_name: str, model_axis: int, world: int = 2):
 
 
 def st_rank() -> dict:
-    """A rank of path ST: granite-8b whole in bf16, then at 4 layers in
+    """A rank of path ST: granite-8b at 18 layers in bf16, then at 4 in
     float32, each served greedily on one rank (each rank runs it: the
     ranks share the card) and then split over ``(1, 1, 2)`` under the
     decode rules (equal to the prefill's here: every head count divides
@@ -5753,7 +5813,8 @@ def st_rank() -> dict:
     out = dict(rank=sharding.rank(), backend=dist.get_backend(),
                device=str(dev))
     for tag in ("bfloat16", "float32"):
-        cfg = configs.get("granite_8b")
+        cfg = dataclasses.replace(configs.get("granite_8b"),
+                                  n_layers=ST_LAYERS)
         if tag == "float32":
             cfg = dataclasses.replace(cfg, n_layers=ST_F32_LAYERS,
                                       param_dtype="float32")
@@ -5828,7 +5889,7 @@ def st_rank() -> dict:
 
 def run_split_serving_path() -> tuple[dict, dict]:
     """Path ST: :func:`st_rank` on two ranks sharing the card (gloo); each
-    rank's K4 36 (the prefill) and K6 36 x 31 (the decode steps) in the
+    rank's K4 18 (the prefill) and K6 18 x 31 (the decode steps) in the
     greedy run."""
     from repro_torch.launch import mesh
     torch.cuda.empty_cache()
@@ -5837,7 +5898,7 @@ def run_split_serving_path() -> tuple[dict, dict]:
     t0 = time.perf_counter()
     outs = mesh.spawn(st_rank, 2, "cuda", timeout_s=MESH_TIMEOUT_S)
     wall = time.perf_counter() - t0
-    n_layers = 36
+    n_layers = ST_LAYERS
     want = dict(no_model_launches(), **dict.fromkeys(KERNELS, 0),
                 flash_attention=n_layers,
                 decode_attention=n_layers * (ST_STEPS - 1))
@@ -5896,26 +5957,370 @@ def tt_steps(cfg, state, batches, layout=None):
     return losses, first, walls
 
 
-def tt_rank() -> dict:
-    """A rank of path TT: granite-8b at full width and 4 layers in bf16
-    (3 steps of 4 x 4096), then 2 layers in float32 (2 steps of 4 x
-    1024), under each of :data:`TT_LAYOUTS` (tensor parallel on (1, 1, 2),
-    ZeRO-3 on (1, 2, 1)): rank 0 first runs the first step (float32: every
-    step) on one rank, its peak memory kept, then both ranks run the steps
-    on their blocks, and the first step's gradients are gathered whole.
-    Float32: every leaf within 1e-5 relative L2 of one rank's, the losses
-    within 1e-5.  Bf16: each leaf within T's 4.9e-3 of one rank's, or,
-    where it is not, within 1.25 times one rank's own distance from the
-    float32 gradient of the same parameters (computed then): two bf16
-    computations that round their partial sums differently differ by
-    bf16's noise, which at this width is above 4.9e-3 (tensor parallel
-    against one rank up to 9.1e-3 while one rank is 1.2e-2 from float32,
-    ``tools/tp_rounding.py``).  ZeRO-3's peak below one rank's.  Raises
-    past a gate."""
+#: Paths SQ, SM and TS: the layouts of ``rules_for`` that split the
+#: sequence or a Mamba2 mixer's heads, each on two ranks that share the
+#: card (gloo), its rules ``rules_for(configs.get(arch), SHAPES[...],
+#: mesh_size=256 or 512)`` at the production model axis of 16, bound on
+#: the small mesh; sizes as the module's docstring gives them, each cut
+#: where a step gathers weights or activations through host memory.
+SQ_BATCH, SQ_PROMPT, SQ_MAX_LEN = 8, 512, 1056
+#: SQ's MiniCPM-2B depth (of 40) and tokens in bf16 and float32: each
+#: decode step gathers the layers' FSDP-stored weights through host
+#: memory, about 1.3 s a GB (6.0 GB a step whole: 7.6 s a step on an H100
+#: at 700 W, two ranks under gloo); 20 tokens still cross the split at 528.
+SQ_RUNS = {"bfloat16": (4, 20), "float32": (2, 18)}
+#: SM's Zamba2-7B: one shared-attention site; its layers' weights are
+#: gathered over ``data`` every step (1.6 s in bf16, 3.7 s in float32).
+SM_ZAMBA = dict(layers=6, prompt=8192, max_len=65536,
+                steps={"bfloat16": 4, "float32": 2})
+#: SM's Mamba2-2.7B tokens (S's 32 cut to 12).
+SM_STEPS = 12
+#: TS's depths: every step gathers or reduce-scatters through host memory
+#: (InternVL2-26B's Megatron-SP 12 s a layer a step at 4 x 4096).
+TS_MODELS = {"minicpm_2b": 2, "internvl2_26b": 1, "mamba2_2p7b": 8}
+#: TS's steps: the gates read the first step's gradients and every float32
+#: loss, the second after an update.
+TS_BATCH, TS_SEQ, TS_STEPS = 4, 4096, 2
+TS_F32 = dict(layers=2, seq=1024, steps=2)
+#: The float32 leaves held against a float64 gradient where they miss 1e-5:
+#: each sums, over every token, terms that mostly cancel (Mamba2's decay
+#: rate and its step's bias).
+SPLIT_F64_LEAVES = ("blocks/a_log", "blocks/dt_bias")
+#: A rank's query offset in TS's MiniCPM layers (rank 1 of 2 over 4,096).
+TS_Q_OFFSET = TS_SEQ // 2
+
+
+def production_rules(cfg, shape_name: str, mesh_size: int):
+    from repro_torch.launch import shardspecs
+    from repro_torch.models.config import SHAPES
+    return shardspecs.rules_for(cfg, SHAPES[shape_name],
+                                mesh_size=mesh_size)
+
+
+def layout_serve(cfg, params, prompts, steps: int, max_len: int, m,
+                 prefill_rules, decode_rules, time_step: bool) -> tuple:
+    """One rank's run of ``params`` (whole) split over mesh ``m``, teacher
+    forced on one rank's greedy tokens (``generate(..., forced=)``; its
+    per-step argmax equals them exactly where a greedy run would produce
+    them): the prefill under ``prefill_rules`` and the decode steps under
+    ``decode_rules`` (``generate``'s ``decode_layout``, the state carried
+    by ``relayout_decode_state``), timed with its launches counted; the
+    one-rank run comes first, on this rank.  With ``time_step``, three
+    more decode steps after a new prefill, the third and its collectives
+    timed.  Returns ``(record, tensors)``."""
+    from repro_torch.launch import shardspecs
+    from repro_torch.runtime import sharding
+    from repro_torch.runtime.serve_loop import (generate, make_decode_step,
+                                                make_prefill_step)
+    from repro_torch.runtime.sharding import sharding_context
+    from repro_torch.tree import leaves
+
+    with torch.no_grad():
+        want_tok, want = generate(cfg, params, prompts, steps, max_len)
+    local = shardspecs.local_params(params, cfg, m, prefill_rules)
+    same = (shardspecs.param_shardings(cfg, m, prefill_rules)
+            == shardspecs.param_shardings(cfg, m, decode_rules))
+    dec = local if same else shardspecs.local_params(params, cfg, m,
+                                                     decode_rules)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    rec = {}
+    with torch.no_grad(), sharding_context(m, prefill_rules):
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks, logits = generate(cfg, local, prompts, steps, max_len,
+                                forced=want_tok,
+                                decode_layout=(decode_rules, dec))
+        torch.cuda.synchronize()
+        rec["wall_s"] = time.perf_counter() - t0
+        rec["launches"] = read_launches()
+        rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        if time_step:
+            lg, state = make_prefill_step(cfg, max_len)(local, prompts)
+            state = dict(state, cache=shardspecs.relayout_decode_state(
+                state["cache"], cfg, m, prefill_rules, decode_rules,
+                prompts.shape[0], max_len))
+    if time_step:
+        decode = make_decode_step(cfg)
+        with torch.no_grad(), sharding_context(m, decode_rules):
+            for i in range(3):
+                with timed_collectives(sharding) as coll:
+                    torch.cuda.synchronize()
+                    t1 = time.perf_counter()
+                    lg, state = decode(dec, state, want_tok[:, i])
+                    torch.cuda.synchronize()
+            rec["decode_step_s"] = time.perf_counter() - t1
+            rec["step_collective_s"], rec["step_collectives"] = coll
+        del state, lg
+    rec["weights_gb"] = sum(t.numel() * t.element_size()
+                            for t in leaves(local)) / 1e9
+    rec.update(forced_rel_l2=rel_l2(logits, want),
+               greedy_equal=float((toks == want_tok).float().mean()),
+               tokens_per_s=prompts.shape[0] * steps / rec["wall_s"])
+    if not torch.isfinite(logits).all() or logits.shape != want.shape:
+        raise AssertionError(f"logits {tuple(logits.shape)}, one rank's "
+                             f"{tuple(want.shape)}")
+    return rec, dict(toks=toks, want_tok=want_tok, forced=logits, want=want)
+
+
+def serve_gate(tag: str, rec: dict, toks: dict, bf16_bar: float | None):
+    """bf16: teacher-forced logits within ``bf16_bar`` relative L2 of one
+    rank's or, where they are not, no farther from one rank's float32
+    logits of the same parameters than :data:`SPLIT_ARM` times one rank's
+    own bf16 distance from them (TT's arm: two bf16 computations that
+    round apart differ by bf16's noise); float32 (``bf16_bar`` None):
+    tokens identical, greedy logits within 1e-5."""
+    if bf16_bar is not None and not (
+            rec["forced_rel_l2"] <= bf16_bar
+            or rec["forced_rel_l2_float32"]
+            <= SPLIT_ARM * rec["one_rank_rel_l2_float32"]):
+        raise AssertionError(
+            f"{tag}: teacher-forced logits {rec['forced_rel_l2']:.3e} "
+            f"relative L2 from one rank's (bound {bf16_bar}), "
+            f"{rec['forced_rel_l2_float32']:.3e} from one rank's float32 "
+            f"against one rank's {rec['one_rank_rel_l2_float32']:.3e}")
+    if bf16_bar is None and not (torch.equal(toks["toks"], toks["want_tok"])
+                                 and rec["forced_rel_l2"] <= 1e-5):
+        raise AssertionError(f"{tag}: tokens equal {rec['greedy_equal']}, "
+                             f"logits {rec['forced_rel_l2']:.3e} relative L2 "
+                             f"from one rank's (bounds: identical, 1e-5)")
+
+
+def part2c_serve_rank() -> dict:
+    """A rank of paths SQ and SM (see :data:`SQ_BATCH`): each model served
+    greedily on one rank and then split, under the production rules'
+    prefill and decode layouts, held to ST's and P's gates (bf16 logits
+    1e-2 and 2e-2 relative L2 from one rank's, float32 tokens identical
+    and logits 1e-5).  Raises past a gate."""
     import torch.distributed as dist
     from repro_torch import configs
-    from repro_torch.launch import mesh, shardspecs
+    from repro_torch.launch import mesh
+    from repro_torch.models import transformer as tfm
+    from repro_torch.runtime import sharding
+    from repro_torch.runtime.serve_loop import generate
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = sharding.rank_device()
+    out = dict(rank=sharding.rank(), backend=dist.get_backend(),
+               device=str(dev))
+    model = mesh.make_host_mesh((1, 1, 2), SPLIT_AXES)
+    data = mesh.make_host_mesh((1, 2, 1), SPLIT_AXES)
+    def sq(dtype):
+        return ("prefill_32k", "decode_32k", SQ_BATCH, SQ_PROMPT,
+                SQ_MAX_LEN, SQ_RUNS[dtype][1])
+    sm = ("prefill_32k", "decode_32k", ST_BATCH, ST_PROMPT, ST_MAX_LEN,
+          SM_STEPS)
+
+    def zamba(dtype):
+        return ("long_500k", "long_500k", 1, SM_ZAMBA["prompt"],
+                SM_ZAMBA["max_len"], SM_ZAMBA["steps"][dtype])
+    cases = [
+        ("SQ", "minicpm_2b", SQ_RUNS["bfloat16"][0], "bfloat16", model,
+         sq("bfloat16"), 1e-2),
+        ("SQ", "minicpm_2b", SQ_RUNS["float32"][0], "float32", model,
+         sq("float32"), None),
+        ("SQ", "granite_8b", 4, "float32", model, sq("bfloat16"), None),
+        ("SM", "mamba2_2p7b", None, "bfloat16", model, sm, 2e-2),
+        ("SM", "mamba2_2p7b", 4, "float32", model, sm, None),
+        ("SM", "zamba2_7b", SM_ZAMBA["layers"], "bfloat16", data,
+         zamba("bfloat16"), 2e-2),
+        ("SM", "zamba2_7b", SM_ZAMBA["layers"], "float32", data,
+         zamba("float32"), None)]
+    for tag, arch, layers, dtype, m, shape, bar in cases:
+        pre, dec, b, prompt, max_len, steps = shape
+        base = configs.get(arch)
+        cfg = dataclasses.replace(base, param_dtype=dtype, **(
+            {} if layers is None else {"n_layers": layers}))
+        t0 = time.perf_counter()
+        params = tfm.init_params(
+            cfg, torch.Generator(device=dev).manual_seed(0), dev)
+        prompts = torch.randint(
+            0, cfg.vocab_size, (b, prompt), device=dev,
+            generator=torch.Generator(device=dev).manual_seed(1))
+        prules = production_rules(base, pre, 256)
+        drules = production_rules(base, dec, 256)
+        rec, toks = layout_serve(cfg, params, prompts, steps, max_len, m,
+                                 prules, drules,
+                                 dtype == "bfloat16" and arch != "zamba2_7b")
+        if bar is not None and rec["forced_rel_l2"] > bar:
+            # One rank's float32 logits of the same parameters, teacher
+            # forced on its bf16 tokens: how far each bf16 run is from them.
+            p32 = {g: {k: v.float() for k, v in node.items()}
+                   for g, node in params.items()}
+            with torch.no_grad():
+                _, exact = generate(dataclasses.replace(
+                    cfg, param_dtype="float32"), p32, prompts, steps,
+                    max_len, forced=toks["want_tok"])
+            del p32
+            rec["forced_rel_l2_float32"] = rel_l2(toks["forced"], exact)
+            rec["one_rank_rel_l2_float32"] = rel_l2(toks["want"], exact)
+            del exact
+        del params
+        toks.pop("forced"), toks.pop("want")
+        if out["rank"] == 0:
+            log(f"{tag} {arch} {dtype} at {cfg.n_layers} layers: "
+                f"teacher-forced logits {rec['forced_rel_l2']:.3e} (argmax "
+                f"equal {rec['greedy_equal']:.3f}; from float32 "
+                f"{rec.get('forced_rel_l2_float32')}, one rank's "
+                f"{rec.get('one_rank_rel_l2_float32')}), "
+                f"{rec['wall_s']:.2f} s for {steps} tokens, a decode step "
+                f"{rec.get('decode_step_s')} s")
+        serve_gate(f"{tag} {arch} {dtype}", rec, toks, bar)
+        rec.update(case_s=time.perf_counter() - t0, layers=cfg.n_layers,
+                   steps=steps)
+        out[tag, arch, dtype] = rec
+        torch.cuda.empty_cache()
+        sharding.barrier()
+    return out
+
+
+def part2c_serve_launches(arch: str, layers: int, steps: int) -> dict:
+    """A rank's model-kernel launches in one split greedy run of ``steps``
+    tokens: K4 a layer at prefill, K6 a layer a decode
+    step (a Mamba2 layer: K8 at prefill, the plain recurrence after;
+    Zamba2: K8 a layer, K4 and K6 at its shared-attention sites)."""
+    from repro_torch import configs
+    cfg = dataclasses.replace(configs.get(arch), n_layers=layers)
+    n = dict(no_model_launches(), **dict.fromkeys(KERNELS, 0))
+    sites = (cfg.n_layers // cfg.attn_every if cfg.family == "hybrid"
+             else 0 if cfg.family == "ssm" else cfg.n_layers)
+    n["flash_attention"] = sites
+    n["decode_attention"] = sites * (steps - 1)
+    if cfg.family in ("ssm", "hybrid"):
+        n["ssd_scan"] = cfg.n_layers
+    return n
+
+
+def run_part2c_serving_paths() -> tuple[dict, dict, dict]:
+    """Paths SQ and SM: :func:`part2c_serve_rank` on two ranks sharing the
+    card (gloo), exact launch counts; returns SQ's and SM's launches (the
+    bf16 runs of rank 0) and the spawn's record."""
+    from repro_torch.launch import mesh
+    torch.cuda.empty_cache()
+    log(mesh_line("cuda", 2, "SQ (1, 1, 2) sequence over model at prefill, "
+                  "the cache's positions over model at decode; SM (1, 1, 2) "
+                  "a Mamba2 mixer's heads over model, then (1, 2, 1) "
+                  "long_500k's cache positions over data"))
+    t0 = time.perf_counter()
+    outs = mesh.spawn(part2c_serve_rank, 2, "cuda", timeout_s=MESH_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    launches = {"SQ": dict(no_model_launches(), **dict.fromkeys(KERNELS, 0)),
+                "SM": dict(no_model_launches(), **dict.fromkeys(KERNELS, 0))}
+    for o in outs:
+        for key, rec in o.items():
+            if not isinstance(key, tuple):
+                continue
+            tag, arch, dtype = key
+            want = part2c_serve_launches(arch, rec["layers"], rec["steps"])
+            if rec["launches"] != want:
+                raise AssertionError(f"{tag} {arch} {dtype} rank "
+                                     f"{o['rank']}: launches "
+                                     f"{rec['launches']}, expected {want}")
+            if o["rank"] == 0 and dtype == "bfloat16":
+                for k, v in rec["launches"].items():
+                    launches[tag][k] += v
+            log(f"path {tag} {arch} {dtype} at {rec['layers']} layers rank "
+                f"{o['rank']} ({o['backend']} on {o['device']}): "
+                f"{rec['tokens_per_s']:.1f} tokens/s ({rec['wall_s']:.3f} s "
+                f"for {rec['steps']} tokens); a decode step "
+                f"{rec.get('decode_step_s')} s, "
+                f"{rec.get('step_collectives')} collectives "
+                f"{rec.get('step_collective_s')} s; weights "
+                f"{rec['weights_gb']:.3f} GB, peak {rec['peak_gb']:.3f} GB; "
+                f"teacher-forced logits {rec['forced_rel_l2']:.3e} relative "
+                f"L2 from one rank (argmax equal {rec['greedy_equal']:.3f}; "
+                f"from float32 {rec.get('forced_rel_l2_float32')}, one "
+                f"rank's {rec.get('one_rank_rel_l2_float32')}); case "
+                f"{rec['case_s']:.1f} s")
+    info = dict(spawn_wall_s=wall, ranks=[
+        {"/".join(k) if isinstance(k, tuple) else k: v for k, v in o.items()}
+        for o in outs])
+    return launches["SQ"], launches["SM"], info
+
+
+def ts_batch(cfg, batch: int, seq: int, dev, seed: int) -> dict:
+    """TT's batch, with the frontend's stand-ins and ``seq`` rows in all
+    (a VLM's text the rows its prefix leaves)."""
+    from repro_torch.launch import inputs
+    from repro_torch.models.config import ShapeConfig
+    specs = inputs.train_batch_specs(cfg, ShapeConfig("TS", "train", seq,
+                                                      batch))
+    out = tt_batch(cfg, batch, specs["tokens"].shape[1], dev, seed)
+    g = torch.Generator(device=dev).manual_seed(seed + 100)
+    out.update({k: inputs.draw(s, g) for k, s in specs.items()
+                if k not in out})
+    return out
+
+
+def split_train_cases(path: str) -> list:
+    """The runs of path ``path`` (``"TT"`` or ``"TS"``) in order, each a
+    dict: ``key``, the effective ``cfg``, ``rules``, ``mesh`` shape, the
+    batch maker, ``batch``, ``seq`` and ``steps``, and whether a rank's
+    peak must stay below one rank's (ZeRO-3 in bf16).  TT: granite-8b
+    under each of :data:`TT_LAYOUTS`, bf16 then float32; TS: each of
+    :data:`TS_MODELS` under ``train_4k``'s rules at 512 chips on (1, 1, 2),
+    bf16 then float32 in one microbatch (two ranks' float32 states of
+    InternVL2-26B, its two 92,553-row tables whole on each, and a float32
+    accumulator beside the gradients do not fit a card)."""
+    from repro_torch import configs
+    from repro_torch.launch import shardspecs
     from repro_torch.models.config import SHAPES
+    cases = []
+    if path == "TT":
+        for name, (shape, parallelism, model_axis) in TT_LAYOUTS.items():
+            for dtype, n_layers, batch, seq, steps in (
+                    ("bfloat16", TT_LAYERS, TT_BATCH, TT_SEQ, TT_STEPS),
+                    ("float32", TT_F32["layers"], TT_F32["batch"],
+                     TT_F32["seq"], TT_F32["steps"][name])):
+                base = dataclasses.replace(
+                    configs.get("granite_8b"), n_layers=n_layers,
+                    param_dtype=dtype, parallelism=parallelism)
+                cases.append(dict(
+                    key=(name, dtype), rules=split_rules(base, "train_4k",
+                                                         model_axis),
+                    cfg=shardspecs.effective_config(base, SHAPES["train_4k"],
+                                                    2),
+                    mesh=shape, make_batch=tt_batch, batch=batch, seq=seq,
+                    steps=steps, peak_below_one_rank=(
+                        name == "zero3" and dtype == "bfloat16")))
+        return cases
+    for arch, n_layers in TS_MODELS.items():
+        base = configs.get(arch)
+        rules = production_rules(base, "train_4k", 512)
+        for dtype, layers, seq, steps in (
+                ("bfloat16", n_layers, TS_SEQ, TS_STEPS),
+                ("float32", min(n_layers, TS_F32["layers"]), TS_F32["seq"],
+                 TS_F32["steps"])):
+            cfg = dataclasses.replace(base, n_layers=layers,
+                                      param_dtype=dtype, **(
+                                          {} if dtype == "bfloat16"
+                                          else {"microbatches": 1}))
+            cases.append(dict(key=(arch, dtype), cfg=cfg, rules=rules,
+                              mesh=(1, 1, 2), make_batch=ts_batch,
+                              batch=TS_BATCH, seq=seq, steps=steps,
+                              peak_below_one_rank=False))
+    return cases
+
+
+def split_train_rank(path: str) -> dict:
+    """A rank of path TT or TS, each run of :func:`split_train_cases` in
+    turn: rank 0 first runs the first step (float32: every step) on one
+    rank, its peak memory kept; then both ranks run the steps on their
+    blocks, and the first step's gradients are gathered whole.  Float32:
+    the losses within 1e-5 relative of one rank's and every gradient leaf
+    within 1e-5 relative L2, but for a leaf of :data:`SPLIT_F64_LEAVES`
+    past it: no farther from one rank's float64 gradient
+    (:func:`mamba2_f64_grads`) than :data:`SPLIT_ARM` times one rank's
+    float32 distance from it (those leaves sum long chains of cancelling
+    terms).  Bf16: each leaf within T's 4.9e-3 of one rank's or, where it
+    is not, no farther from one rank's float32 gradient of the same
+    parameters than :data:`SPLIT_ARM` times one rank's own bf16 distance
+    from it (two bf16 computations that round their partial sums
+    differently differ by bf16's noise, ``tools/tp_rounding.py``).  Where
+    a run asks, a rank's peak below one rank's.  Raises past a gate."""
+    import torch.distributed as dist
+    from repro_torch.launch import mesh, shardspecs
     from repro_torch.optim.adamw import AdamW
     from repro_torch.runtime import sharding
     from repro_torch.runtime.sharding import gather_whole, sharding_context
@@ -5926,178 +6331,430 @@ def tt_rank() -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     dev, r = sharding.rank_device(), sharding.rank()
     out = dict(rank=r, backend=dist.get_backend(), device=str(dev))
+
     def errors(got: dict, want: dict) -> dict:
         """Relative L2 a leaf, on the card a leaf at a time."""
         flat = dict(leaves_with_path(want))
         return {"/".join(p): rel_l2(g.to(dev), flat[p].to(dev))
                 for p, g in got.items()}
 
-    for name, (shape, parallelism, model_axis) in TT_LAYOUTS.items():
-        m = mesh.make_host_mesh(shape, SPLIT_AXES)
-        for dtype, n_layers, batch, seq, steps in (
-                ("bfloat16", TT_LAYERS, TT_BATCH, TT_SEQ, TT_STEPS),
-                ("float32", TT_F32["layers"], TT_F32["batch"],
-                 TT_F32["seq"], TT_F32["steps"][name])):
-            base = dataclasses.replace(
-                configs.get("granite_8b"), n_layers=n_layers,
-                param_dtype=dtype, parallelism=parallelism)
-            rules = split_rules(base, "train_4k", model_axis)
-            cfg = shardspecs.effective_config(base, SHAPES["train_4k"], 2)
-            batches = [tt_batch(cfg, batch, seq, dev, 10 + i)
-                       for i in range(steps)]
-            rec = dict(microbatches=cfg.microbatches, phase_s={})
-            phase = rec["phase_s"]
+    for case in split_train_cases(path):
+        cfg, rules, steps = case["cfg"], case["rules"], case["steps"]
+        dtype = case["key"][1]
+        m = mesh.make_host_mesh(case["mesh"], SPLIT_AXES)
+        batches = [case["make_batch"](cfg, case["batch"], case["seq"], dev,
+                                      10 + i) for i in range(steps)]
+        rec = dict(microbatches=cfg.microbatches, layers=cfg.n_layers,
+                   steps=steps, family=cfg.family, phase_s={})
+        phase = rec["phase_s"]
 
-            def fresh():
-                return init_train_state(
-                    cfg, AdamW(learning_rate=1e-4),
-                    torch.Generator(device=dev).manual_seed(0), dev)
-            t0 = time.perf_counter()
-            if r == 0:
-                state = fresh()
-                torch.cuda.reset_peak_memory_stats()
-                want_losses, want, _ = tt_steps(
-                    cfg, state, batches[:1] if dtype == "bfloat16"
-                    else batches)
-                rec["one_rank_peak_gb"] = (torch.cuda.max_memory_allocated()
-                                           / 1e9)
-                want = map_tree(lambda g: g.cpu(), want)   # off the card
-                del state
-                torch.cuda.empty_cache()
-            sharding.barrier()
-            phase["one_rank"] = time.perf_counter() - t0
-            t0 = time.perf_counter()
-            whole = fresh()
-            specs = shardspecs.param_shardings(cfg, m, rules)
-            local = shardspecs.local_train_state(whole, cfg, m, rules)
-            del whole
-            torch.cuda.empty_cache()
+        def fresh():
+            return init_train_state(
+                cfg, AdamW(learning_rate=1e-4),
+                torch.Generator(device=dev).manual_seed(0), dev)
+        t0 = time.perf_counter()
+        if r == 0:
+            state = fresh()
             torch.cuda.reset_peak_memory_stats()
-            with sharding_context(m, rules), \
-                    timed_collectives(sharding) as coll:
-                reset_launches()
-                losses, first, walls = tt_steps(cfg, local, batches,
-                                                (specs, m))
-                rec["launches"] = read_launches()
-                rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
-            phase["split"] = time.perf_counter() - t0
-            t0 = time.perf_counter()
-            rec.update(losses=losses, step_s=walls, collective_s=coll[0],
-                       collectives=coll[1],
-                       tokens_per_s=batch * seq * steps / sum(walls),
-                       block_gb=sum(t.numel() * t.element_size()
-                                    for t in leaves(local.params)) / 1e9)
-            del local
+            want_losses, want, _ = tt_steps(
+                cfg, state, batches[:1] if dtype == "bfloat16" else batches)
+            rec["one_rank_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+            want = map_tree(lambda g: g.cpu(), want)       # off the card
+            del state
             torch.cuda.empty_cache()
-            flat, split = dict(leaves_with_path(specs)), {}
-            for path, g in leaves_with_path(first):
-                g = gather_whole(g, flat[path], m)
-                if r == 0:
-                    split[path] = g
-                del g
-            del first
-            torch.cuda.empty_cache()
+        sharding.barrier()
+        phase["one_rank"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        whole = fresh()
+        specs = shardspecs.param_shardings(cfg, m, rules)
+        local = shardspecs.local_train_state(whole, cfg, m, rules)
+        del whole
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        with sharding_context(m, rules), timed_collectives(sharding) as coll:
+            reset_launches()
+            losses, first, walls = tt_steps(cfg, local, batches, (specs, m))
+            rec["launches"] = read_launches()
+            rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        phase["split"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rec.update(losses=losses, step_s=walls, collective_s=coll[0],
+                   collectives=coll[1],
+                   tokens_per_s=case["batch"] * case["seq"] * steps
+                   / sum(walls),
+                   block_gb=sum(t.numel() * t.element_size()
+                                for t in leaves(local.params)) / 1e9)
+        del local
+        torch.cuda.empty_cache()
+        flat, split = dict(leaves_with_path(specs)), {}
+        for p, g in leaves_with_path(first):
+            g = gather_whole(g, flat[p], m)
             if r == 0:
-                bar = 4.9e-3 if dtype == "bfloat16" else 1e-5
-                direct = errors(split, want)
-                over = {k: e / bar for k, e in direct.items()}
-                rec["grad_rel_l2"] = direct
-                if dtype == "bfloat16" and max(over.values()) > 1.0:
-                    # One rank's float32 gradient of the same parameters.
-                    p32 = map_tree(lambda t: t.detach().float()
-                                   .requires_grad_(True), fresh().params)
-                    exact, _ = make_grads_fn(dataclasses.replace(
-                        cfg, param_dtype="float32"))(p32, batches[0])
-                    exact = map_tree(lambda g: g.cpu(), exact)
-                    del p32
-                    torch.cuda.empty_cache()
-                    hi = errors(split, exact)
-                    one = errors(dict(leaves_with_path(want)), exact)
-                    rec.update(grad_rel_l2_float32=hi,
-                               one_rank_rel_l2_float32=one)
-                    over = {k: min(e, hi[k] / (1.25 * one[k]))
-                            for k, e in over.items()}
-                    del exact
-                worst = max(over, key=over.get)
-                loss_err = max(abs(a - b) / abs(b)
-                               for a, b in zip(losses, want_losses))
-                rec.update(grad_rel_l2_worst=(worst, direct[worst]),
-                           one_rank_losses=want_losses,
-                           loss_rel_err=loss_err)
-                if not over[worst] <= 1.0:
-                    raise AssertionError(
-                        f"TT {name} {dtype}: first step's gradient {worst} "
-                        f"{direct[worst]:.3e} relative L2 from one rank's "
-                        f"(bound {bar})" + (
-                            "" if dtype == "float32" else
-                            f", {rec['grad_rel_l2_float32'][worst]:.3e} "
-                            f"from one rank's float32 against one rank's "
-                            f"{rec['one_rank_rel_l2_float32'][worst]:.3e}"))
-                if dtype == "float32" and not loss_err <= 1e-5:
-                    raise AssertionError(
-                        f"TT {name} float32: losses {losses} against one "
-                        f"rank's {want_losses}")
-                if name == "zero3" and dtype == "bfloat16" and \
-                        not rec["peak_gb"] < rec["one_rank_peak_gb"]:
-                    raise AssertionError(
-                        f"TT zero3: peak {rec['peak_gb']:.3f} GB a rank, "
-                        f"not below one rank's "
-                        f"{rec['one_rank_peak_gb']:.3f} GB")
-                del want, split
-            phase["check"] = time.perf_counter() - t0
-            out[name, dtype] = rec
-            sharding.barrier()
+                split[p] = g
+            del g
+        del first
+        torch.cuda.empty_cache()
+        if r == 0:
+            bar = 4.9e-3 if dtype == "bfloat16" else 1e-5
+            direct = errors(split, want)
+            over = {k: e / bar for k, e in direct.items()}
+            rec["grad_rel_l2"] = direct
+            if dtype == "bfloat16" and max(over.values()) > 1.0:
+                # One rank's float32 gradient of the same parameters.
+                p32 = map_tree(lambda t: t.detach().float()
+                               .requires_grad_(True), fresh().params)
+                exact, _ = make_grads_fn(dataclasses.replace(
+                    cfg, param_dtype="float32"))(p32, batches[0])
+                exact = map_tree(lambda g: g.cpu(), exact)
+                del p32
+                torch.cuda.empty_cache()
+                hi = errors(split, exact)
+                one = errors(dict(leaves_with_path(want)), exact)
+                rec.update(grad_rel_l2_float32=hi,
+                           one_rank_rel_l2_float32=one)
+                over = {k: min(e, hi[k] / (SPLIT_ARM * one[k]))
+                        for k, e in over.items()}
+                del exact
+            named = [k for k in SPLIT_F64_LEAVES if over.get(k, 0.0) > 1.0]
+            if dtype == "float32" and named and cfg.family == "ssm":
+                exact = mamba2_f64_grads(fresh().params, batches[0], cfg)
+                torch.cuda.empty_cache()
+                hi = errors(split, exact)
+                one = errors(dict(leaves_with_path(want)), exact)
+                # Not gated: one rank's gradient summed as two halves, how
+                # far another float32 order of the same sums lands.
+                _, halves, _ = tt_steps(dataclasses.replace(
+                    cfg, microbatches=2), fresh(), batches[:1])
+                halves = errors(dict(leaves_with_path(halves)), exact)
+                rec.update(grad_rel_l2_float64=hi,
+                           one_rank_rel_l2_float64=one,
+                           one_rank_halves_rel_l2_float64=halves)
+                for k in named:
+                    over[k] = min(over[k], hi[k] / (SPLIT_ARM * one[k]))
+                del exact
+            worst = max(over, key=over.get)
+            loss_err = max(abs(a - b) / abs(b)
+                           for a, b in zip(losses, want_losses))
+            rec.update(grad_rel_l2_worst=(worst, direct[worst]),
+                       gate_ratio=over[worst], one_rank_losses=want_losses,
+                       loss_rel_err=loss_err)
+            log(f"{path} {case['key'][0]} {dtype} at {cfg.n_layers} layers: "
+                f"steps {walls} s, losses {losses} (one rank "
+                f"{want_losses}), gradients worst {worst} "
+                f"{direct[worst]:.3e} (gate ratio {over[worst]:.3f})" + "".join(
+                    f"; {k} from float64: split {hi[k]:.3e}, one rank "
+                    f"{one[k]:.3e}, one rank in halves {halves[k]:.3e}"
+                    for k in named if "grad_rel_l2_float64" in rec))
+            if not over[worst] <= 1.0:
+                more = {"bfloat16": ("float32", "grad_rel_l2_float32",
+                                     "one_rank_rel_l2_float32"),
+                        "float32": ("float64", "grad_rel_l2_float64",
+                                    "one_rank_rel_l2_float64")}[dtype]
+                raise AssertionError(
+                    f"{path} {case['key']}: first step's gradient {worst} "
+                    f"{direct[worst]:.3e} relative L2 from one rank's "
+                    f"(bound {bar})" + (
+                        f", {rec[more[1]][worst]:.3e} from one rank's "
+                        f"{more[0]} against one rank's "
+                        f"{rec[more[2]][worst]:.3e}"
+                        if worst in rec.get(more[1], {}) else ""))
+            if dtype == "float32" and not loss_err <= 1e-5:
+                raise AssertionError(f"{path} {case['key']}: losses "
+                                     f"{losses} against one rank's "
+                                     f"{want_losses}")
+            if case["peak_below_one_rank"] and \
+                    not rec["peak_gb"] < rec["one_rank_peak_gb"]:
+                raise AssertionError(
+                    f"{path} {case['key']}: peak {rec['peak_gb']:.3f} GB a "
+                    f"rank, not below one rank's "
+                    f"{rec['one_rank_peak_gb']:.3f} GB")
+            del want, split
+        phase["check"] = time.perf_counter() - t0
+        out[case["key"]] = rec
+        sharding.barrier()
     return out
 
 
-def run_split_training_path() -> tuple[dict, dict]:
-    """Path TT: :func:`tt_rank` on two ranks sharing the card (gloo); a
-    layer's K4 twice (forward and the checkpoint's recompute) and K5 once
-    a microbatch a step on each rank."""
+def run_split_training_path(path: str) -> tuple[dict, dict]:
+    """Path TT or TS: :func:`split_train_rank` on two ranks sharing the
+    card (gloo); exact launches in each bf16 run, a layer a microbatch a
+    step: an attention layer's K4 twice (forward and the checkpoint's
+    recompute) and K5 once, a Mamba2 layer's K8 twice and K8b once.
+    Returns rank 0's bf16 launches and the spawn's record."""
     from repro_torch.launch import mesh
     torch.cuda.empty_cache()
-    log(mesh_line("cuda", 2, "TT tensor parallel (1, 1, 2) (heads, ffn, "
-                  "vocabulary over model), then ZeRO-3 (1, 2, 1) (batch "
-                  "and parameter storage over data)"))
+    log(mesh_line("cuda", 2, {
+        "TT": "TT tensor parallel (1, 1, 2) (heads, ffn, vocabulary over "
+              "model), then ZeRO-3 (1, 2, 1) (batch and parameter storage "
+              "over data)",
+        "TS": "TS (1, 1, 2) train_4k's rules at 512 chips: MiniCPM-2B's "
+              "sequence over model (seq, inner_seq), InternVL2-26B's "
+              "Megatron-SP, Mamba2-2.7B's heads"}[path]))
     t0 = time.perf_counter()
-    outs = mesh.spawn(tt_rank, 2, "cuda", timeout_s=MESH_TIMEOUT_S)
+    outs = mesh.spawn(split_train_rank, 2, "cuda", path,
+                      timeout_s=MESH_TIMEOUT_S)
     wall = time.perf_counter() - t0
     launches = dict(no_model_launches(), **dict.fromkeys(KERNELS, 0))
+    runs = [k for k in outs[0] if isinstance(k, tuple)]
     for o in outs:
-        for name in TT_LAYOUTS:
-            rec = o[name, "bfloat16"]
-            per = TT_LAYERS * rec["microbatches"] * TT_STEPS
-            exp = dict(no_model_launches(), **dict.fromkeys(KERNELS, 0),
-                       flash_attention=2 * per, flash_attention_bwd=per)
+        for key in runs:
+            rec = o[key]
+            if key[1] != "bfloat16":
+                continue
+            per = rec["layers"] * rec["microbatches"] * rec["steps"]
+            exp = dict(no_model_launches(), **dict.fromkeys(KERNELS, 0))
+            if rec["family"] == "ssm":
+                exp.update(ssd_scan=2 * per, ssd_scan_bwd=per)
+            else:
+                exp.update(flash_attention=2 * per, flash_attention_bwd=per)
             if rec["launches"] != exp:
-                raise AssertionError(f"TT {name} rank {o['rank']}: launches "
-                                     f"{rec['launches']}, expected {exp}")
+                raise AssertionError(f"{path} {key[0]} rank {o['rank']}: "
+                                     f"launches {rec['launches']}, expected "
+                                     f"{exp}")
             if o["rank"] == 0:
-                for k in ("flash_attention", "flash_attention_bwd"):
-                    launches[k] += rec["launches"][k]
+                for k, v in rec["launches"].items():
+                    launches[k] += v
     lead = outs[0]
-    for name in TT_LAYOUTS:
-        b, f = lead[name, "bfloat16"], lead[name, "float32"]
+    for key in runs:
+        if key[1] != "bfloat16":
+            continue
+        b, f = lead[key], lead[key[0], "float32"]
         worst = b["grad_rel_l2_worst"][0]
         hi = b.get("grad_rel_l2_float32", {}).get(worst)
         one = b.get("one_rank_rel_l2_float32", {}).get(worst)
-        log(f"path TT {name} ({lead['backend']} on {lead['device']}): "
-            f"steps {', '.join(f'{x:.3f}' for x in b['step_s'])} s "
+        log(f"path {path} {key[0]} at {b['layers']} layers ({lead['backend']} "
+            f"on {lead['device']}): steps "
+            f"{', '.join(f'{x:.3f}' for x in b['step_s'])} s "
             f"({b['tokens_per_s']:.1f} tokens/s a rank's view), collectives "
             f"{b['collective_s']:.2f} s in {b['collectives']} calls; losses "
             f"{b['losses']} (one rank's first {b['one_rank_losses']}); "
             f"first-step gradients worst {b['grad_rel_l2_worst']} (from "
             f"float32 {hi}, one rank's {one}); phases {b['phase_s']}, "
-            f"float32 {f['phase_s']}; peak "
-            f"{outs[0][name, 'bfloat16']['peak_gb']:.3f} / "
-            f"{outs[1][name, 'bfloat16']['peak_gb']:.3f} GB a rank (one "
-            f"rank {b['one_rank_peak_gb']:.3f} GB), blocks "
-            f"{b['block_gb']:.3f} GB; float32 at {TT_F32['layers']} layers: "
-            f"gradients worst {f['grad_rel_l2_worst']}, losses "
-            f"{f['loss_rel_err']:.3e}")
+            f"float32 {f['phase_s']}; peak {outs[0][key]['peak_gb']:.3f} / "
+            f"{outs[1][key]['peak_gb']:.3f} GB a rank (one rank "
+            f"{b['one_rank_peak_gb']:.3f} GB), blocks {b['block_gb']:.3f} "
+            f"GB; float32 at {f['layers']} layers, {f['steps']} steps: "
+            f"gradients worst {f['grad_rel_l2_worst']} (gate ratio "
+            f"{f['gate_ratio']:.3f}), losses {f['loss_rel_err']:.3e}")
     return launches, dict(spawn_wall_s=wall, ranks=[
         {f"{k[0]}/{k[1]}" if isinstance(k, tuple) else k: v
          for k, v in o.items()} for o in outs])
+
+
+def mamba2_f64_grads(params: dict, batch: dict, cfg) -> dict:
+    """One rank's gradient of a Mamba2 model's training loss in float64,
+    written apart from the port's modules: the pre-norm residual stack of
+    SSD mixers (separate z, x, B, C and dt projections, the depthwise
+    causal convs with SiLU, the gated RMSNorm over ``d_inner``), the SSD as
+    its quadratic form, ``y_t = sum over s <= t of (C_t . B_s) exp(sum over
+    s < k <= t of dt_k A) dt_s x_s`` with ``A = -exp(a_log)``, the tied
+    unembedding and the token-weighted cross entropy, differentiated by
+    autograd on ``params``' device.  ``params``: the whole float32 tree,
+    upcast; one microbatch.  Returns the gradient tree, on the CPU."""
+    import torch.nn.functional as F
+    from repro_torch.tree import map_tree
+    p = map_tree(lambda t: t.detach().double().requires_grad_(True), params)
+    tokens, labels = batch["tokens"], batch["labels"]
+    weights = batch["weights"].double()
+    bsz, l = tokens.shape
+    nh, hp, eps = cfg.n_ssm_heads, cfg.ssm_head_dim, cfg.norm_eps
+    causal = torch.tril(torch.ones((l, l), dtype=torch.bool,
+                                   device=tokens.device))[None, :, :, None]
+
+    def rms(x, scale):
+        return x * torch.rsqrt((x * x).mean(-1, keepdim=True) + eps) * scale
+
+    def conv(x, w, b):
+        ctx = F.pad(x, (0, 0, w.shape[0] - 1, 0))
+        return F.silu(sum(ctx[:, i:i + l] * w[i] for i in range(w.shape[0]))
+                      + b)
+
+    table = p["embed"]["table"]
+    h = table[tokens]
+    for i in range(cfg.n_layers):
+        w = {k: v[i] for k, v in p["blocks"].items()}
+        x = rms(h, w["ln"])
+        z = x @ w["in_z"]
+        xs = conv(x @ w["in_x"], w["conv_x_w"], w["conv_x_b"])
+        bm = conv(x @ w["in_b"], w["conv_b_w"], w["conv_b_b"])
+        cm = conv(x @ w["in_c"], w["conv_c_w"], w["conv_c_b"])
+        dt = F.softplus(x @ w["in_dt"] + w["dt_bias"])           # (B, L, H)
+        cum = torch.cumsum(dt * -torch.exp(w["a_log"]), dim=1)
+        seg = cum[:, :, None] - cum[:, None]                      # (B, t, s, H)
+        decay = torch.exp(torch.where(causal, seg, float("-inf")))
+        gram = torch.einsum("btn,bsn->bts", cm, bm)
+        xh = xs.reshape(bsz, l, nh, hp)
+        y = torch.einsum("btsh,bshp->bthp",
+                         gram[..., None] * decay * dt[:, None], xh)
+        y = (y + xh * w["d_skip"][:, None]).reshape(bsz, l, nh * hp)
+        h = h + rms(y * F.silu(z), w["norm_scale"]) @ w["out_proj"]
+        del seg, decay, gram
+    logits = rms(h, p["final_norm"]["scale"]) @ table.T
+    xent = (torch.logsumexp(logits, -1)
+            - logits.gather(-1, labels[..., None])[..., 0])
+    loss = (xent * weights).sum() / weights.sum().clamp_min(1.0)
+    loss.backward()
+    return map_tree(lambda t: t.grad.cpu(), p)
+
+
+def k6_lse_record(tag: str, b: int, s: int, hq: int, hkv: int, d: int,
+                  dev, seed: int) -> dict:
+    """K6's log-sum-exp entry at a rank's block of a path's cache (``s``
+    positions), its rows' ``kv_len`` cycling 0, 1 and ``s``, in float32
+    and bf16: the output equal bit for bit to ``decode_attention``'s (cast
+    to its dtype), within ``attn_close`` of the plain version
+    (``decode_attention_lse_ref``), each log-sum-exp within 1e-6 of the
+    plain one's (relative, at least 1e-6 absolute; an empty row exactly
+    -1e30), no NaN, two launches bitwise equal; timed beside the plain
+    version and SDPA, with its bound."""
+    from repro_torch.kernels.decode_attention import ops, ref
+    errs = {}
+    lens = torch.tensor([(0, 1, s)[i % 3] for i in range(b)],
+                        dtype=torch.int32, device=dev)
+    for dtype in (torch.float32, torch.bfloat16):
+        q = randn((b, hq, d), dtype, dev, seed)
+        k, v = (randn((b, s, hkv, d), dtype, dev, seed + 1 + i)
+                for i in range(2))
+        what = f"K6 lse {tag} {dtype}"
+        p = k6_plan(q, k, v, what)
+        out, lse = ops.decode_attention_lse(q, k, v, lens)
+        pout, plse = ref.decode_attention_lse_ref(q, k, v, lens, ops.BLOCK_K)
+        if torch.isnan(out).any() or torch.isnan(lse).any():
+            raise AssertionError(f"{what}: NaN")
+        if not torch.equal(out.to(dtype), ops.decode_attention(q, k, v,
+                                                               lens)):
+            raise AssertionError(f"{what}: the output differs from "
+                                 f"decode_attention's")
+        again = ops.decode_attention_lse(q, k, v, lens)
+        if not (torch.equal(out, again[0]) and torch.equal(lse, again[1])):
+            raise AssertionError(f"{what}: two launches differ")
+        empty = lens == 0
+        if not (lse[empty] == ref.NEG_INF).all() or out[empty].any():
+            raise AssertionError(f"{what}: an empty row's lse or output")
+        lse_err = float(((lse - plse).abs()
+                         / plse.abs().clamp_min(1.0))[~empty].max())
+        if not lse_err <= 1e-6:
+            raise AssertionError(f"{what}: log-sum-exp {lse_err:.3e} from "
+                                 f"the plain version's (bound 1e-6)")
+        errs[dtype] = (attn_err(out, pout, dtype, what), lse_err)
+    times = time_k6(q, k, v, lens)
+    times["ms"] = time_ms(lambda: ops.decode_attention_lse(q, k, v, lens))
+    times["plain_ms"] = time_ms(lambda: ref.decode_attention_lse_ref(
+        q, k, v, lens, ops.BLOCK_K))
+    log(f"{tag}: K6 lse {b}x{s}x{hq}x{hkv}x{d} kv_len 0/1/{s} (split "
+        f"{p.split}) err {errs[torch.bfloat16][0]:.3e}, lse "
+        f"{errs[torch.bfloat16][1]:.3e} (float32 {errs[torch.float32][0]:.3e}"
+        f", lse {errs[torch.float32][1]:.3e}) {times['ms']:.4f} ms (plain "
+        f"{times['plain_ms']:.3f} ms, SDPA {times['library_ms']:.4f} ms, "
+        f"bound {times['bound_ms']:.5f} ms)")
+    rec = k6_record((b, s, hq, d), errs[torch.bfloat16][0],
+                    errs[torch.float32][0], p, times, entry="lse",
+                    lse_max_rel_err=errs[torch.bfloat16][1],
+                    float32_lse_max_rel_err=errs[torch.float32][1])
+    rec["name"] = f"decode_attention lse {b}x{s}x{hq}x{d}"
+    return rec
+
+
+def k5_offset_records(tag: str, b, sq, skv, hq, hkv, d, q_offset, dev
+                      ) -> list:
+    """K4 and K5 at a rank's block of queries ``q_offset`` into a causal
+    sequence of ``skv`` keys (TS's rank 1), in bf16 (the tensor cores,
+    two launches bitwise equal) and float32 (the CUDA cores), against
+    their plain versions (``attn_close``); the bf16 calls timed beside
+    the plain versions and SDPA with the same mask, with their bounds
+    (the pairs the mask keeps: ``Sq q_offset + Sq (Sq + 1) / 2``)."""
+    from repro_torch.kernels.flash_attention import ops, ref
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    src = "src/repro_torch/kernels/flash_attention/csrc/"
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        want = "tensor_core" if dtype == torch.bfloat16 else "cuda_core"
+        q, k, v, do = attn_operands(b, sq, skv, hq, hkv, d, dtype, dev, 900)
+        attn_plan(q, k, v, want=want, what=f"K4 {tag} offset")
+        attn_plan(q, k, v, do, want, f"K5 {tag} offset")
+        errs["k4", dtype] = k4_case(q, k, v, True, q_offset,
+                                    f"K4 {tag} offset {dtype}")
+        e, timed, _ = k5_case(q, k, v, do, True, q_offset,
+                              f"K5 {tag} offset {dtype}",
+                              bitwise=want == "tensor_core")
+        errs["k5", dtype] = max(e.values())
+    q, k, v, out, lse, do = timed
+    mask = (torch.arange(skv, device=dev)[None, :]
+            <= q_offset + torch.arange(sq, device=dev)[:, None])
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+    gqa = hq != hkv
+    fwd_ms = time_ms(lambda: sdpa(qt, kt, vt, attn_mask=mask,
+                                  enable_gqa=gqa))
+    both_ms = time_ms(lambda: torch.autograd.grad(
+        sdpa(qt, kt, vt, attn_mask=mask, enable_gqa=gqa), (qt, kt, vt),
+        do.transpose(1, 2)))
+    pairs = sq * q_offset + sq * (sq + 1) // 2
+    el = 2
+    k4b = bound_ms(el * (2 * b * sq * hq * d + 2 * b * skv * hkv * d)
+                   + 4 * b * hq * sq, 4 * b * hq * d * pairs,
+                   PEAK_BF16_FLOPS)
+    k5b = bound_ms(el * (4 * b * sq * hq * d + 4 * b * skv * hkv * d)
+                   + 8 * b * hq * sq, 10 * b * hq * d * pairs,
+                   PEAK_BF16_FLOPS)
+    k4_ms = time_ms(lambda: ops.flash_attention(q, k, v, causal=True,
+                                                q_offset=q_offset))
+    k4_pms = time_ms(lambda: ref.flash_attention_ref(
+        q, k, v, causal=True, q_offset=q_offset, block_k=ops.BLOCK_K))
+    k5_ms = time_ms(lambda: ops.flash_attention_bwd(
+        q, k, v, out, lse, do, causal=True, q_offset=q_offset))
+    k5_pms = time_ms(lambda: ref.flash_attention_bwd_ref(
+        q, k, v, out, lse, do, causal=True, q_offset=q_offset,
+        block_q=ops.BLOCK_Q, block_k=ops.BLOCK_K))
+    shape = f"{b}x{sq}x{skv}x{hq}x{hkv}x{d}"
+    common = dict(route="cuda", case=f"q_offset {q_offset}", causal=True,
+                  q_offset=q_offset, rtol=ATTN_TOL[torch.bfloat16],
+                  atol_per_rms=ATTN_TOL[torch.bfloat16])
+    log(f"{tag}: K4 / K5 {shape} at q_offset {q_offset} err "
+        f"{errs['k4', torch.bfloat16]:.3e} / {errs['k5', torch.bfloat16]:.3e}"
+        f" (float32 {errs['k4', torch.float32]:.3e} / "
+        f"{errs['k5', torch.float32]:.3e}) {k4_ms:.4f} / {k5_ms:.4f} ms "
+        f"(plain {k4_pms:.3f} / {k5_pms:.3f} ms, SDPA {fwd_ms:.4f} / "
+        f"{both_ms - fwd_ms:.4f} ms, bound {k4b[0]:.4f} / {k5b[0]:.4f} ms)")
+    return [
+        dict(common, name=f"flash_attention {shape}",
+             source=src + "flash_fwd_tc.cu",
+             replaces="src/repro/kernels/flash_attention/kernel.py:83",
+             max_abs_err=errs["k4", torch.bfloat16],
+             float32_max_abs_err=errs["k4", torch.float32], ms=k4_ms,
+             plain_ms=k4_pms, bound_ms=k4b[0], bound_by=k4b[1],
+             library_ms=fwd_ms),
+        dict(common, name=f"flash_attention_bwd {shape}",
+             source=src + "flash_bwd_tc.cu",
+             replaces="src/repro/kernels/flash_attention/kernel_bwd.py:125",
+             max_abs_err=errs["k5", torch.bfloat16],
+             float32_max_abs_err=errs["k5", torch.float32], ms=k5_ms,
+             plain_ms=k5_pms, bound_ms=k5b[0], bound_by=k5b[1],
+             library_ms=both_ms - fwd_ms)]
+
+
+def part2c_records(tag: str, dev) -> list:
+    """The kernel records of path ``tag`` at the shapes its ranks launch:
+    SQ's K4 on rank 1's block of MiniCPM-2B's prefill (8 x 256 queries at
+    offset 256 over 512 keys, 36 heads of 64) and K6's lse entry on a
+    rank's block of its cache (528 of 1,056 positions) and of
+    Granite-8B's (32/8 heads of 128); SM's K6 lse entry on a rank's block
+    of Zamba2-7B's long_500k cache (32,768 of 65,536 positions, 32/32
+    heads of 112, rows with 0, 1 and all positions live); TS's K4 and K5
+    at MiniCPM-2B's rank 1 (4 x 2048 queries at offset 2048 over 4,096
+    keys, 36 heads of 64)."""
+    if tag == "SQ":
+        half = SQ_MAX_LEN // 2
+        return (k5_offset_records("SQ", SQ_BATCH, SQ_PROMPT // 2, SQ_PROMPT,
+                                  36, 36, 64, SQ_PROMPT // 2, dev)[:1]
+                + [k6_lse_record("SQ", SQ_BATCH, half, 36, 36, 64, dev, 940),
+                   k6_lse_record("SQ", SQ_BATCH, half, 32, 8, 128, dev,
+                                 950)])
+    if tag == "SM":
+        return [k6_lse_record("SM", 3, SM_ZAMBA["max_len"] // 2, 32, 32,
+                              112, dev, 960)]
+    return k5_offset_records("TS", TS_BATCH, TS_SEQ - TS_Q_OFFSET, TS_SEQ,
+                             36, 36, 64, TS_Q_OFFSET, dev)
 
 
 def split_attention_records(tag: str, dev) -> list:
@@ -6161,6 +6818,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     log(f"build: {build_all():.2f} s")
+    t_paths = time.perf_counter()
     with cpu_workers() as jobs:
         # Path V's BalancePowerCap is the object plane's, with 200 trips;
         # the reference's datacenter_cell is one cell of 10,000 hosts.
@@ -6234,7 +6892,10 @@ def main() -> int:
         launches_u, info_u = run_bucket_path(jobs["U",])
         launches_c, info_c = run_datacenter_path(jobs["C",])
         info_svc = run_service_phase(smi)
+        log(f"the kernel checks and paths A-C, E, U and the service: "
+            f"{time.perf_counter() - t_paths:.1f} s")
 
+        t_models = time.perf_counter()
         records["S"] = [check_k4(dev), check_k6(dev)]
         launches_s, info_s = run_serving_path(dev)
         torch.cuda.empty_cache()
@@ -6282,6 +6943,8 @@ def main() -> int:
         torch.cuda.empty_cache()
         launches_th, info_th = run_family_training_path("TH", dev)
         torch.cuda.empty_cache()
+        log(f"paths S, T, M, P, H, TM, TP and TH and their kernel checks: "
+            f"{time.perf_counter() - t_models:.1f} s")
 
         t_new = time.perf_counter()
         fresh = check_fresh_threads(dev)
@@ -6317,10 +6980,19 @@ def main() -> int:
         records["ST"] = mesh_path_records("ST", dev)
         launches_st, info_st = run_split_serving_path()
         records["TT"] = mesh_path_records("TT", dev)
-        launches_tt, info_tt = run_split_training_path()
+        launches_tt, info_tt = run_split_training_path("TT")
         log(f"paths ST and TT and their kernel checks: "
             f"{time.perf_counter() - t_split:.1f} s")
-        log(f"paths SC, ME, TE, ST and TT and their kernel checks: "
+        t_2c = time.perf_counter()
+        records["SQ"] = mesh_path_records("SQ", dev)
+        records["SM"] = mesh_path_records("SM", dev)
+        launches_sq, launches_sm, info_sqm = run_part2c_serving_paths()
+        records["TS"] = mesh_path_records("TS", dev)
+        launches_ts, info_ts = run_split_training_path("TS")
+        log(f"paths SQ, SM and TS and their kernel checks: "
+            f"{time.perf_counter() - t_2c:.1f} s on {smi}")
+        log(f"paths SC, ME, TE, ST, TT, SQ, SM and TS and their kernel "
+            f"checks: "
             f"{time.perf_counter() - t_mesh:.1f} s on {smi} (the ranks "
             f"share one card, and gloo moves their tensors through host "
             f"memory: the "
@@ -6341,7 +7013,9 @@ def main() -> int:
                               ("Y", launches_y), ("TI", launches_ti),
                               ("TY", launches_ty), ("SC", launches_sc),
                               ("ME", launches_me), ("TE", launches_te),
-                              ("ST", launches_st), ("TT", launches_tt)):
+                              ("ST", launches_st), ("TT", launches_tt),
+                              ("SQ", launches_sq), ("SM", launches_sm),
+                              ("TS", launches_ts)):
             for rec in records[tag]:
                 name = rec["name"].split()[0]
                 kernels_out.append(dict(rec, launches=launches[name],
@@ -6357,7 +7031,9 @@ def main() -> int:
                               "TH": info_th, "I": info_i, "Y": info_y,
                               "TI": info_ti, "TY": info_ty, "SC": info_sc,
                               "ME": info_me, "TE": info_te,
-                              "ST": info_st, "TT": info_tt}}, default=str))
+                              "ST": info_st, "TT": info_tt,
+                              "SQ+SM": info_sqm, "TS": info_ts}},
+                    default=str))
     log(json.dumps({"kernels": kernels_out}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

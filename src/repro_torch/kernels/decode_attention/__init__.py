@@ -1,6 +1,8 @@
 """Kernel K6, split-K flash decoding over a ragged KV cache (CUDA,
 sm_90a), beside its plain PyTorch version (``ref.py``)."""
 
-from repro_torch.kernels.decode_attention.ops import decode_attention
+from repro_torch.kernels.decode_attention.ops import (combine_over_ranks,
+                                                     decode_attention,
+                                                     decode_attention_lse)
 
-__all__ = ["decode_attention"]
+__all__ = ["combine_over_ranks", "decode_attention", "decode_attention_lse"]

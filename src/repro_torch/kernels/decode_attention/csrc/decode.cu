@@ -51,6 +51,7 @@ constexpr int kMaxSmem = 232448;
 constexpr int kMaxSplits = 512;   // the combine's m and l in shared memory
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 struct Params {
   const void* q;      // (B, Hq, D) packed
@@ -60,7 +61,8 @@ struct Params {
   float* o;           // (B, Hkv, ns, G, D) packed
   float* m;           // (B, Hkv, ns, G), log2 units
   float* l;
-  void* out;          // (B, Hq, D) packed, q's dtype
+  void* out;          // (B, Hq, D) packed, q's dtype (float32 with lse)
+  float* lse;         // (B, Hq) natural log of the row's softmax sum, or null
   long long k_sb, k_ss, v_sb, v_ss;  // element strides
   int S, Hq, Hkv, D, G, split, ns, ngc, vec;
   float scale_log2;   // log2(e) / sqrt(D)
@@ -340,6 +342,11 @@ __global__ void __launch_bounds__(kThreads)
       lt = fmaf(ls[sp * GR + g], a, lt);
     }
     ltot[g] = fmaxf(lt, 1e-30f);
+    // The row's log-sum-exp in natural units (m is in log2 units); a row
+    // with no live position has none.
+    if (p.lse != nullptr && blockIdx.z == 0)
+      p.lse[static_cast<long long>(b) * p.Hq + h * p.G + g0 + g] =
+          lt > 0.f ? (mmax + log2f(lt)) * kLn2 : kNegInf;
   }
   __syncthreads();
   const int idx = blockIdx.z * kThreads + threadIdx.x;
@@ -350,9 +357,11 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll 8
   for (int sp = 0; sp < p.ns; ++sp)
     ot = fmaf(o[static_cast<long long>(sp) * p.G * D], alpha[sp * GR + g], ot);
-  T* out = static_cast<T*>(p.out) +
-           (static_cast<long long>(b) * p.Hq + h * p.G + g0) * D;
-  from_f(ot / ltot[g], out + idx);
+  const long long row = (static_cast<long long>(b) * p.Hq + h * p.G + g0) * D;
+  if (p.lse != nullptr)
+    static_cast<float*>(p.out)[row + idx] = ot / ltot[g];
+  else
+    from_f(ot / ltot[g], static_cast<T*>(p.out) + row + idx);
 }
 
 // Dynamic shared memory of a partials block: the two stages, or the slot
@@ -409,6 +418,37 @@ int by_lanes(const Params& p, int B, int lanes, int rows, cudaStream_t s) {
 
 }  // namespace
 
+namespace {
+
+int run(const void* q, const void* k, const void* v, const void* kv_len,
+        void* ws, void* out, float* lse, long long k_sb, long long k_ss,
+        long long v_sb, long long v_ss, int B, int S, int Hq, int Hkv, int D,
+        int split, int lanes, int rows, int vec, float scale, int dtype,
+        int device, void* stream) {
+  // The tensors' card first: a host thread that has not used it has no
+  // current context, and a launch there fails.
+  const cudaError_t set = cudaSetDevice(device);
+  if (set != cudaSuccess) return static_cast<int>(set);
+  if (B <= 0 || Hq <= 0) return 0;
+  if (S <= 0 || Hkv <= 0 || Hq % Hkv != 0 || D <= 0 || D > 256 ||
+      D % 8 != 0 || split <= 0 || split % kStage != 0 || lanes * 8 < D ||
+      B > 65535 || (S + split - 1) / split > kMaxSplits)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int G = Hq / Hkv, ns = (S + split - 1) / split;
+  const int ngc = (G + rows - 1) / rows;
+  const long long o_size = static_cast<long long>(B) * Hkv * ns * G;
+  float* o = static_cast<float*>(ws);
+  Params p{q, k, v, static_cast<const int*>(kv_len), o, o + o_size * D,
+           o + o_size * (D + 1), out, lse, k_sb, k_ss, v_sb, v_ss, S, Hq,
+           Hkv, D, G, split, ns, ngc, vec, scale * kLog2e};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return by_lanes<float>(p, B, lanes, rows, s);
+  if (dtype == 1) return by_lanes<__nv_bfloat16>(p, B, lanes, rows, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // namespace
+
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v and out share it).  Strides
 // are in elements; q and out are packed (B, Hq, D), the head and feature
 // axes of k and v are packed.  ws holds the float32 partials: o (B, Hkv,
@@ -425,26 +465,27 @@ extern "C" int decode_attention(const void* q, const void* k, const void* v,
                                 int Hq, int Hkv, int D, int split, int lanes,
                                 int rows, int vec, float scale, int dtype,
                                 int device, void* stream) {
-  // The tensors' card first: a host thread that has not used it has no
-  // current context, and a launch there fails.
-  const cudaError_t set = cudaSetDevice(device);
-  if (set != cudaSuccess) return static_cast<int>(set);
-  if (B <= 0 || Hq <= 0) return 0;
-  if (S <= 0 || Hkv <= 0 || Hq % Hkv != 0 || D <= 0 || D > 256 ||
-      D % 8 != 0 || split <= 0 || split % kStage != 0 || lanes * 8 < D ||
-      B > 65535 || (S + split - 1) / split > kMaxSplits)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int G = Hq / Hkv, ns = (S + split - 1) / split;
-  const int ngc = (G + rows - 1) / rows;
-  const long long o_size = static_cast<long long>(B) * Hkv * ns * G;
-  float* o = static_cast<float*>(ws);
-  Params p{q, k, v, static_cast<const int*>(kv_len), o, o + o_size * D,
-           o + o_size * (D + 1), out, k_sb, k_ss, v_sb, v_ss, S, Hq, Hkv, D,
-           G, split, ns, ngc, vec, scale * kLog2e};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return by_lanes<float>(p, B, lanes, rows, s);
-  if (dtype == 1) return by_lanes<__nv_bfloat16>(p, B, lanes, rows, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return run(q, k, v, kv_len, ws, out, nullptr, k_sb, k_ss, v_sb, v_ss, B,
+             S, Hq, Hkv, D, split, lanes, rows, vec, scale, dtype, device,
+             stream);
+}
+
+// decode_attention with a float32 out (B, Hq, D) and each row's
+// log-sum-exp in lse (B, Hq) float32: m_max + log(l_tot) in natural
+// units, -1e30 for a row with no live position (whose out is 0): the
+// partial of one rank's block of a cache split over the sequence.
+extern "C" int decode_attention_lse(const void* q, const void* k,
+                                    const void* v, const void* kv_len,
+                                    void* ws, void* out, long long k_sb,
+                                    long long k_ss, long long v_sb,
+                                    long long v_ss, int B, int S, int Hq,
+                                    int Hkv, int D, int split, int lanes,
+                                    int rows, int vec, float scale,
+                                    int dtype, int device, void* stream,
+                                    void* lse) {
+  return run(q, k, v, kv_len, ws, out, static_cast<float*>(lse), k_sb, k_ss,
+             v_sb, v_ss, B, S, Hq, Hkv, D, split, lanes, rows, vec, scale,
+             dtype, device, stream);
 }
 
 // A partials block's dynamic shared memory, to hold kernel.py's plan

@@ -141,6 +141,8 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.decode_attention.argtypes = ([p] * 6 + [ll] * 4 + [i] * 9
                                      + [ctypes.c_float, i, i, p])
     lib.decode_attention.restype = i
+    lib.decode_attention_lse.argtypes = lib.decode_attention.argtypes + [p]
+    lib.decode_attention_lse.restype = i
     lib.decode_attention_smem_bytes.argtypes = [i] * 4
     lib.decode_attention_smem_bytes.restype = ll
 
@@ -159,15 +161,21 @@ def library_smem_bytes(d: int, dtype: torch.dtype, lanes: int,
         d, DTYPES[dtype], lanes, rows)
 
 
-def decode(q, k, v, kv_len, ws, out, p: Plan) -> None:
+def decode(q, k, v, kv_len, ws, out, p: Plan, lse=None) -> None:
     """Launch K6 (its partials kernel and the combine) as ``p`` plans it;
-    the wrapper has checked shapes, types and strides."""
+    the wrapper has checked shapes, types and strides.  With ``lse`` (B,
+    Hq) float32, ``out`` is float32 and the combine also writes each
+    row's log-sum-exp (``decode_attention_lse``)."""
     b, hq, d = q.shape
     s, hkv = k.shape[1], k.shape[2]
-    rc = LIBRARY.library().decode_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(),
-        ws.data_ptr(), out.data_ptr(), k.stride(0), k.stride(1),
-        v.stride(0), v.stride(1), b, s, hq, hkv, d, p.split, p.lanes,
-        p.rows, int(p.vector_loads), 1.0 / math.sqrt(d), DTYPES[q.dtype],
-        q.device.index, stream(q))
-    LIBRARY.check(rc, "decode_attention")
+    lib = LIBRARY.library()
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(),
+            ws.data_ptr(), out.data_ptr(), k.stride(0), k.stride(1),
+            v.stride(0), v.stride(1), b, s, hq, hkv, d, p.split, p.lanes,
+            p.rows, int(p.vector_loads), 1.0 / math.sqrt(d),
+            DTYPES[q.dtype], q.device.index, stream(q))
+    if lse is None:
+        LIBRARY.check(lib.decode_attention(*args), "decode_attention")
+    else:
+        LIBRARY.check(lib.decode_attention_lse(*args, lse.data_ptr()),
+                      "decode_attention_lse")

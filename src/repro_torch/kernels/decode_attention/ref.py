@@ -7,7 +7,9 @@ of the KV head's group score the block, positions at or past ``kv_len``
 are masked with ``NEG_INF = -1e30``, and the block emits float32 partials
 ``(o, m, l)``; a block with no live position keeps ``m = NEG_INF`` and
 gets ``p = 0``.  :func:`combine_partials` is the log-sum-exp combine the
-reference runs outside the kernel (``kernel.py:102-108``).
+reference runs outside the kernel (``kernel.py:102-108``);
+:func:`combine_partials_lse` is the same combine keeping the float32
+output and the rows' log-sum-exp (the distributed flash-decode's input).
 :func:`decode_attention_ref` is the naive oracle (``decode_attention/
 ref.py`` of the reference).
 """
@@ -75,6 +77,44 @@ def combine_partials(o, m, l, dtype):
     o_tot = (o * alpha[..., None]).sum(2)
     out = o_tot / torch.clamp_min(l_tot, 1e-30)[..., None]
     return out.reshape(b, hkv * g, d).to(dtype)
+
+
+def combine_partials_lse(o, m, l):
+    """:func:`combine_partials` in float32, with each row's log-sum-exp
+    ``m_max + log(l_tot)``: ``(out (B, Hq, D), lse (B, Hq))``.  A row with
+    no live position gives ``out = 0`` and ``lse = NEG_INF``."""
+    b, hkv, _, g, d = o.shape
+    m_max = m.amax(2, keepdim=True)
+    alpha = torch.exp(m - m_max)
+    l_tot = (l * alpha).sum(2)
+    o_tot = (o * alpha[..., None]).sum(2)
+    out = o_tot / torch.clamp_min(l_tot, 1e-30)[..., None]
+    lse = torch.where(l_tot > 0, m_max[:, :, 0] + torch.log(l_tot), NEG_INF)
+    return out.reshape(b, hkv * g, d), lse.reshape(b, hkv * g)
+
+
+def decode_attention_lse_ref(q, k, v, kv_len, block_k: int = 512):
+    """The plain version of the log-sum-exp entry: partials, then
+    :func:`combine_partials_lse`."""
+    return combine_partials_lse(*decode_partials_ref(q, k, v, kv_len,
+                                                     block_k))
+
+
+def combine_over_ranks(outs, lses):
+    """The ranks' partial decodes, each over its block of the cache, as one:
+    ``outs`` (n, B, Hq, D) float32 and ``lses`` (n, B, Hq), in rank order.
+    Each rank's output weighs ``exp(lse_r - max lse)`` (zero for a rank
+    with no live position), added in rank order; returns (B, Hq, D)
+    float32.  The reference's GSPMD runs the same sums as its softmax's
+    reductions over the sharded axis."""
+    m = lses.amax(0)
+    num = torch.zeros_like(outs[0])
+    den = torch.zeros_like(lses[0])
+    for o, lse in zip(outs, lses):
+        w = torch.where(lse <= NEG_INF / 2, 0.0, torch.exp(lse - m))
+        num = num + o * w[..., None]
+        den = den + w
+    return num / torch.clamp_min(den, 1e-30)[..., None]
 
 
 def decode_attention_split_ref(q, k, v, kv_len, block_k: int = 512):

@@ -14,7 +14,9 @@ the twin of ``jax.ShapeDtypeStruct``.
 
 :func:`local_params` and :func:`local_train_state` cut a whole tree into
 one rank's blocks under these specs: what each rank of a tensor-parallel
-or FSDP layout holds (the reference leaves that to GSPMD).
+or FSDP layout holds (the reference leaves that to GSPMD), under every
+layout that :func:`rules_for` gives; :func:`relayout_decode_state`
+carries a decode state from one layout's blocks into another's.
 """
 
 from __future__ import annotations
@@ -27,9 +29,9 @@ import torch
 from repro_torch.models import transformer as tfm
 from repro_torch.models.config import ModelConfig, ShapeConfig
 from repro_torch.optim.adamw import OptState
-from repro_torch.runtime.sharding import (Rules, axis_size, live_dims,
-                                          local_shard, refuse_part_2c,
-                                          spec_for)
+from repro_torch.models import ssd
+from repro_torch.runtime.sharding import (Rules, axis_size, gather_whole,
+                                          live_dims, local_shard, spec_for)
 from repro_torch.runtime.train_loop import TrainState
 from repro_torch.tree import leaves_with_path, map_tree
 
@@ -163,18 +165,23 @@ def train_state_shardings(cfg: ModelConfig, mesh, rules: Rules
 
 def _check_whole_heads(cfg: ModelConfig, mesh, rules: Rules) -> None:
     """A ``heads`` or ``kv_heads`` dim splits the flattened ``H x hd``
-    column: each rank's block must be whole heads."""
+    column (a Mamba2 mixer's ``heads`` its ``H x P`` one): each rank's
+    block must be whole heads."""
     counts = {"heads": cfg.n_heads, "kv_heads": cfg.n_kv_heads}
+    mixer = {"heads": cfg.n_ssm_heads if cfg.family in ("ssm", "hybrid")
+             else 0}
     specs = tfm.param_specs(cfg)
     for path, spec in leaves_with_path(param_shardings(cfg, mesh, rules)):
         node = specs
         for key in path:
             node = node[key]
+        whole = mixer if (path[0] == "blocks" and path[-1]
+                          in ssd.ssd_param_specs(cfg)) else counts
         for name, entry in zip(node[1], spec):
             n = axis_size(mesh, entry)
-            if name in counts and n > 1 and counts[name] % n:
+            if name in whole and n > 1 and whole[name] % n:
                 raise ValueError(
-                    f"{'/'.join(path)}: {counts[name]} {name} do not split "
+                    f"{'/'.join(path)}: {whole[name]} {name} do not split "
                     f"into whole heads over {n} ranks ({entry})")
 
 
@@ -184,11 +191,9 @@ def local_params(params: dict, cfg: ModelConfig, mesh, rules: Rules
     :func:`param_shardings` on ``mesh`` (a ``DeviceMesh``): a dim whose
     mesh axes do not divide it stays whole (an odd vocabulary, kv heads
     that do not divide the model axis).  Raises ``ValueError`` for a
-    ``heads`` or ``kv_heads`` block that is not whole heads, and
-    ``NotImplementedError`` for a layout of ROADMAP queue 1, item 9,
-    part 2c.  A leaf that requires grad gives a block that does too (a
-    new leaf); a replicated leaf is passed through."""
-    refuse_part_2c(mesh, rules, cfg.family)
+    ``heads`` or ``kv_heads`` block that is not whole heads (attention's,
+    or a Mamba2 mixer's).  A leaf that requires grad gives a block that
+    does too (a new leaf); a replicated leaf is passed through."""
     _check_whole_heads(cfg, mesh, rules)
 
     def block(t, spec):
@@ -254,6 +259,33 @@ def decode_state_shardings(cfg: ModelConfig, mesh, rules: Rules,
                          for i, v in enumerate(node))
         return for_leaf(path, node)
     return walk(state, ())
+
+
+def relayout_decode_state(state: dict, cfg: ModelConfig, mesh,
+                          rules_from: Rules, rules_to: Rules, batch: int,
+                          max_len: int) -> dict:
+    """A decode state (:func:`repro_torch.models.transformer
+    .init_decode_state`'s tree, for ``batch`` rows and ``max_len``
+    positions) held as this rank's blocks under ``rules_from``, carried
+    into ``rules_to``'s blocks: each leaf whose layout differs is gathered
+    whole over the mesh (a collective every rank makes) and cut again, the
+    others passed through.  Serving runs a prefill under
+    ``prefill_32k``'s rules (kv heads whole or split, the cache's
+    sequence whole) and its decode steps under ``decode_32k``'s
+    (``kv_seq``), as the reference's dry run lowers them."""
+    whole = tfm._decode_state(cfg, batch, max_len, torch.device("meta"))
+    src = decode_state_shardings(cfg, mesh, rules_from, whole)
+    dst = decode_state_shardings(cfg, mesh, rules_to, whole)
+
+    def walk(node, a, b):
+        if isinstance(node, dict):
+            return {k: walk(v, a[k], b[k]) for k, v in node.items()}
+        if isinstance(node, tuple):
+            return tuple(walk(*x) for x in zip(node, a, b))
+        if not isinstance(node, torch.Tensor) or a == b:
+            return node
+        return local_shard(gather_whole(node, a, mesh), b, mesh)
+    return walk(state, src, dst)
 
 
 def abstract_params(cfg: ModelConfig) -> dict:

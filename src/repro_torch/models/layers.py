@@ -31,6 +31,25 @@ chunk's log-sum-exp from an all-reduced max and sum of exponentials and
 the gold logit from the rank that owns it; its backward recomputes the
 rank's logits alone and sums the ranks' parts of the input's gradient in
 float32.
+Under a sequence split (:func:`repro_torch.runtime.sharding.seq_split`)
+the activations between layers are each rank's block of the positions.
+With ``inner_seq`` over the same dims (the odd-head archs' layout, heads
+whole) attention and the MLP compute on the block: a rank projects its
+block's Q, K and V, all-gathers K and V over the sequence (only the
+first ``(r + 1) S / n`` positions are read: the attention is causal) and
+runs K4 at ``q_offset = r S / n`` (K5 at the same offset under
+autograd; the gather's backward reduce-scatters dK and dV).  Without
+``inner_seq`` a layer gathers its input whole at its entry; split over
+the same dims (Megatron-SP) it leaves by a reduce-scatter in place of
+``g``'s all-reduce, else each rank keeps its block of the output.  Under
+``kv_seq`` a rank holds a block of the decode cache's positions: the new
+token's K and V go to the rank whose block holds the cursor, each rank
+runs K6 on its block (:func:`repro_torch.kernels.decode_attention
+.decode_attention_lse`, an empty block giving the empty partial), and
+the ranks' float32 outputs are combined by their log-sum-exp in rank
+order and cast once.  :func:`streamed_xent` over a split sequence sums
+each rank's tokens, or, over a vocabulary split on the same dims,
+gathers the hidden states and runs the split xent.
 Without a bound context, or where every split is of one rank, each
 function computes what it computes on one rank.  Cross attention (the
 encoder-decoder's) projects only the queries, applies no RoPE and
@@ -44,11 +63,18 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.decode_attention.ops import decode_attention
+from repro_torch.kernels.decode_attention.ops import (combine_over_ranks,
+                                                     decode_attention,
+                                                     decode_attention_lse)
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.runtime.sharding import (all_reduce, copy_to,
-                                          current_context, live_dims,
-                                          spec_for, split_over, sum_over)
+                                          current_context, gather_dims,
+                                          gather_seq, inner_seq_split,
+                                          kv_seq_split, live_dims,
+                                          scatter_dims, scatter_seq,
+                                          seq_block, seq_split,
+                                          spec_for, split_over,
+                                          sum_in_rank_order, sum_over)
 
 NEG_INF = -1e30
 
@@ -56,30 +82,52 @@ NEG_INF = -1e30
 # ----------------------------------------------------------------- normals
 class _RMSNorm(torch.autograd.Function):
     """The reference's custom VJP (``layers.py:24-58``): dx computed in
-    float32 and handed back in x's dtype, dscale summed in float32."""
+    float32 and handed back in x's dtype, dscale summed in float32.  With
+    ``split = (mesh, dims, width)`` the last dim has ``width`` entries
+    split across the ranks of mesh ``dims`` (``x`` and ``scale`` this
+    rank's block): the sum of squares forward and the ``sum dy * scale *
+    x`` term backward are summed over the ranks in rank order, and
+    ``scale``'s gradient is its block's."""
 
     @staticmethod
-    def forward(ctx, x, scale, eps):
+    def forward(ctx, x, scale, eps, split=None):
         xf = x.float()
-        r = torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+        if split is None:
+            ms = torch.mean(xf * xf, dim=-1, keepdim=True)
+        else:
+            ms = sum_in_rank_order(torch.sum(xf * xf, dim=-1, keepdim=True),
+                                   split[0], split[1]) / split[2]
+        r = torch.rsqrt(ms + eps)
         ctx.save_for_backward(x, scale, r)
+        ctx.split = split
         return ((xf * r) * scale).to(x.dtype)
 
     @staticmethod
     def backward(ctx, dy):
         x, scale, r = ctx.saved_tensors
+        split = ctx.split
         xf = x.float()
         dyf = dy.float() * scale.float()
         dot = torch.sum(dyf * xf, dim=-1, keepdim=True)
-        dx = r * (dyf - xf * (r * r) * dot / x.shape[-1])
+        if split is not None:
+            dot = sum_in_rank_order(dot, split[0], split[1])
+        width = x.shape[-1] if split is None else split[2]
+        dx = r * (dyf - xf * (r * r) * dot / width)
         dscale = torch.sum(dy.float() * xf * r, dim=tuple(range(x.dim() - 1)))
-        return dx.to(x.dtype), dscale.to(scale.dtype), None
+        return dx.to(x.dtype), dscale.to(scale.dtype), None, None
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
              eps: float = 1e-5) -> torch.Tensor:
     """RMSNorm with float32 internals, cast back to ``x.dtype``."""
     return _RMSNorm.apply(x, scale, eps)
+
+
+def split_rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float, mesh,
+                   dims, width: int) -> torch.Tensor:
+    """:func:`rms_norm` over a dim of ``width`` entries of which this rank
+    holds ``x.shape[-1]``, split over mesh ``dims``."""
+    return _RMSNorm.apply(x, scale, eps, (mesh, tuple(dims), width))
 
 
 # -------------------------------------------------------------------- RoPE
@@ -198,6 +246,154 @@ def _kv_for_heads(k, v, q_lo: int, hq_l: int, groups: int):
     return k.index_select(2, idx), v.index_select(2, idx)
 
 
+def _seq_mode(tp):
+    """How a layer split as ``tp`` (:func:`~repro_torch.runtime.sharding
+    .split_over`'s tuple, or None) meets the bound context's sequence
+    split: ``(mode, split)``, ``mode`` None (no split), ``"inner"`` (the
+    layer computes on the rank's block: ``inner_seq`` over the ``seq``
+    dims), ``"megatron"`` (the input gathered whole, the output
+    reduce-scattered: the layer is split over the ``seq`` dims) or
+    ``"gather"`` (the input gathered whole, the output's block kept).
+    Raises ``ValueError`` for a layout that no block of ranks computes
+    whole: ``inner_seq`` without ``seq`` over the same dims, or a layer
+    split over some of the dims that split its sequence."""
+    sp, inner = seq_split(), inner_seq_split()
+    if sp is None:
+        if inner is not None:
+            raise ValueError(f"inner_seq over mesh dims {inner[1]} without "
+                             f"seq over them")
+        return None, None
+    tp_dims = () if tp is None else tuple(tp[1])
+    if inner is not None:
+        if tuple(inner[1]) != tuple(sp[1]):
+            raise ValueError(f"inner_seq over mesh dims {inner[1]}, seq "
+                             f"over {sp[1]}")
+        if set(tp_dims) & set(sp[1]):
+            raise ValueError(f"a layer split over mesh dims {tp_dims} that "
+                             f"also split its sequence ({sp[1]})")
+        return "inner", sp
+    if tp_dims == tuple(sp[1]):
+        return "megatron", sp
+    if set(tp_dims) & set(sp[1]):
+        raise ValueError(f"a layer split over mesh dims {tp_dims}, its "
+                         f"sequence over {sp[1]}")
+    return "gather", sp
+
+
+def _enter(x, tp, mode, sp):
+    """A layer's input: gathered whole over the sequence where ``mode``
+    says, entering the rank's block of a ``tp`` split through Megatron's
+    ``f`` (or, split over the sequence's own dims, through the gather)."""
+    if mode in ("megatron", "gather"):
+        x = gather_seq(x, sp[0], sp[1])
+    if tp is not None and mode != "megatron":
+        x = copy_to(x, tp[0], tp[1])
+    return x
+
+
+def _leave(out, tp, mode, sp):
+    """A layer's output, :func:`_enter`'s conjugate: summed over a ``tp``
+    split (``g``), reduce-scattered to the rank's block of the sequence
+    (Megatron-SP), or cut to the block."""
+    if mode == "megatron":
+        return scatter_seq(out, sp[0], sp[1])
+    if tp is not None:
+        out = sum_over(out, tp[0], tp[1])
+    return seq_block(out, sp) if mode == "gather" else out
+
+
+def decode_kv_len(cursor: int, batch: int, cache_len: int, device
+                  ) -> torch.Tensor:
+    """``kv_len`` of a one-token step at host ``cursor``: ``cursor + 1`` on
+    every row, or, where the bound context splits the cache's positions
+    (``kv_seq``) and this rank holds block ``r`` of ``cache_len``
+    positions, ``clamp(cursor + 1 - r cache_len, 0, cache_len)``."""
+    ks = kv_seq_split()
+    live = cursor + 1 if ks is None else \
+        min(max(cursor + 1 - ks[2] * cache_len, 0), cache_len)
+    return torch.full((batch,), live, dtype=torch.int32, device=device)
+
+
+def _decode_over_ranks(q, k, v, kv_len, ks):
+    """One token's attention over a cache whose positions are split across
+    the ranks of ``ks`` (:func:`kv_seq_split`): K6 on this rank's block
+    (its float32 output and log-sum-exp), gathered over the ranks and
+    combined in rank order, cast once to q's dtype."""
+    mesh, dims, _, _ = ks
+    out, lse = decode_attention_lse(q, k, v, kv_len)
+    every = gather_dims(torch.cat([out, lse[..., None]], -1)[None], mesh,
+                        dims, 0)
+    return combine_over_ranks(every[..., :-1], every[..., -1]).to(q.dtype)
+
+
+def _attend_inner(q, k, v, sp, causal, kv_cache, heads_of):
+    """Attention of this rank's block of queries (positions ``r s ..``)
+    under ``inner_seq``: K and V all-gathered over the sequence (the
+    gather's backward reduce-scatters their gradients), the causal ones cut
+    at the block's last row, K4 at ``q_offset = r s``.  A cache holds the
+    whole sequence on every rank."""
+    mesh, dims, index, n = sp
+    s = q.shape[1]
+    kw, vw = gather_seq(k, mesh, dims), gather_seq(v, mesh, dims)
+    if kv_cache is None:
+        if not causal:
+            out, _ = flash_attention(q, *heads_of(kw, vw), causal=False)
+            return out, None
+        end = (index + 1) * s
+        out, _ = flash_attention(q, *heads_of(kw[:, :end], vw[:, :end]),
+                                 causal=True, q_offset=index * s)
+        return out, None
+    if kv_seq_split() is not None:
+        raise ValueError("a sequence split (inner_seq) and a cache split "
+                         "over its positions (kv_seq) in one layout")
+    cur = int(kv_cache["cursor"])
+    ck, cv = kv_cache["k"], kv_cache["v"]
+    if cur + s * n > ck.shape[1]:
+        raise ValueError(f"cache of {ck.shape[1]} positions is full "
+                         f"(cursor {cur}, {s * n} new)")
+    ck[:, cur:cur + s * n] = kw.to(ck.dtype)
+    cv[:, cur:cur + s * n] = vw.to(cv.dtype)
+    end = cur + (index + 1) * s
+    out, _ = flash_attention(q, *heads_of(ck[:, :end], cv[:, :end]),
+                             causal=True, q_offset=cur + index * s)
+    return out, {"k": ck, "v": cv, "cursor": cur + s * n}
+
+
+def _attend_kv_seq(q, k, v, kv_cache, kv_len, ks, heads_of):
+    """Attention over a cache whose positions are split across the ranks
+    (``kv_seq``): this rank holds positions ``[r L, (r + 1) L)``.  The new
+    rows are written by the rank whose block holds them; a one-token step
+    runs K6 on every rank's block and combines the ranks
+    (:func:`_decode_over_ranks`); a longer one attends whole on every rank
+    (the cache's earlier rows gathered) and keeps its block."""
+    mesh, dims, index, n = ks
+    b, s = q.shape[:2]
+    cur = int(kv_cache["cursor"])
+    ck, cv = kv_cache["k"], kv_cache["v"]
+    blk = ck.shape[1]
+    lo = index * blk
+    if cur + s > blk * n:
+        raise ValueError(f"cache of {blk * n} positions is full (cursor "
+                         f"{cur}, {s} new)")
+    a, e = max(cur, lo), min(cur + s, lo + blk)
+    if a < e:
+        ck[:, a - lo:e - lo] = k[:, a - cur:e - cur].to(ck.dtype)
+        cv[:, a - lo:e - lo] = v[:, a - cur:e - cur].to(cv.dtype)
+    new_cache = {"k": ck, "v": cv, "cursor": cur + s}
+    if s == 1:
+        if kv_len is None:
+            kv_len = decode_kv_len(cur, b, blk, q.device)
+        out = _decode_over_ranks(q[:, 0], *heads_of(ck, cv), kv_len, ks)
+        return out[:, None], new_cache
+    if cur:
+        k = torch.cat([gather_dims(ck, mesh, dims, 1)[:, :cur].to(k.dtype),
+                       k], 1)
+        v = torch.cat([gather_dims(cv, mesh, dims, 1)[:, :cur].to(v.dtype),
+                       v], 1)
+    out, _ = flash_attention(q, *heads_of(k, v), causal=True, q_offset=cur)
+    return out, new_cache
+
+
 def attention(params: dict, x: torch.Tensor, cfg, *, causal: bool = True,
               positions: torch.Tensor | None = None,
               kv_cache: dict | None = None, cross_kv: tuple | None = None,
@@ -225,20 +421,29 @@ def attention(params: dict, x: torch.Tensor, cfg, *, causal: bool = True,
     columns and ``wo``'s rows its q heads, ``wk``'s and ``wv``'s columns
     its kv heads, or all of them where they stay whole; the cache and
     ``cross_kv`` hold the kv heads ``wk`` gives.  The output is then the
-    sum over the ranks.
+    sum over the ranks.  Under a sequence split ``x`` and the output are
+    this rank's block of the positions, ``positions`` the whole
+    sequence's (or the block's); under ``kv_seq`` the cache is this rank's
+    block of the positions and ``kv_len`` its live rows
+    (:func:`decode_kv_len`).
     """
-    b, s, _ = x.shape
+    b = x.shape[0]
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     hq_l = params["wq"].shape[1] // hd
     tp = split_over("heads", hq_l, hq)
-    if tp is not None:
-        x = copy_to(x, tp[0], tp[1])
+    mode, sp = _seq_mode(tp)
+    x = _enter(x, tp, mode, sp)
+    s = x.shape[1]
     q = (x @ params["wq"]).reshape(b, s, hq_l, hd)
 
     def heads_of(k, v):
         if tp is None or k.shape[2] != hkv:
             return k, v
         return _kv_for_heads(k, v, tp[2] * hq_l, hq_l, hq // hkv)
+
+    def leave(out):
+        return _leave(out.reshape(b, s, hq_l * hd) @ params["wo"], tp, mode,
+                      sp)
 
     if cross_kv is not None:
         k, v = heads_of(*cross_kv)
@@ -248,42 +453,48 @@ def attention(params: dict, x: torch.Tensor, cfg, *, causal: bool = True,
             out = decode_attention(q[:, 0], k, v, every)[:, None]
         else:
             out, _ = flash_attention(q, k, v, causal=False)
-        return _out_proj(out.reshape(b, s, hq_l * hd), params, tp), kv_cache
+        return leave(out), kv_cache
+    inner = mode == "inner"
     if positions is None:
-        positions = torch.arange(s, device=x.device)[None, :]
+        positions = torch.arange(s * sp[3] if inner else s,
+                                 device=x.device)[None, :]
+    if inner and positions.shape[-1] != s:
+        positions = seq_block(positions, sp, positions.dim() - 1)
     hkv_l = params["wk"].shape[1] // hd
     k = (x @ params["wk"]).reshape(b, s, hkv_l, hd)
     v = (x @ params["wv"]).reshape(b, s, hkv_l, hd)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
+    if inner:
+        out, kv_cache = _attend_inner(q, k, v, sp, causal, kv_cache,
+                                      heads_of)
+        return leave(out), kv_cache
     if kv_cache is None:
         out, _ = flash_attention(q, *heads_of(k, v), causal=causal)
+        return leave(out), kv_cache
+    ks = kv_seq_split()
+    if ks is not None:
+        out, kv_cache = _attend_kv_seq(q, k, v, kv_cache, kv_len, ks,
+                                       heads_of)
+        return leave(out), kv_cache
+    cur = int(kv_cache["cursor"])
+    ck, cv = kv_cache["k"], kv_cache["v"]
+    if cur + s > ck.shape[1]:
+        raise ValueError(f"cache of {ck.shape[1]} positions is full "
+                         f"(cursor {cur}, {s} new)")
+    ck[:, cur:cur + s] = k.to(ck.dtype)
+    cv[:, cur:cur + s] = v.to(cv.dtype)
+    kv_cache = {"k": ck, "v": cv, "cursor": cur + s}
+    if s == 1:
+        if kv_len is None:
+            kv_len = torch.full((b,), cur + 1, dtype=torch.int32,
+                                device=x.device)
+        out = decode_attention(q[:, 0], *heads_of(ck, cv), kv_len)[:, None]
     else:
-        cur = int(kv_cache["cursor"])
-        ck, cv = kv_cache["k"], kv_cache["v"]
-        if cur + s > ck.shape[1]:
-            raise ValueError(f"cache of {ck.shape[1]} positions is full "
-                             f"(cursor {cur}, {s} new)")
-        ck[:, cur:cur + s] = k.to(ck.dtype)
-        cv[:, cur:cur + s] = v.to(cv.dtype)
-        kv_cache = {"k": ck, "v": cv, "cursor": cur + s}
-        if s == 1:
-            if kv_len is None:
-                kv_len = torch.full((b,), cur + 1, dtype=torch.int32,
-                                    device=x.device)
-            out = decode_attention(q[:, 0], *heads_of(ck, cv),
-                                   kv_len)[:, None]
-        else:
-            out, _ = flash_attention(q, *heads_of(ck[:, :cur + s],
-                                                  cv[:, :cur + s]),
-                                     causal=True, q_offset=cur)
-    return _out_proj(out.reshape(b, s, hq_l * hd), params, tp), kv_cache
-
-
-def _out_proj(out, params, tp):
-    """``out @ wo``, summed over the ranks of a split (Megatron's ``g``)."""
-    out = out @ params["wo"]
-    return out if tp is None else sum_over(out, tp[0], tp[1])
+        out, _ = flash_attention(q, *heads_of(ck[:, :cur + s],
+                                              cv[:, :cur + s]),
+                                 causal=True, q_offset=cur)
+    return leave(out), kv_cache
 
 
 def attention_partial_leaves(cfg) -> tuple:
@@ -321,10 +532,12 @@ def mlp_param_specs(cfg, d_ff: int | None = None) -> dict:
 
 def mlp(params: dict, x: torch.Tensor, cfg) -> torch.Tensor:
     """The MLP; ``params`` may be a rank's blocks of the hidden dim
-    (tensor parallelism: the output is then summed over the ranks)."""
+    (tensor parallelism: the output is then summed over the ranks).  Under
+    a sequence split ``x`` and the output are the rank's block of the
+    positions (:func:`attention`'s modes)."""
     tp = split_over("ffn", params["w_up"].shape[1], cfg.d_ff)
-    if tp is not None:
-        x = copy_to(x, tp[0], tp[1])
+    mode, sp = _seq_mode(tp)
+    x = _enter(x, tp, mode, sp)
     if cfg.activation == "swiglu":
         h = F.silu(x @ params["w_gate"]) * (x @ params["w_up"])
     elif cfg.activation == "squared_relu":
@@ -332,8 +545,7 @@ def mlp(params: dict, x: torch.Tensor, cfg) -> torch.Tensor:
     else:
         # jax.nn.gelu defaults to the tanh approximation.
         h = F.gelu(x @ params["w_up"], approximate="tanh")
-    out = h @ params["w_down"]
-    return out if tp is None else sum_over(out, tp[0], tp[1])
+    return _leave(h @ params["w_down"], tp, mode, sp)
 
 
 # -------------------------------------------------- streamed cross-entropy
@@ -406,10 +618,19 @@ class _VocabParallelXent(torch.autograd.Function):
     float32).  Rounding each part to bf16 before the sum (``d logits`` is
     mostly the gold row, so a part is large where the sum cancels) put
     path TT's bf16 gradients twice as far from float32 as one rank's
-    (``tools/tp_rounding.py``)."""
+    (``tools/tp_rounding.py``).
+
+    With ``seq_gather`` (Megatron-SP: the sequence split over the same
+    dims as the vocabulary) ``h`` is this rank's block of the positions
+    and ``labels`` and ``weights`` the whole sequence's: ``h`` is
+    all-gathered first, and ``h``'s gradient leaves by a float32
+    reduce-scatter in place of the all-reduce."""
 
     @staticmethod
-    def forward(ctx, h, w_out, labels, weights, chunk, mesh, dims, offset):
+    def forward(ctx, h, w_out, labels, weights, chunk, mesh, dims, offset,
+                seq_gather):
+        if seq_gather:
+            h = gather_dims(h, mesh, dims, 1)
         v_l = w_out.shape[1]
         loss_sum = torch.zeros((), dtype=torch.float32, device=h.device)
         lses = []
@@ -430,6 +651,7 @@ class _VocabParallelXent(torch.autograd.Function):
                                    * weights[:, c0:c0 + chunk]).sum()
         ctx.save_for_backward(h, w_out, labels, weights, torch.cat(lses, 1))
         ctx.chunk, ctx.offset, ctx.mesh, ctx.dims = chunk, offset, mesh, dims
+        ctx.seq_gather = seq_gather
         return loss_sum
 
     @staticmethod
@@ -459,10 +681,12 @@ class _VocabParallelXent(torch.autograd.Function):
                 dw += (hh.reshape(-1, hh.shape[-1]).T
                        @ g.reshape(-1, g.shape[-1])).float()
             del g
-        if need_h:
+        if need_h and ctx.seq_gather:
+            dh = scatter_dims(dh, ctx.mesh, ctx.dims, 1).to(h.dtype)
+        elif need_h:
             dh = all_reduce(dh, ctx.mesh, ctx.dims).to(h.dtype)
         return (dh, None if dw is None else dw.to(w_out.dtype), None, None,
-                None, None, None, None)
+                None, None, None, None, None)
 
 
 def streamed_xent(h: torch.Tensor, w_out: torch.Tensor,
@@ -481,15 +705,39 @@ def streamed_xent(h: torch.Tensor, w_out: torch.Tensor,
     last chunk short instead.  ``w_out`` may be this rank's block of the
     ``vocab`` entries (a vocabulary split over ranks:
     :class:`_VocabParallelXent`).
+
+    Under a sequence split (:func:`~repro_torch.runtime.sharding
+    .seq_split`) ``h``, ``labels`` and ``weights`` are this rank's block
+    of the positions and both sums are the whole sequence's on every
+    rank: each rank's tokens' sum added over the ranks (the identity
+    backward: each rank differentiates its own tokens), or, over a
+    vocabulary split on the same dims, ``h`` gathered whole into the
+    split xent (``seq_gather``).
     """
-    chunk = min(chunk, h.shape[1])
     tp = (None if vocab is None
           else split_over("vocab", w_out.shape[1], vocab))
+    sp = seq_split()
+    if sp is not None and tp is not None and set(tp[1]) & set(sp[1]):
+        if tuple(tp[1]) != tuple(sp[1]):
+            raise ValueError(f"a vocabulary split over mesh dims {tp[1]}, "
+                             f"the sequence over {sp[1]}")
+        mesh, dims, index, _ = tp
+        labels = gather_dims(labels, mesh, dims, 1)
+        weights = gather_dims(weights, mesh, dims, 1)
+        loss_sum = _VocabParallelXent.apply(
+            h, w_out, labels, weights, min(chunk, labels.shape[1]), mesh,
+            dims, index * w_out.shape[1], True)
+        return loss_sum, weights.float().sum()
+    chunk = min(chunk, h.shape[1])
     if tp is None:
         loss_sum = _StreamedXent.apply(h, w_out, labels, weights, chunk)
     else:
         mesh, dims, index, _ = tp
         loss_sum = _VocabParallelXent.apply(
             h, w_out, labels, weights, chunk, mesh, dims,
-            index * w_out.shape[1])
-    return loss_sum, weights.float().sum()
+            index * w_out.shape[1], False)
+    w_sum = weights.float().sum()
+    if sp is not None:
+        loss_sum = sum_over(loss_sum, sp[0], sp[1])
+        w_sum = all_reduce(w_sum, sp[0], sp[1])
+    return loss_sum, w_sum

@@ -33,9 +33,16 @@ Attention and the MLP run tensor parallel on their blocks
 (:mod:`repro_torch.models.layers`), the embedding over a split
 vocabulary looks up the rank's rows and all-reduces, and the decode
 state is allocated at the rank's block of
-:func:`repro_torch.launch.shardspecs.decode_state_shardings`.  Every
-forward first refuses the layouts of ROADMAP queue 1, item 9, part 2c
-(:func:`repro_torch.runtime.sharding.check_layout`).
+:func:`repro_torch.launch.shardspecs.decode_state_shardings`.  Under a
+sequence split (``seq``) every forward embeds the whole sequence (a
+VLM's prefix concatenated first) and keeps this rank's block of its
+positions, or, over a vocabulary split on the same dims, reduce-scatters
+the ranks' lookups to it; each layer takes and returns the block
+(:mod:`repro_torch.models.layers`), the RoPE positions are the rank's
+absolute ones, and the encoder-decoder's encoder runs whole on every
+rank.  A Mamba2 mixer runs on its rank's block of heads
+(:mod:`repro_torch.models.ssd`).  Under ``kv_seq`` the decode caches are
+the rank's block of positions.
 """
 
 from __future__ import annotations
@@ -52,12 +59,16 @@ from torch.utils import checkpoint
 from repro_torch.backend import resolve_device
 from repro_torch.models import layers, moe, ssd
 from repro_torch.models.config import ModelConfig
-from repro_torch.runtime.sharding import (check_layout, copy_to,
-                                          current_context,
-                                          gather_block, gather_param,
+from repro_torch.runtime.sharding import (axis_size, check_seq_blocks,
+                                          copy_to, current_context,
+                                          dims_coordinate, gather_block,
+                                          gather_param, gather_seq,
                                           gather_plan, leaf_gathers,
-                                          local_shape, sharding_context,
-                                          split_over, sum_over)
+                                          live_dims, local_shape,
+                                          scatter_seq, seq_block, seq_split,
+                                          sharding_context, spec_for,
+                                          split_over, sum_in_rank_order,
+                                          sum_over)
 
 # =========================================================== param specs
 def _stack(specs: dict, n: int) -> dict:
@@ -257,23 +268,104 @@ def _top_leaf(params: dict, group: str, cfg: ModelConfig) -> torch.Tensor:
     return gather_param(t, ctx[0], leaf_gathers(*ctx, shape, axes))
 
 
+def _column_block(params: dict, group: str, cfg: ModelConfig
+                  ) -> Optional[tuple]:
+    """``(mesh, dims)`` where the table leaf of ``group`` (``embed`` or
+    ``unembed``) is stored over FSDP dims that split no batch: the ranks
+    along them hold the same tokens and rows, so each works on its block
+    of ``d_model``'s columns and the ranks join the small results, where
+    gathering the table would move all of it (MiniCPM-2B's tied table is
+    566 MB in bf16).  None where the leaf is whole or a batch dim stores
+    it (it is gathered, :func:`_top_leaf`)."""
+    ctx = current_context()
+    if ctx is None:
+        return None
+    mesh, rules = ctx
+    (name, _), = params[group].items()
+    shape, axes = param_specs(cfg)[group][name]
+    gathers = leaf_gathers(mesh, rules, shape, axes)
+    batch = live_dims(mesh, rules.mesh_axes("batch", mesh))
+    if len(gathers) != 1 or set(gathers[0][1]) & set(batch):
+        return None
+    return mesh, gathers[0][1]
+
+
 def embed(params: dict, tokens: torch.Tensor, cfg: ModelConfig
           ) -> torch.Tensor:
     """The token embeddings in the parameters' dtype.  Over a vocabulary
     split across ranks, each rank looks up the tokens its rows hold, zeros
     the others, and one all-reduce sums the ranks' parts (the identity
-    backward: each rank's rows get their own tokens' gradients)."""
-    table = _top_leaf(params, "embed", cfg)
+    backward: each rank's rows get their own tokens' gradients).  Over
+    FSDP dims that split no batch (:func:`_column_block`) each rank looks
+    up its block of the columns and the blocks are all-gathered (their
+    gradient reduce-scattered back)."""
+    cols = _column_block(params, "embed", cfg)
+    table = (params["embed"]["table"] if cols is not None
+             else _top_leaf(params, "embed", cfg))
     dtype = getattr(torch, cfg.param_dtype)
     tp = split_over("vocab", table.shape[0], cfg.vocab_size)
-    if tp is None:
-        return table[tokens].to(dtype)
-    mesh, dims, index, _ = tp
+    e = table[tokens] if tp is None else sum_over(
+        _own_rows(table, tokens, tp), tp[0], tp[1])
+    if cols is not None:
+        e = gather_seq(e, *cols, tensor_dim=-1)
+    return e.to(dtype)
+
+
+def _own_rows(table, tokens, tp):
+    """This rank's part of the lookup over a vocabulary split: the rows it
+    holds, zeros for the others' tokens."""
     rows = table.shape[0]
-    local = tokens - index * rows
+    local = tokens - tp[2] * rows
     own = (local >= 0) & (local < rows)
-    e = torch.where(own[..., None], table[local.clamp(0, rows - 1)], 0.0)
-    return sum_over(e, mesh, dims).to(dtype)
+    return torch.where(own[..., None], table[local.clamp(0, rows - 1)], 0.0)
+
+
+def _embedded(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
+              vision_embeds: Optional[torch.Tensor] = None
+              ) -> tuple[torch.Tensor, int]:
+    """``(h, length)``: the embedded sequence, a ``vlm``'s projected patch
+    embeddings (``vision_proj`` in the parameters' dtype) prepended, and
+    its whole length.  Under a sequence split ``h`` is this rank's block
+    of the positions: over a vocabulary split on the same dims
+    (Megatron-SP) the ranks' lookups are reduce-scattered to it (the
+    prefix added by the first rank), else it is cut from the whole.
+    Raises ``ValueError`` where the ranks do not split the sequence into
+    whole blocks."""
+    sp = seq_split()
+    dtype = getattr(torch, cfg.param_dtype)
+    prefix = None
+    if cfg.family == "vlm" and vision_embeds is not None:
+        prefix = vision_embeds.to(dtype) @ _top_leaf(params, "vision_proj",
+                                                     cfg)
+    tp = split_over("vocab", params["embed"]["table"].shape[0],
+                    cfg.vocab_size)
+    if sp is not None and tp is not None and set(tp[1]) & set(sp[1]):
+        if tuple(tp[1]) != tuple(sp[1]):
+            raise ValueError(f"a vocabulary split over mesh dims {tp[1]}, "
+                             f"the sequence over {sp[1]}")
+        e = _own_rows(_top_leaf(params, "embed", cfg), tokens, tp)
+        if prefix is not None:
+            # The sum over the ranks takes the prefix from the first.
+            e = torch.cat([(prefix if tp[2] == 0 else prefix * 0)
+                           .to(e.dtype), e], 1)
+        check_seq_blocks(e.shape[1], sp, "seq")
+        return scatter_seq(e, sp[0], sp[1]).to(dtype), e.shape[1]
+    h = embed(params, tokens, cfg)
+    if prefix is not None:
+        h = torch.cat([prefix, h], dim=1)
+    if sp is None:
+        return h, h.shape[1]
+    check_seq_blocks(h.shape[1], sp, "seq")
+    return seq_block(h, sp), h.shape[1]
+
+
+def _no_seq_split(cfg: ModelConfig) -> None:
+    """The layers that take no sequence split (MoE, Mamba2) raise
+    ``ValueError`` under one: no rule of ``rules_for`` gives them one."""
+    sp = seq_split()
+    if sp is not None:
+        raise ValueError(f"the {cfg.family} family's layers under a "
+                         f"sequence split over mesh dims {sp[1]}")
 
 
 def _attn_block(blk, h, cfg, positions, cache, kv_len=None):
@@ -302,6 +394,7 @@ def _attn_sublayers(blk, h, cfg, positions, cache, kv_len=None,
         h = h + c
     hn = layers.rms_norm(h, blk["ln2"], cfg.norm_eps)
     if cfg.family == "moe":
+        _no_seq_split(cfg)
         f, aux = moe.moe_ffn(blk, hn, cfg)
         return h + f, cache, aux
     return h + layers.mlp(blk, hn, cfg), cache, None
@@ -330,21 +423,18 @@ def decoder_forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
     A ``vlm`` model given ``vision_embeds`` (B, P, d_model) projects them
     by ``vision_proj`` in the parameters' dtype and prepends them to the
     token embeddings: the positions run over all ``P + S`` rows, and a
-    cache takes ``P + S`` rows and advances its cursor by as many."""
-    check_layout(cfg.family)
-    h = embed(params, tokens, cfg)
-    if cfg.family == "vlm" and vision_embeds is not None:
-        ve = vision_embeds.to(h.dtype) @ _top_leaf(params, "vision_proj",
-                                                   cfg)
-        h = torch.cat([ve, h], dim=1)
-    b, s = h.shape[:2]
+    cache takes ``P + S`` rows and advances its cursor by as many.  Under
+    a sequence split the hidden states are this rank's block of the
+    positions (:func:`_embedded`)."""
+    h, s = _embedded(params, tokens, cfg, vision_embeds)
+    b = h.shape[0]
     if positions is None:
         positions = torch.arange(s, device=h.device)[None, :]
     kv_len = None
     if cache is not None and s == 1:
         # One kv_len tensor for every layer of a decode step.
-        kv_len = torch.full((b,), cache["cursor"] + 1, dtype=torch.int32,
-                            device=h.device)
+        kv_len = layers.decode_kv_len(cache["cursor"], b, cache["k"].shape[2],
+                                      h.device)
     # One unbind a weight: its backward is one stack, where indexing each
     # layer would add a zero-filled (n_layers, ...) gradient a layer.
     layer_weights = {name: w.unbind(0)
@@ -399,7 +489,7 @@ def ssm_forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
     states keep the float32 storage they start in, holding values of the
     activations' dtype, which is what the next step reads.  Without a
     cache the forward runs from zero states and returns none."""
-    check_layout(cfg.family)
+    _no_seq_split(cfg)
     h = embed(params, tokens, cfg)
     layer_weights = {name: w.unbind(0)
                      for name, w in params["blocks"].items()}
@@ -424,7 +514,7 @@ def hybrid_forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
     of the sites}``, updated in place as :func:`ssm_forward` and
     :func:`repro_torch.models.layers.attention` update theirs; the KV
     cursor advances once a forward, for every site."""
-    check_layout(cfg.family)
+    _no_seq_split(cfg)
     h = embed(params, tokens, cfg)
     b, s = h.shape[:2]
     if positions is None:
@@ -434,8 +524,8 @@ def hybrid_forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
     kv_len = None
     if kv is not None and s == 1:
         # One kv_len tensor for every site of a decode step.
-        kv_len = torch.full((b,), kv["cursor"] + 1, dtype=torch.int32,
-                            device=h.device)
+        kv_len = layers.decode_kv_len(kv["cursor"], b, kv["k"].shape[2],
+                                      h.device)
     ssm_cache = None if cache is None else cache["ssm"]
     layer_weights = {name: w.unbind(0)
                      for name, w in params["blocks"].items()}
@@ -492,7 +582,15 @@ def encode(params: dict, frames: torch.Tensor, cfg: ModelConfig
            ) -> torch.Tensor:
     """The encoder over precomputed frame embeddings (B, S_enc, d_model),
     cast to the parameters' dtype: ``enc_layers`` non-causal blocks with
-    RoPE at ``arange(S_enc)``, then ``enc_norm``."""
+    RoPE at ``arange(S_enc)``, then ``enc_norm``.  Under a sequence split
+    the encoder runs whole on every rank (its frames need not split into
+    whole blocks): each rank's gradient of it is then its decoder block's
+    part."""
+    ctx = current_context()
+    if ctx is not None and (ctx[1].seq or ctx[1].inner_seq):
+        whole = dataclasses.replace(ctx[1], seq=None, inner_seq=None)
+        with sharding_context(ctx[0], whole):
+            return encode(params, frames, cfg)
     e = frames.to(getattr(torch, cfg.param_dtype))
     positions = torch.arange(e.shape[1], device=e.device)[None, :]
     layer_weights = {name: w.unbind(0)
@@ -525,16 +623,15 @@ def encdec_forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
                 "given (the reference's serve and train drivers pass none "
                 "and fail with KeyError: 'frames', ROADMAP fault F4)")
         enc_out = encode(params, frames, cfg)
-    check_layout(cfg.family)
-    h = embed(params, tokens, cfg)
-    b, s = h.shape[:2]
+    h, s = _embedded(params, tokens, cfg)
+    b = h.shape[0]
     if positions is None:
         positions = torch.arange(s, device=h.device)[None, :]
     kv_len = None
     if cache is not None and s == 1:
         # One kv_len tensor for every layer of a decode step.
-        kv_len = torch.full((b,), cache["cursor"] + 1, dtype=torch.int32,
-                            device=h.device)
+        kv_len = layers.decode_kv_len(cache["cursor"], b, cache["k"].shape[2],
+                                      h.device)
     layer_weights = {name: w.unbind(0)
                      for name, w in params["dec_blocks"].items()}
     body = _remat(_dec_layer, cfg) if _training(params) else _dec_layer
@@ -575,22 +672,57 @@ def unembed_weight(params: dict, cfg: ModelConfig) -> torch.Tensor:
     return _top_leaf(params, "unembed", cfg)
 
 
+def logits(params: dict, cfg: ModelConfig, h: torch.Tensor
+           ) -> torch.Tensor:
+    """Serving's float32 logits of hidden states ``h`` (..., d_model): the
+    product in ``h``'s type over the unembedding (this rank's block of a
+    split vocabulary).  Over FSDP dims that split no batch
+    (:func:`_column_block`) each rank multiplies its block of the columns
+    in float32 and the ranks' parts are added in rank order and rounded
+    once to ``h``'s type, where gathering the table would move all of it.
+    Forward only: training's xent gathers the table
+    (:func:`unembed_weight`)."""
+    group = "embed" if cfg.tie_embeddings else "unembed"
+    cols = _column_block(params, group, cfg)
+    if cols is None:
+        return (h @ unembed_weight(params, cfg)).float()
+    mesh, dims = cols
+    w = params[group]["table"]
+    w = w.T if cfg.tie_embeddings else w                  # (d_l, V_l)
+    lo = dims_coordinate(mesh, dims) * w.shape[0]
+    part = h[..., lo:lo + w.shape[0]].float() @ w.float()
+    return sum_in_rank_order(part, mesh, dims).to(h.dtype).float()
+
+
 def partial_sum_leaves(cfg: ModelConfig) -> dict:
-    """``{leaf path: mesh dims}``: the leaves stored whole on every rank
-    whose gradient on a rank is its part of a sum over those dims in the
-    bound context (:func:`repro_torch.models.layers
-    .attention_partial_leaves`: ``wk`` and ``wv`` where the q heads are
-    split and the kv heads are not).  Empty without a context."""
-    names, dims = layers.attention_partial_leaves(cfg)
-    if not names:
+    """``{leaf path: mesh dims}``: the leaves whose gradient on a rank is
+    its part of a sum over those dims in the bound context: ``wk`` and
+    ``wv`` where the q heads are split and the kv heads are not
+    (:func:`repro_torch.models.layers.attention_partial_leaves`) and,
+    under a sequence split, every leaf over the ``seq`` dims that its
+    layout does not split (each rank differentiates its own positions).
+    Empty without a context."""
+    ctx = current_context()
+    if ctx is None:
         return {}
+    mesh, rules = ctx
+    names, dims = layers.attention_partial_leaves(cfg)
+    seq = live_dims(mesh, rules.mesh_axes("seq", mesh))
+    specs = param_specs(cfg)
     out = {}
-    for group, node in param_specs(cfg).items():
-        for leaf in node:
+    for group, node in specs.items():
+        for leaf, (shape, axes) in node.items():
+            part = []
             base = leaf[len("cross_"):] if leaf.startswith("cross_") \
                 else leaf
             if base in names and group != "embed":
-                out[(group, leaf)] = dims
+                part += dims
+            if seq:
+                held = {a for e in spec_for(mesh, rules, axes, shape)
+                        for a in live_dims(mesh, e)}
+                part += [a for a in seq if a not in held]
+            if part:
+                out[(group, leaf)] = tuple(dict.fromkeys(part))
     return out
 
 
@@ -603,13 +735,20 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
     shared-attention site (hybrid).  Under a bound sharding context each
     tensor is this rank's block of
     :func:`repro_torch.launch.shardspecs.decode_state_shardings`' layout
-    (``kv_heads`` over the model dims, ``batch`` over the batch dims)."""
+    (``kv_heads`` over the model dims, ``batch`` over the batch dims,
+    ``kv_seq`` over the cache's positions: ``ValueError`` where its ranks
+    do not split ``max_len`` into whole blocks)."""
     dev = resolve_device(device)
     ctx = current_context()
     if ctx is None:
         return _decode_state(cfg, batch, max_len, dev)
     from repro_torch.launch.shardspecs import decode_state_shardings
-    check_layout(cfg.family)
+    kv_dims = live_dims(ctx[0], ctx[1].mesh_axes("kv_seq", ctx[0]))
+    if kv_dims and cfg.family != "ssm" and \
+            max_len % axis_size(ctx[0], kv_dims):
+        raise ValueError(f"kv_seq: a cache of {max_len} positions does not "
+                         f"split into {axis_size(ctx[0], kv_dims)} whole "
+                         f"blocks over mesh dims {kv_dims}")
     whole = _decode_state(cfg, batch, max_len, torch.device("meta"))
     specs = decode_state_shardings(cfg, *ctx, whole)
 

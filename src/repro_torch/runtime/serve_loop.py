@@ -33,10 +33,18 @@ are its rows and its block of the vocabulary.  The greedy token is the
 largest logit over every rank's block, ties to the lower global index
 (:func:`repro_torch.runtime.sharding.vocab_argmax`), and
 :func:`generate` gathers the whole batch's tokens and logits at the end.
+Under a sequence split the prefill's logits come from the last
+position's hidden state, gathered from the rank whose block holds it;
+under ``kv_seq`` each rank's cache is its block of the positions.
+:func:`generate` may run its prefill under one layout and its decode
+steps under another (``decode_layout``: the state carried across by
+:func:`repro_torch.launch.shardspecs.relayout_decode_state`), as the
+reference's dry run lowers ``prefill_32k`` and ``decode_32k``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Optional
 
@@ -46,9 +54,9 @@ from repro_torch.backend import resolve_device
 from repro_torch.models import transformer as tfm
 from repro_torch.models.config import ModelConfig
 from repro_torch.runtime.sharding import (batch_block, batch_whole,
-                                          check_layout, current_context,
-                                          gather_dims,
-                                          live_dims, vocab_argmax)
+                                          current_context, gather_dims,
+                                          live_dims, seq_split,
+                                          sharding_context, vocab_argmax)
 
 
 def make_prefill_step(cfg: ModelConfig, max_len: int):
@@ -58,7 +66,6 @@ def make_prefill_step(cfg: ModelConfig, max_len: int):
         (encdec; without them the forward raises ``ValueError``).  Under
         a batch split the logits and the state are this rank's rows, and
         under a vocabulary split the logits its block."""
-        check_layout(cfg.family)
         extras = {k: batch_block(v) for k, v in (extras or {}).items()}
         whole = tokens.shape[0]
         tokens = batch_block(tokens)
@@ -66,8 +73,12 @@ def make_prefill_step(cfg: ModelConfig, max_len: int):
         # The whole batch: the state's layout gives each rank its rows.
         cache = tfm.init_decode_state(cfg, whole, max_len, tokens.device)
         res = tfm.forward(params, cfg, tokens=tokens, cache=cache, **extras)
-        w_out = tfm.unembed_weight(params, cfg)
-        logits = (res.hidden[:, -1] @ w_out).float()
+        last = res.hidden[:, -1]
+        sp = seq_split()
+        if sp is not None:
+            # The last position is the last rank's block's.
+            last = gather_dims(last[:, None], sp[0], sp[1], 1)[:, -1]
+        logits = tfm.logits(params, cfg, last)
         state = {"cache": res.cache,
                  "pos": torch.full((b,), s, dtype=torch.int32,
                                    device=tokens.device)}
@@ -86,8 +97,7 @@ def make_decode_step(cfg: ModelConfig, sample: str = "greedy"):
         res = tfm.forward(params, cfg, tokens=tokens[:, None],
                           cache=state["cache"], positions=pos[:, None],
                           **extras)
-        w_out = tfm.unembed_weight(params, cfg)
-        logits = (res.hidden[:, -1] @ w_out).float()
+        logits = tfm.logits(params, cfg, res.hidden[:, -1])
         new_state = dict(state)
         new_state["cache"] = res.cache
         new_state["pos"] = pos + 1
@@ -95,9 +105,22 @@ def make_decode_step(cfg: ModelConfig, sample: str = "greedy"):
     return decode
 
 
+def _whole_vocab(logits: torch.Tensor, vocab: int) -> torch.Tensor:
+    """``logits`` over every rank's block of the vocabulary (the bound
+    context's split), ``logits`` itself where it is whole."""
+    ctx = current_context()
+    if ctx is None or logits.shape[-1] == vocab:
+        return logits
+    mesh, rules = ctx
+    return gather_dims(logits, mesh,
+                       live_dims(mesh, rules.mesh_axes("vocab", mesh)),
+                       logits.dim() - 1)
+
+
 def generate(cfg: ModelConfig, params, prompt: torch.Tensor, steps: int,
              max_len: int, forced: Optional[torch.Tensor] = None,
-             extras: Optional[dict] = None
+             extras: Optional[dict] = None,
+             decode_layout: Optional[tuple] = None
              ) -> tuple[torch.Tensor, torch.Tensor]:
     """Prefill (with ``extras``, as :func:`make_prefill_step` takes them)
     + ``steps - 1`` decode steps; returns ``(tokens (B, steps), logits
@@ -108,27 +131,39 @@ def generate(cfg: ModelConfig, params, prompt: torch.Tensor, steps: int,
     instead (teacher forcing), so two runs can be compared logit by logit.
     Under a bound sharding context every rank passes the whole prompt
     and gets the whole batch's tokens and logits (gathered once, at the
-    end).
+    end).  With ``decode_layout = (rules, params)`` the prefill runs under
+    the bound context and the decode steps under ``rules`` on the same
+    mesh, with ``params`` (this rank's blocks under ``rules``), the state
+    carried across by :func:`repro_torch.launch.shardspecs
+    .relayout_decode_state`; both layouts split the batch alike.
     """
     prefill = make_prefill_step(cfg, max_len)
     decode = make_decode_step(cfg)
     logits, state = prefill(params, prompt, extras)
+    first = _whole_vocab(logits, cfg.vocab_size)
+    layout = contextlib.nullcontext()
+    if decode_layout is not None:
+        from repro_torch.launch.shardspecs import relayout_decode_state
+        rules_to, params = decode_layout
+        mesh, rules_from = current_context()
+        state = dict(state, cache=relayout_decode_state(
+            state["cache"], cfg, mesh, rules_from, rules_to,
+            prompt.shape[0], max_len))
+        layout = sharding_context(mesh, rules_to)
     if forced is not None:
         forced = batch_block(forced)
-    out = [vocab_argmax(logits, cfg.vocab_size)]
-    seen = [logits]
-    for i in range(steps - 1):
-        fed = out[-1] if forced is None else forced[:, i]
-        logits, state = decode(params, state, fed)
-        out.append(vocab_argmax(logits, cfg.vocab_size))
-        seen.append(logits)
-    tokens, logits = torch.stack(out, dim=1), torch.stack(seen, dim=1)
-    ctx = current_context()
-    if ctx is not None and logits.shape[-1] != cfg.vocab_size:
-        mesh, rules = ctx
-        logits = gather_dims(logits, mesh,
-                             live_dims(mesh, rules.mesh_axes("vocab", mesh)),
-                             2)
+    with layout:
+        out, seen = [vocab_argmax(first, cfg.vocab_size)], []
+        for i in range(steps - 1):
+            fed = out[-1] if forced is None else forced[:, i]
+            logits, state = decode(params, state, fed)
+            out.append(vocab_argmax(logits, cfg.vocab_size))
+            seen.append(logits)
+        tokens = torch.stack(out, dim=1)
+        logits = first[:, None]
+        if seen:
+            logits = torch.cat([logits, _whole_vocab(
+                torch.stack(seen, dim=1), cfg.vocab_size)], 1)
     b = prompt.shape[0]
     return batch_whole(tokens, b), batch_whole(logits, b)
 

@@ -38,8 +38,19 @@ forward, the sum of the ranks' gradients backward) where a replicated
 activation enters the rank's block, and :func:`sum_over` (the sum
 forward, the identity backward) where the ranks' partial outputs leave
 it.  :func:`split_over` says whether, and
-over which mesh dims, this rank holds a block of a logical axis.  The
-layouts the port does not run yet raise in :func:`check_layout`.
+over which mesh dims, this rank holds a block of a logical axis.
+
+**Split sequences** (Megatron-SP, the distributed flash-decode).  Under
+``seq`` the between-block activations are each rank's block of the
+sequence (:func:`seq_split`); a layer either computes on that block
+(``inner_seq`` over the same dims: the odd-head archs' layout) or
+gathers it whole at its entry and leaves by a reduce-scatter
+(:func:`gather_seq` and :func:`scatter_seq`, the sequence's conjugate
+pair, in place of ``copy_to`` and ``sum_over`` where the layer is split
+over the same dims).  Under ``kv_seq`` a rank holds its block of the
+decode cache's positions (:func:`kv_seq_split`).  A sum that decides a
+greedy token (the split RMSNorm's, the decode's log-sum-exp combine)
+adds the ranks' parts in rank order (:func:`sum_in_rank_order`).
 Every collective's gradient adds in a fixed order: gloo's ring, no float
 atomics (ROADMAP trap T1).
 """
@@ -292,46 +303,11 @@ def all_gather_objects(obj) -> list:
 # ------------------------------------------------------------ split layers
 #: The logical axis that FSDP stores sharded and gathers on use.
 FSDP_AXES = ("embed_p",)
-#: Where the layouts the port refuses are planned.
-PART_2C = "ROADMAP queue 1, item 9, part 2c"
 
 
 def live_dims(mesh, entry) -> tuple:
     """A spec ``entry``'s mesh axes of more than one rank."""
     return tuple(a for a in entry_axes(entry) if axis_size(mesh, a) > 1)
-
-
-def refuse_part_2c(mesh, rules: Rules, family: Optional[str] = None
-                   ) -> None:
-    """Raise ``NotImplementedError`` for a layout the port does not run:
-    ``seq`` or ``inner_seq`` over a mesh dim larger than 1 (Megatron-SP,
-    the odd-head archs' layout), ``kv_seq`` (the distributed flash-decode
-    of odd-kv decode cells and ``long_500k``), or ``heads`` over one on a
-    Mamba2 mixer (``family`` ``ssm`` or ``hybrid``)."""
-    for name, what in (("seq", "Megatron-SP's sequence-sharded "
-                        "activations"),
-                       ("inner_seq", "Megatron-SP's sequence-sharded "
-                        "attention and MLP"),
-                       ("kv_seq", "the distributed flash-decode over a "
-                        "sequence-sharded KV cache")):
-        dims = live_dims(mesh, rules.mesh_axes(name, mesh))
-        if dims:
-            raise NotImplementedError(
-                f"{name} over mesh dims {dims} ({what}) is {PART_2C}")
-    if family in ("ssm", "hybrid"):
-        dims = live_dims(mesh, rules.mesh_axes("heads", mesh))
-        if dims:
-            raise NotImplementedError(
-                f"a Mamba2 mixer's heads over mesh dims {dims} is "
-                f"{PART_2C}")
-
-
-def check_layout(family: Optional[str] = None) -> None:
-    """:func:`refuse_part_2c` in the bound context (nothing without one):
-    the check every model entry point makes."""
-    ctx = _CTX.get()
-    if ctx is not None:
-        refuse_part_2c(*ctx, family)
 
 
 @functools.lru_cache(maxsize=256)
@@ -357,17 +333,51 @@ def split_over(name: str, local: int, whole: int) -> Optional[tuple]:
     return split
 
 
+def _split_of(name: str) -> Optional[tuple]:
+    ctx = _CTX.get()
+    return None if ctx is None else _axis_split(*ctx, name)
+
+
 def batch_split_dims() -> Optional[tuple]:
     """``(mesh, dims, index, n)`` of the batch's split in the bound context
     (its mesh dims larger than 1), or None."""
-    ctx = _CTX.get()
-    return None if ctx is None else _axis_split(*ctx, "batch")
+    return _split_of("batch")
+
+
+def seq_split() -> Optional[tuple]:
+    """``(mesh, dims, index, n)`` of the between-block sequence's split
+    (logical ``seq``) in the bound context, or None: this rank holds block
+    ``index`` of ``n`` of every activation's positions."""
+    return _split_of("seq")
+
+
+def inner_seq_split() -> Optional[tuple]:
+    """:func:`seq_split` of the sequence inside attention and the MLP
+    (logical ``inner_seq``)."""
+    return _split_of("inner_seq")
+
+
+def kv_seq_split() -> Optional[tuple]:
+    """:func:`seq_split` of the decode cache's positions (logical
+    ``kv_seq``): this rank holds block ``index`` of ``n`` of them."""
+    return _split_of("kv_seq")
+
+
+def check_seq_blocks(length: int, split: tuple, what: str) -> None:
+    """``ValueError`` naming the dim ``what`` where the ranks of ``split``
+    (:func:`seq_split`'s tuple) do not divide its ``length`` positions
+    into whole blocks."""
+    _, dims, _, n = split
+    if length % n:
+        raise ValueError(f"{what}: {length} positions do not split into "
+                         f"{n} whole blocks over mesh dims {dims}")
 
 
 class _CopyToRanks(torch.autograd.Function):
     """A tensor replicated over the ranks of mesh ``dims`` entering each
     rank's block of a split layer: the identity forward, the sum of the
-    ranks' gradients backward (Megatron's ``f``)."""
+    ranks' gradients backward (Megatron's ``f``), in float32 and rounded
+    once to the gradient's type."""
 
     @staticmethod
     def forward(ctx, t, mesh, dims):
@@ -376,8 +386,9 @@ class _CopyToRanks(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return all_reduce(g.contiguous().clone(), ctx.mesh, ctx.dims), \
-            None, None
+        whole = all_reduce(g.to(torch.float32, copy=True).contiguous(),
+                           ctx.mesh, ctx.dims)
+        return whole.to(g.dtype), None, None
 
 
 class _SumOverRanks(torch.autograd.Function):
@@ -395,6 +406,77 @@ class _SumOverRanks(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return (g / ctx.n if ctx.n != 1 else g), None, None, None
+
+
+class _GatherSeq(torch.autograd.Function):
+    """The whole sequence (``tensor_dim``) from the blocks of the ranks of
+    mesh ``dims``: an all-gather forward; backward, each rank's block of
+    the sum of the ranks' gradients (a reduce-scatter), summed in float32
+    and rounded once to the gradient's type."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, dims, tensor_dim: int):
+        ctx.mesh, ctx.dims, ctx.dim = mesh, dims, tensor_dim
+        return gather_dims(t, mesh, dims, tensor_dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        out = scatter_dims(g.float().contiguous(), ctx.mesh, ctx.dims,
+                           ctx.dim)
+        return out.to(g.dtype), None, None, None
+
+
+class _ScatterSeq(torch.autograd.Function):
+    """This rank's block (along ``tensor_dim``) of the sum of the ranks'
+    whole partial tensors over mesh ``dims``: a reduce-scatter forward
+    (summed in float32, rounded once to ``t``'s type); backward, the
+    all-gather of the blocks' gradients (Megatron-SP's pair of
+    :class:`_GatherSeq`)."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, dims, tensor_dim: int):
+        ctx.mesh, ctx.dims, ctx.dim = mesh, dims, tensor_dim
+        out = scatter_dims(t.float().contiguous(), mesh, dims, tensor_dim)
+        return out.to(t.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return gather_dims(g.contiguous(), ctx.mesh, ctx.dims, ctx.dim), \
+            None, None, None
+
+
+def gather_seq(t: torch.Tensor, mesh, dims: Sequence[str],
+               tensor_dim: int = 1) -> torch.Tensor:
+    """:class:`_GatherSeq`: all-gather forward, reduce-scatter backward."""
+    return _GatherSeq.apply(t, mesh, tuple(dims), tensor_dim)
+
+
+def scatter_seq(t: torch.Tensor, mesh, dims: Sequence[str],
+                tensor_dim: int = 1) -> torch.Tensor:
+    """:class:`_ScatterSeq`: reduce-scatter forward, all-gather backward."""
+    return _ScatterSeq.apply(t, mesh, tuple(dims), tensor_dim)
+
+
+def seq_block(t: torch.Tensor, split: tuple, tensor_dim: int = 1
+              ) -> torch.Tensor:
+    """This rank's block of a tensor every rank holds whole, a plain slice
+    (its gradient is the block's, zero elsewhere: each rank's part of a
+    sum over the ranks)."""
+    _, _, index, n = split
+    size = t.shape[tensor_dim] // n
+    return t.narrow(tensor_dim, index * size, size)
+
+
+def sum_in_rank_order(t: torch.Tensor, mesh, dims: Sequence[str]
+                      ) -> torch.Tensor:
+    """The sum over the ranks of mesh ``dims`` of ``t``, every rank's part
+    gathered and added in rank order (the same bits on every rank, no
+    reduction order left to the backend: ROADMAP trap T1)."""
+    every = gather_dims(t[None], mesh, dims, 0)
+    out = every[0]
+    for part in every[1:]:
+        out = out + part
+    return out
 
 
 def copy_to(t: torch.Tensor, mesh, dims: Sequence[str]) -> torch.Tensor:

@@ -32,8 +32,14 @@ over (:func:`repro_torch.runtime.sharding.gather_param`'s backward), so
 it is summed only over the batch dims it is not stored over; and a leaf
 stored whole whose gradient is each rank's part of a sum over ``model``
 (the kv projections where the q heads are split and the kv heads are
-not) is all-reduced over ``model``.  The layouts of ROADMAP queue 1,
-item 9, part 2c raise (:func:`batch_split`).
+not) is all-reduced over ``model``.  Under a sequence split (``seq``) the
+ranks along its dims take the same examples and each its block of the
+positions: the loss and the weights are summed over them
+(:func:`repro_torch.models.layers.streamed_xent`), the labels and
+weights are the rank's block of the positions (a VLM's prefix rows
+weigh zero), and each leaf that the layout does not split over those
+dims takes its gradient's sum over them
+(:func:`repro_torch.models.transformer.partial_sum_leaves`).
 """
 
 from __future__ import annotations
@@ -42,6 +48,7 @@ import dataclasses
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.backend import resolve_device
 from repro_torch.models import transformer as tfm
@@ -50,9 +57,9 @@ from repro_torch.models.layers import streamed_xent
 from repro_torch.optim.adamw import AdamW, OptState, global_norm
 from repro_torch.optim.compress import ErrorFeedbackCompressor
 from repro_torch.runtime.sharding import (FSDP_AXES, all_reduce,
-                                          batch_split_dims, check_layout,
-                                          current_context, dims_size,
-                                          live_dims, spec_for)
+                                          batch_split_dims, current_context,
+                                          dims_size, live_dims, seq_split,
+                                          spec_for)
 from repro_torch.tree import leaves, leaves_with_path, map_tree
 
 
@@ -99,10 +106,20 @@ def _loss_terms(cfg: ModelConfig):
         are not."""
         extras = {k: v for k, v in batch.items() if k not in _TEXT}
         res = tfm.forward(params, cfg, tokens=batch["tokens"], **extras)
-        h = res.hidden[:, res.hidden.shape[1] - batch["labels"].shape[1]:]
+        labels, weights = batch["labels"], batch["weights"]
+        sp = seq_split()
+        if sp is None:
+            h = res.hidden[:, res.hidden.shape[1] - labels.shape[1]:]
+        else:
+            # The rank's block of the positions: the labels aligned to
+            # the whole sequence, a prefix's rows weighing zero.
+            h, n_blk = res.hidden, res.hidden.shape[1]
+            pad = n_blk * sp[3] - labels.shape[1]
+            lo = sp[2] * n_blk
+            labels = F.pad(labels, (pad, 0))[:, lo:lo + n_blk]
+            weights = F.pad(weights, (pad, 0))[:, lo:lo + n_blk]
         w_out = tfm.unembed_weight(params, cfg)
-        loss_sum, w_sum = streamed_xent(h, w_out, batch["labels"],
-                                        batch["weights"],
+        loss_sum, w_sum = streamed_xent(h, w_out, labels, weights,
                                         chunk=cfg.xent_chunk,
                                         vocab=cfg.vocab_size)
         return loss_sum, w_sum, res.aux_loss
@@ -126,14 +143,12 @@ def batch_split(grad_shardings: Optional[dict] = None,
                 cfg: Optional[ModelConfig] = None):
     """``(mesh, dims, index, n)`` of the data-parallel split in the bound
     sharding context (the batch's mesh dims larger than 1, this rank's
-    row-major position along them), or None.  A layout of ROADMAP queue
-    1, item 9, part 2c raises ``NotImplementedError`` (``seq``,
-    ``inner_seq`` or ``kv_seq`` over a mesh dim larger than 1, and with
-    ``cfg`` a Mamba2 mixer's heads over one); ``grad_shardings`` (the
-    parameters' specs, :func:`repro_torch.launch.shardspecs
-    .param_shardings`) may shard any leaf: tensor parallelism and FSDP
-    storage are :func:`grad_reductions`' to reduce."""
-    check_layout(None if cfg is None else cfg.family)
+    row-major position along them), or None.  Any layout of
+    :func:`repro_torch.launch.shardspecs.rules_for` is taken:
+    ``grad_shardings`` (the parameters' specs, :func:`repro_torch.launch
+    .shardspecs.param_shardings`) may shard any leaf, and tensor
+    parallelism, FSDP storage and a sequence split are
+    :func:`grad_reductions`' to reduce."""
     return batch_split_dims()
 
 
@@ -145,9 +160,12 @@ def grad_reductions(cfg: ModelConfig, grad_shardings: Optional[dict] = None
     batch's mesh dims larger than 1 that the leaf is not stored over
     (FSDP's reduce-scatter summed those); ``partial dims``: the dims over
     which a leaf stored whole holds each rank's part of its gradient
-    (:func:`repro_torch.models.transformer.partial_sum_leaves`);
+    (:func:`repro_torch.models.transformer.partial_sum_leaves`: the
+    kv projections, and under a sequence split the leaves it leaves whole
+    over the ``seq`` dims);
     ``divisor``: the ranks of the leaf's FSDP dims that took the same
-    batch shard (their reduce-scatter summed copies).  ``grad_shardings``
+    batch shard and the same positions (their reduce-scatter summed
+    copies).  ``grad_shardings``
     is :func:`repro_torch.launch.shardspecs.param_shardings`' tree (made
     from the context when None)."""
     ctx = current_context()
@@ -155,6 +173,7 @@ def grad_reductions(cfg: ModelConfig, grad_shardings: Optional[dict] = None
         return None
     mesh, rules = ctx
     batch = live_dims(mesh, rules.mesh_axes("batch", mesh))
+    seq = live_dims(mesh, rules.mesh_axes("seq", mesh))
     partial = tfm.partial_sum_leaves(cfg)
     specs = tfm.param_specs(cfg)
     out, needed = [], False
@@ -169,7 +188,8 @@ def grad_reductions(cfg: ModelConfig, grad_shardings: Optional[dict] = None
                      for a in live_dims(mesh, e))
         red = (tuple(a for a in batch if a not in fsdp),
                partial.get(path, ()),
-               dims_size(mesh, [a for a in fsdp if a not in batch]))
+               dims_size(mesh, [a for a in fsdp
+                                if a not in batch and a not in seq]))
         needed = needed or red != (batch, (), 1)
         out.append(red)
     return out if needed else None

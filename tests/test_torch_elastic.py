@@ -218,14 +218,14 @@ class _Mesh:
         return self._coordinate
 
 
-def test_batch_split_takes_the_batch_axes_and_refuses_sharded_gradients():
+def test_batch_split_takes_the_batch_axes_under_every_layout():
     """The split runs over the batch's mesh dims larger than 1, at this
     rank's row-major position (``pod`` the slowest).  A gradient spec that
     shards a leaf (FSDP storage, tensor parallelism) is taken: those
-    gradients are reduced by ``grad_reductions``.  Only the layouts of
-    ROADMAP queue 1, item 9, part 2c raise: ``seq``, ``inner_seq`` or
-    ``kv_seq`` over a mesh dim larger than 1, and a Mamba2 mixer's heads
-    over ``model``."""
+    gradients are reduced by ``grad_reductions``.  So is every sequence
+    layout and a Mamba2 mixer's heads over ``model``: ``seq``,
+    ``inner_seq`` or ``kv_seq`` over a mesh dim larger than 1 leave the
+    batch's split as it is."""
     from repro_torch.runtime.sharding import Rules, sharding_context
     from repro_torch.runtime.train_loop import batch_split
 
@@ -237,17 +237,49 @@ def test_batch_split_takes_the_batch_axes_and_refuses_sharded_gradients():
             assert batch_split({"blocks": {"w": spec}})[1:] == (
                 ("pod", "data"), 5, 6)
         assert batch_split(None, configs.get_smoke(ARCH))[3] == 6
-        with pytest.raises(NotImplementedError, match="part 2c"):
-            batch_split(None, configs.get_smoke("mamba2_2p7b"))
+        assert batch_split(None, configs.get_smoke("mamba2_2p7b"))[1:] == (
+            ("pod", "data"), 5, 6)
     for name in ("seq", "inner_seq", "kv_seq"):
         with sharding_context(m, Rules(**{name: ("model",)})):
-            with pytest.raises(NotImplementedError, match="part 2c"):
-                batch_split()
+            assert batch_split()[1:] == (("pod", "data"), 5, 6)
     with sharding_context(m, Rules(seq=("model",), heads=None)):
-        with pytest.raises(NotImplementedError, match=r"seq over mesh"):
-            batch_split({"blocks": {"w": (None, None)}})
+        assert batch_split({"blocks": {"w": (None, None)}})[3] == 6
     one = _Mesh(("pod", "data", "model"), (2, 3, 1), (1, 2, 0))
     with sharding_context(one, Rules(seq=("model",), kv_seq=("model",))):
         assert batch_split(None, configs.get_smoke("zamba2_7b"))[3] == 6
     with sharding_context(_Mesh(("pod", "data"), (1, 1), (0, 0)), Rules()):
         assert batch_split() is None
+
+
+def test_resize_and_restore_go_into_and_out_of_the_sequence_layouts(
+        tmp_path):
+    """MiniCPM-2B's smoke state on ``(1, 1, 2)`` under the tensor-parallel
+    rules and under its production training rules (the sequence split
+    over ``model``, FSDP storage over ``data`` and ``model``): a step
+    under each gives one rank's loss (1e-5), a sharded save restores into
+    either layout bit for bit, and an elastic resize to one rank and back
+    lands in the other layout bit for bit."""
+    import torch_split_ranks as split
+    from repro_torch.models.config import SHAPES
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.runtime.train_loop import make_train_step
+
+    cfg, _, state, data = ranks._train_setup("minicpm_2b", LR, 4, 16)
+    b = data.next_batch()
+    seq = shardspecs.rules_for(configs.get("minicpm_2b"), SHAPES["train_4k"],
+                               mesh_size=512)
+    tp = shardspecs.rules_for(dataclasses.replace(cfg, parallelism="tp"),
+                              SHAPES["train_4k"], model_axis=2, mesh_size=2)
+    assert seq.seq == seq.inner_seq == ("model",) and tp.heads == ("model",)
+    batch = {"tokens": b.tokens.numpy(), "labels": b.labels.numpy(),
+             "weights": b.weights.numpy()}
+    outs = mesh.spawn(split.layout_resize, 2, "cpu", cfg, state, batch,
+                      (1, 1, 2), [("tp", tp), ("seq", seq)], str(tmp_path),
+                      LR, timeout_s=TIMEOUT_S)
+    _, metrics = make_train_step(cfg, AdamW(learning_rate=LR))(
+        state, {k: torch.from_numpy(v) for k, v in batch.items()})
+    for o in outs:
+        assert o["restored_equal"] == [True] * 4
+        assert o["resized_equal"] == [True] * 2
+        np.testing.assert_allclose(o["losses"], [float(metrics["loss"])] * 2,
+                                   rtol=1e-5)

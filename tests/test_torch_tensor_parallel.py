@@ -17,11 +17,15 @@ the greedy tokens identical, the gradients within 1e-4 relative L2 a
 leaf and the loss within 1e-5 (the bars of PRs 24 and 26).  At model
 size 4 the smoke's 2 kv heads do not divide the axis: training and
 prefill replicate them, so each rank's kv projections get a part of
-their gradient (summed over ``model`` by the train step), and decode is
-a ``kv_seq`` layout, which raises ROADMAP queue 1, item 9, part 2c, as
-internvl2_26b's training (``shard_activation_seq``) does.  A tie across
-vocabulary blocks goes to the lower index.  Every spawn has its own
-timeout; one spawn a model size runs every case.
+their gradient (summed over ``model`` by the train step), and decode
+splits the cache's positions (``kv_seq``: the distributed flash-decode);
+internvl2_26b's training splits the sequence between blocks
+(``shard_activation_seq``: Megatron-SP).  The production rules'
+sequence layouts run beside them: MiniCPM-2B's prefill over sequence
+blocks, Granite-8B's decode over a sequence-split cache and Mamba2's
+mixer over its heads, and every production cell's rules cut a rank's
+blocks.  A tie across vocabulary blocks goes to the lower index.  Every
+spawn has its own timeout; one spawn a model size runs every case.
 """
 
 import dataclasses
@@ -41,9 +45,8 @@ from repro_torch import configs
 from repro_torch.launch import mesh, shardspecs
 from repro_torch.models import transformer as tfm
 from repro_torch.models.config import SHAPES
-from repro_torch.runtime import serve_loop
-from repro_torch.runtime.sharding import (MeshAxes, Rules, check_layout,
-                                          refuse_part_2c, sharding_context)
+from repro_torch.runtime.sharding import (Rules, axis_size, live_dims,
+                                          local_shape, sharding_context)
 
 TIMEOUT_S = 180.0
 ARCHS = ("granite_8b", "minicpm_2b", "internvl2_26b", "whisper_tiny",
@@ -92,30 +95,61 @@ def _reference(tag: str) -> dict:
     out = {"cfg": cfg, "params": jax.tree_util.tree_map(np.asarray, rparams),
            "prompt": prompt, "extras": extras, "batch": batch,
            "logits": np.asarray(logits), "tokens": np.asarray(tokens)}
-    if cfg.family != "vlm":      # its training is a part 2c layout
-        rbatch = {k: jnp.asarray(v) for k, v in batch.items()}
-        (_, metrics), grads = jax.value_and_grad(
-            ref_train.make_loss_fn(rcfg), has_aux=True)(rparams, rbatch)
-        out["grads"] = jax.tree_util.tree_map(np.asarray, grads)
-        out["metrics"] = {k: float(v) for k, v in metrics.items()}
+    rbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+    (_, metrics), grads = jax.value_and_grad(
+        ref_train.make_loss_fn(rcfg), has_aux=True)(rparams, rbatch)
+    out["grads"] = jax.tree_util.tree_map(np.asarray, grads)
+    out["metrics"] = {k: float(v) for k, v in metrics.items()}
     _REFS[tag] = out
     return out
 
 
-def _spawn(tags, model: int) -> dict:
-    cases = []
+def _spawn(tags, model: int, layouts: dict | None = None) -> dict:
+    """Each of ``tags`` under the smoke config's own rules, and each
+    ``{tag: (arch, {kind: rules})}`` of ``layouts`` under the given
+    rules (:func:`torch_split_ranks.layout_cases`), in one spawn."""
+    cases, more = [], []
     for tag in tags:
         r = _reference(tag)
         cases.append((tag, r["cfg"], r["params"], r["prompt"], r["extras"],
                       STEPS, MAX_LEN, r["batch"]))
+    for tag, (arch, rules) in (layouts or {}).items():
+        r = _reference(arch)
+        more.append((tag, r["cfg"], r["params"], r["prompt"], r["extras"],
+                     STEPS, MAX_LEN, r["batch"], rules))
     outs = mesh.spawn(split.split_cases, model, "cpu", cases, (1, 1, model),
-                      timeout_s=TIMEOUT_S)
+                      more, timeout_s=TIMEOUT_S)
+    tags = tuple(tags) + tuple(layouts or ())
     return {tag: [o[i] for o in outs] for i, tag in enumerate(tags)}
+
+
+def _production(arch: str, kind: str) -> Rules:
+    name = {"prefill": "prefill_32k", "decode": "decode_32k"}[kind]
+    return shardspecs.rules_for(configs.get(arch), SHAPES[name])
+
+
+#: The production rules' layouts beside the smoke rules' cases: the
+#: odd-head archs' sequence split (MiniCPM-2B's prefill), the sequence
+#: split with heads whole on an arch whose heads divide the axis, the
+#: distributed flash-decode (Granite-8B's decode) and a Mamba2 mixer
+#: over its heads.
+LAYOUTS = {
+    "minicpm_2b-seq": ("minicpm_2b",
+                       {"prefill": _production("minicpm_2b", "prefill")}),
+    "granite_8b-inner_seq": ("granite_8b", {"prefill": Rules(
+        seq=("model",), inner_seq=("model",), heads=None, kv_heads=None,
+        ffn=None, vocab=None, embed_p=("data", "model"))}),
+    "granite_8b-kv_seq": ("granite_8b",
+                          {"decode": _production("granite_8b", "decode")}),
+    "mamba2_2p7b-heads": ("mamba2_2p7b",
+                          {"prefill": _production("mamba2_2p7b", "prefill"),
+                           "decode": _production("mamba2_2p7b", "decode")}),
+}
 
 
 @pytest.fixture(scope="module")
 def model2():
-    return _spawn(ARCHS + (ODD_VOCAB,), 2)
+    return _spawn(ARCHS + (ODD_VOCAB,), 2, LAYOUTS)
 
 
 @pytest.fixture(scope="module")
@@ -136,19 +170,15 @@ def _leaf(tree, path: str):
 
 
 def _check_case(tag: str, ranks: list, odd_kv: bool) -> None:
+    """Every rank's prefill logits, greedy tokens, gradients and metrics
+    against the reference's (``odd_kv``: the decode ran over a cache split
+    over its positions; it is held alike)."""
     ref = _reference(tag)
     for res in ranks:
         np.testing.assert_allclose(res["prefill"]["logits"][:, 0],
                                    ref["logits"], rtol=1e-5, atol=1e-5)
-        if odd_kv:
-            assert "kv_seq" in res["decode"] and "part 2c" in res["decode"]
-        else:
-            np.testing.assert_array_equal(res["decode"]["tokens"],
-                                          ref["tokens"])
-        if "grads" not in ref:
-            assert "seq over mesh" in res["train"]
-            assert "part 2c" in res["train"]
-            continue
+        np.testing.assert_array_equal(res["decode"]["tokens"],
+                                      ref["tokens"])
         grads = res["train"]["grads"]
         assert set(grads) == {"/".join(p) for p, _ in
                               split.leaves_with_path(
@@ -171,7 +201,8 @@ def test_model_axis_of_two_matches_the_reference(tag, model2):
 @pytest.mark.parametrize("tag", ARCHS)
 def test_model_axis_of_four_matches_the_reference(tag, model4):
     """Over 4 ranks the 2 kv heads stay whole (odd kv): prefill and the
-    kv projections' partial-sum gradients hold; decode is part 2c."""
+    kv projections' partial-sum gradients hold, and so does decode over a
+    cache split over its positions (``kv_seq``)."""
     _check_case(tag, model4[tag], odd_kv=True)
 
 
@@ -236,85 +267,124 @@ def test_checkpoint_recompute_splits_on_autograd_s_own_thread():
     assert outs == [True, True]
 
 
-# ------------------------------------------------------------- part 2c
-PROD = MeshAxes(("data", "model"), (16, 16))
-
-
-def _forward_under(arch: str, rules: Rules, decode: bool = False):
-    cfg = configs.get_smoke(arch)
-    params = tfm.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
-    tokens = torch.zeros((1, 4), dtype=torch.long)
-    with sharding_context(PROD, rules):
-        if decode:
-            serve_loop.generate(cfg, params, tokens, 2, 8)
-        else:
-            tfm.forward(params, cfg, tokens=tokens)
-
-
-def test_megatron_sp_seq_is_part_2c():
-    """MiniCPM-2B's 36 heads on a 16-way axis: its prefill rules shard
-    the sequence (``seq`` and ``inner_seq``) over ``model``."""
-    rules = shardspecs.rules_for(configs.get("minicpm_2b"),
-                                 SHAPES["prefill_32k"])
+# ------------------------------------------------ the production layouts
+def test_odd_heads_prefill_splits_the_sequence(model2):
+    """MiniCPM-2B's 36 heads on a 16-way axis: its prefill rules split
+    the sequence (``seq`` and ``inner_seq``) over ``model``, heads whole;
+    each rank's block of the positions gives the reference's logits."""
+    rules = LAYOUTS["minicpm_2b-seq"][1]["prefill"]
     assert rules.seq == ("model",) and rules.inner_seq == ("model",)
-    with pytest.raises(NotImplementedError, match="seq over mesh dims.*"
-                       "item 9, part 2c"):
-        _forward_under("minicpm_2b", rules)
+    for res in model2["minicpm_2b-seq"]:
+        np.testing.assert_allclose(res["prefill"]["logits"][:, 0],
+                                   _reference("minicpm_2b")["logits"],
+                                   rtol=1e-5, atol=1e-5)
 
 
-def test_inner_seq_alone_is_part_2c():
-    """The sequence inside attention and the MLP sharded alone."""
-    with pytest.raises(NotImplementedError,
-                       match="inner_seq over mesh dims.*part 2c"):
-        _forward_under("granite_8b", Rules(inner_seq=("model",)))
+def test_inner_seq_runs_with_seq_and_alone_raises(model2):
+    """The sequence inside attention and the MLP split over the dims that
+    split it between blocks runs (the reference's logits); split alone
+    (the activations between blocks whole), it is no layout of
+    ``rules_for`` and raises ``ValueError`` naming it."""
+    for res in model2["granite_8b-inner_seq"]:
+        np.testing.assert_allclose(res["prefill"]["logits"][:, 0],
+                                   _reference("granite_8b")["logits"],
+                                   rtol=1e-5, atol=1e-5)
+    cfg = configs.get_smoke("granite_8b")
+    params = tfm.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    with sharding_context(_Mesh((1, 1, 2), (0, 0, 1)),
+                          Rules(inner_seq=("model",))):
+        with pytest.raises(ValueError, match="inner_seq over mesh dims"):
+            tfm.forward(params, cfg,
+                        tokens=torch.zeros((1, 4), dtype=torch.long))
 
 
-def test_kv_seq_decode_is_part_2c():
-    """Granite-8B's 8 kv heads on a 16-way axis: its decode rules shard
-    the cache's sequence (distributed flash-decode), as ``long_500k``'s
-    do over ``("pod", "data")``; allocating the cache refuses."""
-    rules = shardspecs.rules_for(configs.get("granite_8b"),
-                                 SHAPES["decode_32k"])
+def test_kv_seq_decode_matches_the_reference(model2):
+    """Granite-8B's 8 kv heads on a 16-way axis: its decode rules split
+    the cache's positions (the distributed flash-decode), as
+    ``long_500k``'s do over ``("pod", "data")``; the greedy tokens are
+    the reference's."""
+    rules = LAYOUTS["granite_8b-kv_seq"][1]["decode"]
     assert rules.kv_seq == ("model",)
-    with pytest.raises(NotImplementedError, match="kv_seq.*part 2c"):
-        _forward_under("granite_8b", rules, decode=True)
-    long = shardspecs.rules_for(configs.get("granite_8b"),
-                                SHAPES["long_500k"])
-    with pytest.raises(NotImplementedError, match="kv_seq.*part 2c"):
-        refuse_part_2c(PROD, long)
+    assert shardspecs.rules_for(configs.get("granite_8b"),
+                                SHAPES["long_500k"]).kv_seq == ("pod",
+                                                                "data")
+    for res in model2["granite_8b-kv_seq"]:
+        np.testing.assert_array_equal(res["decode"]["tokens"],
+                                      _reference("granite_8b")["tokens"])
 
 
-def test_mamba_heads_over_model_are_part_2c():
+def test_mamba_heads_over_model_match_the_reference(model2):
     """A Mamba2 mixer's heads over ``model`` (the ssm and hybrid
-    families), in the forward and in ``local_params``."""
-    for arch in ("mamba2_2p7b", "zamba2_7b"):
-        rules = shardspecs.rules_for(configs.get(arch),
-                                     SHAPES["prefill_32k"])
-        assert rules.heads == ("model",)
-        with pytest.raises(NotImplementedError,
-                           match="Mamba2 mixer's heads.*part 2c"):
-            _forward_under(arch, rules)
-    cfg = configs.get_smoke("mamba2_2p7b")
-    with pytest.raises(NotImplementedError, match="part 2c"):
-        shardspecs.local_params(
-            tfm.init_params(cfg, torch.Generator().manual_seed(0), "cpu"),
-            cfg, _Mesh((1, 1, 2), (0, 0, 0)),
-            shardspecs.rules_for(cfg, SHAPES["prefill_32k"], model_axis=2))
+    families): prefill logits and greedy tokens (through
+    ``relayout_decode_state`` too) the reference's."""
+    rules = LAYOUTS["mamba2_2p7b-heads"][1]["prefill"]
+    assert rules.heads == ("model",)
+    ref = _reference("mamba2_2p7b")
+    for res in model2["mamba2_2p7b-heads"]:
+        np.testing.assert_allclose(res["prefill"]["logits"][:, 0],
+                                   ref["logits"], rtol=1e-5, atol=1e-5)
+        for kind in ("decode", "relayout"):
+            np.testing.assert_array_equal(res[kind]["tokens"],
+                                          ref["tokens"])
 
 
 @pytest.mark.parametrize("arch", ref_configs.ARCHS)
-def test_no_other_layout_raises(arch):
-    """At every shape of the production mesh, ``check_layout`` raises
-    exactly where ``seq``, ``inner_seq`` or ``kv_seq`` is over a mesh dim
-    larger than 1 or a Mamba2 mixer's heads are over ``model``."""
-    cfg = configs.get(arch)
-    for shape in SHAPES.values():
-        rules = shardspecs.rules_for(cfg, shape)
-        want = bool(rules.seq or rules.inner_seq or rules.kv_seq or (
-            cfg.family in ("ssm", "hybrid") and rules.heads))
-        with sharding_context(PROD, rules):
-            if want:
-                with pytest.raises(NotImplementedError, match="part 2c"):
-                    check_layout(cfg.family)
-            else:
-                check_layout(cfg.family)
+def test_every_production_cell_builds_a_rank_s_blocks(arch):
+    """Every shape of ``shapes_for`` at 256 and 512 chips: the production
+    rules cut the smoke parameters into a rank's blocks of whole heads
+    (``local_params``) and size its decode state
+    (``decode_state_shardings``, ``init_decode_state``) on a model-size-2
+    mesh, each block the whole leaf over its ranks."""
+    from repro_torch.models.config import shapes_for
+    cfg = configs.get_smoke(arch)
+    params = tfm.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    stand = _Mesh((1, 1, 2), (0, 0, 1))
+    for shape in shapes_for(configs.get(arch)):
+        for size in (256, 512):
+            rules = shardspecs.rules_for(configs.get(arch), SHAPES[shape],
+                                         mesh_size=size)
+            specs = shardspecs.param_shardings(cfg, stand, rules)
+            local = shardspecs.local_params(params, cfg, stand, rules)
+            for path, t in split.leaves_with_path(local):
+                whole = params
+                spec = specs
+                for key in path:
+                    whole, spec = whole[key], spec[key]
+                assert tuple(t.shape) == local_shape(whole.shape, spec,
+                                                     stand), path
+            meta = tfm._decode_state(cfg, 4, MAX_LEN, torch.device("meta"))
+            state_specs = shardspecs.decode_state_shardings(cfg, stand,
+                                                            rules, meta)
+            with sharding_context(stand, rules):
+                state = tfm.init_decode_state(cfg, 4, MAX_LEN, "cpu")
+            for (path, t), (_, spec) in zip(
+                    split.leaves_with_path(_tensors_of(state)),
+                    split.leaves_with_path(_tensors_of(state_specs,
+                                                       meta))):
+                want = local_shape(_at(meta, path).shape, spec, stand)
+                assert tuple(t.shape) == want, (shape, size, path)
+            if cfg.family != "ssm":
+                k = state["k"] if "k" in state else state["kv"]["k"]
+                n = axis_size(stand, live_dims(stand, rules.mesh_axes(
+                    "kv_seq", stand)))
+                assert k.shape[2] == MAX_LEN // n
+                assert n == (2 if rules.kv_seq == ("model",) else 1)
+
+
+def _tensors_of(tree, like=None):
+    """``tree``'s tensor leaves (or, with ``like``, the leaves of ``tree``
+    where ``like`` holds a tensor) as a nested dict of path keys."""
+    like = tree if like is None else like
+    if isinstance(like, dict):
+        return {k: _tensors_of(tree[k], v) for k, v in like.items()
+                if _tensors_of(tree[k], v) != {}}
+    if isinstance(like, tuple):
+        return {str(i): _tensors_of(t, v) for i, (t, v) in
+                enumerate(zip(tree, like))}
+    return tree if isinstance(like, torch.Tensor) else {}
+
+
+def _at(tree, path):
+    for key in path:
+        tree = tree[int(key)] if isinstance(tree, tuple) else tree[key]
+    return tree

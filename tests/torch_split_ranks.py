@@ -12,6 +12,7 @@ imports neither JAX nor the reference.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import math
 
@@ -58,14 +59,14 @@ def _tensors(d: dict) -> dict:
     return {k: torch.from_numpy(np.asarray(v)) for k, v in d.items()}
 
 
-def split_cases(cases: list, shape: tuple) -> list:
+def split_cases(cases: list, shape: tuple, layouts: tuple = ()) -> list:
     """For each case ``(tag, cfg, params, prompt, extras, steps, max_len,
     batch)`` (``params`` the reference's as NumPy arrays, ``batch`` None
     to skip training): the prefill's logits under the prefill rules, the
     greedy tokens and teacher-forced logits under the decode rules, and
     the gradients and metrics of ``batch`` under the tensor-parallel
-    training rules, each whole; a part 2c refusal as its message.  Every
-    rank returns its own results."""
+    training rules, each whole; then :func:`layout_cases` of
+    ``layouts``.  Every rank returns its own results."""
     m = mesh.make_host_mesh(shape, AXES)
     out = []
     for tag, cfg, params, prompt, extras, steps, max_len, batch in cases:
@@ -73,36 +74,24 @@ def split_cases(cases: list, shape: tuple) -> list:
         prompt_t, extras_t = torch.from_numpy(prompt), _tensors(extras)
         for kind in ("prefill", "decode"):
             rules = _rules(cfg, kind, shape)
-            try:
-                with sharding_context(m, rules):
-                    local = from_reference_params(params, cfg, "cpu", m,
-                                                  rules)
-                    tokens, logits = serve_loop.generate(
-                        cfg, local, prompt_t,
-                        1 if kind == "prefill" else steps, max_len,
-                        extras=extras_t)
-                res[kind] = {"tokens": tokens.numpy(),
-                             "logits": _np(logits)}
-            except NotImplementedError as exc:
-                res[kind] = str(exc)
+            with sharding_context(m, rules):
+                local = from_reference_params(params, cfg, "cpu", m, rules)
+                tokens, logits = serve_loop.generate(
+                    cfg, local, prompt_t, 1 if kind == "prefill" else steps,
+                    max_len, extras=extras_t)
+            res[kind] = {"tokens": tokens.numpy(), "logits": _np(logits)}
         if batch is not None:
             rules = _rules(cfg, "tp", shape)
-            try:
-                with sharding_context(m, rules):
-                    local = from_reference_params(params, cfg, "cpu", m,
-                                                  rules)
-                    for p in leaves(local):
-                        p.requires_grad_(True)
-                    grads, metrics = make_grads_fn(cfg)(local,
-                                                        _tensors(batch))
-                    res["train"] = {
-                        "grads": _whole_grads(cfg, grads, m, rules),
-                        "metrics": {k: float(v) for k, v in
-                                    metrics.items()}}
-            except NotImplementedError as exc:
-                res["train"] = str(exc)
+            with sharding_context(m, rules):
+                local = from_reference_params(params, cfg, "cpu", m, rules)
+                for p in leaves(local):
+                    p.requires_grad_(True)
+                grads, metrics = make_grads_fn(cfg)(local, _tensors(batch))
+                res["train"] = {
+                    "grads": _whole_grads(cfg, grads, m, rules),
+                    "metrics": {k: float(v) for k, v in metrics.items()}}
         out.append(res)
-    return out
+    return out + layout_cases(list(layouts), shape)
 
 
 def vocab_tie(shape: tuple, vocab: int, ties: list) -> list:
@@ -231,3 +220,147 @@ def zero3_steps(cfg, state, batches: list, shape: tuple, kind: str,
             "resized_shapes": None if one is None else {
                 "/".join(p): tuple(t.shape)
                 for p, t in leaves_with_path(one.params)}}
+
+
+def layout_groups(groups: list) -> list:
+    """:func:`layout_cases` of each ``(shape, cases)`` of ``groups`` (one
+    mesh each, the same ranks), their results in one list."""
+    return [r for shape, cases in groups for r in layout_cases(cases, shape)]
+
+
+def layout_cases(cases: list, shape: tuple, axes: tuple = AXES) -> list:
+    """For each case ``(tag, cfg, params, prompt, extras, steps, max_len,
+    batch, rules)`` (``rules``: ``{kind: Rules}`` for any of ``prefill``,
+    ``decode`` and ``train``, the production layouts of ``rules_for``),
+    each whole on every rank: the prefill's logits under ``prefill``; the
+    greedy tokens and their logits under ``decode``; with both, the
+    prefill under ``prefill`` and the decode steps under ``decode`` (the
+    state carried by ``relayout_decode_state``, the ``relayout`` entry);
+    and the gradients and metrics of ``batch`` under ``train``."""
+    m = mesh.make_host_mesh(shape, axes)
+    out = []
+    for tag, cfg, params, prompt, extras, steps, max_len, batch, rules in \
+            cases:
+        res = {"tag": tag}
+        prompt_t, extras_t = torch.from_numpy(prompt), _tensors(extras)
+        for kind, n in (("prefill", 1), ("decode", steps)):
+            if kind not in rules:
+                continue
+            with sharding_context(m, rules[kind]):
+                local = from_reference_params(params, cfg, "cpu", m,
+                                              rules[kind])
+                tokens, logits = serve_loop.generate(
+                    cfg, local, prompt_t, n, max_len, extras=extras_t)
+            res[kind] = {"tokens": tokens.numpy(), "logits": _np(logits)}
+        if "prefill" in rules and "decode" in rules:
+            with sharding_context(m, rules["decode"]):
+                dec = from_reference_params(params, cfg, "cpu", m,
+                                            rules["decode"])
+            with sharding_context(m, rules["prefill"]):
+                local = from_reference_params(params, cfg, "cpu", m,
+                                              rules["prefill"])
+                tokens, logits = serve_loop.generate(
+                    cfg, local, prompt_t, steps, max_len, extras=extras_t,
+                    decode_layout=(rules["decode"], dec))
+            res["relayout"] = {"tokens": tokens.numpy(),
+                               "logits": _np(logits)}
+        if "train" in rules:
+            with sharding_context(m, rules["train"]):
+                local = from_reference_params(params, cfg, "cpu", m,
+                                              rules["train"])
+                for p in leaves(local):
+                    p.requires_grad_(True)
+                grads, metrics = make_grads_fn(cfg)(local, _tensors(batch))
+                res["train"] = {
+                    "grads": _whole_grads(cfg, grads, m, rules["train"]),
+                    "metrics": {k: float(v) for k, v in metrics.items()}}
+        out.append(res)
+    return out
+
+
+def split_norms(shape: tuple, cases: list) -> list:
+    """:func:`split_norm` of each ``(x, scale, dy)`` of ``cases``."""
+    m = mesh.make_host_mesh(shape, AXES)
+    return [split_norm(m, *c) for c in cases]
+
+
+def split_norm(m, x: np.ndarray, scale: np.ndarray, dy: np.ndarray
+               ) -> dict:
+    """:func:`repro_torch.models.layers.split_rms_norm` over the last dim
+    split across the ``model`` ranks of mesh ``m``: each rank's block of
+    ``x`` and ``scale``, its output and VJP gathered whole."""
+    from repro_torch.models.layers import split_rms_norm
+    spec = (None,) * (x.ndim - 1) + ("model",)
+    xs = sharding.local_shard(torch.from_numpy(x), spec, m)
+    ss = sharding.local_shard(torch.from_numpy(scale), ("model",), m)
+    gs = sharding.local_shard(torch.from_numpy(dy), spec, m)
+    xs.requires_grad_(True)
+    ss.requires_grad_(True)
+    y = split_rms_norm(xs, ss, 1e-5, m, ("model",), x.shape[-1])
+    dx, dscale = torch.autograd.grad(y, (xs, ss), gs)
+    return {"y": _np(gather_whole(y, spec, m)),
+            "dx": _np(gather_whole(dx, spec, m)),
+            "dscale": _np(gather_whole(dscale, ("model",), m))}
+
+
+def layout_resize(cfg, state, batch: dict, shape: tuple, layouts: list,
+                  ckpt_dir: str, lr: float) -> dict:
+    """For each ``(name, rules)`` of ``layouts``: the whole train ``state``
+    cut into this rank's blocks under ``rules``, one AdamW step (its
+    loss), a sharded save, a restore into every layout (each leaf equal
+    bit for bit to the saved state's blocks there), and an elastic resize
+    to one rank and back onto the mesh under the next layout (the state
+    equal bit for bit to the saved one's blocks there)."""
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.runtime.elastic import ElasticController
+
+    m = mesh.make_host_mesh(shape, AXES)
+    opt = AdamW(learning_rate=lr)
+    target = shardspecs.abstract_train_state(cfg)
+    target.step = 0
+    ck = Checkpointer(ckpt_dir, keep=10)
+    out = {"losses": [], "restored_equal": [], "resized_equal": []}
+
+    def equal(a, b) -> bool:
+        return all(torch.equal(x, y) for x, y in zip(
+            leaves(a.params) + leaves(a.opt_state.m),
+            leaves(b.params) + leaves(b.opt_state.m)))
+    for i, (name, rules) in enumerate(layouts):
+        specs = shardspecs.train_state_shardings(cfg, m, rules)
+        # The step updates the tensors in place: a copy a layout.
+        local = shardspecs.local_train_state(copy.deepcopy(state), cfg, m,
+                                             rules)
+        with sharding_context(m, rules):
+            local, metrics = make_train_step(
+                cfg, opt, grad_shardings=specs.params)(local,
+                                                       _tensors(batch))
+        out["losses"].append(float(metrics["loss"]))
+        whole = whole_state(local, specs, m)
+        ck.save(i + 1, local, {"layout": name}, shardings=specs, mesh=m)
+        sharding.barrier()
+        for _, other in layouts:
+            back = ck.restore(i + 1, target, device="cpu",
+                              shardings=shardspecs.train_state_shardings(
+                                  cfg, m, other), mesh=m)
+            out["restored_equal"].append(equal(back, shardspecs
+                                               .local_train_state(
+                                                   whole, cfg, m, other)))
+        nxt = layouts[(i + 1) % len(layouts)][1]
+        current = [rules]
+
+        def make_mesh(n):
+            return mesh.make_host_mesh((1, n, 1) if n == 1 else shape, AXES)
+
+        def make_shardings(mm, _):
+            r = current[0] if mm.size() == m.size() else sharding.Rules()
+            return shardspecs.train_state_shardings(cfg, mm, r)
+        ctl = ElasticController(Checkpointer(f"{ckpt_dir}_elastic{i}"),
+                                make_mesh, make_shardings)
+        one_mesh, one = ctl.resize(local, 10 + i, 2, 1, "dpm-poweroff",
+                                   mesh=m)
+        current[0] = nxt
+        _, again = ctl.resize(one, 20 + i, 1, 2, "dpm-poweron",
+                              mesh=None if one is None else one_mesh)
+        out["resized_equal"].append(equal(
+            again, shardspecs.local_train_state(whole, cfg, m, nxt)))
+    return out
