@@ -404,6 +404,15 @@ Phases, each of which raises (and so exits non-zero) when it fails:
     ``decode_attention``'s, the log-sum-exp within 1e-6 of the plain
     version's) and K4 and K5 at
     a query offset against their plain versions first.
+28. phase DR and the roofline shares (CPU work in a worker process
+    while the card runs the paths): the dry run (``launch/dryrun.py``) of
+    one cell of each family (:data:`DR_CELLS`) on the 16 x 16 and
+    2 x 16 x 16 meshes, rank 0's and the last rank's steps on their blocks
+    under a fake process group of 256 or 512, each cell's dominant term
+    and wall printed; and each timed step of paths S, M, P, H, I, Y, T,
+    TM, TP, TH, TI and TY counted on ``meta`` stand-ins at the path's own
+    shapes and depth (``launch/costing.py``), its kernel-path roofline
+    bound on one H100 printed beside the measured warm step as a share.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Run from the repository root:
@@ -432,13 +441,16 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+# The dry run's roofline is the one place the bf16 and HBM3 peaks are
+# defined.
+from repro_torch.launch.dryrun import HBM_BW as PEAK_BYTES_S  # noqa: E402
+from repro_torch.launch.dryrun import PEAK_FLOPS as PEAK_BF16_FLOPS  # noqa
 
-#: H100 SXM peaks (NVIDIA data sheet): fp64 and float32 outside the tensor
-#: cores, bf16 on them, and HBM3 bandwidth.  K1-K3 are fp64 vector code.
+#: H100 SXM peaks (NVIDIA data sheet) outside the tensor cores: fp64 and
+#: float32.  K1-K3 are fp64 vector code.
 PEAK_FP64_FLOPS = 34e12
-PEAK_BF16_FLOPS = 989e12
 PEAK_FP32_FLOPS = 67e12
-PEAK_BYTES_S = 3.35e12
 REPS = 20
 #: :func:`time_ms`'s repetitions where one call takes over ``SLOW_MS``
 #: (the plain versions at the paths' shapes, up to 270 ms a call).
@@ -4724,9 +4736,113 @@ def cpu_job(kind: str, *args):
     return out, dict(plain), seen
 
 
+# ------------------------------------------- phase DR and the step counts
+#: Phase DR: the dry run (``launch/dryrun.py``) of one cell of each family
+#: on each production mesh, on a fake process group in a worker process.
+DR_CELLS = [("minicpm_2b", "train_4k"), ("olmoe_1b_7b", "decode_32k"),
+            ("mamba2_2p7b", "train_4k"), ("zamba2_7b", "long_500k"),
+            ("internvl2_26b", "decode_32k"), ("whisper_tiny", "decode_32k")]
+#: The steps whose warm time the paths measure, as they run them:
+#: ``(arch, layers or None for all, kind, positions, batch)``; a decode
+#: step's positions are its cache's (the plain K6 reads it whole).
+ROOFLINE_STEPS = {
+    "S": ("granite_8b", None, "decode", 1024, 8),
+    "M": ("olmoe_1b_7b", None, "decode", 1024, 8),
+    "P": ("mamba2_2p7b", None, "decode", 1024, 8),
+    "H": ("zamba2_7b", None, "decode", 1024, 8),
+    "I": ("internvl2_26b", None, "decode", 1024, 8),
+    "Y": ("whisper_tiny", None, "decode", TEXT_CTX, 8),
+    "T": ("minicpm_2b", T_LAYERS, "train", 4096, 4),
+    "TM": ("olmoe_1b_7b", FAMILY_PATHS["TM"][1], "train", 4096, 4),
+    "TP": ("mamba2_2p7b", FAMILY_PATHS["TP"][1], "train", 4096, 4),
+    "TH": ("zamba2_7b", FAMILY_PATHS["TH"][1], "train", 4096, 4),
+    "TI": ("internvl2_26b", TI_LAYERS, "train", TI_ROWS, TI_BATCH),
+    "TY": ("whisper_tiny", None, "train", TEXT_CTX, TY_BATCH)}
+
+
+def dr_job() -> list:
+    """Phase DR in a worker: ``run_cell`` for :data:`DR_CELLS` on both
+    meshes, its JSON written to a new temporary directory and removed."""
+    torch.set_num_threads(CPU_WORKER_THREADS)
+    from repro_torch.launch import dryrun
+
+    out = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+    try:
+        return [dryrun.run_cell(arch, shape, multi, out, force=True)
+                for arch, shape in DR_CELLS for multi in (False, True)]
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+
+
+def roofline_job() -> dict:
+    """Each of :data:`ROOFLINE_STEPS` counted on ``meta`` stand-ins
+    (``dryrun.run_step``: the global step, no mesh) and its kernel-path
+    roofline on one H100 (``dryrun.kernel_path_bound``)."""
+    torch.set_num_threads(CPU_WORKER_THREADS)
+    from repro_torch import configs
+    from repro_torch.launch import dryrun
+    from repro_torch.models.config import ShapeConfig
+
+    out = {}
+    for tag, (arch, layers, kind, seq, batch) in ROOFLINE_STEPS.items():
+        cfg = configs.get(arch)
+        if layers is not None:
+            cfg = dataclasses.replace(cfg, n_layers=layers)
+        shape = ShapeConfig(tag, kind, seq, batch)
+        t0 = time.perf_counter()
+        cost = dryrun.run_step(cfg, shape)["cost"]
+        bound = dryrun.kernel_path_bound(cfg, shape, 1, cost.flops,
+                                         cost.bytes)
+        out[tag] = dict(flops=cost.flops, bytes=cost.bytes,
+                        product_flops=cost.product_flops,
+                        bound_ms=bound["bound_s"] * 1e3,
+                        t_memory_ms=bound["t_memory_s"] * 1e3,
+                        dominant=bound["dominant"],
+                        count_s=time.perf_counter() - t0)
+    return out
+
+
+def report_dryrun(cells: list) -> dict:
+    """Phase DR's lines: each cell's dominant term and wall; raises for a
+    cell that failed."""
+    for r in cells:
+        if not r["ok"]:
+            raise AssertionError(f"DR {r['cell']}: {r.get('error')}\n"
+                                 f"{r.get('traceback')}")
+        log(f"DR {r['cell']}: dominant {r['roofline']['dominant']} "
+            f"({r['roofline']['bound_s']:.4e} s), kernel path "
+            f"{r['roofline_kernel_path']['dominant']}; flops/device "
+            f"{r['flops_per_device']:.4e}, bytes/device "
+            f"{r['bytes_per_device']:.4e}, collective bytes/device "
+            f"{r['collective_bytes_per_device']['total']}; useful flops "
+            f"{r['useful_flops_ratio']}; wall {r['wall_s']} s (CPU)")
+    return {r["cell"]: {k: r[k] for k in (
+        "wall_s", "flops_per_device", "bytes_per_device",
+        "useful_flops_ratio", "roofline", "roofline_kernel_path",
+        "collective_bytes_per_device")} for r in cells}
+
+
+def report_roofline(counts: dict, infos: dict, smi: str) -> dict:
+    """Each timed step's kernel-path roofline bound beside its measured
+    warm time (``decode_step_ms`` or ``warm_step_ms`` of its path's info),
+    as a share."""
+    out = {}
+    for tag, c in counts.items():
+        info = infos[tag]
+        ms = info.get("decode_step_ms", info.get("warm_step_ms"))
+        share = c["bound_ms"] / ms
+        out[tag] = dict(c, measured_ms=ms, share=share)
+        log(f"roofline {tag}: {c['flops']:.4e} FLOPs, {c['bytes']:.4e} "
+            f"bytes counted ({c['count_s']:.1f} s on the CPU); kernel-path "
+            f"bound {c['bound_ms']:.3f} ms ({c['dominant']}) beside the "
+            f"warm step {ms:.3f} ms: share {share:.4f} on {smi}")
+    return out
+
+
 def start_cpu_jobs(pool) -> dict:
     """The CPU runs, E's recording runs first: the kernel phase at the
-    script's start waits for them."""
+    script's start waits for them.  Phase DR and the step counts come
+    last: nothing reads them before the mesh paths end."""
     jobs = {("E", s, "legacy"): pool.submit(cpu_job, "E", s, "legacy")
             for s in E_RECORDED}
     jobs["C",] = pool.submit(cpu_job, "C")
@@ -4736,6 +4852,8 @@ def start_cpu_jobs(pool) -> dict:
             if ("E", scenario, engine) not in jobs:
                 jobs["E", scenario, engine] = pool.submit(
                     cpu_job, "E", scenario, engine)
+    jobs["DR",] = pool.submit(dr_job)
+    jobs["roofline",] = pool.submit(roofline_job)
     return jobs
 
 
@@ -6998,6 +7116,14 @@ def main() -> int:
             f"memory: the "
             f"collectives' times are not an interconnect's)")
 
+        info_dr = report_dryrun(jobs["DR",].result())
+        info_roofline = report_roofline(
+            jobs["roofline",].result(),
+            {"S": info_s, "M": info_m, "P": info_p, "H": info_h,
+             "I": info_i, "Y": info_y, "T": info_t, "TM": info_tm,
+             "TP": info_tp, "TH": info_th, "TI": info_ti, "TY": info_ty},
+            smi)
+
         kernels_out = []
         for tag, launches in (("A", launches_a), ("B", launches_b),
                               ("V", launches_v), ("D", launches_d),
@@ -7032,7 +7158,8 @@ def main() -> int:
                               "TI": info_ti, "TY": info_ty, "SC": info_sc,
                               "ME": info_me, "TE": info_te,
                               "ST": info_st, "TT": info_tt,
-                              "SQ+SM": info_sqm, "TS": info_ts}},
+                              "SQ+SM": info_sqm, "TS": info_ts,
+                              "DR": info_dr, "roofline": info_roofline}},
                     default=str))
     log(json.dumps({"kernels": kernels_out}))
     log(json.dumps({"ok": True, "device": {

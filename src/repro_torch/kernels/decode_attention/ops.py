@@ -18,6 +18,7 @@ import functools
 
 import torch
 
+from repro_torch.backend import PLAIN_DEVICES
 from repro_torch.kernels.decode_attention import kernel, ref
 from repro_torch.kernels.decode_attention.ref import combine_over_ranks
 
@@ -68,7 +69,7 @@ def _checked(q, k, v, kv_len) -> str:
                         f"{v.dtype}")
     if not (q.device == k.device == v.device == kv_len.device):
         raise ValueError("q, k, v, kv_len are on different devices")
-    if q.device.type not in ("cpu", "cuda"):
+    if q.device.type not in ("cuda",) + PLAIN_DEVICES:
         raise ValueError(f"unsupported device {q.device}")
     return q.device.type
 
@@ -83,7 +84,7 @@ def decode_attention(q, k, v, kv_len, *, block_k: int = BLOCK_K):
     may be views into a larger cache: only their head and feature axes
     must be packed.
     """
-    if _checked(q, k, v, kv_len) == "cpu":
+    if _checked(q, k, v, kv_len) in PLAIN_DEVICES:
         return ref.decode_attention_split_ref(q, k, v, kv_len, block_k)
     return _launch(q, k, v, kv_len, False)
 
@@ -94,7 +95,7 @@ def decode_attention_lse(q, k, v, kv_len, *, block_k: int = BLOCK_K):
     denominator, scores scaled by ``1 / sqrt(D)``): a row with no live
     position gives ``out = 0`` and ``lse = -1e30``.  The same kernel K6,
     its combine writing both; on the CPU the plain version."""
-    if _checked(q, k, v, kv_len) == "cpu":
+    if _checked(q, k, v, kv_len) in PLAIN_DEVICES:
         return ref.decode_attention_lse_ref(q, k, v, kv_len, block_k)
     return _launch(q, k, v, kv_len, True)
 

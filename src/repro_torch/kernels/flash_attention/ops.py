@@ -24,6 +24,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.backend import PLAIN_DEVICES
 from repro_torch.kernels.flash_attention import kernel, kernel_bwd, ref
 
 #: KV block of the plain versions (the reference's tests run the Pallas
@@ -109,7 +110,7 @@ def padded_backward(backward, q, k, v, out, lse, dout, d: int, **kwargs):
 
 
 def _forward(q, k, v, causal: bool, q_offset: int):
-    if q.device.type == "cpu":
+    if q.device.type in PLAIN_DEVICES:
         return ref.flash_attention_ref(q, k, v, causal=causal,
                                        q_offset=q_offset, block_k=BLOCK_K)
     _device(q)
@@ -160,7 +161,7 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
     if dout.shape != q.shape or dout.dtype != q.dtype:
         raise ValueError(f"dout {tuple(dout.shape)} {dout.dtype} does not "
                          f"match q {tuple(q.shape)} {q.dtype}")
-    if q.device.type == "cpu":
+    if q.device.type in PLAIN_DEVICES:
         return ref.flash_attention_bwd_ref(
             q, k, v, out, lse, dout, causal=causal, q_offset=q_offset,
             block_q=BLOCK_Q, block_k=BLOCK_K)

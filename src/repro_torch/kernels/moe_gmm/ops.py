@@ -19,6 +19,7 @@ import functools
 
 import torch
 
+from repro_torch.backend import PLAIN_DEVICES
 from repro_torch.kernels.moe_gmm import kernel, ref
 
 
@@ -31,7 +32,7 @@ def _gmm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """One product on the tensors' device: the plain version on the CPU,
     one K7 launch on the card (or a raise)."""
     dev = x.device
-    if dev.type == "cpu":
+    if dev.type in PLAIN_DEVICES:
         return ref.grouped_matmul_ref(x, w)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
@@ -70,7 +71,7 @@ class GroupedMatmul(torch.autograd.Function):
         if dy is None:
             return None, None
         x, w = ctx.saved_tensors
-        if x.device.type == "cpu":
+        if x.device.type in PLAIN_DEVICES:
             return ref.grouped_matmul_bwd_ref(x, w, dy)
         dy = dy.contiguous()
         wt, xt = transposed_operands(x, w)

@@ -25,6 +25,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
+from repro_torch.backend import PLAIN_DEVICES
 from repro_torch.kernels.ssd_scan import kernel, ref
 
 
@@ -60,7 +61,7 @@ def _intra_chunk(x, log_decay, dt, b_mat, c_mat, chunk: int):
     strides (a head stride of 0 shares one row across the heads) as long
     as their feature axis is packed."""
     ref._check(x, log_decay, dt, b_mat, c_mat, chunk)
-    if x.device.type == "cpu":
+    if x.device.type in PLAIN_DEVICES:
         return ref.ssd_chunk_ref(x, log_decay, dt, b_mat, c_mat, chunk)
     _check_cuda(x, b_mat, c_mat, "K8")
     bsz, l, h, p = x.shape
@@ -89,7 +90,7 @@ def ssd_chunk_bwd(x, log_decay, dt, b_mat, c_mat, chunk: int, dy, dcontrib,
     (B,NC,H,P,N) and ``dtotal`` (B,NC,H).  On CUDA it takes the operands
     that :func:`_intra_chunk` takes."""
     ref._check(x, log_decay, dt, b_mat, c_mat, chunk)
-    if x.device.type == "cpu":
+    if x.device.type in PLAIN_DEVICES:
         return ref.ssd_chunk_bwd_ref(x, log_decay, dt, b_mat, c_mat, chunk,
                                      dy, dcontrib, dtotal)
     _check_cuda(x, b_mat, c_mat, "K8b")
