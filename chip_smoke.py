@@ -4172,8 +4172,8 @@ def idle_share(run) -> dict:
     ``tools/profile_sweep_torch.py`` reads them; None when the trace holds
     no kernel event)."""
     from torch.profiler import ProfilerActivity, profile
-    sys.path.insert(0, str(ROOT / "tools"))
-    from profile_sweep_torch import busy_us
+    sys.path.insert(0, str(ROOT))
+    from cpcbench.trace import busy_ns
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -4191,7 +4191,8 @@ def idle_share(run) -> dict:
                     traced_wall_s=wall)
     copies = [e for e in events if e.get("cat") in ("gpu_memcpy",
                                                     "gpu_memset")]
-    busy = busy_us(kernels + copies) * 1e-6
+    busy = busy_ns((e["ts"], e["ts"] + e["dur"])
+                   for e in kernels + copies) * 1e-6
     return dict(device_idle_share=1.0 - busy / wall,
                 kernel_launches=len(kernels), traced_wall_s=wall)
 

@@ -43,6 +43,7 @@ from repro_torch.core.manager import CloudPowerCapManager, ManagerConfig
 from repro_torch.core.power_model import H100_HOST, HostPowerSpec
 from repro_torch.drs.snapshot import ClusterSnapshot, Host, VirtualMachine
 from repro_torch.models import transformer as tfm
+from repro_torch.runtime import tracing
 from repro_torch.runtime.serve_loop import (CapacityAwareRouter, Replica,
                                             generate)
 
@@ -116,14 +117,21 @@ def make_fleet(host_spec: HostPowerSpec, n_replicas: int,
 def power_event(snap: ClusterSnapshot, router: CapacityAwareRouter,
                 n_requests: int, device=None):
     """Halve host ``h0``'s cap, run one manager invocation on ``device``
-    and route ``n_requests`` again; returns ``(routing, caps, result)``."""
-    snap.hosts["h0"].power_cap *= 0.5
-    manager = CloudPowerCapManager(ManagerConfig(dpm_enabled=False),
-                                   device=device)
-    result = manager.run_invocation(snap)
-    router.sync_capacities(result.snapshot)
-    routing = _count(router.route(n_requests))
-    caps = [round(h.power_cap) for h in result.snapshot.hosts.values()]
+    and route ``n_requests`` again; returns ``(routing, caps, result)``.
+    Under a ``torch.profiler`` session it records the span
+    ``repro_torch.power.event`` with the children ``.power.invocation``
+    (the manager's, which returns its caps on the host) and
+    ``.power.route`` (the router's sync and routing)."""
+    with tracing.span("repro_torch.power.event"):
+        snap.hosts["h0"].power_cap *= 0.5
+        manager = CloudPowerCapManager(ManagerConfig(dpm_enabled=False),
+                                       device=device)
+        with tracing.span("repro_torch.power.invocation"):
+            result = manager.run_invocation(snap)
+        with tracing.span("repro_torch.power.route"):
+            router.sync_capacities(result.snapshot)
+            routing = _count(router.route(n_requests))
+        caps = [round(h.power_cap) for h in result.snapshot.hosts.values()]
     return routing, caps, result
 
 

@@ -48,6 +48,16 @@ reference's does.  The dispatch's gather of each token k times is
 :class:`_TokenGather`, whose backward sums a token's k rows in a fixed
 order (autograd's own index backward adds them with float atomics on
 CUDA, in another order each run).
+
+Under a ``torch.profiler`` session either dispatch records four spans
+(:mod:`repro_torch.runtime.tracing`): ``repro_torch.moe.route`` (the
+router and top-k), ``.moe.dispatch`` (the sort through the buckets'
+scatter), ``.moe.experts`` (K7 three times and the SiLU) and
+``.moe.combine`` (the gather, the unsort, the gate-weighted sum and the
+shared experts), and two counters: ``repro_torch.moe.pairs_routed`` (the
+(token, k) pairs routed to this process's experts) and
+``.moe.pairs_kept`` (those within their expert's capacity), the latter
+worked out from the per-expert counts only when the trace is collected.
 """
 
 from __future__ import annotations
@@ -58,6 +68,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.moe_gmm.ops import grouped_matmul
+from repro_torch.runtime import tracing
 from repro_torch.runtime.sharding import (all_reduce, copy_to,
                                           current_context, dims_coordinate,
                                           dims_size, entry_axes,
@@ -239,50 +250,62 @@ def _moe_ffn_expert_parallel(params: dict, x: torch.Tensor, cfg, mesh,
     e_loc = e // n
     shard = dims_coordinate(mesh, (ax,))
     xt = x.reshape(t, d)
-    if params["router"].shape[1] != e:
-        params = dict(params, router=gather_param(
-            params["router"], mesh, ((1, (ax,)),), replicated_grad=True))
-    gate_vals, expert_idx, aux = _route(params, xt, cfg)
+    with tracing.span("repro_torch.moe.route"):
+        if params["router"].shape[1] != e:
+            params = dict(params, router=gather_param(
+                params["router"], mesh, ((1, (ax,)),),
+                replicated_grad=True))
+        gate_vals, expert_idx, aux = _route(params, xt, cfg)
 
-    cap = expert_capacity(t, cfg)
-    flat_expert = expert_idx.reshape(-1)                         # (T*k,)
-    local = torch.where(flat_expert // e_loc == shard,
-                        flat_expert - shard * e_loc, e_loc)      # e_loc: drop
-    order = torch.argsort(local, stable=True)
-    sorted_local = local[order]
-    counts = _counts(sorted_local, e_loc + 1)
-    starts = torch.cumsum(counts, 0) - counts
-    rank = torch.arange(t * k, device=x.device) - starts[sorted_local]
-    m = min(e_loc * cap, t * k)
-    take = order[:m]
-    le_m, rk_m = sorted_local[:m], rank[:m]
-    keep_m = (le_m < e_loc) & (rk_m < cap)
-    slot = torch.where(keep_m, le_m * cap + torch.clamp_max(rk_m, cap - 1),
-                       e_loc * cap)
-    inv = torch.argsort(order, stable=True)
+    with tracing.span("repro_torch.moe.dispatch"):
+        cap = expert_capacity(t, cfg)
+        flat_expert = expert_idx.reshape(-1)                     # (T*k,)
+        local = torch.where(flat_expert // e_loc == shard,
+                            flat_expert - shard * e_loc, e_loc)  # e_loc: drop
+        order = torch.argsort(local, stable=True)
+        sorted_local = local[order]
+        counts = _counts(sorted_local, e_loc + 1)
+        starts = torch.cumsum(counts, 0) - counts
+        rank = torch.arange(t * k, device=x.device) - starts[sorted_local]
+        m = min(e_loc * cap, t * k)
+        # A local expert keeps its first ``cap`` pairs within the first M
+        # sorted positions.
+        tracing.count("repro_torch.moe.pairs_routed", counts[:e_loc])
+        tracing.count("repro_torch.moe.pairs_kept", lambda: torch.minimum(
+            counts[:e_loc], torch.clamp(m - starts[:e_loc], 0, cap)).sum())
+        take = order[:m]
+        le_m, rk_m = sorted_local[:m], rank[:m]
+        keep_m = (le_m < e_loc) & (rk_m < cap)
+        slot = torch.where(keep_m,
+                           le_m * cap + torch.clamp_max(rk_m, cap - 1),
+                           e_loc * cap)
+        inv = torch.argsort(order, stable=True)
 
-    xin = copy_to(xt, mesh, (ax,))
-    gin = copy_to(gate_vals, mesh, (ax,))
-    buckets = torch.zeros((e_loc * cap + 1, d), dtype=xt.dtype,
-                          device=x.device)
-    buckets.index_add_(0, slot, torch.where(
-        keep_m[:, None], _TokenGather.apply(xin, take // k, inv, k), 0.0))
-    bk = buckets[:-1].reshape(e_loc, cap, d)
+        xin = copy_to(xt, mesh, (ax,))
+        gin = copy_to(gate_vals, mesh, (ax,))
+        buckets = torch.zeros((e_loc * cap + 1, d), dtype=xt.dtype,
+                              device=x.device)
+        buckets.index_add_(0, slot, torch.where(
+            keep_m[:, None], _TokenGather.apply(xin, take // k, inv, k),
+            0.0))
+        bk = buckets[:-1].reshape(e_loc, cap, d)
 
-    h = F.silu(grouped_matmul(bk, params["w_gate"])) \
-        * grouped_matmul(bk, params["w_up"])
-    yb = grouped_matmul(h, params["w_down"]).reshape(e_loc * cap, d)
+    with tracing.span("repro_torch.moe.experts"):
+        h = F.silu(grouped_matmul(bk, params["w_gate"])) \
+            * grouped_matmul(bk, params["w_up"])
+        yb = grouped_matmul(h, params["w_down"]).reshape(e_loc * cap, d)
 
-    # Back to pair order: a pair past the first M (foreign or over
-    # capacity) reads the zero row at M.
-    y_m = torch.cat([yb[torch.clamp_max(slot, e_loc * cap - 1)]
-                     * keep_m[:, None], yb.new_zeros(1, d)])
-    per_pair = y_m[torch.clamp_max(inv, m)].reshape(t, k, d)
-    y = (per_pair.float() * gin.to(per_pair.dtype).float()[..., None]
-         ).sum(1)
-    if cfg.n_shared_experts:
-        y = y + _shared_experts(params, xin).float()
-    y = sum_over(y, mesh, (ax,)).to(x.dtype)
+    with tracing.span("repro_torch.moe.combine"):
+        # Back to pair order: a pair past the first M (foreign or over
+        # capacity) reads the zero row at M.
+        y_m = torch.cat([yb[torch.clamp_max(slot, e_loc * cap - 1)]
+                         * keep_m[:, None], yb.new_zeros(1, d)])
+        per_pair = y_m[torch.clamp_max(inv, m)].reshape(t, k, d)
+        y = (per_pair.float() * gin.to(per_pair.dtype).float()[..., None]
+             ).sum(1)
+        if cfg.n_shared_experts:
+            y = y + _shared_experts(params, xin).float()
+        y = sum_over(y, mesh, (ax,)).to(x.dtype)
 
     batch = _batch_dims(mesh, rules)
     if batch:
@@ -318,59 +341,72 @@ def _moe_ffn_dense(params: dict, x: torch.Tensor, cfg, dp=None
     t = b * s
     e, k = cfg.n_experts, cfg.moe_top_k
     xt = x.reshape(t, d)
-    if dp is None:
-        gate_vals, expert_idx, aux = _route(params, xt, cfg)
-    else:
-        probs, gate_vals, expert_idx = _router(params, xt, cfg)
+    with tracing.span("repro_torch.moe.route"):
+        if dp is None:
+            gate_vals, expert_idx, aux = _route(params, xt, cfg)
+        else:
+            probs, gate_vals, expert_idx = _router(params, xt, cfg)
 
     # ---- dispatch: sort (token, k) pairs by expert ----------------------
-    flat_expert = expert_idx.reshape(-1)                         # (T*k,)
-    order = torch.argsort(flat_expert, stable=True)
-    sorted_expert = flat_expert[order]
-    counts = _counts(sorted_expert, e)
-    starts = torch.cumsum(counts, 0) - counts
-    rank = torch.arange(t * k, device=x.device) - starts[sorted_expert]
-    if dp is None:
-        cap = expert_capacity(t, cfg)
-    else:
-        mesh, dims = dp
-        n, index = dims_size(mesh, dims), dims_coordinate(mesh, dims)
-        table = counts.new_zeros(n, e)
-        table[index] = counts
-        all_reduce(table, mesh, dims)                            # (n, E)
-        rank = rank + table[:index].sum(0)[sorted_expert]
-        cap = expert_capacity(t * n, cfg)
-        me = sum_over(probs.sum(0), mesh, dims) / (t * n)
-        aux = _aux(me, table.sum(0), t * n * k, cfg)
-    keep = rank < cap
-    slot = sorted_expert * cap + torch.clamp_max(rank, cap - 1)  # (T*k,)
-    token_of = order // k                                        # source token
-    inv = torch.argsort(order, stable=True)                      # undo sort
+    with tracing.span("repro_torch.moe.dispatch"):
+        flat_expert = expert_idx.reshape(-1)                     # (T*k,)
+        order = torch.argsort(flat_expert, stable=True)
+        sorted_expert = flat_expert[order]
+        counts = _counts(sorted_expert, e)
+        starts = torch.cumsum(counts, 0) - counts
+        rank = torch.arange(t * k, device=x.device) - starts[sorted_expert]
+        before = None
+        if dp is None:
+            cap = expert_capacity(t, cfg)
+        else:
+            mesh, dims = dp
+            n, index = dims_size(mesh, dims), dims_coordinate(mesh, dims)
+            table = counts.new_zeros(n, e)
+            table[index] = counts
+            all_reduce(table, mesh, dims)                        # (n, E)
+            before = table[:index].sum(0)
+            rank = rank + before[sorted_expert]
+            cap = expert_capacity(t * n, cfg)
+            me = sum_over(probs.sum(0), mesh, dims) / (t * n)
+            aux = _aux(me, table.sum(0), t * n * k, cfg)
+        # An expert keeps its pairs up to the room its capacity leaves
+        # past the pairs of earlier ranks' shards.
+        tracing.count("repro_torch.moe.pairs_routed", t * k)
+        tracing.count("repro_torch.moe.pairs_kept", lambda: torch.clamp_max(
+            counts, cap if before is None
+            else torch.clamp_min(cap - before, 0)).sum())
+        keep = rank < cap
+        slot = sorted_expert * cap + torch.clamp_max(rank, cap - 1)
+        token_of = order // k                                    # source token
+        inv = torch.argsort(order, stable=True)                  # undo sort
 
-    buckets = torch.zeros((e * cap, d), dtype=xt.dtype, device=x.device)
-    buckets.index_add_(0, slot, torch.where(
-        keep[:, None], _TokenGather.apply(xt, token_of, inv, k), 0.0))
-    buckets = buckets.reshape(e, cap, d)
+        buckets = torch.zeros((e * cap, d), dtype=xt.dtype, device=x.device)
+        buckets.index_add_(0, slot, torch.where(
+            keep[:, None], _TokenGather.apply(xt, token_of, inv, k), 0.0))
+        buckets = buckets.reshape(e, cap, d)
 
     # ---- expert FFN: kernel K7 three times ------------------------------
-    h = F.silu(grouped_matmul(buckets, params["w_gate"])) \
-        * grouped_matmul(buckets, params["w_up"])
-    y_flat = grouped_matmul(h, params["w_down"]).reshape(e * cap, d)
+    with tracing.span("repro_torch.moe.experts"):
+        h = F.silu(grouped_matmul(buckets, params["w_gate"])) \
+            * grouped_matmul(buckets, params["w_up"])
+        y_flat = grouped_matmul(h, params["w_down"]).reshape(e * cap, d)
 
     # ---- combine: gather, undo the sort, gate-weighted sum over k -------
-    gathered = y_flat[slot] * keep[:, None]                      # (T*k, D)
-    per_pair = gathered[inv].reshape(t, k, d)
-    # The reference's einsum("tkd,tk->td") in x.dtype: float32 products
-    # and sums, rounded once.
-    out = (per_pair.float() * gate_vals.to(per_pair.dtype).float()[..., None]
-           ).sum(1).to(per_pair.dtype)
+    with tracing.span("repro_torch.moe.combine"):
+        gathered = y_flat[slot] * keep[:, None]                  # (T*k, D)
+        per_pair = gathered[inv].reshape(t, k, d)
+        # The reference's einsum("tkd,tk->td") in x.dtype: float32
+        # products and sums, rounded once.
+        out = (per_pair.float()
+               * gate_vals.to(per_pair.dtype).float()[..., None]
+               ).sum(1).to(per_pair.dtype)
 
-    if cfg.n_shared_experts:
-        tp = split_over("ffn", params["shared_w_down"].shape[0],
-                        cfg.d_ff * cfg.n_shared_experts)
-        if tp is None:
-            out = out + _shared_experts(params, xt)
-        else:
-            out = out + sum_over(_shared_experts(
-                params, copy_to(xt, tp[0], tp[1])), tp[0], tp[1])
+        if cfg.n_shared_experts:
+            tp = split_over("ffn", params["shared_w_down"].shape[0],
+                            cfg.d_ff * cfg.n_shared_experts)
+            if tp is None:
+                out = out + _shared_experts(params, xt)
+            else:
+                out = out + sum_over(_shared_experts(
+                    params, copy_to(xt, tp[0], tp[1])), tp[0], tp[1])
     return out.reshape(b, s, d), aux

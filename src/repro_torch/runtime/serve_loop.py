@@ -46,6 +46,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import itertools
 from typing import Optional
 
 import torch
@@ -53,10 +54,15 @@ import torch
 from repro_torch.backend import resolve_device
 from repro_torch.models import transformer as tfm
 from repro_torch.models.config import ModelConfig
+from repro_torch.runtime import tracing
 from repro_torch.runtime.sharding import (batch_block, batch_whole,
                                           current_context, gather_dims,
                                           live_dims, seq_split,
                                           sharding_context, vocab_argmax)
+
+
+#: Ids of :func:`generate`'s calls: the batch id its requests' spans share.
+_BATCHES = itertools.count()
 
 
 def make_prefill_step(cfg: ModelConfig, max_len: int):
@@ -136,36 +142,48 @@ def generate(cfg: ModelConfig, params, prompt: torch.Tensor, steps: int,
     mesh, with ``params`` (this rank's blocks under ``rules``), the state
     carried across by :func:`repro_torch.launch.shardspecs
     .relayout_decode_state`; both layouts split the batch alike.
+
+    Under a ``torch.profiler`` session it records the spans
+    ``repro_torch.serve.generate`` (a fresh ``batch`` id, ``n``,
+    ``prompt_len``, ``steps``), its child ``.serve.prefill`` and one child
+    ``.serve.decode_step`` a decode step (``step``: the index in
+    ``tokens`` of the token it picks), :mod:`repro_torch.runtime.tracing`.
+    On one device nothing in them waits for it.
     """
-    prefill = make_prefill_step(cfg, max_len)
-    decode = make_decode_step(cfg)
-    logits, state = prefill(params, prompt, extras)
-    first = _whole_vocab(logits, cfg.vocab_size)
-    layout = contextlib.nullcontext()
-    if decode_layout is not None:
-        from repro_torch.launch.shardspecs import relayout_decode_state
-        rules_to, params = decode_layout
-        mesh, rules_from = current_context()
-        state = dict(state, cache=relayout_decode_state(
-            state["cache"], cfg, mesh, rules_from, rules_to,
-            prompt.shape[0], max_len))
-        layout = sharding_context(mesh, rules_to)
-    if forced is not None:
-        forced = batch_block(forced)
-    with layout:
-        out, seen = [vocab_argmax(first, cfg.vocab_size)], []
-        for i in range(steps - 1):
-            fed = out[-1] if forced is None else forced[:, i]
-            logits, state = decode(params, state, fed)
-            out.append(vocab_argmax(logits, cfg.vocab_size))
-            seen.append(logits)
-        tokens = torch.stack(out, dim=1)
-        logits = first[:, None]
-        if seen:
-            logits = torch.cat([logits, _whole_vocab(
-                torch.stack(seen, dim=1), cfg.vocab_size)], 1)
     b = prompt.shape[0]
-    return batch_whole(tokens, b), batch_whole(logits, b)
+    with tracing.span("repro_torch.serve.generate", batch=next(_BATCHES),
+                      n=b, prompt_len=prompt.shape[1], steps=steps):
+        prefill = make_prefill_step(cfg, max_len)
+        decode = make_decode_step(cfg)
+        with tracing.span("repro_torch.serve.prefill"):
+            logits, state = prefill(params, prompt, extras)
+        first = _whole_vocab(logits, cfg.vocab_size)
+        layout = contextlib.nullcontext()
+        if decode_layout is not None:
+            from repro_torch.launch.shardspecs import relayout_decode_state
+            rules_to, params = decode_layout
+            mesh, rules_from = current_context()
+            state = dict(state, cache=relayout_decode_state(
+                state["cache"], cfg, mesh, rules_from, rules_to, b,
+                max_len))
+            layout = sharding_context(mesh, rules_to)
+        if forced is not None:
+            forced = batch_block(forced)
+        with layout:
+            out, seen = [vocab_argmax(first, cfg.vocab_size)], []
+            for i in range(steps - 1):
+                with tracing.span("repro_torch.serve.decode_step",
+                                  step=i + 1):
+                    fed = out[-1] if forced is None else forced[:, i]
+                    logits, state = decode(params, state, fed)
+                    out.append(vocab_argmax(logits, cfg.vocab_size))
+                seen.append(logits)
+            tokens = torch.stack(out, dim=1)
+            logits = first[:, None]
+            if seen:
+                logits = torch.cat([logits, _whole_vocab(
+                    torch.stack(seen, dim=1), cfg.vocab_size)], 1)
+        return batch_whole(tokens, b), batch_whole(logits, b)
 
 
 def greedy_generate(cfg: ModelConfig, params, prompt, steps: int,

@@ -132,6 +132,31 @@ def moe_ep(cfg, params: dict, x: np.ndarray, probe: np.ndarray,
             "grads": {k: _np(g) for k, g in zip(["x"] + list(own), grads)}}
 
 
+def moe_pairs(cfg, params: dict, x: np.ndarray, shape: tuple) -> dict:
+    """One MoE layer's forward under ``torch.profiler`` on a ``("data",
+    "model")`` mesh of ``shape`` (experts over ``model`` where it has more
+    than one rank, else the dense dispatch over ``data``): this rank's
+    coordinate, its shard's expert ids and its MoE counters."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import moe
+    from repro_torch.runtime import tracing
+
+    m = mesh.make_host_mesh(shape, ("data", "model"))
+    di, mi = m.get_coordinate()
+    b = x.shape[0] // shape[0]
+    xs = torch.from_numpy(x[di * b:(di + 1) * b])
+    full = {k: torch.from_numpy(v) for k, v in params.items()}
+    own = moe.expert_shard(full, cfg, mi, shape[1]) if shape[1] > 1 \
+        else full
+    _, ids, _ = moe._route(own, xs.reshape(-1, cfg.d_model), cfg)
+    with sharding_context(m, Rules(batch=("data",), expert=("model",))), \
+            profile(activities=[ProfilerActivity.CPU]):
+        moe.moe_ffn(own, xs, cfg)
+    return {"coord": (di, mi), "ids": _np(ids),
+            "counters": tracing.collect().counters}
+
+
 def moe_ep_deterministic(cfg, params: dict, x: np.ndarray) -> bool:
     """Two backward passes of the expert-parallel dispatch on a (1, n)
     mesh under deterministic algorithms, every gradient equal bit for

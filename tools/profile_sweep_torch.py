@@ -39,7 +39,8 @@ one row.  Each
 path runs once to warm up, then five times without ``torch.profiler``
 (``run_s_untraced`` is their median, beside their least and most) and
 once under it.  For the profiled run it reads the Chrome trace and reports
-the device's busy time (union of kernel and copy intervals), its idle
+the device's busy time (union of kernel and copy intervals,
+``cpcbench.trace.busy_ns``), its idle
 share of the run's wall, kernel launches per tick (per forward pass for
 the serving paths), and device time by kernel name.  Prints one JSON line
 per path and writes the Chrome traces to OUT_DIR (default
@@ -64,17 +65,6 @@ from pathlib import Path
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
-
-
-def busy_us(events) -> float:
-    """Length of the union of [ts, ts + dur) intervals, in microseconds."""
-    total, end = 0.0, float("-inf")
-    for ts, dur in sorted((e["ts"], e["dur"]) for e in events):
-        if ts + dur <= end:
-            continue
-        total += ts + dur - max(ts, end)
-        end = ts + dur
-    return total
 
 
 def batch_runner(specs, policies, slot_slack: float = 2.0):
@@ -275,6 +265,8 @@ def timed(run) -> tuple[int, float]:
 def profile(tag: str, runner, out_dir: Path) -> dict:
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
+    from cpcbench.trace import busy_ns
+
     prepare, info = runner
     timed(prepare())                           # warm-up
     runs = [timed(prepare()) for _ in range(UNTRACED_RUNS)]
@@ -297,7 +289,8 @@ def profile(tag: str, runner, out_dir: Path) -> dict:
         key = name.split("(")[0][:60]
         by_name[key] += e["dur"]
         count[key] += 1
-    busy = busy_us(kernels + copies) * 1e-6
+    busy = busy_ns((e["ts"], e["ts"] + e["dur"])
+                   for e in kernels + copies) * 1e-6
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     most = sorted(count.items(), key=lambda kv: -kv[1])[:25]
     for key, pattern in PER_LAUNCH.items():
@@ -323,7 +316,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("profile_sweep_torch: no CUDA device", file=sys.stderr)
         return 1
-    sys.path.insert(0, str(ROOT / "src"))
+    sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
     from repro_torch.sim.sweep import scale_ladder, scenario_families
 
     out_dir = Path(sys.argv[1]) if len(sys.argv) > 1 else (
