@@ -124,7 +124,12 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    event's CPU run calls their plain versions), the routing, caps and note of the cap event identical to the
    CPU run of the same event, and one replica's batch fed back (teacher
    forcing) through the plain versions on the card, logits within 2e-2
-   relative L2; then prefill and decode-step times;
+   relative L2; then prefill and decode-step times, and the graph phase
+   (:func:`check_decode_graph`, on paths S, M, P, H, I and Y alike):
+   ``generate``'s decode steps replayed from one captured CUDA graph a
+   call, greedy tokens and logits and teacher-forced logits bitwise equal
+   to the eager steps', the capture's, the instantiation's and a replayed
+   step's ms beside the eager step's;
 9. granite-8b at full width and 4 layers in float32: identical greedy
    tokens through the kernels and through the plain versions, logits
    within 1e-4 relative L2;
@@ -1578,6 +1583,8 @@ def run_serving_path(dev) -> tuple[dict, dict]:
                 caps_after=report.caps_after, notes=report.notes,
                 prompt_len=prompt_len, steps=steps,
                 params=cfg.param_count())
+    info["decode_graph"] = check_decode_graph("S", cfg, params, prompts,
+                                              None, steps, max_len)
     log(f"path S: {report.tokens} tokens in {report.seconds:.3f} s "
         f"({info['tokens_per_s']:.1f} tokens/s; whole driver {wall:.3f} s); "
         f"prefill {info['prefill_ms']:.2f} ms, decode step "
@@ -1942,7 +1949,8 @@ def record_routes():
         seen.append(torch.sort(ids, dim=-1).values)
         return gates, ids, aux
 
-    with mock.patch.object(moe, "_route", recording):
+    # A replayed decode step runs no Python: record every call eagerly.
+    with mock.patch.object(moe, "_route", recording), eager_decode():
         yield seen
 
 
@@ -2067,6 +2075,8 @@ def run_moe_serving_path(dev) -> tuple[dict, dict]:
                 params=cfg.param_count(),
                 capacity_prefill=moe.expert_capacity(8 * prompt_len, cfg),
                 capacity_decode=moe.expert_capacity(8, cfg))
+    info["decode_graph"] = check_decode_graph("M", cfg, params, prompts,
+                                              None, steps, max_len)
     log(f"path M: {report.tokens} tokens in {report.seconds:.3f} s "
         f"({info['tokens_per_s']:.1f} tokens/s; whole driver {wall:.3f} s); "
         f"prefill {info['prefill_ms']:.2f} ms, decode step "
@@ -2405,6 +2415,8 @@ def run_ssm_serving_path(tag: str, dev) -> tuple[dict, dict]:
                 caps_after=report.caps_after, notes=report.notes,
                 prompt_len=prompt_len, steps=steps,
                 params=cfg.param_count())
+    info["decode_graph"] = check_decode_graph(tag, cfg, params, prompts,
+                                              None, steps, max_len)
     log(f"path {tag}: {report.tokens} tokens in {report.seconds:.3f} s "
         f"({info['tokens_per_s']:.1f} tokens/s; whole driver {wall:.3f} s); "
         f"prefill {info['prefill_ms']:.2f} ms, decode step "
@@ -3566,6 +3578,83 @@ def warm_serve_ms(cfg, params, prompts, extras, steps, max_len, reps):
     return statistics.median(prefill_ms), statistics.median(step_ms)
 
 
+@contextlib.contextmanager
+def eager_decode():
+    """``generate``'s decode steps run eagerly on the card, as they run
+    on the CPU and under a bound sharding context (the comparison runs
+    and the recorded routes only)."""
+    from repro_torch.runtime import decode_graph
+
+    with mock.patch.object(decode_graph, "takes_graph",
+                           lambda state, steps: False):
+        yield
+
+
+def check_decode_graph(tag, cfg, params, prompts, extras, steps, max_len
+                       ) -> dict:
+    """The graph phase: ``generate``'s replayed decode steps against the
+    eager ones (:func:`eager_decode`) on one replica's batch, greedy
+    tokens and logits and teacher-forced logits bitwise equal; then one
+    warm batch's capture and instantiation ms, its replayed steps' ms
+    (CUDA events around each replay, the median) and the eager step's
+    (:func:`warm_serve_ms`)."""
+    from repro_torch.runtime import decode_graph
+    from repro_torch.runtime.serve_loop import generate, make_prefill_step
+
+    made = []
+
+    class Recorded(decode_graph.DecodeGraph):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            made.append(self)
+
+    with mock.patch.object(decode_graph, "DecodeGraph", Recorded):
+        toks, logits = generate(cfg, params, prompts, steps, max_len,
+                                extras=extras)
+        _, f_logits = generate(cfg, params, prompts, steps, max_len,
+                               forced=toks, extras=extras)
+    with eager_decode():
+        e_toks, e_logits = generate(cfg, params, prompts, steps, max_len,
+                                    extras=extras)
+        _, ef_logits = generate(cfg, params, prompts, steps, max_len,
+                                forced=toks, extras=extras)
+    equal = dict(tokens=torch.equal(toks, e_toks),
+                 logits=torch.equal(logits, e_logits),
+                 forced_logits=torch.equal(f_logits, ef_logits))
+    if len(made) != 2 or not all(equal.values()):
+        raise AssertionError(f"{tag} graph: {len(made)} captures, bitwise "
+                             f"equal to the eager steps {equal}")
+    del toks, logits, f_logits, e_toks, e_logits, ef_logits
+
+    prefill = make_prefill_step(cfg, max_len)
+    lg, state = prefill(params, prompts, extras)
+    torch.cuda.synchronize()
+    graph = decode_graph.DecodeGraph(cfg, params, state, prompts.shape[1],
+                                     lg.argmax(-1), True)
+    pairs = [(torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+             for _ in range(steps - 1)]
+    for start, end in pairs:
+        start.record()
+        graph.replay(state)
+        end.record()
+    torch.cuda.synchronize()
+    replay_ms = statistics.median(a.elapsed_time(b) for a, b in pairs)
+    capture_ms, inst_ms = graph.capture_s * 1e3, graph.instantiate_s * 1e3
+    del graph, state, lg
+    _, eager_ms = warm_serve_ms(cfg, params, prompts, extras, steps,
+                                max_len, 1)
+    out = dict(bitwise_equal=True, capture_ms=capture_ms,
+               instantiate_ms=inst_ms, replay_step_ms=replay_ms,
+               eager_step_ms=eager_ms)
+    log(f"path {tag} graph: replayed decode bitwise equal to the eager "
+        f"steps (greedy tokens and logits, teacher-forced logits); "
+        f"capture {capture_ms:.1f} ms, instantiation {inst_ms:.1f} ms, "
+        f"replayed step {replay_ms:.3f} ms, eager step {eager_ms:.3f} ms "
+        f"(one batch of {prompts.shape[0]})")
+    return out
+
+
 def hold_cap_event(tag, report, n_requests: int, n_rep: int) -> dict:
     """The card's cap event (``report``'s ``routing_after``,
     ``caps_after``, ``notes``, ``cap_changes`` and ``migrations``) against
@@ -3668,6 +3757,8 @@ def run_vlm_serving_path(dev) -> tuple[dict, dict]:
                 caps_after=report.caps_after, notes=report.notes,
                 prompt_len=prompt_len, patches=N_PATCHES, steps=steps,
                 params=cfg.param_count())
+    info["decode_graph"] = check_decode_graph("I", cfg, params, prompts,
+                                              extras, steps, max_len)
     log(f"path I: text only {report.tokens} tokens in {report.seconds:.3f} s "
         f"({info['text_tokens_per_s']:.1f} tokens/s; whole driver "
         f"{wall:.3f} s); with the 256-patch prefix {tokens} tokens in "
@@ -3795,6 +3886,8 @@ def run_encdec_serving_path(dev) -> tuple[dict, dict]:
                 notes=list(result.notes), prompt_len=Y_PROMPT,
                 frames=ENC_FRAMES, steps=Y_STEPS, max_len=TEXT_CTX,
                 params=cfg.param_count(), driver_refused=refused)
+    info["decode_graph"] = check_decode_graph("Y", cfg, params, prompts,
+                                              extras, Y_STEPS, TEXT_CTX)
     log(f"path Y: {tokens} tokens in {decode_s:.3f} s "
         f"({info['tokens_per_s']:.1f} tokens/s; whole path {wall:.3f} s); "
         f"prefill {prefill_ms:.2f} ms, decode step {step_ms:.2f} ms (warm, "

@@ -59,6 +59,8 @@ step.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -135,14 +137,26 @@ def rope_frequencies(head_dim: int, theta: float) -> np.ndarray:
     return 1.0 / (theta ** (np.arange(0, head_dim, 2) / head_dim))
 
 
+@functools.lru_cache(maxsize=None)
+def _card_frequencies(head_dim: int, theta: float,
+                      device: torch.device) -> torch.Tensor:
+    """:func:`rope_frequencies` in float32 on a CUDA device, copied there
+    once: a captured decode step may not copy from the host."""
+    return torch.as_tensor(rope_frequencies(head_dim, theta),
+                           dtype=torch.float32, device=device)
+
+
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
                theta: float) -> torch.Tensor:
     """x: (..., seq, heads, head_dim); positions: (..., seq).
 
     The frequencies are computed in float64 and used in float32, as the
     reference uses them with 64-bit mode off."""
-    freqs = torch.as_tensor(rope_frequencies(x.shape[-1], theta),
-                            dtype=torch.float32, device=x.device)
+    if x.device.type == "cuda":
+        freqs = _card_frequencies(x.shape[-1], theta, x.device)
+    else:
+        freqs = torch.as_tensor(rope_frequencies(x.shape[-1], theta),
+                                dtype=torch.float32, device=x.device)
     angles = positions[..., :, None].float() * freqs
     cos = torch.cos(angles)[..., None, :]
     sin = torch.sin(angles)[..., None, :]
@@ -314,6 +328,12 @@ def decode_kv_len(cursor: int, batch: int, cache_len: int, device
     return torch.full((batch,), live, dtype=torch.int32, device=device)
 
 
+def row_kv_len(row: torch.Tensor, batch: int) -> torch.Tensor:
+    """``kv_len`` of a one-token step that writes cache ``row`` (a (1,)
+    int64 device tensor): ``row + 1`` on every row, read on the device."""
+    return (row + 1).to(torch.int32).expand(batch).contiguous()
+
+
 def _decode_over_ranks(q, k, v, kv_len, ks):
     """One token's attention over a cache whose positions are split across
     the ranks of ``ks`` (:func:`kv_seq_split`): K6 on this rank's block
@@ -413,9 +433,13 @@ def attention(params: dict, x: torch.Tensor, cfg, *, causal: bool = True,
     cache in place at the cursor.  A one-token step runs K6 over the cache
     with ``kv_len`` (a (B,) int32 tensor, ``cursor + 1`` on every row; made
     here when not given); a longer one runs K4 with ``q_offset = cursor``
-    over the cache's first ``cursor + S`` rows.  The reference updates its
-    cache functionally; the port writes in place to keep one cache.
-    Returns ``(out, cache with the cursor advanced)``.
+    over the cache's first ``cursor + S`` rows.  A one-token step whose
+    cache also holds ``"row"`` (a (1,) int64 device tensor, the cursor
+    read on the device, as a captured decode step replays it) writes that
+    row instead, by an indexed copy, and its ``kv_len`` comes from the
+    same tensor.  The reference updates its cache functionally; the port
+    writes in place to keep one cache.  Returns ``(out, cache with the
+    cursor advanced)``.
 
     ``params`` may be a rank's blocks (tensor parallelism): ``wq``'s
     columns and ``wo``'s rows its q heads, ``wk``'s and ``wv``'s columns
@@ -482,8 +506,15 @@ def attention(params: dict, x: torch.Tensor, cfg, *, causal: bool = True,
     if cur + s > ck.shape[1]:
         raise ValueError(f"cache of {ck.shape[1]} positions is full "
                          f"(cursor {cur}, {s} new)")
-    ck[:, cur:cur + s] = k.to(ck.dtype)
-    cv[:, cur:cur + s] = v.to(cv.dtype)
+    row = kv_cache.get("row") if s == 1 else None
+    if row is None:
+        ck[:, cur:cur + s] = k.to(ck.dtype)
+        cv[:, cur:cur + s] = v.to(cv.dtype)
+    else:
+        ck.index_copy_(1, row, k.to(ck.dtype))
+        cv.index_copy_(1, row, v.to(cv.dtype))
+        if kv_len is None:
+            kv_len = row_kv_len(row, b)
     kv_cache = {"k": ck, "v": cv, "cursor": cur + s}
     if s == 1:
         if kv_len is None:

@@ -413,10 +413,36 @@ def _make_cache(cfg: ModelConfig, n_layers: int, batch: int, max_len: int,
             "cursor": 0}
 
 
+def _step_kv_len(cache: Optional[dict], s: int, b: int,
+                 cache_row: Optional[torch.Tensor]
+                 ) -> Optional[torch.Tensor]:
+    """One ``kv_len`` tensor for every layer of a one-token step over
+    ``cache`` (``None`` for a longer one): from the host cursor, or from
+    ``cache_row``, the cursor read on the device, where given (a captured
+    decode step: :mod:`repro_torch.runtime.decode_graph`)."""
+    if cache is None or s != 1:
+        return None
+    if cache_row is not None:
+        return layers.row_kv_len(cache_row, b)
+    return layers.decode_kv_len(cache["cursor"], b, cache["k"].shape[2],
+                                cache["k"].device)
+
+
+def _layer_cache(cache: dict, i: int, cache_row: Optional[torch.Tensor]
+                 ) -> dict:
+    """Layer (or site) ``i``'s views of the stacked K/V caches, the host
+    cursor, and ``cache_row`` where given."""
+    out = {"k": cache["k"][i], "v": cache["v"][i], "cursor": cache["cursor"]}
+    if cache_row is not None:
+        out["row"] = cache_row
+    return out
+
+
 def decoder_forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
                     vision_embeds: Optional[torch.Tensor] = None,
                     cache: Optional[dict] = None,
-                    positions: Optional[torch.Tensor] = None, **_
+                    positions: Optional[torch.Tensor] = None,
+                    cache_row: Optional[torch.Tensor] = None, **_
                     ) -> ForwardResult:
     """Dense, MoE or VLM decoder-only forward over the stacked blocks.
 
@@ -425,16 +451,14 @@ def decoder_forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
     token embeddings: the positions run over all ``P + S`` rows, and a
     cache takes ``P + S`` rows and advances its cursor by as many.  Under
     a sequence split the hidden states are this rank's block of the
-    positions (:func:`_embedded`)."""
+    positions (:func:`_embedded`).  ``cache_row`` (a (1,) int64 device
+    tensor) is the row a one-token step writes, read on the device
+    (:func:`_step_kv_len`)."""
     h, s = _embedded(params, tokens, cfg, vision_embeds)
     b = h.shape[0]
     if positions is None:
         positions = torch.arange(s, device=h.device)[None, :]
-    kv_len = None
-    if cache is not None and s == 1:
-        # One kv_len tensor for every layer of a decode step.
-        kv_len = layers.decode_kv_len(cache["cursor"], b, cache["k"].shape[2],
-                                      h.device)
+    kv_len = _step_kv_len(cache, s, b, cache_row)
     # One unbind a weight: its backward is one stack, where indexing each
     # layer would add a zero-filled (n_layers, ...) gradient a layer.
     layer_weights = {name: w.unbind(0)
@@ -443,9 +467,8 @@ def decoder_forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for i in range(cfg.n_layers):
         blk = {name: ws[i] for name, ws in layer_weights.items()}
-        layer_cache = None if cache is None else {
-            "k": cache["k"][i], "v": cache["v"][i],
-            "cursor": cache["cursor"]}
+        layer_cache = None if cache is None else _layer_cache(
+            cache, i, cache_row)
         h, _, aux_i = body(blk, h, cfg, positions, layer_cache, kv_len)
         if aux_i is not None:
             aux = aux + aux_i
@@ -505,7 +528,8 @@ def ssm_forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
 
 def hybrid_forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
                    cache: Optional[dict] = None,
-                   positions: Optional[torch.Tensor] = None, **_
+                   positions: Optional[torch.Tensor] = None,
+                   cache_row: Optional[torch.Tensor] = None, **_
                    ) -> ForwardResult:
     """Zamba2-style: Mamba2 backbone + one shared attention block applied
     after every ``attn_every`` layers (``n_layers // attn_every`` sites,
@@ -513,7 +537,8 @@ def hybrid_forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
     site).  ``cache`` is ``{"ssm": stacked states, "kv": stacked KV caches
     of the sites}``, updated in place as :func:`ssm_forward` and
     :func:`repro_torch.models.layers.attention` update theirs; the KV
-    cursor advances once a forward, for every site."""
+    cursor advances once a forward, for every site (``cache_row``: as
+    :func:`decoder_forward` takes it)."""
     _no_seq_split(cfg)
     h = embed(params, tokens, cfg)
     b, s = h.shape[:2]
@@ -521,11 +546,7 @@ def hybrid_forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
         positions = torch.arange(s, device=h.device)[None, :]
     every = cfg.attn_every
     kv = None if cache is None else cache["kv"]
-    kv_len = None
-    if kv is not None and s == 1:
-        # One kv_len tensor for every site of a decode step.
-        kv_len = layers.decode_kv_len(kv["cursor"], b, kv["k"].shape[2],
-                                      h.device)
+    kv_len = _step_kv_len(kv, s, b, cache_row)
     ssm_cache = None if cache is None else cache["ssm"]
     layer_weights = {name: w.unbind(0)
                      for name, w in params["blocks"].items()}
@@ -536,8 +557,8 @@ def hybrid_forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
         _store_state(ssm_cache, i, new_state)
         if (i + 1) % every == 0:
             g = (i + 1) // every - 1
-            site_cache = None if kv is None else {
-                "k": kv["k"][g], "v": kv["v"][g], "cursor": kv["cursor"]}
+            site_cache = None if kv is None else _layer_cache(kv, g,
+                                                              cache_row)
             h, _, _ = _attn_block(params["shared_attn"], h, cfg, positions,
                                   site_cache, kv_len)
     h = layers.rms_norm(h, params["final_norm"]["scale"], cfg.norm_eps)
@@ -606,7 +627,8 @@ def encdec_forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
                    frames: Optional[torch.Tensor] = None,
                    cache: Optional[dict] = None,
                    enc_out: Optional[torch.Tensor] = None,
-                   positions: Optional[torch.Tensor] = None, **_
+                   positions: Optional[torch.Tensor] = None,
+                   cache_row: Optional[torch.Tensor] = None, **_
                    ) -> ForwardResult:
     """Whisper-style: the encoder over ``frames`` (:func:`encode`; skipped
     when ``enc_out`` is given), then the decoder, each block self attention
@@ -614,7 +636,8 @@ def encdec_forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
     its own K/V of the encoder's output (no RoPE, non-causal) and the
     MLP.  Raises ``ValueError`` without ``frames`` or ``enc_out``: the
     reference's serving and training drivers pass no frames and stop
-    there with a ``KeyError``."""
+    there with a ``KeyError``.  ``cache_row``: as :func:`decoder_forward`
+    takes it."""
     if enc_out is None:
         if frames is None:
             raise ValueError(
@@ -627,19 +650,14 @@ def encdec_forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
     b = h.shape[0]
     if positions is None:
         positions = torch.arange(s, device=h.device)[None, :]
-    kv_len = None
-    if cache is not None and s == 1:
-        # One kv_len tensor for every layer of a decode step.
-        kv_len = layers.decode_kv_len(cache["cursor"], b, cache["k"].shape[2],
-                                      h.device)
+    kv_len = _step_kv_len(cache, s, b, cache_row)
     layer_weights = {name: w.unbind(0)
                      for name, w in params["dec_blocks"].items()}
     body = _remat(_dec_layer, cfg) if _training(params) else _dec_layer
     for i in range(cfg.n_layers):
         blk = {name: ws[i] for name, ws in layer_weights.items()}
-        layer_cache = None if cache is None else {
-            "k": cache["k"][i], "v": cache["v"][i],
-            "cursor": cache["cursor"]}
+        layer_cache = None if cache is None else _layer_cache(
+            cache, i, cache_row)
         h = body(blk, h, enc_out, cfg, positions, layer_cache, kv_len)
     h = layers.rms_norm(h, params["final_norm"]["scale"], cfg.norm_eps)
     new_cache = None if cache is None else dict(cache,

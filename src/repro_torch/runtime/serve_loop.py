@@ -21,7 +21,12 @@ of their cache rows by the prefix's length).  The decode state
 is a host ``int``, advanced once a forward, so the kernels' ``q_offset``
 and ``kv_len`` need no device sync; the
 token positions stay a ``(B,)`` device tensor for RoPE, and the greedy
-tokens stay on the device from one step to the next.
+tokens stay on the device from one step to the next.  On one CUDA device
+with no sharding context bound, :func:`generate` captures its decode step
+once as a CUDA graph and replays it for every decode step of the call
+(:mod:`repro_torch.runtime.decode_graph`: the step's cache row and
+``kv_len`` read on the device); the CPU and every bound context run the
+eager step.
 
 Under a bound sharding context the parameters are a rank's blocks
 (:func:`repro_torch.launch.shardspecs.local_params`) and every rank
@@ -54,7 +59,7 @@ import torch
 from repro_torch.backend import resolve_device
 from repro_torch.models import transformer as tfm
 from repro_torch.models.config import ModelConfig
-from repro_torch.runtime import tracing
+from repro_torch.runtime import decode_graph, tracing
 from repro_torch.runtime.sharding import (batch_block, batch_whole,
                                           current_context, gather_dims,
                                           live_dims, seq_split,
@@ -111,6 +116,29 @@ def make_decode_step(cfg: ModelConfig, sample: str = "greedy"):
     return decode
 
 
+def _decode_replays(cfg: ModelConfig, params, state: dict, prompt_len: int,
+                    out: list, seen: list, forced, steps: int):
+    """:func:`generate`'s decode steps as replays of one captured graph
+    (:mod:`repro_torch.runtime.decode_graph`), captured in the first
+    step's span: each step's tokens and logits copied into ``out`` and
+    ``seen``.  The graph is dropped on return."""
+    graph = None
+    for i in range(steps - 1):
+        with tracing.span("repro_torch.serve.decode_step",
+                          step=i + 1) as rec:
+            if graph is None:
+                graph = decode_graph.DecodeGraph(
+                    cfg, params, state, prompt_len,
+                    out[-1] if forced is None else forced[:, 0],
+                    forced is None)
+            elif forced is not None:
+                graph.feed(forced[:, i])
+            logits, tok, state = graph.replay(state)
+            out.append(tok.clone())
+        seen.append(logits.clone())
+        graph.traced(rec)
+
+
 def _whole_vocab(logits: torch.Tensor, vocab: int) -> torch.Tensor:
     """``logits`` over every rank's block of the vocabulary (the bound
     context's split), ``logits`` itself where it is whole."""
@@ -147,8 +175,12 @@ def generate(cfg: ModelConfig, params, prompt: torch.Tensor, steps: int,
     ``repro_torch.serve.generate`` (a fresh ``batch`` id, ``n``,
     ``prompt_len``, ``steps``), its child ``.serve.prefill`` and one child
     ``.serve.decode_step`` a decode step (``step``: the index in
-    ``tokens`` of the token it picks), :mod:`repro_torch.runtime.tracing`.
-    On one device nothing in them waits for it.
+    ``tokens`` of the token it picks), :mod:`repro_torch.runtime.tracing`,
+    and adds to the counter ``repro_torch.serve.decode_replays`` 1 for a
+    step a graph replay served, 0 for an eager one.  On one device nothing
+    in them waits for it, but the spans inside a replayed step's forward
+    are read after the step, which waits for the card
+    (:meth:`repro_torch.runtime.decode_graph.DecodeGraph.traced`).
     """
     b = prompt.shape[0]
     with tracing.span("repro_torch.serve.generate", batch=next(_BATCHES),
@@ -171,12 +203,17 @@ def generate(cfg: ModelConfig, params, prompt: torch.Tensor, steps: int,
             forced = batch_block(forced)
         with layout:
             out, seen = [vocab_argmax(first, cfg.vocab_size)], []
-            for i in range(steps - 1):
+            replays = decode_graph.takes_graph(state, steps)
+            if replays:
+                _decode_replays(cfg, params, state, prompt.shape[1], out,
+                                seen, forced, steps)
+            for i in range(0 if replays else steps - 1):
                 with tracing.span("repro_torch.serve.decode_step",
                                   step=i + 1):
                     fed = out[-1] if forced is None else forced[:, i]
                     logits, state = decode(params, state, fed)
                     out.append(vocab_argmax(logits, cfg.vocab_size))
+                    tracing.count(decode_graph.REPLAYS, 0)
                 seen.append(logits)
             tokens = torch.stack(out, dim=1)
             logits = first[:, None]

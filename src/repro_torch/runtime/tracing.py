@@ -30,6 +30,18 @@ of calls: the port's serving loop runs on one.
         generate(cfg, params, prompt, steps, max_len)
     for s in tracing.collect().spans:
         print(s.name, s.parent, s.ms, s.host_ms)
+
+A decode step captured as a CUDA graph (:mod:`repro_torch.runtime
+.decode_graph`) runs no Python when it is replayed.  Captured under a
+profiler (:func:`captured`), its spans and counters make a
+:class:`Template` in place of records: each span a pair of timing events
+recorded as the graph's own external event nodes, its counters reduced
+into one device tensor by the graph.  After each replay, outside the
+replay's decode-step span, :func:`replayed` waits for the card and adds
+one span a template entry (same name and attrs, ``captured`` set, ``ms``
+from that replay's events, host stamps both at the decode step's exit)
+parented to the decode step, and that replay's counters.  With no
+profiler recording a capture holds no tracer work.
 """
 
 from __future__ import annotations
@@ -57,6 +69,7 @@ class Span:
     end_ns: int = 0
     ms: float = 0.0                 # between its CUDA events (else host_ms)
     host_ms: float = 0.0            # from entry to exit, on the host
+    captured: bool = False          # a replayed graph's: no host time
 
 
 @dataclasses.dataclass
@@ -107,6 +120,71 @@ class _Open:
         return False
 
 
+class Template:
+    """The spans and counters entered while a CUDA graph is captured under
+    a profiler: ``spans`` ``(name, attrs, parent index or None, (start,
+    end) external events or None)``; ``fixed`` the counters given as host
+    ints, ``names`` those given as tensors, whose values the graph writes
+    into ``values`` (one int64 each) at each replay."""
+
+    def __init__(self, cuda: bool):
+        self.cuda = cuda
+        self.spans: list = []
+        self.stack: list = []
+        self.counters: list = []
+        self.fixed: list = []
+        self.names: list = []
+        self.values: Optional[torch.Tensor] = None
+
+    def reduce(self) -> None:
+        """Reduce the counters, still capturing: a tensor's sum joins
+        ``values``, on the device."""
+        parts = []
+        for name, value in self.counters:
+            if callable(value):
+                value = value()
+            if isinstance(value, torch.Tensor):
+                self.names.append(name)
+                parts.append(value.sum().to(torch.int64))
+            else:
+                self.fixed.append((name, value))
+        self.counters = []
+        if parts:
+            self.values = torch.stack(parts)
+
+
+class _Captured:
+    """A span entered while a graph is captured: an entry of its
+    template, its events recorded on the capturing stream."""
+
+    __slots__ = ("template", "index")
+
+    def __init__(self, template: Template, name: str, attrs: dict):
+        t = template
+        self.template, self.index = t, len(t.spans)
+        events = (tuple(torch.cuda.Event(enable_timing=True, external=True)
+                        for _ in range(2)) if t.cuda else None)
+        t.spans.append((name, attrs, t.stack[-1] if t.stack else None,
+                        events))
+
+    def __enter__(self):
+        t = self.template
+        events = t.spans[self.index][3]
+        if events is not None:
+            events[0].record()
+        t.stack.append(self.index)
+        return None
+
+    def __exit__(self, *exc):
+        t = self.template
+        events = t.spans[self.index][3]
+        if events is not None:
+            events[1].record()
+        if t.stack and t.stack[-1] == self.index:
+            t.stack.pop()
+        return False
+
+
 class Tracer:
     """The spans and counters of the session being recorded."""
 
@@ -119,6 +197,7 @@ class Tracer:
         self.stack: list = []
         self.pool: list = []            # CUDA timing events, reused
         self.collected: Optional[Trace] = None
+        self.template: Optional[Template] = None    # while capturing
 
     def begin(self) -> None:
         """A new session: the last one's events go back to the pool."""
@@ -135,7 +214,9 @@ class Tracer:
         return (self.pool.pop() if self.pool
                 else torch.cuda.Event(enable_timing=True))
 
-    def open(self, name: str, attrs: dict) -> _Open:
+    def open(self, name: str, attrs: dict):
+        if self.template is not None:
+            return _Captured(self.template, name, attrs)
         if not self.live:
             self.begin()
         return _Open(self, Span(len(self.spans),
@@ -143,9 +224,32 @@ class Tracer:
                                 name, attrs))
 
     def add(self, name: str, value: Value) -> None:
+        if self.template is not None:
+            self.template.counters.append((name, value))
+            return
         if not self.live:
             self.begin()
         self.counters.setdefault(name, []).append(value)
+
+    def replayed(self, template: Template, parent: Span) -> None:
+        """One replay's spans and counters (the module's docstring)."""
+        if template.cuda:
+            torch.cuda.synchronize()
+        ids = []
+        for name, attrs, up, events in template.spans:
+            rec = Span(len(self.spans), parent.id if up is None else ids[up],
+                       name, dict(attrs), parent.end_ns, parent.end_ns,
+                       captured=True)
+            if events is not None:
+                rec.ms = events[0].elapsed_time(events[1])
+            ids.append(rec.id)
+            self.spans.append((rec, None))
+        for name, value in template.fixed:
+            self.add(name, value)
+        if template.values is not None:
+            for name, value in zip(template.names,
+                                   template.values.tolist()):
+                self.add(name, value)
 
     def collect(self) -> Trace:
         self.live = False
@@ -157,8 +261,10 @@ class Tracer:
                 if not rec.end_ns:
                     continue                    # still open
                 rec.host_ms = (rec.end_ns - rec.start_ns) * 1e-6
-                rec.ms = (rec.host_ms if events is None
-                          else events[0].elapsed_time(events[1]))
+                if events is not None:
+                    rec.ms = events[0].elapsed_time(events[1])
+                elif not rec.captured:
+                    rec.ms = rec.host_ms
                 out.append(rec)
             self.collected = Trace(out, {
                 k: sum(_reduce(v) for v in vs)
@@ -190,3 +296,35 @@ def collect() -> Trace:
     """The latest session's spans and counters (empty where no span or
     counter has been recorded); waits for the device once."""
     return _TRACER.collect()
+
+
+@contextlib.contextmanager
+def captured():
+    """Around a CUDA graph's capture: while a profiler records, the spans
+    and counters entered go to a :class:`Template`, which this yields and
+    reduces before the capture ends; else it yields ``None`` and the
+    capture holds no tracer work."""
+    if not _enabled():
+        _TRACER.live = False
+        yield None
+        return
+    tr = _TRACER
+    if not tr.live:
+        tr.begin()
+    template = Template(tr.cuda)
+    tr.template = template
+    try:
+        yield template
+    finally:
+        tr.template = None
+    template.reduce()
+
+
+def replayed(template: Optional[Template], parent) -> None:
+    """After one replay of a graph captured with ``template``, outside
+    the decode-step span ``parent`` (the :class:`Span` it entered as),
+    while a profiler records: that replay's spans and counters; waits
+    for the card.  Nothing where either is ``None`` or no profiler
+    records."""
+    if template is not None and parent is not None and _enabled():
+        _TRACER.replayed(template, parent)

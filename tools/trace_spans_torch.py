@@ -12,7 +12,8 @@ on the tracer's clock and its ``torch.profiler`` event's (Kineto's);
 for each traced batch its synced wall, its prefill's and decode steps'
 stream ms and their share of the wall, the share of their host intervals
 in which a kernel ran (``cpcbench.trace``'s kernels), and the MoE layer's
-four phases summed over the batch's forwards.
+four phases summed over the batch's forwards; the counters (the decode
+steps a graph replay served among them).
 """
 
 from __future__ import annotations
@@ -44,7 +45,8 @@ def card() -> str:
 def clock_us(prof, spans) -> dict:
     """The distances, in µs, between each span's host start and end and
     its profiler event's, matched by name in order of entry: the largest,
-    the median, and how many spans exceed 50 µs."""
+    the median, and how many spans exceed 50 µs.  A replayed graph's spans
+    (``captured``) have neither host stamps of their own nor events."""
     events = defaultdict(list)
     for e in prof.profiler.kineto_results.events():
         if e.name().startswith("repro_torch.") and \
@@ -52,7 +54,8 @@ def clock_us(prof, spans) -> dict:
             events[e.name()].append(e)
     mine = defaultdict(list)
     for s in spans:
-        mine[s.name].append(s)
+        if not s.captured:
+            mine[s.name].append(s)
     gaps = []
     for name, ss in mine.items():
         es = sorted(events[name], key=lambda e: e.start_ns())
